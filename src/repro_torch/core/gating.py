@@ -1,0 +1,98 @@
+"""Top-k expert gating (``repro/core/gating.py``; DeepSpeed-MoE §3.1, §5.4).
+
+router logits -> f32 softmax -> top-k expert ids -> position of each
+assignment in its expert's buffer (token-major priority) -> combine weights.
+Tie order follows ``jax.lax.top_k``: equal probabilities go to the lower
+expert id, which ``torch.topk`` does not promise, so top-k is an iterative
+masked argmax (``argmax`` returns the first maximum).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Gating(NamedTuple):
+    """T = tokens, K = top_k.
+
+    expert_idx:  [T, K] int32 — chosen expert per (token, slot-k)
+    combine_w:   [T, K] f32   — gate probability (0 where dropped)
+    position:    [T, K] int32 — position within the expert's capacity buffer
+    keep:        [T, K] bool  — False if dropped by capacity
+    probs:       [T, E] f32   — full softmax (for aux loss)
+    """
+
+    expert_idx: torch.Tensor
+    combine_w: torch.Tensor
+    position: torch.Tensor
+    keep: torch.Tensor
+    probs: torch.Tensor
+
+
+def expert_capacity(num_tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
+    """Tokens each expert can accept (padded to a multiple of 8 ≥ 8)."""
+    c = int(capacity_factor * num_tokens * top_k / num_experts)
+    c = max(c, 8)
+    return ((c + 7) // 8) * 8
+
+
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(ids, minlength=n)`` for ids in ``[0, n)``, as an int64
+    scatter-add: exact in any order, and unlike ``bincount`` on the card it
+    needs no host sync to size its output."""
+    ids = ids.reshape(-1).long()
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(0, ids, torch.ones_like(ids))
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """Values and indices of the k largest entries per row, descending, ties
+    to the lower index (``jax.lax.top_k``'s order)."""
+    if k == 1:
+        idx = torch.argmax(probs, dim=-1, keepdim=True)
+        return torch.gather(probs, -1, idx), idx
+    masked = probs.clone()
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(masked, dim=-1, keepdim=True)
+        vals.append(torch.gather(probs, -1, i))
+        idxs.append(i)
+        masked.scatter_(-1, i, float("-inf"))
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+
+
+def _positions_sort(flat_expert: torch.Tensor, E: int) -> torch.Tensor:
+    """Rank of each slot within its expert's run, by a stable argsort (the
+    JAX package's ``_positions_sort``; its ``cumsum`` method gives the same
+    ranks)."""
+    TK = flat_expert.shape[0]
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_e = flat_expert[order]
+    group_start = torch.searchsorted(sorted_e, torch.arange(E, device=flat_expert.device), right=False)
+    rank_sorted = torch.arange(TK, device=flat_expert.device) - group_start[sorted_e]
+    pos = torch.empty_like(rank_sorted)
+    pos[order] = rank_sorted
+    return pos
+
+
+def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int, *, normalize: bool = True) -> Gating:
+    T, E = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_w, expert_idx = _top_k(probs, top_k)
+    if normalize and top_k > 1:
+        gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
+    flat_expert = expert_idx.reshape(-1)  # token-major: slot t*K + k
+    position = _positions_sort(flat_expert, E).view(T, top_k)
+    keep = position < capacity
+    combine_w = torch.where(keep, gate_w, torch.zeros((), device=gate_w.device))
+    position = torch.where(keep, position, torch.full((), capacity - 1, device=position.device))
+    return Gating(expert_idx.to(torch.int32), combine_w, position.to(torch.int32), keep, probs)
+
+
+def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Switch-Transformer auxiliary loss ``E * sum_e f_e * P_e``: f counts
+    primary (k=0) assignments, P is the mean router probability."""
+    T = probs.shape[0]
+    f = count_ids(expert_idx[:, 0], num_experts).float() / T
+    p = torch.mean(probs, dim=0)
+    return num_experts * torch.sum(f * p)

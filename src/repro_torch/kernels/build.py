@@ -1,0 +1,80 @@
+"""Builds the port's CUDA sources (``repro_torch/csrc/*.cu``) with ``nvcc``
+into shared libraries with a plain C interface, and loads them with ctypes.
+
+A library is built at first use, into ``build/repro_torch/`` at the root of
+the checkout, and rebuilt when its source or the flags change (the file name
+carries their hash).  Nothing here runs at import: a machine without ``nvcc``
+imports the port and runs its plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] | None = None) -> Dict[str, float]:
+    """Compile every named source whose library is missing.  Returns seconds
+    per compiled source; raises with nvcc's output on a failure.  The ptxas
+    report (registers, spills) is kept beside each library as ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+    for name in sources() if names is None else names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stdout)
+        os.replace(tmp, out)
+    return seconds
+
+
+def build_log(name: str) -> str:
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

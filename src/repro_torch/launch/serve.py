@@ -1,0 +1,115 @@
+"""Serving launcher of the port: randomly initialises (or loads) a model and
+runs the static batched engine over synthetic requests, reporting prefill and
+per-step decode latency.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
+      --reduced --moe-impl grouped              # on the card
+  ... --device cpu                              # on the CPU (plain versions)
+
+A subset of ``repro.launch.serve``'s flags; the others exit with an error
+naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import numpy as np
+
+from repro_torch.configs.registry import get_config, make_reduced
+from repro_torch.models.model import init_params
+from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+# flags of the JAX launcher this slice does not port -> where they are queued
+UNPORTED = {
+    "--quant-bits": "queue 1 item 4 (quantization)",
+    "--quant-policy": "queue 1 item 4 (quantization)",
+    "--quant-group-size": "queue 1 item 4 (quantization)",
+    "--kv-bits": "queue 1 item 4 (quantization)",
+    "--paged": "queue 1 item 3 (paged ContinuousEngine)",
+    "--page-size": "queue 1 item 3 (paged ContinuousEngine)",
+    "--pages": "queue 1 item 3 (paged ContinuousEngine)",
+    "--slots": "queue 1 item 3 (paged ContinuousEngine)",
+    "--prefill-chunk": "queue 1 item 3 (paged ContinuousEngine)",
+    "--prefill-mode": "queue 1 item 3 (paged ContinuousEngine)",
+    "--prefix-sharing": "queue 1 item 3 (paged ContinuousEngine)",
+    "--n-samples": "queue 1 item 3 (paged ContinuousEngine)",
+    "--spec-draft": "queue 1 item 6 (speculative decoding)",
+    "--spec-k": "queue 1 item 6 (speculative decoding)",
+    "--ep-devices": "queue 1 item 7 (expert parallelism)",
+    "--trace-out": "queue 1 item 9 (tooling)",
+    "--metrics-out": "queue 1 item 9 (tooling)",
+    "--obs-routing": "queue 1 item 9 (tooling)",
+}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory in the JAX package's format")
+    ap.add_argument("--moe-impl", default=None, choices=[None, "grouped"],
+                    help="MoE dispatch; only 'grouped' (dropless, the grouped "
+                         "CUDA kernel) is ported")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    for flag in UNPORTED:
+        ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag, item in UNPORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} is not ported yet (ROADMAP.md, {item})")
+    if args.temperature <= 0.0 and (args.top_k or args.top_p):
+        ap.error("--top-k/--top-p have no effect at --temperature 0 (greedy); "
+                 "pass --temperature > 0")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = make_reduced(cfg)
+    if args.top_k > cfg.vocab_size:
+        ap.error(f"--top-k {args.top_k} exceeds vocab_size {cfg.vocab_size}")
+    if args.moe_impl:
+        cfg = cfg.replace(moe_impl=args.moe_impl)
+
+    if args.ckpt:
+        from repro_torch.convert import load_checkpoint
+
+        params = load_checkpoint(args.ckpt, cfg, args.device)
+    else:
+        params = init_params(cfg, seed=0, device=args.device)
+    ec = EngineConfig(max_batch=args.batch, max_prefill=args.prompt_len,
+                      max_decode=args.new_tokens, temperature=args.temperature,
+                      top_k=args.top_k, top_p=args.top_p)
+    eng = Engine(cfg, params, ec, device=args.device)
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist(),
+                    max_new_tokens=args.new_tokens)
+            for _ in range(args.requests)]
+    eng.generate(reqs[: args.batch])  # warm-up: builds the kernels on the card
+    t0 = time.perf_counter()
+    responses = eng.generate(reqs)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens) for r in responses)
+    print(f"served {len(responses)} requests, {n_tok} tokens in {dt:.3f}s "
+          f"({n_tok / dt:.1f} tok/s, arch={cfg.name}, moe_impl={cfg.moe_impl}, "
+          f"device={eng.device})")
+    tm = eng.last_timings
+    steps = tm["decode_step_s"]
+    print(f"  last batch: prefill {tm['prefill_s'] * 1e3:.3f} ms "
+          f"(batch {tm['batch']} x {tm['prompt_len']}), decode step median "
+          f"{(statistics.median(steps) * 1e3) if steps else float('nan'):.3f} ms "
+          f"over {len(steps)} steps")
+    print("sample:", responses[0].tokens[:10])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,160 @@
+"""Top-level model (``repro/models/model.py``): embeddings -> segments ->
+final norm -> logits.
+
+Entry points: ``init_params``, ``init_caches``, ``forward`` (teacher-forced
+logits), ``prefill`` (logits of the last position, caches filled) and
+``decode_step`` (one token, caches updated in place).  Parameters live in a
+:class:`ParamTree`, an ``nn.Module`` whose nesting and leaf names are the JAX
+package's parameter tree, so a JAX tree converts leaf for leaf
+(``repro_torch.convert``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.modules import DTYPES, embed_init, init_rmsnorm, rmsnorm
+from repro_torch.models.transformer import apply_segment, init_segment, init_segment_cache
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as an ``nn.Module``: inner dicts become
+    submodules, tensors buffers.  Reads like the dict it was built from
+    (``p["segments"]["seg0"]``), and ``.to()`` / ``state_dict()`` work."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if torch.is_tensor(v):
+                self.register_buffer(k, v)
+            else:
+                self.add_module(k, v if isinstance(v, ParamTree) else ParamTree(v))
+
+    def __getitem__(self, key):
+        if key not in self._keys:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]
+
+
+def _check_cfg(cfg: ModelConfig) -> None:
+    if cfg.encoder is not None or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and frontend models are not ported yet "
+            "(ROADMAP.md, queue 1 item 5)")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``cuda`` without an index names the
+    current card, and raises where there is none."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> ParamTree:
+    """Random parameters drawn on ``device`` from a ``torch.Generator``
+    seeded with ``seed`` (``device="meta"`` gives shapes only)."""
+    _check_cfg(cfg)
+    device = resolve_device(device)
+    dt = DTYPES[cfg.param_dtype]
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
+    p = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
+        "final_norm": init_rmsnorm(cfg.d_model, dt, device),
+        "segments": {f"seg{i}": init_segment(gen, cfg, seg, dt, device)
+                     for i, seg in enumerate(cfg.segments)},
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device).T.contiguous()  # [D, V]
+    return ParamTree(p)
+
+
+def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda") -> dict:
+    """Contiguous full-precision KV caches, ``[repeats, batch, capacity, ...]``
+    per segment position."""
+    _check_cfg(cfg)
+    device = resolve_device(device)
+    dt = DTYPES[cfg.param_dtype]
+    return {f"seg{i}": init_segment_cache(cfg, seg, batch, capacity, dt, device)
+            for i, seg in enumerate(cfg.segments)}
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]  # [B, S, D]
+    # the scale is rounded to x's type first, as in JAX; a 0-d CPU tensor
+    # joins a CUDA product as a scalar, without a host-to-device copy
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+
+
+def logits_out(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decoder entry points
+# ---------------------------------------------------------------------------
+
+
+def _run_segments(cfg, params, x, positions, caches, mode, index=None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, seg in enumerate(cfg.segments):
+        c = caches[f"seg{i}"] if caches is not None else None
+        x, _, a = apply_segment(cfg, seg, params["segments"][f"seg{i}"], x, positions,
+                                caches=c, mode=mode, index=index)
+        aux = aux + a
+    return x, caches, aux
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits [B, S, V] and the summed aux loss."""
+    x = embed_tokens(cfg, params, tokens)
+    if positions is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+    x, _, aux = _run_segments(cfg, params, x, positions, None, "train")
+    return logits_out(cfg, params, x), aux
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, caches: dict) -> Tuple[torch.Tensor, dict]:
+    """Returns (logits for the last position [B, V], caches filled in place)."""
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "prefill")
+    return logits_out(cfg, params, x[:, -1:])[:, 0], caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, index: int,
+                caches: dict) -> Tuple[torch.Tensor, dict]:
+    """One decode step at absolute position ``index`` (uniform over the
+    batch): returns (logits [B, V], caches updated in place)."""
+    x = embed_tokens(cfg, params, token)
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "decode", index=index)
+    return logits_out(cfg, params, x)[:, 0], caches

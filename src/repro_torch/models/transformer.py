@@ -1,0 +1,122 @@
+"""Block and segment assembly (``repro/models/transformer.py``).
+
+A block is pre-norm attention + pre-norm FFN (dense or MoE), both residual.
+Parameters and caches of a segment keep the JAX package's layout, stacked on
+a leading ``[repeats]`` axis; the JAX ``lax.scan`` over repeats becomes a
+Python loop that takes repeat ``r``'s views of both.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import AttnSpec, LayerSpec, ModelConfig, Segment
+from repro_torch.core.moe import init_moe, moe_layer
+from repro_torch.models.attention import attention, check_spec, init_attention, init_kv_cache
+from repro_torch.models.modules import init_mlp, init_rmsnorm, mlp, rmsnorm
+
+
+def check_layer(ls: LayerSpec) -> None:
+    if not isinstance(ls.mixer, AttnSpec):
+        raise NotImplementedError(
+            f"{type(ls.mixer).__name__} mixers are not ported yet (ROADMAP.md, queue 1 item 5)")
+    check_spec(ls.mixer)
+    if ls.cross is not None:
+        check_spec(ls.cross)
+
+
+def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) -> dict:
+    check_layer(ls)
+    p = {
+        "norm_mixer": init_rmsnorm(cfg.d_model, dtype, device, lead=lead),
+        "attn": init_attention(gen, cfg, ls.mixer, dtype, device, lead=lead),
+    }
+    if ls.ffn.kind == "dense":
+        p["norm_ffn"] = init_rmsnorm(cfg.d_model, dtype, device, lead=lead)
+        p["ffn"] = init_mlp(gen, cfg.d_model, ls.ffn.d_ff, ls.ffn.act, dtype, device, lead=lead)
+    elif ls.ffn.kind == "moe":
+        p["norm_ffn"] = init_rmsnorm(cfg.d_model, dtype, device, lead=lead)
+        p["moe"] = init_moe(gen, cfg, ls.ffn, dtype, device, lead=lead)
+    return p
+
+
+def init_layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, capacity: int, dtype, device,
+                     *, lead=()) -> dict:
+    check_layer(ls)
+    return {"self": init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim, dtype, device,
+                                  lead=lead)}
+
+
+def apply_layer(
+    cfg: ModelConfig,
+    ls: LayerSpec,
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: Optional[dict] = None,
+    mode: str = "train",
+    index: Optional[int] = None,
+):
+    """Returns (x, cache, aux_loss); the cache is updated in place."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(params["norm_mixer"], x, cfg.rms_eps)
+    sc = cache.get("self") if cache is not None else None
+    y, sc = attention(cfg, ls.mixer, params["attn"], h, positions, cache=sc, mode=mode, index=index)
+    x = x + y
+    if ls.ffn.kind == "dense":
+        h = rmsnorm(params["norm_ffn"], x, cfg.rms_eps)
+        x = x + mlp(params["ffn"], h, ls.ffn.act)
+    elif ls.ffn.kind == "moe":
+        h = rmsnorm(params["norm_ffn"], x, cfg.rms_eps)
+        y, aux = moe_layer(cfg, ls.ffn, params["moe"], h)
+        x = x + y
+    return x, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Segment (loop over repeats)
+# ---------------------------------------------------------------------------
+
+
+def take(tree, r: int):
+    """Repeat ``r``'s views of a ``[repeats, ...]``-stacked tree."""
+    if torch.is_tensor(tree):
+        return tree[r]
+    return {k: take(v, r) for k, v in tree.items()}
+
+
+def init_segment(gen, cfg: ModelConfig, seg: Segment, dtype, device) -> dict:
+    return {f"pos{j}": init_layer(gen, cfg, ls, dtype, device, lead=(seg.repeats,))
+            for j, ls in enumerate(seg.pattern)}
+
+
+def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int, capacity: int, dtype,
+                       device) -> dict:
+    return {f"pos{j}": init_layer_cache(cfg, ls, batch, capacity, dtype, device, lead=(seg.repeats,))
+            for j, ls in enumerate(seg.pattern)}
+
+
+def apply_segment(
+    cfg: ModelConfig,
+    seg: Segment,
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    caches: Optional[dict] = None,
+    mode: str = "train",
+    index: Optional[int] = None,
+):
+    """Returns (x, caches, aux_sum); ``caches`` mirror the params with a
+    leading ``repeats`` axis and are written in place."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(seg.repeats):
+        for j, ls in enumerate(seg.pattern):
+            key = f"pos{j}"
+            c = take(caches[key], r) if caches is not None else None
+            x, _, a = apply_layer(cfg, ls, take(params[key], r), x, positions,
+                                  cache=c, mode=mode, index=index)
+            aux = aux + a
+    return x, caches, aux

@@ -1,0 +1,138 @@
+"""Static batched serving engine (``repro/serving/engine.py``; paper §5):
+batched prefill + decode over contiguous KV caches.
+
+Requests are right-aligned into a ``[B, S]`` prompt buffer padded with
+``pad_id``; as in the JAX engine the left pads are not masked, and decode
+writes every row at the uniform index ``S + t``.  Each decode step reads the
+sampled tokens back to the host (the stop check needs them), so the host
+clock between two reads is one step's time; ``last_timings`` keeps those
+times for the batch served last.
+
+Not ported here: meshes (expert-parallel serving) and the int8 KV cache, each
+of which raises if asked for; quantized weights (the MoE layer raises);
+encoder memory, frontend embeddings and observability, which the engine
+takes no argument for.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import decode_step, init_caches, prefill, resolve_device
+from repro_torch.serving.sampling import sample
+
+
+@dataclass
+class EngineConfig:
+    max_batch: int = 8
+    max_prefill: int = 256
+    max_decode: int = 64
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0  # nucleus sampling mass; 0 = off
+    eos_id: int = -1  # -1: never stop early
+    pad_id: int = 0
+    kv_cache_bits: int = 0  # only 0 (fp cache) is ported
+
+
+@dataclass
+class Request:
+    prompt: Sequence[int]
+    max_new_tokens: int = 16
+
+
+@dataclass
+class Response:
+    tokens: List[int]
+    prompt_len: int
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(f"Engine: {what} is not ported yet (ROADMAP.md, queue 1 {item})")
+
+
+class Engine:
+    """Synchronous batched engine: one prefill, then one decode step per
+    token, on ``device`` (the card unless the caller passes ``"cpu"``)."""
+
+    def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, *, device="cuda"):
+        if cfg.ep_mesh:
+            _unported("an expert-parallel mesh", "item 7")
+        if ec.kv_cache_bits:
+            _unported("the int8 KV cache", "item 4")
+        self.device = resolve_device(device)
+        leaf = params["embed"]
+        if leaf.device != self.device:
+            raise ValueError(f"Engine: parameters are on {leaf.device}, the engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.ec = ec
+        self._capacity = ec.max_prefill + ec.max_decode
+        self.last_timings: dict = {}
+
+    def _make_caches(self, batch: int) -> dict:
+        return init_caches(self.cfg, batch, self._capacity, device=self.device)
+
+    def generate(self, requests: Sequence[Request], *, seed: int = 0) -> List[Response]:
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        out: List[Response] = []
+        for start in range(0, len(requests), self.ec.max_batch):
+            out.extend(self._generate_batch(requests[start : start + self.ec.max_batch], gen))
+        return out
+
+    def _sample(self, logits, gen):
+        ec = self.ec
+        return sample(logits, gen, temperature=ec.temperature, top_k=ec.top_k, top_p=ec.top_p)
+
+    @torch.no_grad()
+    def _generate_batch(self, reqs: Sequence[Request], gen) -> List[Response]:
+        ec, cfg = self.ec, self.cfg
+        B = len(reqs)
+        # right-align prompts so the last prefill position is each row's
+        # final prompt token
+        S = min(max(len(r.prompt) for r in reqs), ec.max_prefill)
+        toks = np.full((B, S), ec.pad_id, np.int64)
+        for i, r in enumerate(reqs):
+            p = list(r.prompt)[-S:]
+            toks[i, S - len(p):] = p
+
+        caches = self._make_caches(B)
+        t0 = time.perf_counter()
+        logits, caches = prefill(cfg, self.params, torch.from_numpy(toks).to(self.device), caches)
+        cur = self._sample(logits, gen)
+
+        max_new = min(max(r.max_new_tokens for r in reqs), ec.max_decode)
+        generated = np.zeros((B, max_new), np.int64)
+        done = np.zeros((B,), bool)
+        step_s = []
+        prefill_s = None
+        t_prev = t0
+        for t in range(max_new):
+            generated[:, t] = cur.cpu().numpy()  # waits for the step in flight
+            now = time.perf_counter()
+            if t:
+                step_s.append(now - t_prev)
+            else:
+                prefill_s = now - t0
+            t_prev = now
+            done |= generated[:, t] == ec.eos_id
+            if done.all() or t == max_new - 1:
+                generated = generated[:, : t + 1]
+                break
+            logits, caches = decode_step(cfg, self.params, cur[:, None].long(), S + t, caches)
+            cur = self._sample(logits, gen)
+        self.last_timings = {"prefill_s": prefill_s, "decode_step_s": step_s,
+                             "batch": B, "prompt_len": S}
+
+        res = []
+        for i, r in enumerate(reqs):
+            g = generated[i].tolist()
+            if ec.eos_id >= 0 and ec.eos_id in g:
+                g = g[: g.index(ec.eos_id)]
+            res.append(Response(tokens=g[: r.max_new_tokens], prompt_len=len(r.prompt)))
+        return res
