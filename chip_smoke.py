@@ -6,23 +6,38 @@ NVIDIA H100.
 Phases, each printed on its own line; any failure raises and exits non-zero:
 
 1. card: name and power limit (nvidia-smi); TF32 off for the f32 checks.
-2. build: every kernel of the port, compiled with nvcc from the checkout.
-3. serve: llama4-maverick-400b-a17b at full width (d_model 5120, 128
+2. build: every kernel of the port, one nvcc per source, started together.
+3. static serve: llama4-maverick-400b-a17b at full width (d_model 5120, 128
    experts of d_ff 8192, vocab 202048), depth cut to one repeat of its
    (dense, MoE) pattern, bf16 random weights drawn on the card from a seed,
    ``moe_impl="grouped"``.  The port's ``Engine`` serves 4 requests (prompt
    64, 16 new tokens, greedy); the kernels' launch counts are set to 0 just
    before and read just after.  A torch.profiler account of 5 decode steps
    (kernels' device time, host operators, launches, syncs, idle share).
-   Then a small-input reference: reduced
-   llama4 in f32 served on the card (kernels) and on the CPU (plain
-   versions) from the same weights must agree.
-4. kernels: each kernel against its plain PyTorch version on the same inputs
-   at the main path's shapes (the served MoE layer's weights, a routing of
-   random tokens by its router, T = 256 as in prefill and T = 4 as in
-   decode), in bf16, and once in f32 on a reduced config; then timed with
-   CUDA events (calls back to back, see ``time_ms``) beside its bound.
-5. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+   Then a small-input reference: reduced llama4 in f32 served on the card
+   (kernels) and on the CPU (plain versions) from the same weights.
+4. continuous serve: the same weights through ``ContinuousEngine`` (paged,
+   page size 16, 8 slots, capacity 2048, prefill chunk 256, 344 pages: a
+   third of the slots' worst case, see CONT), 12 greedy requests of 32 new
+   tokens with prompts of 60-1777 tokens; counts set to 0 before, read
+   after; TTFT per request, median decode tick, tokens/s, preemptions (at
+   least one), pool drained.  A torch.profiler account of 5 decode ticks of
+   8 decoding slots.
+5. chunked prefill at full width: a 512-token prompt through two 256-token
+   ``paged_prefill_chunk`` calls (kernel 8) against the static prefill of the
+   same prompt, both bf16: logits within BF16_LOGITS_TOL, same argmax.
+6. reduced f32 continuous, card vs CPU: the same trace through the engine on
+   the card (kernels) and on the CPU (plain versions), from the same weights,
+   with a pool small enough to preempt: identical tokens and preemption
+   count, last tick's logits within 1e-5 relative.
+7. kernels: each kernel against its plain PyTorch version on the same inputs
+   at the served path's shapes, in bf16 and f32 (the grouped MLP: the served
+   MoE layer at T = 256 and T = 4; paged decode: B = 8 slots with the table,
+   positions and pool of the continuous serve mid-run; paged prefill: 256
+   query chunks over 0 and 1008 tokens of pool history), and once more at a
+   reduced size with a window and a softcap; then each timed with CUDA events
+   beside its bound and, for attention, beside scaled_dot_product_attention.
+8. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -30,29 +45,50 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ARCH = "llama4-maverick-400b-a17b"
 BATCH, PROMPT, NEW = 4, 64, 16
 SEED = 0
+# continuous serve: 12 requests, prompts mostly not page-aligned.  Admission
+# reserves a request's prompt pages up front (by free-block count), so only
+# decode growth can run the pool dry: on this trace a pool of 512 pages (half
+# the slots' worst case of 8 x 128) keeps at least 114 pages free and never
+# preempts.  The scheduler is deterministic in the prompt lengths (no EOS),
+# and 336-352 pages preempt; 344 pages (a third of the worst case) preempt
+# twice.
+CONT = dict(slots=8, capacity=2048, page_size=16, n_pages=344, prefill_chunk=256)
+CONT_PROMPTS = [1500, 1200, 900, 700, 512, 300, 200, 100, 1000, 60, 333, 1777]
+CONT_NEW = 32
+PROFILE_PROMPT = 512  # the decode-tick profile: 8 slots at 512-560 tokens of context
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# bf16 check: kernel and plain version sum in different orders in f32, so
-# the activation and the output may round to neighbouring bf16 values: one
-# ulp of the output is 2^-7 of its magnitude at most; allow two, relative to
-# the largest output.  f32 check: only the summation order differs.
+# bf16 kernel checks: kernel and plain version read the same bf16 values and
+# sum in f32 in different orders, so outputs may round to neighbouring bf16
+# values: one ulp is 2^-7 of the output's magnitude at most; allow two,
+# relative to the largest output.  f32: only the summation order differs.
 BF16_TOL = 2e-2
 F32_TOL = 1e-5
+# full-width logits, static prefill vs chunked paged prefill, both bf16: the
+# two paths round attention differently (the static path casts the softmax
+# to bf16 before P.V, the kernel keeps f32) and cuBLAS sums the dense
+# products of 512 and of 256 rows in different orders; each rounding is up
+# to 2^-8 relative and a few compound over two layers: allow 3% of the
+# largest logit (a reduced bf16 model on the CPU differs by 0.8%).
+BF16_LOGITS_TOL = 3e-2
 
 
 def log(*a):
@@ -85,6 +121,35 @@ def time_ms(fn, n=10, reps=5, warmup=3) -> float:
     return statistics.median(times)
 
 
+def reset(*counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def compare(name, out, plain, tol) -> dict:
+    """max|out - plain| relative to max|plain|, which must be within tol."""
+    assert out.shape == plain.shape and torch.isfinite(out.float()).all(), name
+    err = (out.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    rel = err / max(scale, 1e-30)
+    if rel > tol:
+        raise AssertionError(f"{name} disagrees with its plain version: max|d|={err:.3e}, "
+                             f"max|plain|={scale:.3e}, rel {rel:.3e} > {tol}")
+    return {"max_abs_err": err, "max_rel_err": rel}
+
+
+def bound(need_bytes, ops, dtype) -> dict:
+    b, o = need_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return {"bound_ms": max(b, o) * 1e3, "bound_by": "bytes" if b >= o else "operations",
+            "bytes": need_bytes, "ops": ops}
+
+
+# ---------------------------------------------------------------------------
+# Grouped expert MLP (kernel 4)
+# ---------------------------------------------------------------------------
+
+
 def grouped_case(moe, T, K, gen, dtype):
     """Inputs of the grouped MLP as the MoE layer builds them: T random
     tokens routed by the layer's router, sorted into the tile-padded buffer."""
@@ -107,16 +172,13 @@ def grouped_case(moe, T, K, gen, dtype):
     # (dead rows are zeros the function returns); tiles past rows_used read
     # nothing else
     need_bytes = n_experts * 3 * D * F * b + (rows + Ct) * D * b + (rows // 8 + 1) * 4
-    ops = 2 * T * K * 3 * D * F
-    bound_s = max(need_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype])
     info = {"T": T, "K": K, "Ct": Ct, "rows_used": rows, "distinct_experts": n_experts,
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if need_bytes / HBM_BYTES_PER_S >= ops / PEAK_OPS[dtype] else "operations"}
+            **bound(need_bytes, 2 * T * K * 3 * D * F, dtype)}
     args = (xg, lay.tile_expert, moe["wi"], moe["wg"], moe["wo"], lay.rows_used)
     return args, info
 
 
-def check_kernel(args, tol):
+def check_grouped(args, tol):
     from repro_torch.kernels import expert_mlp_grouped as gk
 
     out = gk.grouped_mlp(*args)
@@ -125,23 +187,243 @@ def check_kernel(args, tol):
     plain = gk.grouped_mlp_plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    assert out.shape == plain.shape and torch.isfinite(out.float()).all()
-    err = (out.float() - plain.float()).abs().max().item()
-    scale = plain.float().abs().max().item()
-    rel = err / max(scale, 1e-30)
-    if rel > tol:
-        raise AssertionError(f"grouped_mlp disagrees with its plain version: max|d|={err:.3e}, "
-                             f"max|plain|={scale:.3e}, rel {rel:.3e} > {tol}")
-    return {"max_abs_err": err, "max_rel_err": rel, "plain_ms": plain_ms}
+    return {**compare("grouped_mlp", out, plain, tol), "plain_ms": plain_ms}
+
+
+# ---------------------------------------------------------------------------
+# Paged attention (kernels 7 and 8)
+# ---------------------------------------------------------------------------
+
+
+def paged_bytes(k_pool, table, needed) -> int:
+    """The pool bytes the function must read: the positions of every live
+    (non-trash) table entry, and K and V only of the keys it attends to,
+    ``needed`` [..., nt, ps] over the table's entries (each key once).  A
+    fresh page of the chunk itself (pos -1) or a key past the query is
+    read for its position only."""
+    Pt, ps, Hkv, dh = k_pool.shape
+    live = table != Pt - 1
+    slots = table.long()[..., None] * ps + torch.arange(ps, device=table.device)
+    keys = int(torch.unique(slots[needed & live[..., None]]).numel())
+    return int(live.sum().item()) * ps * 4 + keys * 2 * Hkv * dh * k_pool.element_size()
+
+
+def decode_case(pool, table, qpos, G, dtype, gen):
+    """Kernel 7's inputs: a pool (k, v, pos), a clamped table [B, nt] and
+    query positions, with random queries; the bound counts the live entries'
+    positions, the K/V of the keys at 0 <= pos <= qpos, q, out, table and
+    qpos, and 4*H*dh operations per unmasked (query, key)."""
+    k, v, kpos = pool["k"].to(dtype), pool["v"].to(dtype), pool["pos"]
+    Pt, ps, Hkv, dh = k.shape
+    B = table.shape[0]
+    q = torch.randn((B, Hkv, G, dh), generator=gen, device="cuda").to(dtype)
+    kp = kpos[table.long()]  # [B, nt, ps]
+    needed = (kp >= 0) & (kp <= qpos[:, None, None])
+    pairs = int(needed.sum().item())
+    b = q.element_size()
+    need = paged_bytes(k, table, needed) + 2 * q.numel() * b + table.numel() * 4 + B * 4
+    args = (q, k, v, kpos, table, qpos)
+    info = {"B": B, "Hkv": Hkv, "G": G, "dh": dh, "ps": ps, "nt": table.shape[1],
+            "live_entries": int((table != Pt - 1).sum().item()),
+            "all_trash_rows": int((table == Pt - 1).all(1).sum().item()), "pairs": pairs,
+            **bound(need, 4 * Hkv * G * dh * pairs, dtype)}
+    return args, info
+
+
+def prefill_case(n_hist, C, Hkv, G, dh, ps, Pt, nt, dtype, gen):
+    """Kernel 8's inputs: a random pool where a random set of pages holds
+    positions 0 .. n_hist - 1, the table maps them and the chunk's fresh pages
+    (pos -1) and is trash beyond; a chunk of C queries at n_hist .. + C - 1.
+    The bound reads K/V only of the pool keys at 0 <= pos < qpos[0]."""
+    k = torch.randn((Pt, ps, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((Pt, ps, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    kpos = torch.full((Pt, ps), -1, dtype=torch.int32, device="cuda")
+    n_pages = -(-(n_hist + C) // ps)
+    pages = torch.randperm(Pt - 1, generator=torch.Generator().manual_seed(SEED))[:n_pages].cuda()
+    table = torch.full((nt,), Pt - 1, dtype=torch.int32, device="cuda")
+    table[:n_pages] = pages.to(torch.int32)
+    hist = torch.arange(n_hist, device="cuda")
+    kpos[pages[hist // ps], hist % ps] = hist.to(torch.int32)
+    qpos = torch.arange(n_hist, n_hist + C, dtype=torch.int32, device="cuda")
+    q = torch.randn((C, Hkv, G, dh), generator=gen, device="cuda").to(dtype)
+    ck = torch.randn((C, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((C, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    pairs = C * n_hist + C * (C + 1) // 2
+    b = q.element_size()
+    kp = kpos[table.long()]  # [nt, ps]
+    need = (paged_bytes(k, table, (kp >= 0) & (kp < qpos[0])) + (2 * q.numel() + 2 * ck.numel()) * b
+            + nt * 4 + C * 4)
+    args = (q, k, v, kpos, table, qpos, ck, cv)
+    info = {"C": C, "history": n_hist, "Hkv": Hkv, "G": G, "dh": dh, "ps": ps, "nt": nt,
+            "live_entries": n_pages, "pairs": pairs,
+            **bound(need, 4 * Hkv * G * dh * pairs, dtype)}
+    return args, info
+
+
+def sdpa_decode(q, k, v, kpos, table, qpos, scale):
+    """The library yardstick: K/V gathered into a contiguous [B, Hkv, T, dh]
+    beforehand, then one scaled_dot_product_attention with GQA and the same
+    boolean mask."""
+    import torch.nn.functional as F
+
+    B, Hkv, G, dh = q.shape
+    idx = table.long()
+
+    def gather():
+        kg = k[idx].reshape(B, -1, Hkv, dh).transpose(1, 2).contiguous()
+        vg = v[idx].reshape(B, -1, Hkv, dh).transpose(1, 2).contiguous()
+        return kg, vg
+
+    kg, vg = gather()
+    kp = kpos[idx].reshape(B, 1, 1, -1)
+    mask = (kp >= 0) & (kp <= qpos.reshape(B, 1, 1, 1))
+    qh = q.reshape(B, Hkv * G, 1, dh)
+    call = lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+    return call, gather
+
+
+def sdpa_prefill(q, k, v, kpos, table, qpos, ck, cv, scale):
+    import torch.nn.functional as F
+
+    C, Hkv, G, dh = q.shape
+    idx = table.long()
+
+    def gather():
+        kg = torch.cat([k[idx].reshape(-1, Hkv, dh), ck]).transpose(0, 1)[None].contiguous()
+        vg = torch.cat([v[idx].reshape(-1, Hkv, dh), cv]).transpose(0, 1)[None].contiguous()
+        return kg, vg
+
+    kg, vg = gather()
+    hist = kpos[idx].reshape(-1)
+    kp = torch.cat([torch.where(hist >= qpos[0], -1, hist), qpos])
+    mask = ((kp[None, :] >= 0) & (kp[None, :] <= qpos[:, None]))[None, None]
+    qh = q.permute(1, 2, 0, 3).reshape(1, Hkv * G, C, dh)
+    call = lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+    return call, gather
+
+
+def check_paged(name, kernel, plain, args, kw, tol, timed=False, library=None) -> dict:
+    out = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    res = compare(name, out, ref, tol)
+    if timed:
+        res["ms"] = time_ms(lambda: kernel(*args, **kw))
+        res["plain_ms"] = time_ms(lambda: plain(*args, **kw), n=3)
+        call, gather = library(*args, kw["scale"])
+        res["library_ms"] = time_ms(call)
+        res["library_gather_ms"] = time_ms(gather, n=3)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Profiles
+# ---------------------------------------------------------------------------
+
+
+def profile_account(run, steps, what) -> list:
+    """torch.profiler account of ``run(prof)`` (which runs ``steps`` steps
+    and returns wall ms per step), beside an unprofiled ``run(None)`` of the
+    same steps: device time of the kernels by name, host operators, launches
+    and host syncs per step, and the idle share measured under the profiler
+    and derived (profiled kernel time over the unprofiled wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plain_wall = run(None)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    wall = run(prof)
+    evs = prof.key_averages()
+    kern = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in evs
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0), reverse=True)
+    host = sorted(((ev.self_cpu_time_total, ev.key, ev.count) for ev in evs
+                   if ev.device_type == DeviceType.CPU), reverse=True)
+    syncs = sum(ev.count for ev in evs if ev.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+                                                       "cudaDeviceSynchronize"))
+    n_launch = sum(ev.count for ev in evs if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    n_kern = sum(c for _, _, c in kern)
+    if not kern or n_kern < n_launch:
+        # CUPTI can drop device records: then the device time is not measured
+        return [f"{what} profile: the profiler recorded {n_kern} kernels for {n_launch} launches; "
+                "device time not measured"]
+    dev = sum(d for d, _, _ in kern) / steps / 1e3
+    per = lambda d: f"{d / steps / 1e3:.3f} ms"
+    return [
+        f"{what} profile: kernels {dev:.3f} device ms/step; wall {wall:.3f} ms/step with the "
+        f"profiler on (device idle {100 * (1 - dev / wall):.1f}%, measured), {plain_wall:.3f} ms/step "
+        f"with it off (device idle {100 * (1 - dev / plain_wall):.1f}%, derived: profiled kernel "
+        f"time over unprofiled wall time); {n_launch / steps:.0f} kernel launches, "
+        f"{n_kern / steps:.0f} kernels on the device and {syncs / steps:.1f} host syncs per step",
+        f"{what} profile, kernels: " + "; ".join(f"{k[:70]} {per(d)} x{c / steps:g}"
+                                                 for d, k, c in kern[:8]),
+        f"{what} profile, host ops (self CPU): " + "; ".join(
+            f"{k} {per(d)} x{c // steps}" for d, k, c in host[:10]),
+    ]
+
+
+def profile_decode(eng, cfg, params, steps=5) -> list:
+    """Where a static decode step's time goes, as the engine runs it (greedy
+    token read back every step)."""
+    from repro_torch.models.model import decode_step, prefill
+
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda")
+
+    def run(prof):
+        caches = eng._make_caches(BATCH)
+        logits, caches = prefill(cfg, params, toks, caches)
+        cur = logits.argmax(-1)[:, None]
+        cur.cpu()
+        with prof or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for t in range(steps):
+                logits, caches = decode_step(cfg, params, cur, PROMPT + t, caches)
+                cur = logits.argmax(-1)[:, None]
+                cur.cpu()
+            return (time.perf_counter() - t0) / steps * 1e3
+
+    return profile_account(run, steps, "decode")
+
+
+def profile_ticks(eng, cfg, steps=5) -> list:
+    """Where a continuous decode tick's time goes: every slot decoding (each
+    prefill done), one ``step()`` per tick."""
+    from repro_torch.serving.engine import Request
+
+    rng = torch.Generator().manual_seed(SEED + 3)
+    prompts = [torch.randint(0, cfg.vocab_size, (PROFILE_PROMPT,), generator=rng).tolist()
+               for _ in range(eng.n_slots)]
+
+    def run(prof):
+        for p in prompts:
+            # enough tokens to outlast the other slots' prefill ticks
+            eng.submit(Request(p, 48))
+        while any(s.prefilling for s in eng.slots) or eng.queue:
+            eng.step()
+        assert sum(s.active for s in eng.slots) == len(prompts)
+        with prof or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+        eng.run_until_done()
+        return wall
+
+    return profile_account(run, steps, "tick")
+
+
+# ---------------------------------------------------------------------------
+# Reference checks
+# ---------------------------------------------------------------------------
 
 
 def reference_check(cfg) -> str:
-    """The main path on a small input against a reference: the same f32
+    """The static path on a small input against a reference: the same f32
     weights served on the card (through the kernels) and on the CPU (through
     their plain versions) give the same logits within 1e-4 (f32, TF32 off;
     only summation order differs) and the same greedy tokens."""
-    import copy
-
     from repro_torch.models.model import forward, init_params
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
@@ -164,58 +446,150 @@ def reference_check(cfg) -> str:
             f"logits max|d| {err:.3e} (tolerance 1e-4), greedy tokens identical {card}")
 
 
-def profile_decode(eng, cfg, params, steps=5) -> list:
-    """Where a decode step's time goes (torch.profiler): wall time per step,
-    device time of the kernels (by name), host time of the operators, and the
-    host syncs, as the engine runs the step (greedy token read back).  The
-    same steps run once more without the profiler, so the idle share can be
-    given both as measured under the profiler and as derived from the
-    profiled kernel time over the unprofiled wall time of this run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def continuous_reference_check(cfg) -> str:
+    """The continuous path on a small input: reduced f32 weights, one trace
+    through the engine on the card and on the CPU, with 14 pages for 3 slots
+    of capacity 48 (under half their worst case) so that it preempts."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
 
-    from repro_torch.models.model import decode_step, prefill
+    on_card = init_params(cfg, seed=SEED, device="cuda")
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (13, 6, 9, 3, 17, 25, 40)]
+    kw = dict(slots=3, capacity=48, paged=True, page_size=4, n_pages=14, prefill_chunk=8)
+    out = {}
+    for dev, params in (("cuda", on_card), ("cpu", on_cpu)):
+        eng = ContinuousEngine(cfg, params, device=dev, **kw)
+        ids = [eng.submit(Request(p, 7)) for p in prompts]
+        done = eng.run_until_done()
+        assert eng.pool.free_count == eng.n_pages, dev
+        out[dev] = ([done[i].tokens for i in ids], eng.preemptions, eng.last_logits.cpu())
+    (ta, pa, la), (tb, pb, lb) = out["cuda"], out["cpu"]
+    rel = (la - lb).abs().max().item() / lb.abs().max().item()
+    if ta != tb or pa != pb or pa < 1 or rel > F32_TOL:
+        raise AssertionError(f"reduced {cfg.name} continuous: card tokens {ta} preemptions {pa}; "
+                             f"CPU {tb} / {pb}; last-tick logits rel {rel:.3e}")
+    return (f"continuous reference: reduced {cfg.name} f32, card (kernels) vs CPU (plain "
+            f"versions): greedy tokens identical {ta}, preemptions {pa} on both, last tick's "
+            f"logits max|d| {rel:.3e} of max|logit| (tolerance {F32_TOL}), pool drained")
 
-    def run_steps(prof=None):
-        caches = eng._make_caches(BATCH)
-        logits, caches = prefill(cfg, params, toks, caches)
-        cur = logits.argmax(-1)[:, None]
-        cur.cpu()
-        with prof or contextlib.nullcontext():
-            t0 = time.perf_counter()
-            for t in range(steps):
-                logits, caches = decode_step(cfg, params, cur, PROMPT + t, caches)
-                cur = logits.argmax(-1)[:, None]
-                cur.cpu()
-            return (time.perf_counter() - t0) / steps * 1e3
 
-    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda")
-    plain_wall = run_steps()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    wall = run_steps(prof)
-    evs = prof.key_averages()
-    kern = sorted(((ev.self_device_time_total, ev.key) for ev in evs
-                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0), reverse=True)
-    host = sorted(((ev.self_cpu_time_total, ev.key, ev.count) for ev in evs
-                   if ev.device_type == DeviceType.CPU), reverse=True)
-    syncs = sum(ev.count for ev in evs if ev.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize",
-                                                       "cudaDeviceSynchronize"))
-    n_launch = sum(ev.count for ev in evs if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-    if not kern:
-        return ["decode profile: the profiler recorded no device time (not measured)"]
-    dev = sum(d for d, _ in kern) / steps / 1e3
-    per = lambda d: f"{d / steps / 1e3:.3f} ms"
-    return [
-        f"decode profile: kernels {dev:.3f} device ms/step; wall {wall:.3f} ms/step with the "
-        f"profiler on (device idle {100 * (1 - dev / wall):.1f}%, measured), {plain_wall:.3f} ms/step "
-        f"with it off (device idle {100 * (1 - dev / plain_wall):.1f}%, derived: profiled kernel "
-        f"time over unprofiled wall time); {n_launch / steps:.0f} kernel launches and "
-        f"{syncs / steps:.1f} host syncs per step",
-        "decode profile, kernels: " + "; ".join(f"{k[:70]} {per(d)}" for d, k in kern[:8]),
-        "decode profile, host ops (self CPU): " + "; ".join(
-            f"{k} {per(d)} x{c // steps}" for d, k, c in host[:10]),
+def chunked_prefill_check(cfg, params) -> str:
+    """One 512-token prompt: the paged path (two 256-token chunks through
+    kernel 8) against the static prefill (contiguous cache), bf16."""
+    from repro_torch.models.model import init_caches, init_paged_caches, paged_prefill_chunk, prefill
+
+    S, C, ps = 512, CONT["prefill_chunk"], CONT["page_size"]
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(SEED + 2)).cuda()
+    ref, _ = prefill(cfg, params, toks, init_caches(cfg, 1, S, device="cuda"))
+    caches = init_paged_caches(cfg, 1, S, n_pages=S // ps, page_size=ps, device="cuda")
+    row = torch.arange(S // ps, dtype=torch.int32, device="cuda").flip(0).contiguous()  # pages in reverse
+    for s0 in range(0, S, C):
+        pos = torch.arange(s0, s0 + C, dtype=torch.int32, device="cuda")[None]
+        got, caches = paged_prefill_chunk(cfg, params, toks[:, s0 : s0 + C], pos, caches, row)
+    ref, got = ref.float()[0], got.float()[0]
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    a_ref, a_got = int(ref.argmax()), int(got.argmax())
+    if err > BF16_LOGITS_TOL * scale or a_ref != a_got:
+        raise AssertionError(f"chunked prefill: logits max|d| {err:.4f} of max|logit| {scale:.4f} "
+                             f"(tolerance {BF16_LOGITS_TOL}), argmax {a_got} vs static {a_ref}")
+    top2 = ref.topk(2).values
+    return (f"chunked prefill: {cfg.name} bf16, 512-token prompt, paged (2 x 256 chunks, kernel 8) "
+            f"vs static prefill: logits max|d| {err:.4f} = {err / scale:.2e} of max|logit| "
+            f"{scale:.4f} (tolerance {BF16_LOGITS_TOL}); argmax {a_got} equal (static top-2 gap "
+            f"{(top2[0] - top2[1]).item():.4f})")
+
+
+# ---------------------------------------------------------------------------
+# Continuous serve
+# ---------------------------------------------------------------------------
+
+
+def continuous_serve(cfg, params, counters):
+    """The trace through the paged engine; returns (lines, launches, the
+    decode snapshot for kernel 7, the engine)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    eng = ContinuousEngine(cfg, params, paged=True, device="cuda", **CONT)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in CONT_PROMPTS]
+    eng.submit(Request(prompts[0][:300], 4))  # warm-up: both chunk shapes, decode
+    eng.run_until_done()
+    eng.done.clear()
+    eng.metrics_log.clear()
+    eng.preemptions = eng.prefill_tokens_total = eng.prefill_chunks_total = 0
+    torch.cuda.synchronize()
+    snap = None
+    first = {}
+
+    def seen(now):
+        for s in eng.slots:
+            if s.active and not s.prefilling and s.request_id not in first:
+                first[s.request_id] = now
+        for rid in eng.done:
+            first.setdefault(rid, now)
+
+    reset(*counters)
+    t0 = time.perf_counter()
+    ids = []
+    for p in prompts:
+        ids.append(eng.submit(Request(p, CONT_NEW)))
+        seen(time.perf_counter())
+    while True:
+        n = eng.step()
+        seen(time.perf_counter())
+        decoding = np.asarray([s.active and not s.prefilling for s in eng.slots])
+        if snap is None and 3 <= decoding.sum() < len(eng.slots):
+            # kernel 7's inputs as the next tick would see them: layer 0's
+            # pool, the decoding rows' tables (others all -1), positions
+            pool = {k: v[0].clone() for k, v in eng.caches["seg0"]["pos0"]["self"].items()}
+            tbl = np.where(decoding[:, None] & (eng.tables.table >= 0), eng.tables.table,
+                           eng.n_pages)  # clamped: unmapped -> trash
+            qpos = np.asarray([s.pos if s.active else 0 for s in eng.slots], np.int32)
+            snap = (pool, torch.from_numpy(tbl.astype(np.int32)).cuda(), torch.from_numpy(qpos).cuda())
+        if n == 0 and not eng.queue:
+            break
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+    done = eng.done
+    assert sorted(done) == sorted(ids) and all(len(done[i].tokens) == CONT_NEW for i in ids)
+    assert all(0 <= t < cfg.vocab_size for i in ids for t in done[i].tokens)
+    if eng.pool.free_count != eng.n_pages:
+        raise AssertionError(f"the pool did not drain: {eng.pool.free_count} of {eng.n_pages} free")
+    if eng.preemptions < 1:
+        raise AssertionError("the continuous serve preempted no request; the pool was meant to run dry")
+    n_layers = cfg.num_layers
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
+    want = {"paged_decode_attention": n_layers * len(ticks),
+            "paged_prefill_attention": n_layers * eng.prefill_chunks_total,
+            "grouped_mlp": n_moe * (len(ticks) + eng.prefill_chunks_total)}
+    if launches != want:
+        raise AssertionError(f"continuous serve launches {launches}, expected {want}")
+    if snap is None:
+        raise AssertionError("no tick had between 3 and 7 decoding slots to snapshot")
+    n_tok = sum(len(done[i].tokens) for i in ids)
+    tick_ms = statistics.median(m["decode_s"] for m in ticks) * 1e3
+    ttft = [round((first[i] - t0) * 1e3, 3) for i in ids]
+    lines = [
+        f"continuous serve: {len(ids)} requests x {CONT_NEW} tokens (prompts {CONT_PROMPTS}) in "
+        f"{wall * 1e3:.3f} ms ({n_tok / wall:.1f} tok/s); {len(eng.metrics_log)} ticks, "
+        f"{len(ticks)} with decode, decode phase median {tick_ms:.3f} ms; "
+        f"{eng.prefill_tokens_total} prefill tokens in {eng.prefill_chunks_total} chunks; "
+        f"preemptions {eng.preemptions}; launches {launches}; pool drained "
+        f"(free {eng.pool.free_count} == n_pages {eng.n_pages}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+        f"continuous serve: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f})",
+        f"continuous serve: tokens of request 0: {done[ids[0]].tokens}",
     ]
+    return lines, launches, snap, eng
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -225,10 +599,14 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.base import Segment
     from repro_torch.configs.registry import get_config, make_reduced
+    from repro_torch.kernels import attention_paged as k7
+    from repro_torch.kernels import attention_prefill_paged as k8
     from repro_torch.kernels import build
     from repro_torch.kernels import expert_mlp_grouped as gk
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    counters = (gk.launches, k7.launches, k8.launches)
 
     # 1. card
     smi = nvidia_smi_line()
@@ -241,15 +619,16 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build()
     log(f"build: {len(build.sources())} source(s) ready in {time.perf_counter() - t0:.2f} s "
-        f"(compiled: {', '.join(f'{k} {v:.2f} s' for k, v in secs.items()) or 'none'})")
+        f"(compiled, started together: {', '.join(f'{k} {v:.2f} s' for k, v in secs.items()) or 'none'})")
     for src in build.sources():
         for line in build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
-    # 3. serve at full width, depth cut to one (dense, MoE) repeat
+    # 3. static serve at full width, depth cut to one (dense, MoE) repeat
     full = get_config(ARCH)
     cfg = full.replace(moe_impl="grouped", segments=(Segment(full.segments[0].pattern, 1),))
+    red = make_reduced(full).replace(moe_impl="grouped")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
@@ -264,64 +643,139 @@ def main() -> int:
             for _ in range(BATCH)]
     eng.generate(reqs)  # warm-up: cuBLAS handles, allocator pools
     torch.cuda.synchronize()
-    for k in gk.launches:
-        gk.launches[k] = 0
+    reset(*counters)
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    launches = dict(gk.launches)
+    static_launches = {k: v for c in counters for k, v in c.items()}
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out), [r.tokens for r in out]
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
-    expected = n_moe * (1 + NEW - 1)
-    if launches["grouped_mlp"] != expected:
-        raise AssertionError(f"grouped_mlp launched {launches['grouped_mlp']} times, expected {expected}")
+    expected = {"grouped_mlp": n_moe * (1 + NEW - 1), "paged_decode_attention": 0,
+                "paged_prefill_attention": 0}
+    if static_launches != expected:
+        raise AssertionError(f"static serve launches {static_launches}, expected {expected}")
     tm = eng.last_timings
     step_ms = statistics.median(tm["decode_step_s"]) * 1e3
     log(f"serve: {BATCH} requests x {NEW} tokens in {wall * 1e3:.3f} ms "
         f"({BATCH * NEW / wall:.1f} tok/s); prefill {tm['prefill_s'] * 1e3:.3f} ms "
         f"(batch {BATCH} x {PROMPT}); decode step median {step_ms:.3f} ms "
         f"({BATCH / step_ms * 1e3:.1f} tok/s) over {len(tm['decode_step_s'])} steps; "
-        f"launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        f"launches {static_launches}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     log(f"serve: tokens of request 0: {out[0].tokens}")
     for line in profile_decode(eng, cfg, params):
         log(line)
-    log(reference_check(make_reduced(full).replace(moe_impl="grouped")))
+    log(reference_check(red))
 
-    # 4. kernels against their plain versions, then timed beside their bounds
+    # 4. continuous serve, same weights
+    lines, cont_launches, snap, ceng = continuous_serve(cfg, params, counters)
+    for line in lines:
+        log(line)
+    for line in profile_ticks(ceng, cfg):
+        log(line)
+
+    # 5. full-width chunked prefill against the static prefill
+    log(chunked_prefill_check(cfg, params))
+
+    # 6. reduced f32 continuous serve, card vs CPU
+    log(continuous_reference_check(red))
+
+    # 7. kernels against their plain versions, then timed beside their bounds
     moe = {k: v[0] for k, v in params["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shapes = {}
     for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
         kargs, info = grouped_case(moe, T, 1, gen, torch.bfloat16)
-        info.update(check_kernel(kargs, BF16_TOL))
+        info.update(check_grouped(kargs, BF16_TOL))
         info["ms"] = time_ms(lambda: gk.grouped_mlp(*kargs))
         shapes[label] = info
         log(f"kernel grouped_mlp bf16 {label}: {json.dumps(info)}")
-    red = make_reduced(full).replace(moe_impl="grouped")
     rp = init_params(red, seed=SEED, device="cuda")
     rmoe = {k: v[0] for k, v in rp["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     kargs, info = grouped_case(rmoe, 64, 1, gen, torch.float32)
-    info.update(check_kernel(kargs, F32_TOL))
+    info.update(check_grouped(kargs, F32_TOL))
     shapes["f32_reduced"] = info
     log(f"kernel grouped_mlp f32 reduced: {json.dumps(info)}")
 
+    G = cfg.num_heads // cfg.num_kv_heads
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    attn = {"paged_decode_attention": {}, "paged_prefill_attention": {}}
+    pool, tbl, qpos = snap
+    for dt, tol, label in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
+        args, info = decode_case(pool, tbl, qpos, G, dt, gen)
+        info.update(check_paged("paged_decode_attention", k7.paged_decode_attention,
+                                k7.paged_decode_attention_plain, args, dict(scale=scale), tol,
+                                timed=dt == torch.bfloat16, library=sdpa_decode))
+        attn["paged_decode_attention"][f"{label}_served"] = info
+        log(f"kernel paged_decode_attention {label} served (table of the continuous serve mid-run): "
+            f"{json.dumps(info)}")
+        for hist in (0, 1008):
+            args, info = prefill_case(hist, CONT["prefill_chunk"], cfg.num_kv_heads, G, cfg.head_dim,
+                                      CONT["page_size"], CONT["n_pages"] + 1,
+                                      CONT["capacity"] // CONT["page_size"], dt, gen)
+            info.update(check_paged("paged_prefill_attention", k8.paged_prefill_attention,
+                                    k8.paged_prefill_attention_plain, args, dict(scale=scale), tol,
+                                    timed=dt == torch.bfloat16, library=sdpa_prefill))
+            attn["paged_prefill_attention"][f"{label}_history{hist}"] = info
+            log(f"kernel paged_prefill_attention {label} history {hist}: {json.dumps(info)}")
+    # reduced size with a window and a softcap (llama4 uses neither)
+    kw = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
+    rG = red.num_heads // red.num_kv_heads
+    for dt, tol, label in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
+        args, _ = prefill_case(50, 40, red.num_kv_heads, rG, red.head_dim, 8, 30, 16, dt, gen)
+        q, k, v, kpos, table, qpos_c, _, _ = args
+        attn["paged_prefill_attention"][f"{label}_window_softcap"] = check_paged(
+            "paged_prefill_attention", k8.paged_prefill_attention, k8.paged_prefill_attention_plain,
+            args, kw, tol)
+        rows = torch.stack([table, torch.full_like(table, 29), table.roll(3)])  # one all-trash row
+        dargs = (q[:3].contiguous(), k, v, kpos, rows.contiguous(), qpos_c[[10, 0, 39]].contiguous())
+        attn["paged_decode_attention"][f"{label}_window_softcap"] = check_paged(
+            "paged_decode_attention", k7.paged_decode_attention, k7.paged_decode_attention_plain,
+            dargs, kw, tol)
+    log(f"kernel paged attention reduced with window 37, softcap 20: " + json.dumps(
+        {n: {s: v for s, v in d.items() if "window" in s} for n, d in attn.items()}))
+
     dec = shapes["decode"]
-    kernels = [{
-        "name": "grouped_mlp",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/grouped_mlp.cu",
-        "replaces": "src/repro/kernels/expert_mlp_grouped.py:88",
-        "launches": launches["grouped_mlp"],
-        "max_abs_err": max(shapes[s]["max_abs_err"] for s in ("prefill", "decode")),
-        "max_rel_err": max(shapes[s]["max_rel_err"] for s in ("prefill", "decode")),
-        "ms": dec["ms"],
-        "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes a grouped SwiGLU MLP
-        "shapes": shapes,
-    }]
+    library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
+                    "over K/V gathered into a contiguous tensor beforehand (the gather timed on "
+                    "its own: library_gather_ms); no single PyTorch call computes a paged attention")
+
+    def attn_entry(name, source, replaces, main):
+        m = attn[name][main]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": cont_launches[name],
+            "max_abs_err": max(s["max_abs_err"] for s in attn[name].values()),
+            "max_rel_err": max(s["max_rel_err"] for s in attn[name].values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_gather_ms": m["library_gather_ms"], "library_call": library_call,
+            "shapes": attn[name],
+        }
+
+    kernels = [
+        {
+            "name": "grouped_mlp",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_mlp.cu",
+            "replaces": "src/repro/kernels/expert_mlp_grouped.py:88",
+            "launches": static_launches["grouped_mlp"],
+            "launches_by_path": {"static": static_launches["grouped_mlp"],
+                                 "continuous": cont_launches["grouped_mlp"]},
+            "max_abs_err": max(shapes[s]["max_abs_err"] for s in ("prefill", "decode")),
+            "max_rel_err": max(shapes[s]["max_rel_err"] for s in ("prefill", "decode")),
+            "ms": dec["ms"],
+            "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a grouped SwiGLU MLP
+            "shapes": shapes,
+        },
+        attn_entry("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
+                   "src/repro/kernels/attention_paged.py:174", "bf16_served"),
+        attn_entry("paged_prefill_attention", "src/repro_torch/csrc/paged_prefill_attention.cu",
+                   "src/repro/kernels/attention_prefill_paged.py:207", "bf16_history1008"),
+    ]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,307 @@
+// Device code shared by the two paged attention kernels for Hopper, sm_90a:
+// paged_decode_attention.cu (one query token per slot) and
+// paged_prefill_attention.cu (one prefill chunk of one sequence).
+//
+// Both compute, for one kv-head and a set of query rows, a masked softmax
+// attention over keys streamed in tiles of up to KT = 32 keys, as the TPU
+// kernels do with their sequential page grid axis:
+//
+//   * the query rows of the block (row = token * G + grouped head, so head
+//     h_q = kv * G + g as the model's [H] -> [Hkv, G] reshape gives) are
+//     staged once in shared memory as f32;
+//   * a tile is staged in shared memory as f32 (K rows padded by one float so
+//     the per-thread dot products read distinct banks), with its absolute
+//     positions, which carry the masks: pos < 0 (empty or trash entry),
+//     causal (pos > query position), window (query - pos >= window);
+//   * scores in f32 (scale, then softcap), an online softmax per row (running
+//     max m, normaliser l; one warp per row, one lane per key) and the P.V
+//     update of an f32 accumulator held in registers (thread = one head-dim
+//     column, RT / (NT / DH) rows).
+//
+// Masked entries get probability 0 explicitly, as in the TPU kernels
+// (attention_paged.py:80-83, attention_prefill_paged.py:100-103): while no
+// valid key has been seen the running max is still NEG_INF and
+// exp(NEG_INF - NEG_INF) = 1 would count every masked key into l.  A row with
+// no valid key ends with acc = 0 and l = 0 and writes 0 / 1e-30 = 0, finite.
+//
+// Pool pages come through the block table, which the caller pre-clamps (-1 ->
+// the trash page Pt - 1, whose positions stay -1).  Trash entries are skipped
+// without reading anything: a 128-entry table of a short sequence would
+// otherwise stream the trash page about 120 times.  One warp compacts the next
+// live entries of the table into a tile (KT / page_size pages), and a tile
+// whose keys are masked for every row of the block (empty pages, keys past the
+// block's last causal query) is skipped after reading only its positions.
+// Skipping is exact: a fully masked tile leaves m, l and acc unchanged.
+//
+// Exponentials use expf (not __expf) and there is no fast-math flag, so f32
+// results differ from the plain PyTorch version only in summation order.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+namespace paged {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int KT = 32;   // keys per tile: one lane per key in the softmax step
+constexpr int VEC = 4;   // elements per vector load of a K/V row
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even
+}
+
+__device__ __forceinline__ void load4(const float* p, float v[VEC]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[VEC]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// Scale, softcap and masks: the kernels' static arguments on the TPU.
+struct Mask {
+  float scale;
+  float softcap;  // <= 0: off
+  int causal;
+  int window;     // <= 0: off
+
+  __device__ __forceinline__ bool valid(int kp, int qp) const {
+    return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+  }
+  __device__ __forceinline__ float score(float dot) const {
+    float s = dot * scale;
+    if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+    return s;
+  }
+};
+
+// One block: RT query rows of one kv-head, NT threads, head dim DH.
+template <typename T, int DH, int RT, int NT>
+struct Attn {
+  static constexpr int NW = NT / 32;
+  static constexpr int KS = DH + 1;          // padded K row
+  static constexpr int RSTEP = NT / DH;      // rows between a thread's accumulators
+  static constexpr int RPT = RT / RSTEP;     // accumulators per thread
+  static_assert(KT == 32, "the softmax step maps one lane to one key");
+  static_assert(NT % 32 == 0 && NT % DH == 0 && RT % RSTEP == 0, "block shape");
+  static_assert(DH % VEC == 0, "vector loads");
+
+  struct Smem {
+    float q[RT][DH];
+    float k[KT][KS];
+    float v[KT][DH];
+    float p[RT][KT];     // scores, then probabilities
+    float m[RT];
+    float l[RT];
+    float alpha[RT];
+    int qp[RT];          // query positions
+    int kp[KT];          // key positions of the tile (-1 = masked)
+    int page[KT];        // pool pages of the tile
+    int next_entry;      // next table entry to look at
+    int n_pages;         // pages in the tile
+    int qp_lo, qp_hi;    // query position range of the block
+  };
+
+  Smem& s;
+  const Mask mk;
+  const int tid, lane, warp;
+  int nrows = 0, qp_lo = 0, qp_hi = 0;
+  float acc[RPT];
+
+  __device__ Attn(Smem& sm, const Mask& m)
+      : s(sm), mk(m), tid(threadIdx.x), lane(threadIdx.x & 31), warp(threadIdx.x >> 5) {}
+
+  // Rows row0 .. row0 + n - 1 of q [tokens, Hkv, G, DH]; row = token * G + g.
+  __device__ void load_queries(const T* q, const int* qpos, int Hkv, int h, int G, int row0, int n) {
+    nrows = n;
+    for (int i = tid; i < n * DH; i += NT) {
+      const int r = i / DH, d = i - r * DH;
+      const int rg = row0 + r, c = rg / G, g = rg - c * G;
+      s.q[r][d] = to_f32(q[((size_t)(c * Hkv + h) * G + g) * DH + d]);
+      if (d == 0) s.qp[r] = qpos[c];
+    }
+    for (int r = tid; r < RT; r += NT) {
+      s.m[r] = NEG_INF;
+      s.l[r] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+    __syncthreads();
+    if (tid == 0) {
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int r = 0; r < n; ++r) {
+        lo = min(lo, s.qp[r]);
+        hi = max(hi, s.qp[r]);
+      }
+      s.qp_lo = lo;
+      s.qp_hi = hi;
+    }
+    __syncthreads();
+    qp_lo = s.qp_lo;
+    qp_hi = s.qp_hi;
+  }
+
+  // After s.kp[0..nk) is written: whether any key of the tile can be valid
+  // for some row of the block (a necessary condition; also a barrier).
+  __device__ bool tile_live(int nk) {
+    const int kp = tid < nk ? s.kp[tid] : -1;
+    const bool may = kp >= 0 && (!mk.causal || kp <= qp_hi) &&
+                     (mk.window <= 0 || kp > qp_lo - mk.window);
+    return __syncthreads_or(may) != 0;
+  }
+
+  // Stage K/V rows of the tile: key j lives at row row_of(j) of a
+  // [rows, Hkv, DH] array (a pool page row is page * ps + offset).
+  template <typename RowOf>
+  __device__ void stage(const T* kb, const T* vb, int Hkv, int h, int nk, RowOf row_of) {
+    constexpr int NV = DH / VEC;
+    for (int i = tid; i < nk * NV; i += NT) {
+      const int j = i / NV, c = (i - j * NV) * VEC;
+      const size_t off = ((size_t)row_of(j) * Hkv + h) * DH + c;
+      float kv[VEC], vv[VEC];
+      load4(kb + off, kv);
+      load4(vb + off, vv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        s.k[j][c + e] = kv[e];
+        s.v[j][c + e] = vv[e];
+      }
+    }
+    __syncthreads();
+  }
+
+  // Online-softmax update of every row with the staged tile of nk keys.
+  __device__ void process_tile(int nk) {
+    for (int i = tid; i < nrows * nk; i += NT) {
+      const int r = i / nk, j = i - r * nk;
+      const float* qr = s.q[r];
+      const float* kr = s.k[j];
+      float dot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
+      s.p[r][j] = mk.score(dot);
+    }
+    __syncthreads();
+    for (int r = warp; r < nrows; r += NW) {
+      const bool ok = lane < nk && mk.valid(s.kp[lane], s.qp[r]);
+      const float sc = ok ? s.p[r][lane] : NEG_INF;
+      float mx = sc;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = s.m[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float e = ok ? expf(sc - m_new) : 0.f;
+      float sum = e;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      s.p[r][lane] = e;
+      if (lane == 0) {
+        const float a = expf(m_prev - m_new);
+        s.alpha[r] = a;
+        s.l[r] = s.l[r] * a + sum;
+        s.m[r] = m_new;
+      }
+    }
+    __syncthreads();
+    const int d = tid % DH, r0 = tid / DH;
+    float vr[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) vr[j] = j < nk ? s.v[j][d] : 0.f;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = r0 + i * RSTEP;
+      if (r < nrows) {
+        float a = acc[i] * s.alpha[r];
+#pragma unroll
+        for (int j = 0; j < KT; ++j) a = fmaf(s.p[r][j], vr[j], a);  // p = 0 past nk
+        acc[i] = a;
+      }
+    }
+  }
+
+  // Warp 0: the next KT / ps live entries of the table row into s.page.
+  __device__ void gather_pages(const int* table_row, int nt, int Pt, int ppt) {
+    int e = s.next_entry, n = 0;
+    while (n < ppt && e < nt) {
+      const int idx = e + lane;
+      const int pg = idx < nt ? __ldg(table_row + idx) : Pt - 1;
+      const bool live = pg >= 0 && pg != Pt - 1;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      const int need = ppt - n;
+      const int rank = __popc(mask & ((1u << lane) - 1u));
+      if (live && rank < need) s.page[n + rank] = pg;
+      const int got = __popc(mask);
+      if (got >= need) {
+        e += __ffs(__ballot_sync(0xffffffffu, live && rank == need - 1));  // past the last taken
+        n = ppt;
+      } else {
+        e += 32;
+        n += got;
+      }
+    }
+    if (lane == 0) {
+      s.next_entry = min(e, nt);
+      s.n_pages = n;
+    }
+  }
+
+  // Every live page of the table row; pool keys at positions >= mask_from
+  // are masked (the prefill chunk's own positions).
+  __device__ void attend_pool(const T* kpool, const T* vpool, const int* kpos, const int* table_row,
+                              int nt, int ps, int Pt, int Hkv, int h, int mask_from) {
+    const int ppt = KT / ps;
+    if (tid == 0) s.next_entry = 0;
+    __syncthreads();
+    while (true) {
+      if (warp == 0) gather_pages(table_row, nt, Pt, ppt);
+      __syncthreads();
+      const int nk = s.n_pages * ps;
+      if (nk == 0) break;
+      if (tid < nk) {
+        const int pos = __ldg(kpos + (size_t)s.page[tid / ps] * ps + tid % ps);
+        s.kp[tid] = pos >= mask_from ? -1 : pos;
+      }
+      if (!tile_live(nk)) continue;
+      stage(kpool, vpool, Hkv, h, nk, [&](int j) { return s.page[j / ps] * ps + j % ps; });
+      process_tile(nk);
+    }
+  }
+
+  // The chunk's own keys ck/cv [C, Hkv, DH] at the query positions.
+  __device__ void attend_chunk(const T* ck, const T* cv, const int* qpos, int C, int Hkv, int h) {
+    for (int j0 = 0; j0 < C; j0 += KT) {
+      const int nk = min(KT, C - j0);
+      __syncthreads();  // the previous tile is consumed
+      if (tid < nk) s.kp[tid] = qpos[j0 + tid];
+      if (!tile_live(nk)) continue;
+      stage(ck, cv, Hkv, h, nk, [&](int j) { return j0 + j; });
+      process_tile(nk);
+    }
+  }
+
+  // out [tokens, Hkv, G, DH], rows as in load_queries.
+  __device__ void store(T* out, int Hkv, int h, int G, int row0) {
+    const int d = tid % DH, r0 = tid / DH;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = r0 + i * RSTEP;
+      if (r < nrows) {
+        const int rg = row0 + r, c = rg / G, g = rg - c * G;
+        out[((size_t)(c * Hkv + h) * G + g) * DH + d] = from_f32<T>(acc[i] / fmaxf(s.l[r], 1e-30f));
+      }
+    }
+  }
+};
+
+}  // namespace paged

@@ -2,9 +2,10 @@
 into shared libraries with a plain C interface, and loads them with ctypes.
 
 A library is built at first use, into ``build/repro_torch/`` at the root of
-the checkout, and rebuilt when its source or the flags change (the file name
-carries their hash).  Nothing here runs at import: a machine without ``nvcc``
-imports the port and runs its plain versions on the CPU.
+the checkout, and rebuilt when its source, the shared headers
+(``csrc/*.cuh``) or the flags change (the file name carries their hash).
+Nothing here runs at import: a machine without ``nvcc`` imports the port
+and runs its plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -40,29 +41,39 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] | None = None) -> Dict[str, float]:
-    """Compile every named source whose library is missing.  Returns seconds
-    per compiled source; raises with nvcc's output on a failure.  The ptxas
-    report (registers, spills) is kept beside each library as ``<lib>.log``."""
+    """Compile every named source whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns seconds per compiled source;
+    raises with nvcc's output on a failure.  The ptxas report (registers,
+    spills) is kept beside each library as ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    seconds = {}
+    t0 = time.perf_counter()
+    running = {}
     for name in sources() if names is None else names:
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    seconds, failed = {}, []
+    for name, (proc, tmp, out) in running.items():
+        log = proc.communicate()[0]
         seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-        out.with_suffix(".log").write_text(proc.stdout)
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -1,12 +1,18 @@
-"""GQA self-attention with contiguous KV caches (``repro/models/attention.py``,
-global kind).
+"""GQA self-attention with contiguous and paged KV caches
+(``repro/models/attention.py``, global kind).
 
-Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) are ported.
-The caches are updated in place: the stacked ``[repeats, B, cap, ...]``
-tensors the engine allocates are written through per-layer views, so a
-decode step never copies a cache.  Softmax runs in f32 exactly as the JAX
-``_sdpa`` does (f32 logits, probabilities cast to ``v``'s type); no fused
-attention operator is called.
+Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) run over
+contiguous caches; ``decode_paged`` and ``prefill_chunk`` over a shared page
+pool addressed through block tables, through the hand-written paged kernels
+(``kernels/attention_paged.py``, ``kernels/attention_prefill_paged.py``).
+Caches are updated in place: the stacked ``[repeats, ...]`` tensors the
+engines allocate are written through per-layer views, so a step never copies
+a cache.  That changes the order of reads and writes against JAX's
+functional updates, and the paged modes keep JAX's order explicitly: a
+prefill chunk attends over the pool BEFORE its K/V are written, a decode
+token is written first and then attends (it sees itself).  The contiguous
+modes' softmax runs in f32 exactly as the JAX ``_sdpa`` does (f32 logits,
+probabilities cast to ``v``'s type); no fused attention operator is called.
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import AttnSpec, ModelConfig
+from repro_torch.kernels.attention_paged import paged_decode_attention
+from repro_torch.kernels.attention_prefill_paged import paged_prefill_attention
 from repro_torch.models.modules import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
 
 NEG_INF = -1e30
@@ -27,6 +35,14 @@ NEG_INF = -1e30
 
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
+
+
+MODES = ("train", "prefill", "decode", "decode_paged", "prefill_chunk")
+# modes of the JAX attention not ported yet
+UNPORTED_MODES = {
+    "prefill_chunk_batched": "item 3, batched multi-slot prefill",
+    "decode_ragged": "item 3, the contiguous (paged=False) ContinuousEngine",
+}
 
 
 def check_spec(spec: AttnSpec) -> None:
@@ -94,6 +110,102 @@ def _cache_write_decode(cache: dict, k_new, v_new, index: int) -> dict:
     return cache
 
 
+def spec_is_paged(spec: AttnSpec) -> bool:
+    """Whether a self-attention layer's cache goes into the shared page pool
+    under paged serving: every layer but sliding-window ones, which keep
+    per-slot rings (those are not ported yet, ``check_spec``)."""
+    return not (spec.kind == "local" and spec.window > 0)
+
+
+def init_paged_kv_cache(n_pages: int, page_size: int, n_kv: int, head_dim: int, dtype, device,
+                        *, lead=()) -> dict:
+    """Shared page-pool KV cache ``[n_pages + 1, page_size, n_kv, head_dim]``,
+    no batch axis: sequences own pages through per-slot block tables
+    (``serving/kv_pool.py``).  The last page is the trash page: never handed
+    out, its ``pos`` stays -1, unmapped table entries clamp to it on read and
+    inactive rows write into it."""
+    lead = tuple(lead)
+    shape = lead + (n_pages + 1, page_size, n_kv, head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full(lead + (n_pages + 1, page_size), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _paged_clamp_table(table: torch.Tensor, n_pages_total: int) -> torch.Tensor:
+    """-1 (unmapped) entries -> the trash page, whose pos is pinned at -1.
+    The model-level entry points clamp once per call; every function below
+    takes the clamped int32 table and int32 positions."""
+    return torch.where(table < 0, n_pages_total - 1, table).to(torch.int32)
+
+
+def _paged_cache_write_decode(cache: dict, k_new, v_new, row_pos, table) -> dict:
+    """Write one token per row into its block-table page (in place).  Rows
+    whose entry is unmapped (inactive slots: all-trash table rows) land in the
+    trash page with position -1; those writes may collide, and a plain
+    (non-accumulating) index_put leaves the trash page's pos at -1 whatever
+    the order."""
+    Pt, ps = cache["pos"].shape
+    B = row_pos.shape[0]
+    rows = torch.arange(B, device=row_pos.device)
+    pos = row_pos.long()
+    pages = table[rows, pos // ps].long()
+    offs = pos % ps
+    cache["k"][pages, offs] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][pages, offs] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][pages, offs] = torch.where(pages == Pt - 1, -1, row_pos)
+    return cache
+
+
+def _paged_cache_write_chunk(cache: dict, k_new, v_new, positions, table_row) -> dict:
+    """Write one prefill chunk's K/V (one sequence, C consecutive positions)
+    straight into its block-table pages (in place).  Unmapped entries (the
+    trash page) are written with position -1.  An entry that already holds the
+    exact position being written can only be a prefix page shared from
+    another admission (fresh and recycled pages carry -1), so that write is
+    routed to the trash page too: ``already`` reads ``pos`` before the write,
+    as the JAX function does."""
+    Pt, ps = cache["pos"].shape
+    pos = positions.long()  # [C]
+    offs = pos % ps
+    pages = table_row[pos // ps].long()
+    already = cache["pos"][pages, offs] == positions
+    pages = torch.where(already, Pt - 1, pages)
+    cache["k"][pages, offs] = k_new[0].to(cache["k"].dtype)
+    cache["v"][pages, offs] = v_new[0].to(cache["v"].dtype)
+    cache["pos"][pages, offs] = torch.where(pages == Pt - 1, -1, positions)
+    return cache
+
+
+def _paged_decode_attend(q, cache: dict, row_pos, table, spec: AttnSpec, scale: float):
+    """One-token decode over a paged pool, through kernel 7.  q: [B, 1, H, dh]."""
+    B, _, H, dh = q.shape
+    Hkv = cache["k"].shape[2]
+    # head h is kv * G + g: the [H] -> [Hkv, G] reshape, not a transpose
+    qg = q[:, 0].reshape(B, Hkv, H // Hkv, dh).contiguous()
+    y = paged_decode_attention(
+        qg, cache["k"], cache["v"], cache["pos"], table, row_pos,
+        scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        softcap=spec.logit_softcap)
+    return y.reshape(B, 1, H, dh)
+
+
+def _paged_prefill_chunk_attend(q, k, v, cache: dict, positions, table_row, spec: AttnSpec,
+                                scale: float):
+    """Chunk queries attend over (the pool's pages, BEFORE this chunk's
+    write) ++ (the chunk's own K/V, causal), through kernel 8.  q/k/v:
+    [1, C, ...]; positions [C]."""
+    _, C, H, dh = q.shape
+    Hkv = k.shape[2]
+    y = paged_prefill_attention(
+        q[0].reshape(C, Hkv, H // Hkv, dh).contiguous(), cache["k"], cache["v"], cache["pos"],
+        table_row, positions, k[0].contiguous(), v[0].contiguous(),
+        scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        softcap=spec.logit_softcap)
+    return y.reshape(1, C, H, dh)
+
+
 # ---------------------------------------------------------------------------
 # Core scaled-dot-product with GQA + masking
 # ---------------------------------------------------------------------------
@@ -157,17 +269,31 @@ def attention(
     cache: Optional[dict] = None,
     mode: str = "train",
     index: Optional[int] = None,
+    block_table: Optional[torch.Tensor] = None,
 ):
-    """Returns (y, cache).  mode: train | prefill | decode.
+    """Returns (y, cache).  mode: train | prefill | decode | decode_paged |
+    prefill_chunk.
 
     - train:   causal self-attention over x, no cache IO.
     - prefill: the same, and writes the cache (in place).
     - decode:  x is [B, 1, d]; writes the token at slot ``index`` (the
                uniform batch position), then attends over the cache.
+    - decode_paged: x is [B, 1, d] at per-row ``positions`` [B, 1]; the
+               cache is a page pool addressed through ``block_table``
+               [B, max_pages] (int32, clamped); writes each row's token into its page, then
+               attends (kernel 7).
+    - prefill_chunk: x is [1, C, d], one chunk of one sequence at absolute
+               ``positions``; attends over the pool's pages named by
+               ``block_table`` (its earlier chunks) plus the chunk itself
+               (kernel 8), then writes the chunk's K/V into its pages.
     """
     check_spec(spec)
-    if mode not in ("train", "prefill", "decode"):
-        _unported(f"attention mode {mode!r}", "item 3, the paged ContinuousEngine")
+    if mode in UNPORTED_MODES:
+        _unported(f"attention mode {mode!r}", UNPORTED_MODES[mode])
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}")
+    if mode in ("decode_paged", "prefill_chunk") and (block_table is None or not spec_is_paged(spec)):
+        _unported(f"{mode} without a page pool", "item 3, the contiguous (paged=False) ContinuousEngine")
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
@@ -181,7 +307,16 @@ def attention(
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
 
-    if mode == "decode":
+    if mode == "prefill_chunk":
+        pos1d = positions.reshape(-1)
+        table_row = block_table[0] if block_table.ndim == 2 else block_table
+        y = _paged_prefill_chunk_attend(q, k, v, cache, pos1d, table_row, spec, scale)
+        cache = _paged_cache_write_chunk(cache, k, v, pos1d, table_row)
+    elif mode == "decode_paged":
+        row_pos = positions.reshape(B)
+        cache = _paged_cache_write_decode(cache, k, v, row_pos, block_table)
+        y = _paged_decode_attend(q, cache, row_pos, block_table, spec, scale)
+    elif mode == "decode":
         assert cache is not None and S == 1 and index is not None
         cache = _cache_write_decode(cache, k, v, index)
         q_pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)

@@ -3,7 +3,9 @@ final norm -> logits.
 
 Entry points: ``init_params``, ``init_caches``, ``forward`` (teacher-forced
 logits), ``prefill`` (logits of the last position, caches filled) and
-``decode_step`` (one token, caches updated in place).  Parameters live in a
+``decode_step`` (one token, caches updated in place); for paged serving
+``init_paged_caches``, ``paged_prefill_chunk``, ``paged_ragged_decode_step``
+and ``paged_reset_pages``.  Parameters live in a
 :class:`ParamTree`, an ``nn.Module`` whose nesting and leaf names are the JAX
 package's parameter tree, so a JAX tree converts leaf for leaf
 (``repro_torch.convert``).
@@ -16,7 +18,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AttnSpec, ModelConfig
+from repro_torch.models.attention import _paged_clamp_table, spec_is_paged
 from repro_torch.models.modules import DTYPES, embed_init, init_rmsnorm, rmsnorm
 from repro_torch.models.transformer import apply_segment, init_segment, init_segment_cache
 
@@ -96,6 +99,28 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda") -
             for i, seg in enumerate(cfg.segments)}
 
 
+def init_paged_caches(cfg: ModelConfig, slots: int, capacity: int, *, n_pages: int,
+                      page_size: int, device="cuda") -> dict:
+    """Paged serving caches: every self-attention layer's K/V lives in a
+    shared page pool ``[repeats, n_pages + 1, page_size, Hkv, dh]`` addressed
+    through per-slot block tables.  ``capacity`` stays the per-sequence
+    context bound (it sizes the tables, not the pool).
+
+    Layers with per-slot state (window rings, SSM/LRU states, cross caches),
+    which the JAX package keeps beside the pool, are not ported yet
+    (ROADMAP.md queue 1 item 5), so these caches hold pool leaves only."""
+    _check_cfg(cfg)
+    if not arch_fully_paged(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: paged serving of layers with per-slot state (window rings, SSM/LRU) "
+            "is not ported yet (ROADMAP.md, queue 1 item 5)")
+    device = resolve_device(device)
+    dt = DTYPES[cfg.param_dtype]
+    return {f"seg{i}": init_segment_cache(cfg, seg, slots, capacity, dt, device,
+                                          pages=(n_pages, page_size))
+            for i, seg in enumerate(cfg.segments)}
+
+
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
@@ -119,12 +144,12 @@ def logits_out(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _run_segments(cfg, params, x, positions, caches, mode, index=None):
+def _run_segments(cfg, params, x, positions, caches, mode, index=None, block_table=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(cfg.segments):
         c = caches[f"seg{i}"] if caches is not None else None
         x, _, a = apply_segment(cfg, seg, params["segments"][f"seg{i}"], x, positions,
-                                caches=c, mode=mode, index=index)
+                                caches=c, mode=mode, index=index, block_table=block_table)
         aux = aux + a
     return x, caches, aux
 
@@ -158,3 +183,80 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, index: int,
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
     x, caches, _ = _run_segments(cfg, params, x, positions, caches, "decode", index=index)
     return logits_out(cfg, params, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Paged serving entry points (shared page pool + per-slot block tables)
+# ---------------------------------------------------------------------------
+
+
+def _layer_entries(cfg: ModelConfig):
+    """Yield (seg_key, pos_key, LayerSpec, paged_self) over the decoder."""
+    for i, seg in enumerate(cfg.segments):
+        for j, ls in enumerate(seg.pattern):
+            paged = isinstance(ls.mixer, AttnSpec) and spec_is_paged(ls.mixer)
+            yield f"seg{i}", f"pos{j}", ls, paged
+
+
+def arch_fully_paged(cfg: ModelConfig) -> bool:
+    """True iff every sequence-mixing layer's state lives in the shared page
+    pool under paged serving (no window rings, no SSM/LRU states)."""
+    return all(paged for _, _, _, paged in _layer_entries(cfg))
+
+
+def _clamped(cfg: ModelConfig, caches: dict, table: torch.Tensor) -> torch.Tensor:
+    """The block table with -1 entries clamped to the trash page, once per
+    call rather than in every layer (every paged layer shares one pool size)."""
+    sk, pk = next((sk, pk) for sk, pk, _, paged in _layer_entries(cfg) if paged)
+    return _paged_clamp_table(table, caches[sk][pk]["self"]["pos"].shape[-2])
+
+
+@torch.no_grad()
+def paged_ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions: torch.Tensor,
+                             caches: dict, block_table: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Continuous-batching decode tick over paged caches: token [B, 1] at
+    per-row ``positions`` [B]; ``block_table`` [B, max_pages] int32 with -1
+    unmapped.  Returns (logits [B, V], caches updated in place).
+
+    The pool writes mask themselves: an inactive row's table row is all -1,
+    so its write lands in the trash page with position -1, and its
+    attention sees no valid key (its logits are discarded).  The JAX
+    function also merges per-slot leaves under an ``active`` mask; the port
+    has none (``init_paged_caches``), so it takes no mask."""
+    x = embed_tokens(cfg, params, token)
+    pos2d = positions.to(torch.int32)[:, None]
+    x, caches, _ = _run_segments(cfg, params, x, pos2d, caches, "decode_paged",
+                                 block_table=_clamped(cfg, caches, block_table))
+    return logits_out(cfg, params, x)[:, 0], caches
+
+
+@torch.no_grad()
+def paged_reset_pages(cfg: ModelConfig, caches: dict, page_mask: torch.Tensor) -> dict:
+    """Invalidate pages returned to the pool, in place: ``page_mask``
+    [n_pages + 1] bool -> those pages' ``pos`` entries become -1 in every
+    layer's pool.  Required for correctness: a recycled page's leftover
+    positions (which can be <= the new owner's query position) would
+    otherwise unmask its previous occupant's K/V."""
+    for sk, pk, _, paged in _layer_entries(cfg):
+        if paged:
+            caches[sk][pk]["self"]["pos"].masked_fill_(page_mask[None, :, None], -1)
+    return caches
+
+
+@torch.no_grad()
+def paged_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, positions: torch.Tensor,
+                        caches: dict, table_row: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """One chunk of a resumable admission prefill, written straight into
+    pool pages: tokens [1, C] at absolute ``positions`` [1, C] (the chunk
+    start .. end - 1), ``table_row`` [max_pages] the slot's block table with
+    every page the chunk writes already mapped.  Each layer attends over the
+    sequence's already-written pages plus the chunk's own K/V (kernel 8) and
+    then writes the chunk's K/V into its pages.  Returns (logits of the
+    chunk's last position [1, V], caches updated in place).
+
+    The JAX function also resets (first chunk) or resumes the slot's per-slot
+    leaves (``slot``, ``reset``); the port has none (``init_paged_caches``)."""
+    x = embed_tokens(cfg, params, tokens)
+    x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
+                                 "prefill_chunk", block_table=_clamped(cfg, caches, table_row[None]))
+    return logits_out(cfg, params, x[:, -1:])[:, 0], caches

@@ -13,7 +13,14 @@ import torch
 
 from repro_torch.configs.base import AttnSpec, LayerSpec, ModelConfig, Segment
 from repro_torch.core.moe import init_moe, moe_layer
-from repro_torch.models.attention import attention, check_spec, init_attention, init_kv_cache
+from repro_torch.models.attention import (
+    attention,
+    check_spec,
+    init_attention,
+    init_kv_cache,
+    init_paged_kv_cache,
+    spec_is_paged,
+)
 from repro_torch.models.modules import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 
@@ -42,8 +49,14 @@ def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) 
 
 
 def init_layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, capacity: int, dtype, device,
-                     *, lead=()) -> dict:
+                     *, lead=(), pages=None) -> dict:
+    """``pages = (n_pages, page_size)`` puts the self-attention K/V into a
+    shared page pool addressed through block tables (paged serving)."""
     check_layer(ls)
+    if pages is not None and spec_is_paged(ls.mixer):
+        n_pages, page_size = pages
+        return {"self": init_paged_kv_cache(n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
+                                            dtype, device, lead=lead)}
     return {"self": init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim, dtype, device,
                                   lead=lead)}
 
@@ -58,12 +71,14 @@ def apply_layer(
     cache: Optional[dict] = None,
     mode: str = "train",
     index: Optional[int] = None,
+    block_table: Optional[torch.Tensor] = None,
 ):
     """Returns (x, cache, aux_loss); the cache is updated in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["norm_mixer"], x, cfg.rms_eps)
     sc = cache.get("self") if cache is not None else None
-    y, sc = attention(cfg, ls.mixer, params["attn"], h, positions, cache=sc, mode=mode, index=index)
+    y, sc = attention(cfg, ls.mixer, params["attn"], h, positions, cache=sc, mode=mode, index=index,
+                      block_table=block_table)
     x = x + y
     if ls.ffn.kind == "dense":
         h = rmsnorm(params["norm_ffn"], x, cfg.rms_eps)
@@ -93,8 +108,9 @@ def init_segment(gen, cfg: ModelConfig, seg: Segment, dtype, device) -> dict:
 
 
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int, capacity: int, dtype,
-                       device) -> dict:
-    return {f"pos{j}": init_layer_cache(cfg, ls, batch, capacity, dtype, device, lead=(seg.repeats,))
+                       device, *, pages=None) -> dict:
+    return {f"pos{j}": init_layer_cache(cfg, ls, batch, capacity, dtype, device, lead=(seg.repeats,),
+                                        pages=pages)
             for j, ls in enumerate(seg.pattern)}
 
 
@@ -108,15 +124,17 @@ def apply_segment(
     caches: Optional[dict] = None,
     mode: str = "train",
     index: Optional[int] = None,
+    block_table: Optional[torch.Tensor] = None,
 ):
     """Returns (x, caches, aux_sum); ``caches`` mirror the params with a
-    leading ``repeats`` axis and are written in place."""
+    leading ``repeats`` axis and are written in place.  ``block_table`` (the
+    paged modes) is the same for every layer."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(seg.repeats):
         for j, ls in enumerate(seg.pattern):
             key = f"pos{j}"
             c = take(caches[key], r) if caches is not None else None
             x, _, a = apply_layer(cfg, ls, take(params[key], r), x, positions,
-                                  cache=c, mode=mode, index=index)
+                                  cache=c, mode=mode, index=index, block_table=block_table)
             aux = aux + a
     return x, caches, aux

@@ -112,8 +112,8 @@ def test_cli_runs_on_cpu(pair, capsys):
 
 def test_cli_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--paged"])
-    assert "--paged is not ported yet" in capsys.readouterr().err
+        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--kv-bits", "8"])
+    assert "--kv-bits is not ported yet" in capsys.readouterr().err
 
 
 def test_engine_rejects_unported_options(pair):

@@ -43,14 +43,15 @@ def test_port_imports_without_jax_or_repro():
         capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split()[0])
-    assert n >= 20, res.stdout  # every package and module was walked
+    assert n >= 37, res.stdout  # every package and module was walked
 
 
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device is usable here")
     from repro_torch.configs.registry import get_config, make_reduced
-    from repro_torch.models.model import init_caches, init_params
+    from repro_torch.models.model import init_caches, init_paged_caches, init_params
+    from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.engine import Engine, EngineConfig
 
     cfg = make_reduced(get_config("llama4-maverick-400b-a17b")).replace(moe_impl="grouped")
@@ -61,3 +62,7 @@ def test_entry_points_default_to_the_card():
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_caches(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousEngine(cfg, params, paged=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_paged_caches(cfg, 1, 16, n_pages=2, page_size=8)
