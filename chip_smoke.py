@@ -30,14 +30,30 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the card (kernels) and on the CPU (plain versions), from the same weights,
    with a pool small enough to preempt: identical tokens and preemption
    count, last tick's logits within 1e-5 relative.
-7. kernels: each kernel against its plain PyTorch version on the same inputs
+7. quantized serving (MoQ): the bf16 tree's experts quantized to int8 on the
+   card (``quantize_params``, one expert matrix at a time; every other
+   tensor shared), then (a) ``Engine(kv_cache_bits=8)`` on the same 4
+   requests, launch counts set to 0 before and read after (kernel 5 once per
+   MoE call, kernel 9 once per layer and decode step, no fp kernel), expert
+   and KV-cache bytes beside bf16's, a profile of 5 decode steps naming the
+   quantize-on-write operators; (b) the continuous trace through
+   ``ContinuousEngine(kv_cache_bits=8)`` (kernels 5, 7q, 8q; the same
+   preemption count as the bf16 run, pool drained); (c) reduced f32 llama4
+   card vs CPU with int8 and int4 experts and an int8 KV cache (static
+   logits and tokens; the continuous trace's tokens and preemptions), and
+   policy ``all`` through ``Engine``.
+8. kernels: each kernel against its plain PyTorch version on the same inputs
    at the served path's shapes, in bf16 and f32 (the grouped MLP: the served
-   MoE layer at T = 256 and T = 4; paged decode: B = 8 slots with the table,
-   positions and pool of the continuous serve mid-run; paged prefill: 256
-   query chunks over 0 and 1008 tokens of pool history), and once more at a
-   reduced size with a window and a softcap; then each timed with CUDA events
-   beside its bound and, for attention, beside scaled_dot_product_attention.
-8. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+   MoE layer at T = 256 and T = 4, fp, int8 and int4, and f32 at reduced
+   size; paged decode: B = 8 slots with the table, positions and pool of the
+   continuous serve mid-run, fp and int8; paged prefill: 256 query chunks
+   over 0 and 1008 tokens of pool history, fp and int8; int8 decode: the
+   served static cache, 4 rows x 80 slots, and 8 rows x 2048 slots half
+   filled), and once more at a reduced size with a window and a softcap
+   (with a row that has no valid key, which must give 0); then each timed
+   with CUDA events beside its bound and, for attention, beside
+   scaled_dot_product_attention.
+9. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -150,9 +166,30 @@ def bound(need_bytes, ops, dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def quant_experts(params) -> bool:
+    """Whether the served MoE layer's experts are quantized."""
+    from repro_torch.quant.qarrays import QuantizedArray
+
+    return isinstance(params["segments"]["seg0"]["pos1"]["moe"]["wi"], QuantizedArray)
+
+
+def expert_bytes(moe) -> int:
+    """Bytes of one expert's wi, wg and wo: values in their type, or int8 /
+    packed int4 values plus their f32 column scales."""
+    total = 0
+    for n in ("wi", "wg", "wo"):
+        w = moe[n]
+        if torch.is_tensor(w):
+            total += w[0].numel() * w.element_size()
+        else:
+            total += w.q[0].numel() + w.scale[0].numel() * 4
+    return total
+
+
 def grouped_case(moe, T, K, gen, dtype):
     """Inputs of the grouped MLP as the MoE layer builds them: T random
-    tokens routed by the layer's router, sorted into the tile-padded buffer."""
+    tokens routed by the layer's router, sorted into the tile-padded buffer.
+    ``moe``'s experts may be quantized (kernel 5)."""
     from repro_torch.core.dispatch_grouped import grouped_layout
     from repro_torch.core.gating import top_k_gating
 
@@ -171,28 +208,36 @@ def grouped_case(moe, T, K, gen, dtype):
     # their tile -> expert entries, rows_used, and the whole [Ct, D] output
     # (dead rows are zeros the function returns); tiles past rows_used read
     # nothing else
-    need_bytes = n_experts * 3 * D * F * b + (rows + Ct) * D * b + (rows // 8 + 1) * 4
+    need_bytes = n_experts * expert_bytes(moe) + (rows + Ct) * D * b + (rows // 8 + 1) * 4
     info = {"T": T, "K": K, "Ct": Ct, "rows_used": rows, "distinct_experts": n_experts,
             **bound(need_bytes, 2 * T * K * 3 * D * F, dtype)}
     args = (xg, lay.tile_expert, moe["wi"], moe["wg"], moe["wo"], lay.rows_used)
     return args, info
 
 
-def check_grouped(args, tol):
+def check_grouped(args, tol, quant=False):
     from repro_torch.kernels import expert_mlp_grouped as gk
 
-    out = gk.grouped_mlp(*args)
+    kernel, plain_fn = ((gk.grouped_mlp_quant, gk.grouped_mlp_quant_plain) if quant
+                        else (gk.grouped_mlp, gk.grouped_mlp_plain))
+    out = kernel(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = gk.grouped_mlp_plain(*args)
+    plain = plain_fn(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    return {**compare("grouped_mlp", out, plain, tol), "plain_ms": plain_ms}
+    return {**compare(kernel.__name__, out, plain, tol), "plain_ms": plain_ms}
 
 
 # ---------------------------------------------------------------------------
 # Paged attention (kernels 7 and 8)
 # ---------------------------------------------------------------------------
+
+
+def key_bytes(k) -> int:
+    """Bytes of one key (or value) and kv-head: dh values, plus one f32 scale
+    in an int8 cache."""
+    return k.shape[-1] + 4 if k.dtype == torch.int8 else k.shape[-1] * k.element_size()
 
 
 def paged_bytes(k_pool, table, needed) -> int:
@@ -205,15 +250,19 @@ def paged_bytes(k_pool, table, needed) -> int:
     live = table != Pt - 1
     slots = table.long()[..., None] * ps + torch.arange(ps, device=table.device)
     keys = int(torch.unique(slots[needed & live[..., None]]).numel())
-    return int(live.sum().item()) * ps * 4 + keys * 2 * Hkv * dh * k_pool.element_size()
+    return int(live.sum().item()) * ps * 4 + keys * 2 * Hkv * key_bytes(k_pool)
 
 
 def decode_case(pool, table, qpos, G, dtype, gen):
     """Kernel 7's inputs: a pool (k, v, pos), a clamped table [B, nt] and
     query positions, with random queries; the bound counts the live entries'
     positions, the K/V of the keys at 0 <= pos <= qpos, q, out, table and
-    qpos, and 4*H*dh operations per unmasked (query, key)."""
-    k, v, kpos = pool["k"].to(dtype), pool["v"].to(dtype), pool["pos"]
+    qpos, and 4*H*dh operations per unmasked (query, key).  An int8 pool
+    (kernel 7q) keeps its values; its scales go to ``info["kw"]``."""
+    if "k_scale" in pool:
+        k, v, kpos = pool["k"], pool["v"], pool["pos"]
+    else:
+        k, v, kpos = pool["k"].to(dtype), pool["v"].to(dtype), pool["pos"]
     Pt, ps, Hkv, dh = k.shape
     B = table.shape[0]
     q = torch.randn((B, Hkv, G, dh), generator=gen, device="cuda").to(dtype)
@@ -227,16 +276,26 @@ def decode_case(pool, table, qpos, G, dtype, gen):
             "live_entries": int((table != Pt - 1).sum().item()),
             "all_trash_rows": int((table == Pt - 1).all(1).sum().item()), "pairs": pairs,
             **bound(need, 4 * Hkv * G * dh * pairs, dtype)}
+    if "k_scale" in pool:
+        info["kw"] = dict(k_scale=pool["k_scale"], v_scale=pool["v_scale"])
     return args, info
 
 
-def prefill_case(n_hist, C, Hkv, G, dh, ps, Pt, nt, dtype, gen):
+def prefill_case(n_hist, C, Hkv, G, dh, ps, Pt, nt, dtype, gen, kv_int8=False):
     """Kernel 8's inputs: a random pool where a random set of pages holds
     positions 0 .. n_hist - 1, the table maps them and the chunk's fresh pages
     (pos -1) and is trash beyond; a chunk of C queries at n_hist .. + C - 1.
-    The bound reads K/V only of the pool keys at 0 <= pos < qpos[0]."""
+    The bound reads K/V only of the pool keys at 0 <= pos < qpos[0].
+    ``kv_int8``: the pool is quantized (kernel 8q), its scales in
+    ``info["kw"]``; the chunk's own K/V stay in ``dtype``."""
     k = torch.randn((Pt, ps, Hkv, dh), generator=gen, device="cuda").to(dtype)
     v = torch.randn((Pt, ps, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    kw = {}
+    if kv_int8:
+        from repro_torch.quant.kv import kv_quantize_values
+
+        (k, ks), (v, vs) = kv_quantize_values(k), kv_quantize_values(v)
+        kw = dict(k_scale=ks, v_scale=vs)
     kpos = torch.full((Pt, ps), -1, dtype=torch.int32, device="cuda")
     n_pages = -(-(n_hist + C) // ps)
     pages = torch.randperm(Pt - 1, generator=torch.Generator().manual_seed(SEED))[:n_pages].cuda()
@@ -257,21 +316,28 @@ def prefill_case(n_hist, C, Hkv, G, dh, ps, Pt, nt, dtype, gen):
     info = {"C": C, "history": n_hist, "Hkv": Hkv, "G": G, "dh": dh, "ps": ps, "nt": nt,
             "live_entries": n_pages, "pairs": pairs,
             **bound(need, 4 * Hkv * G * dh * pairs, dtype)}
+    if kv_int8:
+        info["kw"] = kw
     return args, info
 
 
-def sdpa_decode(q, k, v, kpos, table, qpos, scale):
-    """The library yardstick: K/V gathered into a contiguous [B, Hkv, T, dh]
-    beforehand, then one scaled_dot_product_attention with GQA and the same
-    boolean mask."""
+def gathered(x, scale, idx, dtype):
+    """x[idx], dequantized to ``dtype`` when ``scale`` is given (int8)."""
+    return x[idx] if scale is None else (x[idx].float() * scale[idx]).to(dtype)
+
+
+def sdpa_decode(q, k, v, kpos, table, qpos, scale, k_scale=None, v_scale=None):
+    """The library yardstick: K/V gathered (and dequantized, for an int8
+    pool) into a contiguous [B, Hkv, T, dh] beforehand, then one
+    scaled_dot_product_attention with GQA and the same boolean mask."""
     import torch.nn.functional as F
 
     B, Hkv, G, dh = q.shape
     idx = table.long()
 
     def gather():
-        kg = k[idx].reshape(B, -1, Hkv, dh).transpose(1, 2).contiguous()
-        vg = v[idx].reshape(B, -1, Hkv, dh).transpose(1, 2).contiguous()
+        kg = gathered(k, k_scale, idx, q.dtype).reshape(B, -1, Hkv, dh).transpose(1, 2).contiguous()
+        vg = gathered(v, v_scale, idx, q.dtype).reshape(B, -1, Hkv, dh).transpose(1, 2).contiguous()
         return kg, vg
 
     kg, vg = gather()
@@ -283,16 +349,16 @@ def sdpa_decode(q, k, v, kpos, table, qpos, scale):
     return call, gather
 
 
-def sdpa_prefill(q, k, v, kpos, table, qpos, ck, cv, scale):
+def sdpa_prefill(q, k, v, kpos, table, qpos, ck, cv, scale, k_scale=None, v_scale=None):
     import torch.nn.functional as F
 
     C, Hkv, G, dh = q.shape
     idx = table.long()
 
     def gather():
-        kg = torch.cat([k[idx].reshape(-1, Hkv, dh), ck]).transpose(0, 1)[None].contiguous()
-        vg = torch.cat([v[idx].reshape(-1, Hkv, dh), cv]).transpose(0, 1)[None].contiguous()
-        return kg, vg
+        kg = torch.cat([gathered(k, k_scale, idx, q.dtype).reshape(-1, Hkv, dh), ck])
+        vg = torch.cat([gathered(v, v_scale, idx, q.dtype).reshape(-1, Hkv, dh), cv])
+        return kg.transpose(0, 1)[None].contiguous(), vg.transpose(0, 1)[None].contiguous()
 
     kg, vg = gather()
     hist = kpos[idx].reshape(-1)
@@ -312,7 +378,8 @@ def check_paged(name, kernel, plain, args, kw, tol, timed=False, library=None) -
     if timed:
         res["ms"] = time_ms(lambda: kernel(*args, **kw))
         res["plain_ms"] = time_ms(lambda: plain(*args, **kw), n=3)
-        call, gather = library(*args, kw["scale"])
+        call, gather = library(*args, kw["scale"],
+                               **{n: kw[n] for n in ("k_scale", "v_scale") if n in kw})
         res["library_ms"] = time_ms(call)
         res["library_gather_ms"] = time_ms(gather, n=3)
     return res
@@ -323,7 +390,7 @@ def check_paged(name, kernel, plain, args, kw, tol, timed=False, library=None) -
 # ---------------------------------------------------------------------------
 
 
-def profile_account(run, steps, what) -> list:
+def profile_account(run, steps, what, named_ops=()) -> list:
     """torch.profiler account of ``run(prof)`` (which runs ``steps`` steps
     and returns wall ms per step), beside an unprofiled ``run(None)`` of the
     same steps: device time of the kernels by name, host operators, launches
@@ -351,6 +418,12 @@ def profile_account(run, steps, what) -> list:
                 "device time not measured"]
     dev = sum(d for d, _, _ in kern) / steps / 1e3
     per = lambda d: f"{d / steps / 1e3:.3f} ms"
+    named = []
+    if named_ops:
+        counts = {ev.key: ev for ev in evs if ev.device_type == DeviceType.CPU}
+        named = [f"{what} profile, quantize-on-write operators (host self CPU per step): " + "; ".join(
+            f"{k} x{counts[k].count / steps:g} {per(counts[k].self_cpu_time_total)}"
+            for k in named_ops if k in counts)]
     return [
         f"{what} profile: kernels {dev:.3f} device ms/step; wall {wall:.3f} ms/step with the "
         f"profiler on (device idle {100 * (1 - dev / wall):.1f}%, measured), {plain_wall:.3f} ms/step "
@@ -361,10 +434,16 @@ def profile_account(run, steps, what) -> list:
                                                  for d, k, c in kern[:8]),
         f"{what} profile, host ops (self CPU): " + "; ".join(
             f"{k} {per(d)} x{c // steps}" for d, k, c in host[:10]),
-    ]
+    ] + named
 
 
-def profile_decode(eng, cfg, params, steps=5) -> list:
+# the operators that quantize a token's K/V on write (quant/kv.py) and
+# scatter it into the cache
+QUANT_WRITE_OPS = ("aten::abs", "aten::amax", "aten::clamp_min", "aten::div", "aten::round",
+                   "aten::clamp", "aten::_to_copy", "aten::copy_")
+
+
+def profile_decode(eng, cfg, params, steps=5, what="decode", named_ops=()) -> list:
     """Where a static decode step's time goes, as the engine runs it (greedy
     token read back every step)."""
     from repro_torch.models.model import decode_step, prefill
@@ -384,7 +463,7 @@ def profile_decode(eng, cfg, params, steps=5) -> list:
                 cur.cpu()
             return (time.perf_counter() - t0) / steps * 1e3
 
-    return profile_account(run, steps, "decode")
+    return profile_account(run, steps, what, named_ops)
 
 
 def profile_ticks(eng, cfg, steps=5) -> list:
@@ -446,19 +525,22 @@ def reference_check(cfg) -> str:
             f"logits max|d| {err:.3e} (tolerance 1e-4), greedy tokens identical {card}")
 
 
-def continuous_reference_check(cfg) -> str:
-    """The continuous path on a small input: reduced f32 weights, one trace
-    through the engine on the card and on the CPU, with 14 pages for 3 slots
-    of capacity 48 (under half their worst case) so that it preempts."""
+def continuous_reference_check(cfg, on_card=None, kv_cache_bits=0) -> str:
+    """The continuous path on a small input: reduced f32 weights (``on_card``,
+    or drawn from the seed), one trace through the engine on the card and on
+    the CPU, with 14 pages for 3 slots of capacity 48 (under half their worst
+    case) so that it preempts."""
     from repro_torch.models.model import init_params
     from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.engine import Request
 
-    on_card = init_params(cfg, seed=SEED, device="cuda")
+    if on_card is None:
+        on_card = init_params(cfg, seed=SEED, device="cuda")
     on_cpu = copy.deepcopy(on_card).to("cpu")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (13, 6, 9, 3, 17, 25, 40)]
-    kw = dict(slots=3, capacity=48, paged=True, page_size=4, n_pages=14, prefill_chunk=8)
+    kw = dict(slots=3, capacity=48, paged=True, page_size=4, n_pages=14, prefill_chunk=8,
+              kv_cache_bits=kv_cache_bits)
     out = {}
     for dev, params in (("cuda", on_card), ("cpu", on_cpu)):
         eng = ContinuousEngine(cfg, params, device=dev, **kw)
@@ -471,7 +553,8 @@ def continuous_reference_check(cfg) -> str:
     if ta != tb or pa != pb or pa < 1 or rel > F32_TOL:
         raise AssertionError(f"reduced {cfg.name} continuous: card tokens {ta} preemptions {pa}; "
                              f"CPU {tb} / {pb}; last-tick logits rel {rel:.3e}")
-    return (f"continuous reference: reduced {cfg.name} f32, card (kernels) vs CPU (plain "
+    what = "int8 experts + int8 KV, " if kv_cache_bits else ""
+    return (f"continuous reference: reduced {cfg.name} f32, {what}card (kernels) vs CPU (plain "
             f"versions): greedy tokens identical {ta}, preemptions {pa} on both, last tick's "
             f"logits max|d| {rel:.3e} of max|logit| (tolerance {F32_TOL}), pool drained")
 
@@ -508,13 +591,18 @@ def chunked_prefill_check(cfg, params) -> str:
 # ---------------------------------------------------------------------------
 
 
-def continuous_serve(cfg, params, counters):
+def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None):
     """The trace through the paged engine; returns (lines, launches, the
-    decode snapshot for kernel 7, the engine)."""
+    decode snapshot for kernel 7, the engine).  Quantized experts and
+    ``kv_cache_bits=8`` run kernels 5, 7q and 8q and no fp kernel;
+    ``preemptions``: the count the fp run gave, which this run must repeat
+    (the scheduler depends on prompt lengths only)."""
     from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.engine import Request
 
-    eng = ContinuousEngine(cfg, params, paged=True, device="cuda", **CONT)
+    what = "continuous serve" + (" int8" if kv_cache_bits else "")
+    eng = ContinuousEngine(cfg, params, paged=True, device="cuda", kv_cache_bits=kv_cache_bits,
+                           **CONT)
     rng = torch.Generator().manual_seed(SEED + 1)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in CONT_PROMPTS]
     eng.submit(Request(prompts[0][:300], 4))  # warm-up: both chunk shapes, decode
@@ -546,7 +634,14 @@ def continuous_serve(cfg, params, counters):
         if snap is None and 3 <= decoding.sum() < len(eng.slots):
             # kernel 7's inputs as the next tick would see them: layer 0's
             # pool, the decoding rows' tables (others all -1), positions
-            pool = {k: v[0].clone() for k, v in eng.caches["seg0"]["pos0"]["self"].items()}
+            # (an int8 pool gives its values and scales as separate entries)
+            layer = eng.caches["seg0"]["pos0"]["self"]
+            pool = {"pos": layer["pos"][0].clone()}
+            for n in ("k", "v"):
+                if kv_cache_bits:
+                    pool[n], pool[f"{n}_scale"] = layer[n].q[0].clone(), layer[n].scale[0].clone()
+                else:
+                    pool[n] = layer[n][0].clone()
             tbl = np.where(decoding[:, None] & (eng.tables.table >= 0), eng.tables.table,
                            eng.n_pages)  # clamped: unmapped -> trash
             qpos = np.asarray([s.pos if s.active else 0 for s in eng.slots], np.int32)
@@ -562,31 +657,196 @@ def continuous_serve(cfg, params, counters):
         raise AssertionError(f"the pool did not drain: {eng.pool.free_count} of {eng.n_pages} free")
     if eng.preemptions < 1:
         raise AssertionError("the continuous serve preempted no request; the pool was meant to run dry")
+    if preemptions is not None and eng.preemptions != preemptions:
+        raise AssertionError(f"{what}: {eng.preemptions} preemptions, the fp run {preemptions}")
     n_layers = cfg.num_layers
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
-    want = {"paged_decode_attention": n_layers * len(ticks),
-            "paged_prefill_attention": n_layers * eng.prefill_chunks_total,
-            "grouped_mlp": n_moe * (len(ticks) + eng.prefill_chunks_total)}
+    sfx = "_int8" if kv_cache_bits else ""
+    want = {k: 0 for k in launches}
+    want.update({f"paged_decode_attention{sfx}": n_layers * len(ticks),
+                 f"paged_prefill_attention{sfx}": n_layers * eng.prefill_chunks_total,
+                 "grouped_mlp_quant" if quant_experts(params) else "grouped_mlp":
+                     n_moe * (len(ticks) + eng.prefill_chunks_total)})
     if launches != want:
-        raise AssertionError(f"continuous serve launches {launches}, expected {want}")
+        raise AssertionError(f"{what} launches {launches}, expected {want}")
     if snap is None:
         raise AssertionError("no tick had between 3 and 7 decoding slots to snapshot")
     n_tok = sum(len(done[i].tokens) for i in ids)
     tick_ms = statistics.median(m["decode_s"] for m in ticks) * 1e3
     ttft = [round((first[i] - t0) * 1e3, 3) for i in ids]
     lines = [
-        f"continuous serve: {len(ids)} requests x {CONT_NEW} tokens (prompts {CONT_PROMPTS}) in "
+        f"{what}: {len(ids)} requests x {CONT_NEW} tokens (prompts {CONT_PROMPTS}) in "
         f"{wall * 1e3:.3f} ms ({n_tok / wall:.1f} tok/s); {len(eng.metrics_log)} ticks, "
         f"{len(ticks)} with decode, decode phase median {tick_ms:.3f} ms; "
         f"{eng.prefill_tokens_total} prefill tokens in {eng.prefill_chunks_total} chunks; "
         f"preemptions {eng.preemptions}; launches {launches}; pool drained "
         f"(free {eng.pool.free_count} == n_pages {eng.n_pages}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
-        f"continuous serve: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f})",
-        f"continuous serve: tokens of request 0: {done[ids[0]].tokens}",
+        f"{what}: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f})",
+        f"{what}: tokens of request 0: {done[ids[0]].tokens}",
     ]
     return lines, launches, snap, eng
+
+
+# ---------------------------------------------------------------------------
+# Quantized serving (MoQ int8 / int4 experts, int8 KV cache)
+# ---------------------------------------------------------------------------
+
+
+def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens) -> list:
+    """The static path with int8 experts and an int8 KV cache: the same 4
+    requests; kernel 5 on every MoE call, kernel 9 on every decode layer,
+    no fp kernel."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.quant import kv_cache_bytes, tree_bytes
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, qparams, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW,
+                                            kv_cache_bits=8), device="cuda")
+    eng.generate(reqs)  # warm-up
+    torch.cuda.synchronize()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    got = {k: v for c in counters for k, v in c.items()}
+    assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
+    assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    want = {k: 0 for k in got}
+    want.update(grouped_mlp_quant=n_moe * NEW, decode_attention_quant=cfg.num_layers * (NEW - 1))
+    if got != want:
+        raise AssertionError(f"quantized static serve launches {got}, expected {want}")
+    tm = eng.last_timings
+    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+    fp_experts = sum(v.numel() * v.element_size() for k, v in params.named_buffers()
+                     if ".moe.w" in k)
+    q_experts = tree_bytes(qparams, only_quantized=True)
+    kv = [kv_cache_bytes(init_caches(cfg, BATCH, PROMPT + NEW, kv_bits=b, device="meta"))
+          for b in (0, 8)]
+    same = sum(a == b for r, f in zip(out, fp_tokens) for a, b in zip(r.tokens, f))
+    lines = [
+        f"quantized serve (int8 experts, int8 KV): {BATCH} requests x {NEW} tokens in "
+        f"{wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill {tm['prefill_s'] * 1e3:.3f} ms; "
+        f"decode step median {step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; launches {got}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+        f"quantized serve: expert bytes {q_experts / 1e9:.3f} GB int8 vs {fp_experts / 1e9:.3f} GB "
+        f"bf16 ({fp_experts / q_experts:.2f}x); KV cache {kv[1] / 1e6:.3f} MB int8 vs "
+        f"{kv[0] / 1e6:.3f} MB bf16 ({kv[0] / kv[1]:.2f}x); greedy tokens equal to the bf16 "
+        f"serve's at {same} of {BATCH * NEW} positions",
+        f"quantized serve: tokens of request 0: {out[0].tokens}",
+    ]
+    lines += profile_decode(eng, cfg, qparams, what="quantized decode", named_ops=QUANT_WRITE_OPS)
+    return lines, got
+
+
+def quant_reference_checks(cfg) -> list:
+    """Reduced f32 llama4 with quantized experts and an int8 KV cache, card
+    (kernels 5, 9, 7q, 8q) against the CPU (plain versions), from the same
+    weights: int8 and int4 experts through the static path (logits of a
+    prefill and 3 decode steps within F32_TOL relative, greedy tokens of
+    ``Engine`` identical), int8 through the continuous trace (tokens and
+    preemptions identical), and policy ``all`` through ``Engine`` (the
+    materialize sites: attention projections, dense FFN, residual expert,
+    unembed)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models.model import decode_step, init_caches, init_params, prefill
+    from repro_torch.quant import quantize_params
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    fp = init_params(cfg, seed=SEED, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=torch.Generator().manual_seed(SEED))
+    reqs = [Request(toks[i, : 12 - 3 * i].tolist(), 8) for i in range(3)]
+    ec = EngineConfig(max_batch=4, max_prefill=12, max_decode=8, kv_cache_bits=8)
+    lines = []
+    for bits, policy in ((8, "experts"), (4, "experts"), (8, "all")):
+        on_card = quantize_params(fp, QuantConfig(bits=bits, policy=policy))
+        on_cpu = copy.deepcopy(on_card).to("cpu")
+        rel = 0.0
+        if policy == "experts":
+            caches = {d: init_caches(cfg, 3, 16, kv_bits=8, device=d) for d in ("cuda", "cpu")}
+            a, caches["cuda"] = prefill(cfg, on_card, toks.cuda(), caches["cuda"])
+            b, caches["cpu"] = prefill(cfg, on_cpu, toks, caches["cpu"])
+            for step in range(4):
+                rel = max(rel, (a.cpu() - b).abs().max().item() / b.abs().max().item())
+                cur = b.argmax(-1)[:, None]
+                if step < 3:
+                    a, caches["cuda"] = decode_step(cfg, on_card, cur.cuda(), 12 + step, caches["cuda"])
+                    b, caches["cpu"] = decode_step(cfg, on_cpu, cur, 12 + step, caches["cpu"])
+            if rel > F32_TOL:
+                raise AssertionError(f"reduced int{bits} {policy}: card logits differ from the CPU's "
+                                     f"by {rel:.3e} relative")
+        card = [r.tokens for r in Engine(cfg, on_card, ec, device="cuda").generate(reqs)]
+        cpu = [r.tokens for r in Engine(cfg, on_cpu, ec, device="cpu").generate(reqs)]
+        if card != cpu:
+            raise AssertionError(f"reduced int{bits} {policy}: greedy tokens on the card {card} != CPU {cpu}")
+        lines.append(f"quantized reference: reduced {cfg.name} f32, int{bits} {policy} + int8 KV, "
+                     f"static, card (kernels) vs CPU (plain versions): "
+                     + (f"prefill + 3 decode logits max|d| {rel:.3e} of max|logit| (tolerance "
+                        f"{F32_TOL}), " if policy == "experts" else "")
+                     + f"greedy tokens identical {card}")
+    q8 = quantize_params(fp, QuantConfig(bits=8))
+    lines.append(continuous_reference_check(cfg, q8, kv_cache_bits=8))
+    return lines
+
+
+def int4_experts(moe) -> dict:
+    """The served MoE layer's experts quantized to int4 (per output column),
+    beside its router."""
+    from repro_torch.quant.qarrays import QuantizedArray
+
+    out = {n: QuantizedArray.quantize(moe[n], bits=4) for n in ("wi", "wg", "wo")}
+    out["router"] = moe["router"]
+    return out
+
+
+def decode_quant_case(B, T, filled, Hkv, G, dh, dtype, gen, kpos=None, qpos=None, kv=None):
+    """Kernel 9's inputs: random queries over a contiguous int8 cache (``kv``,
+    or random K/V quantized as the cache writes them) whose first ``filled``
+    slots of every row hold positions 0 .. filled - 1, the query at position
+    filled - 1; the bound reads K/V of the keys at 0 <= pos <= qpos, every
+    position, q, out and qpos."""
+    from repro_torch.quant.kv import kv_quantize_values
+
+    if kv is None:
+        kv = [kv_quantize_values(torch.randn((B, T, Hkv, dh), generator=gen, device="cuda").to(dtype))
+              for _ in range(2)]
+    (kq, ks), (vq, vs) = kv
+    if kpos is None:
+        kpos = torch.full((B, T), -1, dtype=torch.int32, device="cuda")
+        kpos[:, :filled] = torch.arange(filled, dtype=torch.int32, device="cuda")
+    if qpos is None:
+        qpos = torch.full((B,), filled - 1, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, Hkv, G, dh), generator=gen, device="cuda").to(dtype)
+    needed = (kpos >= 0) & (kpos <= qpos[:, None])
+    keys = int(needed.sum().item())
+    b = q.element_size()
+    need = keys * 2 * Hkv * key_bytes(kq) + kpos.numel() * 4 + 2 * q.numel() * b + B * 4
+    info = {"B": B, "T": T, "Hkv": Hkv, "G": G, "dh": dh, "pairs": keys,
+            **bound(need, 4 * Hkv * G * dh * keys, dtype)}
+    return (q, kq, ks, vq, vs, kpos, qpos), info
+
+
+def sdpa_contiguous(q, kq, ks, vq, vs, kpos, qpos, scale):
+    """Kernel 9's yardstick: the cache dequantized into [B, Hkv, T, dh]
+    beforehand, then scaled_dot_product_attention with the same mask."""
+    import torch.nn.functional as F
+
+    B, Hkv, G, dh = q.shape
+
+    def gather():
+        kg = (kq.float() * ks).to(q.dtype).transpose(1, 2).contiguous()
+        vg = (vq.float() * vs).to(q.dtype).transpose(1, 2).contiguous()
+        return kg, vg
+
+    kg, vg = gather()
+    mask = ((kpos >= 0) & (kpos <= qpos[:, None]))[:, None, None, :]
+    qh = q.reshape(B, Hkv * G, 1, dh)
+    call = lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+    return call, gather
 
 
 # ---------------------------------------------------------------------------
@@ -602,11 +862,15 @@ def main() -> int:
     from repro_torch.kernels import attention_paged as k7
     from repro_torch.kernels import attention_prefill_paged as k8
     from repro_torch.kernels import build
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import attention_quant as k9
     from repro_torch.kernels import expert_mlp_grouped as gk
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import decode_step, init_caches, init_params, prefill
+    from repro_torch.quant import quantize_params
+    from repro_torch.quant.qarrays import QuantizedArray
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
-    counters = (gk.launches, k7.launches, k8.launches)
+    counters = (gk.launches, k7.launches, k8.launches, k9.launches)
 
     # 1. card
     smi = nvidia_smi_line()
@@ -651,8 +915,8 @@ def main() -> int:
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out), [r.tokens for r in out]
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
-    expected = {"grouped_mlp": n_moe * (1 + NEW - 1), "paged_decode_attention": 0,
-                "paged_prefill_attention": 0}
+    expected = {k: 0 for k in static_launches}
+    expected["grouped_mlp"] = n_moe * (1 + NEW - 1)
     if static_launches != expected:
         raise AssertionError(f"static serve launches {static_launches}, expected {expected}")
     tm = eng.last_timings
@@ -669,6 +933,7 @@ def main() -> int:
 
     # 4. continuous serve, same weights
     lines, cont_launches, snap, ceng = continuous_serve(cfg, params, counters)
+    cont_preemptions = ceng.preemptions  # before the tick profile serves more
     for line in lines:
         log(line)
     for line in profile_ticks(ceng, cfg):
@@ -680,7 +945,27 @@ def main() -> int:
     # 6. reduced f32 continuous serve, card vs CPU
     log(continuous_reference_check(red))
 
-    # 7. kernels against their plain versions, then timed beside their bounds
+    # 7. quantized serving: int8 experts (PTQ on the card, slice by slice) and
+    # an int8 KV cache through both engines, then the reduced references
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, QuantConfig(bits=8, policy="experts"))
+    torch.cuda.synchronize()
+    log(f"quantize: int8 experts of {cfg.name} in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated (bf16 tree kept for the phases above)")
+    lines, qstatic_launches = quant_static_serve(cfg, params, qparams, reqs, counters,
+                                                 [r.tokens for r in out])
+    for line in lines:
+        log(line)
+    torch.cuda.reset_peak_memory_stats()
+    lines, qcont_launches, qsnap, qceng = continuous_serve(cfg, qparams, counters, kv_cache_bits=8,
+                                                           preemptions=cont_preemptions)
+    del qceng
+    for line in lines:
+        log(line)
+    for line in quant_reference_checks(red):
+        log(line)
+
+    # 8. kernels against their plain versions, then timed beside their bounds
     moe = {k: v[0] for k, v in params["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shapes = {}
@@ -735,22 +1020,123 @@ def main() -> int:
     log(f"kernel paged attention reduced with window 37, softcap 20: " + json.dumps(
         {n: {s: v for s, v in d.items() if "window" in s} for n, d in attn.items()}))
 
+    # the quantized kernels: 5 (int8 from the served tree, int4 of the same
+    # layer, freed after), 7q and 8q, 9
+    qshapes = {}
+    qmoe = {k: (v.take(0) if isinstance(v, QuantizedArray) else v[0])
+            for k, v in qparams["segments"]["seg0"]["pos1"]["moe"].items()
+            if k in ("wi", "wg", "wo", "router")}
+    m4 = int4_experts(moe)
+    for bits, experts in ((8, qmoe), (4, m4)):
+        for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+            kargs, info = grouped_case(experts, T, 1, gen, torch.bfloat16)
+            info.update(check_grouped(kargs, BF16_TOL, quant=True))
+            info["ms"] = time_ms(lambda: gk.grouped_mlp_quant(*kargs))
+            qshapes[f"int{bits}_{label}"] = info
+            log(f"kernel grouped_mlp_quant int{bits} bf16 {label}: {json.dumps(info)}")
+    del m4, kargs
+    torch.cuda.empty_cache()
+    for bits in (8, 4):
+        rq = {n: QuantizedArray.quantize(rmoe[n], bits=bits) for n in ("wi", "wg", "wo")}
+        kargs, info = grouped_case({**rq, "router": rmoe["router"]}, 64, 1, gen, torch.float32)
+        info.update(check_grouped(kargs, F32_TOL, quant=True))
+        qshapes[f"int{bits}_f32_reduced"] = info
+        log(f"kernel grouped_mlp_quant int{bits} f32 reduced: {json.dumps(info)}")
+
+    qattn = {"paged_decode_attention_int8": {}, "paged_prefill_attention_int8": {},
+             "decode_attention_quant": {}}
+    pool, tbl, qpos = qsnap
+    # kernel 9 at the served shape: layer 0's int8 cache after the 4 prompts
+    # and one decode step (65 of 80 slots filled, the query at 64)
+    caches = init_caches(cfg, BATCH, PROMPT + NEW, kv_bits=8, device="cuda")
+    ptoks = torch.tensor([r.prompt for r in reqs], device="cuda")
+    logits, caches = prefill(cfg, qparams, ptoks, caches)
+    _, caches = decode_step(cfg, qparams, logits.argmax(-1)[:, None], PROMPT, caches)
+    c0 = caches["seg0"]["pos0"]["self"]
+    served_kv = [(c0[n].q[0], c0[n].scale[0]) for n in ("k", "v")]
+    for dt, tol, label in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
+        timed = dt == torch.bfloat16
+        args, info = decode_case(pool, tbl, qpos, G, dt, gen)
+        kw = dict(scale=scale, **info.pop("kw"))
+        info.update(check_paged("paged_decode_attention_int8", k7.paged_decode_attention,
+                                k7.paged_decode_attention_plain, args, kw, tol, timed=timed,
+                                library=sdpa_decode))
+        qattn["paged_decode_attention_int8"][f"{label}_served"] = info
+        log(f"kernel paged_decode_attention_int8 {label} served (int8 pool of the quantized "
+            f"continuous serve mid-run): {json.dumps(info)}")
+        for hist in (0, 1008):
+            args, info = prefill_case(hist, CONT["prefill_chunk"], cfg.num_kv_heads, G, cfg.head_dim,
+                                      CONT["page_size"], CONT["n_pages"] + 1,
+                                      CONT["capacity"] // CONT["page_size"], dt, gen, kv_int8=True)
+            kw = dict(scale=scale, **info.pop("kw"))
+            info.update(check_paged("paged_prefill_attention_int8", k8.paged_prefill_attention,
+                                    k8.paged_prefill_attention_plain, args, kw, tol, timed=timed,
+                                    library=sdpa_prefill))
+            qattn["paged_prefill_attention_int8"][f"{label}_history{hist}"] = info
+            log(f"kernel paged_prefill_attention_int8 {label} history {hist}: {json.dumps(info)}")
+        for case, (B, T, filled, kv) in (("served", (BATCH, PROMPT + NEW, PROMPT + 1, served_kv)),
+                                         ("2048", (8, 2048, 1024, None))):
+            kpos = c0["pos"][0] if kv is not None else None
+            args, info = decode_quant_case(B, T, filled, cfg.num_kv_heads, G, cfg.head_dim, dt, gen,
+                                           kpos=kpos, kv=kv)
+            info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
+                                    k9.decode_attention_quant_plain, args, dict(scale=scale), tol,
+                                    timed=timed, library=sdpa_contiguous))
+            qattn["decode_attention_quant"][f"{label}_{case}"] = info
+            log(f"kernel decode_attention_quant {label} {case}: {json.dumps(info)}")
+    del caches, served_kv, c0
+    # reduced size with a window and a softcap, one row with no valid key
+    kw = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
+    for dt, tol, label in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
+        args, info = prefill_case(50, 40, red.num_kv_heads, rG, red.head_dim, 8, 30, 16, dt, gen,
+                                  kv_int8=True)
+        qkw = {**kw, **info["kw"]}
+        q, k, v, kpos, table, qpos_c, _, _ = args
+        qattn["paged_prefill_attention_int8"][f"{label}_window_softcap"] = check_paged(
+            "paged_prefill_attention_int8", k8.paged_prefill_attention,
+            k8.paged_prefill_attention_plain, args, qkw, tol)
+        rows = torch.stack([table, torch.full_like(table, 29), table.roll(3)])  # row 1: all trash
+        dargs = (q[:3].contiguous(), k, v, kpos, rows.contiguous(), qpos_c[[10, 0, 39]].contiguous())
+        qattn["paged_decode_attention_int8"][f"{label}_window_softcap"] = check_paged(
+            "paged_decode_attention_int8", k7.paged_decode_attention,
+            k7.paged_decode_attention_plain, dargs, qkw, tol)
+        kpos9 = torch.full((3, 64), -1, dtype=torch.int32, device="cuda")
+        kpos9[[0, 2], :50] = torch.arange(50, dtype=torch.int32, device="cuda")
+        args9, _ = decode_quant_case(3, 64, 50, red.num_kv_heads, rG, red.head_dim, dt, gen, kpos=kpos9,
+                                     qpos=torch.tensor([49, 10, 30], dtype=torch.int32, device="cuda"))
+        qattn["decode_attention_quant"][f"{label}_window_softcap"] = check_paged(
+            "decode_attention_quant", k9.decode_attention_quant, k9.decode_attention_quant_plain,
+            args9, kw, tol)
+        zero7 = k7.paged_decode_attention(*dargs, **qkw)[1]
+        zero9 = k9.decode_attention_quant(*args9, **kw)[1]
+        if zero7.abs().max().item() != 0 or zero9.abs().max().item() != 0:
+            raise AssertionError("a row with no valid key must give 0 (kernels 7q and 9)")
+    log("kernel quantized attention reduced with window 37, softcap 20 (a row with no valid key "
+        "gives 0 in 7q and 9): " + json.dumps(
+            {n: {s: v for s, v in d.items() if "window" in s} for n, d in qattn.items()}))
+
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
                     "over K/V gathered into a contiguous tensor beforehand (the gather timed on "
                     "its own: library_gather_ms); no single PyTorch call computes a paged attention")
 
-    def attn_entry(name, source, replaces, main):
-        m = attn[name][main]
+    qlibrary_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
+                     "over K/V gathered and dequantized into a contiguous tensor beforehand (that "
+                     "preparation timed on its own: library_gather_ms); no single PyTorch call "
+                     "computes attention over an int8 cache")
+
+    def attn_entry(name, source, replaces, main, checks=attn, launches=cont_launches,
+                   call=library_call):
+        m = checks[name][main]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": cont_launches[name],
-            "max_abs_err": max(s["max_abs_err"] for s in attn[name].values()),
-            "max_rel_err": max(s["max_rel_err"] for s in attn[name].values()),
+            "launches": launches[name],
+            "max_abs_err": max(s["max_abs_err"] for s in checks[name].values()),
+            "max_rel_err": max(s["max_rel_err"] for s in checks[name].values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-            "library_gather_ms": m["library_gather_ms"], "library_call": library_call,
-            "shapes": attn[name],
+            "library_gather_ms": m["library_gather_ms"], "library_call": call,
+            "shapes": checks[name],
         }
 
     kernels = [
@@ -775,6 +1161,31 @@ def main() -> int:
                    "src/repro/kernels/attention_paged.py:174", "bf16_served"),
         attn_entry("paged_prefill_attention", "src/repro_torch/csrc/paged_prefill_attention.cu",
                    "src/repro/kernels/attention_prefill_paged.py:207", "bf16_history1008"),
+        {
+            "name": "grouped_mlp_quant",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_mlp.cu",
+            "replaces": "src/repro/kernels/expert_mlp_grouped.py:179",
+            "launches": qstatic_launches["grouped_mlp_quant"],
+            "launches_by_path": {"static": qstatic_launches["grouped_mlp_quant"],
+                                 "continuous": qcont_launches["grouped_mlp_quant"]},
+            "max_abs_err": max(v["max_abs_err"] for v in qshapes.values()),
+            "max_rel_err": max(v["max_rel_err"] for v in qshapes.values()),
+            "ms": qshapes["int8_decode"]["ms"],
+            "plain_ms": qshapes["int8_decode"]["plain_ms"],
+            "bound_ms": qshapes["int8_decode"]["bound_ms"],
+            "bound_by": qshapes["int8_decode"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a quantized grouped SwiGLU MLP
+            "shapes": qshapes,
+        },
+        attn_entry("paged_decode_attention_int8", "src/repro_torch/csrc/paged_decode_attention.cu",
+                   "src/repro/kernels/attention_paged.py:174", "bf16_served", qattn, qcont_launches, qlibrary_call),
+        attn_entry("paged_prefill_attention_int8", "src/repro_torch/csrc/paged_prefill_attention.cu",
+                   "src/repro/kernels/attention_prefill_paged.py:207", "bf16_history1008", qattn,
+                   qcont_launches, qlibrary_call),
+        attn_entry("decode_attention_quant", "src/repro_torch/csrc/decode_attention_quant.cu",
+                   "src/repro/kernels/attention_quant.py:120", "bf16_served", qattn,
+                   qstatic_launches, qlibrary_call),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,9 +1,10 @@
 """The MoE FFN layer (``repro/core/moe.py``; DeepSpeed-MoE §3, §4.1.1, §5).
 
-This slice ports the grouped (dropless) dispatch, whose expert MLP is the
-hand-written grouped kernel, and the Residual-MoE branch (a fixed dense MLP
-beside the routed experts; llama4's and kimi-k2's shared expert).  The other
-dispatch implementations raise, naming their ROADMAP item.
+The port has the grouped (dropless) dispatch, whose expert MLP is the
+hand-written grouped kernel (kernel 4 for fp experts, kernel 5 for MoQ int8 /
+int4 experts), and the Residual-MoE branch (a fixed dense MLP beside the
+routed experts; llama4's and kimi-k2's shared expert).  The other dispatch
+implementations raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -14,8 +15,14 @@ import torch
 from repro_torch.configs.base import FFNSpec, ModelConfig
 from repro_torch.core import dispatch_grouped
 from repro_torch.core.gating import load_balance_loss, top_k_gating
-from repro_torch.kernels.expert_mlp_grouped import grouped_mlp
+from repro_torch.kernels.expert_mlp_grouped import (
+    check_grouped_quant_compat,
+    grouped_mlp,
+    grouped_mlp_quant,
+    grouped_mlp_quant_plain,
+)
 from repro_torch.models.modules import dense_init, init_mlp, mlp
+from repro_torch.quant.qarrays import QuantizedArray
 
 
 def init_moe(gen, cfg: ModelConfig, spec: FFNSpec, dtype, device, *, lead=()) -> dict:
@@ -35,12 +42,22 @@ def init_moe(gen, cfg: ModelConfig, spec: FFNSpec, dtype, device, *, lead=()) ->
 
 def grouped_experts_ffn(params: dict, xg, te, rows_used, act: str):
     """xg: [Ct, D] expert-sorted tile-padded tokens; te: [Ct/tile] tile ->
-    expert map -> [Ct, D], through the grouped kernel (SwiGLU experts)."""
+    expert map -> [Ct, D], through the grouped kernel (SwiGLU experts).
+
+    Quantized experts take kernel 5 when their layout suits it
+    (``check_grouped_quant_compat``: per-output-column scales); others
+    (group-wise scales) take the plain dequantize path, as the JAX package
+    does on the TPU.  The choice reads the weights' layout only."""
     if act != "swiglu":
         raise NotImplementedError(
             f"grouped experts with act={act!r} are not ported yet: the grouped "
             "kernel is SwiGLU-only (ROADMAP.md, queue 2: nlg GELU experts)")
-    return grouped_mlp(xg, te, params["wi"], params["wg"], params["wo"], rows_used)
+    wi, wg, wo = params["wi"], params["wg"], params["wo"]
+    if isinstance(wi, QuantizedArray):
+        if check_grouped_quant_compat(wi, wg, wo):
+            return grouped_mlp_quant(xg, te, wi, wg, wo, rows_used)
+        return grouped_mlp_quant_plain(xg, te, wi, wg, wo, rows_used)
+    return grouped_mlp(xg, te, wi, wg, wo, rows_used)
 
 
 def moe_layer(
@@ -57,8 +74,6 @@ def moe_layer(
         raise NotImplementedError(
             f"moe_impl={impl!r} is not ported yet; this slice serves moe_impl='grouped' "
             "(ROADMAP.md, queue 1 item 2: dense/einsum dispatch; item 7: expert parallelism)")
-    if not torch.is_tensor(params["wi"]):
-        raise NotImplementedError("quantized expert weights are not ported yet (ROADMAP.md, queue 1 item 4)")
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
     T = B * S

@@ -1,7 +1,9 @@
 // Grouped (dropless) expert SwiGLU MLP for Hopper, sm_90a.
 //
-// Replaces the TPU kernel repro/kernels/expert_mlp_grouped.py::grouped_mlp_kernel
-// (its pallas_call).  The dispatch layer (repro_torch/core/dispatch_grouped.py)
+// Replaces the TPU kernels repro/kernels/expert_mlp_grouped.py::grouped_mlp_kernel
+// (kernel 4, weights in the input type) and ::grouped_mlp_quant_kernel (kernel
+// 5, MoQ weights: int8, or int4 packed two per byte, with one f32 scale per
+// output column), each at its pallas_call.  The dispatch layer (repro_torch/core/dispatch_grouped.py)
 // has sorted the tokens by expert into xg [Ct, D], padded per expert to the
 // 8-row tile, and names each tile's expert in te [Ct/8].  For every tile t with
 // e = te[t]:
@@ -12,20 +14,30 @@
 // the down-projection, the output summed in f32 over all of F and cast to the
 // input type, as on the TPU.  T is __nv_bfloat16 (the serving path) or float.
 //
+// Quantized weights (kernel 5): wi/wg [E, D, F] and wo [E, F, D] as int8, or
+// as int4 [E, D/2, F] / [E, F/2, D], packed along the contraction axis (byte
+// (r, n) holds contraction rows 2r in its low and 2r+1 in its high nibble,
+// sign-extended); scales wi_s/wg_s [E, 1, F], wo_s [E, 1, D].  Each weight is
+// widened, times its column's scale in f32, and rounded to T before its FMA,
+// as the TPU kernel dequantizes in VMEM and casts to the activation type.
+//
 // Two kernels, both deterministic (no atomics):
 //   1. up/gate: grid (tile, F/128).  Each block forms act [8, 128] for its tile
 //      and writes it to a [Ct, F] scratch in device memory.
 //   2. down:    grid (tile, D/128).  Each block sums act[8, :] . wo[e][:, 128 cols].
 // Inside a block, 8 warps split the contraction dimension; each lane owns 4
 // adjacent output columns (one 8-byte bf16 or 16-byte f32 load per weight row),
-// so a warp reads 128 contiguous columns of one weight row.  The x (or act)
+// so a warp reads 128 contiguous columns of one weight row (int8: 4 bytes per
+// lane; int4: 4 bytes per lane give 2 contraction rows x 4 columns).  The x (or act)
 // rows of the tile are staged through shared memory as f32, and the 8 warps'
 // partial sums are added in a fixed order through shared memory.
 //
 // Bound: at decode and prefill sizes the kernel streams the weights of every
 // expert the tiles touch, n_distinct_experts * 3*D*F * sizeof(T) bytes, and
 // does 2*rows*3*D*F operations, far below the card's 295 operations per byte;
-// so its least time is those bytes over 3.35 TB/s.  Adjacent tiles of one
+// so its least time is those bytes over 3.35 TB/s.  int8 weights halve those
+// bytes against bf16 and int4 quarter them (plus 4 bytes of scale per column
+// per matrix).  Adjacent tiles of one
 // expert run as adjacent blocks, so the second tile's weight reads mostly hit
 // L2.  The TPU kernel kept the [8, F] activation in VMEM and accumulated the
 // down-projection across the F grid axis; this kernel does not yet: the
@@ -71,6 +83,57 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[COLS]) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+__device__ __forceinline__ float round_to(float v, float*) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// One expert's weight matrix [K, N] as a lane reads it: PACK contraction rows
+// per stored row, COLS adjacent columns from column col.  BITS = 0: the input
+// type T; 8: int8; 4: int4 nibbles (PACK 2).  The quantized formats carry the
+// lane's column scales and return each weight dequantized and rounded to T.
+template <typename T, int BITS>
+struct Weights {
+  static constexpr int PACK = BITS == 4 ? 2 : 1;
+  const void* w;   // this expert's stored rows [K / PACK, N]
+  float sc[COLS];  // scales of the lane's columns (quantized formats)
+
+  __device__ __forceinline__ Weights(const void* base, const float* scales, size_t e, int K, int N,
+                                     int col, bool active) {
+    if constexpr (BITS == 0) {
+      w = static_cast<const T*>(base) + e * K * N;
+    } else {
+      w = static_cast<const int8_t*>(base) + e * (K / PACK) * N;
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) sc[c] = active ? __ldg(scales + e * N + col + c) : 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void load(int row, int N, int col, float v[PACK][COLS]) const {
+    if constexpr (BITS == 0) {
+      load4(static_cast<const T*>(w) + (size_t)row * N + col, v[0]);
+    } else if constexpr (BITS == 8) {
+      const char4 q = __ldg(reinterpret_cast<const char4*>(static_cast<const int8_t*>(w) +
+                                                           (size_t)row * N + col));
+      const float f[COLS] = {(float)q.x, (float)q.y, (float)q.z, (float)q.w};
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) v[0][c] = round_to(f[c] * sc[c], (T*)nullptr);
+    } else {
+      const uchar4 q = __ldg(reinterpret_cast<const uchar4*>(static_cast<const int8_t*>(w) +
+                                                             (size_t)row * N + col));
+      const int b[COLS] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        int lo = b[c] & 0xF, hi = (b[c] >> 4) & 0xF;
+        lo -= 16 * (lo > 7);
+        hi -= 16 * (hi > 7);
+        v[0][c] = round_to((float)lo * sc[c], (T*)nullptr);
+        v[1][c] = round_to((float)hi * sc[c], (T*)nullptr);
+      }
+    }
+  }
+};
+
 // Shared memory of one block: the staged rows of the tile, then (after the
 // contraction) the warps' partial sums.  The two uses never overlap in time.
 union Smem {
@@ -79,12 +142,19 @@ union Smem {
 };
 
 // acc[r][c] += sum_k a[row0 + r, k] * W[k, col + c] over k in [0, K), for NW
-// weight matrices at once.  Warp w takes rows k = w, w + 8, ... of each staged
-// block; every lane reads its 4 columns of that row.
-template <typename T, int NW>
+// weight matrices at once.  Warp w takes stored rows kp = w, w + 8, ... of
+// each staged block (contraction rows kp * PACK .. kp * PACK + PACK - 1, in
+// order); every lane reads its 4 columns of that row.
+template <typename T, int BITS, int NW>
 __device__ __forceinline__ void contract(const T* __restrict__ a, int lda, int row0, int K,
-                                         const T* const* w, int ldw, int col, bool active,
+                                         const Weights<T, BITS>* w, int ldw, int col, bool active,
                                          Smem& sm, float acc[NW][TILE][COLS]) {
+  constexpr int PACK = Weights<T, BITS>::PACK;
+  // Loads kept in flight per warp: a quantized row is 4 bytes per lane, half
+  // or a quarter of the input type's, so its loop is unrolled deeper to keep
+  // as many bytes in flight (decode runs a handful of tiles, too few blocks
+  // to hide the load latency otherwise).
+  constexpr int UNROLL = BITS == 0 ? 4 : 16 / NW;
   const int warp = threadIdx.x / 32;
   for (int k0 = 0; k0 < K; k0 += BK) {
     const int kn = min(BK, K - k0);
@@ -94,18 +164,21 @@ __device__ __forceinline__ void contract(const T* __restrict__ a, int lda, int r
     }
     __syncthreads();
     if (active) {
-#pragma unroll 4
-      for (int k = warp; k < kn; k += WARPS) {
-        float wv[NW][COLS];
+#pragma unroll UNROLL
+      for (int kp = warp; kp < kn / PACK; kp += WARPS) {
+        float wv[NW][PACK][COLS];
 #pragma unroll
-        for (int m = 0; m < NW; ++m) load4(w[m] + (size_t)(k0 + k) * ldw + col, wv[m]);
+        for (int m = 0; m < NW; ++m) w[m].load(k0 / PACK + kp, ldw, col, wv[m]);
 #pragma unroll
         for (int r = 0; r < TILE; ++r) {
-          const float xv = sm.rows[r][k];
 #pragma unroll
-          for (int m = 0; m < NW; ++m)
+          for (int p = 0; p < PACK; ++p) {
+            const float xv = sm.rows[r][kp * PACK + p];
 #pragma unroll
-            for (int c = 0; c < COLS; ++c) acc[m][r][c] = fmaf(xv, wv[m][c], acc[m][r][c]);
+            for (int m = 0; m < NW; ++m)
+#pragma unroll
+              for (int c = 0; c < COLS; ++c) acc[m][r][c] = fmaf(xv, wv[m][p][c], acc[m][r][c]);
+          }
         }
       }
     }
@@ -135,20 +208,22 @@ __device__ __forceinline__ void reduce_warps(const float acc[TILE][COLS], Smem& 
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, int BITS>
 __global__ void __launch_bounds__(THREADS)
 up_gate_kernel(const T* __restrict__ xg, const int32_t* __restrict__ te,
-               const int32_t* __restrict__ rows_used, const T* __restrict__ wi,
-               const T* __restrict__ wg, T* __restrict__ act, int D, int F) {
+               const int32_t* __restrict__ rows_used, const void* __restrict__ wi,
+               const float* __restrict__ wi_s, const void* __restrict__ wg,
+               const float* __restrict__ wg_s, T* __restrict__ act, int D, int F) {
   const int row0 = blockIdx.x * TILE;
   if (row0 >= *rows_used) return;
   const size_t e = (size_t)te[blockIdx.x];
   const int col0 = blockIdx.y * BN;
   const int col = col0 + (threadIdx.x % 32) * COLS;
-  const T* w[2] = {wi + e * D * F, wg + e * D * F};
+  const Weights<T, BITS> w[2] = {Weights<T, BITS>(wi, wi_s, e, D, F, col, col < F),
+                                 Weights<T, BITS>(wg, wg_s, e, D, F, col, col < F)};
   __shared__ Smem sm;
   float acc[2][TILE][COLS] = {};
-  contract<T, 2>(xg, D, row0, D, w, F, col, col < F, sm, acc);
+  contract<T, BITS, 2>(xg, D, row0, D, w, F, col, col < F, sm, acc);
   float h[OUT_PER_THREAD], g[OUT_PER_THREAD];
   reduce_warps(acc[0], sm, h);
   reduce_warps(acc[1], sm, g);
@@ -163,11 +238,11 @@ up_gate_kernel(const T* __restrict__ xg, const int32_t* __restrict__ te,
   }
 }
 
-template <typename T>
+template <typename T, int BITS>
 __global__ void __launch_bounds__(THREADS)
 down_kernel(const T* __restrict__ act, const int32_t* __restrict__ te,
-            const int32_t* __restrict__ rows_used, const T* __restrict__ wo,
-            T* __restrict__ out, int D, int F) {
+            const int32_t* __restrict__ rows_used, const void* __restrict__ wo,
+            const float* __restrict__ wo_s, T* __restrict__ out, int D, int F) {
   const int row0 = blockIdx.x * TILE;
   const int col0 = blockIdx.y * BN;
   if (row0 >= *rows_used) {
@@ -179,10 +254,10 @@ down_kernel(const T* __restrict__ act, const int32_t* __restrict__ te,
   }
   const size_t e = (size_t)te[blockIdx.x];
   const int col = col0 + (threadIdx.x % 32) * COLS;
-  const T* w[1] = {wo + e * F * D};
+  const Weights<T, BITS> w[1] = {Weights<T, BITS>(wo, wo_s, e, F, D, col, col < D)};
   __shared__ Smem sm;
   float acc[1][TILE][COLS] = {};
-  contract<T, 1>(act, F, row0, F, w, D, col, col < D, sm, acc);
+  contract<T, BITS, 1>(act, F, row0, F, w, D, col, col < D, sm, acc);
   float y[OUT_PER_THREAD];
   reduce_warps(acc[0], sm, y);
 #pragma unroll
@@ -193,23 +268,37 @@ down_kernel(const T* __restrict__ act, const int32_t* __restrict__ te,
   }
 }
 
-template <typename T>
+template <typename T, int BITS>
 int launch(const void* xg, const void* te, const void* rows_used, const void* wi,
-           const void* wg, const void* wo, void* act, void* out, int n_tiles, int D, int F,
-           void* stream) {
+           const void* wi_s, const void* wg, const void* wg_s, const void* wo, const void* wo_s,
+           void* act, void* out, int n_tiles, int D, int F, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(THREADS);
-  up_gate_kernel<T><<<dim3(n_tiles, (F + BN - 1) / BN), block, 0, s>>>(
+  up_gate_kernel<T, BITS><<<dim3(n_tiles, (F + BN - 1) / BN), block, 0, s>>>(
       static_cast<const T*>(xg), static_cast<const int32_t*>(te),
-      static_cast<const int32_t*>(rows_used), static_cast<const T*>(wi),
-      static_cast<const T*>(wg), static_cast<T*>(act), D, F);
+      static_cast<const int32_t*>(rows_used), wi, static_cast<const float*>(wi_s), wg,
+      static_cast<const float*>(wg_s), static_cast<T*>(act), D, F);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  down_kernel<T><<<dim3(n_tiles, (D + BN - 1) / BN), block, 0, s>>>(
+  down_kernel<T, BITS><<<dim3(n_tiles, (D + BN - 1) / BN), block, 0, s>>>(
       static_cast<const T*>(act), static_cast<const int32_t*>(te),
-      static_cast<const int32_t*>(rows_used), static_cast<const T*>(wo),
+      static_cast<const int32_t*>(rows_used), wo, static_cast<const float*>(wo_s),
       static_cast<T*>(out), D, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_quant(const void* xg, const void* te, const void* rows_used, const void* wi,
+                 const void* wi_s, const void* wg, const void* wg_s, const void* wo,
+                 const void* wo_s, void* act, void* out, int n_tiles, int D, int F, int bits,
+                 void* stream) {
+  if (bits == 8)
+    return launch<T, 8>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, n_tiles, D, F,
+                        stream);
+  if (bits == 4 && D % 2 == 0 && F % 2 == 0)
+    return launch<T, 4>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, n_tiles, D, F,
+                        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -222,13 +311,33 @@ extern "C" {
 int grouped_mlp_bf16(const void* xg, const void* te, const void* rows_used, const void* wi,
                      const void* wg, const void* wo, void* act, void* out, int n_tiles, int D,
                      int F, void* stream) {
-  return launch<__nv_bfloat16>(xg, te, rows_used, wi, wg, wo, act, out, n_tiles, D, F, stream);
+  return launch<__nv_bfloat16, 0>(xg, te, rows_used, wi, nullptr, wg, nullptr, wo, nullptr, act,
+                                  out, n_tiles, D, F, stream);
 }
 
 int grouped_mlp_f32(const void* xg, const void* te, const void* rows_used, const void* wi,
                     const void* wg, const void* wo, void* act, void* out, int n_tiles, int D,
                     int F, void* stream) {
-  return launch<float>(xg, te, rows_used, wi, wg, wo, act, out, n_tiles, D, F, stream);
+  return launch<float, 0>(xg, te, rows_used, wi, nullptr, wg, nullptr, wo, nullptr, act, out,
+                          n_tiles, D, F, stream);
+}
+
+// Kernel 5: int8 (bits 8) or int4 (bits 4) weights with f32 column scales
+// wi_s/wg_s [E, 1, F], wo_s [E, 1, D].
+int grouped_mlp_quant_bf16(const void* xg, const void* te, const void* rows_used, const void* wi,
+                           const void* wi_s, const void* wg, const void* wg_s, const void* wo,
+                           const void* wo_s, void* act, void* out, int n_tiles, int D, int F,
+                           int bits, void* stream) {
+  return launch_quant<__nv_bfloat16>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out,
+                                     n_tiles, D, F, bits, stream);
+}
+
+int grouped_mlp_quant_f32(const void* xg, const void* te, const void* rows_used, const void* wi,
+                          const void* wi_s, const void* wg, const void* wg_s, const void* wo,
+                          const void* wo_s, void* act, void* out, int n_tiles, int D, int F,
+                          int bits, void* stream) {
+  return launch_quant<float>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, n_tiles,
+                             D, F, bits, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
-// Device code shared by the two paged attention kernels for Hopper, sm_90a:
-// paged_decode_attention.cu (one query token per slot) and
-// paged_prefill_attention.cu (one prefill chunk of one sequence).
+// Device code shared by the attention kernels for Hopper, sm_90a:
+// paged_decode_attention.cu (one query token per slot),
+// paged_prefill_attention.cu (one prefill chunk of one sequence), both over a
+// page pool in full precision or int8, and decode_attention_quant.cu (one
+// query token per slot over a contiguous int8 cache).
 //
-// Both compute, for one kv-head and a set of query rows, a masked softmax
+// All compute, for one kv-head and a set of query rows, a masked softmax
 // attention over keys streamed in tiles of up to KT = 32 keys, as the TPU
-// kernels do with their sequential page grid axis:
+// kernels do with their sequential page / key-tile grid axis:
 //
 //   * the query rows of the block (row = token * G + grouped head, so head
 //     h_q = kv * G + g as the model's [H] -> [Hkv, G] reshape gives) are
@@ -12,7 +14,10 @@
 //   * a tile is staged in shared memory as f32 (K rows padded by one float so
 //     the per-thread dot products read distinct banks), with its absolute
 //     positions, which carry the masks: pos < 0 (empty or trash entry),
-//     causal (pos > query position), window (query - pos >= window);
+//     causal (pos > query position), window (query - pos >= window).  An
+//     int8 cache (KVq8) is widened while it is staged: each value times the
+//     f32 scale of its (key, kv-head), in f32, as the TPU kernels dequantize
+//     in VMEM; everything after staging is the same code for both layouts;
 //   * scores in f32 (scale, then softcap), an online softmax per row (running
 //     max m, normaliser l; one warp per row, one lane per key) and the P.V
 //     update of an f32 accumulator held in registers (thread = one head-dim
@@ -67,6 +72,32 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[VEC]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// Where a tile's K/V come from: a cache in the input type, or an int8 cache
+// with one f32 scale per (key, kv-head).  Rows are [rows, Hkv, DH].
+template <typename T>
+struct KVfp {
+  const T* k;
+  const T* v;
+};
+
+struct KVq8 {
+  const int8_t* k;
+  const float* ks;  // [rows, Hkv] (the [..., Hkv, 1] scales)
+  const int8_t* v;
+  const float* vs;
+};
+
+// The C entry points' untyped pointers as a K/V source.
+template <typename T>
+inline KVfp<T> kv_fp(const void* k, const void* v) {
+  return {static_cast<const T*>(k), static_cast<const T*>(v)};
+}
+
+inline KVq8 kv_q8(const void* k, const void* ks, const void* v, const void* vs) {
+  return {static_cast<const int8_t*>(k), static_cast<const float*>(ks),
+          static_cast<const int8_t*>(v), static_cast<const float*>(vs)};
 }
 
 // Scale, softcap and masks: the kernels' static arguments on the TPU.
@@ -164,19 +195,42 @@ struct Attn {
   // Stage K/V rows of the tile: key j lives at row row_of(j) of a
   // [rows, Hkv, DH] array (a pool page row is page * ps + offset).
   template <typename RowOf>
-  __device__ void stage(const T* kb, const T* vb, int Hkv, int h, int nk, RowOf row_of) {
+  __device__ void stage(const KVfp<T>& src, int Hkv, int h, int nk, RowOf row_of) {
     constexpr int NV = DH / VEC;
     for (int i = tid; i < nk * NV; i += NT) {
       const int j = i / NV, c = (i - j * NV) * VEC;
       const size_t off = ((size_t)row_of(j) * Hkv + h) * DH + c;
       float kv[VEC], vv[VEC];
-      load4(kb + off, kv);
-      load4(vb + off, vv);
+      load4(src.k + off, kv);
+      load4(src.v + off, vv);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         s.k[j][c + e] = kv[e];
         s.v[j][c + e] = vv[e];
       }
+    }
+    __syncthreads();
+  }
+
+  // The same from an int8 cache: 4 values per load (one 32-bit word), each
+  // times its (key, kv-head) scale in f32.
+  template <typename RowOf>
+  __device__ void stage(const KVq8& src, int Hkv, int h, int nk, RowOf row_of) {
+    constexpr int NV = DH / VEC;
+    for (int i = tid; i < nk * NV; i += NT) {
+      const int j = i / NV, c = (i - j * NV) * VEC;
+      const size_t row = (size_t)row_of(j) * Hkv + h;
+      const float sk = __ldg(src.ks + row), sv = __ldg(src.vs + row);
+      const char4 kq = __ldg(reinterpret_cast<const char4*>(src.k + row * DH + c));
+      const char4 vq = __ldg(reinterpret_cast<const char4*>(src.v + row * DH + c));
+      s.k[j][c + 0] = (float)kq.x * sk;
+      s.k[j][c + 1] = (float)kq.y * sk;
+      s.k[j][c + 2] = (float)kq.z * sk;
+      s.k[j][c + 3] = (float)kq.w * sk;
+      s.v[j][c + 0] = (float)vq.x * sv;
+      s.v[j][c + 1] = (float)vq.y * sv;
+      s.v[j][c + 2] = (float)vq.z * sv;
+      s.v[j][c + 3] = (float)vq.w * sv;
     }
     __syncthreads();
   }
@@ -258,7 +312,8 @@ struct Attn {
 
   // Every live page of the table row; pool keys at positions >= mask_from
   // are masked (the prefill chunk's own positions).
-  __device__ void attend_pool(const T* kpool, const T* vpool, const int* kpos, const int* table_row,
+  template <typename KV>
+  __device__ void attend_pool(const KV& pool, const int* kpos, const int* table_row,
                               int nt, int ps, int Pt, int Hkv, int h, int mask_from) {
     const int ppt = KT / ps;
     if (tid == 0) s.next_entry = 0;
@@ -273,7 +328,22 @@ struct Attn {
         s.kp[tid] = pos >= mask_from ? -1 : pos;
       }
       if (!tile_live(nk)) continue;
-      stage(kpool, vpool, Hkv, h, nk, [&](int j) { return s.page[j / ps] * ps + j % ps; });
+      stage(pool, Hkv, h, nk, [&](int j) { return s.page[j / ps] * ps + j % ps; });
+      process_tile(nk);
+    }
+  }
+
+  // Keys 0 .. n_keys - 1 of a contiguous cache whose key t is row row0 + t,
+  // with positions kpos_row[t] (-1 = empty slot).
+  template <typename KV>
+  __device__ void attend_contiguous(const KV& cache, const int* kpos_row, int n_keys, size_t row0,
+                                    int Hkv, int h) {
+    for (int t0 = 0; t0 < n_keys; t0 += KT) {
+      const int nk = min(KT, n_keys - t0);
+      __syncthreads();  // the previous tile is consumed
+      if (tid < nk) s.kp[tid] = __ldg(kpos_row + t0 + tid);
+      if (!tile_live(nk)) continue;
+      stage(cache, Hkv, h, nk, [&](int j) { return row0 + t0 + j; });
       process_tile(nk);
     }
   }
@@ -285,7 +355,7 @@ struct Attn {
       __syncthreads();  // the previous tile is consumed
       if (tid < nk) s.kp[tid] = qpos[j0 + tid];
       if (!tile_live(nk)) continue;
-      stage(ck, cv, Hkv, h, nk, [&](int j) { return j0 + j; });
+      stage(KVfp<T>{ck, cv}, Hkv, h, nk, [&](int j) { return j0 + j; });
       process_tile(nk);
     }
   }

@@ -3,49 +3,61 @@
 
 The kernel replaces
 ``repro/kernels/attention_prefill_paged.py::paged_prefill_attention`` (the TPU
-kernel, full-precision pool); its design and bound are in the source's note
-and in ``csrc/paged_attention.cuh``.  A tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel or raises.  ``launches`` counts
-the wrapper's kernel launches.
+kernel), both its branches: a full-precision pool (kernel 8) and an int8 pool
+with f32 scales per (key, kv-head) (``k_scale``/``v_scale`` given, kernel
+8q).  Its design and bound are in the source's note and in
+``csrc/paged_attention.cuh``.  A tensor on the CPU takes the plain version; a
+CUDA tensor launches the kernel or raises.  ``launches`` counts the wrapper's
+kernel launches per branch.
 
 The caller hands it the PRE-write pool: the chunk's own K/V arrive as
-``ck``/``cv`` and are written into their pages after this call.
+``ck``/``cv``, in q's type also over an int8 pool, and are written (and
+quantized) into their pages after this call.  The int8 pool is dequantized as
+in ``attention_paged.py``: to q's type in the plain version, in f32 in the
+kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.attention_paged import check_pool_args, masked_softmax_pv
+from repro_torch.kernels.attention_paged import check_pool_args, kv_values, masked_softmax_pv
 
-launches = {"paged_prefill_attention": 0}
+launches = {"paged_prefill_attention": 0, "paged_prefill_attention_int8": 0}
 
 _C_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_C_ARGS_INT8 = [ctypes.c_void_p] * 2 + _C_ARGS  # + the two scale pointers
 
 
 def _library():
     lib = build.load_library("paged_prefill_attention")
-    for fn in (lib.paged_prefill_attention_bf16, lib.paged_prefill_attention_f32):
-        fn.argtypes = _C_ARGS
+    for fn, args in ((lib.paged_prefill_attention_bf16, _C_ARGS),
+                     (lib.paged_prefill_attention_f32, _C_ARGS),
+                     (lib.paged_prefill_attention_int8_bf16, _C_ARGS_INT8),
+                     (lib.paged_prefill_attention_int8_f32, _C_ARGS_INT8)):
+        fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
 
 
 def paged_prefill_attention_plain(q, k_pool, v_pool, kpos, table, qpos, ck, cv, *, scale: float,
-                                  causal: bool = True, window: int = 0, softcap: float = 0.0):
+                                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                                  k_scale=None, v_scale=None):
     """The kernel's function in PyTorch, as ``paged_prefill_attention_ref``
-    computes it: the table's pages gathered into a contiguous history (keys
-    at positions >= the chunk start masked), the chunk's K/V appended, a
-    masked f32 softmax over the union."""
+    computes it: the table's pages gathered into a contiguous history
+    (dequantized, for an int8 pool; keys at positions >= the chunk start
+    masked), the chunk's K/V appended, a masked f32 softmax over the union."""
     C, Hkv, G, dh = q.shape
     ps = k_pool.shape[1]
     idx = table.long()
     n = idx.shape[0] * ps
-    k = torch.cat([k_pool[idx].reshape(n, Hkv, dh), ck]).float()
-    v = torch.cat([v_pool[idx].reshape(n, Hkv, dh), cv]).float()
+    gather = lambda pool, w: None if pool is None else pool[idx].reshape(n, Hkv, w)
+    k = torch.cat([kv_values(gather(k_pool, dh), gather(k_scale, 1), q.dtype), ck.float()])
+    v = torch.cat([kv_values(gather(v_pool, dh), gather(v_scale, 1), q.dtype), cv.float()])
     hist = kpos[idx].reshape(n)
     hist = torch.where(hist >= qpos[0], -1, hist)  # the pool is strictly pre-chunk
     kp = torch.cat([hist, qpos])[None, None, None, :]  # [1, 1, 1, T]
@@ -70,16 +82,19 @@ def paged_prefill_attention(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,  # [Pt, ps, Hkv, 1] f32: the pool is int8
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """[C, Hkv, G, dh] attention output in q's type."""
+    """[C, Hkv, G, dh] attention output in q's type.  With ``k_scale`` /
+    ``v_scale`` the pool holds int8 values (kernel 8q)."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, kpos, table, qpos, ck, cv,
                                              scale=scale, causal=causal, window=window,
-                                             softcap=softcap)
+                                             softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for device {q.device}")
     check_pool_args("paged_prefill_attention", q, k_pool, v_pool, kpos, table, qpos,
-                    extra=(("ck", ck), ("cv", cv)))
+                    extra=(("ck", ck), ("cv", cv)), k_scale=k_scale, v_scale=v_scale)
     C, Hkv, G, dh = q.shape
     Pt, ps = kpos.shape
     if table.ndim != 1 or qpos.shape != (C,) or ck.shape != (C, Hkv, dh) or cv.shape != ck.shape:
@@ -87,15 +102,22 @@ def paged_prefill_attention(
                          f"{tuple(qpos.shape)}, ck {tuple(ck.shape)}, cv {tuple(cv.shape)} "
                          f"do not match q {tuple(q.shape)}")
     lib = _library()
-    fn = lib.paged_prefill_attention_bf16 if q.dtype == torch.bfloat16 else lib.paged_prefill_attention_f32
+    bf16 = q.dtype == torch.bfloat16
+    if k_scale is None:
+        key = "paged_prefill_attention"
+        fn = lib.paged_prefill_attention_bf16 if bf16 else lib.paged_prefill_attention_f32
+        kv = (k_pool.data_ptr(), v_pool.data_ptr())
+    else:
+        key = "paged_prefill_attention_int8"
+        fn = lib.paged_prefill_attention_int8_bf16 if bf16 else lib.paged_prefill_attention_int8_f32
+        kv = (k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr())
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kpos.data_ptr(),
-                 table.data_ptr(), qpos.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(),
-                 C, Hkv, G, dh, ps, table.shape[0], Pt, float(scale), int(causal), int(window),
-                 float(softcap), stream)
+        err = fn(q.data_ptr(), *kv, kpos.data_ptr(), table.data_ptr(), qpos.data_ptr(),
+                 ck.data_ptr(), cv.data_ptr(), out.data_ptr(), C, Hkv, G, dh, ps, table.shape[0],
+                 Pt, float(scale), int(causal), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill_attention: kernel launch failed with CUDA error {err}")
-    launches["paged_prefill_attention"] += 1
+    launches[key] += 1
     return out

@@ -8,6 +8,7 @@ its per-tick numbers.
       --reduced --moe-impl grouped              # on the card
   ... --device cpu                              # on the CPU (plain versions)
   ... --paged --page-size 16 --pages 64 --slots 4 --prefill-chunk 32 --device cpu
+  ... --quant-bits 8 --quant-policy experts --kv-bits 8   # MoQ weights, int8 KV cache
 
 A subset of ``repro.launch.serve``'s flags; the others exit with an error
 naming the ROADMAP item that ports them.
@@ -20,17 +21,15 @@ import time
 
 import numpy as np
 
+from repro_torch.configs.base import QuantConfig
 from repro_torch.configs.registry import get_config, make_reduced
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_caches, init_paged_caches, init_params
+from repro_torch.quant import kv_cache_bytes, quantize_params, quantized_leaf_paths, tree_bytes
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
 
 # flags of the JAX launcher this slice does not port -> where they are queued
 UNPORTED = {
-    "--quant-bits": "queue 1 item 4 (quantization)",
-    "--quant-policy": "queue 1 item 4 (quantization)",
-    "--quant-group-size": "queue 1 item 4 (quantization)",
-    "--kv-bits": "queue 1 item 4 (quantization)",
     "--prefix-sharing": "queue 1 item 3 (prefix sharing)",
     "--n-samples": "queue 1 item 3 (submit_n)",
     "--spec-draft": "queue 1 item 6 (speculative decoding)",
@@ -68,6 +67,16 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=0, help="decode slots for --paged (default --batch)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="with --paged: prefill tokens per engine tick (0 = max(64, page size))")
+    ap.add_argument("--quant-bits", type=int, default=0, choices=[0, 4, 8],
+                    help="weight-only PTQ before serving (0 = off; MoQ)")
+    ap.add_argument("--quant-policy", default="experts",
+                    choices=["experts", "experts_attn", "all"])
+    ap.add_argument("--quant-group-size", type=int, default=0,
+                    help="scale group size along the contraction dim, int8 or int4 "
+                         "(0 = one scale per output channel)")
+    ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8],
+                    help="KV-cache quantization: 8 = int8 cache with per-head, per-timestep "
+                         "scales, 0 = full precision")
     ap.add_argument("--prefill-mode", default="chunked", choices=["chunked"],
                     help="with --paged: only 'chunked' is ported (ROADMAP.md, queue 1 item 3: "
                          "batched prefill)")
@@ -94,12 +103,7 @@ def main(argv=None) -> None:
     if args.moe_impl:
         cfg = cfg.replace(moe_impl=args.moe_impl)
 
-    if args.ckpt:
-        from repro_torch.convert import load_checkpoint
-
-        params = load_checkpoint(args.ckpt, cfg, args.device)
-    else:
-        params = init_params(cfg, seed=0, device=args.device)
+    params = load_params(args, cfg)
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist(),
                     max_new_tokens=args.new_tokens)
@@ -109,8 +113,13 @@ def main(argv=None) -> None:
         return
     ec = EngineConfig(max_batch=args.batch, max_prefill=args.prompt_len,
                       max_decode=args.new_tokens, temperature=args.temperature,
-                      top_k=args.top_k, top_p=args.top_p)
+                      top_k=args.top_k, top_p=args.top_p, kv_cache_bits=args.kv_bits)
     eng = Engine(cfg, params, ec, device=args.device)
+    if args.kv_bits:
+        fp_b, q_b = (kv_cache_bytes(init_caches(cfg, args.batch, eng._capacity, kv_bits=b,
+                                                device="meta")) for b in (0, args.kv_bits))
+        print(f"KV cache int{args.kv_bits}: {fp_b / 1e6:.2f}MB -> {q_b / 1e6:.2f}MB "
+              f"({fp_b / q_b:.2f}x fewer cache bytes)")
     eng.generate(reqs[: args.batch])  # warm-up: builds the kernels on the card
     t0 = time.perf_counter()
     responses = eng.generate(reqs)
@@ -128,14 +137,57 @@ def main(argv=None) -> None:
     print("sample:", responses[0].tokens[:10])
 
 
+def load_params(args, cfg):
+    """Random weights from seed 0 or ``--ckpt``, then PTQ per ``--quant-*``.
+    A checkpoint may hold a tree that was quantized with the same flags or a
+    full-precision one to quantize after loading, as in the JAX launcher."""
+    from repro_torch.convert import load_checkpoint
+
+    if not args.quant_bits:
+        if args.ckpt:
+            return load_checkpoint(args.ckpt, cfg, args.device)
+        return init_params(cfg, seed=0, device=args.device)
+    qcfg = QuantConfig(bits=args.quant_bits, group_size=args.quant_group_size,
+                       policy=args.quant_policy)
+    params = None
+    if args.ckpt:
+        try:
+            params = load_checkpoint(args.ckpt, cfg, args.device, qcfg=qcfg)
+        except ValueError as q_err:
+            try:
+                fp = load_checkpoint(args.ckpt, cfg, args.device)
+            except ValueError as fp_err:
+                raise ValueError(
+                    f"--ckpt {args.ckpt!r} matches neither the quantized structure for {qcfg} "
+                    f"({q_err}) nor the fp structure ({fp_err})") from fp_err
+    else:
+        fp = init_params(cfg, seed=0, device=args.device)
+    if params is None:
+        fp_bytes = tree_bytes(fp)
+        params = quantize_params(fp, qcfg)
+        print(f"PTQ int{args.quant_bits}/{args.quant_policy}: {fp_bytes / 1e6:.1f}MB -> "
+              f"{tree_bytes(params) / 1e6:.1f}MB")
+    if not quantized_leaf_paths(params):
+        print(f"WARNING: quant policy '{args.quant_policy}' matched no weights in {cfg.name} "
+              "- serving full precision")
+    if args.quant_group_size:
+        print(f"NB: the grouped expert kernel takes per-output-channel scales; group_size="
+              f"{args.quant_group_size} experts take the plain dequantize path")
+    return params
+
+
 def serve_paged(args, cfg, params, reqs) -> None:
     eng = ContinuousEngine(
         cfg, params, slots=args.slots or args.batch, capacity=args.prompt_len + args.new_tokens,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, paged=True,
         page_size=args.page_size, n_pages=args.pages, prefill_chunk=args.prefill_chunk,
-        prefill_mode=args.prefill_mode, device=args.device)
-    print(f"paged pool: {eng.n_pages} pages x {eng.page_size} tokens, {eng.n_slots} slots, "
-          f"capacity {eng.capacity}, prefill chunk {eng.prefill_chunk}")
+        prefill_mode=args.prefill_mode, kv_cache_bits=args.kv_bits, device=args.device)
+    pool_b = kv_cache_bytes(init_paged_caches(cfg, eng.n_slots, eng.capacity, n_pages=eng.n_pages,
+                                              page_size=eng.page_size, kv_bits=args.kv_bits,
+                                              device="meta"))
+    print(f"paged pool: {eng.n_pages} pages x {eng.page_size} tokens ({pool_b / 1e6:.2f}MB, "
+          f"kv_bits {args.kv_bits}), {eng.n_slots} slots, capacity {eng.capacity}, prefill "
+          f"chunk {eng.prefill_chunk}")
     # warm-up: builds the kernels on the card; the request completes, so the
     # pool starts the timed run empty
     eng.submit(Request(prompt=reqs[0].prompt, max_new_tokens=2))

@@ -5,12 +5,18 @@ Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) run over
 contiguous caches; ``decode_paged`` and ``prefill_chunk`` over a shared page
 pool addressed through block tables, through the hand-written paged kernels
 (``kernels/attention_paged.py``, ``kernels/attention_prefill_paged.py``).
+With ``kv_bits=8`` the caches hold int8 ``QuantizedKV`` pairs, quantized on
+every write; decode over a contiguous int8 cache goes through
+``kernels/attention_quant.py``, and the paged kernels take their int8
+branches.
 Caches are updated in place: the stacked ``[repeats, ...]`` tensors the
 engines allocate are written through per-layer views, so a step never copies
 a cache.  That changes the order of reads and writes against JAX's
-functional updates, and the paged modes keep JAX's order explicitly: a
-prefill chunk attends over the pool BEFORE its K/V are written, a decode
-token is written first and then attends (it sees itself).  The contiguous
+functional updates, and every mode keeps JAX's order explicitly: a prefill
+chunk attends over the pool BEFORE its K/V are written (over its own fp K/V
+in flight), a decode token is written first, quantized where the cache is
+int8, and then attends (it sees itself as stored), and a static prefill
+attends over its fp K/V and then writes them.  The contiguous
 modes' softmax runs in f32 exactly as the JAX ``_sdpa`` does (f32 logits,
 probabilities cast to ``v``'s type); no fused attention operator is called.
 """
@@ -24,7 +30,10 @@ import torch
 from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.kernels.attention_paged import paged_decode_attention
 from repro_torch.kernels.attention_prefill_paged import paged_prefill_attention
+from repro_torch.kernels.attention_quant import decode_attention_quant
 from repro_torch.models.modules import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
+from repro_torch.quant.kv import QuantizedKV, kv_quantize_values
+from repro_torch.quant.qarrays import materialize
 
 NEG_INF = -1e30
 
@@ -75,16 +84,37 @@ def init_attention(gen, cfg: ModelConfig, spec: AttnSpec, dtype, device, *, lead
     return p
 
 
+def _kv_tensor(shape, dtype, device, kv_bits: int):
+    if kv_bits == 8:
+        return QuantizedKV.zeros(shape, dtype, device)
+    if kv_bits == 0:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    raise ValueError(f"kv_bits must be 0 (fp) or 8 (int8), got {kv_bits}")
+
+
 def init_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int, dtype, device,
-                  *, lead=()) -> dict:
+                  *, lead=(), kv_bits: int = 0) -> dict:
     """Contiguous KV cache; ``pos`` holds the absolute position stored in each
-    slot (-1 = empty), which is also the validity mask's source."""
+    slot (-1 = empty), which is also the validity mask's source.
+    ``kv_bits=8`` stores K/V as int8 ``QuantizedKV`` (quantized on write)."""
     shape = tuple(lead) + (batch, capacity, n_kv, head_dim)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": _kv_tensor(shape, dtype, device, kv_bits),
+        "v": _kv_tensor(shape, dtype, device, kv_bits),
         "pos": torch.full(tuple(lead) + (batch, capacity), -1, dtype=torch.int32, device=device),
     }
+
+
+def _write_kv(old, new_vals, write) -> None:
+    """``write(buffer, values)`` in place: to the tensor of an fp cache, to
+    both tensors of a ``QuantizedKV`` (quantize on write: each token's scale
+    stands alone, so no earlier entry is rescaled)."""
+    if isinstance(old, QuantizedKV):
+        q_new, s_new = kv_quantize_values(new_vals)
+        write(old.q, q_new)
+        write(old.scale, s_new)
+    else:
+        write(old, new_vals.to(old.dtype))
 
 
 def _cache_write_prefill(cache: dict, k, v, positions) -> dict:
@@ -93,8 +123,12 @@ def _cache_write_prefill(cache: dict, k, v, positions) -> dict:
     S = k.shape[1]
     if S > cap:
         raise ValueError(f"prefill of {S} tokens exceeds the cache capacity {cap}")
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
+
+    def write(buf, vals):
+        buf[:, :S] = vals
+
+    _write_kv(cache["k"], k, write)
+    _write_kv(cache["v"], v, write)
     cache["pos"][:, :S] = positions.to(torch.int32)
     return cache
 
@@ -104,8 +138,12 @@ def _cache_write_decode(cache: dict, k_new, v_new, index: int) -> dict:
     in place)."""
     cap = cache["k"].shape[1]
     slot = index % cap
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+
+    def write(buf, vals):
+        buf[:, slot] = vals[:, 0]
+
+    _write_kv(cache["k"], k_new, write)
+    _write_kv(cache["v"], v_new, write)
     cache["pos"][:, slot] = index
     return cache
 
@@ -118,17 +156,18 @@ def spec_is_paged(spec: AttnSpec) -> bool:
 
 
 def init_paged_kv_cache(n_pages: int, page_size: int, n_kv: int, head_dim: int, dtype, device,
-                        *, lead=()) -> dict:
+                        *, lead=(), kv_bits: int = 0) -> dict:
     """Shared page-pool KV cache ``[n_pages + 1, page_size, n_kv, head_dim]``,
     no batch axis: sequences own pages through per-slot block tables
     (``serving/kv_pool.py``).  The last page is the trash page: never handed
     out, its ``pos`` stays -1, unmapped table entries clamp to it on read and
-    inactive rows write into it."""
+    inactive rows write into it.  ``kv_bits=8``: int8 pages with
+    per-(token, head) scales ``[..., n_pages + 1, page_size, n_kv, 1]``."""
     lead = tuple(lead)
     shape = lead + (n_pages + 1, page_size, n_kv, head_dim)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": _kv_tensor(shape, dtype, device, kv_bits),
+        "v": _kv_tensor(shape, dtype, device, kv_bits),
         "pos": torch.full(lead + (n_pages + 1, page_size), -1, dtype=torch.int32, device=device),
     }
 
@@ -152,8 +191,12 @@ def _paged_cache_write_decode(cache: dict, k_new, v_new, row_pos, table) -> dict
     pos = row_pos.long()
     pages = table[rows, pos // ps].long()
     offs = pos % ps
-    cache["k"][pages, offs] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][pages, offs] = v_new[:, 0].to(cache["v"].dtype)
+
+    def write(buf, vals):
+        buf[pages, offs] = vals[:, 0]
+
+    _write_kv(cache["k"], k_new, write)
+    _write_kv(cache["v"], v_new, write)
     cache["pos"][pages, offs] = torch.where(pages == Pt - 1, -1, row_pos)
     return cache
 
@@ -172,37 +215,67 @@ def _paged_cache_write_chunk(cache: dict, k_new, v_new, positions, table_row) ->
     pages = table_row[pos // ps].long()
     already = cache["pos"][pages, offs] == positions
     pages = torch.where(already, Pt - 1, pages)
-    cache["k"][pages, offs] = k_new[0].to(cache["k"].dtype)
-    cache["v"][pages, offs] = v_new[0].to(cache["v"].dtype)
+
+    def write(buf, vals):
+        buf[pages, offs] = vals[0]
+
+    _write_kv(cache["k"], k_new, write)
+    _write_kv(cache["v"], v_new, write)
     cache["pos"][pages, offs] = torch.where(pages == Pt - 1, -1, positions)
     return cache
 
 
+def _kv_args(cache: dict) -> tuple:
+    """(k, v, scales) of a cache for the paged kernels: the int8 tensors and
+    ``dict(k_scale=, v_scale=)`` of a ``QuantizedKV`` pool, else the fp
+    tensors and no scales."""
+    k, v = cache["k"], cache["v"]
+    if isinstance(k, QuantizedKV):
+        return k.q, v.q, dict(k_scale=k.scale, v_scale=v.scale)
+    return k, v, {}
+
+
+def _decode_attend_quant(q, cache: dict, row_pos, spec: AttnSpec, scale: float):
+    """One-token decode over a contiguous int8 cache, through kernel 9.
+    q: [B, 1, H, dh]; row_pos [B] int32."""
+    B, _, H, dh = q.shape
+    Hkv = cache["k"].shape[2]
+    qg = q[:, 0].reshape(B, Hkv, H // Hkv, dh).contiguous()
+    y = decode_attention_quant(
+        qg, cache["k"].q, cache["k"].scale, cache["v"].q, cache["v"].scale, cache["pos"], row_pos,
+        scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        softcap=spec.logit_softcap)
+    return y.reshape(B, 1, H, dh)
+
+
 def _paged_decode_attend(q, cache: dict, row_pos, table, spec: AttnSpec, scale: float):
-    """One-token decode over a paged pool, through kernel 7.  q: [B, 1, H, dh]."""
+    """One-token decode over a paged pool, through kernel 7 (its int8 branch
+    over an int8 pool).  q: [B, 1, H, dh]."""
     B, _, H, dh = q.shape
     Hkv = cache["k"].shape[2]
     # head h is kv * G + g: the [H] -> [Hkv, G] reshape, not a transpose
     qg = q[:, 0].reshape(B, Hkv, H // Hkv, dh).contiguous()
+    k, v, scales = _kv_args(cache)
     y = paged_decode_attention(
-        qg, cache["k"], cache["v"], cache["pos"], table, row_pos,
+        qg, k, v, cache["pos"], table, row_pos,
         scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
-        softcap=spec.logit_softcap)
+        softcap=spec.logit_softcap, **scales)
     return y.reshape(B, 1, H, dh)
 
 
 def _paged_prefill_chunk_attend(q, k, v, cache: dict, positions, table_row, spec: AttnSpec,
                                 scale: float):
     """Chunk queries attend over (the pool's pages, BEFORE this chunk's
-    write) ++ (the chunk's own K/V, causal), through kernel 8.  q/k/v:
-    [1, C, ...]; positions [C]."""
+    write) ++ (the chunk's own fp K/V, causal), through kernel 8 (its int8
+    branch over an int8 pool).  q/k/v: [1, C, ...]; positions [C]."""
     _, C, H, dh = q.shape
     Hkv = k.shape[2]
+    pk, pv, scales = _kv_args(cache)
     y = paged_prefill_attention(
-        q[0].reshape(C, Hkv, H // Hkv, dh).contiguous(), cache["k"], cache["v"], cache["pos"],
+        q[0].reshape(C, Hkv, H // Hkv, dh).contiguous(), pk, pv, cache["pos"],
         table_row, positions, k[0].contiguous(), v[0].contiguous(),
         scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
-        softcap=spec.logit_softcap)
+        softcap=spec.logit_softcap, **scales)
     return y.reshape(1, C, H, dh)
 
 
@@ -297,9 +370,10 @@ def attention(
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    # materialize: dequantizes MoQ-quantized projections, passes fp ones through
+    q = _proj(x, materialize(params["wq"]))
+    k = _proj(x, materialize(params["wk"]))
+    v = _proj(x, materialize(params["wv"]))
     if spec.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.rms_eps)
         k = rmsnorm(params["k_norm"], k, cfg.rms_eps)
@@ -319,9 +393,15 @@ def attention(
     elif mode == "decode":
         assert cache is not None and S == 1 and index is not None
         cache = _cache_write_decode(cache, k, v, index)
-        q_pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
-        mask = _window_causal_mask(q_pos, cache["pos"], 0, spec.causal)
-        y = _sdpa(q, cache["k"], cache["v"], mask, scale, spec.logit_softcap)
+        if isinstance(cache["k"], QuantizedKV):
+            # the just-written token is read back quantized too, as the
+            # kernel streams it
+            row_pos = torch.full((B,), index, dtype=torch.int32, device=x.device)
+            y = _decode_attend_quant(q, cache, row_pos, spec, scale)
+        else:
+            q_pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+            mask = _window_causal_mask(q_pos, cache["pos"], 0, spec.causal)
+            y = _sdpa(q, cache["k"], cache["v"], mask, scale, spec.logit_softcap)
     else:
         pos2d = positions if positions.ndim == 2 else positions[None]
         pos2d = pos2d.expand(B, S)
@@ -329,6 +409,7 @@ def attention(
         if mode == "prefill" and cache is not None:
             cache = _cache_write_prefill(cache, k, v, pos2d)
 
-    H, dh, d = params["wo"].shape
-    out = (y.reshape(B, S, H * dh) @ params["wo"].reshape(H * dh, d))
+    wo = materialize(params["wo"])
+    H, dh, d = wo.shape
+    out = (y.reshape(B, S, H * dh) @ wo.reshape(H * dh, d))
     return out, cache

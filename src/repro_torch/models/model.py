@@ -22,11 +22,12 @@ from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.models.attention import _paged_clamp_table, spec_is_paged
 from repro_torch.models.modules import DTYPES, embed_init, init_rmsnorm, rmsnorm
 from repro_torch.models.transformer import apply_segment, init_segment, init_segment_cache
+from repro_torch.quant.qarrays import materialize
 
 
 class ParamTree(nn.Module):
     """A nested dict of tensors held as an ``nn.Module``: inner dicts become
-    submodules, tensors buffers.  Reads like the dict it was built from
+    submodules, tensors buffers, ``QuantizedArray`` leaves stay modules.  Reads like the dict it was built from
     (``p["segments"]["seg0"]``), and ``.to()`` / ``state_dict()`` work."""
 
     def __init__(self, tree: dict):
@@ -36,7 +37,8 @@ class ParamTree(nn.Module):
             if torch.is_tensor(v):
                 self.register_buffer(k, v)
             else:
-                self.add_module(k, v if isinstance(v, ParamTree) else ParamTree(v))
+                # a QuantizedArray (a module of its own) nests as it is
+                self.add_module(k, v if isinstance(v, nn.Module) else ParamTree(v))
 
     def __getitem__(self, key):
         if key not in self._keys:
@@ -89,22 +91,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> ParamTree:
     return ParamTree(p)
 
 
-def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda") -> dict:
-    """Contiguous full-precision KV caches, ``[repeats, batch, capacity, ...]``
-    per segment position."""
+def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, kv_bits: int = 0,
+                device="cuda") -> dict:
+    """Contiguous KV caches, ``[repeats, batch, capacity, ...]`` per segment
+    position; ``kv_bits=8`` stores K/V as int8 ``QuantizedKV`` (quantized on
+    write), 0 in full precision."""
     _check_cfg(cfg)
     device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
-    return {f"seg{i}": init_segment_cache(cfg, seg, batch, capacity, dt, device)
+    return {f"seg{i}": init_segment_cache(cfg, seg, batch, capacity, dt, device, kv_bits=kv_bits)
             for i, seg in enumerate(cfg.segments)}
 
 
 def init_paged_caches(cfg: ModelConfig, slots: int, capacity: int, *, n_pages: int,
-                      page_size: int, device="cuda") -> dict:
+                      page_size: int, kv_bits: int = 0, device="cuda") -> dict:
     """Paged serving caches: every self-attention layer's K/V lives in a
     shared page pool ``[repeats, n_pages + 1, page_size, Hkv, dh]`` addressed
     through per-slot block tables.  ``capacity`` stays the per-sequence
-    context bound (it sizes the tables, not the pool).
+    context bound (it sizes the tables, not the pool).  ``kv_bits=8`` makes
+    the pages int8 with per-(token, head) scales.
 
     Layers with per-slot state (window rings, SSM/LRU states, cross caches),
     which the JAX package keeps beside the pool, are not ported yet
@@ -117,7 +122,7 @@ def init_paged_caches(cfg: ModelConfig, slots: int, capacity: int, *, n_pages: i
     device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     return {f"seg{i}": init_segment_cache(cfg, seg, slots, capacity, dt, device,
-                                          pages=(n_pages, page_size))
+                                          pages=(n_pages, page_size), kv_bits=kv_bits)
             for i, seg in enumerate(cfg.segments)}
 
 
@@ -135,7 +140,7 @@ def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor
 
 def logits_out(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = params["embed"].T if cfg.tie_embeddings else materialize(params["unembed"])
     return x @ w.to(x.dtype)
 
 

@@ -9,6 +9,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant.qarrays import materialize
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 # Rows of a fan-in init drawn in f32 at a time, so a large leaf (one MoE
@@ -91,12 +93,13 @@ def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device, *, lead=()) 
 
 
 def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ params["wi"]
+    # materialize: dequantizes MoQ-quantized weights, passes fp ones through
+    h = x @ materialize(params["wi"])
     if act == "swiglu":
-        h = F.silu(x @ params["wg"]) * h
+        h = F.silu(x @ materialize(params["wg"])) * h
     else:
         h = act_fn(act)(h)
-    return h @ params["wo"]
+    return h @ materialize(params["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ from repro_torch.models.attention import (
     spec_is_paged,
 )
 from repro_torch.models.modules import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.quant.kv import QuantizedKV
+from repro_torch.quant.qarrays import QuantizedArray
 
 
 def check_layer(ls: LayerSpec) -> None:
@@ -49,16 +51,17 @@ def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) 
 
 
 def init_layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, capacity: int, dtype, device,
-                     *, lead=(), pages=None) -> dict:
+                     *, lead=(), pages=None, kv_bits: int = 0) -> dict:
     """``pages = (n_pages, page_size)`` puts the self-attention K/V into a
-    shared page pool addressed through block tables (paged serving)."""
+    shared page pool addressed through block tables (paged serving);
+    ``kv_bits=8`` stores them as int8 ``QuantizedKV``."""
     check_layer(ls)
     if pages is not None and spec_is_paged(ls.mixer):
         n_pages, page_size = pages
         return {"self": init_paged_kv_cache(n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
-                                            dtype, device, lead=lead)}
+                                            dtype, device, lead=lead, kv_bits=kv_bits)}
     return {"self": init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim, dtype, device,
-                                  lead=lead)}
+                                  lead=lead, kv_bits=kv_bits)}
 
 
 def apply_layer(
@@ -96,9 +99,12 @@ def apply_layer(
 
 
 def take(tree, r: int):
-    """Repeat ``r``'s views of a ``[repeats, ...]``-stacked tree."""
-    if torch.is_tensor(tree):
+    """Repeat ``r``'s views of a ``[repeats, ...]``-stacked tree (quantized
+    leaves and caches included)."""
+    if torch.is_tensor(tree) or isinstance(tree, QuantizedKV):
         return tree[r]
+    if isinstance(tree, QuantizedArray):
+        return tree.take(r)
     return {k: take(v, r) for k, v in tree.items()}
 
 
@@ -108,9 +114,9 @@ def init_segment(gen, cfg: ModelConfig, seg: Segment, dtype, device) -> dict:
 
 
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int, capacity: int, dtype,
-                       device, *, pages=None) -> dict:
+                       device, *, pages=None, kv_bits: int = 0) -> dict:
     return {f"pos{j}": init_layer_cache(cfg, ls, batch, capacity, dtype, device, lead=(seg.repeats,),
-                                        pages=pages)
+                                        pages=pages, kv_bits=kv_bits)
             for j, ls in enumerate(seg.pattern)}
 
 

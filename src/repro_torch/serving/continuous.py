@@ -27,11 +27,14 @@ engine's ``block_until_ready``).
 Sampling draws from a ``torch.Generator``, so sampled (temperature > 0)
 tokens differ from the JAX engine's; greedy tokens are the same.
 
+Like ``Engine``, it takes MoQ-quantized parameters, and
+``kv_cache_bits=8`` makes the pool's pages int8 (quantized on write, read by
+the int8 branches of the paged kernels).
+
 Not ported here, each raising ``NotImplementedError`` that names its ROADMAP
 item: the contiguous mode (``paged=False``), prefix sharing with
 copy-on-write, ``submit_n``, the batched and scatter prefill modes,
-speculative decoding, the int8 KV cache, expert-parallel meshes and
-observability.
+speculative decoding, expert-parallel meshes and observability.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.models.model import (
     paged_reset_pages,
     resolve_device,
 )
+from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.engine import Request, Response
 from repro_torch.serving.kv_pool import BlockTables, KVBlockPool
 from repro_torch.serving.sampling import sample
@@ -120,13 +124,12 @@ class ContinuousEngine:
             _unported("prefix sharing with copy-on-write", "item 3, prefix sharing")
         if spec_draft is not None:
             _unported("speculative decoding", "item 6")
-        if kv_cache_bits:
-            _unported("the int8 KV cache", "item 4")
         if cfg.ep_mesh:
             _unported("an expert-parallel mesh", "item 7")
         if obs is not None:
             _unported("observability (Obs)", "item 9")
         self.device = resolve_device(device)
+        params = prepare_params_for_serving(cfg, params)
         leaf = params["embed"]
         if leaf.device != self.device:
             raise ValueError(f"ContinuousEngine: parameters are on {leaf.device}, the engine on {self.device}")
@@ -153,8 +156,10 @@ class ContinuousEngine:
                              f"sequence ({self.max_pages} pages of {page_size})")
         self.pool = KVBlockPool(self.n_pages, page_size)
         self.tables = BlockTables(slots, self.max_pages)
+        self.kv_cache_bits = kv_cache_bits
         self.caches = init_paged_caches(cfg, slots, capacity, n_pages=self.n_pages,
-                                        page_size=page_size, device=self.device)
+                                        page_size=page_size, kv_bits=kv_cache_bits,
+                                        device=self.device)
         self.slots = [SlotState() for _ in range(slots)]
         self.queue: List[_Pending] = []
         self.done: Dict[int, Response] = {}

@@ -8,10 +8,15 @@ sampled tokens back to the host (the stop check needs them), so the host
 clock between two reads is one step's time; ``last_timings`` keeps those
 times for the batch served last.
 
-Not ported here: meshes (expert-parallel serving) and the int8 KV cache, each
-of which raises if asked for; quantized weights (the MoE layer raises);
-encoder memory, frontend embeddings and observability, which the engine
-takes no argument for.
+``params`` may be full precision or the output of
+``repro_torch.quant.quantize_params`` (MoQ int8 / int4 weights, dequantized
+inside the grouped expert kernel or at their product sites), and
+``EngineConfig.kv_cache_bits=8`` keeps the caches in int8, quantized on
+write and read by the int8 decode kernel.
+
+Not ported here: meshes (expert-parallel serving), which raise if asked
+for; encoder memory, frontend embeddings and observability, which the
+engine takes no argument for.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import decode_step, init_caches, prefill, resolve_device
+from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.sampling import sample
 
 
@@ -37,7 +43,7 @@ class EngineConfig:
     top_p: float = 0.0  # nucleus sampling mass; 0 = off
     eos_id: int = -1  # -1: never stop early
     pad_id: int = 0
-    kv_cache_bits: int = 0  # only 0 (fp cache) is ported
+    kv_cache_bits: int = 0  # 0 = fp cache, 8 = int8 QuantizedKV (quant/kv.py)
 
 
 @dataclass
@@ -63,9 +69,10 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, *, device="cuda"):
         if cfg.ep_mesh:
             _unported("an expert-parallel mesh", "item 7")
-        if ec.kv_cache_bits:
-            _unported("the int8 KV cache", "item 4")
+        if ec.kv_cache_bits not in (0, 8):
+            raise ValueError(f"kv_cache_bits must be 0 (fp) or 8 (int8), got {ec.kv_cache_bits}")
         self.device = resolve_device(device)
+        params = prepare_params_for_serving(cfg, params)
         leaf = params["embed"]
         if leaf.device != self.device:
             raise ValueError(f"Engine: parameters are on {leaf.device}, the engine on {self.device}")
@@ -76,7 +83,8 @@ class Engine:
         self.last_timings: dict = {}
 
     def _make_caches(self, batch: int) -> dict:
-        return init_caches(self.cfg, batch, self._capacity, device=self.device)
+        return init_caches(self.cfg, batch, self._capacity, kv_bits=self.ec.kv_cache_bits,
+                           device=self.device)
 
     def generate(self, requests: Sequence[Request], *, seed: int = 0) -> List[Response]:
         gen = torch.Generator(device=self.device).manual_seed(seed)

@@ -180,7 +180,7 @@ UNPORTED = [
     ("prefill_mode=batched", dict(prefill_mode="batched"), "batched"),
     ("prefill_mode=scatter", dict(prefill_mode="scatter"), "scatter"),
     ("spec_draft", dict(spec_draft=("cfg", "params")), "item 6"),
-    ("kv_cache_bits", dict(kv_cache_bits=8), "item 4"),
+    ("kv_cache_bits", dict(kv_cache_bits=8, paged=False), "contiguous"),
     ("ep_mesh", dict(ep_mesh=(2,)), "item 7"),
     ("obs", dict(obs=object()), "item 9"),
     ("submit_n", dict(call="submit_n"), "submit_n"),

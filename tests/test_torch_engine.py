@@ -112,13 +112,13 @@ def test_cli_runs_on_cpu(pair, capsys):
 
 def test_cli_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--kv-bits", "8"])
-    assert "--kv-bits is not ported yet" in capsys.readouterr().err
+        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--ep-devices", "2"])
+    assert "--ep-devices is not ported yet" in capsys.readouterr().err
 
 
 def test_engine_rejects_unported_options(pair):
     _, _, tcfg, _, tparams = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.Engine(tcfg, tparams, te.EngineConfig(kv_cache_bits=8), device="cpu")
+    with pytest.raises(ValueError, match="kv_cache_bits"):  # 0 and 8 only, as in JAX
+        te.Engine(tcfg, tparams, te.EngineConfig(kv_cache_bits=4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         te.Engine(tcfg.replace(ep_mesh=(2,)), tparams, te.EngineConfig(), device="cpu")

@@ -32,6 +32,8 @@ BLOCKED_IMPORTS = textwrap.dedent(r"""
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not leaked, leaked
+    assert {"repro_torch.quant.qarrays", "repro_torch.quant.kv", "repro_torch.quant.ptq",
+            "repro_torch.kernels.attention_quant"} <= set(names), names
     print(len(names), "modules")
 """)
 
@@ -43,7 +45,7 @@ def test_port_imports_without_jax_or_repro():
         capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split()[0])
-    assert n >= 37, res.stdout  # every package and module was walked
+    assert n >= 42, res.stdout  # every package and module was walked, the quant ones included
 
 
 def test_entry_points_default_to_the_card():
