@@ -53,7 +53,34 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (with a row that has no valid key, which must give 0); then each timed
    with CUDA events beside its bound and, for attention, beside
    scaled_dot_product_attention.
-9. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+9. capacity dispatch: the same weights under llama4's own ``moe_impl``
+   ("ep", which without a mesh is the dense mapping table; kernels 1 and 2
+   in place of 4): (a) ``Engine`` on the same 4 requests, counts set to 0
+   before and read after (kernels 1 and 2 once per MoE call, 4 and 5 not
+   at all), the share of assignments kernel 1 drops at the 256-token
+   prefill, a profile of 5 decode steps; (b) ``moe_layer`` dense against
+   grouped on the served layer at T = 4 (same expert ids, outputs within
+   BF16_TOL); (c) the continuous trace (the bf16 run's preemptions, pool
+   drained); (d) int8 experts and an int8 KV cache through ``Engine``
+   (kernels 1, 3 and 9); (e) reduced f32 card vs CPU under ``dense``,
+   ``einsum``, capacity factor 0.25 (the prefill drops, counted), int8 and
+   int4 experts, and the continuous trace.
+10. kernels 1, 2 and 3 against their plain versions: gating on the served
+   router's logits at T = 4 and 256, on f32 logits at kimi-k2's width (E
+   384, K 8), with rows of equal logits and with logits biased past a
+   capacity (integer outputs identical); the expert MLPs on the served
+   layer at T = 256 and 4 (bf16, fp and int8), int8 at a 13926-token
+   prefill (C = 136, which the TPU kernel's grid would refuse) and at
+   reduced size in f32; each timed beside its bound, kernel 1 also from a
+   CUDA graph of its calls (its device time, below its wrapper's host
+   time).
+11. nlg-350m-moe128, the paper's model, at its published size and full
+   depth (24 layers, 128 GELU experts on every other layer, 13.1 G
+   parameters in bf16) once the llama4 trees are deleted: ``Engine`` with
+   its own ``moe_impl="dense"`` on 4 requests (kernel 1 once per MoE layer
+   call; GELU experts are plain products, so no expert kernel), and a
+   profile of 5 decode steps.
+12. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -134,6 +161,36 @@ def time_ms(fn, n=10, reps=5, warmup=3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def graph_ms(fn, n=20, reps=5) -> float:
+    """Device time of one call of ``fn`` without the host's per-call work:
+    ``n`` calls captured into one CUDA graph, the graph replayed between two
+    CUDA events; the median over ``reps`` replays, divided by ``n``.  For a
+    kernel whose device time is below its wrapper's host time, where
+    ``time_ms`` reads the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -498,15 +555,17 @@ def profile_ticks(eng, cfg, steps=5) -> list:
 # ---------------------------------------------------------------------------
 
 
-def reference_check(cfg) -> str:
+def reference_check(cfg, on_card=None) -> str:
     """The static path on a small input against a reference: the same f32
-    weights served on the card (through the kernels) and on the CPU (through
-    their plain versions) give the same logits within 1e-4 (f32, TF32 off;
-    only summation order differs) and the same greedy tokens."""
+    weights (``on_card``, or drawn from the seed) served on the card
+    (through the kernels) and on the CPU (through their plain versions) give
+    the same logits within 1e-4 (f32, TF32 off; only summation order
+    differs) and the same greedy tokens."""
     from repro_torch.models.model import forward, init_params
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
-    on_card = init_params(cfg, seed=SEED, device="cuda")
+    if on_card is None:
+        on_card = init_params(cfg, seed=SEED, device="cuda")
     on_cpu = copy.deepcopy(on_card).to("cpu")
     toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=torch.Generator().manual_seed(SEED))
     a, _ = forward(cfg, on_card, toks.cuda())
@@ -591,16 +650,17 @@ def chunked_prefill_check(cfg, params) -> str:
 # ---------------------------------------------------------------------------
 
 
-def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None):
+def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None, what=None):
     """The trace through the paged engine; returns (lines, launches, the
     decode snapshot for kernel 7, the engine).  Quantized experts and
-    ``kv_cache_bits=8`` run kernels 5, 7q and 8q and no fp kernel;
+    ``kv_cache_bits=8`` run kernels 5, 7q and 8q and no fp kernel; a config
+    under the capacity dispatch runs kernels 1 and 2 in place of 4;
     ``preemptions``: the count the fp run gave, which this run must repeat
     (the scheduler depends on prompt lengths only)."""
     from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.engine import Request
 
-    what = "continuous serve" + (" int8" if kv_cache_bits else "")
+    what = what or "continuous serve" + (" int8" if kv_cache_bits else "")
     eng = ContinuousEngine(cfg, params, paged=True, device="cuda", kv_cache_bits=kv_cache_bits,
                            **CONT)
     rng = torch.Generator().manual_seed(SEED + 1)
@@ -664,10 +724,12 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None):
     ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
     sfx = "_int8" if kv_cache_bits else ""
     want = {k: 0 for k in launches}
+    n_calls = n_moe * (len(ticks) + eng.prefill_chunks_total)
     want.update({f"paged_decode_attention{sfx}": n_layers * len(ticks),
                  f"paged_prefill_attention{sfx}": n_layers * eng.prefill_chunks_total,
-                 "grouped_mlp_quant" if quant_experts(params) else "grouped_mlp":
-                     n_moe * (len(ticks) + eng.prefill_chunks_total)})
+                 expert_kernel(cfg, params): n_calls})
+    if capacity(cfg):
+        want["moe_gating"] = n_calls
     if launches != want:
         raise AssertionError(f"{what} launches {launches}, expected {want}")
     if snap is None:
@@ -694,10 +756,11 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None):
 # ---------------------------------------------------------------------------
 
 
-def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens) -> list:
+def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens,
+                       what="quantized serve", profile=True) -> list:
     """The static path with int8 experts and an int8 KV cache: the same 4
-    requests; kernel 5 on every MoE call, kernel 9 on every decode layer,
-    no fp kernel."""
+    requests; kernel 5 on every MoE call (under the capacity dispatch
+    kernels 1 and 3), kernel 9 on every decode layer, no fp kernel."""
     from repro_torch.models.model import init_caches
     from repro_torch.quant import kv_cache_bytes, tree_bytes
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -716,9 +779,12 @@ def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens) -> list:
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     want = {k: 0 for k in got}
-    want.update(grouped_mlp_quant=n_moe * NEW, decode_attention_quant=cfg.num_layers * (NEW - 1))
+    want.update({expert_kernel(cfg, qparams): n_moe * NEW,
+                 "decode_attention_quant": cfg.num_layers * (NEW - 1)})
+    if capacity(cfg):
+        want["moe_gating"] = n_moe * NEW
     if got != want:
-        raise AssertionError(f"quantized static serve launches {got}, expected {want}")
+        raise AssertionError(f"{what} launches {got}, expected {want}")
     tm = eng.last_timings
     step_ms = statistics.median(tm["decode_step_s"]) * 1e3
     fp_experts = sum(v.numel() * v.element_size() for k, v in params.named_buffers()
@@ -728,17 +794,18 @@ def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens) -> list:
           for b in (0, 8)]
     same = sum(a == b for r, f in zip(out, fp_tokens) for a, b in zip(r.tokens, f))
     lines = [
-        f"quantized serve (int8 experts, int8 KV): {BATCH} requests x {NEW} tokens in "
+        f"{what} (int8 experts, int8 KV): {BATCH} requests x {NEW} tokens in "
         f"{wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill {tm['prefill_s'] * 1e3:.3f} ms; "
         f"decode step median {step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; launches {got}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
-        f"quantized serve: expert bytes {q_experts / 1e9:.3f} GB int8 vs {fp_experts / 1e9:.3f} GB "
+        f"{what}: expert bytes {q_experts / 1e9:.3f} GB int8 vs {fp_experts / 1e9:.3f} GB "
         f"bf16 ({fp_experts / q_experts:.2f}x); KV cache {kv[1] / 1e6:.3f} MB int8 vs "
         f"{kv[0] / 1e6:.3f} MB bf16 ({kv[0] / kv[1]:.2f}x); greedy tokens equal to the bf16 "
         f"serve's at {same} of {BATCH * NEW} positions",
-        f"quantized serve: tokens of request 0: {out[0].tokens}",
+        f"{what}: tokens of request 0: {out[0].tokens}",
     ]
-    lines += profile_decode(eng, cfg, qparams, what="quantized decode", named_ops=QUANT_WRITE_OPS)
+    if profile:
+        lines += profile_decode(eng, cfg, qparams, what="quantized decode", named_ops=QUANT_WRITE_OPS)
     return lines, got
 
 
@@ -850,6 +917,293 @@ def sdpa_contiguous(q, kq, ks, vq, vs, kpos, qpos, scale):
 
 
 # ---------------------------------------------------------------------------
+# Capacity dispatch (kernels 1, 2, 3)
+# ---------------------------------------------------------------------------
+
+
+def capacity(cfg) -> bool:
+    """Whether the config's MoE layers take the capacity dispatch (the
+    gating kernel and the [E, C, D] expert kernels)."""
+    from repro_torch.core.moe import NO_MESH_IMPL
+
+    return NO_MESH_IMPL.get(cfg.moe_impl, cfg.moe_impl) != "grouped"
+
+
+def expert_kernel(cfg, params) -> str:
+    """The counter of the expert kernel the config's MoE layers launch."""
+    if capacity(cfg):
+        return "expert_mlp_quant" if quant_experts(params) else "expert_mlp"
+    return "grouped_mlp_quant" if quant_experts(params) else "grouped_mlp"
+
+
+@contextlib.contextmanager
+def recorded_gating():
+    """Record the (keep, capacity) of every capacity gating call the MoE
+    layers make inside the block."""
+    import repro_torch.core.moe as cm
+
+    real, seen = cm.gating, []
+
+    def rec(logits, top_k, cap, **kw):
+        g, counts = real(logits, top_k, cap, **kw)
+        seen.append((g.keep, cap))
+        return g, counts
+
+    cm.gating = rec
+    try:
+        yield seen
+    finally:
+        cm.gating = real
+
+
+def dropped_share(seen):
+    """(dropped assignments, all assignments) over the recorded calls."""
+    dropped = sum(int((~keep).sum().item()) for keep, _ in seen)
+    return dropped, sum(keep.numel() for keep, _ in seen)
+
+
+def capacity_static_serve(cfg, params, reqs, counters, what="capacity serve"):
+    """The 4 requests through ``Engine`` under the capacity dispatch; the
+    launch counts set to 0 before and read after: kernel 1 and the expert
+    kernel once per MoE call.  Returns (lines, launches, tokens, engine)."""
+    from repro_torch.models.model import init_caches, prefill
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW),
+                 device="cuda")
+    eng.generate(reqs)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    got = {k: v for c in counters for k, v in c.items()}
+    assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
+    assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    want = {k: 0 for k in got}
+    want.update({"moe_gating": n_moe * NEW, expert_kernel(cfg, params): n_moe * NEW})
+    if got != want:
+        raise AssertionError(f"{what} launches {got}, expected {want}")
+    tm = eng.last_timings
+    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+    # kernel 1's keep at the 256-token prefill of the same prompts
+    toks = torch.tensor([r.prompt for r in reqs], device="cuda")
+    with recorded_gating() as seen:
+        prefill(cfg, params, toks, init_caches(cfg, BATCH, PROMPT + NEW, device="cuda"))
+    dropped, total = dropped_share(seen)
+    lines = [
+        f"{what}: {cfg.name} moe_impl={cfg.moe_impl!r} (the config's own; without a mesh the "
+        f"dense mapping table), {BATCH} requests x {NEW} tokens in {wall * 1e3:.3f} ms "
+        f"({BATCH * NEW / wall:.1f} tok/s); prefill {tm['prefill_s'] * 1e3:.3f} ms (batch {BATCH} x "
+        f"{PROMPT}); decode step median {step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; "
+        f"launches {got}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+        f"{what}: prefill of {BATCH * PROMPT} tokens, capacity {seen[0][1]} per expert: kernel 1 "
+        f"dropped {dropped} of {total} assignments ({100 * dropped / total:.2f}%)",
+        f"{what}: tokens of request 0: {out[0].tokens}",
+    ]
+    return lines, got, [r.tokens for r in out], eng
+
+
+def dense_vs_grouped_check(cfg, moe, gen) -> str:
+    """The served MoE layer's routed experts (the shared expert left out),
+    ``moe_layer`` under the dense dispatch against the grouped one on the
+    same bf16 decode input (T = 4: capacity 8, nothing can drop): outputs
+    within BF16_TOL of the largest, the same expert ids."""
+    import dataclasses
+
+    from repro_torch.core.gating import expert_capacity, top_k_gating
+    from repro_torch.core.moe import moe_layer
+    from repro_torch.kernels.moe_gating import gating
+
+    spec = dataclasses.replace(cfg.layer_specs()[1].ffn, residual=False)
+    x = torch.randn((1, BATCH, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    yd, _ = moe_layer(cfg, spec, moe, x, impl="dense")
+    yg, _ = moe_layer(cfg, spec, moe, x, impl="grouped")
+    torch.cuda.synchronize()
+    res = compare("moe_layer dense vs grouped", yd, yg, BF16_TOL)
+    logits = x[0].float() @ moe["router"]
+    gd, _ = gating(logits, spec.top_k, expert_capacity(BATCH, spec.num_experts, spec.top_k,
+                                                       spec.capacity_factor))
+    gg = top_k_gating(logits, spec.top_k, BATCH * spec.top_k)
+    if not torch.equal(gd.expert_idx, gg.expert_idx) or not bool(gd.keep.all()):
+        raise AssertionError(f"dense vs grouped: expert ids {gd.expert_idx.tolist()} vs "
+                             f"{gg.expert_idx.tolist()}, keep {gd.keep.tolist()}")
+    return (f"dense vs grouped: the served MoE layer's routed experts, bf16, T = {BATCH}: "
+            f"moe_layer(dense) vs moe_layer(grouped) max|d| {res['max_abs_err']:.3e} = "
+            f"{res['max_rel_err']:.2e} of max|y| (tolerance {BF16_TOL}); expert ids identical "
+            f"{gd.expert_idx.flatten().tolist()}, none dropped")
+
+
+def capacity_reference_checks(red) -> list:
+    """Reduced f32 llama4 under the capacity dispatch, card (kernels 1, 2, 3)
+    against the CPU (plain versions), from the same weights: the static
+    path under the config's own ``moe_impl`` and under ``einsum``, and at
+    capacity factor 0.25, where the prefill drops (counted on the card);
+    int8 and int4 experts (kernel 3; int4 takes the plain dequantize path
+    on both); the continuous trace."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.configs.registry import with_capacity_factor
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.quant import quantize_params
+
+    lines = []
+    fp = init_params(red, seed=SEED, device="cuda")
+    toks = torch.randint(0, red.vocab_size, (3, 12), generator=torch.Generator().manual_seed(SEED))
+    for label, cfg, params in (
+            (f"moe_impl={red.moe_impl}", red, fp),
+            ("moe_impl=einsum", red.replace(moe_impl="einsum"), fp),
+            ("capacity factor 0.25", with_capacity_factor(red, 0.25), fp),
+            ("int8 experts", red, quantize_params(fp, QuantConfig(bits=8))),
+            ("int4 experts", red, quantize_params(fp, QuantConfig(bits=4)))):
+        with recorded_gating() as seen:
+            a, _ = forward(cfg, params, toks.cuda())
+        dropped, total = dropped_share(seen)
+        b, _ = forward(cfg, copy.deepcopy(params).to("cpu"), toks)
+        rel = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+        if rel > F32_TOL:
+            raise AssertionError(f"reduced {label}: card logits differ from the CPU's by {rel:.3e}")
+        if label.startswith("capacity") and dropped == 0:
+            raise AssertionError("capacity factor 0.25: the reference dropped no assignment")
+        line = reference_check(cfg, params)
+        lines.append(f"capacity reference, {label}: forward logits max|d| {rel:.3e} of max|logit| "
+                     f"(tolerance {F32_TOL}), {dropped} of {total} assignments dropped on the card; "
+                     + line)
+    lines.append("capacity " + continuous_reference_check(red))
+    return lines
+
+
+def gating_case(logits, K, cap):
+    """Kernel 1's inputs and bound: the logits in, probs and the [T, K]
+    outputs and the counts out; softmax and K masked argmaxes over each row
+    as f32 operations."""
+    T, E = logits.shape
+    need = 2 * T * E * 4 + T * K * (4 + 4 + 4 + 1) + E * 4
+    info = {"T": T, "E": E, "K": K, "capacity": cap, **bound(need, T * E * (4 + 2 * K), torch.float32)}
+    return (logits.contiguous(), K, cap), info
+
+
+def check_gating(args, timed=False) -> dict:
+    """Kernel 1 against its plain version: integer outputs identical, w and
+    probs within 1e-6."""
+    from repro_torch.kernels import moe_gating as k1
+
+    g, counts = k1.gating(*args)
+    pg, pcounts = k1.gating_plain(*args)
+    torch.cuda.synchronize()
+    for name in ("expert_idx", "position", "keep"):
+        if not torch.equal(getattr(g, name), getattr(pg, name)):
+            raise AssertionError(f"moe_gating {name} differs from its plain version")
+    if not torch.equal(counts, pcounts):
+        raise AssertionError(f"moe_gating counts {counts.tolist()} vs {pcounts.tolist()}")
+    err = max((g.combine_w - pg.combine_w).abs().max().item(), (g.probs - pg.probs).abs().max().item())
+    if err > 1e-6:
+        raise AssertionError(f"moe_gating w / probs differ from the plain version by {err:.3e}")
+    res = {"max_abs_err": err, "max_rel_err": err, "dropped": int((~g.keep).sum().item())}
+    if timed:
+        # ms: the two passes' device time, from a CUDA graph of wrapper
+        # calls; host_ms: one wrapper call as the MoE layer pays it (its
+        # outputs' allocations and the ctypes call), which CUDA events
+        # around back-to-back calls read
+        res["ms"] = graph_ms(lambda: k1.gating(*args))
+        res["host_ms"] = time_ms(lambda: k1.gating(*args))
+        res["plain_ms"] = time_ms(lambda: k1.gating_plain(*args), n=3)
+    return res
+
+
+def capacity_expert_case(moe, T, K, gen, dtype, cf):
+    """Kernel 2's (or 3's, for quantized ``moe``) inputs as the MoE layer
+    builds them: T random tokens routed by the layer's router with
+    ``expert_capacity``, scattered into the [E, C, D] buffer; the counts as
+    fill.  The bound counts the weights of the experts with tokens, the
+    kept rows, the whole output and the fill, and 2*kept*3*D*F operations."""
+    from repro_torch.core.dispatch import dispatch_dense
+    from repro_torch.core.gating import expert_capacity
+    from repro_torch.kernels.moe_gating import gating_plain
+
+    E, D, F = moe["wi"].shape
+    cap = expert_capacity(T, E, K, cf)
+    x = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
+    g, counts = gating_plain(x.float() @ moe["router"], K, cap)
+    xe = dispatch_dense(x, g, cap, E)
+    kept = int(counts.clamp(max=cap).sum().item())
+    live = int((counts > 0).sum().item())
+    b = xe.element_size()
+    need = live * expert_bytes(moe) + (kept + E * cap) * D * b + E * 4
+    info = {"T": T, "K": K, "C": cap, "kept": kept, "dropped": T * K - kept, "live_experts": live,
+            **bound(need, 2 * kept * 3 * D * F, dtype)}
+    return (xe, moe["wi"], moe["wg"], moe["wo"], counts), info
+
+
+def check_capacity_experts(args, tol, quant=False) -> dict:
+    from repro_torch.kernels import expert_mlp as k2
+    from repro_torch.kernels import expert_mlp_quant as k3
+
+    kernel, plain_fn = ((k3.expert_mlp_quant, k3.expert_mlp_quant_plain) if quant
+                        else (k2.expert_mlp, k2.expert_mlp_plain))
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = plain_fn(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return {**compare(kernel.__name__, out, plain, tol), "plain_ms": plain_ms}
+
+
+def nlg_serve(counters) -> list:
+    """The paper's nlg-350m-moe128 at its published size, full depth (24
+    layers, 128 GELU experts of d_ff 4096 on every other layer), bf16 random
+    weights from the seed, through ``Engine`` with its own
+    ``moe_impl="dense"``: kernel 1 once per MoE layer call, no expert kernel
+    (GELU experts are plain products, as in the JAX package)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    cfg = get_config("nlg-350m-moe128")  # bf16, moe_impl "dense"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(b.numel() for b in params.buffers())
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW),
+                 device="cuda")
+    rng = torch.Generator().manual_seed(SEED + 4)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (PROMPT,), generator=rng).tolist(), NEW)
+            for _ in range(BATCH)]
+    eng.generate(reqs)  # warm-up
+    torch.cuda.synchronize()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    got = {k: v for c in counters for k, v in c.items()}
+    assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
+    assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    want = {k: 0 for k in got}
+    want["moe_gating"] = n_moe * NEW
+    if got != want:
+        raise AssertionError(f"nlg serve launches {got}, expected {want}")
+    tm = eng.last_timings
+    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return [
+        f"nlg serve: {cfg.name} at its published size, {cfg.num_layers} layers ({n_moe} MoE, "
+        f"{cfg.layer_specs()[1].ffn.num_experts} GELU experts of d_ff "
+        f"{cfg.layer_specs()[1].ffn.d_ff}), d_model {cfg.d_model}, {n_params / 1e9:.2f} G "
+        f"parameters bf16 drawn in {init_s:.1f} s, moe_impl={cfg.moe_impl!r}: {BATCH} requests x "
+        f"{NEW} tokens in {wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill "
+        f"{tm['prefill_s'] * 1e3:.3f} ms (batch {BATCH} x {PROMPT}); decode step median "
+        f"{step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; launches {got}; peak memory "
+        f"{peak:.1f} GB",
+        f"nlg serve: tokens of request 0: {out[0].tokens}",
+    ] + profile_decode(eng, cfg, params, what="nlg decode"), got
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -864,13 +1218,18 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.configs.base import QuantConfig
     from repro_torch.kernels import attention_quant as k9
+    from repro_torch.kernels import expert_mlp as k2
     from repro_torch.kernels import expert_mlp_grouped as gk
+    from repro_torch.kernels import expert_mlp_quant as k3
+    from repro_torch.kernels import moe_gating as k1
+    from repro_torch.core.gating import expert_capacity
     from repro_torch.models.model import decode_step, init_caches, init_params, prefill
     from repro_torch.quant import quantize_params
     from repro_torch.quant.qarrays import QuantizedArray
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
-    counters = (gk.launches, k7.launches, k8.launches, k9.launches)
+    counters = (gk.launches, k7.launches, k8.launches, k9.launches, k1.launches, k2.launches,
+                k3.launches)
 
     # 1. card
     smi = nvidia_smi_line()
@@ -1034,7 +1393,7 @@ def main() -> int:
             info["ms"] = time_ms(lambda: gk.grouped_mlp_quant(*kargs))
             qshapes[f"int{bits}_{label}"] = info
             log(f"kernel grouped_mlp_quant int{bits} bf16 {label}: {json.dumps(info)}")
-    del m4, kargs
+    del m4, kargs, experts
     torch.cuda.empty_cache()
     for bits in (8, 4):
         rq = {n: QuantizedArray.quantize(rmoe[n], bits=bits) for n in ("wi", "wg", "wo")}
@@ -1115,6 +1474,105 @@ def main() -> int:
         "gives 0 in 7q and 9): " + json.dumps(
             {n: {s: v for s, v in d.items() if "window" in s} for n, d in qattn.items()}))
 
+    # 9. capacity dispatch: llama4-maverick with its own moe_impl ("ep", which
+    # without a mesh is the dense mapping table), the same bf16 weights and
+    # int8 experts; kernels 1, 2 and 3 in place of 4 and 5
+    cap_cfg = full.replace(segments=cfg.segments)
+    lines, cap_static, cap_tokens, cap_eng = capacity_static_serve(cap_cfg, params, reqs, counters)
+    for line in lines:
+        log(line)
+    for line in profile_decode(cap_eng, cap_cfg, params, what="capacity decode"):
+        log(line)
+    del cap_eng
+    log(dense_vs_grouped_check(cap_cfg, moe, gen))
+    lines, cap_cont, _, cap_ceng = continuous_serve(cap_cfg, params, counters,
+                                                    preemptions=cont_preemptions,
+                                                    what="capacity continuous serve")
+    del cap_ceng
+    for line in lines:
+        log(line)
+    lines, cap_qstatic = quant_static_serve(cap_cfg, params, qparams, reqs, counters, cap_tokens,
+                                            what="capacity quantized serve", profile=False)
+    for line in lines:
+        log(line)
+    for line in capacity_reference_checks(make_reduced(full)):
+        log(line)
+
+    # 10. kernels 1, 2 and 3 against their plain versions at the served
+    # shapes, then timed beside their bounds
+    E1 = moe["router"].shape[1]
+    gshapes = {}
+    for label, T in (("decode", BATCH), ("prefill", BATCH * PROMPT)):
+        x = torch.randn((T, cfg.d_model), generator=gen, device="cuda").bfloat16()
+        args, info = gating_case(x.float() @ moe["router"], 1, expert_capacity(T, E1, 1, 1.25))
+        info.update(check_gating(args, timed=True))
+        gshapes[f"served_{label}"] = info
+        log(f"kernel moe_gating served router {label}: {json.dumps(info)}")
+    args, info = gating_case(torch.randn((256, 384), generator=gen, device="cuda"), 8,
+                             expert_capacity(256, 384, 8, 1.25))
+    info.update(check_gating(args, timed=True))
+    gshapes["kimi_width"] = info
+    log(f"kernel moe_gating f32 logits T 256, E 384, K 8 (kimi-k2's width): {json.dumps(info)}")
+    ties = (torch.randn((256, E1), generator=gen, device="cuda") * 2).round() / 2
+    ties[::4] = 0.5  # a quarter of the rows: all logits equal
+    args, info = gating_case(ties, 2, expert_capacity(256, E1, 2, 1.25))
+    info.update(check_gating(args))
+    gshapes["ties"] = info
+    skew = torch.randn((256, E1), generator=gen, device="cuda")
+    skew[:, 0] += 4.0  # most tokens to expert 0: past its capacity
+    args, info = gating_case(skew, 1, expert_capacity(256, E1, 1, 1.25))
+    info.update(check_gating(args))
+    if info["dropped"] == 0:
+        raise AssertionError("the drop case of kernel 1 dropped nothing")
+    gshapes["drops"] = info
+    log(f"kernel moe_gating ties (rows of equal logits, K 2) and drops (logits biased to expert 0): "
+        + json.dumps({k: gshapes[k] for k in ("ties", "drops")}))
+    cshapes = {}
+    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+        kargs, info = capacity_expert_case(moe, T, 1, gen, torch.bfloat16, 1.25)
+        info.update(check_capacity_experts(kargs, BF16_TOL))
+        info["ms"] = time_ms(lambda: k2.expert_mlp(*kargs))
+        cshapes[label] = info
+        log(f"kernel expert_mlp bf16 {label}: {json.dumps(info)}")
+    kargs, info = capacity_expert_case(rmoe, 64, 1, gen, torch.float32, 2.0)
+    info.update(check_capacity_experts(kargs, F32_TOL))
+    cshapes["f32_reduced"] = info
+    log(f"kernel expert_mlp f32 reduced: {json.dumps(info)}")
+    cqshapes = {}
+    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+        kargs, info = capacity_expert_case(qmoe, T, 1, gen, torch.bfloat16, 1.25)
+        info.update(check_capacity_experts(kargs, BF16_TOL, quant=True))
+        info["ms"] = time_ms(lambda: k3.expert_mlp_quant(*kargs))
+        cqshapes[f"int8_{label}"] = info
+        log(f"kernel expert_mlp_quant int8 bf16 {label}: {json.dumps(info)}")
+    # a long prefill: C = 136 is past the TPU kernel's 128-row block and not
+    # a multiple of it, which JAX's rule refuses; the card's kernel takes it
+    kargs, info = capacity_expert_case(qmoe, 13926, 1, gen, torch.bfloat16, 1.25)
+    if info["C"] != 136 or not k3.check_kernel_compat(*kargs[:4]):
+        raise AssertionError(f"expert_mlp_quant: C={info['C']} is not taken by the kernel")
+    info.update(check_capacity_experts(kargs, BF16_TOL, quant=True))
+    cqshapes["int8_prefill_c136"] = info
+    log(f"kernel expert_mlp_quant int8 bf16 prefill of 13926 tokens (C 136): {json.dumps(info)}")
+    rq = {n: QuantizedArray.quantize(rmoe[n], bits=8) for n in ("wi", "wg", "wo")}
+    kargs, info = capacity_expert_case({**rq, "router": rmoe["router"]}, 64, 1, gen, torch.float32, 2.0)
+    info.update(check_capacity_experts(kargs, F32_TOL, quant=True))
+    cqshapes["int8_f32_reduced"] = info
+    log(f"kernel expert_mlp_quant int8 f32 reduced: {json.dumps(info)}")
+    del kargs, args
+
+    # 11. the paper's own model at its published size, once the llama4 trees
+    # are gone
+    del (params, qparams, eng, ceng, out, moe, qmoe, rp, rmoe, rq, snap, qsnap, pool, tbl, qpos,
+         dargs, args9, ties, skew)
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"llama4 trees deleted: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    lines, nlg_launches = nlg_serve(counters)
+    for line in lines:
+        log(line)
+
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
                     "over K/V gathered into a contiguous tensor beforehand (the gather timed on "
@@ -1187,6 +1645,28 @@ def main() -> int:
                    "src/repro/kernels/attention_quant.py:120", "bf16_served", qattn,
                    qstatic_launches, qlibrary_call),
     ]
+    paths = (("static", cap_static), ("continuous", cap_cont), ("quantized_static", cap_qstatic))
+    for kname, source, replaces, launches, checks, main, call in (
+            ("moe_gating", "src/repro_torch/csrc/moe_gating.cu", "src/repro/kernels/moe_gating.py:92",
+             cap_static, gshapes, "served_decode",
+             "none: no single PyTorch call computes capacity gating"),
+            ("expert_mlp", "src/repro_torch/csrc/grouped_mlp.cu", "src/repro/kernels/expert_mlp.py:56",
+             cap_static, cshapes, "decode", "none: no single PyTorch call computes an expert SwiGLU MLP"),
+            ("expert_mlp_quant", "src/repro_torch/csrc/grouped_mlp.cu",
+             "src/repro/kernels/expert_mlp_quant.py:66", cap_qstatic, cqshapes, "int8_decode",
+             "none: no single PyTorch call computes an int8 expert SwiGLU MLP")):
+        m = checks[main]
+        by_path = {p: c[kname] for p, c in paths}
+        if kname == "moe_gating":
+            by_path["nlg_static"] = nlg_launches[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "launches_by_path": by_path,
+            "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+            "max_rel_err": max(v["max_rel_err"] for v in checks.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None, "library_call": call, "shapes": checks,
+        })
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,30 @@
 """The MoE FFN layer (``repro/core/moe.py``; DeepSpeed-MoE §3, §4.1.1, §5).
 
-The port has the grouped (dropless) dispatch, whose expert MLP is the
-hand-written grouped kernel (kernel 4 for fp experts, kernel 5 for MoQ int8 /
-int4 experts), and the Residual-MoE branch (a fixed dense MLP beside the
-routed experts; llama4's and kimi-k2's shared expert).  The other dispatch
-implementations raise, naming their ROADMAP item.
+Dispatch implementations (``cfg.moe_impl``):
+
+  * ``dense``   — the capacity dispatch through the dense token -> (expert,
+                  slot) mapping table (core/dispatch.py; the paper's §5.4
+                  optimization): gating by the fused gating kernel (kernel 1)
+                  with ``expert_capacity`` slots per expert (drops past it),
+                  expert MLPs over the ``[E, C, D]`` buffer;
+  * ``einsum``  — the same gating and experts, routed by one-hot einsums
+                  (core/dispatch_einsum.py; the paper's baseline);
+  * ``grouped`` — the dropless expert-sorted dispatch (core/dispatch_grouped.py),
+                  whose expert MLP is the grouped kernel (kernel 4, kernel 5
+                  for MoQ int8 / int4 experts);
+  * ``ep``, ``ep_serve``, ``ep_grouped`` — expert parallelism, which needs a
+                  mesh; the port has none (ROADMAP.md, queue 1 item 7), so
+                  they resolve as the JAX package resolves them without one:
+                  ``ep`` and ``ep_serve`` to ``dense``, ``ep_grouped`` to
+                  ``grouped``.
+
+Expert MLPs over the capacity buffer (``experts_ffn``): fp SwiGLU through
+kernel 2, int8 per-channel SwiGLU through kernel 3, other quantized layouts
+(int4, group-wise scales) through the plain dequantize path, and GELU / ReLU
+experts as plain products in the input type, as the JAX package computes
+them outside any Pallas kernel.  ``residual=True`` adds the Residual-MoE
+branch (a fixed dense MLP beside the routed experts; llama4's and kimi-k2's
+shared expert).
 """
 from __future__ import annotations
 
@@ -13,16 +33,28 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import FFNSpec, ModelConfig
-from repro_torch.core import dispatch_grouped
-from repro_torch.core.gating import load_balance_loss, top_k_gating
+from repro_torch.core import dispatch, dispatch_einsum, dispatch_grouped
+from repro_torch.core.gating import expert_capacity, load_balance_loss, top_k_gating
+from repro_torch.kernels.expert_mlp import expert_mlp
 from repro_torch.kernels.expert_mlp_grouped import (
     check_grouped_quant_compat,
     grouped_mlp,
     grouped_mlp_quant,
     grouped_mlp_quant_plain,
 )
-from repro_torch.models.modules import dense_init, init_mlp, mlp
-from repro_torch.quant.qarrays import QuantizedArray
+from repro_torch.kernels.expert_mlp_quant import (
+    check_kernel_compat,
+    expert_mlp_quant,
+    expert_mlp_quant_plain,
+)
+from repro_torch.kernels.moe_gating import gating
+from repro_torch.models.modules import act_fn, dense_init, init_mlp, mlp
+from repro_torch.quant.qarrays import QuantizedArray, materialize
+
+# the expert-parallel names without a mesh (``repro/core/moe.py``: "ep" and
+# "ep_serve" take the dense mapping table, "ep_grouped" the grouped kernel)
+NO_MESH_IMPL = {"ep": "dense", "ep_serve": "dense", "ep_grouped": "grouped"}
+IMPLS = ("dense", "einsum", "grouped", *NO_MESH_IMPL)
 
 
 def init_moe(gen, cfg: ModelConfig, spec: FFNSpec, dtype, device, *, lead=()) -> dict:
@@ -40,6 +72,34 @@ def init_moe(gen, cfg: ModelConfig, spec: FFNSpec, dtype, device, *, lead=()) ->
     return p
 
 
+def experts_ffn(params: dict, xe: torch.Tensor, act: str, fill=None) -> torch.Tensor:
+    """xe [E, C, D] -> [E, C, D]: each expert's MLP over its capacity buffer.
+    ``fill`` ([E] int32, the gating kernel's counts): rows at or past it are
+    zero, which lets the SwiGLU kernels skip them."""
+    wi, wo = params["wi"], params["wo"]
+    if isinstance(wi, QuantizedArray):
+        return _experts_ffn_quant(params, xe, act, fill)
+    if act == "swiglu":
+        return expert_mlp(xe, wi, params["wg"], wo, fill)
+    # GELU / ReLU experts: plain batched products in the input type, as the
+    # JAX package's einsums (no Pallas kernel computes them there either)
+    return torch.bmm(act_fn(act)(torch.bmm(xe, wi)), wo)
+
+
+def _experts_ffn_quant(params: dict, xe: torch.Tensor, act: str, fill) -> torch.Tensor:
+    """Quantized experts: kernel 3 where ``check_kernel_compat`` takes the
+    layout (int8 per output column), else the plain dequantize path, as the
+    JAX package's ``_experts_ffn_quant`` does on the TPU.  The choice reads
+    the weights' layout and the shapes only."""
+    wi, wo = params["wi"], params["wo"]
+    wg = params.get("wg")
+    if act == "swiglu":
+        if check_kernel_compat(xe, wi, wg, wo):
+            return expert_mlp_quant(xe, wi, wg, wo, fill)
+        return expert_mlp_quant_plain(xe, wi, wg, wo, fill)
+    return torch.bmm(act_fn(act)(torch.bmm(xe, materialize(wi))), materialize(wo))
+
+
 def grouped_experts_ffn(params: dict, xg, te, rows_used, act: str):
     """xg: [Ct, D] expert-sorted tile-padded tokens; te: [Ct/tile] tile ->
     expert map -> [Ct, D], through the grouped kernel (SwiGLU experts).
@@ -51,7 +111,8 @@ def grouped_experts_ffn(params: dict, xg, te, rows_used, act: str):
     if act != "swiglu":
         raise NotImplementedError(
             f"grouped experts with act={act!r} are not ported yet: the grouped "
-            "kernel is SwiGLU-only (ROADMAP.md, queue 2: nlg GELU experts)")
+            "kernel is SwiGLU-only (ROADMAP.md, queue 2: nlg GELU experts); "
+            "moe_impl='dense' serves them")
     wi, wg, wo = params["wi"], params["wg"], params["wo"]
     if isinstance(wi, QuantizedArray):
         if check_grouped_quant_compat(wi, wg, wo):
@@ -70,19 +131,27 @@ def moe_layer(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B, S, D], aux_loss)."""
     impl = impl or cfg.moe_impl
-    if impl != "grouped":
-        raise NotImplementedError(
-            f"moe_impl={impl!r} is not ported yet; this slice serves moe_impl='grouped' "
-            "(ROADMAP.md, queue 1 item 2: dense/einsum dispatch; item 7: expert parallelism)")
+    if impl not in IMPLS:
+        raise ValueError(f"moe_impl={impl!r}: expected one of {IMPLS}")
+    impl = NO_MESH_IMPL.get(impl, impl)
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
     T = B * S
     xs = x.reshape(T, D)
     logits = xs.float() @ params["router"]
-    # dropless: capacity = T*K, so every assignment keeps its expert
-    g = top_k_gating(logits, K, T * K)
-    y = dispatch_grouped.moe_grouped(
-        xs, g, E, lambda xg, te, rows: grouped_experts_ffn(params, xg, te, rows, spec.act))
+    if impl == "grouped":
+        # dropless: capacity = T*K, so every assignment keeps its expert
+        g = top_k_gating(logits, K, T * K)
+        y = dispatch_grouped.moe_grouped(
+            xs, g, E, lambda xg, te, rows: grouped_experts_ffn(params, xg, te, rows, spec.act))
+    else:
+        capacity = expert_capacity(T, E, K, spec.capacity_factor)
+        g, counts = gating(logits, K, capacity)
+        ef = lambda xe: experts_ffn(params, xe, spec.act, counts)
+        if impl == "einsum":
+            y = dispatch_einsum.moe_einsum(xs, g, capacity, ef)
+        else:  # dense mapping table
+            y = dispatch.moe_dense(xs, g, capacity, E, ef)
     aux = load_balance_loss(g.probs, g.expert_idx, E)
     y = y.reshape(B, S, D)
     if spec.residual:

@@ -48,6 +48,29 @@
 // Tiles at or past rows_used (a device scalar: the rows the real groups fill)
 // hold no token: kernel 1 skips them and kernel 2 writes zeros, which is what
 // silu(0)*0 . wo gives, so the result is bit-identical to walking them.
+//
+// The same device code also serves the capacity dispatch (core/dispatch.py):
+// it replaces repro/kernels/expert_mlp.py::expert_mlp_kernel (TPU kernel 2,
+// weights in the input type) and repro/kernels/expert_mlp_quant.py::
+// expert_mlp_quant_kernel (TPU kernel 3, int8 weights with f32 column
+// scales), over the mapping table's [E, C, D] buffer viewed as [E*C, D].  C
+// is a multiple of 8, so tile t belongs to expert t / (C/8), and the gating
+// kernel's per-expert counts (fill) take the place of rows_used: a tile
+// whose first row is at or past its expert's fill holds only zero rows (the
+// dispatch scatters into zeros), so it reads no weight and gives zeros, as
+// above.  At decode the buffer is [128, 8, D] for 4 tokens and only the
+// tiles of the (at most 4) experts with tokens read weights: kernel 4's
+// bytes.  The capacity kernels (up_gate_capacity_kernel, down_capacity_kernel)
+// repeat the two grouped kernels' bodies with their own tile -> expert rule
+// and share every helper: with the rule as a template argument of one pair
+// of kernels, ptxas allocated kernel 5's registers differently and it ran
+// slower, so kernels 4 and 5 keep their own code.  The int8 capacity
+// kernels (kernel 3) are capped at 128 registers a thread, so that two
+// blocks share an SM: unbounded, ptxas gave up/gate more than 128 registers
+// (one block per SM) and kernel 3 ran slower at decode.  The fp capacity
+// kernels (kernel 2) keep kernel 4's bounds: capped, they ran faster at
+// decode but slower at T = 256, and a minimum of one block (rather than none
+// given) let ptxas take more registers and made them slower at T = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -268,6 +291,108 @@ down_kernel(const T* __restrict__ act, const int32_t* __restrict__ te,
   }
 }
 
+// Kernels 2 and 3 over the capacity buffer [E*C, D]: tile t holds rows
+// (t % tpe) * TILE .. of expert t / tpe (tpe = C / TILE tiles per expert);
+// rows at or past fill[e] hold no token (any fill >= the filled rows will
+// do, the gating kernel's counts included).
+template <typename T, int BITS>
+__device__ __forceinline__ void up_gate_capacity(const T* __restrict__ xe,
+                                                 const int32_t* __restrict__ fill, int tpe,
+                                                 const void* __restrict__ wi,
+                                                 const float* __restrict__ wi_s,
+                                                 const void* __restrict__ wg,
+                                                 const float* __restrict__ wg_s,
+                                                 T* __restrict__ act, int D, int F) {
+  const int row0 = blockIdx.x * TILE;
+  const size_t e = (size_t)(blockIdx.x / tpe);
+  if ((blockIdx.x % tpe) * TILE >= fill[e]) return;
+  const int col0 = blockIdx.y * BN;
+  const int col = col0 + (threadIdx.x % 32) * COLS;
+  const Weights<T, BITS> w[2] = {Weights<T, BITS>(wi, wi_s, e, D, F, col, col < F),
+                                 Weights<T, BITS>(wg, wg_s, e, D, F, col, col < F)};
+  __shared__ Smem sm;
+  float acc[2][TILE][COLS] = {};
+  contract<T, BITS, 2>(xe, D, row0, D, w, F, col, col < F, sm, acc);
+  float h[OUT_PER_THREAD], g[OUT_PER_THREAD];
+  reduce_warps(acc[0], sm, h);
+  reduce_warps(acc[1], sm, g);
+#pragma unroll
+  for (int j = 0; j < OUT_PER_THREAD; ++j) {
+    const int idx = threadIdx.x + j * THREADS;
+    const int r = idx / BN, c = col0 + idx % BN;
+    if (c < F) {
+      const float silu = g[j] / (1.f + expf(-g[j]));
+      act[(size_t)(row0 + r) * F + c] = from_f32<T>(silu * h[j]);
+    }
+  }
+}
+
+template <typename T, int BITS>
+__device__ __forceinline__ void down_capacity(const T* __restrict__ act,
+                                              const int32_t* __restrict__ fill, int tpe,
+                                              const void* __restrict__ wo,
+                                              const float* __restrict__ wo_s, T* __restrict__ out,
+                                              int D, int F) {
+  const int row0 = blockIdx.x * TILE;
+  const int col0 = blockIdx.y * BN;
+  const size_t e = (size_t)(blockIdx.x / tpe);
+  if ((blockIdx.x % tpe) * TILE >= fill[e]) {
+    for (int i = threadIdx.x; i < TILE * BN; i += THREADS) {
+      const int r = i / BN, c = col0 + i % BN;
+      if (c < D) out[(size_t)(row0 + r) * D + c] = from_f32<T>(0.f);
+    }
+    return;
+  }
+  const int col = col0 + (threadIdx.x % 32) * COLS;
+  const Weights<T, BITS> w[1] = {Weights<T, BITS>(wo, wo_s, e, F, D, col, col < D)};
+  __shared__ Smem sm;
+  float acc[1][TILE][COLS] = {};
+  contract<T, BITS, 1>(act, F, row0, F, w, D, col, col < D, sm, acc);
+  float y[OUT_PER_THREAD];
+  reduce_warps(acc[0], sm, y);
+#pragma unroll
+  for (int j = 0; j < OUT_PER_THREAD; ++j) {
+    const int idx = threadIdx.x + j * THREADS;
+    const int r = idx / BN, c = col0 + idx % BN;
+    if (c < D) out[(size_t)(row0 + r) * D + c] = from_f32<T>(y[j]);
+  }
+}
+
+// Kernel 2 (weights in the input type) under kernel 4's launch bounds;
+// kernel 3 (int8) capped at 128 registers a thread so that two blocks share
+// an SM.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+up_gate_capacity_kernel(const T* __restrict__ xe, const int32_t* __restrict__ fill, int tpe,
+                        const void* __restrict__ wi, const void* __restrict__ wg,
+                        T* __restrict__ act, int D, int F) {
+  up_gate_capacity<T, 0>(xe, fill, tpe, wi, nullptr, wg, nullptr, act, D, F);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+down_capacity_kernel(const T* __restrict__ act, const int32_t* __restrict__ fill, int tpe,
+                     const void* __restrict__ wo, T* __restrict__ out, int D, int F) {
+  down_capacity<T, 0>(act, fill, tpe, wo, nullptr, out, D, F);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+up_gate_capacity_int8_kernel(const T* __restrict__ xe, const int32_t* __restrict__ fill, int tpe,
+                             const void* __restrict__ wi, const float* __restrict__ wi_s,
+                             const void* __restrict__ wg, const float* __restrict__ wg_s,
+                             T* __restrict__ act, int D, int F) {
+  up_gate_capacity<T, 8>(xe, fill, tpe, wi, wi_s, wg, wg_s, act, D, F);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+down_capacity_int8_kernel(const T* __restrict__ act, const int32_t* __restrict__ fill, int tpe,
+                          const void* __restrict__ wo, const float* __restrict__ wo_s,
+                          T* __restrict__ out, int D, int F) {
+  down_capacity<T, 8>(act, fill, tpe, wo, wo_s, out, D, F);
+}
+
 template <typename T, int BITS>
 int launch(const void* xg, const void* te, const void* rows_used, const void* wi,
            const void* wi_s, const void* wg, const void* wg_s, const void* wo, const void* wo_s,
@@ -299,6 +424,36 @@ int launch_quant(const void* xg, const void* te, const void* rows_used, const vo
     return launch<T, 4>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, n_tiles, D, F,
                         stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int BITS>
+int launch_capacity(const void* xe, const void* fill, const void* wi, const void* wi_s,
+                    const void* wg, const void* wg_s, const void* wo, const void* wo_s, void* act,
+                    void* out, int E, int C, int D, int F, void* stream) {
+  if (E < 1 || C < TILE || C % TILE) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tpe = C / TILE;
+  const dim3 up_grid(E * tpe, (F + BN - 1) / BN), down_grid(E * tpe, (D + BN - 1) / BN);
+  const T* x = static_cast<const T*>(xe);
+  const T* a = static_cast<const T*>(act);
+  const int32_t* f = static_cast<const int32_t*>(fill);
+  if constexpr (BITS == 0) {
+    up_gate_capacity_kernel<T><<<up_grid, THREADS, 0, s>>>(x, f, tpe, wi, wg, static_cast<T*>(act),
+                                                           D, F);
+  } else {
+    up_gate_capacity_int8_kernel<T><<<up_grid, THREADS, 0, s>>>(
+        x, f, tpe, wi, static_cast<const float*>(wi_s), wg, static_cast<const float*>(wg_s),
+        static_cast<T*>(act), D, F);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (BITS == 0) {
+    down_capacity_kernel<T><<<down_grid, THREADS, 0, s>>>(a, f, tpe, wo, static_cast<T*>(out), D, F);
+  } else {
+    down_capacity_int8_kernel<T><<<down_grid, THREADS, 0, s>>>(
+        a, f, tpe, wo, static_cast<const float*>(wo_s), static_cast<T*>(out), D, F);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -338,6 +493,40 @@ int grouped_mlp_quant_f32(const void* xg, const void* te, const void* rows_used,
                           int bits, void* stream) {
   return launch_quant<float>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, n_tiles,
                              D, F, bits, stream);
+}
+
+// Kernel 2: the capacity buffer xe [E, C, D] (C a multiple of 8), row block
+// of expert e through expert e's SwiGLU MLP, weights in the input type; fill
+// [E] i32 (rows at or past fill[e] hold no token); act [E*C, F] scratch and
+// out [E, C, D].
+int expert_mlp_bf16(const void* xe, const void* fill, const void* wi, const void* wg,
+                    const void* wo, void* act, void* out, int E, int C, int D, int F,
+                    void* stream) {
+  return launch_capacity<__nv_bfloat16, 0>(xe, fill, wi, nullptr, wg, nullptr, wo, nullptr, act,
+                                           out, E, C, D, F, stream);
+}
+
+int expert_mlp_f32(const void* xe, const void* fill, const void* wi, const void* wg,
+                   const void* wo, void* act, void* out, int E, int C, int D, int F,
+                   void* stream) {
+  return launch_capacity<float, 0>(xe, fill, wi, nullptr, wg, nullptr, wo, nullptr, act, out, E, C,
+                                   D, F, stream);
+}
+
+// Kernel 3: the same over int8 weights with f32 column scales wi_s/wg_s
+// [E, 1, F], wo_s [E, 1, D].
+int expert_mlp_quant_bf16(const void* xe, const void* fill, const void* wi, const void* wi_s,
+                          const void* wg, const void* wg_s, const void* wo, const void* wo_s,
+                          void* act, void* out, int E, int C, int D, int F, void* stream) {
+  return launch_capacity<__nv_bfloat16, 8>(xe, fill, wi, wi_s, wg, wg_s, wo, wo_s, act, out, E, C,
+                                           D, F, stream);
+}
+
+int expert_mlp_quant_f32(const void* xe, const void* fill, const void* wi, const void* wi_s,
+                         const void* wg, const void* wg_s, const void* wo, const void* wo_s,
+                         void* act, void* out, int E, int C, int D, int F, void* stream) {
+  return launch_capacity<float, 8>(xe, fill, wi, wi_s, wg, wg_s, wo, wo_s, act, out, E, C, D, F,
+                                   stream);
 }
 
 }  // extern "C"

@@ -5,8 +5,10 @@ continuous-batching engine over a paged KV pool (chunked prefill), reporting
 its per-tick numbers.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
-      --reduced --moe-impl grouped              # on the card
+      --reduced                                 # on the card, the arch's own moe_impl
   ... --device cpu                              # on the CPU (plain versions)
+  ... --moe-impl grouped                        # dropless grouped dispatch instead
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch nlg-350m-moe128 --reduced
   ... --paged --page-size 16 --pages 64 --slots 4 --prefill-chunk 32 --device cpu
   ... --quant-bits 8 --quant-policy experts --kv-bits 8   # MoQ weights, int8 KV cache
 
@@ -51,9 +53,11 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory in the JAX package's format")
-    ap.add_argument("--moe-impl", default=None, choices=[None, "grouped"],
-                    help="MoE dispatch; only 'grouped' (dropless, the grouped "
-                         "CUDA kernel) is ported")
+    ap.add_argument("--moe-impl", default=None,
+                    choices=[None, "einsum", "dense", "ep", "grouped"],
+                    help="MoE dispatch override (default: the arch's own); 'grouped' is "
+                         "the dropless expert-sorted path (no expert_capacity, no drops), "
+                         "'ep' without a mesh is 'dense'")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
@@ -101,6 +105,11 @@ def main(argv=None) -> None:
     if args.top_k > cfg.vocab_size:
         ap.error(f"--top-k {args.top_k} exceeds vocab_size {cfg.vocab_size}")
     if args.moe_impl:
+        has_moe = any(ls.ffn.num_experts for seg in cfg.segments for ls in seg.pattern)
+        if args.moe_impl == "grouped" and not has_moe:
+            ap.error(f"--moe-impl grouped: arch '{cfg.name}' has no MoE "
+                     "layers to dispatch — pick an MoE arch (e.g. "
+                     "nlg-350m-moe128) or drop the flag")
         cfg = cfg.replace(moe_impl=args.moe_impl)
 
     params = load_params(args, cfg)

@@ -27,6 +27,17 @@ engine's ``block_until_ready``).
 Sampling draws from a ``torch.Generator``, so sampled (temperature > 0)
 tokens differ from the JAX engine's; greedy tokens are the same.
 
+Under the capacity dispatch (each config's own ``moe_impl``, ``dense`` or
+``ep`` without a mesh) every row of a decode step, inactive and mid-prefill
+slots included, and every token of a chunk competes for its expert's slots
+in token-major order.  The engine feeds those rows what the JAX engine feeds
+them (the slot's last token at position 0, the chunk's tokens unpadded).  An
+inactive row's attention sees no valid key, and the paged kernels give it 0,
+as the JAX package's Pallas kernels do, so past one expert's capacity (more
+than 8 slots) the two engines drop and route alike when the JAX engine runs
+its kernels.  Its CPU oracle path gives such a row a uniform average
+instead (ROADMAP.md, queue 3).
+
 Like ``Engine``, it takes MoQ-quantized parameters, and
 ``kv_cache_bits=8`` makes the pool's pages int8 (quantized on write, read by
 the int8 branches of the paged kernels).

@@ -8,6 +8,12 @@ sampled tokens back to the host (the stop check needs them), so the host
 clock between two reads is one step's time; ``last_timings`` keeps those
 times for the batch served last.
 
+Each config serves through its own ``moe_impl``: the capacity dispatch
+(``dense`` / ``einsum``, and ``ep`` without a mesh) or the grouped one.
+Under capacity routing every row of the batch, left pads included, competes
+for its expert's slots in token-major order; the engine feeds the MoE
+layers the rows the JAX engine feeds them, so the same tokens drop.
+
 ``params`` may be full precision or the output of
 ``repro_torch.quant.quantize_params`` (MoQ int8 / int4 weights, dequantized
 inside the grouped expert kernel or at their product sites), and

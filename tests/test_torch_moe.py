@@ -136,7 +136,25 @@ def test_moe_layer_grouped(K, residual):
 
 
 def test_unported_dispatch_raises():
-    spec = FFNSpec(kind="moe", d_ff=8, num_experts=2, top_k=1)
-    for impl in ("dense", "einsum", "ep"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmoe.moe_layer(None, spec, {}, torch.zeros(1, 1, 4), impl=impl)
+    """Expert parallelism is not ported, and the port has no mesh: its names
+    resolve as the JAX package resolves them without one ("ep" and
+    "ep_serve" give the dense mapping table's output, "ep_grouped" the
+    grouped kernel's), and a name no package knows raises."""
+    from repro_torch.configs.base import ModelConfig
+
+    cfg = ModelConfig(name="t", family="moe", source="x", d_model=32, num_heads=2,
+                      num_kv_heads=2, head_dim=16, vocab_size=64, segments=(),
+                      param_dtype="float32", compute_dtype="float32")
+    spec = FFNSpec(kind="moe", d_ff=64, num_experts=8, top_k=2, capacity_factor=1.25)
+    jp = jmoe.init_moe(jax.random.PRNGKey(5), tiny_cfg(), JFFNSpec(**spec.__dict__), jnp.float32)
+    tp = jax.tree.map(lambda a: t(np.asarray(a)), jp)
+    x = t(np.random.default_rng(5).standard_normal((2, 9, 32)).astype(np.float32))
+    out = {impl: tmoe.moe_layer(cfg, spec, tp, x, impl=impl)
+           for impl in ("dense", "grouped", "ep", "ep_serve", "ep_grouped")}
+    for name, same in (("ep", "dense"), ("ep_serve", "dense"), ("ep_grouped", "grouped")):
+        for a, b in zip(out[name], out[same]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(tmoe.moe_layer(cfg.replace(moe_impl="ep"), spec, tp, x)[0],
+                               out["dense"][0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="moe_impl"):
+        tmoe.moe_layer(cfg, spec, tp, x, impl="sparse")
