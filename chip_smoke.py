@@ -80,8 +80,30 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    its own ``moe_impl="dense"`` on 4 requests (kernel 1 once per MoE layer
    call; GELU experts are plain products, so no expert kernel), and a
    profile of 5 decode steps.
-12. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+12. glm4-9b, a dense global arch, at its published size once nlg's tree is
+   freed (40 layers, 32 query heads over 2 kv-heads, 9.4 G parameters in
+   bf16): ``Engine`` on 4 requests (kernel 6 once per layer at the prefill,
+   no MoE kernel), a profile of 5 decode steps, and reduced f32 glm4-9b
+   card vs CPU.
+13. kernel 6 against its plain version at the static serves' shapes
+   (llama4, nlg-350m-moe128 and glm4-9b: 4 x 64 tokens, bf16), at a reduced
+   size in f32 and bf16 with offset positions, empty slots, a window, a
+   softcap and a row with no valid key (which must give 0), and in the TPU kernel's index
+   form at S != T, causal; each timed beside its bound and beside
+   scaled_dot_product_attention.
+14. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12 and the
+reduced references) attends through kernel 6 (flash attention), once per
+layer call; the continuous phases prefill through kernel 8 and launch it
+never.  Phase 6b, between 6 and 7 while the card holds only the bf16 tree:
+a long static prefill at full width, ``Engine(max_batch=1,
+max_prefill=16384, max_decode=8)`` on one 16384-token prompt (kernel 6
+twice, kernel 4 once per MoE call, the first time past T = 256), where the
+plain path's f32 logits alone would take 42.9 GB per layer call; then
+kernel 6 against its plain version (chunked, on the card) on layer 0's q,
+k and v of that prompt.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -114,6 +136,9 @@ CONT = dict(slots=8, capacity=2048, page_size=16, n_pages=344, prefill_chunk=256
 CONT_PROMPTS = [1500, 1200, 900, 700, 512, 300, 200, 100, 1000, 60, 333, 1777]
 CONT_NEW = 32
 PROFILE_PROMPT = 512  # the decode-tick profile: 8 slots at 512-560 tokens of context
+# the long static prefill (phase 6b): one prompt past anything the plain
+# path could attend over at full width
+LONG_PROMPT, LONG_NEW = 16384, 8
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -210,6 +235,29 @@ def compare(name, out, plain, tol) -> dict:
         raise AssertionError(f"{name} disagrees with its plain version: max|d|={err:.3e}, "
                              f"max|plain|={scale:.3e}, rel {rel:.3e} > {tol}")
     return {"max_abs_err": err, "max_rel_err": rel}
+
+
+def compare_rows(name, out, plain, tol) -> dict:
+    """``compare``, and per row of the last axis (one query of one head in
+    attention): max|out - plain| over the row relative to the row's own
+    max|plain|, which must be within tol for every row.  A row that attends
+    over n random keys is about sqrt(e / n) of one value's size, so past a
+    few thousand keys it is far below the largest output, and a check
+    against that largest output alone would pass a kernel that zeroed it."""
+    res = compare(name, out, plain, tol)
+    o, p = out.float().flatten(0, -2), plain.float().flatten(0, -2)
+    rel = (o - p).abs().amax(-1) / p.abs().amax(-1).clamp_min(1e-30)
+    worst = int(rel.argmax().item())
+    res["max_row_rel_err"] = rel[worst].item()
+    res["median_row_rel_err"] = rel.median().item()
+    res["worst_row"] = []
+    for n in reversed(out.shape[:-1]):
+        worst, i = divmod(worst, n)
+        res["worst_row"].insert(0, i)
+    if res["max_row_rel_err"] > tol:
+        raise AssertionError(f"{name} disagrees with its plain version in row {res['worst_row']}: "
+                             f"max|d| {res['max_row_rel_err']:.3e} of the row's max|plain| > {tol}")
+    return res
 
 
 def bound(need_bytes, ops, dtype) -> dict:
@@ -439,6 +487,96 @@ def check_paged(name, kernel, plain, args, kw, tol, timed=False, library=None) -
                                **{n: kw[n] for n in ("k_scale", "v_scale") if n in kw})
         res["library_ms"] = time_ms(call)
         res["library_gather_ms"] = time_ms(gather, n=3)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (kernel 6)
+# ---------------------------------------------------------------------------
+
+
+def flash_pairs(q_pos, k_pos, causal, window, chunk=1024) -> int:
+    """Unmasked (query, key) pairs of one head: k_pos >= 0, causal, window,
+    counted over query chunks so no [S, T] mask is built whole."""
+    n = 0
+    kp = k_pos[:, None, :]
+    for s0 in range(0, q_pos.shape[1], chunk):
+        qp = q_pos[:, s0 : s0 + chunk, None]
+        valid = kp >= 0
+        if causal:
+            valid = valid & (kp <= qp)
+        if window > 0:
+            valid = valid & (qp - kp < window)
+        n += int(valid.sum().item())
+    return n
+
+
+def flash_info(q, k, q_pos, k_pos, kw) -> dict:
+    """Kernel 6's bound: q, k, v and out once each and both position rows;
+    4*H*dh operations per unmasked (query, key) pair."""
+    B, S, H, dh = q.shape
+    pairs = flash_pairs(q_pos, k_pos, kw.get("causal", True), kw.get("window", 0))
+    need = (2 * q.numel() + 2 * k.numel()) * q.element_size() + (q_pos.numel() + k_pos.numel()) * 4
+    return {"B": B, "S": S, "T": k.shape[1], "H": H, "Hkv": k.shape[2], "dh": dh,
+            "dtype": str(q.dtype).replace("torch.", ""), "pairs": pairs,
+            **bound(need, 4 * H * dh * pairs, q.dtype)}
+
+
+def flash_case(B, S, H, Hkv, dh, dtype, gen):
+    """Random q, k, v of a static prefill of S tokens at the layer's heads,
+    positions 0 .. S - 1 in every row."""
+    q = torch.randn((B, S, H, dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, dh), generator=gen, device="cuda").to(dtype)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S).contiguous()
+    return (q, k, v, pos, pos), dict(scale=1.0 / math.sqrt(dh), causal=True)
+
+
+def sdpa_full(q, k, v, scale):
+    """The library yardstick for a causal static prefill: one
+    scaled_dot_product_attention(is_causal=True, enable_gqa=True) over
+    [B, heads, tokens, dh] copies of the model's layouts (the copies, and
+    the output's copy back, timed apart as the layout).  The math backend,
+    which would build the [S, T] logits, is excluded."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+    to_heads = lambda: tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qh, kh, vh = to_heads()
+
+    def call():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale,
+                                                  enable_gqa=True)
+
+    out = call()
+    return call, lambda: (to_heads(), out.transpose(1, 2).contiguous())
+
+
+def check_flash(args, kw, tol, timed=True, n=20, plain_n=3) -> dict:
+    """Kernel 6 (``flash_attention_gqa``) against its plain version on the
+    same inputs, then timed: ``ms`` is its device time and ``library_ms``
+    SDPA's, each from a CUDA graph of its calls (``graph_ms``: at the served
+    4 x 64 tokens the wrapper's host work exceeds the kernel), ``host_ms`` one
+    wrapper call as the layer pays it (``time_ms``), ``plain_ms`` the plain
+    version's; ``n`` and ``plain_n`` calls per timed window."""
+    from repro_torch.kernels import flash_attention as k6
+
+    out = k6.flash_attention_gqa(*args, **kw)
+    ref = k6.flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    res = compare_rows("flash_attention", out, ref, tol)
+    del out, ref
+    if timed:
+        kernel = lambda: k6.flash_attention_gqa(*args, **kw)
+        res["ms"] = graph_ms(kernel, n=n)
+        res["host_ms"] = time_ms(kernel, n=min(10, n))
+        res["plain_ms"] = time_ms(lambda: k6.flash_attention_plain(*args, **kw), n=plain_n,
+                                  reps=3, warmup=1)
+        call, layout = sdpa_full(args[0], args[1], args[2], kw["scale"])
+        res["library_ms"] = graph_ms(call, n=n)
+        res["library_layout_ms"] = time_ms(layout, n=plain_n)
     return res
 
 
@@ -779,7 +917,7 @@ def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens,
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     want = {k: 0 for k in got}
-    want.update({expert_kernel(cfg, qparams): n_moe * NEW,
+    want.update({expert_kernel(cfg, qparams): n_moe * NEW, "flash_attention": cfg.num_layers,
                  "decode_attention_quant": cfg.num_layers * (NEW - 1)})
     if capacity(cfg):
         want["moe_gating"] = n_moe * NEW
@@ -983,7 +1121,8 @@ def capacity_static_serve(cfg, params, reqs, counters, what="capacity serve"):
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     want = {k: 0 for k in got}
-    want.update({"moe_gating": n_moe * NEW, expert_kernel(cfg, params): n_moe * NEW})
+    want.update({"moe_gating": n_moe * NEW, expert_kernel(cfg, params): n_moe * NEW,
+                 "flash_attention": cfg.num_layers})
     if got != want:
         raise AssertionError(f"{what} launches {got}, expected {want}")
     tm = eng.last_timings
@@ -1184,7 +1323,7 @@ def nlg_serve(counters) -> list:
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     want = {k: 0 for k in got}
-    want["moe_gating"] = n_moe * NEW
+    want.update({"moe_gating": n_moe * NEW, "flash_attention": cfg.num_layers})
     if got != want:
         raise AssertionError(f"nlg serve launches {got}, expected {want}")
     tm = eng.last_timings
@@ -1201,6 +1340,216 @@ def nlg_serve(counters) -> list:
         f"{peak:.1f} GB",
         f"nlg serve: tokens of request 0: {out[0].tokens}",
     ] + profile_decode(eng, cfg, params, what="nlg decode"), got
+
+
+def flash_checks(full, red, gen) -> dict:
+    """Kernel 6 against its plain version: at the static serves' shapes
+    (llama4-maverick, nlg-350m-moe128 and glm4-9b heads, 4 x 64 tokens,
+    bf16), at reduced size in f32 and bf16 with every mask and a row with
+    no valid key, and in the TPU kernel's index form at S != T; timed beside their
+    bounds, plain versions and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as k6
+
+    fshapes = {}
+    for label, arch in (("static_llama4", full), ("static_nlg", get_config("nlg-350m-moe128")),
+                        ("static_glm4", get_config("glm4-9b"))):
+        args, kw = flash_case(BATCH, PROMPT, arch.num_heads, arch.num_kv_heads, arch.head_dim,
+                              torch.bfloat16, gen)
+        info = flash_info(args[0], args[1], args[3], args[4], kw)
+        info.update(check_flash(args, kw, BF16_TOL))
+        fshapes[label] = info
+        log(f"kernel flash_attention bf16 {label} ({arch.name}'s heads, {BATCH} x {PROMPT}): "
+            f"{json.dumps(info)}")
+    # reduced size, S = T = 300 (not a multiple of any tile), positions
+    # offset per row, empty slots, a window and a softcap, in f32 (the
+    # CUDA-core path) and bf16 (the tensor-core path, partial tiles); row 2's
+    # keys are all empty, so it has no valid key and must give 0
+    for dt, tol, label in ((torch.float32, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16")):
+        args, _ = flash_case(3, 300, red.num_heads, red.num_kv_heads, red.head_dim, dt, gen)
+        q, k, v, _, _ = args
+        pos = (torch.arange(300, dtype=torch.int32, device="cuda")[None]
+               + torch.tensor([[5], [400], [0]], dtype=torch.int32, device="cuda")).contiguous()
+        kpos = pos.clone()
+        kpos[:, 3::7] = -1
+        kpos[2] = -1
+        kw = dict(scale=1.0 / math.sqrt(red.head_dim), causal=True, window=37, softcap=20.0)
+        info = flash_info(q, k, pos, kpos, kw)
+        info.update(check_flash((q, k, v, pos, kpos), kw, tol, timed=False))
+        if k6.flash_attention_gqa(q, k, v, pos, kpos, **kw)[2].abs().max().item() != 0:
+            raise AssertionError(f"kernel 6 {label}: a row with no valid key must give 0")
+        fshapes[f"{label}_reduced_window_softcap"] = info
+        log(f"kernel flash_attention {label} reduced, S = T = 300, offset positions, empty slots, "
+            f"window 37, softcap 20 (a row with no valid key gives 0): {json.dumps(info)}")
+    # past 2048 keys (one 32-bit word of the bf16 path's tile bitmasks):
+    # S = T = 4500, positions offset per row, every 7th slot empty, and in
+    # row 1 slots 1984-2239 (key tiles 31-34, across the first word
+    # boundary) all empty; with and without a window of 1500, whose first
+    # live tile lies past word 0 for the last 950 queries.  Held per row.
+    for dt, tol, label in ((torch.float32, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16")):
+        for window, cap in ((0, 0.0), (1500, 20.0)):
+            args, _ = flash_case(2, 4500, red.num_heads, red.num_kv_heads, red.head_dim, dt, gen)
+            q, k, v, _, _ = args
+            pos = (torch.arange(4500, dtype=torch.int32, device="cuda")[None]
+                   + torch.tensor([[0], [37]], dtype=torch.int32, device="cuda")).contiguous()
+            kpos = pos.clone()
+            kpos[:, 3::7] = -1
+            kpos[1, 1984:2240] = -1
+            kw = dict(scale=1.0 / math.sqrt(red.head_dim), causal=True, window=window, softcap=cap)
+            info = flash_info(q, k, pos, kpos, kw)
+            info.update(check_flash((q, k, v, pos, kpos), kw, tol, timed=False))
+            fshapes[f"{label}_reduced_4500_window{window}"] = info
+            log(f"kernel flash_attention {label} reduced, S = T = 4500, offset positions, empty "
+                f"slots and tiles 31-34 of row 1, window {window}, softcap {cap}: {json.dumps(info)}")
+    # the TPU kernel's own contract: [BH, S, dh], causal by index, S != T
+    BH, S, T = full.num_heads, 128, 384
+    q, k, v = (torch.randn((BH, n, full.head_dim), generator=gen, device="cuda").bfloat16()
+               for n in (S, T, T))
+    ipos = lambda n: torch.arange(n, dtype=torch.int32, device="cuda").expand(BH, n).contiguous()
+    iargs = (q[:, :, None], k[:, :, None], v[:, :, None], ipos(S), ipos(T))
+    kw = dict(scale=1.0 / math.sqrt(full.head_dim), causal=True)
+    out6 = k6.flash_attention(q, k, v, **kw)
+    ref6 = k6.flash_attention_plain(*iargs, **kw)[:, :, 0]
+    info = flash_info(*iargs[:2], *iargs[3:], kw)
+    info.update(compare_rows("flash_attention", out6, ref6, BF16_TOL))
+    info["ms"] = graph_ms(lambda: k6.flash_attention(q, k, v, **kw))
+    info["host_ms"] = time_ms(lambda: k6.flash_attention(q, k, v, **kw))
+    info["plain_ms"] = time_ms(lambda: k6.flash_attention_plain(*iargs, **kw), n=3)
+    # SDPA's is_causal is top-left aligned too: the same function, on views
+    # of q, k, v (no layout copy)
+    info["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, None], k[:, None], v[:, None], is_causal=True, scale=kw["scale"]))
+    info["library_layout_ms"] = 0.0
+    fshapes["index_causal_S128_T384"] = info
+    log(f"kernel flash_attention bf16 index form ({BH} x [{S}, {full.head_dim}] over {T} keys, "
+        f"causal top-left): {json.dumps(info)}")
+    return fshapes
+
+
+def long_prefill(cfg, params, counters):
+    """One 16384-token prompt through ``Engine(max_batch=1,
+    max_prefill=16384, max_decode=8)`` at full width: kernel 6 once per
+    layer at the prefill, kernel 4 once per MoE call.  The warm-up run
+    records layer 0's attention inputs; kernel 6 is then held against its
+    plain version (chunked, on the card) on them and timed.  Returns
+    (lines, launches, the check)."""
+    import repro_torch.models.attention as am
+    from repro_torch.models.model import prefill
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    eng = Engine(cfg, params, EngineConfig(max_batch=1, max_prefill=LONG_PROMPT, max_decode=LONG_NEW),
+                 device="cuda")
+    rng = torch.Generator().manual_seed(SEED + 5)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (LONG_PROMPT,), generator=rng).tolist(), LONG_NEW)]
+    real, seen = am.flash_attention_gqa, []
+
+    def rec(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return real(*a, **kw)
+
+    am.flash_attention_gqa = rec
+    try:
+        eng.generate(reqs)  # warm-up, recording layer 0's q, k, v
+    finally:
+        am.flash_attention_gqa = real
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    got = {k: v for c in counters for k, v in c.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert len(out) == 1 and len(out[0].tokens) == LONG_NEW, out[0].tokens
+    assert all(0 <= tok < cfg.vocab_size for tok in out[0].tokens)
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    want = {k: 0 for k in got}
+    want.update({"flash_attention": cfg.num_layers, "grouped_mlp": n_moe * LONG_NEW})
+    if got != want:
+        raise AssertionError(f"long prefill launches {got}, expected {want}")
+    tm = eng.last_timings
+    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+    plain_gb = cfg.num_heads * LONG_PROMPT ** 2 * 4 / 1e9
+    toks = torch.tensor([reqs[0].prompt], device="cuda")
+
+    def run(prof):
+        caches = eng._make_caches(1)
+        torch.cuda.synchronize()
+        with prof or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            prefill(cfg, params, toks, caches)[0].cpu()
+            return (time.perf_counter() - t0) * 1e3
+
+    profile = profile_account(run, 1, "long prefill")  # which kernels set the prefill
+    del toks
+    (args, kw), = seen
+    info = flash_info(args[0], args[1], args[3], args[4], kw)
+    info.update(check_flash(args, kw, BF16_TOL, n=3, plain_n=1))
+    lines = [
+        f"long prefill: {cfg.name} at full width, one {LONG_PROMPT}-token prompt x {LONG_NEW} new "
+        f"tokens in {wall * 1e3:.3f} ms; prefill {tm['prefill_s'] * 1e3:.3f} ms; decode step median "
+        f"{step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; launches {got}; peak memory "
+        f"{peak:.1f} GB (the plain path's f32 logits alone would take {cfg.num_heads} x "
+        f"{LONG_PROMPT}^2 x 4 B = {plain_gb:.1f} GB per layer call; it was not run at this size)",
+        f"long prefill: tokens: {out[0].tokens}",
+        *profile,
+        f"kernel flash_attention bf16 long prefill (layer 0's q, k, v of the {LONG_PROMPT}-token "
+        f"prompt, against its plain version in 1024-query chunks on the card): {json.dumps(info)}",
+    ]
+    return lines, got, info
+
+
+def glm4_serve(counters) -> tuple:
+    """glm4-9b at its published size (40 layers, d_model 4096, 32 query
+    heads over 2 kv-heads: G = 16), bf16 random weights from the seed,
+    through ``Engine`` on 4 requests: kernel 6 once per layer at the
+    prefill, no MoE kernel (a dense arch); and a profile of 5 decode
+    steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    cfg = get_config("glm4-9b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(b.numel() for b in params.buffers())
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW),
+                 device="cuda")
+    rng = torch.Generator().manual_seed(SEED + 6)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (PROMPT,), generator=rng).tolist(), NEW)
+            for _ in range(BATCH)]
+    eng.generate(reqs)  # warm-up
+    torch.cuda.synchronize()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    got = {k: v for c in counters for k, v in c.items()}
+    assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
+    assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
+    want = {k: 0 for k in got}
+    want["flash_attention"] = cfg.num_layers
+    if got != want:
+        raise AssertionError(f"glm4 serve launches {got}, expected {want}")
+    tm = eng.last_timings
+    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+    return [
+        f"glm4 serve: {cfg.name} at its published size, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} query heads over {cfg.num_kv_heads} kv-heads (G = "
+        f"{cfg.num_heads // cfg.num_kv_heads}), vocab {cfg.vocab_size}, {n_params / 1e9:.2f} G "
+        f"parameters bf16 drawn in {init_s:.1f} s: {BATCH} requests x {NEW} tokens in "
+        f"{wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill {tm['prefill_s'] * 1e3:.3f} ms "
+        f"(batch {BATCH} x {PROMPT}); decode step median {step_ms:.3f} ms over "
+        f"{len(tm['decode_step_s'])} steps; launches {got}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+        f"glm4 serve: tokens per request: {[r.tokens for r in out]}",
+    ] + profile_decode(eng, cfg, params, what="glm4 decode"), got
 
 
 # ---------------------------------------------------------------------------
@@ -1221,6 +1570,7 @@ def main() -> int:
     from repro_torch.kernels import expert_mlp as k2
     from repro_torch.kernels import expert_mlp_grouped as gk
     from repro_torch.kernels import expert_mlp_quant as k3
+    from repro_torch.kernels import flash_attention as k6
     from repro_torch.kernels import moe_gating as k1
     from repro_torch.core.gating import expert_capacity
     from repro_torch.models.model import decode_step, init_caches, init_params, prefill
@@ -1229,7 +1579,7 @@ def main() -> int:
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
     counters = (gk.launches, k7.launches, k8.launches, k9.launches, k1.launches, k2.launches,
-                k3.launches)
+                k3.launches, k6.launches)
 
     # 1. card
     smi = nvidia_smi_line()
@@ -1276,6 +1626,7 @@ def main() -> int:
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     expected = {k: 0 for k in static_launches}
     expected["grouped_mlp"] = n_moe * (1 + NEW - 1)
+    expected["flash_attention"] = cfg.num_layers  # the prefill's layers
     if static_launches != expected:
         raise AssertionError(f"static serve launches {static_launches}, expected {expected}")
     tm = eng.last_timings
@@ -1303,6 +1654,11 @@ def main() -> int:
 
     # 6. reduced f32 continuous serve, card vs CPU
     log(continuous_reference_check(red))
+
+    # 6b. a long static prefill at full width, while only the bf16 tree is held
+    lines, long_launches, long_check = long_prefill(cfg, params, counters)
+    for line in lines:
+        log(line)
 
     # 7. quantized serving: int8 experts (PTQ on the card, slice by slice) and
     # an int8 KV cache through both engines, then the reduced references
@@ -1573,6 +1929,20 @@ def main() -> int:
     for line in lines:
         log(line)
 
+    # 12. glm4-9b at its published size, once nlg's tree is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, glm4_launches = glm4_serve(counters)
+    for line in lines:
+        log(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(reference_check(make_reduced(get_config("glm4-9b"))))
+
+    # 13. kernel 6 against its plain version at the served shapes, reduced
+    # f32 with every mask, and the TPU kernel's index form at S != T
+    fshapes = {"long_prefill": long_check, **flash_checks(full, red, gen)}
+
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
                     "over K/V gathered into a contiguous tensor beforehand (the gather timed on "
@@ -1667,6 +2037,33 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None, "library_call": call, "shapes": checks,
         })
+    m6 = fshapes["static_llama4"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:88",
+        "launches": static_launches["flash_attention"],
+        "launches_by_path": {"static": static_launches["flash_attention"],
+                             "continuous": cont_launches["flash_attention"],
+                             "long_prefill": long_launches["flash_attention"],
+                             "quantized_static": qstatic_launches["flash_attention"],
+                             "quantized_continuous": qcont_launches["flash_attention"],
+                             "capacity_static": cap_static["flash_attention"],
+                             "capacity_continuous": cap_cont["flash_attention"],
+                             "capacity_quantized_static": cap_qstatic["flash_attention"],
+                             "nlg_static": nlg_launches["flash_attention"],
+                             "glm4_static": glm4_launches["flash_attention"]},
+        "max_abs_err": max(v["max_abs_err"] for v in fshapes.values()),
+        "max_rel_err": max(v["max_rel_err"] for v in fshapes.values()),
+        "max_row_rel_err": max(v["max_row_rel_err"] for v in fshapes.values()),
+        "ms": m6["ms"], "host_ms": m6["host_ms"], "plain_ms": m6["plain_ms"],
+        "bound_ms": m6["bound_ms"], "bound_by": m6["bound_by"], "library_ms": m6["library_ms"],
+        "library_layout_ms": m6["library_layout_ms"],
+        "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) over "
+                        "[B, heads, tokens, dh] copies of the model's layouts, fused backends only "
+                        "(the copies timed on their own: library_layout_ms); ms and library_ms "
+                        "are device times from CUDA graphs, host_ms a wrapper call's",
+        "shapes": fshapes,
+    })
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

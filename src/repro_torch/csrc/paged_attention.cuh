@@ -1,8 +1,10 @@
 // Device code shared by the attention kernels for Hopper, sm_90a:
 // paged_decode_attention.cu (one query token per slot),
 // paged_prefill_attention.cu (one prefill chunk of one sequence), both over a
-// page pool in full precision or int8, and decode_attention_quant.cu (one
-// query token per slot over a contiguous int8 cache).
+// page pool in full precision or int8, decode_attention_quant.cu (one
+// query token per slot over a contiguous int8 cache), and the f32 path of
+// flash_attention.cu (a static prefill over contiguous q / k / v; its bf16
+// path uses tensor cores and only Mask from here).
 //
 // All compute, for one kv-head and a set of query rows, a masked softmax
 // attention over keys streamed in tiles of up to KT = 32 keys, as the TPU

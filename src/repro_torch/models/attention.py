@@ -16,9 +16,14 @@ functional updates, and every mode keeps JAX's order explicitly: a prefill
 chunk attends over the pool BEFORE its K/V are written (over its own fp K/V
 in flight), a decode token is written first, quantized where the cache is
 int8, and then attends (it sees itself as stored), and a static prefill
-attends over its fp K/V and then writes them.  The contiguous
-modes' softmax runs in f32 exactly as the JAX ``_sdpa`` does (f32 logits,
-probabilities cast to ``v``'s type); no fused attention operator is called.
+attends over its fp K/V and then writes them.  ``train`` and ``prefill``
+attend through ``attend_chunked`` / ``attend_full``, which on the card is
+one launch of the hand-written flash-attention kernel per layer call
+(``kernels/flash_attention.py``, kernel 6: it tiles the queries itself and
+never builds the ``[S, T]`` logits) and on the CPU its plain version, which
+attends 1024 queries at a time.  The contiguous fp decode keeps the
+plain ``_sdpa``, whose softmax runs in f32 exactly as the JAX ``_sdpa``
+does (f32 logits, probabilities cast to ``v``'s type).
 """
 from __future__ import annotations
 
@@ -31,15 +36,12 @@ from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.kernels.attention_paged import paged_decode_attention
 from repro_torch.kernels.attention_prefill_paged import paged_prefill_attention
 from repro_torch.kernels.attention_quant import decode_attention_quant
+from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.models.modules import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
 from repro_torch.quant.kv import QuantizedKV, kv_quantize_values
 from repro_torch.quant.qarrays import materialize
 
 NEG_INF = -1e30
-
-# The JAX package chunks queries past Q_CHUNK = 1024 tokens; for global
-# attention the chunked result equals ``attend_full`` row for row, so the port
-# always attends in full.
 
 
 def _unported(what: str, item: str):
@@ -317,8 +319,24 @@ def _window_causal_mask(q_pos, k_pos, window: int, causal: bool):
 
 
 def attend_full(q, k, v, q_pos, k_pos, spec: AttnSpec, scale: float):
-    mask = _window_causal_mask(q_pos, k_pos, spec.window if spec.kind == "local" else 0, spec.causal)
-    return _sdpa(q, k, v, mask, scale, spec.logit_softcap)
+    """q: [B,S,H,dh], k/v: [B,T,Hkv,dh], positions [B,S] / [B,T] or [S] /
+    [T] -> [B,S,H,dh], through kernel 6 (its plain version on the CPU, which
+    attends 1024 queries at a time).  Masked entries get probability
+    0: a row with no valid key gives 0, where the JAX ``_sdpa`` averages."""
+    B, S = q.shape[:2]
+    T = k.shape[1]
+    q_pos = (q_pos if q_pos.ndim == 2 else q_pos[None]).expand(B, S).to(torch.int32).contiguous()
+    k_pos = (k_pos if k_pos.ndim == 2 else k_pos[None]).expand(B, T).to(torch.int32).contiguous()
+    return flash_attention_gqa(
+        q.contiguous(), k.contiguous(), v.contiguous(), q_pos, k_pos, scale=scale,
+        causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        softcap=spec.logit_softcap)
+
+
+# The JAX ``attend_chunked`` attends ``q_chunk`` queries at a time; its
+# result equals ``attend_full`` row for row.  Kernel 6 tiles the queries
+# itself and its plain version chunks them, so here the two are one.
+attend_chunked = attend_full
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +365,7 @@ def attention(
     """Returns (y, cache).  mode: train | prefill | decode | decode_paged |
     prefill_chunk.
 
-    - train:   causal self-attention over x, no cache IO.
+    - train:   causal self-attention over x, no cache IO (kernel 6).
     - prefill: the same, and writes the cache (in place).
     - decode:  x is [B, 1, d]; writes the token at slot ``index`` (the
                uniform batch position), then attends over the cache.
@@ -405,7 +423,7 @@ def attention(
     else:
         pos2d = positions if positions.ndim == 2 else positions[None]
         pos2d = pos2d.expand(B, S)
-        y = attend_full(q, k, v, pos2d, pos2d, spec, scale)
+        y = attend_chunked(q, k, v, pos2d, pos2d, spec, scale)
         if mode == "prefill" and cache is not None:
             cache = _cache_write_prefill(cache, k, v, pos2d)
 
