@@ -50,9 +50,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    over 0 and 1008 tokens of pool history, fp and int8; int8 decode: the
    served static cache, 4 rows x 80 slots, and 8 rows x 2048 slots half
    filled), and once more at a reduced size with a window and a softcap
-   (with a row that has no valid key, which must give 0); then each timed
-   with CUDA events beside its bound and, for attention, beside
-   scaled_dot_product_attention.
+   (with a row that has no valid key, which must give 0); kernels 7, 7q, 8
+   and 8q also in bf16 over 8 slots of about 1800 tokens (one all-trash row,
+   one row of a single key), a chunk of 256 and of 40 queries over 1777
+   tokens of history, with glm4-9b's heads (G = 16, dh = 128) and
+   nlg-350m-moe128's (G = 1, dh = 64) at small sizes, and over tables of 800
+   and 1400 entries (several compaction windows).  The attention kernels
+   are held per query row (a row with no valid key must be exactly 0).  Then
+   each is timed beside its bound and, for attention, beside
+   scaled_dot_product_attention: the grouped MLP with CUDA events, the
+   attention kernels and SDPA from CUDA graphs and with CUDA events.
 9. capacity dispatch: the same weights under llama4's own ``moe_impl``
    ("ep", which without a mesh is the dense mapping table; kernels 1 and 2
    in place of 4): (a) ``Engine`` on the same 4 requests, counts set to 0
@@ -145,14 +152,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # bf16 kernel checks: kernel and plain version read the same bf16 values and
-# sum in f32 in different orders, so outputs may round to neighbouring bf16
-# values: one ulp is 2^-7 of the output's magnitude at most; allow two,
-# relative to the largest output.  f32: only the summation order differs.
+# sum in f32 in different orders (the tensor-core attention kernels also
+# round P to bf16 before P.V, 2^-9 of each term), so outputs may round to
+# neighbouring bf16 values: one ulp is 2^-7 of the output's magnitude at
+# most; allow two, relative to the largest output and, for attention, to
+# each query row's own largest (compare_rows).  f32: only the summation
+# order differs.
 BF16_TOL = 2e-2
 F32_TOL = 1e-5
 # full-width logits, static prefill vs chunked paged prefill, both bf16: the
-# two paths round attention differently (the static path casts the softmax
-# to bf16 before P.V, the kernel keeps f32) and cuBLAS sums the dense
+# two paths round attention differently (kernels 6 and 8 round P to bf16
+# against running maxima over different key tiles) and cuBLAS sums the dense
 # products of 512 and of 256 rows in different orders; each rounding is up
 # to 2^-8 relative and a few compound over two layers: allow 3% of the
 # largest logit (a reduced bf16 model on the CPU differs by 0.8%).
@@ -475,19 +485,103 @@ def sdpa_prefill(q, k, v, kpos, table, qpos, ck, cv, scale, k_scale=None, v_scal
     return call, gather
 
 
+def synthetic_pool(lens, Hkv, dh, ps, Pt, nt, gen, kv_int8=False):
+    """A random pool holding one sequence of ``lens[b]`` tokens per slot b, on
+    randomly drawn pages (positions 0 .. lens[b] - 1; the table trash past
+    them, so a length 0 gives an all-trash row), the query at the last
+    position: (pool dict as the engine's, clamped table [B, nt], qpos [B]),
+    for ``decode_case``.  ``kv_int8``: K/V quantized as the cache writes
+    them."""
+    pool = {n: torch.randn((Pt, ps, Hkv, dh), generator=gen, device="cuda") for n in ("k", "v")}
+    if kv_int8:
+        from repro_torch.quant.kv import kv_quantize_values
+
+        for n in ("k", "v"):
+            pool[n], pool[f"{n}_scale"] = kv_quantize_values(pool[n].bfloat16())
+    pool["pos"] = torch.full((Pt, ps), -1, dtype=torch.int32, device="cuda")
+    table = torch.full((len(lens), nt), Pt - 1, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(Pt - 1, generator=torch.Generator().manual_seed(SEED)).cuda()
+    used = 0
+    for b, n in enumerate(lens):
+        pages = perm[used:used + -(-n // ps)]
+        used += pages.numel()
+        table[b, :pages.numel()] = pages.to(torch.int32)
+        hist = torch.arange(n, device="cuda")
+        pool["pos"][pages[hist // ps], hist % ps] = hist.to(torch.int32)
+    qpos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32, device="cuda")
+    return pool, table, qpos
+
+
 def check_paged(name, kernel, plain, args, kw, tol, timed=False, library=None) -> dict:
+    """The kernel against its plain version per query row (``compare_rows``;
+    a row with no valid key must be exactly 0); ``timed``: the kernel's and
+    SDPA's device time from a CUDA graph of their calls (``ms``,
+    ``library_ms``) beside the CUDA-event time of calls issued back to back
+    (``events_ms``, ``library_events_ms``), which reads the host's per-call
+    work where it exceeds the device time."""
     out = kernel(*args, **kw)
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
-    res = compare(name, out, ref, tol)
+    res = compare_rows(name, out, ref, tol)
     if timed:
-        res["ms"] = time_ms(lambda: kernel(*args, **kw))
+        res["ms"] = graph_ms(lambda: kernel(*args, **kw))
+        res["events_ms"] = time_ms(lambda: kernel(*args, **kw))
         res["plain_ms"] = time_ms(lambda: plain(*args, **kw), n=3)
         call, gather = library(*args, kw["scale"],
                                **{n: kw[n] for n in ("k_scale", "v_scale") if n in kw})
-        res["library_ms"] = time_ms(call)
+        res["library_ms"] = graph_ms(call)
+        res["library_events_ms"] = time_ms(call)
         res["library_gather_ms"] = time_ms(gather, n=3)
     return res
+
+
+# 8 slots of about 1800 tokens (the trace's longest prompt is 1777), one of
+# them empty (an all-trash row) and one holding a single key
+LONG_SLOTS = [1800, 1790, 0, 1750, 1, 1777, 1801, 1795]
+
+
+def redesign_checks(cfg, k7, k8, gen, kv_int8=False) -> tuple:
+    """Kernels 7 and 8 (7q and 8q over an int8 pool) in bf16 where their
+    tiles and splits have the most to do: decode over LONG_SLOTS (each split
+    several 64-key tiles), a chunk of 256 and of 40 queries (not a multiple of
+    the 64-row tile) over 1777 tokens of history, at small sizes glm4's heads
+    (G = 16, dh = 128) and nlg-350m-moe128's (G = 1, dh = 64), and tables of
+    800 and 1400 entries of page size 4 (several of the kernels' 256-entry
+    compaction windows, which the served 128-entry tables never leave).  Each
+    is held per query row; the served width's decode and C = 256 are timed.
+    Returns ({label: reading} of kernel 7, of kernel 8)."""
+    sfx = "_int8" if kv_int8 else ""
+    ps, nt = CONT["page_size"], CONT["capacity"] // CONT["page_size"]
+    G, Hkv, dh = cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads, cfg.head_dim
+    dec, pre = {}, {}
+    for label, lens, hkv, g, d, pg, Pt, width, timed in (
+            ("bf16_slots1800", LONG_SLOTS, Hkv, G, dh, ps, 8 * 113 + 2, nt, True),
+            ("bf16_glm4_heads", [300, 0, 7], 2, 16, 128, ps, 60, 32, False),
+            ("bf16_nlg_heads", [300, 0, 7], 4, 1, 64, ps, 60, 32, False),
+            ("bf16_table800_ps4", [3000, 10, 0], 2, 5, 64, 4, 800, 800, False)):
+        pool, table, qpos = synthetic_pool(lens, hkv, d, pg, Pt, width, gen, kv_int8)
+        args, info = decode_case(pool, table, qpos, g, torch.bfloat16, gen)
+        kw = dict(scale=d ** -0.5, **info.pop("kw", {}))
+        info.update(check_paged(f"paged_decode_attention{sfx}", k7.paged_decode_attention,
+                                k7.paged_decode_attention_plain, args, kw, BF16_TOL, timed=timed,
+                                library=sdpa_decode))
+        dec[label] = info
+        log(f"kernel paged_decode_attention{sfx} {label}: {json.dumps(info)}")
+    for label, n_hist, C, hkv, g, d, pg, Pt, width, timed in (
+            ("bf16_history1777", 1777, 256, Hkv, G, dh, ps, CONT["n_pages"] + 1, nt, True),
+            ("bf16_history1777_c40", 1777, 40, Hkv, G, dh, ps, CONT["n_pages"] + 1, nt, False),
+            ("bf16_glm4_heads", 300, 40, 2, 16, 128, ps, 60, 32, False),
+            ("bf16_nlg_heads", 300, 40, 4, 1, 64, ps, 60, 32, False),
+            ("bf16_table1400_ps4", 5000, 64, 2, 5, 64, 4, 1400, 1400, False)):
+        args, info = prefill_case(n_hist, C, hkv, g, d, pg, Pt, width, torch.bfloat16, gen,
+                                  kv_int8=kv_int8)
+        kw = dict(scale=d ** -0.5, **info.pop("kw", {}))
+        info.update(check_paged(f"paged_prefill_attention{sfx}", k8.paged_prefill_attention,
+                                k8.paged_prefill_attention_plain, args, kw, BF16_TOL, timed=timed,
+                                library=sdpa_prefill))
+        pre[label] = info
+        log(f"kernel paged_prefill_attention{sfx} {label}: {json.dumps(info)}")
+    return dec, pre
 
 
 # ---------------------------------------------------------------------------
@@ -1718,6 +1812,9 @@ def main() -> int:
                                     timed=dt == torch.bfloat16, library=sdpa_prefill))
             attn["paged_prefill_attention"][f"{label}_history{hist}"] = info
             log(f"kernel paged_prefill_attention {label} history {hist}: {json.dumps(info)}")
+    dec, pre = redesign_checks(cfg, k7, k8, gen)
+    attn["paged_decode_attention"].update(dec)
+    attn["paged_prefill_attention"].update(pre)
     # reduced size with a window and a softcap (llama4 uses neither)
     kw = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
     rG = red.num_heads // red.num_kv_heads
@@ -1800,6 +1897,9 @@ def main() -> int:
             qattn["decode_attention_quant"][f"{label}_{case}"] = info
             log(f"kernel decode_attention_quant {label} {case}: {json.dumps(info)}")
     del caches, served_kv, c0
+    dec, pre = redesign_checks(cfg, k7, k8, gen, kv_int8=True)
+    qattn["paged_decode_attention_int8"].update(dec)
+    qattn["paged_prefill_attention_int8"].update(pre)
     # reduced size with a window and a softcap, one row with no valid key
     kw = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
     for dt, tol, label in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
@@ -1946,12 +2046,16 @@ def main() -> int:
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
                     "over K/V gathered into a contiguous tensor beforehand (the gather timed on "
-                    "its own: library_gather_ms); no single PyTorch call computes a paged attention")
+                    "its own: library_gather_ms); no single PyTorch call computes a paged "
+                    "attention; ms and library_ms are device times from CUDA graphs, "
+                    "events_ms and library_events_ms of calls issued back to back")
 
     qlibrary_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
                      "over K/V gathered and dequantized into a contiguous tensor beforehand (that "
                      "preparation timed on its own: library_gather_ms); no single PyTorch call "
-                     "computes attention over an int8 cache")
+                     "computes attention over an int8 cache; ms and library_ms are device times "
+                     "from CUDA graphs, events_ms and library_events_ms of calls issued back "
+                     "to back")
 
     def attn_entry(name, source, replaces, main, checks=attn, launches=cont_launches,
                    call=library_call):
@@ -1961,8 +2065,10 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(s["max_abs_err"] for s in checks[name].values()),
             "max_rel_err": max(s["max_rel_err"] for s in checks[name].values()),
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "max_row_rel_err": max(s["max_row_rel_err"] for s in checks[name].values()),
+            "ms": m["ms"], "events_ms": m["events_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_events_ms": m["library_events_ms"],
             "library_gather_ms": m["library_gather_ms"], "library_call": call,
             "shapes": checks[name],
         }

@@ -65,9 +65,12 @@
 // bytes: at S = 64 bytes bound it, past a few hundred tokens the tensor
 // cores (989 TFLOP/s bf16).  This first version uses warp-level mma.sync,
 // not wgmma / TMA, and one 64-row tile per block; those are later work.
+#include "mma_sm90.cuh"
 #include "paged_attention.cuh"
 
 namespace {
+
+using namespace sm90;
 
 using bf16 = __nv_bfloat16;
 
@@ -95,49 +98,6 @@ struct Params {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; ok = false zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values as a bf16 pair (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int DH>
 struct Smem16 {
   static constexpr int LD = DH + 8;  // padded row: ldmatrix rows on distinct banks
@@ -152,19 +112,6 @@ struct Smem16 {
   unsigned full[MAX_TILE_WORDS];  // tiles whose every key is valid for every row
   int qp_lo, qp_hi;
 };
-
-// The first marked tile >= j, or nT.
-__device__ __forceinline__ int next_live(const unsigned* live, int j, int nT) {
-  if (j >= nT) return nT;
-  const int nw = (nT + 31) >> 5;
-  int w = j >> 5;
-  unsigned bits = live[w] & (~0u << (j & 31));
-  while (!bits) {
-    if (++w >= nw) return nT;
-    bits = live[w];
-  }
-  return w * 32 + __ffs(bits) - 1;  // no bit past nT is set
-}
 
 template <int DH>
 __global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {

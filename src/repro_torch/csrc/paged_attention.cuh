@@ -1,10 +1,12 @@
-// Device code shared by the attention kernels for Hopper, sm_90a:
-// paged_decode_attention.cu (one query token per slot),
+// CUDA-core device code shared by the attention kernels for Hopper, sm_90a,
+// where they run in f32 or over a contiguous int8 cache: the f32 paths of
+// paged_decode_attention.cu (one query token per slot) and
 // paged_prefill_attention.cu (one prefill chunk of one sequence), both over a
-// page pool in full precision or int8, decode_attention_quant.cu (one
-// query token per slot over a contiguous int8 cache), and the f32 path of
-// flash_attention.cu (a static prefill over contiguous q / k / v; its bf16
-// path uses tensor cores and only Mask from here).
+// page pool in f32 or int8, decode_attention_quant.cu (kernel 9: one query
+// token per slot over a contiguous int8 cache, bf16 or f32), and the f32 path
+// of flash_attention.cu.  The bf16 paths of the paged kernels (7, 7q, 8, 8q)
+// run on the tensor cores (paged_mma.cuh) and kernel 6's bf16 path has its
+// own; they take only Mask (scale, softcap, causal, window) from here.
 //
 // All compute, for one kv-head and a set of query rows, a masked softmax
 // attention over keys streamed in tiles of up to KT = 32 keys, as the TPU
@@ -39,6 +41,11 @@
 // whose keys are masked for every row of the block (empty pages, keys past the
 // block's last causal query) is skipped after reading only its positions.
 // Skipping is exact: a fully masked tile leaves m, l and acc unchanged.
+//
+// What holds this code back: every product is an FMA on the CUDA cores out of
+// f32 shared memory, and each tile waits on a barrier between its load and
+// its use, with no load in flight.  The f32 paths exist for the reduced
+// card-vs-CPU checks; kernel 9 is the served path that still runs here.
 //
 // Exponentials use expf (not __expf) and there is no fast-math flag, so f32
 // results differ from the plain PyTorch version only in summation order.

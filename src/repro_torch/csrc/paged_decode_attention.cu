@@ -13,38 +13,251 @@
 //
 // with validity / causal / window masks from the pool's positions, softcap,
 // f32 scores, softmax and accumulation, output in the input type (bfloat16
-// on the serving path, or float).  int8 pages are widened and scaled in f32
-// while they are staged, as the TPU kernel dequantizes in VMEM.  The shared
-// device code and the masking rules are in paged_attention.cuh.
+// on the serving path, or float).  The masking rules are paged_attention.cuh's.
 //
-// One block per (kv-head, slot), 128 threads: the G query heads of a kv-head
-// share every K/V page the block stages, as the TPU kernel's (b, h) grid
-// cell does.  Trash entries are skipped without a read; live pages are staged
-// two at a time (32 keys at page size 16).
+// bf16 (the served path, kernels 7 and 7q): split-K on the tensor cores,
+// paged_mma.cuh.
+//   1. Grid (Hkv, B, splits): the block of split s compacts its row's live
+//      entries (trash skipped) and takes the 64-key tiles of rank
+//      [s * L / splits, (s + 1) * L / splits) of the L tiles they make, so
+//      the splits of a row share its live pages equally however few they
+//      are.  The G query heads of the kv-head are the rows (padded to one
+//      16-row mma.sync fragment); tiles are double-buffered with cp.async (an
+//      int8 pool lands as int8 and is widened in shared memory into one bf16
+//      buffer).  Each of the 4 warps takes 16 keys of a tile with its own
+//      online softmax; at the end the warps merge in shared memory and the
+//      block writes f32 partials (m, l, the unnormalised accumulator per
+//      query row) to a workspace the wrapper allocates, or at one split the
+//      output itself.  A split with no valid key writes m = -1e30, l = 0,
+//      acc = 0.
+//   2. merge_splits, one thread per output value:
+//        m* = max_s m_s,  out = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*)
+//      where a split with no valid key adds 0 and a row with none at all
+//      gives 0.
+// The number of splits comes from static shapes only (the wrapper's
+// decode_splits: about two blocks per SM, at least one 64-key tile per
+// split), so the call makes no host read of a device value and can be
+// captured in a CUDA graph.
+//
+// f32 (reduced checks): unsplit, one block per (kv-head, slot) on CUDA
+// cores, paged_attention.cuh's Attn.
 //
 // Bound: decode reads each live page's K and V once, ps * Hkv * dh values
 // each, plus their positions, and does 4 * H * dh operations per unmasked
 // (query, key) pair, about one per byte: far below the card's 295 operations
 // per byte, so the least time is the live bytes over 3.35 TB/s (an int8 pool
-// reads dh + 4 bytes per key and head, about half of bf16's 2 * dh).  This
-// kernel does not reach it: B * Hkv blocks (64 at B = 8) fill half the card's
-// 132 SMs, and each block walks its pages one tile at a time with a barrier
-// between loading and using a tile.  Splitting a row's pages over several
-// blocks (split-K) and keeping loads in flight (cp.async or TMA) are later
-// work.
-#include "paged_attention.cuh"
+// reads dh + 4 bytes per key and head, about half of bf16's 2 * dh).  What
+// still holds it back: each block keeps one tile in flight beside the one it
+// computes, so a block reads at one tile per memory latency; its prologue
+// (compact, first load) is two dependent global reads; the splits follow
+// the static shapes, so a trace with few active slots leaves most of the
+// grid idle; and the second launch and the partials' round trip through L2
+// cost a few microseconds that a short row does not amortise.
+#include "paged_mma.cuh"
 
 namespace {
 
-constexpr int NT = 128;  // threads per block
-constexpr int RT = 16;   // query rows per block: G <= 16
+using bf16 = __nv_bfloat16;
 
-template <typename T, int DH, typename KV>
-__global__ void __launch_bounds__(NT) decode_kernel(
-    const T* __restrict__ q, const KV pool, const int* __restrict__ kpos,
-    const int* __restrict__ table, const int* __restrict__ qpos, T* __restrict__ out, int Hkv,
+// ---------------------------------------------------------------------------
+// bf16 (fp or int8 pool): split-K on tensor cores, then the merge
+// ---------------------------------------------------------------------------
+
+constexpr int GR = 16;  // query rows of a block: the G <= 16 heads, one fragment
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* kpos;
+  const int* table;
+  const int* qpos;
+  void* out;
+  float* ws;  // split-K partials (partial_m / _l / _acc), R = B * Hkv * G rows
+  int B, Hkv, G, ps, nt, Pt;
+  paged::Mask mk;
+};
+
+// Split-K partials in a workspace, split-major over the R rows of the
+// output (row = slot * Hkv * G + kv-head * G + grouped head): m [S][R],
+// l [S][R], acc [S][R][DH], all f32.
+__device__ __forceinline__ float* partial_m(float* ws, size_t R, int sp) { return ws + sp * R; }
+__device__ __forceinline__ float* partial_l(float* ws, size_t R, int S, int sp) {
+  return ws + (S + sp) * R;
+}
+template <int DH>
+__device__ __forceinline__ float* partial_acc(float* ws, size_t R, int S, int sp) {
+  return ws + 2 * S * R + sp * R * DH;
+}
+
+// out[row] = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*), m* = max_s m_s:
+// a split with no valid key (m = -1e30, l = 0, acc = 0) adds 0, a row with
+// none in any split gives 0.  One thread per output value.
+template <int DH>
+__global__ void __launch_bounds__(256) merge_splits(const float* __restrict__ ws,
+                                                    bf16* __restrict__ out, int R, int S) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (size_t)R * DH) return;
+  const size_t row = i / DH, d = i - row * DH;
+  const float* m = ws;
+  const float* l = ws + (size_t)S * R;
+  const float* acc = ws + 2 * (size_t)S * R;
+  float mx = paged::NEG_INF;
+  for (int sp = 0; sp < S; ++sp) mx = fmaxf(mx, m[sp * (size_t)R + row]);
+  float a = 0.f, z = 0.f;
+  for (int sp = 0; sp < S; ++sp) {
+    const size_t r = sp * (size_t)R + row;
+    const float e = __expf(m[r] - mx);
+    a += acc[r * DH + d] * e;
+    z += l[r] * e;
+  }
+  out[i] = __float2bfloat16(a / fmaxf(z, 1e-30f));
+}
+
+template <int DH, bool Q8>
+__global__ void __launch_bounds__(paged_mma::NT) decode_split_kernel(const Params p) {
+  using namespace paged_mma;
+  constexpr int NB = Q8 ? 1 : 2;
+  using Sm = Smem<DH, Q8, NB>;
+  constexpr int KS = DH / 16, CH = DH / 8;
+  static_assert(sizeof(Sm::k) + sizeof(Sm::v) >= sizeof(float) * NW * GR * DH,
+                "the warps' accumulators fit in the tile buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& s = *reinterpret_cast<Sm*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z, S = gridDim.z;
+  const bf16* Q = static_cast<const bf16*>(p.q);
+
+  // the G query rows (zero past G) into k[NB - 1]
+  for (int i = tid; i < GR * CH; i += NT) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < p.G;
+    const size_t off = ok ? (((size_t)b * p.Hkv + h) * p.G + r) * DH + c : 0;
+    cp_async16(&s.k[NB - 1][r][c], Q + off, ok);
+  }
+  cp_async_commit();
+  const int qp = __ldg(p.qpos + b);
+
+  const Src src{p.k, p.v, p.ks, p.vs, p.kpos, p.table + (size_t)b * p.nt, nullptr, nullptr,
+                nullptr, p.ps, p.Pt, p.Hkv, h, 0, INT_MAX};
+  Tiles<DH, Q8, NB> tiles(s, src, p.mk, false);  // every tile of a row is live: no position scan
+  const int qpr[2] = {qp, qp};
+  const int key0 = warp * 16;  // this warp's keys of each tile
+  uint32_t qf[KS][4];
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float o[2 * KS][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  tiles.walk(
+      p.nt, sp, S,
+      [&]() {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], &s.k[NB - 1][lane & 15][kk * 16 + (lane >> 4) * 8]);
+      },
+      [&](int cb, int bb, bool full, int lim) {
+        float sc[2][4];
+        scores<DH, 2>(s, cb, key0, qf, sc, lane);
+        update<DH, Q8, 2>(s, cb, bb, key0, full, lim, p.mk, qpr, sc, m, l, o, lane);
+      });
+
+  // merge the 4 warps (the walk ended on a barrier: the tile buffers are free)
+  float(*acc)[GR][DH] = reinterpret_cast<float(*)[GR][DH]>(&s.k[0][0][0]);
+  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if ((lane & 3) == 0) {
+      s.wm[warp][r0 + 8 * i] = m[i];
+      s.wl[warp][r0 + 8 * i] = l[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n) {
+      acc[warp][r0 + 8 * i][n * 8 + c0] = o[n][2 * i];
+      acc[warp][r0 + 8 * i][n * 8 + c0 + 1] = o[n][2 * i + 1];
+    }
+  }
+  __syncthreads();
+  // one split: the output; several: this split's partials (merge_splits)
+  const size_t R = (size_t)p.B * p.Hkv * p.G, row0 = ((size_t)b * p.Hkv + h) * p.G;
+  for (int i = tid; i < p.G * DH; i += NT) {
+    const int g = i / DH, d = i - g * DH;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, s.wm[w][g]);
+    float a = 0.f, z = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = __expf(s.wm[w][g] - mx);
+      a += acc[w][g][d] * e;
+      z += s.wl[w][g] * e;
+    }
+    if (S == 1) {
+      static_cast<bf16*>(p.out)[(row0 + g) * DH + d] = __float2bfloat16(a / fmaxf(z, 1e-30f));
+      continue;
+    }
+    partial_acc<DH>(p.ws, R, S, sp)[(row0 + g) * DH + d] = a;
+    if (d == 0) {
+      partial_m(p.ws, R, sp)[row0 + g] = mx;
+      partial_l(p.ws, R, S, sp)[row0 + g] = z;
+    }
+  }
+}
+
+template <int DH, bool Q8>
+int launch_split(const Params& p, int splits, cudaStream_t stream) {
+  const int smem = (int)sizeof(paged_mma::Smem<DH, Q8, Q8 ? 1 : 2>);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_split_kernel<DH, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  decode_split_kernel<DH, Q8><<<dim3(p.Hkv, p.B, splits), paged_mma::NT, smem, stream>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n = (size_t)p.B * p.Hkv * p.G * DH;
+  merge_splits<DH><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      p.ws, static_cast<bf16*>(p.out), p.B * p.Hkv * p.G, splits);
+  return cudaGetLastError();
+}
+
+template <bool Q8>
+int dispatch_split(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                   const void* kpos, const void* table, const void* qpos, void* out, void* ws,
+                   int B, int Hkv, int G, int dh, int ps, int nt, int Pt, int splits, float scale,
+                   int causal, int window, float softcap, void* stream) {
+  if (G < 1 || G > GR || ps < 1 || ps > paged::KT || B < 1 || Hkv < 1 || nt < 1 || splits < 1 ||
+      splits > 65535)
+    return cudaErrorInvalidValue;
+  const Params p{q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                 static_cast<const int*>(kpos), static_cast<const int*>(table),
+                 static_cast<const int*>(qpos), out, static_cast<float*>(ws), B, Hkv, G, ps, nt,
+                 Pt, paged::Mask{scale, softcap, causal, window}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32: return launch_split<32, Q8>(p, splits, st);
+    case 64: return launch_split<64, Q8>(p, splits, st);
+    case 128: return launch_split<128, Q8>(p, splits, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, the shared code of paged_attention.cuh
+// ---------------------------------------------------------------------------
+
+constexpr int F32_NT = 128;  // threads per block
+constexpr int F32_RT = 16;   // query rows per block: G <= 16
+
+template <int DH, typename KV>
+__global__ void __launch_bounds__(F32_NT) decode_kernel(
+    const float* __restrict__ q, const KV pool, const int* __restrict__ kpos,
+    const int* __restrict__ table, const int* __restrict__ qpos, float* __restrict__ out, int Hkv,
     int G, int ps, int nt, int Pt, paged::Mask mk) {
-  using A = paged::Attn<T, DH, RT, NT>;
+  using A = paged::Attn<float, DH, F32_RT, F32_NT>;
   extern __shared__ __align__(16) unsigned char smem[];
   A a(*reinterpret_cast<typename A::Smem*>(smem), mk);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -53,45 +266,49 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   a.store(out, Hkv, h, G, b * G);
 }
 
-template <typename T, int DH, typename KV>
+template <int DH, typename KV>
 int launch(const void* q, const KV& pool, const void* kpos, const void* table, const void* qpos,
            void* out, int B, int Hkv, int G, int ps, int nt, int Pt, const paged::Mask& mk,
            void* stream) {
-  const int smem = (int)sizeof(typename paged::Attn<T, DH, RT, NT>::Smem);
+  const int smem = (int)sizeof(typename paged::Attn<float, DH, F32_RT, F32_NT>::Smem);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<T, DH, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_kernel<DH, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  decode_kernel<T, DH, KV><<<dim3(Hkv, B), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), pool, static_cast<const int*>(kpos),
-      static_cast<const int*>(table), static_cast<const int*>(qpos), static_cast<T*>(out), Hkv, G,
-      ps, nt, Pt, mk);
+  decode_kernel<DH, KV><<<dim3(Hkv, B), F32_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), pool, static_cast<const int*>(kpos),
+      static_cast<const int*>(table), static_cast<const int*>(qpos), static_cast<float*>(out), Hkv,
+      G, ps, nt, Pt, mk);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV>
+template <typename KV>
 int dispatch(const void* q, const KV& pool, const void* kpos, const void* table, const void* qpos,
              void* out, int B, int Hkv, int G, int dh, int ps, int nt, int Pt, float scale,
              int causal, int window, float softcap, void* stream) {
-  if (G < 1 || G > RT || ps < 1 || ps > paged::KT || B < 1 || Hkv < 1 || nt < 1)
+  if (G < 1 || G > F32_RT || ps < 1 || ps > paged::KT || B < 1 || Hkv < 1 || nt < 1)
     return cudaErrorInvalidValue;
   const paged::Mask mk{scale, softcap, causal, window};
   switch (dh) {
-    case 32: return launch<T, 32>(q, pool, kpos, table, qpos, out, B, Hkv, G, ps, nt, Pt, mk, stream);
-    case 64: return launch<T, 64>(q, pool, kpos, table, qpos, out, B, Hkv, G, ps, nt, Pt, mk, stream);
-    case 128: return launch<T, 128>(q, pool, kpos, table, qpos, out, B, Hkv, G, ps, nt, Pt, mk, stream);
+    case 32: return launch<32>(q, pool, kpos, table, qpos, out, B, Hkv, G, ps, nt, Pt, mk, stream);
+    case 64: return launch<64>(q, pool, kpos, table, qpos, out, B, Hkv, G, ps, nt, Pt, mk, stream);
+    case 128: return launch<128>(q, pool, kpos, table, qpos, out, B, Hkv, G, ps, nt, Pt, mk, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Plain C interface, loaded with ctypes: device pointers, out (and the bf16
+// entries' workspace ws of splits * B * Hkv * G * (dh + 2) floats, unused at
+// one split) allocated by the caller, stream a cudaStream_t; returns
+// cudaGetLastError() (0 = success).
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k, const void* v,
                                            const void* kpos, const void* table, const void* qpos,
-                                           void* out, int B, int Hkv, int G, int dh, int ps, int nt,
-                                           int Pt, float scale, int causal, int window,
-                                           float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(q, paged::kv_fp<__nv_bfloat16>(k, v), kpos, table, qpos, out, B,
-                                 Hkv, G, dh, ps, nt, Pt, scale, causal, window, softcap, stream);
+                                           void* out, void* ws, int B, int Hkv, int G, int dh,
+                                           int ps, int nt, int Pt, int splits, float scale,
+                                           int causal, int window, float softcap, void* stream) {
+  return dispatch_split<false>(q, k, nullptr, v, nullptr, kpos, table, qpos, out, ws, B, Hkv, G,
+                               dh, ps, nt, Pt, splits, scale, causal, window, softcap, stream);
 }
 
 extern "C" int paged_decode_attention_f32(const void* q, const void* k, const void* v,
@@ -99,19 +316,20 @@ extern "C" int paged_decode_attention_f32(const void* q, const void* k, const vo
                                           void* out, int B, int Hkv, int G, int dh, int ps, int nt,
                                           int Pt, float scale, int causal, int window,
                                           float softcap, void* stream) {
-  return dispatch<float>(q, paged::kv_fp<float>(k, v), kpos, table, qpos, out, B, Hkv, G, dh, ps,
-                         nt, Pt, scale, causal, window, softcap, stream);
+  return dispatch(q, paged::kv_fp<float>(k, v), kpos, table, qpos, out, B, Hkv, G, dh, ps, nt, Pt,
+                  scale, causal, window, softcap, stream);
 }
 
 // Kernel 7q, the int8 pool: k/v int8 [Pt, ps, Hkv, dh], ks/vs f32 [Pt, ps, Hkv, 1].
 extern "C" int paged_decode_attention_int8_bf16(const void* q, const void* k, const void* ks,
                                                 const void* v, const void* vs, const void* kpos,
                                                 const void* table, const void* qpos, void* out,
-                                                int B, int Hkv, int G, int dh, int ps, int nt,
-                                                int Pt, float scale, int causal, int window,
-                                                float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(q, paged::kv_q8(k, ks, v, vs), kpos, table, qpos, out, B, Hkv, G,
-                                 dh, ps, nt, Pt, scale, causal, window, softcap, stream);
+                                                void* ws, int B, int Hkv, int G, int dh, int ps,
+                                                int nt, int Pt, int splits, float scale,
+                                                int causal, int window, float softcap,
+                                                void* stream) {
+  return dispatch_split<true>(q, k, ks, v, vs, kpos, table, qpos, out, ws, B, Hkv, G, dh, ps, nt,
+                              Pt, splits, scale, causal, window, softcap, stream);
 }
 
 extern "C" int paged_decode_attention_int8_f32(const void* q, const void* k, const void* ks,
@@ -120,6 +338,6 @@ extern "C" int paged_decode_attention_int8_f32(const void* q, const void* k, con
                                                int B, int Hkv, int G, int dh, int ps, int nt,
                                                int Pt, float scale, int causal, int window,
                                                float softcap, void* stream) {
-  return dispatch<float>(q, paged::kv_q8(k, ks, v, vs), kpos, table, qpos, out, B, Hkv, G, dh, ps,
-                         nt, Pt, scale, causal, window, softcap, stream);
+  return dispatch(q, paged::kv_q8(k, ks, v, vs), kpos, table, qpos, out, B, Hkv, G, dh, ps, nt,
+                  Pt, scale, causal, window, softcap, stream);
 }

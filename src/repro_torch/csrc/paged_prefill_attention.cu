@@ -18,62 +18,230 @@
 //   (pre-clamped), qpos [C] int32, ck/cv [C, Hkv, dh] -> out [C, Hkv, G, dh]
 //
 // The caller launches it on the PRE-write pool and writes the chunk's K/V
-// into its pages afterwards.  Masks, softcap and f32 arithmetic as in
-// paged_attention.cuh.  The TPU wrapper's extra trash entry in the table is a
-// detail of its index maps and is not needed here.
+// into its pages afterwards.  The TPU wrapper's extra trash entry in the
+// table is a detail of its index maps and is not needed here.
 //
-// One block per (kv-head, tile of 64 query rows), 256 threads; row = token *
-// G + grouped head.  Trash entries are skipped; chunk-key tiles that lie
-// entirely after the block's last query (causal) are skipped after reading
-// their positions.
+// bf16 (the served path, kernels 8 and 8q): tensor cores, paged_mma.cuh.  One
+// block of 4 warps per (kv-head, tile of 64 query rows), row = token * G +
+// grouped head, so the G heads of a kv-head share every K/V tile the block
+// loads (G = 5 or 16 need no help from L2); each warp owns 16 rows as
+// mma.sync A fragments, each row with its own query position in the masks.
+// The block compacts the table row's live pages once, marks the live and the
+// full key tiles of the pool and of the chunk (pool keys are all before the
+// chunk, so with no window every pool tile of whole pages is full and skips
+// the per-entry mask; chunk tiles past the block's last query are never
+// loaded), and walks the live tiles with the next one's K/V in flight
+// (cp.async).  int8 pages are widened to bf16 in shared memory and their
+// scales applied to the score column (K) and to P before its rounding (V).
+// Blocks are issued last query tile first (most chunk keys).
+//
+// f32 (reduced checks): plain FMA on CUDA cores, paged_attention.cuh's Attn
+// (256 threads, 64 rows a block, 32-key tiles staged as f32, int8 widened
+// and scaled in f32).
 //
 // Bound: the live pages' K/V plus q, ck, cv and out are read or written once;
 // the work is 4 * H * dh operations per unmasked (query, key) pair.  At a
 // 256-token chunk over about 1000 tokens of history the operations bound it
-// at the tensor cores' rate; this kernel does its products with FMA on the
-// CUDA cores out of shared memory (each score is one thread's dot product),
-// so it runs well above that bound.  Tensor-core tiles (mma / wgmma) over
-// the staged K/V are later work.
-#include "paged_attention.cuh"
+// at the tensor cores' rate (989 TFLOP/s bf16), in an empty pool the bytes.
+// What still holds the bf16 kernel back: at C = 256 and G = 5 the grid is 160
+// blocks of 4 warps on 132 SMs, one or two blocks to an SM, and a warp's tile
+// (128 dependent mma.sync, the softmax between them) has no other warp on
+// its scheduler to hide its latency behind: the query rows and the
+// accumulators in registers (about 210 a thread) allow two blocks to an SM.
+// Splitting the key tiles over more blocks (as decode does) gained little
+// unless registers were capped for three blocks to an SM, which spilled and
+// slowed the int8 branch.  Each of the 20 query tiles of a kv-head also
+// reads all its K/V from L2.  wgmma over 128-row query tiles (A from
+// registers, K/V through TMA) addresses both and is later work.
+#include "paged_mma.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block
-constexpr int RT = 64;   // query rows (token x grouped head) per block
+using bf16 = __nv_bfloat16;
 
-template <typename T, int DH, typename KV>
-__global__ void __launch_bounds__(NT) prefill_kernel(
-    const T* __restrict__ q, const KV pool, const int* __restrict__ kpos,
-    const int* __restrict__ table, const int* __restrict__ qpos, const T* __restrict__ ck,
-    const T* __restrict__ cv, T* __restrict__ out, int C, int Hkv, int G, int ps, int nt, int Pt,
-    paged::Mask mk) {
-  using A = paged::Attn<T, DH, RT, NT>;
+// ---------------------------------------------------------------------------
+// bf16 (fp or int8 pool): tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;  // query rows per block: 4 warps x 16
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* kpos;
+  const int* table;
+  const int* qpos;
+  const bf16* ck;
+  const bf16* cv;
+  void* out;
+  int C, Hkv, G, ps, nt, Pt;
+  paged::Mask mk;
+};
+
+template <int DH, bool Q8>
+__global__ void __launch_bounds__(paged_mma::NT, 2) prefill_mma_kernel(const Params p) {
+  using namespace paged_mma;
+  constexpr int NB = 2;
+  using Sm = Smem<DH, Q8, NB>;
+  constexpr int KS = DH / 16, CH = DH / 8, NS = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& s = *reinterpret_cast<Sm*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last query tile first
+  const int nrows = min(BQ, p.C * p.G - row0);
+  const bf16* Q = static_cast<const bf16*>(p.q);
+
+  // the query rows (zero past nrows, never stored) into k[1], and their positions
+  for (int i = tid; i < BQ * CH; i += NT) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < nrows;
+    size_t off = 0;
+    if (ok) {
+      const int rg = row0 + r, t = rg / p.G, g = rg - t * p.G;
+      off = (((size_t)t * p.Hkv + h) * p.G + g) * DH + c;
+    }
+    cp_async16(&s.k[NB - 1][r][c], Q + off, ok);
+  }
+  cp_async_commit();
+  if (tid < BQ) s.qp[tid] = tid < nrows ? __ldg(p.qpos + (row0 + tid) / p.G) : 0;
+  __syncthreads();
+  if (warp == 0) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = lane; r < nrows; r += 32) {
+      lo = min(lo, s.qp[r]);
+      hi = max(hi, s.qp[r]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) {
+      s.qp_lo = lo;
+      s.qp_hi = hi;
+    }
+  }
+  // (the walk's first barrier publishes qp_lo / qp_hi before it reads them)
+
+  const Src src{p.k, p.v, p.ks, p.vs, p.kpos, p.table, p.ck, p.cv, p.qpos,
+                p.ps, p.Pt, p.Hkv, h, p.C, __ldg(p.qpos)};
+  Tiles<DH, Q8, NB> tiles(s, src, p.mk, true);
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int qpr[2] = {s.qp[r0], s.qp[r0 + 8]};
+  uint32_t qf[KS][4];
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float o[2 * KS][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  tiles.walk(
+      p.nt, 0, 1,
+      [&]() {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], &s.k[NB - 1][warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+      },
+      [&](int cb, int b, bool full, int lim) {
+        float sc[NS][4];
+        scores<DH, NS>(s, cb, 0, qf, sc, lane);
+        update<DH, Q8, NS>(s, cb, b, 0, full, lim, p.mk, qpr, sc, m, l, o, lane);
+      });
+
+  // normalise (a row with no valid key has l = 0 and o = 0: writes 0) and store
+  bf16* out = static_cast<bf16*>(p.out);
+  const int c0 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = r0 + 8 * i;
+    if (r >= nrows) continue;
+    const int rg = row0 + r, t = rg / p.G, g = rg - t * p.G;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    bf16* row = out + (((size_t)t * p.Hkv + h) * p.G + g) * DH + c0;
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8) = pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+  }
+}
+
+template <int DH, bool Q8>
+int launch_mma(const Params& p, cudaStream_t stream) {
+  const int smem = (int)sizeof(paged_mma::Smem<DH, Q8, 2>);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_mma_kernel<DH, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(p.Hkv, (p.C * p.G + BQ - 1) / BQ);
+  prefill_mma_kernel<DH, Q8><<<grid, paged_mma::NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool Q8>
+int dispatch_mma(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                 const void* kpos, const void* table, const void* qpos, const void* ck,
+                 const void* cv, void* out, int C, int Hkv, int G, int dh, int ps, int nt, int Pt,
+                 float scale, int causal, int window, float softcap, void* stream) {
+  if (C < 1 || G < 1 || ps < 1 || ps > paged::KT || Hkv < 1 || nt < 0)
+    return cudaErrorInvalidValue;
+  const Params p{q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                 static_cast<const int*>(kpos), static_cast<const int*>(table),
+                 static_cast<const int*>(qpos), static_cast<const bf16*>(ck),
+                 static_cast<const bf16*>(cv), out, C, Hkv, G, ps, nt, Pt,
+                 paged::Mask{scale, softcap, causal, window}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32: return launch_mma<32, Q8>(p, st);
+    case 64: return launch_mma<64, Q8>(p, st);
+    case 128: return launch_mma<128, Q8>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, the shared code of paged_attention.cuh
+// ---------------------------------------------------------------------------
+
+constexpr int F32_NT = 256;  // threads per block
+constexpr int F32_RT = 64;   // query rows (token x grouped head) per block
+
+template <int DH, typename KV>
+__global__ void __launch_bounds__(F32_NT) prefill_kernel(
+    const float* __restrict__ q, const KV pool, const int* __restrict__ kpos,
+    const int* __restrict__ table, const int* __restrict__ qpos, const float* __restrict__ ck,
+    const float* __restrict__ cv, float* __restrict__ out, int C, int Hkv, int G, int ps, int nt,
+    int Pt, paged::Mask mk) {
+  using A = paged::Attn<float, DH, F32_RT, F32_NT>;
   extern __shared__ __align__(16) unsigned char smem[];
   A a(*reinterpret_cast<typename A::Smem*>(smem), mk);
-  const int h = blockIdx.x, row0 = blockIdx.y * RT;
-  a.load_queries(q, qpos, Hkv, h, G, row0, min(RT, C * G - row0));
+  const int h = blockIdx.x, row0 = blockIdx.y * F32_RT;
+  a.load_queries(q, qpos, Hkv, h, G, row0, min(F32_RT, C * G - row0));
   a.attend_pool(pool, kpos, table, nt, ps, Pt, Hkv, h, qpos[0]);
   a.attend_chunk(ck, cv, qpos, C, Hkv, h);
   a.store(out, Hkv, h, G, row0);
 }
 
-template <typename T, int DH, typename KV>
+template <int DH, typename KV>
 int launch(const void* q, const KV& pool, const void* kpos, const void* table, const void* qpos,
            const void* ck, const void* cv, void* out, int C, int Hkv, int G, int ps, int nt, int Pt,
            const paged::Mask& mk, void* stream) {
-  const int smem = (int)sizeof(typename paged::Attn<T, DH, RT, NT>::Smem);
+  const int smem = (int)sizeof(typename paged::Attn<float, DH, F32_RT, F32_NT>::Smem);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_kernel<T, DH, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_kernel<DH, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(Hkv, (C * G + RT - 1) / RT);
-  prefill_kernel<T, DH, KV><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), pool, static_cast<const int*>(kpos),
-      static_cast<const int*>(table), static_cast<const int*>(qpos), static_cast<const T*>(ck),
-      static_cast<const T*>(cv), static_cast<T*>(out), C, Hkv, G, ps, nt, Pt, mk);
+  const dim3 grid(Hkv, (C * G + F32_RT - 1) / F32_RT);
+  prefill_kernel<DH, KV><<<grid, F32_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), pool, static_cast<const int*>(kpos),
+      static_cast<const int*>(table), static_cast<const int*>(qpos), static_cast<const float*>(ck),
+      static_cast<const float*>(cv), static_cast<float*>(out), C, Hkv, G, ps, nt, Pt, mk);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV>
+template <typename KV>
 int dispatch(const void* q, const KV& pool, const void* kpos, const void* table, const void* qpos,
              const void* ck, const void* cv, void* out, int C, int Hkv, int G, int dh, int ps,
              int nt, int Pt, float scale, int causal, int window, float softcap, void* stream) {
@@ -81,24 +249,25 @@ int dispatch(const void* q, const KV& pool, const void* kpos, const void* table,
     return cudaErrorInvalidValue;
   const paged::Mask mk{scale, softcap, causal, window};
   switch (dh) {
-    case 32: return launch<T, 32>(q, pool, kpos, table, qpos, ck, cv, out, C, Hkv, G, ps, nt, Pt, mk, stream);
-    case 64: return launch<T, 64>(q, pool, kpos, table, qpos, ck, cv, out, C, Hkv, G, ps, nt, Pt, mk, stream);
-    case 128: return launch<T, 128>(q, pool, kpos, table, qpos, ck, cv, out, C, Hkv, G, ps, nt, Pt, mk, stream);
+    case 32: return launch<32>(q, pool, kpos, table, qpos, ck, cv, out, C, Hkv, G, ps, nt, Pt, mk, stream);
+    case 64: return launch<64>(q, pool, kpos, table, qpos, ck, cv, out, C, Hkv, G, ps, nt, Pt, mk, stream);
+    case 128: return launch<128>(q, pool, kpos, table, qpos, ck, cv, out, C, Hkv, G, ps, nt, Pt, mk, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Plain C interface, loaded with ctypes: device pointers, out allocated by the
+// caller, stream a cudaStream_t; returns cudaGetLastError() (0 = success).
 extern "C" int paged_prefill_attention_bf16(const void* q, const void* k, const void* v,
                                             const void* kpos, const void* table, const void* qpos,
                                             const void* ck, const void* cv, void* out, int C,
                                             int Hkv, int G, int dh, int ps, int nt, int Pt,
                                             float scale, int causal, int window, float softcap,
                                             void* stream) {
-  return dispatch<__nv_bfloat16>(q, paged::kv_fp<__nv_bfloat16>(k, v), kpos, table, qpos, ck, cv,
-                                 out, C, Hkv, G, dh, ps, nt, Pt, scale, causal, window, softcap,
-                                 stream);
+  return dispatch_mma<false>(q, k, nullptr, v, nullptr, kpos, table, qpos, ck, cv, out, C, Hkv, G,
+                             dh, ps, nt, Pt, scale, causal, window, softcap, stream);
 }
 
 extern "C" int paged_prefill_attention_f32(const void* q, const void* k, const void* v,
@@ -107,8 +276,8 @@ extern "C" int paged_prefill_attention_f32(const void* q, const void* k, const v
                                            int Hkv, int G, int dh, int ps, int nt, int Pt,
                                            float scale, int causal, int window, float softcap,
                                            void* stream) {
-  return dispatch<float>(q, paged::kv_fp<float>(k, v), kpos, table, qpos, ck, cv, out, C, Hkv, G,
-                         dh, ps, nt, Pt, scale, causal, window, softcap, stream);
+  return dispatch(q, paged::kv_fp<float>(k, v), kpos, table, qpos, ck, cv, out, C, Hkv, G, dh, ps,
+                  nt, Pt, scale, causal, window, softcap, stream);
 }
 
 // Kernel 8q, the int8 pool: k/v int8 [Pt, ps, Hkv, dh], ks/vs f32 [Pt, ps, Hkv, 1];
@@ -120,8 +289,8 @@ extern "C" int paged_prefill_attention_int8_bf16(const void* q, const void* k, c
                                                  int Hkv, int G, int dh, int ps, int nt, int Pt,
                                                  float scale, int causal, int window,
                                                  float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(q, paged::kv_q8(k, ks, v, vs), kpos, table, qpos, ck, cv, out, C,
-                                 Hkv, G, dh, ps, nt, Pt, scale, causal, window, softcap, stream);
+  return dispatch_mma<true>(q, k, ks, v, vs, kpos, table, qpos, ck, cv, out, C, Hkv, G, dh, ps, nt,
+                            Pt, scale, causal, window, softcap, stream);
 }
 
 extern "C" int paged_prefill_attention_int8_f32(const void* q, const void* k, const void* ks,
@@ -131,6 +300,6 @@ extern "C" int paged_prefill_attention_int8_f32(const void* q, const void* k, co
                                                 int Hkv, int G, int dh, int ps, int nt, int Pt,
                                                 float scale, int causal, int window, float softcap,
                                                 void* stream) {
-  return dispatch<float>(q, paged::kv_q8(k, ks, v, vs), kpos, table, qpos, ck, cv, out, C, Hkv, G,
-                         dh, ps, nt, Pt, scale, causal, window, softcap, stream);
+  return dispatch(q, paged::kv_q8(k, ks, v, vs), kpos, table, qpos, ck, cv, out, C, Hkv, G, dh, ps,
+                  nt, Pt, scale, causal, window, softcap, stream);
 }

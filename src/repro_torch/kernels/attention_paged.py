@@ -5,24 +5,34 @@ The kernel replaces ``repro/kernels/attention_paged.py::paged_decode_attention``
 (the TPU kernel), both its branches: a full-precision pool (kernel 7) and an
 int8 pool with f32 scales per (key, kv-head) (``k_scale``/``v_scale`` given,
 kernel 7q).  Its design and bound are in the source's note and in
-``csrc/paged_attention.cuh``.  A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernel or raises.  ``launches`` counts the wrapper's
-kernel launches per branch, so a run can show that its main path went
-through the kernel.
+``csrc/paged_mma.cuh`` (bf16) and ``csrc/paged_attention.cuh`` (f32).  A
+tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
+or raises.  ``launches`` counts the wrapper's kernel calls per branch, one per
+call whatever the CUDA launches inside (two in bf16), so a run can show that
+its main path went through the kernel.
 
 Over an int8 pool the plain version dequantizes to the query's type, as the
-JAX reference path does (``materialize_kv``); the kernel dequantizes in f32,
-as the TPU kernel does.  In f32 the two are the same; in bf16 they differ by
-one bf16 rounding of each K/V value.
+JAX reference path does (``materialize_kv``); the kernel computes in f32 with
+the f32 scales, as the TPU kernel does (in bf16 it applies them to its
+products: K's to the scores, V's to the probabilities).  In f32 the two are
+the same; in bf16 they differ by one bf16 rounding of each K/V value, and the
+kernel rounds the probabilities to bf16 for P.V on the tensor cores.
 
 Both versions compute one function: masked entries get probability 0, so a
 row with no valid key (an inactive slot, whose table row is all trash) gives
 0, finite.  The JAX package's ``paged_decode_attention_ref`` gives such a row
 a uniform average instead; rows with a valid key agree.
+
+In bf16 the kernel splits each row's live key tiles over ``decode_splits``
+blocks (``split_bounds``), which write f32 partials (running max m,
+normaliser l, unnormalised accumulator) that a second launch merges;
+``masked_partials`` and ``merge_partials`` are that arithmetic in plain
+PyTorch, for the CPU tests.  The plain version itself does not split.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -31,26 +41,50 @@ from repro_torch.kernels import build
 from repro_torch.quant.kv import QuantizedKV
 
 NEG_INF = -1e30
-KEYS_PER_TILE = 32  # paged_attention.cuh KT: a page must fit in one tile
+KEYS_PER_TILE = 32  # paged_attention.cuh KT: a page must fit in one f32 tile
+TILE_KEYS = 64  # paged_mma.cuh BK: keys per tile of the bf16 kernels
 HEAD_DIMS = (32, 64, 128)  # head dims the kernels are instantiated for
 MAX_G = 16  # query heads per kv-head in one decode block
 
 launches = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 
-_C_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-_C_ARGS_INT8 = [ctypes.c_void_p] * 2 + _C_ARGS  # + the two scale pointers
+_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + _TAIL  # f32: unsplit
+_C_ARGS_SPLIT = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + _TAIL  # bf16: + ws, splits
 
 
 def _library():
     lib = build.load_library("paged_decode_attention")
-    for fn, args in ((lib.paged_decode_attention_bf16, _C_ARGS),
+    scales = [ctypes.c_void_p] * 2  # the int8 entries take the two scale pointers first
+    for fn, args in ((lib.paged_decode_attention_bf16, _C_ARGS_SPLIT),
                      (lib.paged_decode_attention_f32, _C_ARGS),
-                     (lib.paged_decode_attention_int8_bf16, _C_ARGS_INT8),
-                     (lib.paged_decode_attention_int8_f32, _C_ARGS_INT8)):
+                     (lib.paged_decode_attention_int8_bf16, scales + _C_ARGS_SPLIT),
+                     (lib.paged_decode_attention_int8_f32, scales + _C_ARGS)):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_splits(nt: int, ps: int, B: int, Hkv: int, n_sm: int) -> int:
+    """Blocks over which the bf16 kernel splits each row's live key tiles,
+    from static shapes only (no read of a device value, so the call can be
+    captured in a CUDA graph): about two blocks per SM over the B * Hkv
+    (slot, kv-head) pairs, and no more splits than a row has 64-key tiles."""
+    want = -(-2 * n_sm // (B * Hkv))
+    tiles = -(-nt * ps // TILE_KEYS)
+    return max(1, min(want, tiles))
+
+
+def split_bounds(n: int, splits: int) -> list:
+    """The ranks [lo, hi) among n live 64-key tiles (a row's live pages,
+    compacted, 64 keys a tile) that each split takes, as the kernels' blocks
+    compute them on the card."""
+    return [(s * n // splits, (s + 1) * n // splits) for s in range(splits)]
 
 
 def kv_values(x, scale, dtype):
@@ -61,11 +95,10 @@ def kv_values(x, scale, dtype):
     return QuantizedKV(x, scale, dtype).dequantize().float()
 
 
-def masked_softmax_pv(s, kp, qp, v, pv: str, *, scale, causal, window, softcap):
-    """The kernels' arithmetic in plain PyTorch: scores ``s`` (f32 q.k) scaled
-    and softcapped, masked by key positions ``kp`` against query positions
-    ``qp`` (validity kp >= 0, causal, window), softmax with masked entries
-    zeroed, then ``einsum(pv, p, v)`` in f32."""
+def scores_and_mask(s, kp, qp, *, scale, causal, window, softcap):
+    """Scores ``s`` (f32 q.k) scaled and softcapped, and which entries are
+    valid: key positions ``kp`` against query positions ``qp`` (kp >= 0,
+    causal, window)."""
     s = s * scale
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
@@ -74,19 +107,51 @@ def masked_softmax_pv(s, kp, qp, v, pv: str, *, scale, causal, window, softcap):
         valid = valid & (kp <= qp)
     if window > 0:
         valid = valid & (qp - kp < window)
+    return s, valid
+
+
+def masked_softmax_pv(s, kp, qp, v, pv: str, *, scale, causal, window, softcap):
+    """The kernels' arithmetic in plain PyTorch: ``scores_and_mask``, softmax
+    with masked entries zeroed, then ``einsum(pv, p, v)`` in f32."""
+    s, valid = scores_and_mask(s, kp, qp, scale=scale, causal=causal, window=window,
+                               softcap=softcap)
     s = torch.where(valid, s, NEG_INF)
     p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum(pv, p, v)
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, kpos, table, qpos, *, scale: float,
-                                 causal: bool = True, window: int = 0, softcap: float = 0.0,
-                                 k_scale=None, v_scale=None):
-    """The kernel's function in PyTorch, as ``paged_decode_attention_ref``
-    computes it: gather the table's pages into a contiguous ``[B, nt*ps]``
-    history (dequantized, for an int8 pool) and run a masked f32 softmax over
-    it."""
+def masked_partials(s, kp, qp, v, pv: str, *, scale, causal, window, softcap):
+    """One split's share of ``masked_softmax_pv``, as a split block writes it:
+    the running max ``m`` over the valid entries (NEG_INF where none is), the
+    normaliser ``l = sum exp(s - m)`` and the unnormalised ``einsum(pv, p,
+    v)``, all in f32 (``pv`` keeps the scores' row axes first, so m, l and
+    acc share them).  A key outside the split is one whose ``kp`` is -1."""
+    s, valid = scores_and_mask(s, kp, qp, scale=scale, causal=causal, window=window,
+                               softcap=softcap)
+    m = torch.where(valid, s, NEG_INF).amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(-1), torch.einsum(pv, p, v)
+
+
+def merge_partials(m, l, acc):
+    """The merge kernel's arithmetic: partials of disjoint key sets, the split
+    axis first (``m``, ``l`` [S, ...], ``acc`` [S, ..., dh]), merged as
+    ``sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*)`` with ``m* = max_s
+    m_s``.  A split with no valid key (m = NEG_INF, l = 0, acc = 0) adds
+    nothing; a row with none in any split gives 0."""
+    w = torch.exp(m - m.amax(0))
+    return (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp_min(1e-30)[..., None]
+
+
+DECODE_PV = "bhgt,bthd->bhgd"
+
+
+def decode_scores(q, k_pool, v_pool, kpos, table, qpos, k_scale=None, v_scale=None):
+    """The plain version's gather: the table's pages as a contiguous history
+    of T = nt * ps keys (dequantized, for an int8 pool), and (f32 q.k scores
+    [B, Hkv, G, T], key positions [B, 1, 1, T], query positions [B, 1, 1, 1],
+    f32 values [B, T, Hkv, dh]); key t is entry t // ps of its row."""
     B, Hkv, G, dh = q.shape
     ps = k_pool.shape[1]
     idx = table.long()
@@ -96,9 +161,18 @@ def paged_decode_attention_plain(q, k_pool, v_pool, kpos, table, qpos, *, scale:
     v = kv_values(gather(v_pool, dh), gather(v_scale, 1), q.dtype)
     kp = kpos[idx].reshape(B, 1, 1, nt * ps)
     qp = qpos.reshape(B, 1, 1, 1)
-    s = torch.einsum("bhgd,bthd->bhgt", q.float(), k)
-    out = masked_softmax_pv(s, kp, qp, v, "bhgt,bthd->bhgd", scale=scale, causal=causal,
-                            window=window, softcap=softcap)
+    return torch.einsum("bhgd,bthd->bhgt", q.float(), k), kp, qp, v
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, kpos, table, qpos, *, scale: float,
+                                 causal: bool = True, window: int = 0, softcap: float = 0.0,
+                                 k_scale=None, v_scale=None):
+    """The kernel's function in PyTorch, as ``paged_decode_attention_ref``
+    computes it: ``decode_scores``, then a masked f32 softmax over the
+    history."""
+    s, kp, qp, v = decode_scores(q, k_pool, v_pool, kpos, table, qpos, k_scale, v_scale)
+    out = masked_softmax_pv(s, kp, qp, v, DECODE_PV, scale=scale, causal=causal, window=window,
+                            softcap=softcap)
     return out.to(q.dtype)
 
 
@@ -122,8 +196,8 @@ def check_kv_args(name, q, k, v, k_scale, v_scale, extra=()):
     for n, t in [("k", k), ("v", v), *extra]:
         if t.dtype != want.get(n, q.dtype):
             raise TypeError(f"{name}: {n} is {t.dtype}, expected {want.get(n, q.dtype)}")
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{name}: {n} must be aligned to 4 elements")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} must be aligned to 16 bytes")
     if quant:
         for n, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if t.dtype != torch.float32 or t.shape != k.shape[:-1] + (1,):
@@ -146,6 +220,8 @@ def check_pool_args(name, q, k_pool, v_pool, kpos, table, qpos, extra=(), k_scal
             raise ValueError(f"{name}: {n} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be aligned to 16 bytes")
     for n, t in (("kpos", kpos), ("table", table), ("qpos", qpos)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {n} must be int32, got {t.dtype}")
@@ -205,11 +281,18 @@ def paged_decode_attention(
         fn = lib.paged_decode_attention_int8_bf16 if bf16 else lib.paged_decode_attention_int8_f32
         kv = (k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr())
     out = torch.empty_like(q)
+    if bf16:  # split-K: f32 partials m, l, acc per (split, slot, kv-head, row)
+        splits = decode_splits(nt, ps, B, Hkv, _sm_count(q.device.index))
+        ws = (torch.empty(splits * B * Hkv * G * (dh + 2), dtype=torch.float32, device=q.device)
+              if splits > 1 else None)  # one split writes out itself
+        shapes = (out.data_ptr(), ws.data_ptr() if ws is not None else None, B, Hkv, G, dh, ps, nt,
+                  Pt, splits)
+    else:
+        shapes = (out.data_ptr(), B, Hkv, G, dh, ps, nt, Pt)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), *kv, kpos.data_ptr(), table.data_ptr(), qpos.data_ptr(),
-                 out.data_ptr(), B, Hkv, G, dh, ps, nt, Pt, float(scale), int(causal), int(window),
-                 float(softcap), stream)
+        err = fn(q.data_ptr(), *kv, kpos.data_ptr(), table.data_ptr(), qpos.data_ptr(), *shapes,
+                 float(scale), int(causal), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed with CUDA error {err}")
     launches[key] += 1

@@ -6,15 +6,16 @@ The kernel replaces
 kernel), both its branches: a full-precision pool (kernel 8) and an int8 pool
 with f32 scales per (key, kv-head) (``k_scale``/``v_scale`` given, kernel
 8q).  Its design and bound are in the source's note and in
-``csrc/paged_attention.cuh``.  A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernel or raises.  ``launches`` counts the wrapper's
-kernel launches per branch.
+``csrc/paged_mma.cuh`` (bf16) and ``csrc/paged_attention.cuh`` (f32).  A
+tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
+or raises.  ``launches`` counts the wrapper's kernel launches per branch.
 
 The caller hands it the PRE-write pool: the chunk's own K/V arrive as
 ``ck``/``cv``, in q's type also over an int8 pool, and are written (and
 quantized) into their pages after this call.  The int8 pool is dequantized as
 in ``attention_paged.py``: to q's type in the plain version, in f32 in the
-kernel.
+kernel (in bf16 its scales go to the products, and the probabilities are
+rounded to bf16 for P.V on the tensor cores).
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.attention_paged import check_pool_args, kv_values, masked_softmax_pv
+
+PREFILL_PV = "hgct,thd->chgd"
 
 launches = {"paged_prefill_attention": 0, "paged_prefill_attention_int8": 0}
 
@@ -44,13 +47,12 @@ def _library():
     return lib
 
 
-def paged_prefill_attention_plain(q, k_pool, v_pool, kpos, table, qpos, ck, cv, *, scale: float,
-                                  causal: bool = True, window: int = 0, softcap: float = 0.0,
-                                  k_scale=None, v_scale=None):
-    """The kernel's function in PyTorch, as ``paged_prefill_attention_ref``
-    computes it: the table's pages gathered into a contiguous history
+def prefill_scores(q, k_pool, v_pool, kpos, table, qpos, ck, cv, k_scale=None, v_scale=None):
+    """The plain version's gather: the table's pages as a contiguous history
     (dequantized, for an int8 pool; keys at positions >= the chunk start
-    masked), the chunk's K/V appended, a masked f32 softmax over the union."""
+    masked) with the chunk's K/V appended, T keys in all, and (f32 q.k
+    scores [Hkv, G, C, T], key positions [1, 1, 1, T], query positions
+    [1, 1, C, 1], f32 values [T, Hkv, dh])."""
     C, Hkv, G, dh = q.shape
     ps = k_pool.shape[1]
     idx = table.long()
@@ -62,9 +64,18 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, kpos, table, qpos, ck, cv, 
     hist = torch.where(hist >= qpos[0], -1, hist)  # the pool is strictly pre-chunk
     kp = torch.cat([hist, qpos])[None, None, None, :]  # [1, 1, 1, T]
     qp = qpos.reshape(1, 1, C, 1)
-    s = torch.einsum("chgd,thd->hgct", q.float(), k)
-    out = masked_softmax_pv(s, kp, qp, v, "hgct,thd->chgd", scale=scale, causal=causal,
-                            window=window, softcap=softcap)
+    return torch.einsum("chgd,thd->hgct", q.float(), k), kp, qp, v
+
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, kpos, table, qpos, ck, cv, *, scale: float,
+                                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                                  k_scale=None, v_scale=None):
+    """The kernel's function in PyTorch, as ``paged_prefill_attention_ref``
+    computes it: ``prefill_scores``, then a masked f32 softmax over the
+    union of history and chunk."""
+    s, kp, qp, v = prefill_scores(q, k_pool, v_pool, kpos, table, qpos, ck, cv, k_scale, v_scale)
+    out = masked_softmax_pv(s, kp, qp, v, PREFILL_PV, scale=scale, causal=causal, window=window,
+                            softcap=softcap)
     return out.to(q.dtype)
 
 
