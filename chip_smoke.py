@@ -49,7 +49,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    continuous serve mid-run, fp and int8; paged prefill: 256 query chunks
    over 0 and 1008 tokens of pool history, fp and int8; int8 decode: the
    served static cache, 4 rows x 80 slots, and 8 rows x 2048 slots half
-   filled), and once more at a reduced size with a window and a softcap
+   filled, and in bf16 a cache of 4 x 2112 slots with 80 filled, a
+   16392-slot cache with 8 keys filled, a ring whose live slots wrap under
+   a window, glm4-9b's and nlg-350m-moe128's heads), and once more at a reduced size with a window and a softcap
    (with a row that has no valid key, which must give 0); kernels 7, 7q, 8
    and 8q also in bf16 over 8 slots of about 1800 tokens (one all-trash row,
    one row of a single key), a chunk of 256 and of 40 queries over 1777
@@ -95,9 +97,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 13. kernel 6 against its plain version at the static serves' shapes
    (llama4, nlg-350m-moe128 and glm4-9b: 4 x 64 tokens, bf16), at a reduced
    size in f32 and bf16 with offset positions, empty slots, a window, a
-   softcap and a row with no valid key (which must give 0), and in the TPU kernel's index
-   form at S != T, causal; each timed beside its bound and beside
-   scaled_dot_product_attention.
+   softcap and a row with no valid key (which must give 0), the same masks
+   at each bf16 head-dim instance (dh 64 and 128 on wgmma with 128- and
+   64-row query tiles, each case's tile height asserted, 32 and 112 on
+   mma.sync) and at 4500 tokens on wgmma, nlg-350m-moe128's heads over
+   a 4096-token causal prompt, and in the TPU kernel's index form at S != T,
+   causal; the served shapes and the long prompts timed beside their bounds
+   and beside scaled_dot_product_attention.
 14. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -146,6 +152,7 @@ PROFILE_PROMPT = 512  # the decode-tick profile: 8 slots at 512-560 tokens of co
 # the long static prefill (phase 6b): one prompt past anything the plain
 # path could attend over at full width
 LONG_PROMPT, LONG_NEW = 16384, 8
+NLG_LONG = 4096  # kernel 6 at nlg-350m-moe128's heads (dh 64) past the served prompt
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -648,6 +655,14 @@ def sdpa_full(q, k, v, scale):
     return call, lambda: (to_heads(), out.transpose(1, 2).contiguous())
 
 
+def q_tile_of(q) -> int:
+    """The query rows per block that kernel 6's wgmma path takes for q."""
+    from repro_torch.kernels import flash_attention as k6
+
+    B, S, H, _ = q.shape
+    return k6.q_tile_rows(S, H, B, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def check_flash(args, kw, tol, timed=True, n=20, plain_n=3) -> dict:
     """Kernel 6 (``flash_attention_gqa``) against its plain version on the
     same inputs, then timed: ``ms`` is its device time and ``library_ms``
@@ -1128,6 +1143,46 @@ def decode_quant_case(B, T, filled, Hkv, G, dh, dtype, gen, kpos=None, qpos=None
     return (q, kq, ks, vq, vs, kpos, qpos), info
 
 
+def decode_quant_redesign_checks(cfg, G, k9) -> dict:
+    """Kernel 9 in bf16 where its split-K walk over live tiles has the most
+    to do: a static cache sized for 64-token prompts and 2048 new tokens at
+    its first decode step (4 x 2112 slots, 80 filled) and a 16392-slot cache
+    with 8 keys filled (every split but one finds no live tile), both timed
+    from CUDA graphs beside SDPA; a ring whose live slots wrap with a window
+    (row 1 has no valid key and must give 0), glm4-9b's heads (G = 16) and
+    nlg-350m-moe128's (G = 1, dh 64); each held per query row.  Its inputs
+    come from a generator of its own, so the checks after it see the same
+    inputs whatever it draws."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {}
+    for case, (B, T, filled, Hkv, g, dh, timed) in (
+            ("2112_filled80", (4, 2112, 80, cfg.num_kv_heads, G, cfg.head_dim, True)),
+            ("16392_filled8", (1, LONG_PROMPT + 8, 8, cfg.num_kv_heads, G, cfg.head_dim, True)),
+            ("glm4_heads", (3, 300, 50, 2, 16, 128, False)),
+            ("nlg_heads", (3, 300, 50, 16, 1, 64, False))):
+        args, info = decode_quant_case(B, T, filled, Hkv, g, dh, torch.bfloat16, gen)
+        info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
+                                k9.decode_attention_quant_plain, args,
+                                dict(scale=1.0 / math.sqrt(dh)), BF16_TOL, timed=timed,
+                                library=sdpa_contiguous))
+        out[f"bf16_{case}"] = info
+        log(f"kernel decode_attention_quant bf16 {case}: {json.dumps(info)}")
+    ring = torch.roll(torch.arange(1000, 1300, dtype=torch.int32, device="cuda"), 123)
+    kpos = torch.stack([ring, torch.full_like(ring, -1), ring]).contiguous()
+    qpos = torch.tensor([1299, 5, 1250], dtype=torch.int32, device="cuda")
+    kw = dict(scale=1.0 / math.sqrt(cfg.head_dim), window=200, softcap=20.0)
+    args, info = decode_quant_case(3, 300, 0, cfg.num_kv_heads, G, cfg.head_dim, torch.bfloat16,
+                                   gen, kpos=kpos, qpos=qpos)
+    info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
+                            k9.decode_attention_quant_plain, args, kw, BF16_TOL))
+    if k9.decode_attention_quant(*args, **kw)[1].abs().max().item() != 0:
+        raise AssertionError("kernel 9: a row with no valid key must give 0")
+    out["bf16_ring_window_softcap"] = info
+    log(f"kernel decode_attention_quant bf16 ring (live slots wrap at slot 123), window 200, "
+        f"softcap 20, a row with no valid key: {json.dumps(info)}")
+    return out
+
+
 def sdpa_contiguous(q, kq, ks, vq, vs, kpos, qpos, scale):
     """Kernel 9's yardstick: the cache dequantized into [B, Hkv, T, dh]
     beforehand, then scaled_dot_product_attention with the same mask."""
@@ -1440,8 +1495,11 @@ def flash_checks(full, red, gen) -> dict:
     """Kernel 6 against its plain version: at the static serves' shapes
     (llama4-maverick, nlg-350m-moe128 and glm4-9b heads, 4 x 64 tokens,
     bf16), at reduced size in f32 and bf16 with every mask and a row with
-    no valid key, and in the TPU kernel's index form at S != T; timed beside their
-    bounds, plain versions and SDPA."""
+    no valid key, at every head-dim instance in bf16 (wgmma at dh 64 and 128
+    with both query-tile heights, mma.sync at 32 and 112), at
+    nlg-350m-moe128's heads over a 4096-token prompt, and in the TPU kernel's
+    index form at S != T; timed beside their bounds, plain versions and
+    SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
@@ -1482,21 +1540,67 @@ def flash_checks(full, red, gen) -> dict:
     # row 1 slots 1984-2239 (key tiles 31-34, across the first word
     # boundary) all empty; with and without a window of 1500, whose first
     # live tile lies past word 0 for the last 950 queries.  Held per row.
-    for dt, tol, label in ((torch.float32, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16")):
+    # At the reduced head dim (f32; bf16 on mma.sync) and in bf16 at dh 64
+    # and 128 (wgmma, 128-row query tiles over 128-key tiles, the last one
+    # ragged).
+    for dt, tol, label, dh in ((torch.float32, F32_TOL, "f32", red.head_dim),
+                               (torch.bfloat16, BF16_TOL, "bf16", red.head_dim),
+                               (torch.bfloat16, BF16_TOL, "bf16_dh64", 64),
+                               (torch.bfloat16, BF16_TOL, "bf16_dh128", 128)):
         for window, cap in ((0, 0.0), (1500, 20.0)):
-            args, _ = flash_case(2, 4500, red.num_heads, red.num_kv_heads, red.head_dim, dt, gen)
+            args, _ = flash_case(2, 4500, red.num_heads, red.num_kv_heads, dh, dt, gen)
             q, k, v, _, _ = args
             pos = (torch.arange(4500, dtype=torch.int32, device="cuda")[None]
                    + torch.tensor([[0], [37]], dtype=torch.int32, device="cuda")).contiguous()
             kpos = pos.clone()
             kpos[:, 3::7] = -1
             kpos[1, 1984:2240] = -1
-            kw = dict(scale=1.0 / math.sqrt(red.head_dim), causal=True, window=window, softcap=cap)
+            kw = dict(scale=1.0 / math.sqrt(dh), causal=True, window=window, softcap=cap)
             info = flash_info(q, k, pos, kpos, kw)
+            if dt == torch.bfloat16 and dh in k6.WGMMA_HEAD_DIMS:
+                info["q_tile"] = q_tile_of(q)
+                if info["q_tile"] != 128:
+                    raise AssertionError(f"kernel 6 {label} at 4500 tokens: q_tile {info['q_tile']}")
             info.update(check_flash((q, k, v, pos, kpos), kw, tol, timed=False))
             fshapes[f"{label}_reduced_4500_window{window}"] = info
             log(f"kernel flash_attention {label} reduced, S = T = 4500, offset positions, empty "
                 f"slots and tiles 31-34 of row 1, window {window}, softcap {cap}: {json.dumps(info)}")
+    # every head-dim instance in bf16 with every mask and a row with no valid
+    # key: wgmma at dh 64 and 128 with 128-row query tiles (S = 300, 32 heads
+    # over 2 kv-heads: 288 blocks; the last key tile ragged) and 64-row ones
+    # (S = 40, 4 heads over 2), mma.sync at dh 32 and 112
+    for dh in k6.HEAD_DIMS:
+        for S, H, want in ((300, 32, 128), (40, 4, 64)):
+            args, _ = flash_case(3, S, H, 2, dh, torch.bfloat16, gen)
+            q, k, v, _, _ = args
+            pos = (torch.arange(S, dtype=torch.int32, device="cuda")[None]
+                   + torch.tensor([[5], [400], [0]], dtype=torch.int32, device="cuda")).contiguous()
+            kpos = pos.clone()
+            kpos[:, 3::7] = -1
+            kpos[2] = -1
+            kw = dict(scale=1.0 / math.sqrt(dh), causal=True, window=37, softcap=20.0)
+            info = flash_info(q, k, pos, kpos, kw)
+            if dh in k6.WGMMA_HEAD_DIMS:
+                info["q_tile"] = q_tile_of(q)
+                if info["q_tile"] != want:
+                    raise AssertionError(f"kernel 6 dh {dh} S {S}: q_tile {info['q_tile']}, "
+                                         f"want {want}")
+            info.update(check_flash((q, k, v, pos, kpos), kw, BF16_TOL, timed=False))
+            if k6.flash_attention_gqa(q, k, v, pos, kpos, **kw)[2].abs().max().item() != 0:
+                raise AssertionError(f"kernel 6 dh {dh}: a row with no valid key must give 0")
+            fshapes[f"bf16_dh{dh}_S{S}_window_softcap"] = info
+            log(f"kernel flash_attention bf16 dh {dh}, S = T = {S}, {H} heads over 2 kv-heads, offset "
+                f"positions, empty slots, window 37, softcap 20 (a row with no valid key gives 0): "
+                f"{json.dumps(info)}")
+    # nlg-350m-moe128's heads (G = 1, dh 64) at a long causal prompt, timed
+    nlg = get_config("nlg-350m-moe128")
+    args, kw = flash_case(1, NLG_LONG, nlg.num_heads, nlg.num_kv_heads, nlg.head_dim,
+                          torch.bfloat16, gen)
+    info = flash_info(args[0], args[1], args[3], args[4], kw)
+    info.update(check_flash(args, kw, BF16_TOL))
+    fshapes[f"static_nlg_{NLG_LONG}"] = info
+    log(f"kernel flash_attention bf16 nlg-350m-moe128's heads, one {NLG_LONG}-token causal prompt: "
+        f"{json.dumps(info)}")
     # the TPU kernel's own contract: [BH, S, dh], causal by index, S != T
     BH, S, T = full.num_heads, 128, 384
     q, k, v = (torch.randn((BH, n, full.head_dim), generator=gen, device="cuda").bfloat16()
@@ -1897,6 +2001,7 @@ def main() -> int:
             qattn["decode_attention_quant"][f"{label}_{case}"] = info
             log(f"kernel decode_attention_quant {label} {case}: {json.dumps(info)}")
     del caches, served_kv, c0
+    qattn["decode_attention_quant"].update(decode_quant_redesign_checks(cfg, G, k9))
     dec, pre = redesign_checks(cfg, k7, k8, gen, kv_int8=True)
     qattn["paged_decode_attention_int8"].update(dec)
     qattn["paged_prefill_attention_int8"].update(pre)

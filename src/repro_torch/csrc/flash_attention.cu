@@ -24,30 +24,65 @@
 // accumulator in VMEM scratch; here one block owns a query tile and walks
 // its K/V tiles in a loop, with m and l in registers.
 //
-// bf16 (the served path): one block of 4 warps per (query tile of 64 rows,
-// query head, batch row); each warp owns 16 query rows.  Tensor cores through
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) for both products: Q lives in
-// registers as A fragments (ldmatrix, once), S = Q K^T takes K tiles of 64
-// keys from shared memory (ldmatrix), the online softmax runs on the S
-// accumulators in registers (quad shuffles for the row max), P is rounded to
-// bf16 (as _sdpa casts its probabilities to v's type) and reused in
-// registers as the A fragment of P V, with V read by ldmatrix.trans.  K/V
-// tiles are double-buffered with cp.async (zero-filled past T, so a masked
-// key never multiplies garbage).  Rows are padded by 16 bytes so the 8 row
-// addresses of an ldmatrix fall on distinct banks.  The query tile is staged
-// in the second K buffer, so a block holds 71 KB of shared memory and three
-// blocks (12 warps) share an SM, which hides the latency of one warp's
-// dependent mma / ldmatrix / shuffle chain behind the others (with a
-// separate query buffer and two blocks to an SM, a 16384-token causal
-// prefill took more than twice as long: PERF.md, kernel 6).  The G heads of a kv-head
-// read the same K/V tiles from L2; query tiles are issued heaviest (last
-// causal) first.
+// bf16, head dims 64 and 128 (every served config: llama4-maverick and
+// glm4-9b at 128, nlg-350m-moe128 at 64): warp-specialised wgmma with TMA.
+//   * A block holds BM = 128 query rows of one head: two consumer
+//     warpgroups of 64 rows each and one producer warpgroup, whose single
+//     thread keeps K/V tiles of BN = 128 keys in flight through TMA
+//     (cp.async.bulk.tensor over 4-D tensor maps of the model's layouts,
+//     read in place; 128-byte swizzle, a dh = 128 row as two 64-column
+//     boxes; zero-filled past T), with the tile's key positions (a 1-D map),
+//     into a ring of ST stages (2 at dh 128, 4 at 64).  K (with the
+//     positions) and V each have a "full" mbarrier (TMA bytes) and an
+//     "empty" one (one arrival per consumer warp): K is released when the
+//     tile's softmax is done, V when its P V is, so the next K load starts a
+//     product earlier.  setmaxnreg moves registers from the producer (24)
+//     to the consumers (240).  A prefill of at most 64 tokens (the served
+//     4 x 64), or one whose 128-row tiles would leave SMs idle (the
+//     wrapper's q_tile_rows), takes blocks of one consumer warpgroup (64
+//     rows) and 64-key tiles instead: half the shared memory, two blocks per
+//     SM, the served prefill in one wave.
+//   * S = Q K^T: wgmma m64n128k16, Q (loaded once by TMA) and K from shared
+//     memory.  The online softmax runs on the accumulators in registers
+//     (each row's 4 threads a quad, as in mma.sync; exponentials as 2^x of
+//     the log2-scaled scores), P is rounded to bf16 (as _sdpa casts its
+//     probabilities to v's type) and packed in registers as the A operand of
+//     O += P V: wgmma m64n{dh}k16 with V transposed from shared memory.  A
+//     warpgroup issues tile j's S before tile j - 1's P V and runs tile j's
+//     softmax while that P V is on the tensor cores; the two warpgroups of
+//     a block interleave on the tensor cores as they come.  Masked entries
+//     are set to -inf before the exponential, so they get probability
+//     exactly 0 (the running max stays finite).
+//   * Live and full tiles: a block marks the tiles that may hold a key
+//     valid for one of its rows (never loaded otherwise) and those whose
+//     every key is valid for every row (no per-entry mask there; a tile that
+//     is not full is masked per entry from the positions TMA brought with
+//     its K), while its query tile lands, from tile summaries (min and max
+//     valid position and their count per 128 keys) that a first launch
+//     writes once for all blocks of a row.  Every block reading the row's
+//     positions instead (launch/attention_kernels.py --variants) was slower
+//     at every prompt length measured, by about 6% at 16384 tokens.  A row
+//     of at most 64 keys (the served 4 x 64 prefill) is one tile, which no
+//     mark would skip or spare its mask: it takes neither the launch nor a
+//     mark.
+//   * Tensor maps are encoded on the host at every call (libcuda's
+//     cuTensorMapEncodeTiled, reached through the runtime): a ring of
+//     encoded maps kept by their arguments gave no host time that could be
+//     read above the host's spread at the served 4 x 64 prefill.
+//   * Query tiles are issued heaviest (last causal) first, all heads of one
+//     query tile together (grid x = head), so the G heads of a kv-head read
+//     the same K/V tiles from L2.
+// Head dims 32 and 112 (no served config) keep the first design: one block
+// of 4 warps per 64-row query tile on mma.sync m16n8k16, Q in registers as A
+// fragments (ldmatrix), K/V tiles of 64 keys double-buffered with cp.async,
+// the query tile staged in the second K buffer (three blocks to an SM), and
+// the same position-driven marks computed by each block from the positions.
 //
 // f32 (reduced checks): plain FMA on CUDA cores (no TF32), the shared code
 // of paged_attention.cuh walking the contiguous rows (16 query rows of one
 // kv-head per block, key tiles of 32), as kernel 9 does.
 //
-// Causal and window skip: before its loop, a bf16 block reads the key
+// Causal and window skip: before its loop, a block reads the key
 // positions of its batch row once and marks the key tiles that hold a key
 // valid for at least one of its rows (k_pos >= 0, k_pos <= its largest
 // query position, k_pos > its smallest query position - window); the loop
@@ -63,10 +98,21 @@
 // (two products of 2 * dh each).  A causal prefill of S tokens does
 // 2 * H * dh * S * (S + 1) operations against 2 * S * (H + Hkv) * dh * 2
 // bytes: at S = 64 bytes bound it, past a few hundred tokens the tensor
-// cores (989 TFLOP/s bf16).  This first version uses warp-level mma.sync,
-// not wgmma / TMA, and one 64-row tile per block; those are later work.
+// cores (989 TFLOP/s bf16).  What keeps the wgmma path from that rate, as
+// measured on an H100 at 16384 causal tokens of llama4-maverick's heads
+// (launch/attention_kernels.py --variants, PERF.md): built without its K/V
+// loads and its softmax it still takes about 70% of its time, so the
+// products' issue and waits set it (a warpgroup waits on its S before its
+// softmax and on its P V before reusing a stage, and two warpgroups do not
+// cover those waits); the softmax and the loads add the rest.  Strict
+// turn-taking of the two warpgroups (named barriers), a kv-head-major
+// block order, a third K/V stage and 192-row blocks over 64-key tiles were
+// each slower or no faster.
+#include <math.h>
+
 #include "mma_sm90.cuh"
 #include "paged_attention.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -95,7 +141,7 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16, head dims 32 and 112: mma.sync
 // ---------------------------------------------------------------------------
 
 template <int DH>
@@ -138,7 +184,6 @@ __global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
   }
   cp_async_commit();
   if (tid < BQ) s.qp[tid] = s0 + tid < p.S ? __ldg(p.qpos + (size_t)b * p.S + s0 + tid) : 0;
-  for (int w = tid; w < MAX_TILE_WORDS; w += NT) s.live[w] = s.full[w] = 0;
   __syncthreads();
   if (warp == 0) {
     int lo = INT_MAX, hi = INT_MIN;
@@ -160,25 +205,8 @@ __global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
 
   // mark the key tiles that hold a key valid for some row of the block, and
   // those whose every key is valid for every row (no per-entry mask there)
-  {
-    const int qp_lo = s.qp_lo, qp_hi = s.qp_hi;
-    for (int j = warp; j < nT; j += NW) {
-      bool may = false, all = true;
-#pragma unroll
-      for (int e = 0; e < BK; e += 32) {
-        const int t = j * BK + e + lane;
-        const int kp = t < p.T ? __ldg(kpos + t) : -1;
-        may |= kp >= 0 && (!p.mk.causal || kp <= qp_hi) &&
-               (p.mk.window <= 0 || kp > qp_lo - p.mk.window);
-        all &= kp >= 0 && (!p.mk.causal || kp <= qp_lo) &&
-               (p.mk.window <= 0 || kp > qp_hi - p.mk.window);
-      }
-      const bool any_may = __any_sync(0xffffffffu, may), all_ok = __all_sync(0xffffffffu, all);
-      if (lane == 0 && any_may) atomicOr(&s.live[j >> 5], 1u << (j & 31));
-      if (lane == 0 && all_ok) atomicOr(&s.full[j >> 5], 1u << (j & 31));
-    }
-  }
-  __syncthreads();
+  mark_tiles<BK, 16>(kpos, p.T, s.qp_lo, s.qp_hi, p.mk.causal, p.mk.window, s.live, s.full,
+                 MAX_TILE_WORDS);
 
   auto load_kv = [&](int j, int buf) {
     const int t0 = j * BK;
@@ -335,6 +363,437 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, head dims 64 and 128: wgmma with TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WBN = 128;  // keys per tile summary
+
+// Per WBN keys of each of the B rows of kpos [B, T]: {min, max} of the
+// valid positions (>= 0) and their count, keys past T invalid; an empty
+// tile is {INT_MAX, INT_MIN, 0}.  One warp per tile, grid (ceil(nT / 8), B)
+// of 256 threads.
+__global__ void __launch_bounds__(256) tile_summary_kernel(const int* __restrict__ kpos,
+                                                           int4* __restrict__ summ, int T, int nT) {
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * 8 + (threadIdx.x >> 5), b = blockIdx.y;
+  if (j >= nT) return;
+  const int* row = kpos + (size_t)b * T;
+  int lo = INT_MAX, hi = INT_MIN, n = 0;
+#pragma unroll
+  for (int e = 0; e < WBN; e += 32) {
+    const int t = j * WBN + e + lane;
+    const int kp = t < T ? __ldg(row + t) : -1;
+    if (kp >= 0) {
+      lo = min(lo, kp);
+      hi = max(hi, kp);
+      ++n;
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (lane == 0) summ[(size_t)b * nT + j] = make_int4(lo, hi, n, 0);
+}
+
+// Whether a tile with summary t may hold a key valid for some query at
+// positions [lo, hi] (live), and whether its every one of WBN keys is
+// valid for every such query (full); the masks are paged_attention.cuh's.
+// Live errs towards true (min and max stand for the keys), full is exact.
+__device__ __forceinline__ void summary_marks(const int4& t, int lo, int hi, int causal, int window,
+                                              bool& live, bool& full) {
+  live = t.z > 0 && (!causal || t.x <= hi) && (window <= 0 || t.y > lo - window);
+  full = t.z == WBN && (!causal || t.y <= lo) && (window <= 0 || t.x > hi - window);
+}
+
+struct WgParams {
+  CUtensorMap qmap;  // q [B, S, H, dh]: boxes of 64 columns x BM rows
+  CUtensorMap kmap;  // k [B, T, Hkv, dh]: boxes of 64 columns x BN keys
+  CUtensorMap vmap;
+  CUtensorMap pmap;  // k_pos as [B * T] int32: boxes of BN positions
+  const int* qpos;
+  const int* kpos;   // [B, T]: the positions' tensor map
+  const int4* summ;  // [B, nS] tile summaries (tile_summary_kernel); null: a row of one tile
+  bf16* out;
+  int B, S, T, H, Hkv, G, nS;
+  paged::Mask mk;
+  int capped;  // scores go through mk.score first (softcap, or a scale <= 0)
+  float c;     // to the log2 domain: log2(e) * scale on raw products, log2(e) on capped scores
+};
+
+// NWG = 2: 128 query rows, tiles of 128 keys, one block per SM.  NWG = 1
+// (a prefill of at most 64 tokens): 64 rows, tiles of 64 keys, half the
+// shared memory, two blocks per SM.
+template <int DH, int NWG>
+struct WgCfg {
+  static constexpr int BM = 64 * NWG;                     // query rows per block
+  static constexpr int BN = 64 * NWG;                     // keys per K/V tile
+  static constexpr int NC = DH / 64;                      // 128-byte column boxes per row
+  static constexpr int ST = NWG == 2 && DH == 64 ? 4 : 2;  // K/V stages in flight
+  static constexpr int NT = 128 * (NWG + 1);              // consumer warpgroups + the producer's
+  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;     // per SM
+  // registers a thread: the launch bound's share, then moved from the
+  // producer to the consumers (24 + 2 x 240 of 3 x 168; 24 + 232 of 2 x 128)
+  static constexpr int ENTRY_REGS = 65536 / MIN_BLOCKS / NT / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = ((NWG + 1) * ENTRY_REGS - PRODUCER_REGS) / NWG / 8 * 8;
+  static constexpr int WORDS = MAX_TILE_WORDS * BK / BN;  // live-tile bitmask: the same MAX_KEYS
+};
+
+// Tiles as TMA stores them with the 128-byte swizzle: [box][rows][64], each
+// box 1024-byte aligned (the block aligns the base).
+template <int DH, int NWG>
+struct WgSmem {
+  using C = WgCfg<DH, NWG>;
+  bf16 q[C::NC][C::BM][64];
+  bf16 k[C::ST][C::NC][C::BN][64];
+  bf16 v[C::ST][C::NC][C::BN][64];
+  alignas(128) int kp[C::ST][C::BN];  // the tile's key positions (the next row's past T)
+  uint64_t kfull[C::ST];   // a stage's K and positions have landed (TMA bytes)
+  uint64_t vfull[C::ST];   // its V has landed
+  uint64_t kempty[C::ST];  // every consumer warp is done with its K and positions
+  uint64_t vempty[C::ST];  // ... and with its V
+  uint64_t qbar;           // the query tile has landed
+  int qp[C::BM];
+  unsigned live[C::WORDS];  // tiles that may hold a key valid for some row
+  unsigned all[C::WORDS];   // tiles whose every key is valid for every row
+  int qp_lo, qp_hi;
+};
+
+// The online softmax of one tile's scores sc (this thread's 2 rows x NS / 2
+// columns, from the S accumulators), in the log2 domain: scale (and cap),
+// mask (-inf: probability exactly 0; the running max stays finite), update
+// the running max m and normaliser l, leave the probabilities in sc and the
+// rescale factor of the earlier sums in alpha.  kp: the tile's key
+// positions, t0 its first key.
+template <int NS>
+__device__ __forceinline__ void tile_softmax(float (&sc)[NS], const WgParams& p, const int* kp,
+                                             int t0, bool all, const int (&qpr)[2], int cq,
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+  if (p.capped) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = p.mk.score(sc[i]);
+  }
+  if (!all) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = (i >> 2) * 8 + cq + (i & 1);
+      if (t0 + col >= p.T || !p.mk.valid(kp[col], qpr[(i >> 1) & 1])) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * p.c);  // m starts at -1e30: stays finite
+    alpha[r] = hopper::ex2(m[r] - m_new);          // 1 while no valid key was seen
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const float pe = hopper::ex2(fmaf(sc[i], p.c, -m[(i >> 1) & 1]));  // 2^-inf = 0
+    sc[i] = pe;
+    l[(i >> 1) & 1] += pe;
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 128)
+    hopper::wgmma_rs_n128_tb(o, a, db);
+  else
+    hopper::wgmma_rs_n64_tb(o, a, db);
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s(float (&sc)[BN / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 128)
+    hopper::wgmma_ss_n128(sc, da, db, scale_d);
+  else
+    hopper::wgmma_ss_n64(sc, da, db, scale_d);
+}
+
+template <int DH, int NWG>
+__global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS)
+    flash_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using namespace hopper;
+  using C = WgCfg<DH, NWG>;
+  using Sm = WgSmem<DH, NWG>;
+  constexpr int BM = C::BM, BN = C::BN, NC = C::NC, ST = C::ST;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  Sm& s = *reinterpret_cast<Sm*>(wg_smem + ((1024u - (smem_u32(wg_smem) & 1023u)) & 1023u));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / p.G;
+  const int s0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest causal tiles first
+  const int nT = (p.T + BN - 1) / BN;  // K/V tiles
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&s.kfull[i], 1);
+      mbar_init(&s.vfull[i], 1);
+      mbar_init(&s.kempty[i], 4 * NWG);
+      mbar_init(&s.vempty[i], 4 * NWG);
+    }
+    mbar_init(&s.qbar, 1);
+    mbar_fence_init();
+    s.qp_lo = INT_MAX;
+    s.qp_hi = INT_MIN;
+  }
+  for (int i = tid; i < BM; i += C::NT)
+    s.qp[i] = s0 + i < p.S ? __ldg(p.qpos + (size_t)b * p.S + s0 + i) : 0;
+  __syncthreads();
+  if (tid == NWG * 128) {  // the producer's thread: the query tile lands while the block marks
+    mbar_expect_tx(&s.qbar, NC * BM * 128);
+    for (int c = 0; c < NC; ++c) tma_load_4d(&s.q[c][0][0], &p.qmap, &s.qbar, c * 64, h, s0, b);
+  }
+  for (int i = tid; i < BM && s0 + i < p.S; i += C::NT) {
+    atomicMin(&s.qp_lo, s.qp[i]);
+    atomicMax(&s.qp_hi, s.qp[i]);
+  }
+  __syncthreads();
+  if (p.summ == nullptr) {  // a row of one tile: live, and masked per entry
+    if (tid == 0) {
+      s.live[0] = 1u;
+      s.all[0] = 0u;
+    }
+    __syncthreads();
+  } else {  // the row's tile summaries (a 64-key tile takes its 128-key
+            // summary: live and full stay exact or err towards live and not
+            // full, which the per-entry mask covers)
+    const int4* summ = p.summ + (size_t)b * p.nS;
+    for (int base = 0; base < nT; base += C::NT) {
+      const int j = base + tid;
+      bool live = false, all = false;
+      if (j < nT) summary_marks(__ldg(summ + j * BN / WBN), s.qp_lo, s.qp_hi, p.mk.causal,
+                                p.mk.window, live, all);
+      const unsigned lb = __ballot_sync(0xffffffffu, live), ab = __ballot_sync(0xffffffffu, all);
+      if (lane == 0 && base + warp * 32 < nT) {
+        s.live[(base >> 5) + warp] = lb;
+        s.all[(base >> 5) + warp] = ab;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int wg = tid >> 7;
+  if (wg == NWG) {
+    // producer: one thread issues every load; the warpgroup gives up its registers
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid == NWG * 128) {
+      int st = 0;
+      unsigned ph = 0;
+      for (int j = next_live(s.live, 0, nT); j < nT; j = next_live(s.live, j + 1, nT)) {
+        // K (and positions) and V of a stage are released apart: K once the
+        // tile's softmax is done, V once its P V is, so K runs further ahead
+        mbar_wait(&s.kempty[st], ph ^ 1u);  // a fresh stage passes at once
+        mbar_expect_tx(&s.kfull[st], NC * BN * 128 + BN * 4);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(&s.k[st][c][0][0], &p.kmap, &s.kfull[st], c * 64, hk, j * BN, b);
+        tma_load_1d(&s.kp[st][0], &p.pmap, &s.kfull[st], b * p.T + j * BN);
+        mbar_wait(&s.vempty[st], ph ^ 1u);
+        mbar_expect_tx(&s.vfull[st], NC * BN * 128);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(&s.v[st][c][0][0], &p.vmap, &s.vfull[st], c * 64, hk, j * BN, b);
+        if (++st == ST) {
+          st = 0;
+          ph ^= 1u;
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows 64 wg .. 64 wg + 63 of the block.
+    // Tile j's S product is issued before tile j - 1's P V, and its softmax
+    // runs while P V is on the tensor cores.
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int rl = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows: rl, rl + 8
+    const int qpr[2] = {s.qp[rl], s.qp[rl + 8]};
+    const int cq = (lane & 3) * 2;  // this thread's first column of each 8-column group
+    float o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {paged::NEG_INF, paged::NEG_INF};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};  // partial sums over this thread's columns
+    uint32_t pa[BN / 16][4];  // P of the pending tile, bf16, as A fragments of P V
+    float sc[BN / 2];
+    int st = 0, pst = -1;  // this tile's stage; the pending P V's (-1: none)
+    unsigned ph = 0, pph = 0;
+    // O += P V of the pending tile: V's rows are keys (K of the product),
+    // its 64-column boxes LBO apart along dh (N), 8-key groups 1024 bytes apart
+    auto issue_pv = [&]() {
+      mbar_wait(&s.vfull[pst], pph);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_pv<DH>(o, pa[kk], desc_sw128(&s.v[pst][0][16 * kk][0], BN * 128, 1024));
+      wg_commit();
+    };
+    auto retire_pv = [&]() {
+      wg_wait<0>();
+      fence_acc(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(&s.vempty[pst]);  // this warp's reads of that V are done
+    };
+    mbar_wait(&s.qbar, 0);
+    for (int j = next_live(s.live, 0, nT); j < nT; j = next_live(s.live, j + 1, nT)) {
+      const bool all = (s.all[j >> 5] >> (j & 31)) & 1u;
+      mbar_wait(&s.kfull[st], ph);
+      // S = Q K^T: 64 rows x BN keys, k-steps of 16 along dh (32 bytes
+      // inside a 128-byte swizzled row, then the next box)
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int c = kk >> 2, e0 = (kk & 3) * 16;
+        wgmma_s<BN>(sc, desc_sw128(&s.q[c][64 * wg][e0], 16, 1024),
+                    desc_sw128(&s.k[st][c][0][e0], 16, 1024), kk);
+      }
+      wg_commit();
+      if (pst >= 0) {
+        issue_pv();
+        wg_wait<1>();  // S is done; P V may still run
+      } else {
+        wg_wait<0>();
+      }
+      fence_acc(sc);
+      float alpha[2];
+      tile_softmax(sc, p, s.kp[st], j * BN, all, qpr, cq, m, l, alpha);
+      if (lane == 0) mbar_arrive(&s.kempty[st]);  // this warp is done with K and positions
+      if (pst >= 0) retire_pv();
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      // P rounded to bf16 (as _sdpa casts it to v's type), keys 16 kk .. 16 kk + 15
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      pst = st;
+      pph = ph;
+      if (++st == ST) {
+        st = 0;
+        ph ^= 1u;
+      }
+    }
+    if (pst >= 0) {  // the last tile's P V
+      wg_fence();
+      issue_pv();
+      retire_pv();
+    }
+
+    // normalise (a row with no valid key has l = 0 and o = 0: writes 0) and store
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int sq = s0 + rl + 8 * r;
+      if (sq >= p.S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      bf16* row = p.out + (((size_t)b * p.S + sq) * p.H + h) * DH + cq;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<uint32_t*>(row + n * 8) =
+            pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
+// libraries do not link libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor [d3, d2, d1, d0] (d0 innermost) as a 4-D map with boxes of
+// 64 columns x 1 x rows x 1 and the 128-byte swizzle; out-of-bounds reads
+// give 0.  The wrapper's tensor_map_args computes the same arguments.
+bool encode_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int d3, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2,
+                                 (cuuint64_t)d0 * d1 * d2 * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// int32 positions [n] as a 1-D map with boxes of `box` (zero past n).
+bool encode_positions(CUtensorMap* map, const int* base, size_t n, int box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t unit[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<int*>(base), dims, strides, boxes, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH, int NWG>
+int launch_wgmma(WgParams& p, const void* q, const void* k, const void* v, cudaStream_t stream) {
+  using C = WgCfg<DH, NWG>;
+  const int smem = (int)sizeof(WgSmem<DH, NWG>) + 1024;  // + the 1024-byte alignment
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DH, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  if (!encode_map(&p.qmap, q, DH, p.H, p.S, p.B, C::BM) ||
+      !encode_map(&p.kmap, k, DH, p.Hkv, p.T, p.B, C::BN) ||
+      !encode_map(&p.vmap, v, DH, p.Hkv, p.T, p.B, C::BN) ||
+      !encode_positions(&p.pmap, p.kpos, (size_t)p.B * p.T, C::BN))
+    return cudaErrorInvalidValue;
+  if (p.summ != nullptr) {
+    tile_summary_kernel<<<dim3((p.nS + 7) / 8, p.B), 256, 0, stream>>>(
+        p.kpos, const_cast<int4*>(p.summ), p.T, p.nS);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  flash_wgmma_kernel<DH, NWG><<<dim3(p.H, (p.S + C::BM - 1) / C::BM, p.B), C::NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DH>
+int dispatch_wgmma(const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
+                   void* out, void* summ, int B, int S, int T, int H, int Hkv, int q_tile,
+                   const paged::Mask& mk, cudaStream_t stream) {
+  if ((q_tile != 64 && q_tile != 128) || S > 65535 * 64 || (summ == nullptr && T > 64))
+    return cudaErrorInvalidValue;
+  WgParams p{};
+  p.qpos = qpos;
+  p.kpos = kpos;
+  p.summ = static_cast<const int4*>(summ);
+  p.out = static_cast<bf16*>(out);
+  p.B = B, p.S = S, p.T = T, p.H = H, p.Hkv = Hkv, p.G = H / Hkv, p.nS = (T + WBN - 1) / WBN;
+  p.mk = mk;
+  p.capped = mk.softcap > 0.f || mk.scale <= 0.f;
+  p.c = p.capped ? 1.4426950408889634f : 1.4426950408889634f * mk.scale;
+  return q_tile == 64 ? launch_wgmma<DH, 1>(p, q, k, v, stream)
+                      : launch_wgmma<DH, 2>(p, q, k, v, stream);
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores, the shared code of paged_attention.cuh
 // ---------------------------------------------------------------------------
 
@@ -366,38 +825,50 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 
 template <bool BF16>
 int dispatch(const void* q, const void* k, const void* v, const void* qpos, const void* kpos,
-             void* out, int B, int S, int T, int H, int Hkv, int dh, float scale, int causal,
-             int window, float softcap, void* stream) {
+             void* out, void* summ, int B, int S, int T, int H, int Hkv, int dh, int q_tile,
+             float scale, int causal, int window, float softcap, void* stream) {
   if (B < 1 || S < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 || (T + BK - 1) / BK > MAX_TILE_WORDS * 32)
     return cudaErrorInvalidValue;
-  const Params p{q, k, v, static_cast<const int*>(qpos), static_cast<const int*>(kpos), out,
-                 B, S, T, H, Hkv, H / Hkv, paged::Mask{scale, softcap, causal, window}};
+  const paged::Mask mk{scale, softcap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kpos);
+  if (BF16 && dh == 64)
+    return dispatch_wgmma<64>(q, k, v, qp, kp, out, summ, B, S, T, H, Hkv, q_tile, mk, st);
+  if (BF16 && dh == 128)
+    return dispatch_wgmma<128>(q, k, v, qp, kp, out, summ, B, S, T, H, Hkv, q_tile, mk, st);
+  const Params p{q, k, v, qp, kp, out, B, S, T, H, Hkv, H / Hkv, mk};
   switch (dh) {
     case 32: return BF16 ? launch_bf16<32>(p, st) : launch_f32<32>(p, st);
-    case 64: return BF16 ? launch_bf16<64>(p, st) : launch_f32<64>(p, st);
+    case 64: return launch_f32<64>(p, st);
     case 112: return BF16 ? launch_bf16<112>(p, st) : launch_f32<112>(p, st);
-    case 128: return BF16 ? launch_bf16<128>(p, st) : launch_f32<128>(p, st);
+    case 128: return launch_f32<128>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes: device pointers, out allocated by the
-// caller, stream a cudaStream_t; returns cudaGetLastError() (0 = success).
+// Plain C interface, loaded with ctypes: device pointers, out (and, for the
+// bf16 entry at head dims 64 and 128, summ: B * ceil(T / 128) int4 tile
+// summaries that a first launch writes and the blocks mark from, or null
+// for rows of at most 64 keys)
+// allocated by the caller, q_tile the bf16 wgmma path's
+// query rows per block (64 or 128), stream a cudaStream_t; returns
+// cudaGetLastError() (0 = success), or cudaErrorInvalidValue for arguments
+// the kernels do not take (a tensor map that cannot be encoded among them).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, const void* qpos,
-                                    const void* kpos, void* out, int B, int S, int T, int H,
-                                    int Hkv, int dh, float scale, int causal, int window,
-                                    float softcap, void* stream) {
-  return dispatch<true>(q, k, v, qpos, kpos, out, B, S, T, H, Hkv, dh, scale, causal, window,
-                        softcap, stream);
+                                    const void* kpos, void* out, void* summ, int B, int S,
+                                    int T, int H, int Hkv, int dh, int q_tile, float scale,
+                                    int causal, int window, float softcap, void* stream) {
+  return dispatch<true>(q, k, v, qpos, kpos, out, summ, B, S, T, H, Hkv, dh, q_tile, scale, causal,
+                        window, softcap, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, const void* qpos,
                                    const void* kpos, void* out, int B, int S, int T, int H,
                                    int Hkv, int dh, float scale, int causal, int window,
                                    float softcap, void* stream) {
-  return dispatch<false>(q, k, v, qpos, kpos, out, B, S, T, H, Hkv, dh, scale, causal, window,
-                         softcap, stream);
+  return dispatch<false>(q, k, v, qpos, kpos, out, nullptr, B, S, T, H, Hkv, dh, 128, scale,
+                         causal, window, softcap, stream);
 }

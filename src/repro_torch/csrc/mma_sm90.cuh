@@ -11,11 +11,14 @@
 //     fall on distinct banks (rows padded by 16 bytes);
 //   * mma.sync m16n8k16, bf16 in and f32 accumulate;
 //   * int8 widened to bf16 exactly, four values at a time;
-//   * a bitmask walk over key tiles (the tiles a block found live).
+//   * a bitmask walk over key tiles (the tiles a block found live);
+//   * a block's live and full tiles from a contiguous row's key positions,
+//     read in bulk (kernels 6 and 9).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -93,6 +96,55 @@ __device__ __forceinline__ int next_live(const unsigned* live, int j, int nT) {
     bits = live[w];
   }
   return w * 32 + __ffs(bits) - 1;  // no bit past nT is set
+}
+
+// Mark, among the ceil(n / TILE) tiles of TILE keys of a contiguous row of
+// key positions kpos[0 .. n) (keys past n invalid; at most 32 * words
+// tiles), those that may hold a key valid for a query at some position in
+// [lo, hi] (live: kpos >= 0, causal kpos <= hi, window kpos > lo - window)
+// and those whose every key is valid for every such query (full), exactly,
+// key by key.  Every thread of the block calls it (whole warps); it starts
+// and ends on a barrier.  A warp takes U * 32 consecutive keys at a time,
+// all in flight before it reduces any, and sets their tiles' bits with one
+// atomic per bitmask, so a row of 16384 keys costs a block a few round
+// trips to L2 and few contended atomics.
+template <int TILE, int U>
+__device__ void mark_tiles(const int* __restrict__ kpos, int n, int lo, int hi, int causal,
+                           int window, unsigned* live, unsigned* full, int words) {
+  constexpr int PER = 32 * U / TILE;  // tiles a warp takes at a time
+  static_assert(TILE % 32 == 0 && 32 * U % TILE == 0 && 32 % PER == 0,
+                "a warp's keys cover whole tiles within one bitmask word");
+  const int tid = threadIdx.x, lane = tid & 31, nth = blockDim.x;
+  const int nT = (n + TILE - 1) / TILE, nk = nT * TILE;
+  for (int w = tid; w < words; w += nth) {
+    const int m = min(32, max(0, nT - w * 32));
+    live[w] = 0u;
+    full[w] = m == 32 ? ~0u : (1u << m) - 1u;
+  }
+  __syncthreads();
+  for (int base = (tid >> 5) * 32 * U; base < nk; base += nth * U) {
+    int kp[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * 32 + lane;
+      kp[u] = i < n ? __ldg(kpos + i) : -1;
+    }
+    unsigned lb = 0u, nb = 0u;  // live, and not full, from tile base / TILE on
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (base + u * 32 < nk) {  // the same for the whole warp
+        const bool may = kp[u] >= 0 && (!causal || kp[u] <= hi) && (window <= 0 || kp[u] > lo - window);
+        const bool all = kp[u] >= 0 && (!causal || kp[u] <= lo) && (window <= 0 || kp[u] > hi - window);
+        const unsigned mb = __ballot_sync(0xffffffffu, may), ab = __ballot_sync(0xffffffffu, all);
+        if (mb) lb |= 1u << (u * 32 / TILE);
+        if (ab != 0xffffffffu) nb |= 1u << (u * 32 / TILE);
+      }
+    }
+    const int t0 = base / TILE;
+    if (lane == 0 && lb) atomicOr(&live[t0 >> 5], lb << (t0 & 31));
+    if (lane == 0 && nb) atomicAnd(&full[t0 >> 5], ~(nb << (t0 & 31)));
+  }
+  __syncthreads();
 }
 
 }  // namespace sm90

@@ -1,12 +1,11 @@
-// CUDA-core device code shared by the attention kernels for Hopper, sm_90a,
-// where they run in f32 or over a contiguous int8 cache: the f32 paths of
-// paged_decode_attention.cu (one query token per slot) and
+// CUDA-core device code shared by the f32 paths of the attention kernels for
+// Hopper, sm_90a: paged_decode_attention.cu (one query token per slot) and
 // paged_prefill_attention.cu (one prefill chunk of one sequence), both over a
 // page pool in f32 or int8, decode_attention_quant.cu (kernel 9: one query
-// token per slot over a contiguous int8 cache, bf16 or f32), and the f32 path
-// of flash_attention.cu.  The bf16 paths of the paged kernels (7, 7q, 8, 8q)
-// run on the tensor cores (paged_mma.cuh) and kernel 6's bf16 path has its
-// own; they take only Mask (scale, softcap, causal, window) from here.
+// token per slot over a contiguous int8 cache) and flash_attention.cu.  The
+// bf16 paths (kernels 6-9) run on the tensor cores (paged_mma.cuh, and
+// kernel 6's own) and take only Mask (scale, softcap, causal, window) from
+// here.
 //
 // All compute, for one kv-head and a set of query rows, a masked softmax
 // attention over keys streamed in tiles of up to KT = 32 keys, as the TPU
@@ -45,7 +44,7 @@
 // What holds this code back: every product is an FMA on the CUDA cores out of
 // f32 shared memory, and each tile waits on a barrier between its load and
 // its use, with no load in flight.  The f32 paths exist for the reduced
-// card-vs-CPU checks; kernel 9 is the served path that still runs here.
+// card-vs-CPU checks.
 //
 // Exponentials use expf (not __expf) and there is no fast-math flag, so f32
 // results differ from the plain PyTorch version only in summation order.
@@ -63,24 +62,13 @@ constexpr int KT = 32;   // keys per tile: one lane per key in the softmax step
 constexpr int VEC = 4;   // elements per vector load of a K/V row
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
 
 __device__ __forceinline__ void load4(const float* p, float v[VEC]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[VEC]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
 // Where a tile's K/V come from: a cache in the input type, or an int8 cache

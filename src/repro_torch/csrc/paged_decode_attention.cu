@@ -63,7 +63,7 @@ using bf16 = __nv_bfloat16;
 // bf16 (fp or int8 pool): split-K on tensor cores, then the merge
 // ---------------------------------------------------------------------------
 
-constexpr int GR = 16;  // query rows of a block: the G <= 16 heads, one fragment
+using paged_mma::GR;
 
 struct Params {
   const void* q;
@@ -75,138 +75,25 @@ struct Params {
   const int* table;
   const int* qpos;
   void* out;
-  float* ws;  // split-K partials (partial_m / _l / _acc), R = B * Hkv * G rows
+  float* ws;  // split-K partials (paged_mma::partial_m / _l / _acc), R = B * Hkv * G rows
   int B, Hkv, G, ps, nt, Pt;
   paged::Mask mk;
 };
-
-// Split-K partials in a workspace, split-major over the R rows of the
-// output (row = slot * Hkv * G + kv-head * G + grouped head): m [S][R],
-// l [S][R], acc [S][R][DH], all f32.
-__device__ __forceinline__ float* partial_m(float* ws, size_t R, int sp) { return ws + sp * R; }
-__device__ __forceinline__ float* partial_l(float* ws, size_t R, int S, int sp) {
-  return ws + (S + sp) * R;
-}
-template <int DH>
-__device__ __forceinline__ float* partial_acc(float* ws, size_t R, int S, int sp) {
-  return ws + 2 * S * R + sp * R * DH;
-}
-
-// out[row] = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*), m* = max_s m_s:
-// a split with no valid key (m = -1e30, l = 0, acc = 0) adds 0, a row with
-// none in any split gives 0.  One thread per output value.
-template <int DH>
-__global__ void __launch_bounds__(256) merge_splits(const float* __restrict__ ws,
-                                                    bf16* __restrict__ out, int R, int S) {
-  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= (size_t)R * DH) return;
-  const size_t row = i / DH, d = i - row * DH;
-  const float* m = ws;
-  const float* l = ws + (size_t)S * R;
-  const float* acc = ws + 2 * (size_t)S * R;
-  float mx = paged::NEG_INF;
-  for (int sp = 0; sp < S; ++sp) mx = fmaxf(mx, m[sp * (size_t)R + row]);
-  float a = 0.f, z = 0.f;
-  for (int sp = 0; sp < S; ++sp) {
-    const size_t r = sp * (size_t)R + row;
-    const float e = __expf(m[r] - mx);
-    a += acc[r * DH + d] * e;
-    z += l[r] * e;
-  }
-  out[i] = __float2bfloat16(a / fmaxf(z, 1e-30f));
-}
 
 template <int DH, bool Q8>
 __global__ void __launch_bounds__(paged_mma::NT) decode_split_kernel(const Params p) {
   using namespace paged_mma;
   constexpr int NB = Q8 ? 1 : 2;
-  using Sm = Smem<DH, Q8, NB>;
-  constexpr int KS = DH / 16, CH = DH / 8;
-  static_assert(sizeof(Sm::k) + sizeof(Sm::v) >= sizeof(float) * NW * GR * DH,
-                "the warps' accumulators fit in the tile buffers");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Sm& s = *reinterpret_cast<Sm*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z, S = gridDim.z;
-  const bf16* Q = static_cast<const bf16*>(p.q);
-
-  // the G query rows (zero past G) into k[NB - 1]
-  for (int i = tid; i < GR * CH; i += NT) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    const bool ok = r < p.G;
-    const size_t off = ok ? (((size_t)b * p.Hkv + h) * p.G + r) * DH + c : 0;
-    cp_async16(&s.k[NB - 1][r][c], Q + off, ok);
-  }
-  cp_async_commit();
-  const int qp = __ldg(p.qpos + b);
-
+  const int h = blockIdx.x, b = blockIdx.y;
   const Src src{p.k, p.v, p.ks, p.vs, p.kpos, p.table + (size_t)b * p.nt, nullptr, nullptr,
                 nullptr, p.ps, p.Pt, p.Hkv, h, 0, INT_MAX};
-  Tiles<DH, Q8, NB> tiles(s, src, p.mk, false);  // every tile of a row is live: no position scan
-  const int qpr[2] = {qp, qp};
-  const int key0 = warp * 16;  // this warp's keys of each tile
-  uint32_t qf[KS][4];
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};
-  float o[2 * KS][4];
-#pragma unroll
-  for (int n = 0; n < 2 * KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  tiles.walk(
-      p.nt, sp, S,
-      [&]() {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldmatrix_x4(qf[kk], &s.k[NB - 1][lane & 15][kk * 16 + (lane >> 4) * 8]);
-      },
-      [&](int cb, int bb, bool full, int lim) {
-        float sc[2][4];
-        scores<DH, 2>(s, cb, key0, qf, sc, lane);
-        update<DH, Q8, 2>(s, cb, bb, key0, full, lim, p.mk, qpr, sc, m, l, o, lane);
-      });
-
-  // merge the 4 warps (the walk ended on a barrier: the tile buffers are free)
-  float(*acc)[GR][DH] = reinterpret_cast<float(*)[GR][DH]>(&s.k[0][0][0]);
-  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if ((lane & 3) == 0) {
-      s.wm[warp][r0 + 8 * i] = m[i];
-      s.wl[warp][r0 + 8 * i] = l[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 2 * KS; ++n) {
-      acc[warp][r0 + 8 * i][n * 8 + c0] = o[n][2 * i];
-      acc[warp][r0 + 8 * i][n * 8 + c0 + 1] = o[n][2 * i + 1];
-    }
-  }
-  __syncthreads();
-  // one split: the output; several: this split's partials (merge_splits)
-  const size_t R = (size_t)p.B * p.Hkv * p.G, row0 = ((size_t)b * p.Hkv + h) * p.G;
-  for (int i = tid; i < p.G * DH; i += NT) {
-    const int g = i / DH, d = i - g * DH;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, s.wm[w][g]);
-    float a = 0.f, z = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float e = __expf(s.wm[w][g] - mx);
-      a += acc[w][g][d] * e;
-      z += s.wl[w][g] * e;
-    }
-    if (S == 1) {
-      static_cast<bf16*>(p.out)[(row0 + g) * DH + d] = __float2bfloat16(a / fmaxf(z, 1e-30f));
-      continue;
-    }
-    partial_acc<DH>(p.ws, R, S, sp)[(row0 + g) * DH + d] = a;
-    if (d == 0) {
-      partial_m(p.ws, R, sp)[row0 + g] = mx;
-      partial_l(p.ws, R, S, sp)[row0 + g] = z;
-    }
-  }
+  const size_t row0 = ((size_t)b * p.Hkv + h) * p.G;
+  // every tile of a compacted row is live: no position scan, a mask per entry
+  decode_block<DH, Q8, NB>(*reinterpret_cast<Smem<DH, Q8, NB>*>(smem_raw), src,
+                           static_cast<const bf16*>(p.q) + row0 * DH, p.G, __ldg(p.qpos + b), p.mk,
+                           false, p.nt, blockIdx.z, gridDim.z, static_cast<bf16*>(p.out), p.ws,
+                           (size_t)p.B * p.Hkv * p.G, row0);
 }
 
 template <int DH, bool Q8>
@@ -218,10 +105,8 @@ int launch_split(const Params& p, int splits, cudaStream_t stream) {
   decode_split_kernel<DH, Q8><<<dim3(p.Hkv, p.B, splits), paged_mma::NT, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t n = (size_t)p.B * p.Hkv * p.G * DH;
-  merge_splits<DH><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      p.ws, static_cast<bf16*>(p.out), p.B * p.Hkv * p.G, splits);
-  return cudaGetLastError();
+  return paged_mma::launch_merge<DH>(p.ws, static_cast<bf16*>(p.out), p.B * p.Hkv * p.G, splits,
+                                     stream);
 }
 
 template <bool Q8>

@@ -1,31 +1,41 @@
-// Tensor-core attention over a page pool for Hopper, sm_90a: the bf16 paths of
-// paged_decode_attention.cu (kernels 7 and 7q) and
-// paged_prefill_attention.cu (kernels 8 and 8q).  Their f32 paths keep the
-// CUDA-core code of paged_attention.cuh, whose Mask (scale, softcap, causal,
-// window) both use.
+// Tensor-core attention over a page pool or a contiguous cache for Hopper,
+// sm_90a: the bf16 paths of paged_decode_attention.cu (kernels 7 and 7q),
+// paged_prefill_attention.cu (kernels 8 and 8q) and decode_attention_quant.cu
+// (kernel 9, a contiguous int8 cache).  Their f32 paths keep the CUDA-core
+// code of paged_attention.cuh, whose Mask (scale, softcap, causal, window)
+// all use.
 //
-// A block of 4 warps attends, for one kv-head, over the live pages of a range
-// of one block-table row and then (prefill) over the chunk's own keys:
+// A block of 4 warps attends, for one kv-head, over the live keys of one
+// row and then (prefill) over the chunk's own keys:
 //
-//   * live pages: the block compacts the row's live entries (not the trash
-//     page Pt - 1, not negative) into shared memory once, MAXL table entries
-//     at a time (one window at the served table width of 128).  Key i of a
-//     window is then offset i % ps of page i / ps, and a tile is 64 such
-//     keys: no serial page walk between tiles.  Trash entries are never read.
+//   * live pages: the block compacts the row's live table entries (not the
+//     trash page Pt - 1, not negative) into shared memory once, MAXL table
+//     entries at a time (one window at the served table width of 128).  Key
+//     i of a window is then offset i % ps of page i / ps, and a tile is 64
+//     such keys: no serial page walk between tiles.  Trash entries are never
+//     read.  A contiguous row (Src::table null, kernel 9) has no table: key i
+//     of the row is cache row i, read as implicit pages of 64 keys, MAXL of
+//     them (256 tiles, 16384 keys) a window, with no compaction.
 //   * split-K (decode): the S blocks of a row share each window's live tiles
-//     by rank (walk's sp, S) and write f32 partials that a second launch
-//     merges (paged_decode_attention.cu).  A prefill block walks all its
+//     by rank (walk's sp, S) and write f32 partials that merge_splits, a
+//     second launch, merges (decode_block).  A prefill block walks all its
 //     tiles (S = 1).
-//   * live and full tiles (prefill): before loading any K/V the block reads
-//     the positions of the window's keys once and marks the tiles that hold a
-//     key valid for some row (the others are never loaded) and those whose
-//     every key is valid for every row (no per-entry mask there: every pool
-//     key before the chunk, unless a window is set).  Decode takes every tile
-//     of its share as live and masks per entry.
+//   * live and full tiles (prefill, and kernel 9's decode): before loading
+//     any K/V the block marks the tiles that hold a key valid for some row
+//     (the others are never loaded) and those whose every key is valid for
+//     every row (no per-entry mask there), from the positions of the
+//     window's keys, read once.  A kernel 9 block reads its row's positions
+//     in bulk (mma_sm90.cuh's mark_tiles: each warp has 1024 of them in
+//     flight before it reduces any), so every split's scan of a 16384-key
+//     window costs four round trips to L2.  Liveness comes from the
+//     positions only, so a ring cache whose live slots wrap, or a row that
+//     is mostly empty, reads only the tiles that hold a valid key.  Kernel
+//     7's decode takes every tile of its compacted row as live and masks
+//     per entry.
 //   * loads in flight: K/V tiles, their positions and scales are double-
 //     buffered with cp.async (zero-filled past the last key, positions -1),
 //     so the next tile loads while the block computes on this one and no
-//     thread waits on a global read inside the walk.  An int8 pool (Q8)
+//     thread waits on a global read inside the walk.  An int8 cache (Q8)
 //     lands as int8 and is widened to bf16 in shared memory (exact: |value|
 //     <= 127, by an exponent trick, not an int-to-float conversion); its f32
 //     scales per (key, kv-head) are applied to the products, K's to the score
@@ -63,19 +73,22 @@ static_assert(MAXL % NT == 0, "the compaction takes NT entries a round");
 static_assert(MAXL * paged::KT / BK <= MAXT / 2, "a window's pool tiles leave room for chunk tiles");
 
 // What a block attends over: the live pages of one block-table row, then the
-// C keys of a chunk (C = 0: none).
+// C keys of a chunk (C = 0: none); or, with table null, the T keys of one
+// contiguous cache row (k, v, ks, vs and kpos point at the row's first key,
+// ps = BK).
 struct Src {
   const void* k;        // pool [Pt, ps, Hkv, DH]: bf16, or int8 (Q8)
   const void* v;
   const float* ks;      // Q8: scales [Pt, ps, Hkv]
   const float* vs;
   const int* kpos;      // [Pt, ps]
-  const int* table;     // the row
+  const int* table;     // the row; null: a contiguous row
   const bf16* ck;       // the chunk's keys and values [C, Hkv, DH]
   const bf16* cv;
   const int* cpos;      // their positions [C]
   int ps, Pt, Hkv, h, C;
   int mask_from;        // pool keys at positions >= this are masked
+  int T;                // contiguous: keys in the row
 };
 
 // NB compute buffers: 2 (double-buffered), or 1 where only int8 pool tiles
@@ -113,13 +126,16 @@ struct Tiles {
   const bool scan;  // mark tiles from their keys' positions; else every tile is live, none full
   const int tid, lane, warp;
   int n_pool = 0, nTp = 0, c0 = 0;  // the window: live pool keys, pool tiles, first chunk key
+  int k0 = 0;                       // contiguous: the window's first key of the row
 
   __device__ Tiles(Sm& sm, const Src& sr, const paged::Mask& m, bool scan_tiles)
       : s(sm), src(sr), mk(m), scan(scan_tiles), tid(threadIdx.x), lane(threadIdx.x & 31),
         warp(threadIdx.x >> 5) {}
 
-  // Pool row (page * ps + offset) of live key i of the window.
+  // Pool row (page * ps + offset) of live key i of the window; contiguous:
+  // key k0 + i of the row.
   __device__ __forceinline__ int pool_row(int i) const {
+    if (src.table == nullptr) return k0 + i;
     const int n = i / src.ps;
     return s.page[n] * src.ps + (i - n * src.ps);
   }
@@ -164,6 +180,12 @@ struct Tiles {
   // Mark the live and the full tiles among the window's nT (s.qp_lo and
   // s.qp_hi bound the block's query positions).
   __device__ void mark(int nT) {
+    if (scan && src.table == nullptr) {  // a contiguous row: the window's positions, in bulk
+      __syncthreads();  // s.qp_lo / s.qp_hi are written
+      mark_tiles<BK, 32>(src.kpos + k0, n_pool, s.qp_lo, s.qp_hi, mk.causal, mk.window, s.live, s.full,
+                     WORDS);
+      return;
+    }
     for (int w = tid; w < WORDS; w += NT) {
       const int n = min(32, max(0, nT - w * 32));
       s.live[w] = scan ? 0u : (n == 32 ? ~0u : (1u << n) - 1u);
@@ -270,8 +292,9 @@ struct Tiles {
     *reinterpret_cast<uint4*>(out + 8) = make_uint4(w[4], w[5], w[6], w[7]);
   }
 
-  // Split sp of S: the live pages of the table row's nt entries, a window of
-  // MAXL entries at a time, then the chunk's keys; of each window's live
+  // Split sp of S: the live pages of the table row's nt entries (contiguous:
+  // nt implicit pages of ps = BK keys), a window of MAXL entries at a time,
+  // then the chunk's keys; of each window's live
   // tiles this split takes those of rank [sp * L / S, (sp + 1) * L / S).
   // ready() runs once, after the query rows (committed by the caller before
   // the walk) have landed and before any tile overwrites them;
@@ -285,8 +308,13 @@ struct Tiles {
     c0 = 0;
     do {
       const int e1 = min(nt, e0 + MAXL);
-      compact(e0, e1);
-      n_pool = s.n_live * src.ps;
+      if (src.table != nullptr) {
+        compact(e0, e1);
+        n_pool = s.n_live * src.ps;
+      } else {  // mark's first barrier orders this window after the last one's reads
+        k0 = e0 * src.ps;
+        n_pool = min(src.T - k0, (e1 - e0) * src.ps);
+      }
       nTp = (n_pool + BK - 1) / BK;
       const int nTc = e1 == nt ? min((src.C - c0 + BK - 1) / BK, MAXT - nTp) : 0;
       const int nT = nTp + nTc;
@@ -428,6 +456,152 @@ __device__ __forceinline__ void scores(const Sm& s, int cb, int key0, uint32_t (
       ldmatrix_x4(kb, &s.k[cb][key0 + np * 16 + (lane >> 4) * 8 + (lane & 7)][kk * 16 + ((lane >> 3) & 1) * 8]);
       mma_bf16(sc[2 * np], qf[kk], kb[0], kb[1]);
       mma_bf16(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Split-K decode (kernels 7, 7q and 9): one block's share of one (slot,
+// kv-head) row, then the merge launch
+// ---------------------------------------------------------------------------
+
+constexpr int GR = 16;  // query rows of a decode block: the G <= 16 heads, one fragment
+
+// Split-K partials in a workspace, split-major over the R rows of the
+// output (row = slot * Hkv * G + kv-head * G + grouped head): m [S][R],
+// l [S][R], acc [S][R][DH], all f32.
+__device__ __forceinline__ float* partial_m(float* ws, size_t R, int sp) { return ws + sp * R; }
+__device__ __forceinline__ float* partial_l(float* ws, size_t R, int S, int sp) {
+  return ws + (S + sp) * R;
+}
+template <int DH>
+__device__ __forceinline__ float* partial_acc(float* ws, size_t R, int S, int sp) {
+  return ws + 2 * S * R + sp * R * DH;
+}
+
+// out[row] = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*), m* = max_s m_s:
+// a split with no valid key (m = -1e30, l = 0, acc = 0) adds 0, a row with
+// none in any split gives 0.  One thread per output value.
+template <int DH>
+__global__ void __launch_bounds__(256) merge_splits(const float* __restrict__ ws,
+                                                    bf16* __restrict__ out, int R, int S) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (size_t)R * DH) return;
+  const size_t row = i / DH, d = i - row * DH;
+  const float* m = ws;
+  const float* l = ws + (size_t)S * R;
+  const float* acc = ws + 2 * (size_t)S * R;
+  float mx = paged::NEG_INF;
+  for (int sp = 0; sp < S; ++sp) mx = fmaxf(mx, m[sp * (size_t)R + row]);
+  float a = 0.f, z = 0.f;
+  for (int sp = 0; sp < S; ++sp) {
+    const size_t r = sp * (size_t)R + row;
+    const float e = __expf(m[r] - mx);
+    a += acc[r * DH + d] * e;
+    z += l[r] * e;
+  }
+  out[i] = __float2bfloat16(a / fmaxf(z, 1e-30f));
+}
+
+// Launch merge_splits over the R * DH outputs of a split-K decode.
+template <int DH>
+inline cudaError_t launch_merge(const float* ws, bf16* out, int R, int S, cudaStream_t stream) {
+  const size_t n = (size_t)R * DH;
+  merge_splits<DH><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(ws, out, R, S);
+  return cudaGetLastError();
+}
+
+// Split sp of S of one decode row: the G query rows q (G * DH bf16, 16-byte
+// aligned) at position qp attend over src's keys (a table row: nt entries;
+// contiguous: nt = ceil(T / BK) implicit pages); scan marks live and full
+// tiles from the keys' positions (else every tile is live and masked per
+// entry).  Each of the 4 warps takes 16 keys of a tile with its own online
+// softmax; at the end the warps merge in shared memory and the block writes
+// its f32 partials for output rows row0 .. row0 + G - 1 of R, or at S = 1
+// the output itself.  A split with no valid key writes m = -1e30, l = 0,
+// acc = 0.
+template <int DH, bool Q8, int NB>
+__device__ __forceinline__ void decode_block(Smem<DH, Q8, NB>& s, const Src& src, const bf16* q,
+                                             int G, int qp, const paged::Mask& mk, bool scan,
+                                             int nt, int sp, int S, bf16* out, float* ws,
+                                             size_t R, size_t row0) {
+  constexpr int KS = DH / 16, CH = DH / 8;
+  static_assert(sizeof(Smem<DH, Q8, NB>::k) + sizeof(Smem<DH, Q8, NB>::v) >=
+                    sizeof(float) * NW * GR * DH,
+                "the warps' accumulators fit in the tile buffers");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // the G query rows (zero past G) into k[NB - 1]
+  for (int i = tid; i < GR * CH; i += NT) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < G;
+    cp_async16(&s.k[NB - 1][r][c], q + (ok ? r * DH + c : 0), ok);
+  }
+  cp_async_commit();
+  if (tid == 0) s.qp_lo = s.qp_hi = qp;  // read by mark, after its first barrier
+
+  Tiles<DH, Q8, NB> tiles(s, src, mk, scan);
+  const int qpr[2] = {qp, qp};
+  const int key0 = warp * 16;  // this warp's keys of each tile
+  uint32_t qf[KS][4];
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float o[2 * KS][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  tiles.walk(
+      nt, sp, S,
+      [&]() {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], &s.k[NB - 1][lane & 15][kk * 16 + (lane >> 4) * 8]);
+      },
+      [&](int cb, int bb, bool full, int lim) {
+        float sc[2][4];
+        scores<DH, 2>(s, cb, key0, qf, sc, lane);
+        update<DH, Q8, 2>(s, cb, bb, key0, full, lim, mk, qpr, sc, m, l, o, lane);
+      });
+
+  // merge the 4 warps (the walk ended on a barrier: the tile buffers are free)
+  float(*acc)[GR][DH] = reinterpret_cast<float(*)[GR][DH]>(&s.k[0][0][0]);
+  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if ((lane & 3) == 0) {
+      s.wm[warp][r0 + 8 * i] = m[i];
+      s.wl[warp][r0 + 8 * i] = l[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n) {
+      acc[warp][r0 + 8 * i][n * 8 + c0] = o[n][2 * i];
+      acc[warp][r0 + 8 * i][n * 8 + c0 + 1] = o[n][2 * i + 1];
+    }
+  }
+  __syncthreads();
+  // one split: the output; several: this split's partials (merge_splits)
+  for (int i = tid; i < G * DH; i += NT) {
+    const int g = i / DH, d = i - g * DH;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, s.wm[w][g]);
+    float a = 0.f, z = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = __expf(s.wm[w][g] - mx);
+      a += acc[w][g][d] * e;
+      z += s.wl[w][g] * e;
+    }
+    if (S == 1) {
+      out[(row0 + g) * DH + d] = __float2bfloat16(a / fmaxf(z, 1e-30f));
+      continue;
+    }
+    partial_acc<DH>(ws, R, S, sp)[(row0 + g) * DH + d] = a;
+    if (d == 0) {
+      partial_m(ws, R, sp)[row0 + g] = mx;
+      partial_l(ws, R, S, sp)[row0 + g] = z;
     }
   }
 }

@@ -87,6 +87,30 @@ def split_bounds(n: int, splits: int) -> list:
     return [(s * n // splits, (s + 1) * n // splits) for s in range(splits)]
 
 
+def tile_marks(k_pos: torch.Tensor, q_lo: int, q_hi: int, *, tile: int, causal: bool = True,
+               window: int = 0) -> tuple:
+    """A block's marks over one row's key positions ``k_pos`` [T], as the
+    contiguous kernels (6's wgmma path, 128- or 64-key tiles; 9, 64-key
+    tiles) set them for query positions in [q_lo, q_hi], key by key: ``live``
+    (a key valid for some query position in the range; the other tiles are
+    never loaded) and ``full`` (every key valid for every one: no per-entry
+    mask); keys past T are invalid.  Boolean [ceil(T / tile)] each."""
+    T = k_pos.shape[-1]
+    n = -(-T // tile)
+    kp = torch.full((n * tile,), -1, dtype=torch.int64)
+    kp[:T] = k_pos.reshape(-1).to(torch.int64).cpu()
+    kp = kp.view(n, tile)
+    live = kp >= 0
+    full = kp >= 0
+    if causal:
+        live = live & (kp <= q_hi)
+        full = full & (kp <= q_lo)
+    if window > 0:
+        live = live & (kp > q_lo - window)
+        full = full & (kp > q_hi - window)
+    return live.any(-1), full.all(-1)
+
+
 def kv_values(x, scale, dtype):
     """Gathered cache values as f32: fp values widened, or int8 values
     dequantized to ``dtype`` (``materialize_kv``), then widened."""

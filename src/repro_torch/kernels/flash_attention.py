@@ -24,8 +24,18 @@ JAX ``_sdpa`` gives such a row a uniform average over its keys instead;
 rows with a valid key agree, and every static or forward query sees itself.
 The plain version attends ``q_chunk`` queries at a time (default
 ``Q_CHUNK``), so its f32 logits are ``[B, Hkv, G, q_chunk, T]``, never
-``[.., S, T]``; the kernel tiles the queries itself (one launch for the
-whole S).
+``[.., S, T]``; the kernel tiles the queries itself (one call for the whole
+S).
+
+In bf16 at head dims 64 and 128 (``WGMMA_HEAD_DIMS``) the kernel runs on
+wgmma with K/V through TMA: it takes ``q_tile_rows`` query rows per block,
+marks the key tiles its rows may see from per-tile summaries that a first
+launch writes into a workspace the wrapper allocates (``tile_summaries``
+and ``summary_marks`` in plain PyTorch; a row of at most ``ONE_TILE_KEYS``
+keys is one tile and takes neither), and reads q, k and v through 4-D
+tensor maps
+(``tensor_map_args``), which need 16-byte aligned bases and strides
+(``check_tma``).  Head dims 32 and 112 keep the ``mma.sync`` kernel.
 """
 from __future__ import annotations
 
@@ -34,24 +44,101 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.attention_paged import _sm_count
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 112, 128)  # head dims the kernel is instantiated for
 Q_CHUNK = 1024  # the plain version's query chunk (the JAX package's Q_CHUNK)
 MAX_KEYS = 128 * 32 * 64  # csrc/flash_attention.cu: the live-tile bitmask's reach
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims on wgmma + TMA; 32 and 112 keep mma.sync
+KEY_TILE = 128  # keys per tile summary, and per K/V tile of 128-row blocks (64 at 64 rows)
+ONE_TILE_KEYS = 64  # rows of at most this many keys: one tile, no summaries
+BOX_COLS = 64  # columns of a TMA box: 128 bytes of bf16, the swizzle's span
 
 launches = {"flash_attention": 0}
 
-_C_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_C_ARGS_BF16 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + _TAIL  # + summ, q_tile
+_C_ARGS_F32 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _TAIL
 
 
 def _library():
     lib = build.load_library("flash_attention")
-    for fn in (lib.flash_attention_bf16, lib.flash_attention_f32):
-        fn.argtypes = _C_ARGS
+    for fn, args in ((lib.flash_attention_bf16, _C_ARGS_BF16), (lib.flash_attention_f32, _C_ARGS_F32)):
+        fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+def q_tile_rows(S: int, H: int, B: int, n_sm: int) -> int:
+    """Query rows per block of the wgmma path: 128 (two consumer
+    warpgroups, 128-key tiles, one block per SM), or 64 (one warpgroup,
+    64-key tiles, two blocks per SM) where S fits one 64-row tile (the
+    served 4 x 64 prefill, whose 128-row tiles would be half empty and take
+    two waves of the card) or where 128-row tiles would give fewer blocks
+    than the card has SMs."""
+    return 64 if S <= 64 or -(-S // 128) * H * B < n_sm else 128
+
+
+def tensor_map_args(shape, box_rows: int, elem_bytes: int = 2) -> tuple:
+    """The 4-D TMA map the kernel encodes over a ``[B, N, heads, dh]``
+    tensor (q: N = S; k, v: N = T): dims innermost first, the byte strides
+    of dims 1-3, and the box (64 columns x 1 head x ``box_rows`` rows x 1
+    batch row)."""
+    B, N, heads, dh = shape
+    dims = (dh, heads, N, B)
+    strides = (dh * elem_bytes, heads * dh * elem_bytes, N * heads * dh * elem_bytes)
+    return dims, strides, (BOX_COLS, 1, box_rows, 1)
+
+
+def tile_summaries(k_pos: torch.Tensor, tile: int = KEY_TILE) -> torch.Tensor:
+    """The first launch of a long row in plain PyTorch: per ``tile`` keys of
+    each batch row, ``[min, max, count]`` of the valid positions (>= 0);
+    keys past T count as invalid, an empty tile is ``[INT32_MAX, INT32_MIN,
+    0]``.  [B, ceil(T / tile), 3] int64."""
+    B, T = k_pos.shape
+    n = -(-T // tile)
+    kp = torch.full((B, n * tile), -1, dtype=torch.int64)
+    kp[:, :T] = k_pos.to(torch.int64).cpu()
+    kp = kp.view(B, n, tile)
+    valid = kp >= 0
+    big, small = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+    lo = torch.where(valid, kp, big).amin(-1)
+    hi = torch.where(valid, kp, small).amax(-1)
+    return torch.stack([lo, hi, valid.sum(-1)], -1)
+
+
+def summary_marks(summ: torch.Tensor, q_lo: int, q_hi: int, *, tile: int = KEY_TILE,
+                  causal: bool = True, window: int = 0) -> tuple:
+    """A block's marks from its row's summaries, as the kernel sets them for
+    query positions in [q_lo, q_hi]: ``live`` (may hold a key valid for some
+    row: min and max stand for the keys, so at worst a tile is loaded and
+    masked) and ``full`` (every key valid for every row, exactly).  Boolean
+    [n] each."""
+    lo, hi, count = summ.unbind(-1)
+    live = count > 0
+    full = count == tile
+    if causal:
+        live = live & (lo <= q_hi)
+        full = full & (hi <= q_lo)
+    if window > 0:
+        live = live & (hi > q_lo - window)
+        full = full & (lo > q_hi - window)
+    return live, full
+
+
+def check_tma(name, **tensors):
+    """TMA reads a tensor map only from a 16-byte aligned base with strides
+    in multiples of 16 bytes: raise for a tensor that breaks either (the
+    strides of a contiguous ``[B, N, heads, dh]`` tensor are multiples of a
+    row's ``dh`` values, ``tensor_map_args``; positions are read as one 1-D
+    map, which needs the base alone aligned)."""
+    for n, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} must be aligned to 16 bytes for TMA")
+        if t.dim() == 4 and t.shape[-1] * t.element_size() % 16:
+            raise ValueError(f"{name}: {n}'s rows of {t.shape[-1]} values are not multiples of 16 "
+                             "bytes")
 
 
 def flash_attention_plain(q, k, v, q_pos, k_pos, *, scale: float, causal: bool = True,
@@ -136,13 +223,22 @@ def flash_attention_gqa(
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     lib = _library()
-    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        fn, summ, q_tile = lib.flash_attention_bf16, None, 0
+        if dh in WGMMA_HEAD_DIMS:
+            check_tma(name, q=q, k=k, v=v, k_pos=k_pos)
+            q_tile = q_tile_rows(S, H, B, _sm_count(q.device.index))
+            if T > ONE_TILE_KEYS:  # tile summaries {min, max, count} per 128 keys of each row
+                summ = torch.empty((B, -(-T // KEY_TILE), 4), dtype=torch.int32, device=q.device)
+        ptrs = (out.data_ptr(), summ.data_ptr() if summ is not None else None)
+        shapes = (B, S, T, H, Hkv, dh, q_tile)
+    else:
+        fn, ptrs, shapes = lib.flash_attention_f32, (out.data_ptr(),), (B, S, T, H, Hkv, dh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-                 out.data_ptr(), B, S, T, H, Hkv, dh, float(scale), int(causal), int(window),
-                 float(softcap), stream)
+                 *ptrs, *shapes, float(scale), int(causal), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launches[name] += 1
