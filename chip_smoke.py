@@ -43,10 +43,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    logits and tokens; the continuous trace's tokens and preemptions), and
    policy ``all`` through ``Engine``.
 8. kernels: each kernel against its plain PyTorch version on the same inputs
-   at the served path's shapes, in bf16 and f32 (the grouped MLP: the served
-   MoE layer at T = 256 and T = 4, fp, int8 and int4, and f32 at reduced
-   size; paged decode: B = 8 slots with the table, positions and pool of the
-   continuous serve mid-run, fp and int8; paged prefill: 256 query chunks
+   at the served path's shapes, in bf16 and f32 (the grouped MLP, kernels 4
+   and 5, per token row: the served MoE layer at T = 256, 4 and the
+   continuous engine's 8 slots, bf16, int8 and int4 weights, and for 5 at a
+   16384-token prefill (kernel 4 there on the long prefill's own MoE inputs,
+   phase 6b); at kimi-k2-1t-a32b's expert width, D 7168, F 2048, top-8 over
+   32 random experts, T = 64; and f32 at reduced size, which takes the
+   CUDA-core variant; every served bf16 call of 4 and 5 must have taken the
+   tensor-core variant, counted per run; paged decode: B = 8 slots with the
+   table, positions and pool of the continuous serve mid-run, fp and int8;
+   paged prefill: 256 query chunks
    over 0 and 1008 tokens of pool history, fp and int8; int8 decode: the
    served static cache, 4 rows x 80 slots, and 8 rows x 2048 slots half
    filled, and in bf16 a cache of 4 x 2112 slots with 80 filled, a
@@ -60,8 +66,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and 1400 entries (several compaction windows).  The attention kernels
    are held per query row (a row with no valid key must be exactly 0).  Then
    each is timed beside its bound and, for attention, beside
-   scaled_dot_product_attention: the grouped MLP with CUDA events, the
-   attention kernels and SDPA from CUDA graphs and with CUDA events.
+   scaled_dot_product_attention: kernels 4, 5, the attention kernels and
+   SDPA from CUDA graphs, beside CUDA events and (4, 5) the wrapper's host
+   time.
 9. capacity dispatch: the same weights under llama4's own ``moe_impl``
    ("ep", which without a mesh is the dense mapping table; kernels 1 and 2
    in place of 4): (a) ``Engine`` on the same 4 requests, counts set to 0
@@ -116,7 +123,7 @@ max_prefill=16384, max_decode=8)`` on one 16384-token prompt (kernel 6
 twice, kernel 4 once per MoE call, the first time past T = 256), where the
 plain path's f32 logits alone would take 42.9 GB per layer call; then
 kernel 6 against its plain version (chunked, on the card) on layer 0's q,
-k and v of that prompt.
+k and v of that prompt, and kernel 4 on its MoE layer's inputs.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -206,6 +213,19 @@ def time_ms(fn, n=10, reps=5, warmup=3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, n=20) -> float:
+    """Host time of one wrapper call: ``n`` calls issued back to back (the
+    card runs behind them), one synchronize outside the window."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def graph_ms(fn, n=20, reps=5) -> float:
     """Device time of one call of ``fn`` without the host's per-call work:
     ``n`` calls captured into one CUDA graph, the graph replayed between two
@@ -236,10 +256,34 @@ def graph_ms(fn, n=20, reps=5) -> float:
     return statistics.median(times)
 
 
+# the grouped kernels' (4, 5) launches by variant (tensor-core "mma", CUDA-core
+# "fma") in each served run, by the run's name (``read``)
+VARIANTS_SEEN = {}
+
+
 def reset(*counters):
-    for c in counters:
+    """Zero every launch count, and the grouped kernels' per-variant ones."""
+    from repro_torch.kernels import expert_mlp_grouped as gk
+
+    for c in (*counters, gk.variant_launches):
         for k in c:
             c[k] = 0
+
+
+def read(counters, path) -> dict:
+    """Every kernel's launches since the last ``reset``.  Each caller is a
+    served run at full width in bf16, so every call of kernels 4 and 5 must
+    have taken the tensor-core variant: their per-variant counts are checked
+    against the launches and kept in VARIANTS_SEEN[path]."""
+    from repro_torch.kernels import expert_mlp_grouped as gk
+
+    got = {k: v for c in counters for k, v in c.items()}
+    v = VARIANTS_SEEN[path] = dict(gk.variant_launches)
+    for name in ("grouped_mlp", "grouped_mlp_quant"):
+        if v[f"{name}_mma"] != got[name] or v[f"{name}_fma"]:
+            raise AssertionError(f"{path}: {name} launched {got[name]} times, variants {v}: a "
+                                 f"served bf16 call left the tensor-core kernel")
+    return got
 
 
 def compare(name, out, plain, tol) -> dict:
@@ -308,6 +352,22 @@ def expert_bytes(moe) -> int:
     return total
 
 
+def grouped_info(moe, xg, te, rows_used, n_assign, dtype) -> dict:
+    """The bound of kernels 4 / 5 on these inputs: the weights of the experts
+    the live tiles touch, the live input rows and their tile -> expert
+    entries, rows_used, and the whole [Ct, D] output (dead rows are zeros
+    the function returns; tiles past rows_used read nothing else); and
+    2 * n_assign * 3 * D * F operations."""
+    E, D, F = moe["wi"].shape
+    Ct = xg.shape[0]
+    rows = int(rows_used.item())
+    n_experts = int(torch.unique(te[: rows // 8]).numel())
+    b = torch.tensor([], dtype=dtype).element_size()
+    need_bytes = n_experts * expert_bytes(moe) + (rows + Ct) * D * b + (rows // 8 + 1) * 4
+    return {"Ct": Ct, "rows_used": rows, "distinct_experts": n_experts,
+            **bound(need_bytes, 2 * n_assign * 3 * D * F, dtype)}
+
+
 def grouped_case(moe, T, K, gen, dtype):
     """Inputs of the grouped MLP as the MoE layer builds them: T random
     tokens routed by the layer's router, sorted into the tile-padded buffer.
@@ -322,33 +382,67 @@ def grouped_case(moe, T, K, gen, dtype):
     Ct = lay.tile_expert.shape[0] * 8
     xg = torch.zeros((Ct, D), dtype=dtype, device="cuda")
     xg[lay.dst] = x[torch.arange(T * K, device="cuda") // K]
-    rows = int(lay.rows_used.item())
-    live = lay.tile_expert[: rows // 8]
-    n_experts = int(torch.unique(live).numel())
-    b = torch.tensor([], dtype=dtype).element_size()
-    # the weights of the experts the live tiles touch, the live input rows and
-    # their tile -> expert entries, rows_used, and the whole [Ct, D] output
-    # (dead rows are zeros the function returns); tiles past rows_used read
-    # nothing else
-    need_bytes = n_experts * expert_bytes(moe) + (rows + Ct) * D * b + (rows // 8 + 1) * 4
-    info = {"T": T, "K": K, "Ct": Ct, "rows_used": rows, "distinct_experts": n_experts,
-            **bound(need_bytes, 2 * T * K * 3 * D * F, dtype)}
+    info = {"T": T, "K": K, **grouped_info(moe, xg, lay.tile_expert, lay.rows_used, T * K, dtype)}
     args = (xg, lay.tile_expert, moe["wi"], moe["wg"], moe["wo"], lay.rows_used)
     return args, info
 
 
-def check_grouped(args, tol, quant=False):
+def check_grouped(args, tol, quant=False, timed=False, n=20):
+    """Kernel 4 (or 5) against its plain version, per token row
+    (``compare_rows``: a dead or padding row must come out 0 as the plain
+    version's), and the variant it took; timed: ``ms`` its device time from
+    a CUDA graph of ``n`` calls, ``events_ms`` CUDA events around calls
+    issued back to back, ``host_ms`` one wrapper call on the host's clock."""
     from repro_torch.kernels import expert_mlp_grouped as gk
 
     kernel, plain_fn = ((gk.grouped_mlp_quant, gk.grouped_mlp_quant_plain) if quant
                         else (gk.grouped_mlp, gk.grouped_mlp_plain))
+    before = dict(gk.variant_launches)
     out = kernel(*args)
     torch.cuda.synchronize()
+    variant = [k.rsplit("_", 1)[1] for k, v in gk.variant_launches.items() if v != before[k]]
     t0 = time.perf_counter()
     plain = plain_fn(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    return {**compare(kernel.__name__, out, plain, tol), "plain_ms": plain_ms}
+    res = {**compare_rows(kernel.__name__, out, plain, tol), "plain_ms": plain_ms,
+           "variant": variant[0]}
+    del out, plain
+    if timed:
+        fn = lambda: kernel(*args)
+        res["ms"] = graph_ms(fn, n=n)
+        res["events_ms"] = time_ms(fn, n=min(10, n), warmup=1)
+        res["host_ms"] = host_ms(fn, n=n)
+    return res
+
+
+def kimi_width_checks(gen) -> dict:
+    """Kernels 4 and 5 at another expert width: kimi-k2-1t-a32b's d_model
+    and expert d_ff, top-k and SwiGLU, over 32 of its 384 experts (random
+    bf16 weights and router from the seed, 2.8 GB; int8 and int4 of the
+    same), on 64 random tokens: {format: check}."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.modules import dense_init
+    from repro_torch.quant.qarrays import QuantizedArray
+
+    kcfg = get_config("kimi-k2-1t-a32b")
+    spec = next(ls.ffn for ls in kcfg.layer_specs() if ls.ffn.kind == "moe")
+    D, F, E = kcfg.d_model, spec.d_ff, 32
+    wgen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    moe = {"wi": dense_init(wgen, D, F, torch.bfloat16, "cuda", lead=(E,)),
+           "wg": dense_init(wgen, D, F, torch.bfloat16, "cuda", lead=(E,)),
+           "wo": dense_init(wgen, F, D, torch.bfloat16, "cuda", lead=(E,)),
+           "router": dense_init(wgen, D, E, torch.float32, "cuda")}
+    out = {}
+    for fmt, bits in (("bf16", 0), ("int8", 8), ("int4", 4)):
+        m = moe if not bits else {**{n: QuantizedArray.quantize(moe[n], bits=bits)
+                                     for n in ("wi", "wg", "wo")}, "router": moe["router"]}
+        kargs, info = grouped_case(m, 64, spec.top_k, gen, torch.bfloat16)
+        info.update({"E": E, "D": D, "F": F})
+        info.update(check_grouped(kargs, BF16_TOL, quant=bits > 0, timed=True))
+        out[fmt] = info
+        del kargs, m
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -956,7 +1050,7 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None, w
         if n == 0 and not eng.queue:
             break
     wall = time.perf_counter() - t0
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = read(counters, what)
     done = eng.done
     assert sorted(done) == sorted(ids) and all(len(done[i].tokens) == CONT_NEW for i in ids)
     assert all(0 <= t < cfg.vocab_size for i in ids for t in done[i].tokens)
@@ -1021,7 +1115,7 @@ def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens,
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    got = {k: v for c in counters for k, v in c.items()}
+    got = read(counters, what)
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
@@ -1265,7 +1359,7 @@ def capacity_static_serve(cfg, params, reqs, counters, what="capacity serve"):
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    got = {k: v for c in counters for k, v in c.items()}
+    got = read(counters, what)
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
@@ -1467,7 +1561,7 @@ def nlg_serve(counters) -> list:
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    got = {k: v for c in counters for k, v in c.items()}
+    got = read(counters, "nlg serve")
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
@@ -1633,6 +1727,7 @@ def long_prefill(cfg, params, counters):
     records layer 0's attention inputs; kernel 6 is then held against its
     plain version (chunked, on the card) on them and timed.  Returns
     (lines, launches, the check)."""
+    import repro_torch.core.moe as mm
     import repro_torch.models.attention as am
     from repro_torch.models.model import prefill
     from repro_torch.serving.engine import Engine, EngineConfig, Request
@@ -1642,24 +1737,30 @@ def long_prefill(cfg, params, counters):
     rng = torch.Generator().manual_seed(SEED + 5)
     reqs = [Request(torch.randint(0, cfg.vocab_size, (LONG_PROMPT,), generator=rng).tolist(), LONG_NEW)]
     real, seen = am.flash_attention_gqa, []
+    real_g, seen_g = mm.grouped_mlp, []
 
     def rec(*a, **kw):
         if not seen:
             seen.append((a, kw))
         return real(*a, **kw)
 
-    am.flash_attention_gqa = rec
+    def rec_g(*a):
+        if not seen_g:
+            seen_g.append(a)
+        return real_g(*a)
+
+    am.flash_attention_gqa, mm.grouped_mlp = rec, rec_g
     try:
-        eng.generate(reqs)  # warm-up, recording layer 0's q, k, v
+        eng.generate(reqs)  # warm-up, recording layer 0's q, k, v and the MoE layer's xg, te
     finally:
-        am.flash_attention_gqa = real
+        am.flash_attention_gqa, mm.grouped_mlp = real, real_g
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset(*counters)
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    got = {k: v for c in counters for k, v in c.items()}
+    got = read(counters, "long prefill")
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert len(out) == 1 and len(out[0].tokens) == LONG_NEW, out[0].tokens
     assert all(0 <= tok < cfg.vocab_size for tok in out[0].tokens)
@@ -1686,6 +1787,14 @@ def long_prefill(cfg, params, counters):
     (args, kw), = seen
     info = flash_info(args[0], args[1], args[3], args[4], kw)
     info.update(check_flash(args, kw, BF16_TOL, n=3, plain_n=1))
+    (gargs,) = seen_g
+    del seen_g
+    K = next(ls.ffn.top_k for ls in cfg.layer_specs() if ls.ffn.kind == "moe")
+    ginfo = {"T": LONG_PROMPT, "K": K,
+             **grouped_info(dict(zip(("wi", "wg", "wo"), gargs[2:5])), gargs[0], gargs[1], gargs[5],
+                            LONG_PROMPT * K, torch.bfloat16)}
+    ginfo.update(check_grouped(gargs, BF16_TOL, timed=True, n=3))
+    del gargs
     lines = [
         f"long prefill: {cfg.name} at full width, one {LONG_PROMPT}-token prompt x {LONG_NEW} new "
         f"tokens in {wall * 1e3:.3f} ms; prefill {tm['prefill_s'] * 1e3:.3f} ms; decode step median "
@@ -1696,8 +1805,10 @@ def long_prefill(cfg, params, counters):
         *profile,
         f"kernel flash_attention bf16 long prefill (layer 0's q, k, v of the {LONG_PROMPT}-token "
         f"prompt, against its plain version in 1024-query chunks on the card): {json.dumps(info)}",
+        f"kernel grouped_mlp bf16 long prefill (the MoE layer's xg, te, rows_used of the "
+        f"{LONG_PROMPT}-token prompt): {json.dumps(ginfo)}",
     ]
-    return lines, got, info
+    return lines, got, info, ginfo
 
 
 def glm4_serve(counters) -> tuple:
@@ -1728,7 +1839,7 @@ def glm4_serve(counters) -> tuple:
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    got = {k: v for c in counters for k, v in c.items()}
+    got = read(counters, "glm4 serve")
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     want = {k: 0 for k in got}
@@ -1818,7 +1929,7 @@ def main() -> int:
     t0 = time.perf_counter()
     out = eng.generate(reqs)
     wall = time.perf_counter() - t0
-    static_launches = {k: v for c in counters for k, v in c.items()}
+    static_launches = read(counters, "serve")
     assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out), [r.tokens for r in out]
     assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
@@ -1854,7 +1965,7 @@ def main() -> int:
     log(continuous_reference_check(red))
 
     # 6b. a long static prefill at full width, while only the bf16 tree is held
-    lines, long_launches, long_check = long_prefill(cfg, params, counters)
+    lines, long_launches, long_check, long_grouped = long_prefill(cfg, params, counters)
     for line in lines:
         log(line)
 
@@ -1881,13 +1992,19 @@ def main() -> int:
     # 8. kernels against their plain versions, then timed beside their bounds
     moe = {k: v[0] for k, v in params["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    # kernels 4 and 5 at the static prefill (T = 256) and decode (T = 4), then,
+    # from a generator of their own (the other cases keep their inputs), the
+    # continuous engine's 8 slots and, for 5, a 16384-token prefill (4 at that
+    # size: the long prefill's own MoE inputs, phase 6b)
+    gen8 = torch.Generator(device="cuda").manual_seed(SEED + 8)
     shapes = {}
-    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
-        kargs, info = grouped_case(moe, T, 1, gen, torch.bfloat16)
-        info.update(check_grouped(kargs, BF16_TOL))
-        info["ms"] = time_ms(lambda: gk.grouped_mlp(*kargs))
+    for label, T, g_ in (("prefill", BATCH * PROMPT, gen), ("decode", BATCH, gen),
+                         ("continuous_decode", CONT["slots"], gen8)):
+        kargs, info = grouped_case(moe, T, 1, g_, torch.bfloat16)
+        info.update(check_grouped(kargs, BF16_TOL, timed=True))
         shapes[label] = info
         log(f"kernel grouped_mlp bf16 {label}: {json.dumps(info)}")
+    shapes["long_prefill"] = long_grouped
     rp = init_params(red, seed=SEED, device="cuda")
     rmoe = {k: v[0] for k, v in rp["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     kargs, info = grouped_case(rmoe, 64, 1, gen, torch.float32)
@@ -1944,13 +2061,24 @@ def main() -> int:
             if k in ("wi", "wg", "wo", "router")}
     m4 = int4_experts(moe)
     for bits, experts in ((8, qmoe), (4, m4)):
-        for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
-            kargs, info = grouped_case(experts, T, 1, gen, torch.bfloat16)
-            info.update(check_grouped(kargs, BF16_TOL, quant=True))
-            info["ms"] = time_ms(lambda: gk.grouped_mlp_quant(*kargs))
+        for label, T, g_ in (("prefill", BATCH * PROMPT, gen), ("decode", BATCH, gen),
+                             ("continuous_decode", CONT["slots"], gen8),
+                             (f"prefill_{LONG_PROMPT}", LONG_PROMPT, gen8)):
+            kargs, info = grouped_case(experts, T, 1, g_, torch.bfloat16)
+            info.update(check_grouped(kargs, BF16_TOL, quant=True, timed=True,
+                                      n=3 if T >= LONG_PROMPT else 20))
             qshapes[f"int{bits}_{label}"] = info
             log(f"kernel grouped_mlp_quant int{bits} bf16 {label}: {json.dumps(info)}")
-    del m4, kargs, experts
+            del kargs
+    del m4, experts
+    torch.cuda.empty_cache()
+    for fmt, info in kimi_width_checks(gen8).items():
+        if fmt == "bf16":
+            shapes["kimi_width"] = info
+        else:
+            qshapes[f"{fmt}_kimi_width"] = info
+        log(f"kernel grouped_mlp{'' if fmt == 'bf16' else '_quant'} {fmt} at kimi-k2-1t-a32b's "
+            f"expert width, 32 random experts, T = 64: {json.dumps(info)}")
     torch.cuda.empty_cache()
     for bits in (8, 4):
         rq = {n: QuantizedArray.quantize(rmoe[n], bits=bits) for n in ("wi", "wg", "wo")}
@@ -2162,6 +2290,12 @@ def main() -> int:
                      "from CUDA graphs, events_ms and library_events_ms of calls issued back "
                      "to back")
 
+    def grouped_variants(name):
+        """Per served run that launched ``name``: its launches by variant."""
+        by_path = {path: {k.rsplit("_", 1)[1]: n for k, n in v.items() if k.rsplit("_", 1)[0] == name}
+                   for path, v in VARIANTS_SEEN.items()}
+        return {path: v for path, v in by_path.items() if sum(v.values())}
+
     def attn_entry(name, source, replaces, main, checks=attn, launches=cont_launches,
                    call=library_call):
         m = checks[name][main]
@@ -2182,14 +2316,20 @@ def main() -> int:
         {
             "name": "grouped_mlp",
             "route": "cuda",
-            "source": "src/repro_torch/csrc/grouped_mlp.cu",
+            "source": "src/repro_torch/csrc/grouped_mlp_mma.cu",
+            "source_f32": "src/repro_torch/csrc/grouped_mlp.cu",
             "replaces": "src/repro/kernels/expert_mlp_grouped.py:88",
             "launches": static_launches["grouped_mlp"],
             "launches_by_path": {"static": static_launches["grouped_mlp"],
-                                 "continuous": cont_launches["grouped_mlp"]},
-            "max_abs_err": max(shapes[s]["max_abs_err"] for s in ("prefill", "decode")),
-            "max_rel_err": max(shapes[s]["max_rel_err"] for s in ("prefill", "decode")),
+                                 "continuous": cont_launches["grouped_mlp"],
+                                 "long_prefill": long_launches["grouped_mlp"]},
+            "variant_launches_by_path": grouped_variants("grouped_mlp"),
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "max_rel_err": max(v["max_rel_err"] for v in shapes.values()),
+            "max_row_rel_err": max(v["max_row_rel_err"] for v in shapes.values()),
             "ms": dec["ms"],
+            "events_ms": dec["events_ms"],
+            "host_ms": dec["host_ms"],
             "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"],
             "bound_by": dec["bound_by"],
@@ -2203,14 +2343,19 @@ def main() -> int:
         {
             "name": "grouped_mlp_quant",
             "route": "cuda",
-            "source": "src/repro_torch/csrc/grouped_mlp.cu",
+            "source": "src/repro_torch/csrc/grouped_mlp_mma.cu",
+            "source_f32": "src/repro_torch/csrc/grouped_mlp.cu",
             "replaces": "src/repro/kernels/expert_mlp_grouped.py:179",
             "launches": qstatic_launches["grouped_mlp_quant"],
             "launches_by_path": {"static": qstatic_launches["grouped_mlp_quant"],
                                  "continuous": qcont_launches["grouped_mlp_quant"]},
+            "variant_launches_by_path": grouped_variants("grouped_mlp_quant"),
             "max_abs_err": max(v["max_abs_err"] for v in qshapes.values()),
             "max_rel_err": max(v["max_rel_err"] for v in qshapes.values()),
+            "max_row_rel_err": max(v["max_row_rel_err"] for v in qshapes.values()),
             "ms": qshapes["int8_decode"]["ms"],
+            "events_ms": qshapes["int8_decode"]["events_ms"],
+            "host_ms": qshapes["int8_decode"]["host_ms"],
             "plain_ms": qshapes["int8_decode"]["plain_ms"],
             "bound_ms": qshapes["int8_decode"]["bound_ms"],
             "bound_by": qshapes["int8_decode"]["bound_by"],

@@ -1,14 +1,17 @@
 """Grouped (dropless) expert SwiGLU MLP: the wrappers of the hand-written
-Hopper kernel ``csrc/grouped_mlp.cu`` and their plain PyTorch versions.
+Hopper kernels ``csrc/grouped_mlp_mma.cu`` (tensor cores, bf16 activations)
+and ``csrc/grouped_mlp.cu`` (CUDA cores: f32 activations, other shapes), and
+their plain PyTorch versions.
 
 ``grouped_mlp`` replaces ``repro/kernels/expert_mlp_grouped.py::grouped_mlp_kernel``
 (the TPU kernel 4, weights in the input type); ``grouped_mlp_quant`` replaces
 ``::grouped_mlp_quant_kernel`` (kernel 5, MoQ int8 or int4 weights with f32
-per-output-column scales, dequantized inside the kernel).  The design and
-bound are in the source's note.  A tensor on the CPU takes the plain version;
-a CUDA tensor launches the kernel or raises.  ``launches`` counts the
-wrappers' kernel launches, so a run can show that its main path went through
-the kernel.
+per-output-column scales, dequantized inside the kernel).  The designs and
+bounds are in the sources' notes; ``kernel_variant`` picks one from the dtype,
+the widths and the bits alone.  A tensor on the CPU takes the plain version;
+a CUDA tensor launches a kernel or raises.  ``launches`` counts the wrappers'
+kernel launches, so a run can show that its main path went through the
+kernel, and ``variant_launches`` which of the two kernels each call took.
 """
 from __future__ import annotations
 
@@ -27,7 +30,12 @@ VEC = 4  # columns a kernel lane loads at once: D and F must be multiples
 # kernel's compatibility rule keeps it, so both packages pick the same path
 BLOCK_F = 256
 
+# D and F multiples of this take the tensor-core kernel (its widest blocks)
+MMA_COLS = 256
+
 launches = {"grouped_mlp": 0, "grouped_mlp_quant": 0}
+variant_launches = {"grouped_mlp_mma": 0, "grouped_mlp_fma": 0, "grouped_mlp_quant_mma": 0,
+                    "grouped_mlp_quant_fma": 0}
 
 _C_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _C_ARGS_QUANT = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -41,6 +49,73 @@ def _library():
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+def _mma_library():
+    lib = build.load_library("grouped_mlp_mma")
+    lib.grouped_mlp_mma.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.grouped_mlp_mma.restype = ctypes.c_int
+    lib.grouped_mlp_runs.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.grouped_mlp_runs.restype = ctypes.c_int
+    return lib
+
+
+def kernel_variant(dtype: torch.dtype, D: int, F: int, bits: int) -> str:
+    """Which kernel a call on the card takes, from (dtype, D, F, bits) alone:
+    ``"mma"`` (``grouped_mlp_mma.cu``, tensor cores) for bf16 activations with
+    bf16 (bits 0), int8 or int4 weights and D, F multiples of ``MMA_COLS``;
+    ``"fma"`` (``grouped_mlp.cu``, f32 FMAs) for everything else: f32
+    activations (tensor cores would be TF32), other widths."""
+    if dtype == torch.bfloat16 and bits in (0, 8, 4) and D % MMA_COLS == 0 and F % MMA_COLS == 0:
+        return "mma"
+    return "fma"
+
+
+def mma_plan(n_tiles: int, num_experts: int, bits: int) -> tuple:
+    """(R, plan) of the tensor-core kernel for a buffer of ``n_tiles`` tiles
+    over ``num_experts`` experts (``launch_plan`` in the source), from the
+    static bound on its assignments, ``T*K <= Ct - 7E + 7``: groups of
+    about one tile (under 8 rows an expert: decode, a 256-token prefill)
+    take runs of one tile (plan 0); bf16 weights with groups of 64 rows or
+    more (a 16384-token prefill) runs of 16 tiles (plan 1); the rest runs of
+    8 (plan 2).  Measured on the card (``launch.expert_kernels``, PERF.md)."""
+    rows = n_tiles * TILE - (TILE - 1) * num_experts + TILE - 1
+    if rows < 8 * num_experts:
+        return 1, 0
+    if bits == 0 and rows >= 64 * num_experts:
+        return 16, 1
+    return 8, 2
+
+
+def max_runs(n_tiles: int, num_experts: int, R: int) -> int:
+    """Static bound on the run count (``max_runs_of`` in the source): a run
+    holds at least one live tile, a live tile at least one of the
+    T*K <= Ct - 7E + 7 assignments, and each expert adds at most one partial
+    run to ceil(n_tiles / R)."""
+    assignments = n_tiles * TILE - (TILE - 1) * num_experts + TILE - 1
+    return max(1, min(n_tiles, -(-n_tiles // R) + num_experts, assignments))
+
+
+def run_table_plain(te: torch.Tensor, rows_used: torch.Tensor, R: int, num_experts: int) -> torch.Tensor:
+    """The tensor-core kernel's run table (``runs_kernel``): [max_runs + 2]
+    int32, entries 0 .. n_runs the first tile of each run of at most R
+    consecutive live tiles of one expert, in order, then the live tile count
+    (``rows_used / TILE``), and n_runs in the last entry.  A run starts at
+    every (multiple of R)-th tile of an expert's group; tiles at or past
+    ``rows_used`` join none."""
+    nt = te.shape[0]
+    live = min(int(rows_used.reshape(-1)[0]) // TILE, nt)
+    e = te[:live].long()
+    first = torch.ones(live, dtype=torch.bool)
+    first[1:] = e[1:] != e[:-1]
+    idx = torch.arange(live)
+    group = torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
+    starts = idx[(idx - group) % R == 0]
+    out = torch.zeros(max_runs(nt, num_experts, R) + 2, dtype=torch.int32)
+    out[: starts.numel()] = starts.to(torch.int32)
+    out[starts.numel()] = live
+    out[-1] = starts.numel()
+    return out
 
 
 def grouped_mlp_plain(
@@ -58,9 +133,10 @@ def grouped_mlp_plain(
     return _experts_plain(xg, te, rows_used, lambda e: (wi[e], wg[e], wo[e]))
 
 
-def _experts_plain(xg, te, rows_used, weights_of):
+def _experts_plain(xg, te, rows_used, weights_of, scales_of=None):
     """Loop over the distinct experts of the live tiles: ``weights_of(e)``
-    gives expert e's (wi, wg, wo) in full precision."""
+    gives expert e's (wi, wg, wo) in full precision; ``scales_of(e)``, if
+    given, their per-column scales, which multiply each f32 sum."""
     Ct, D = xg.shape
     nt = te.shape[0]
     tile_e = te.long()
@@ -71,12 +147,13 @@ def _experts_plain(xg, te, rows_used, weights_of):
     out = torch.zeros_like(xg)
     for e in torch.unique(tile_e[live]).tolist():
         wi, wg, wo = weights_of(e)
+        si, sg, so = scales_of(e) if scales_of is not None else (1.0, 1.0, 1.0)
         rows = row_e == e
         x = xg[rows].float()
-        h = x @ wi.float()
-        g = x @ wg.float()
+        h = (x @ wi.float()) * si
+        g = (x @ wg.float()) * sg
         act = (F.silu(g) * h).to(xg.dtype)
-        out[rows] = (act.float() @ wo.float()).to(xg.dtype)
+        out[rows] = ((act.float() @ wo.float()) * so).to(xg.dtype)
     return out
 
 
@@ -100,6 +177,26 @@ def grouped_mlp_quant_plain(
     kernel rounds each dequantized weight to the activation type, the same
     value when the activations are in the weights' original type."""
     return _experts_plain(xg, te, rows_used, lambda e: (_expert(wi, e), _expert(wg, e), _expert(wo, e)))
+
+
+def grouped_mlp_quant_mma_plain(
+    xg: torch.Tensor,
+    te: torch.Tensor,
+    wi: QuantizedArray,
+    wg: QuantizedArray,
+    wo: QuantizedArray,
+    rows_used: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 5's function in the tensor-core kernel's order: the integer
+    weights times the activations summed in f32, then times each output
+    column's scale once, ``(x . q) * s`` (per-output-column scales only),
+    where ``grouped_mlp_quant_plain`` rounds every dequantized weight to the
+    activation type first."""
+    def values(w, e):  # the integers, unscaled
+        return dequantize_values(w.q[e], torch.ones_like(w.scale[e]), w.bits, 0, w.axis, torch.float32)
+
+    return _experts_plain(xg, te, rows_used, lambda e: (values(wi, e), values(wg, e), values(wo, e)),
+                          lambda e: (wi.scale[e], wg.scale[e], wo.scale[e]))
 
 
 def check_grouped_quant_compat(wi, wg, wo, *, block_f: int = BLOCK_F) -> bool:
@@ -168,19 +265,62 @@ def grouped_mlp(
     Ct, D = xg.shape
     Fd = wi.shape[-1]
     _check(xg, te, wi, wg, wo, rows_used)
-    lib = _library()
-    fn = lib.grouped_mlp_bf16 if xg.dtype == torch.bfloat16 else lib.grouped_mlp_f32
+    variant = kernel_variant(xg.dtype, D, Fd, 0)
+    if variant == "mma":
+        out = _launch_mma(xg, te, rows_used, (wi, None), (wg, None), (wo, None), 0, "grouped_mlp")
+    else:
+        lib = _library()
+        fn = lib.grouped_mlp_bf16 if xg.dtype == torch.bfloat16 else lib.grouped_mlp_f32
+        act = torch.empty((Ct, Fd), dtype=xg.dtype, device=xg.device)
+        out = torch.empty_like(xg)
+        with torch.cuda.device(xg.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), wi.data_ptr(),
+                     wg.data_ptr(), wo.data_ptr(), act.data_ptr(), out.data_ptr(),
+                     Ct // TILE, D, Fd, stream)
+        if err != 0:
+            raise RuntimeError(f"grouped_mlp: kernel launch failed with CUDA error {err}")
+    launches["grouped_mlp"] += 1
+    variant_launches[f"grouped_mlp_{variant}"] += 1
+    return out
+
+
+def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name):
+    """The tensor-core kernel (three launches: run table, up/gate, down);
+    each weight a (values, scales or None) pair."""
+    Ct, D = xg.shape
+    E, Fd = wi[0].shape[0], wi[0].shape[-1]
+    nt = Ct // TILE
+    R, plan = mma_plan(nt, E, bits)
     act = torch.empty((Ct, Fd), dtype=xg.dtype, device=xg.device)
     out = torch.empty_like(xg)
+    runs = torch.empty(max_runs(nt, E, R) + 2, dtype=torch.int32, device=xg.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), wi.data_ptr(),
-                 wg.data_ptr(), wo.data_ptr(), act.data_ptr(), out.data_ptr(),
-                 Ct // TILE, D, Fd, stream)
+        err = _mma_library().grouped_mlp_mma(
+            xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), ptr(wi[0]), ptr(wi[1]),
+            ptr(wg[0]), ptr(wg[1]), ptr(wo[0]), ptr(wo[1]), act.data_ptr(), out.data_ptr(),
+            runs.data_ptr(), nt, E, D, Fd, bits, plan, stream)
     if err != 0:
-        raise RuntimeError(f"grouped_mlp: kernel launch failed with CUDA error {err}")
-    launches["grouped_mlp"] += 1
+        raise RuntimeError(f"{name}: tensor-core kernel launch failed with CUDA error {err}")
     return out
+
+
+def run_table(te: torch.Tensor, rows_used: torch.Tensor, R: int, num_experts: int) -> torch.Tensor:
+    """The run table the tensor-core kernel's first launch builds, built on
+    the card alone (for checking it against ``run_table_plain``)."""
+    if te.device.type != "cuda":
+        return run_table_plain(te, rows_used, R, num_experts)
+    nt = te.shape[0]
+    runs = torch.empty(max_runs(nt, num_experts, R) + 2, dtype=torch.int32, device=te.device)
+    with torch.cuda.device(te.device):
+        err = _mma_library().grouped_mlp_runs(te.data_ptr(), rows_used.data_ptr(), runs.data_ptr(),
+                                              nt, num_experts, R,
+                                              torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"run_table: kernel launch failed with CUDA error {err}")
+    return runs
 
 
 def grouped_mlp_quant(
@@ -224,17 +364,23 @@ def grouped_mlp_quant(
         if w.axis != -2 or w.scale.shape != (E, 1, n) or w.scale.dtype != torch.float32:
             raise ValueError(f"grouped_mlp_quant: {name} must be packed along its contraction "
                              f"axis with float32 scales [E, 1, {n}]")
-    lib = _library()
-    fn = lib.grouped_mlp_quant_bf16 if xg.dtype == torch.bfloat16 else lib.grouped_mlp_quant_f32
-    act = torch.empty((Ct, Fd), dtype=xg.dtype, device=xg.device)
-    out = torch.empty_like(xg)
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), wi.q.data_ptr(),
-                 wi.scale.data_ptr(), wg.q.data_ptr(), wg.scale.data_ptr(), wo.q.data_ptr(),
-                 wo.scale.data_ptr(), act.data_ptr(), out.data_ptr(), Ct // TILE, D, Fd, wi.bits,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"grouped_mlp_quant: kernel launch failed with CUDA error {err}")
+    variant = kernel_variant(xg.dtype, D, Fd, wi.bits)
+    if variant == "mma":
+        out = _launch_mma(xg, te, rows_used, (wi.q, wi.scale), (wg.q, wg.scale), (wo.q, wo.scale),
+                          wi.bits, "grouped_mlp_quant")
+    else:
+        lib = _library()
+        fn = lib.grouped_mlp_quant_bf16 if xg.dtype == torch.bfloat16 else lib.grouped_mlp_quant_f32
+        act = torch.empty((Ct, Fd), dtype=xg.dtype, device=xg.device)
+        out = torch.empty_like(xg)
+        with torch.cuda.device(xg.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), wi.q.data_ptr(),
+                     wi.scale.data_ptr(), wg.q.data_ptr(), wg.scale.data_ptr(), wo.q.data_ptr(),
+                     wo.scale.data_ptr(), act.data_ptr(), out.data_ptr(), Ct // TILE, D, Fd,
+                     wi.bits, stream)
+        if err != 0:
+            raise RuntimeError(f"grouped_mlp_quant: kernel launch failed with CUDA error {err}")
     launches["grouped_mlp_quant"] += 1
+    variant_launches[f"grouped_mlp_quant_{variant}"] += 1
     return out
