@@ -48,9 +48,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    continuous engine's 8 slots, bf16, int8 and int4 weights, and for 5 at a
    16384-token prefill (kernel 4 there on the long prefill's own MoE inputs,
    phase 6b); at kimi-k2-1t-a32b's expert width, D 7168, F 2048, top-8 over
-   32 random experts, T = 64; and f32 at reduced size, which takes the
-   CUDA-core variant; every served bf16 call of 4 and 5 must have taken the
-   tensor-core variant, counted per run; paged decode: B = 8 slots with the
+   32 random experts, T = 64; on tile -> expert maps cycling over three
+   experts, with more runs than the tensor-core kernel's grid has rows; and
+   at reduced size in f32 and in bf16 (bf16, int8 and int4 weights), which
+   take the CUDA-core variant; each check asserts the variant it took, and
+   every served bf16 call of 4 and 5 must have taken the tensor-core
+   variant, counted per run; paged decode: B = 8 slots with the
    table, positions and pool of the continuous serve mid-run, fp and int8;
    paged prefill: 256 query chunks
    over 0 and 1008 tokens of pool history, fp and int8; int8 decode: the
@@ -213,19 +216,6 @@ def time_ms(fn, n=10, reps=5, warmup=3) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, n=20) -> float:
-    """Host time of one wrapper call: ``n`` calls issued back to back (the
-    card runs behind them), one synchronize outside the window."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    ms = (time.perf_counter() - t0) / n * 1e3
-    torch.cuda.synchronize()
-    return ms
-
-
 def graph_ms(fn, n=20, reps=5) -> float:
     """Device time of one call of ``fn`` without the host's per-call work:
     ``n`` calls captured into one CUDA graph, the graph replayed between two
@@ -339,41 +329,13 @@ def quant_experts(params) -> bool:
     return isinstance(params["segments"]["seg0"]["pos1"]["moe"]["wi"], QuantizedArray)
 
 
-def expert_bytes(moe) -> int:
-    """Bytes of one expert's wi, wg and wo: values in their type, or int8 /
-    packed int4 values plus their f32 column scales."""
-    total = 0
-    for n in ("wi", "wg", "wo"):
-        w = moe[n]
-        if torch.is_tensor(w):
-            total += w[0].numel() * w.element_size()
-        else:
-            total += w.q[0].numel() + w.scale[0].numel() * 4
-    return total
-
-
-def grouped_info(moe, xg, te, rows_used, n_assign, dtype) -> dict:
-    """The bound of kernels 4 / 5 on these inputs: the weights of the experts
-    the live tiles touch, the live input rows and their tile -> expert
-    entries, rows_used, and the whole [Ct, D] output (dead rows are zeros
-    the function returns; tiles past rows_used read nothing else); and
-    2 * n_assign * 3 * D * F operations."""
-    E, D, F = moe["wi"].shape
-    Ct = xg.shape[0]
-    rows = int(rows_used.item())
-    n_experts = int(torch.unique(te[: rows // 8]).numel())
-    b = torch.tensor([], dtype=dtype).element_size()
-    need_bytes = n_experts * expert_bytes(moe) + (rows + Ct) * D * b + (rows // 8 + 1) * 4
-    return {"Ct": Ct, "rows_used": rows, "distinct_experts": n_experts,
-            **bound(need_bytes, 2 * n_assign * 3 * D * F, dtype)}
-
-
 def grouped_case(moe, T, K, gen, dtype):
     """Inputs of the grouped MLP as the MoE layer builds them: T random
     tokens routed by the layer's router, sorted into the tile-padded buffer.
     ``moe``'s experts may be quantized (kernel 5)."""
     from repro_torch.core.dispatch_grouped import grouped_layout
     from repro_torch.core.gating import top_k_gating
+    from repro_torch.launch.expert_kernels import grouped_bound
 
     E, D, F = moe["wi"].shape
     x = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
@@ -382,31 +344,36 @@ def grouped_case(moe, T, K, gen, dtype):
     Ct = lay.tile_expert.shape[0] * 8
     xg = torch.zeros((Ct, D), dtype=dtype, device="cuda")
     xg[lay.dst] = x[torch.arange(T * K, device="cuda") // K]
-    info = {"T": T, "K": K, **grouped_info(moe, xg, lay.tile_expert, lay.rows_used, T * K, dtype)}
+    info = {"T": T, "K": K, **grouped_bound(moe, xg, lay.tile_expert, lay.rows_used, T * K)}
     args = (xg, lay.tile_expert, moe["wi"], moe["wg"], moe["wo"], lay.rows_used)
     return args, info
 
 
-def check_grouped(args, tol, quant=False, timed=False, n=20):
+def check_grouped(args, tol, variant, quant=False, timed=False, n=20):
     """Kernel 4 (or 5) against its plain version, per token row
     (``compare_rows``: a dead or padding row must come out 0 as the plain
-    version's), and the variant it took; timed: ``ms`` its device time from
-    a CUDA graph of ``n`` calls, ``events_ms`` CUDA events around calls
-    issued back to back, ``host_ms`` one wrapper call on the host's clock."""
+    version's), and the variant it took, which must be ``variant`` ("mma"
+    at the served widths in bf16, "fma" in f32 and at widths the
+    tensor-core kernel does not take); timed: ``ms`` its device time from a
+    CUDA graph of ``n`` calls, ``events_ms`` CUDA events around calls issued
+    back to back, ``host_ms`` one wrapper call on the host's clock."""
     from repro_torch.kernels import expert_mlp_grouped as gk
+    from repro_torch.launch.paged_kernels import host_ms
 
     kernel, plain_fn = ((gk.grouped_mlp_quant, gk.grouped_mlp_quant_plain) if quant
                         else (gk.grouped_mlp, gk.grouped_mlp_plain))
     before = dict(gk.variant_launches)
     out = kernel(*args)
     torch.cuda.synchronize()
-    variant = [k.rsplit("_", 1)[1] for k, v in gk.variant_launches.items() if v != before[k]]
+    took = [k.rsplit("_", 1)[1] for k, v in gk.variant_launches.items() if v != before[k]]
+    if took != [variant]:
+        raise AssertionError(f"{kernel.__name__}: took the {took} kernel, expected {variant}")
     t0 = time.perf_counter()
     plain = plain_fn(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     res = {**compare_rows(kernel.__name__, out, plain, tol), "plain_ms": plain_ms,
-           "variant": variant[0]}
+           "variant": variant}
     del out, plain
     if timed:
         fn = lambda: kernel(*args)
@@ -414,6 +381,44 @@ def check_grouped(args, tol, quant=False, timed=False, n=20):
         res["events_ms"] = time_ms(fn, n=min(10, n), warmup=1)
         res["host_ms"] = host_ms(fn, n=n)
     return res
+
+
+def cycled_checks(moe, gen, quant) -> dict:
+    """Kernel 4 / 5 at the served width on tile -> expert maps no dispatch
+    makes, cycling over experts 0, 1, 2 so every tile is its own run: 400
+    tiles all live (runs of 8: 400 runs on the grid's 178 rows) and 112
+    tiles with 20 live (the decode buffer's plan, 7 rows, split passes: the
+    runs past the grid's first pass summed whole); each per row against its
+    plain version."""
+    out = {}
+    D = moe["wi"].shape[1]
+    for nt, live in ((400, 400), (112, 20)):
+        xg = torch.randn((nt * 8, D), generator=gen, device="cuda").to(torch.bfloat16)
+        te = (torch.arange(nt, device="cuda") % 3).to(torch.int32)
+        used = torch.tensor([live * 8], dtype=torch.int32, device="cuda")
+        out[f"cycled_{nt}_tiles_{live}_live"] = check_grouped(
+            (xg, te, moe["wi"], moe["wg"], moe["wo"], used), BF16_TOL, "mma", quant=quant)
+        del xg
+    return out
+
+
+def reduced_bf16_checks(rmoe) -> dict:
+    """Kernels 4 and 5 in bf16 at the reduced width (D 128, F 64), which the
+    tensor-core kernel does not take, so the CUDA-core kernels of
+    ``grouped_mlp.cu``: the reduced layer's experts in bf16, and int8 and
+    int4 of them, T = 64, per row against the plain versions, from a
+    generator of their own: {label: check}."""
+    from repro_torch.quant.qarrays import QuantizedArray
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    m = {n: rmoe[n].to(torch.bfloat16) for n in ("wi", "wg", "wo")}
+    out = {}
+    for bits in (0, 8, 4):
+        w = m if not bits else {n: QuantizedArray.quantize(m[n], bits=bits) for n in m}
+        kargs, info = grouped_case({**w, "router": rmoe["router"]}, 64, 1, gen, torch.bfloat16)
+        info.update(check_grouped(kargs, BF16_TOL, "fma", quant=bits > 0))
+        out[f"int{bits}_bf16_reduced" if bits else "bf16_reduced"] = info
+    return out
 
 
 def kimi_width_checks(gen) -> dict:
@@ -439,7 +444,7 @@ def kimi_width_checks(gen) -> dict:
                                      for n in ("wi", "wg", "wo")}, "router": moe["router"]}
         kargs, info = grouped_case(m, 64, spec.top_k, gen, torch.bfloat16)
         info.update({"E": E, "D": D, "F": F})
-        info.update(check_grouped(kargs, BF16_TOL, quant=bits > 0, timed=True))
+        info.update(check_grouped(kargs, BF16_TOL, "mma", quant=bits > 0, timed=True))
         out[fmt] = info
         del kargs, m
     return out
@@ -1503,6 +1508,7 @@ def capacity_expert_case(moe, T, K, gen, dtype, cf):
     from repro_torch.core.dispatch import dispatch_dense
     from repro_torch.core.gating import expert_capacity
     from repro_torch.kernels.moe_gating import gating_plain
+    from repro_torch.launch.expert_kernels import expert_bytes
 
     E, D, F = moe["wi"].shape
     cap = expert_capacity(T, E, K, cf)
@@ -1729,6 +1735,7 @@ def long_prefill(cfg, params, counters):
     (lines, launches, the check)."""
     import repro_torch.core.moe as mm
     import repro_torch.models.attention as am
+    from repro_torch.launch.expert_kernels import grouped_bound
     from repro_torch.models.model import prefill
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
@@ -1791,9 +1798,9 @@ def long_prefill(cfg, params, counters):
     del seen_g
     K = next(ls.ffn.top_k for ls in cfg.layer_specs() if ls.ffn.kind == "moe")
     ginfo = {"T": LONG_PROMPT, "K": K,
-             **grouped_info(dict(zip(("wi", "wg", "wo"), gargs[2:5])), gargs[0], gargs[1], gargs[5],
-                            LONG_PROMPT * K, torch.bfloat16)}
-    ginfo.update(check_grouped(gargs, BF16_TOL, timed=True, n=3))
+             **grouped_bound(dict(zip(("wi", "wg", "wo"), gargs[2:5])), gargs[0], gargs[1], gargs[5],
+                             LONG_PROMPT * K)}
+    ginfo.update(check_grouped(gargs, BF16_TOL, "mma", timed=True, n=3))
     del gargs
     lines = [
         f"long prefill: {cfg.name} at full width, one {LONG_PROMPT}-token prompt x {LONG_NEW} new "
@@ -2001,14 +2008,20 @@ def main() -> int:
     for label, T, g_ in (("prefill", BATCH * PROMPT, gen), ("decode", BATCH, gen),
                          ("continuous_decode", CONT["slots"], gen8)):
         kargs, info = grouped_case(moe, T, 1, g_, torch.bfloat16)
-        info.update(check_grouped(kargs, BF16_TOL, timed=True))
+        info.update(check_grouped(kargs, BF16_TOL, "mma", timed=True))
         shapes[label] = info
         log(f"kernel grouped_mlp bf16 {label}: {json.dumps(info)}")
     shapes["long_prefill"] = long_grouped
+    # tile -> expert maps with more runs than the grid has rows, from a
+    # generator of their own
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cycled = cycled_checks(moe, cgen, quant=False)
+    shapes.update(cycled)
+    log(f"kernel grouped_mlp bf16, te cycling over 3 experts: {json.dumps(cycled)}")
     rp = init_params(red, seed=SEED, device="cuda")
     rmoe = {k: v[0] for k, v in rp["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     kargs, info = grouped_case(rmoe, 64, 1, gen, torch.float32)
-    info.update(check_grouped(kargs, F32_TOL))
+    info.update(check_grouped(kargs, F32_TOL, "fma"))
     shapes["f32_reduced"] = info
     log(f"kernel grouped_mlp f32 reduced: {json.dumps(info)}")
 
@@ -2065,12 +2078,15 @@ def main() -> int:
                              ("continuous_decode", CONT["slots"], gen8),
                              (f"prefill_{LONG_PROMPT}", LONG_PROMPT, gen8)):
             kargs, info = grouped_case(experts, T, 1, g_, torch.bfloat16)
-            info.update(check_grouped(kargs, BF16_TOL, quant=True, timed=True,
+            info.update(check_grouped(kargs, BF16_TOL, "mma", quant=True, timed=True,
                                       n=3 if T >= LONG_PROMPT else 20))
             qshapes[f"int{bits}_{label}"] = info
             log(f"kernel grouped_mlp_quant int{bits} bf16 {label}: {json.dumps(info)}")
             del kargs
     del m4, experts
+    cycled = cycled_checks(qmoe, cgen, quant=True)
+    qshapes.update({f"int8_{k}": v for k, v in cycled.items()})
+    log(f"kernel grouped_mlp_quant int8 bf16, te cycling over 3 experts: {json.dumps(cycled)}")
     torch.cuda.empty_cache()
     for fmt, info in kimi_width_checks(gen8).items():
         if fmt == "bf16":
@@ -2083,9 +2099,13 @@ def main() -> int:
     for bits in (8, 4):
         rq = {n: QuantizedArray.quantize(rmoe[n], bits=bits) for n in ("wi", "wg", "wo")}
         kargs, info = grouped_case({**rq, "router": rmoe["router"]}, 64, 1, gen, torch.float32)
-        info.update(check_grouped(kargs, F32_TOL, quant=True))
+        info.update(check_grouped(kargs, F32_TOL, "fma", quant=True))
         qshapes[f"int{bits}_f32_reduced"] = info
         log(f"kernel grouped_mlp_quant int{bits} f32 reduced: {json.dumps(info)}")
+    for label, info in reduced_bf16_checks(rmoe).items():
+        (shapes if label == "bf16_reduced" else qshapes)[label] = info
+        log(f"kernel grouped_mlp{'' if label == 'bf16_reduced' else '_quant'} {label} (CUDA-core "
+            f"kernel): {json.dumps(info)}")
 
     qattn = {"paged_decode_attention_int8": {}, "paged_prefill_attention_int8": {},
              "decode_attention_quant": {}}

@@ -29,12 +29,15 @@
 //    expert, so neighbouring tiles share weights.  A first launch (runs_kernel,
 //    one block, a block-wide scan of te) cuts the live tiles [0, rows_used / 8)
 //    into runs of at most R consecutive tiles of one expert, in order:
-//    starts[0 .. n_runs] with starts[n_runs] = live tiles.  Each expert adds at
-//    most one partial run, and each run holds at least one of the T K
-//    assignments, so n_runs <= max_runs_of: the grid's static size, whose
-//    blocks past n_runs exit.  Dead tiles past rows_used (te clamped to E-1)
-//    join no run; the launch's other blocks write their output rows' zeros.
-//    Everything stays on the device, so a CUDA graph can capture the three
+//    starts[0 .. n_runs] with starts[n_runs] = live tiles, in a table of
+//    n_tiles + 2 entries, which any te fits.  Dead tiles past rows_used (te
+//    clamped to E-1) join no run; the launch's other blocks write their output
+//    rows' zeros.  The grid has max_runs_of rows, a static bound on the run
+//    count of the dispatch's buffers (each expert adds at most one partial run,
+//    and each run holds at least one of the T K assignments); row y takes runs
+//    y, y + max_runs, ..., so a te that breaks the bound is still computed
+//    whole, and at the dispatch's every block takes one run or none.
+//    Everything stays on the device, so a CUDA graph can capture the
 //    launches.  A block of the two passes takes one run and one block of
 //    output columns, and loads each weight tile once for all the run's tiles.
 //    Runs of one expert run as neighbouring blocks, so a second run's weights
@@ -257,133 +260,217 @@ __device__ __forceinline__ int column(int i, int q, int g) {
   else return 4 * g + 2 * i + (q >> 1);
 }
 
-// One pass over a run and a block of output columns.  NW = 2: up/gate, y is
-// act [Ct, N = F] = bf16(silu(x . w1 * s1) * (x . w0 * s0)); NW = 1: down, y is
-// out [Ct, N = D] = bf16(x . w0 * s0).  Scales only for the quantized formats.
-// Warp (wc, wr) takes column group wc and tiles wr * RW .. of the run.
+// One pass over a block of output columns for the runs of blockIdx.y,
+// blockIdx.y + gridDim.y, ...  NW = 2: up/gate, y is act [Ct, N = F] =
+// bf16(silu(x . w1 * s1) * (x . w0 * s0)); NW = 1: down, y is out [Ct, N = D]
+// = bf16(x . w0 * s0).  Scales only for the quantized formats.  Warp (wc, wr)
+// takes column group wc and tiles wr * RW .. of the run.  With gridDim.z =
+// split > 1, block z sums contraction stages [z nk / split, (z + 1) nk /
+// split) of its first run into f32 partials, part[(z NW + m) gridDim.y +
+// run] (R TILE rows of N each), which merge_splits adds in the order of z; a
+// later run of the block (only when te holds more runs than the grid's
+// rows) is summed whole by the z = 0 block.
 template <int BITS, int NW, class P>
 __global__ void __launch_bounds__(P::THREADS)
-mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, int max_runs,
+mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, int n_tiles,
          const int32_t* __restrict__ te, const void* __restrict__ w0, const float* __restrict__ s0,
          const void* __restrict__ w1, const float* __restrict__ s1, __nv_bfloat16* __restrict__ y,
-         int K, int N) {
+         float* __restrict__ part, int K, int N) {
   using Fm = Fmt<BITS>;
   using Rg = Ring<BITS, NW, P>;
   constexpr int RW = P::RW, WC = P::WC;
-  const int run = blockIdx.y;
-  if (run >= runs[max_runs + 1]) return;
-  const int t0 = runs[run], nrt = runs[run + 1] - t0;
-  const size_t e = (size_t)te[t0];
+  const int n_runs = runs[n_tiles + 1];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int wc = warp % WC, r0 = (warp / WC) * RW, nw = min(RW, nrt - r0);  // this warp's tiles
+  const int wc = warp % WC, r0 = (warp / WC) * RW;  // this warp's first tile of a run
   const int bcol = blockIdx.x * WC * WN, col0 = bcol + wc * WN;
-  extern __shared__ __align__(128) uint8_t ring[];
-
+  const int nk = K / KC, split = gridDim.z, z = blockIdx.z;
   const size_t ldw = (size_t)N * Fm::ELT;
   const size_t per_expert = (size_t)(K / (BITS == 4 ? 2 : 1)) * ldw;
-  const uint8_t* w[NW];
-  w[0] = static_cast<const uint8_t*>(w0) + e * per_expert + (size_t)bcol * Fm::ELT;
-  if constexpr (NW == 2) w[1] = static_cast<const uint8_t*>(w1) + e * per_expert + (size_t)bcol * Fm::ELT;
-  const __nv_bfloat16* xr = x + (size_t)t0 * TILE * K;
+  extern __shared__ __align__(128) uint8_t ring[];
 
-  float acc[RW][NW][2][4];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int m = 0; m < NW; ++m)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][m][i][q] = 0.f;
-
-  const int nk = K / KC;
 #pragma unroll 1
-  for (int p = 0; p < Rg::S - 1; ++p) {
-    if (p < nk) load_stage<BITS, NW, P>(ring + p * Rg::STAGE, w, ldw, xr, K, nrt, p, tid);
-    cp_async_commit();
-  }
-  int slot = 0, fill = Rg::S - 1;  // ring slot of stage i, and of stage i + S - 1
-#pragma unroll 1
-  for (int i = 0; i < nk; ++i) {
-    // Stage i has landed (this thread's copies; the barrier makes every
-    // thread's visible), and every warp is done with stage i - 1, whose slot
-    // the next copies fill.  The barrier waits for no copy: the next S - 2
-    // stages stay in flight.
-    cp_async_wait<Rg::S - 2>();
-    __syncthreads();
-    if (i + Rg::S - 1 < nk)
-      load_stage<BITS, NW, P>(ring + fill * Rg::STAGE, w, ldw, xr, K, nrt, i + Rg::S - 1, tid);
-    cp_async_commit();
-    if (nw > 0) {
-      const uint8_t* st = ring + slot * Rg::STAGE;
-      uint32_t a[NW][2][2][4];
-      fragments<BITS, NW>(st + wc * Fm::BYTES, WC * Fm::BYTES, lane, a);
-      const uint8_t* xs = st + Rg::WBYTES + r0 * XB + g * 64 + t * 16;
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        if (r >= nw) break;
-        const uint4 xv = *reinterpret_cast<const uint4*>(xs + r * XB);  // x[row g][8t .. 8t+7]
-        const uint32_t b[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int m = 0; m < NW; ++m)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) mma_bf16(acc[r][m][j], a[m][j][s], b[2 * s], b[2 * s + 1]);
-      }
-    }
-    slot = slot + 1 == Rg::S ? 0 : slot + 1;
-    fill = fill + 1 == Rg::S ? 0 : fill + 1;
-  }
-  cp_async_wait<0>();
+  for (int run = blockIdx.y; run < n_runs; run += gridDim.y) {
+    const bool partial = split > 1 && run < gridDim.y;
+    if (z > 0 && !partial) break;
+    const int t0 = runs[run], nrt = runs[run + 1] - t0;
+    const int nw = min(RW, nrt - r0);  // this warp's tiles of the run
+    const size_t e = (size_t)te[t0];
+    const int k0 = partial ? z * nk / split : 0;
+    const int nks = (partial ? (z + 1) * nk / split : nk) - k0;
+    const uint8_t* w[NW];
+    w[0] = static_cast<const uint8_t*>(w0) + e * per_expert + (size_t)bcol * Fm::ELT;
+    if constexpr (NW == 2) w[1] = static_cast<const uint8_t*>(w1) + e * per_expert + (size_t)bcol * Fm::ELT;
+    const __nv_bfloat16* xr = x + (size_t)t0 * TILE * K;
 
-  // Epilogue: column scales (quantized formats), SwiGLU (up/gate), bf16.
-  float sc[NW][2][2];  // [matrix][tile][fragment row g, g + 8]
+    float acc[RW][NW][2][4];
 #pragma unroll
-  for (int m = 0; m < NW; ++m)
+    for (int r = 0; r < RW; ++r)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if constexpr (BITS == 0) {
-          sc[m][i][h] = 1.f;
-        } else {
-          const float* s = m == 0 ? s0 : s1;
-          sc[m][i][h] = __ldg(s + e * N + col0 + column<BITS>(i, 2 * h, g));
-        }
-      }
-  __nv_bfloat16* yr = y + ((size_t)t0 + r0) * TILE * N + col0;
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    if (r >= nw) break;
-    float v[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float h0 = acc[r][0][i][q] * sc[0][i][q >> 1];
-        if constexpr (NW == 2) {
-          const float gv = acc[r][NW - 1][i][q] * sc[NW - 1][i][q >> 1];
-          v[i][q] = gv / (1.f + expf(-gv)) * h0;
-        } else {
-          v[i][q] = h0;
-        }
-      }
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {  // token row 2t + b of tile r
-      __nv_bfloat16* yrow = yr + (size_t)(r * TILE + 2 * t + b) * N;
-      if constexpr (BITS == 0) {
+      for (int m = 0; m < NW; ++m)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) yrow[column<BITS>(i, 2 * h, g)] = __float2bfloat16(v[i][2 * h + b]);
-      } else {  // columns 4g .. 4g+3: (tile 0, g), (0, g + 8), (1, g), (1, g + 8)
-        uint2 pk;
-        pk.x = sm90::pack_bf16(v[0][b], v[0][2 + b]);
-        pk.y = sm90::pack_bf16(v[1][b], v[1][2 + b]);
-        *reinterpret_cast<uint2*>(yrow + 4 * g) = pk;
+          for (int q = 0; q < 4; ++q) acc[r][m][i][q] = 0.f;
+
+#pragma unroll 1
+    for (int p = 0; p < Rg::S - 1; ++p) {
+      if (p < nks) load_stage<BITS, NW, P>(ring + p * Rg::STAGE, w, ldw, xr, K, nrt, k0 + p, tid);
+      cp_async_commit();
+    }
+    int slot = 0, fill = Rg::S - 1;  // ring slot of stage i, and of stage i + S - 1
+#pragma unroll 1
+    for (int i = 0; i < nks; ++i) {
+      // Stage i has landed (this thread's copies; the barrier makes every
+      // thread's visible), and every warp is done with stage i - 1, whose slot
+      // the next copies fill.  The barrier waits for no copy: the next S - 2
+      // stages stay in flight.
+      cp_async_wait<Rg::S - 2>();
+      __syncthreads();
+      if (i + Rg::S - 1 < nks)
+        load_stage<BITS, NW, P>(ring + fill * Rg::STAGE, w, ldw, xr, K, nrt, k0 + i + Rg::S - 1, tid);
+      cp_async_commit();
+      if (nw > 0) {
+        const uint8_t* st = ring + slot * Rg::STAGE;
+        uint32_t a[NW][2][2][4];
+        fragments<BITS, NW>(st + wc * Fm::BYTES, WC * Fm::BYTES, lane, a);
+        const uint8_t* xs = st + Rg::WBYTES + r0 * XB + g * 64 + t * 16;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          if (r >= nw) break;
+          const uint4 xv = *reinterpret_cast<const uint4*>(xs + r * XB);  // x[row g][8t .. 8t+7]
+          const uint32_t b[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int m = 0; m < NW; ++m)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) mma_bf16(acc[r][m][j], a[m][j][s], b[2 * s], b[2 * s + 1]);
+        }
+      }
+      slot = slot + 1 == Rg::S ? 0 : slot + 1;
+      fill = fill + 1 == Rg::S ? 0 : fill + 1;
+    }
+    cp_async_wait<0>();
+
+    if (partial) {  // the f32 sums of this split, unscaled
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        if (r >= nw) break;
+#pragma unroll
+        for (int m = 0; m < NW; ++m) {
+          float* pr = part + (((size_t)z * NW + m) * gridDim.y + run) * (P::R * TILE) * N +
+                      (size_t)((r0 + r) * TILE + 2 * t) * N + col0;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {  // token row 2t + b of tile r
+            if constexpr (BITS == 0) {
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) pr[b * N + column<BITS>(i, 2 * h, g)] = acc[r][m][i][2 * h + b];
+            } else {  // columns 4g .. 4g+3: (tile 0, g), (0, g + 8), (1, g), (1, g + 8)
+              *reinterpret_cast<float4*>(pr + b * N + 4 * g) = make_float4(
+                  acc[r][m][0][b], acc[r][m][0][2 + b], acc[r][m][1][b], acc[r][m][1][2 + b]);
+            }
+          }
+        }
+      }
+    } else {
+      // Epilogue: column scales (quantized formats), SwiGLU (up/gate), bf16.
+      float sc[NW][2][2];  // [matrix][tile][fragment row g, g + 8]
+#pragma unroll
+      for (int m = 0; m < NW; ++m)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if constexpr (BITS == 0) {
+              sc[m][i][h] = 1.f;
+            } else {
+              const float* s = m == 0 ? s0 : s1;
+              sc[m][i][h] = __ldg(s + e * N + col0 + column<BITS>(i, 2 * h, g));
+            }
+          }
+      __nv_bfloat16* yr = y + ((size_t)t0 + r0) * TILE * N + col0;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        if (r >= nw) break;
+        float v[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float h0 = acc[r][0][i][q] * sc[0][i][q >> 1];
+            if constexpr (NW == 2) {
+              const float gv = acc[r][NW - 1][i][q] * sc[NW - 1][i][q >> 1];
+              v[i][q] = gv / (1.f + expf(-gv)) * h0;
+            } else {
+              v[i][q] = h0;
+            }
+          }
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {  // token row 2t + b of tile r
+          __nv_bfloat16* yrow = yr + (size_t)(r * TILE + 2 * t + b) * N;
+          if constexpr (BITS == 0) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) yrow[column<BITS>(i, 2 * h, g)] = __float2bfloat16(v[i][2 * h + b]);
+          } else {  // columns 4g .. 4g+3: (tile 0, g), (0, g + 8), (1, g), (1, g + 8)
+            uint2 pk;
+            pk.x = sm90::pack_bf16(v[0][b], v[0][2 + b]);
+            pk.y = sm90::pack_bf16(v[1][b], v[1][2 + b]);
+            *reinterpret_cast<uint2*>(yrow + 4 * g) = pk;
+          }
+        }
       }
     }
+    __syncthreads();  // every warp is done with the ring before the next run's copies
+  }
+}
+
+// The split passes' epilogue: for each run slot of the grid (gridDim.y of
+// the pass), the partials of its rows summed over z = 0 .. split - 1 in that
+// order, then the pass's epilogue (column scales, SwiGLU for NW = 2, bf16).
+// Threads take 4 adjacent columns of a row.
+template <int NW>
+__global__ void __launch_bounds__(256)
+merge_splits(const float* __restrict__ part, const int32_t* __restrict__ runs, int n_tiles,
+             const int32_t* __restrict__ te, const float* __restrict__ s0,
+             const float* __restrict__ s1, __nv_bfloat16* __restrict__ y, int N, int run_rows,
+             int split) {
+  const int run = blockIdx.y;
+  if (run >= runs[n_tiles + 1]) return;
+  const int t0 = runs[run], rows = (runs[run + 1] - t0) * TILE, nq = N / 4;
+  const size_t e = (size_t)te[t0];
+  const size_t stride = (size_t)gridDim.y * run_rows * N;  // between (z, m) blocks of partials
+  const float* p = part + (size_t)run * run_rows * N;
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < rows * nq; u += gridDim.x * blockDim.x) {
+    const int row = u / nq, c = (u - row * nq) * 4;
+    float a[NW][4] = {};
+    for (int zz = 0; zz < split; ++zz)
+#pragma unroll
+      for (int m = 0; m < NW; ++m) {
+        const float4 v = *reinterpret_cast<const float4*>(p + (zz * NW + m) * stride + (size_t)row * N + c);
+        a[m][0] += v.x;
+        a[m][1] += v.y;
+        a[m][2] += v.z;
+        a[m][3] += v.w;
+      }
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float h0 = a[0][j] * (s0 ? __ldg(s0 + e * N + c + j) : 1.f);
+      if constexpr (NW == 2) {
+        const float gv = a[1][j] * (s1 ? __ldg(s1 + e * N + c + j) : 1.f);
+        o[j] = gv / (1.f + expf(-gv)) * h0;
+      } else {
+        o[j] = h0;
+      }
+    }
+    uint2 pk;
+    pk.x = sm90::pack_bf16(o[0], o[1]);
+    pk.y = sm90::pack_bf16(o[2], o[3]);
+    *reinterpret_cast<uint2*>(y + (size_t)(t0 * TILE + row) * N + c) = pk;
   }
 }
 
@@ -422,12 +509,12 @@ __device__ int block_scan(int v, int* tmp, Op op, int ident) {
 // Block 0: the run table.  Tile j < live starts a run when it is the
 // (multiple of R)-th tile of its expert's group, the group starting at the
 // last tile j' <= j with te[j'] != te[j' - 1]; runs[n] = the n-th start,
-// runs[n_runs] = live, runs[max_runs + 1] = n_runs.  Other blocks: zeros in
+// runs[n_runs] = live, runs[nt + 1] = n_runs (n_runs <= live <= nt, so the
+// table fits its nt + 2 entries whatever te holds).  Other blocks: zeros in
 // the output rows [8 live, Ct) (D % 8 == 0), which no run writes.
 __global__ void __launch_bounds__(SCAN)
 runs_kernel(const int32_t* __restrict__ te, const int32_t* __restrict__ rows_used, int nt, int R,
-            int max_runs, int32_t* __restrict__ runs, __nv_bfloat16* __restrict__ out, int D,
-            int Ct) {
+            int32_t* __restrict__ runs, __nv_bfloat16* __restrict__ out, int D, int Ct) {
   const int live = min(__ldg(rows_used) / TILE, nt);
   if (blockIdx.x > 0) {
     uint4* o = reinterpret_cast<uint4*>(out);
@@ -459,11 +546,11 @@ runs_kernel(const int32_t* __restrict__ te, const int32_t* __restrict__ rows_use
   }
   if (threadIdx.x == 0) {
     runs[n] = live;
-    runs[max_runs + 1] = n;
+    runs[nt + 1] = n;
   }
 }
 
-// Lets mma_pass take its ring in dynamic shared memory (past 48 KB); one
+// Lets a kernel take its ring in dynamic shared memory (past 48 KB); one
 // attribute call per instantiation.
 template <int BITS, int NW, class P>
 int prepare() {
@@ -476,9 +563,12 @@ int prepare() {
   return static_cast<int>(err);
 }
 
-// Static bound on the run count: a run holds at least one live tile, a live
-// tile at least one of the T K <= Ct - 7 E + 7 assignments, and each expert
-// adds at most one partial run to ceil(n_tiles / R).
+// The grid's rows: a static bound on the run count of the dispatch's
+// buffers.  There a run holds at least one live tile, a live tile at least
+// one of the T K <= Ct - 7 E + 7 assignments, and each expert adds at most
+// one partial run to ceil(n_tiles / R), since te groups each expert's
+// tiles.  A te past that bound is still computed whole: a block then takes
+// several runs.
 int max_runs_of(int n_tiles, int E, int R) {
   int bound = (n_tiles + R - 1) / R + E;
   if (n_tiles < bound) bound = n_tiles;
@@ -487,16 +577,25 @@ int max_runs_of(int n_tiles, int E, int R) {
   return bound < 1 ? 1 : bound;
 }
 
+// Blocks of merge_splits for one run slot: 4 columns a thread.
+int merge_blocks(int R, int N) {
+  const int quads = R * TILE * N / 4;
+  return (quads + 255) / 256;
+}
+
 template <int BITS, class P>
 int launch(const void* xg, const void* te, const void* rows_used, const void* wi, const void* wi_s,
            const void* wg, const void* wg_s, const void* wo, const void* wo_s, void* act, void* out,
-           void* runs, int n_tiles, int E, int D, int F, cudaStream_t s) {
-  if (D % P::BN || F % P::BN || D % KC || F % KC || n_tiles < 1 || E < 1)
+           void* runs, void* part, int n_tiles, int E, int D, int F, int split_up, int split_down,
+           cudaStream_t s) {
+  if (D % P::BN || F % P::BN || D % KC || F % KC || n_tiles < 1 || E < 1 || split_up < 1 ||
+      split_down < 1 || split_up > D / KC || split_down > F / KC ||
+      ((split_up > 1 || split_down > 1) && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int max_runs = max_runs_of(n_tiles, E, P::R);
   runs_kernel<<<1 + ZERO_BLOCKS, SCAN, 0, s>>>(
       static_cast<const int32_t*>(te), static_cast<const int32_t*>(rows_used), n_tiles, P::R,
-      max_runs, static_cast<int32_t*>(runs), static_cast<__nv_bfloat16*>(out), D, n_tiles * TILE);
+      static_cast<int32_t*>(runs), static_cast<__nv_bfloat16*>(out), D, n_tiles * TILE);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int rc = prepare<BITS, 2, P>();
@@ -505,14 +604,22 @@ int launch(const void* xg, const void* te, const void* rows_used, const void* wi
   if (rc) return rc;
   const int32_t* r = static_cast<const int32_t*>(runs);
   const int32_t* t = static_cast<const int32_t*>(te);
-  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs), P::THREADS, Ring<BITS, 2, P>::BYTES, s>>>(
-      static_cast<const __nv_bfloat16*>(xg), r, max_runs, t, wi, static_cast<const float*>(wi_s), wg,
-      static_cast<const float*>(wg_s), static_cast<__nv_bfloat16*>(act), D, F);
+  float* pt = static_cast<float*>(part);
+  const float *si = static_cast<const float*>(wi_s), *sg = static_cast<const float*>(wg_s),
+              *so = static_cast<const float*>(wo_s);
+  __nv_bfloat16 *a = static_cast<__nv_bfloat16*>(act), *o = static_cast<__nv_bfloat16*>(out);
+  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs, split_up), P::THREADS, Ring<BITS, 2, P>::BYTES, s>>>(
+      static_cast<const __nv_bfloat16*>(xg), r, n_tiles, t, wi, si, wg, sg, a, pt, D, F);
+  if (split_up > 1)
+    merge_splits<2><<<dim3(merge_blocks(P::R, F), max_runs), 256, 0, s>>>(pt, r, n_tiles, t, si, sg, a,
+                                                                         F, P::R * TILE, split_up);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs), P::THREADS, Ring<BITS, 1, P>::BYTES, s>>>(
-      static_cast<const __nv_bfloat16*>(act), r, max_runs, t, wo, static_cast<const float*>(wo_s),
-      nullptr, nullptr, static_cast<__nv_bfloat16*>(out), F, D);
+  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split_down), P::THREADS, Ring<BITS, 1, P>::BYTES, s>>>(
+      a, r, n_tiles, t, wo, so, nullptr, nullptr, o, pt, F, D);
+  if (split_down > 1)
+    merge_splits<1><<<dim3(merge_blocks(P::R, D), max_runs), 256, 0, s>>>(pt, r, n_tiles, t, so, nullptr,
+                                                                         o, D, P::R * TILE, split_down);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,19 +627,22 @@ int launch(const void* xg, const void* te, const void* rows_used, const void* wi
 template <int BITS>
 int launch_plan(const void* xg, const void* te, const void* rows_used, const void* wi,
                 const void* wi_s, const void* wg, const void* wg_s, const void* wo, const void* wo_s,
-                void* act, void* out, void* runs, int n_tiles, int E, int D, int F, int plan,
-                cudaStream_t s) {
+                void* act, void* out, void* runs, void* part, int n_tiles, int E, int D, int F,
+                int plan, int split_up, int split_down, cudaStream_t s) {
   if (plan == 0)
     return launch<BITS, Plan<1, 8, 1, 110592>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act,
-                                               out, runs, n_tiles, E, D, F, s);
+                                               out, runs, part, n_tiles, E, D, F, split_up,
+                                               split_down, s);
   if constexpr (BITS == 0) {
     if (plan == 1)
       return launch<BITS, Plan<16, 4, 2, 163840>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s,
-                                                  act, out, runs, n_tiles, E, D, F, s);
+                                                  act, out, runs, part, n_tiles, E, D, F, split_up,
+                                                  split_down, s);
   }
   if (plan == 2)
     return launch<BITS, Plan<8, 8, 1, 110592>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act,
-                                               out, runs, n_tiles, E, D, F, s);
+                                               out, runs, part, n_tiles, E, D, F, split_up,
+                                               split_down, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -542,37 +652,40 @@ int launch_plan(const void* xg, const void* te, const void* rows_used, const voi
 // [Ct, D] bf16, te [Ct/8] and rows_used [1] int32, the weights (bits 0: bf16;
 // 8: int8; 4: packed int4) with f32 scales for bits 8 and 4 (null for 0), act
 // [Ct, F] and out [Ct, D] bf16 allocated by the caller, runs an int32
-// workspace of max_runs + 2 entries (max_runs_of, with the plan's R), plan
-// one of launch_plan's; stream a cudaStream_t.  D and F must be multiples of
+// workspace of n_tiles + 2 entries, part an f32 workspace of
+// max(split_up 2 F, split_down D) max_runs R 8 entries when a split is past 1
+// (max_runs_of, with the plan's R; else null), plan one of launch_plan's,
+// split_up / split_down the blocks that share each pass's contraction (1 to
+// D / 32 and F / 32); stream a cudaStream_t.  D and F must be multiples of
 // the plan's block width (256 or 128 columns).  Returns cudaGetLastError()
 // after the launches (0 = success).
 extern "C" {
 
 int grouped_mlp_mma(const void* xg, const void* te, const void* rows_used, const void* wi,
                     const void* wi_s, const void* wg, const void* wg_s, const void* wo,
-                    const void* wo_s, void* act, void* out, void* runs, int n_tiles, int E, int D,
-                    int F, int bits, int plan, void* stream) {
+                    const void* wo_s, void* act, void* out, void* runs, void* part, int n_tiles,
+                    int E, int D, int F, int bits, int plan, int split_up, int split_down,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits == 0)
-    return launch_plan<0>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, n_tiles,
-                          E, D, F, plan, s);
+    return launch_plan<0>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
+                          n_tiles, E, D, F, plan, split_up, split_down, s);
   if (bits == 8)
-    return launch_plan<8>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, n_tiles,
-                          E, D, F, plan, s);
+    return launch_plan<8>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
+                          n_tiles, E, D, F, plan, split_up, split_down, s);
   if (bits == 4)
-    return launch_plan<4>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, n_tiles,
-                          E, D, F, plan, s);
+    return launch_plan<4>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
+                          n_tiles, E, D, F, plan, split_up, split_down, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The run table alone (what grouped_mlp_mma's first launch writes into runs),
-// for checking it against its plain version.
-int grouped_mlp_runs(const void* te, const void* rows_used, void* runs, int n_tiles, int E, int R,
+// The run table alone (what grouped_mlp_mma's first launch writes into runs,
+// n_tiles + 2 entries), for checking it against its plain version.
+int grouped_mlp_runs(const void* te, const void* rows_used, void* runs, int n_tiles, int R,
                      void* stream) {
-  if (n_tiles < 1 || E < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int max_runs = max_runs_of(n_tiles, E, R);
+  if (n_tiles < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   runs_kernel<<<1, SCAN, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(te), static_cast<const int32_t*>(rows_used), n_tiles, R, max_runs,
+      static_cast<const int32_t*>(te), static_cast<const int32_t*>(rows_used), n_tiles, R,
       static_cast<int32_t*>(runs), nullptr, 0, n_tiles * TILE);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,7 @@ kernel, and ``variant_launches`` which of the two kernels each call took.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +53,9 @@ def _library():
 
 def _mma_library():
     lib = build.load_library("grouped_mlp_mma")
-    lib.grouped_mlp_mma.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.grouped_mlp_mma.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.grouped_mlp_mma.restype = ctypes.c_int
-    lib.grouped_mlp_runs.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.grouped_mlp_runs.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.grouped_mlp_runs.restype = ctypes.c_int
     return lib
 
@@ -71,38 +71,61 @@ def kernel_variant(dtype: torch.dtype, D: int, F: int, bits: int) -> str:
     return "fma"
 
 
-def mma_plan(n_tiles: int, num_experts: int, bits: int) -> tuple:
-    """(R, plan) of the tensor-core kernel for a buffer of ``n_tiles`` tiles
-    over ``num_experts`` experts (``launch_plan`` in the source), from the
-    static bound on its assignments, ``T*K <= Ct - 7E + 7``: groups of
-    about one tile (under 8 rows an expert: decode, a 256-token prefill)
-    take runs of one tile (plan 0); bf16 weights with groups of 64 rows or
-    more (a 16384-token prefill) runs of 16 tiles (plan 1); the rest runs of
-    8 (plan 2).  Measured on the card (``launch.expert_kernels``, PERF.md)."""
+class MmaPlan(NamedTuple):
+    """A launch of the tensor-core kernel: runs of at most ``R`` tiles,
+    ``plan`` (``launch_plan`` in the source), and the blocks that share the
+    contraction of the up/gate and of the down pass."""
+    R: int
+    plan: int
+    split_up: int = 1
+    split_down: int = 1
+
+
+# plan 0 grids of at most this many rows (T*K <= 8 on the dispatch's buffer)
+# split each pass's contraction across blocks
+SPLIT_RUNS = 15
+SPLIT_UP, SPLIT_DOWN = 2, 4
+
+
+def mma_plan(n_tiles: int, num_experts: int, bits: int) -> MmaPlan:
+    """The tensor-core kernel's launch for a buffer of ``n_tiles`` tiles over
+    ``num_experts`` experts, from the static bound on its assignments,
+    ``T*K <= Ct - 7E + 7``: groups of about one tile (under 8 rows an
+    expert: decode, a 256-token prefill) take runs of one tile (plan 0),
+    and a grid of at most ``SPLIT_RUNS`` rows (decode at up to 8 tokens)
+    splits the up/gate pass's contraction across ``SPLIT_UP`` blocks and the
+    down pass's across ``SPLIT_DOWN``, so a few live experts still fill the
+    SMs; bf16 weights with groups of 64 rows or more (a 16384-token prefill)
+    runs of 16 tiles (plan 1); the rest runs of 8 (plan 2).  Measured on the
+    card (``launch.expert_kernels``, PERF.md)."""
     rows = n_tiles * TILE - (TILE - 1) * num_experts + TILE - 1
     if rows < 8 * num_experts:
-        return 1, 0
+        if max_runs(n_tiles, num_experts, 1) <= SPLIT_RUNS:
+            return MmaPlan(1, 0, SPLIT_UP, SPLIT_DOWN)
+        return MmaPlan(1, 0)
     if bits == 0 and rows >= 64 * num_experts:
-        return 16, 1
-    return 8, 2
+        return MmaPlan(16, 1)
+    return MmaPlan(8, 2)
 
 
 def max_runs(n_tiles: int, num_experts: int, R: int) -> int:
-    """Static bound on the run count (``max_runs_of`` in the source): a run
+    """The tensor-core kernel's grid rows (``max_runs_of`` in the source): a
+    static bound on the run count of the dispatch's buffers, where a run
     holds at least one live tile, a live tile at least one of the
-    T*K <= Ct - 7E + 7 assignments, and each expert adds at most one partial
-    run to ceil(n_tiles / R)."""
+    T*K <= Ct - 7E + 7 assignments, and each expert adds at most one
+    partial run to ceil(n_tiles / R).  A ``te`` with more runs is still
+    computed whole (a block takes several)."""
     assignments = n_tiles * TILE - (TILE - 1) * num_experts + TILE - 1
     return max(1, min(n_tiles, -(-n_tiles // R) + num_experts, assignments))
 
 
-def run_table_plain(te: torch.Tensor, rows_used: torch.Tensor, R: int, num_experts: int) -> torch.Tensor:
-    """The tensor-core kernel's run table (``runs_kernel``): [max_runs + 2]
+def run_table_plain(te: torch.Tensor, rows_used: torch.Tensor, R: int) -> torch.Tensor:
+    """The tensor-core kernel's run table (``runs_kernel``): [n_tiles + 2]
     int32, entries 0 .. n_runs the first tile of each run of at most R
     consecutive live tiles of one expert, in order, then the live tile count
     (``rows_used / TILE``), and n_runs in the last entry.  A run starts at
     every (multiple of R)-th tile of an expert's group; tiles at or past
-    ``rows_used`` join none."""
+    ``rows_used`` join none.  Any ``te`` fits: n_runs <= live <= n_tiles."""
     nt = te.shape[0]
     live = min(int(rows_used.reshape(-1)[0]) // TILE, nt)
     e = te[:live].long()
@@ -111,7 +134,7 @@ def run_table_plain(te: torch.Tensor, rows_used: torch.Tensor, R: int, num_exper
     idx = torch.arange(live)
     group = torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
     starts = idx[(idx - group) % R == 0]
-    out = torch.zeros(max_runs(nt, num_experts, R) + 2, dtype=torch.int32)
+    out = torch.zeros(nt + 2, dtype=torch.int32)
     out[: starts.numel()] = starts.to(torch.int32)
     out[starts.numel()] = live
     out[-1] = starts.numel()
@@ -285,39 +308,44 @@ def grouped_mlp(
     return out
 
 
-def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name):
-    """The tensor-core kernel (three launches: run table, up/gate, down);
-    each weight a (values, scales or None) pair."""
+def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name, plan: Optional[MmaPlan] = None):
+    """The tensor-core kernel (the run table, up/gate and down, and a merge
+    after each split pass); each weight a (values, scales or None) pair;
+    ``plan`` defaults to ``mma_plan``'s."""
     Ct, D = xg.shape
     E, Fd = wi[0].shape[0], wi[0].shape[-1]
     nt = Ct // TILE
-    R, plan = mma_plan(nt, E, bits)
+    plan = plan or mma_plan(nt, E, bits)
     act = torch.empty((Ct, Fd), dtype=xg.dtype, device=xg.device)
     out = torch.empty_like(xg)
-    runs = torch.empty(max_runs(nt, E, R) + 2, dtype=torch.int32, device=xg.device)
+    runs = torch.empty(nt + 2, dtype=torch.int32, device=xg.device)
+    part = None
+    if plan.split_up > 1 or plan.split_down > 1:
+        n = max(plan.split_up * 2 * Fd, plan.split_down * D) * max_runs(nt, E, plan.R) * plan.R * TILE
+        part = torch.empty(n, dtype=torch.float32, device=xg.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _mma_library().grouped_mlp_mma(
             xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), ptr(wi[0]), ptr(wi[1]),
             ptr(wg[0]), ptr(wg[1]), ptr(wo[0]), ptr(wo[1]), act.data_ptr(), out.data_ptr(),
-            runs.data_ptr(), nt, E, D, Fd, bits, plan, stream)
+            runs.data_ptr(), ptr(part), nt, E, D, Fd, bits, plan.plan, plan.split_up,
+            plan.split_down, stream)
     if err != 0:
         raise RuntimeError(f"{name}: tensor-core kernel launch failed with CUDA error {err}")
     return out
 
 
-def run_table(te: torch.Tensor, rows_used: torch.Tensor, R: int, num_experts: int) -> torch.Tensor:
+def run_table(te: torch.Tensor, rows_used: torch.Tensor, R: int) -> torch.Tensor:
     """The run table the tensor-core kernel's first launch builds, built on
     the card alone (for checking it against ``run_table_plain``)."""
     if te.device.type != "cuda":
-        return run_table_plain(te, rows_used, R, num_experts)
+        return run_table_plain(te, rows_used, R)
     nt = te.shape[0]
-    runs = torch.empty(max_runs(nt, num_experts, R) + 2, dtype=torch.int32, device=te.device)
+    runs = torch.empty(nt + 2, dtype=torch.int32, device=te.device)
     with torch.cuda.device(te.device):
         err = _mma_library().grouped_mlp_runs(te.data_ptr(), rows_used.data_ptr(), runs.data_ptr(),
-                                              nt, num_experts, R,
-                                              torch.cuda.current_stream().cuda_stream)
+                                              nt, R, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"run_table: kernel launch failed with CUDA error {err}")
     return runs

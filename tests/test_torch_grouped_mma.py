@@ -78,8 +78,8 @@ def test_run_table_plain_vs_jax_layout(case, R):
     assert int(tl.rows_used) == rows_used
 
     used = torch.tensor([rows_used], dtype=torch.int32)
-    table = tk.run_table_plain(torch.from_numpy(te.copy()), used, R, E)
-    assert table.shape == (tk.max_runs(nt, E, R) + 2,)
+    table = tk.run_table_plain(torch.from_numpy(te.copy()), used, R)
+    assert table.shape == (nt + 2,)
     n = int(table[-1])
     starts = table[: n + 1].tolist()
     live = rows_used // TILE
@@ -105,39 +105,83 @@ def test_run_table_empty_and_dead_tiles():
     """rows_used = 0 gives no run; tiles past rows_used never join a run
     even when they carry the last live expert's id."""
     te = torch.tensor([0, 0, 3, 3, 3, 3, 3], dtype=torch.int32)
-    t = tk.run_table_plain(te, torch.tensor([0], dtype=torch.int32), 8, 4)
+    t = tk.run_table_plain(te, torch.tensor([0], dtype=torch.int32), 8)
     assert int(t[-1]) == 0 and int(t[0]) == 0
-    t = tk.run_table_plain(te, torch.tensor([4 * TILE], dtype=torch.int32), 2, 4)
+    t = tk.run_table_plain(te, torch.tensor([4 * TILE], dtype=torch.int32), 2)
     assert t[: int(t[-1]) + 1].tolist() == [0, 2, 4] and int(t[-1]) == 2
 
 
-@pytest.mark.parametrize("dtype,D,F,bits,variant", [
-    (torch.bfloat16, 5120, 8192, 0, "mma"),  # llama4-maverick, bf16 experts
-    (torch.bfloat16, 5120, 8192, 8, "mma"),  # int8 experts
-    (torch.bfloat16, 5120, 8192, 4, "mma"),  # int4 experts
-    (torch.bfloat16, 7168, 2048, 8, "mma"),  # kimi-k2 width
-    (torch.float32, 5120, 8192, 0, "fma"),  # f32 activations: tensor cores would be TF32
-    (torch.float32, 64, 128, 8, "fma"),
-    (torch.bfloat16, 64, 128, 0, "fma"),  # narrower than one block of the tensor-core kernel
-    (torch.bfloat16, 5120, 8320, 0, "fma"),  # F not a multiple of 256
-    (torch.bfloat16, 1000, 8192, 4, "fma"),  # D not a multiple of 256
+@pytest.mark.parametrize("nt,live,E,R,grid_rows", [
+    (400, 400, 128, 8, 178),  # experts cycling: 400 runs of one tile
+    (400, 400, 128, 16, 153),
+    (400, 400, 128, 1, 400),  # runs of one tile: the grid has a row per tile
+    (112, 20, 128, 1, 7),  # the decode buffer's grid (T*K <= 7 on it), 20 live tiles
+    (112, 20, 128, 8, 7),
+    (6, 6, 2, 8, 3),  # two experts, switching at every tile
+    (2, 2, 10, 1, 1),  # a buffer shorter than the dispatch's for 10 experts
 ])
-def test_kernel_variant_rule(dtype, D, F, bits, variant):
-    assert tk.kernel_variant(dtype, D, F, bits) == variant
+def test_run_table_takes_any_tile_map(nt, live, E, R, grid_rows):
+    """A tile -> expert map no dispatch makes (experts cycling, so every
+    tile is a run of its own; or a buffer shorter than the dispatch's) can
+    hold more runs than the kernel's grid has rows (``max_runs``, which
+    bounds the dispatch's buffers only): the table still holds every run in
+    its nt + 2 entries, each live tile once, and the grid's rows then take
+    several runs each."""
+    te = (torch.arange(nt) % min(3, E)).to(torch.int32)
+    table = tk.run_table_plain(te, torch.tensor([live * TILE], dtype=torch.int32), R)
+    assert table.shape == (nt + 2,)
+    n = int(table[-1])
+    assert n == live and table[: n + 1].tolist() == list(range(live + 1))  # every tile its own run
+    assert tk.max_runs(nt, E, R) == grid_rows
+    assert (n > grid_rows) == (grid_rows < nt)
+
+
+SPLIT = (tk.SPLIT_UP, tk.SPLIT_DOWN)
 
 
 @pytest.mark.parametrize("T,K,E,bits,plan", [
-    (4, 1, 128, 0, (1, 0)),  # static decode: groups of one tile
-    (8, 1, 128, 8, (1, 0)),  # the continuous engine's 8 slots
-    (256, 1, 128, 4, (1, 0)),  # a 256-token prefill: about 2 tokens an expert
-    (16384, 1, 128, 0, (16, 1)),  # the long prefill, bf16: runs of 16
-    (16384, 1, 128, 8, (8, 2)),  # ... int8
-    (64, 8, 32, 0, (8, 2)),  # kimi-k2 width, top-8 over 32 experts
+    (4, 1, 128, 0, (1, 0, *SPLIT)),  # static decode: groups of one tile, split passes
+    (1, 1, 128, 4, (1, 0, *SPLIT)),
+    (8, 1, 128, 8, (1, 0, *SPLIT)),  # the continuous engine's 8 slots
+    (16, 1, 128, 0, (1, 0, 1, 1)),  # 23 grid rows: no split
+    (256, 1, 128, 4, (1, 0, 1, 1)),  # a 256-token prefill: about 2 tokens an expert
+    (16384, 1, 128, 0, (16, 1, 1, 1)),  # the long prefill, bf16: runs of 16
+    (16384, 1, 128, 8, (8, 2, 1, 1)),  # ... int8
+    (64, 8, 32, 0, (8, 2, 1, 1)),  # kimi-k2 width, top-8 over 32 experts
 ])
 def test_mma_plan(T, K, E, bits, plan):
     nt = tdg.grouped_rows(T, K, E) // TILE
-    assert tk.mma_plan(nt, E, bits) == plan
+    assert tuple(tk.mma_plan(nt, E, bits)) == plan
     assert tk.max_runs(nt, E, plan[0]) >= 1
+    if plan[2] > 1:  # the grid's rows bound the dispatch's runs: T*K of them at most
+        assert T * K <= tk.max_runs(nt, E, 1) <= tk.SPLIT_RUNS
+
+
+def split_sum(x, w, split):
+    """x . w in f32 as the split passes sum it: contraction stages of 32
+    rows cut into ``split`` ranges [z nk / split, (z + 1) nk / split), each
+    summed alone, the partials then added in the order of z."""
+    nk = x.shape[-1] // 32
+    parts = [x[:, z * nk // split * 32:(z + 1) * nk // split * 32] @ w[z * nk // split * 32:(z + 1) * nk // split * 32]
+             for z in range(split)]
+    out = torch.zeros_like(parts[0])
+    for q in parts:
+        out = out + q
+    return out
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 6])
+def test_split_ranges_cover_the_contraction_once(split):
+    """Every 32-row stage lies in exactly one split's range, so the merged
+    partials are the whole f32 sum (to f32 rounding: 1e-5 relative)."""
+    K = 32 * 37  # a stage count no split divides
+    nk = K // 32
+    ranges = [(z * nk // split, (z + 1) * nk // split) for z in range(split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == nk
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
+    g = torch.Generator().manual_seed(split)
+    x, w = torch.randn(8, K, generator=g), torch.randn(K, 64, generator=g)
+    torch.testing.assert_close(split_sum(x, w, split), x @ w, rtol=1e-5, atol=1e-5 * K ** 0.5)
 
 
 def quant_inputs(seed, bits, dtype, E=4, D=32, F=64, T=24, K=2):
@@ -194,5 +238,5 @@ def test_cpu_wrappers_take_the_plain_versions():
     qs = {n: tq.QuantizedArray.quantize(v, bits=4) for n, v in ws.items()}
     tk.grouped_mlp_quant(x, lay.tile_expert, qs["wi"], qs["wg"], qs["wo"], lay.rows_used)
     assert not any(tk.variant_launches.values())
-    run_table = tk.run_table(lay.tile_expert, lay.rows_used, 8, 4)
-    torch.testing.assert_close(run_table, tk.run_table_plain(lay.tile_expert, lay.rows_used, 8, 4))
+    run_table = tk.run_table(lay.tile_expert, lay.rows_used, 8)
+    torch.testing.assert_close(run_table, tk.run_table_plain(lay.tile_expert, lay.rows_used, 8))
