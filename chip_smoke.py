@@ -358,7 +358,7 @@ def check_grouped(args, tol, variant, quant=False, timed=False, n=20):
     CUDA graph of ``n`` calls, ``events_ms`` CUDA events around calls issued
     back to back, ``host_ms`` one wrapper call on the host's clock."""
     from repro_torch.kernels import expert_mlp_grouped as gk
-    from repro_torch.launch.paged_kernels import host_ms
+    from repro_torch.launch.attention_kernels import host_ms
 
     kernel, plain_fn = ((gk.grouped_mlp_quant, gk.grouped_mlp_quant_plain) if quant
                         else (gk.grouped_mlp, gk.grouped_mlp_plain))
@@ -387,7 +387,7 @@ def cycled_checks(moe, gen, quant) -> dict:
     """Kernel 4 / 5 at the served width on tile -> expert maps no dispatch
     makes, cycling over experts 0, 1, 2 so every tile is its own run: 400
     tiles all live (runs of 8: 400 runs on the grid's 178 rows) and 112
-    tiles with 20 live (the decode buffer's plan, 7 rows, split passes: the
+    tiles with 20 live (the decode buffer's plan, 7 rows, split down pass: the
     runs past the grid's first pass summed whole); each per row against its
     plain version."""
     out = {}

@@ -56,8 +56,9 @@
 //    contraction pair a fragment register holds; nibbles are widened with
 //    a byte permute, a mask and one bf16x2 subtract (128 + u - 136), exact.
 //    The column scale multiplies the f32 sum once, (x . q) * s, and not each
-//    weight: no less accurate than the plain version's x . bf16(q * s), which
-//    rounds every weight (worst difference on the card: PERF.md).
+//    weight as the plain version's x . bf16(q * s) does.  Held on the card
+//    against the function in f64 on the exact weights q * s, this order came
+//    closer than the plain version at every shape measured (PERF.md).
 // 3. Bytes in flight: the block's threads stream its weight and x stages with
 //    16-byte cp.async into a ring of S shared-memory stages (3-16, by format
 //    and plan), S - 1 of them in flight; one barrier a stage frees a slot
@@ -66,10 +67,14 @@
 //
 // The plans (launch_plan; the wrapper's mma_plan picks one from the shapes):
 // 0, groups of about one tile (decode, a 256-token prefill): runs of one
-// tile, blocks of 8 warps over 256 columns, a 108 KB ring.  At T = 4 that is
-// 128 up/gate and 80 down blocks, one an SM with 60-100 KB in flight each;
-// measured on the card it beat blocks of 2 warps over 64 columns (512 and 320
-// blocks, 28 KB rings) and splitting the contraction across a block's warps.
+// tile, blocks of 8 warps over 256 columns, a 108 KB ring; measured on the
+// card it beat blocks of 2 warps over 64 columns (28 KB rings) and splitting
+// the contraction across a block's warps.  On grids of at most 15 rows
+// (decode at up to 8 tokens) the down pass's contraction (F: 256 stages at
+// llama4's width) is split across 3 blocks, 4 for int4 (the wrapper's
+// mma_plan), merged in a fixed order by merge_splits: at T = 4 that is 128
+// up/gate and 240-320 down blocks where it was 128 and 80.  Splitting the
+// up/gate pass too measured no faster.
 // 1, bf16 weights and groups of 64 rows or more (a 16384-token prefill): runs
 // of 16 tiles, 4 column groups x 2 row groups of 8 tiles (128 accumulators a
 // thread), a 160 KB ring: one stage's x serves four warps and its weights
@@ -264,12 +269,12 @@ __device__ __forceinline__ int column(int i, int q, int g) {
 // blockIdx.y + gridDim.y, ...  NW = 2: up/gate, y is act [Ct, N = F] =
 // bf16(silu(x . w1 * s1) * (x . w0 * s0)); NW = 1: down, y is out [Ct, N = D]
 // = bf16(x . w0 * s0).  Scales only for the quantized formats.  Warp (wc, wr)
-// takes column group wc and tiles wr * RW .. of the run.  With gridDim.z =
-// split > 1, block z sums contraction stages [z nk / split, (z + 1) nk /
-// split) of its first run into f32 partials, part[(z NW + m) gridDim.y +
-// run] (R TILE rows of N each), which merge_splits adds in the order of z; a
-// later run of the block (only when te holds more runs than the grid's
-// rows) is summed whole by the z = 0 block.
+// takes column group wc and tiles wr * RW .. of the run.  The down pass may
+// split its contraction: with gridDim.z = split > 1, block z sums stages
+// [z nk / split, (z + 1) nk / split) of its first run into f32 partials,
+// part[z gridDim.y + run] (R TILE rows of N each), which merge_splits adds in
+// the order of z; a later run of the block (only when te holds more runs
+// than the grid's rows) is summed whole by the z = 0 block.
 template <int BITS, int NW, class P>
 __global__ void __launch_bounds__(P::THREADS)
 mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, int n_tiles,
@@ -290,7 +295,7 @@ mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, 
 
 #pragma unroll 1
   for (int run = blockIdx.y; run < n_runs; run += gridDim.y) {
-    const bool partial = split > 1 && run < gridDim.y;
+    const bool partial = NW == 1 && split > 1 && run < gridDim.y;
     if (z > 0 && !partial) break;
     const int t0 = runs[run], nrt = runs[run + 1] - t0;
     const int nw = min(RW, nrt - r0);  // this warp's tiles of the run
@@ -356,21 +361,18 @@ mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, 
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         if (r >= nw) break;
+        float* pr = part + ((size_t)z * gridDim.y + run) * (P::R * TILE) * N +
+                    (size_t)((r0 + r) * TILE + 2 * t) * N + col0;
 #pragma unroll
-        for (int m = 0; m < NW; ++m) {
-          float* pr = part + (((size_t)z * NW + m) * gridDim.y + run) * (P::R * TILE) * N +
-                      (size_t)((r0 + r) * TILE + 2 * t) * N + col0;
+        for (int b = 0; b < 2; ++b) {  // token row 2t + b of tile r
+          if constexpr (BITS == 0) {
 #pragma unroll
-          for (int b = 0; b < 2; ++b) {  // token row 2t + b of tile r
-            if constexpr (BITS == 0) {
+            for (int i = 0; i < 2; ++i)
 #pragma unroll
-              for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int h = 0; h < 2; ++h) pr[b * N + column<BITS>(i, 2 * h, g)] = acc[r][m][i][2 * h + b];
-            } else {  // columns 4g .. 4g+3: (tile 0, g), (0, g + 8), (1, g), (1, g + 8)
-              *reinterpret_cast<float4*>(pr + b * N + 4 * g) = make_float4(
-                  acc[r][m][0][b], acc[r][m][0][2 + b], acc[r][m][1][b], acc[r][m][1][2 + b]);
-            }
+              for (int h = 0; h < 2; ++h) pr[b * N + column<BITS>(i, 2 * h, g)] = acc[r][0][i][2 * h + b];
+          } else {  // columns 4g .. 4g+3: (tile 0, g), (0, g + 8), (1, g), (1, g + 8)
+            *reinterpret_cast<float4*>(pr + b * N + 4 * g) = make_float4(
+                acc[r][0][0][b], acc[r][0][0][2 + b], acc[r][0][1][b], acc[r][0][1][2 + b]);
           }
         }
       }
@@ -428,48 +430,36 @@ mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, 
   }
 }
 
-// The split passes' epilogue: for each run slot of the grid (gridDim.y of
-// the pass), the partials of its rows summed over z = 0 .. split - 1 in that
-// order, then the pass's epilogue (column scales, SwiGLU for NW = 2, bf16).
+// The split down pass's epilogue: for each run slot of the grid (gridDim.y
+// of the pass), the partials of its rows summed over z = 0 .. split - 1 in
+// that order, times the column scales (null for bf16 weights), to bf16.
 // Threads take 4 adjacent columns of a row.
-template <int NW>
 __global__ void __launch_bounds__(256)
 merge_splits(const float* __restrict__ part, const int32_t* __restrict__ runs, int n_tiles,
-             const int32_t* __restrict__ te, const float* __restrict__ s0,
-             const float* __restrict__ s1, __nv_bfloat16* __restrict__ y, int N, int run_rows,
-             int split) {
+             const int32_t* __restrict__ te, const float* __restrict__ scale,
+             __nv_bfloat16* __restrict__ y, int N, int run_rows, int split) {
   const int run = blockIdx.y;
   if (run >= runs[n_tiles + 1]) return;
   const int t0 = runs[run], rows = (runs[run + 1] - t0) * TILE, nq = N / 4;
   const size_t e = (size_t)te[t0];
-  const size_t stride = (size_t)gridDim.y * run_rows * N;  // between (z, m) blocks of partials
+  const size_t stride = (size_t)gridDim.y * run_rows * N;  // between splits' partials
   const float* p = part + (size_t)run * run_rows * N;
   for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < rows * nq; u += gridDim.x * blockDim.x) {
     const int row = u / nq, c = (u - row * nq) * 4;
-    float a[NW][4] = {};
-    for (int zz = 0; zz < split; ++zz)
-#pragma unroll
-      for (int m = 0; m < NW; ++m) {
-        const float4 v = *reinterpret_cast<const float4*>(p + (zz * NW + m) * stride + (size_t)row * N + c);
-        a[m][0] += v.x;
-        a[m][1] += v.y;
-        a[m][2] += v.z;
-        a[m][3] += v.w;
-      }
-    float o[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float h0 = a[0][j] * (s0 ? __ldg(s0 + e * N + c + j) : 1.f);
-      if constexpr (NW == 2) {
-        const float gv = a[1][j] * (s1 ? __ldg(s1 + e * N + c + j) : 1.f);
-        o[j] = gv / (1.f + expf(-gv)) * h0;
-      } else {
-        o[j] = h0;
-      }
+    float a[4] = {};
+    for (int zz = 0; zz < split; ++zz) {
+      const float4 v = *reinterpret_cast<const float4*>(p + zz * stride + (size_t)row * N + c);
+      a[0] += v.x;
+      a[1] += v.y;
+      a[2] += v.z;
+      a[3] += v.w;
     }
+    if (scale)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[j] *= __ldg(scale + e * N + c + j);
     uint2 pk;
-    pk.x = sm90::pack_bf16(o[0], o[1]);
-    pk.y = sm90::pack_bf16(o[2], o[3]);
+    pk.x = sm90::pack_bf16(a[0], a[1]);
+    pk.y = sm90::pack_bf16(a[2], a[3]);
     *reinterpret_cast<uint2*>(y + (size_t)(t0 * TILE + row) * N + c) = pk;
   }
 }
@@ -586,11 +576,9 @@ int merge_blocks(int R, int N) {
 template <int BITS, class P>
 int launch(const void* xg, const void* te, const void* rows_used, const void* wi, const void* wi_s,
            const void* wg, const void* wg_s, const void* wo, const void* wo_s, void* act, void* out,
-           void* runs, void* part, int n_tiles, int E, int D, int F, int split_up, int split_down,
-           cudaStream_t s) {
-  if (D % P::BN || F % P::BN || D % KC || F % KC || n_tiles < 1 || E < 1 || split_up < 1 ||
-      split_down < 1 || split_up > D / KC || split_down > F / KC ||
-      ((split_up > 1 || split_down > 1) && part == nullptr))
+           void* runs, void* part, int n_tiles, int E, int D, int F, int split, cudaStream_t s) {
+  if (D % P::BN || F % P::BN || D % KC || F % KC || n_tiles < 1 || E < 1 || split < 1 ||
+      split > F / KC || (split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int max_runs = max_runs_of(n_tiles, E, P::R);
   runs_kernel<<<1 + ZERO_BLOCKS, SCAN, 0, s>>>(
@@ -604,22 +592,19 @@ int launch(const void* xg, const void* te, const void* rows_used, const void* wi
   if (rc) return rc;
   const int32_t* r = static_cast<const int32_t*>(runs);
   const int32_t* t = static_cast<const int32_t*>(te);
-  float* pt = static_cast<float*>(part);
-  const float *si = static_cast<const float*>(wi_s), *sg = static_cast<const float*>(wg_s),
-              *so = static_cast<const float*>(wo_s);
+  const float* so = static_cast<const float*>(wo_s);
   __nv_bfloat16 *a = static_cast<__nv_bfloat16*>(act), *o = static_cast<__nv_bfloat16*>(out);
-  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs, split_up), P::THREADS, Ring<BITS, 2, P>::BYTES, s>>>(
-      static_cast<const __nv_bfloat16*>(xg), r, n_tiles, t, wi, si, wg, sg, a, pt, D, F);
-  if (split_up > 1)
-    merge_splits<2><<<dim3(merge_blocks(P::R, F), max_runs), 256, 0, s>>>(pt, r, n_tiles, t, si, sg, a,
-                                                                         F, P::R * TILE, split_up);
+  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs), P::THREADS, Ring<BITS, 2, P>::BYTES, s>>>(
+      static_cast<const __nv_bfloat16*>(xg), r, n_tiles, t, wi, static_cast<const float*>(wi_s), wg,
+      static_cast<const float*>(wg_s), a, nullptr, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split_down), P::THREADS, Ring<BITS, 1, P>::BYTES, s>>>(
+  float* pt = static_cast<float*>(part);
+  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split), P::THREADS, Ring<BITS, 1, P>::BYTES, s>>>(
       a, r, n_tiles, t, wo, so, nullptr, nullptr, o, pt, F, D);
-  if (split_down > 1)
-    merge_splits<1><<<dim3(merge_blocks(P::R, D), max_runs), 256, 0, s>>>(pt, r, n_tiles, t, so, nullptr,
-                                                                         o, D, P::R * TILE, split_down);
+  if (split > 1)
+    merge_splits<<<dim3(merge_blocks(P::R, D), max_runs), 256, 0, s>>>(pt, r, n_tiles, t, so, o, D,
+                                                                      P::R * TILE, split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,21 +613,18 @@ template <int BITS>
 int launch_plan(const void* xg, const void* te, const void* rows_used, const void* wi,
                 const void* wi_s, const void* wg, const void* wg_s, const void* wo, const void* wo_s,
                 void* act, void* out, void* runs, void* part, int n_tiles, int E, int D, int F,
-                int plan, int split_up, int split_down, cudaStream_t s) {
+                int plan, int split, cudaStream_t s) {
   if (plan == 0)
     return launch<BITS, Plan<1, 8, 1, 110592>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act,
-                                               out, runs, part, n_tiles, E, D, F, split_up,
-                                               split_down, s);
+                                               out, runs, part, n_tiles, E, D, F, split, s);
   if constexpr (BITS == 0) {
     if (plan == 1)
       return launch<BITS, Plan<16, 4, 2, 163840>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s,
-                                                  act, out, runs, part, n_tiles, E, D, F, split_up,
-                                                  split_down, s);
+                                                  act, out, runs, part, n_tiles, E, D, F, split, s);
   }
   if (plan == 2)
     return launch<BITS, Plan<8, 8, 1, 110592>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act,
-                                               out, runs, part, n_tiles, E, D, F, split_up,
-                                               split_down, s);
+                                               out, runs, part, n_tiles, E, D, F, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -652,11 +634,10 @@ int launch_plan(const void* xg, const void* te, const void* rows_used, const voi
 // [Ct, D] bf16, te [Ct/8] and rows_used [1] int32, the weights (bits 0: bf16;
 // 8: int8; 4: packed int4) with f32 scales for bits 8 and 4 (null for 0), act
 // [Ct, F] and out [Ct, D] bf16 allocated by the caller, runs an int32
-// workspace of n_tiles + 2 entries, part an f32 workspace of
-// max(split_up 2 F, split_down D) max_runs R 8 entries when a split is past 1
-// (max_runs_of, with the plan's R; else null), plan one of launch_plan's,
-// split_up / split_down the blocks that share each pass's contraction (1 to
-// D / 32 and F / 32); stream a cudaStream_t.  D and F must be multiples of
+// workspace of n_tiles + 2 entries, plan one of launch_plan's, split the
+// blocks that share the down pass's contraction (1 to F / 32), part an f32
+// workspace of split D max_runs R 8 entries when split > 1 (max_runs_of,
+// with the plan's R; else null); stream a cudaStream_t.  D and F must be multiples of
 // the plan's block width (256 or 128 columns).  Returns cudaGetLastError()
 // after the launches (0 = success).
 extern "C" {
@@ -664,18 +645,17 @@ extern "C" {
 int grouped_mlp_mma(const void* xg, const void* te, const void* rows_used, const void* wi,
                     const void* wi_s, const void* wg, const void* wg_s, const void* wo,
                     const void* wo_s, void* act, void* out, void* runs, void* part, int n_tiles,
-                    int E, int D, int F, int bits, int plan, int split_up, int split_down,
-                    void* stream) {
+                    int E, int D, int F, int bits, int plan, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits == 0)
     return launch_plan<0>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
-                          n_tiles, E, D, F, plan, split_up, split_down, s);
+                          n_tiles, E, D, F, plan, split, s);
   if (bits == 8)
     return launch_plan<8>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
-                          n_tiles, E, D, F, plan, split_up, split_down, s);
+                          n_tiles, E, D, F, plan, split, s);
   if (bits == 4)
     return launch_plan<4>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
-                          n_tiles, E, D, F, plan, split_up, split_down, s);
+                          n_tiles, E, D, F, plan, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

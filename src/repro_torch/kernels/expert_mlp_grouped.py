@@ -53,7 +53,7 @@ def _library():
 
 def _mma_library():
     lib = build.load_library("grouped_mlp_mma")
-    lib.grouped_mlp_mma.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.grouped_mlp_mma.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.grouped_mlp_mma.restype = ctypes.c_int
     lib.grouped_mlp_runs.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.grouped_mlp_runs.restype = ctypes.c_int
@@ -74,17 +74,16 @@ def kernel_variant(dtype: torch.dtype, D: int, F: int, bits: int) -> str:
 class MmaPlan(NamedTuple):
     """A launch of the tensor-core kernel: runs of at most ``R`` tiles,
     ``plan`` (``launch_plan`` in the source), and the blocks that share the
-    contraction of the up/gate and of the down pass."""
+    down pass's contraction."""
     R: int
     plan: int
-    split_up: int = 1
-    split_down: int = 1
+    split: int = 1
 
 
 # plan 0 grids of at most this many rows (T*K <= 8 on the dispatch's buffer)
-# split each pass's contraction across blocks
+# split the down pass's contraction, across this many blocks by weight bits
 SPLIT_RUNS = 15
-SPLIT_UP, SPLIT_DOWN = 2, 4
+SPLIT = {0: 3, 8: 3, 4: 4}
 
 
 def mma_plan(n_tiles: int, num_experts: int, bits: int) -> MmaPlan:
@@ -93,15 +92,15 @@ def mma_plan(n_tiles: int, num_experts: int, bits: int) -> MmaPlan:
     ``T*K <= Ct - 7E + 7``: groups of about one tile (under 8 rows an
     expert: decode, a 256-token prefill) take runs of one tile (plan 0),
     and a grid of at most ``SPLIT_RUNS`` rows (decode at up to 8 tokens)
-    splits the up/gate pass's contraction across ``SPLIT_UP`` blocks and the
-    down pass's across ``SPLIT_DOWN``, so a few live experts still fill the
-    SMs; bf16 weights with groups of 64 rows or more (a 16384-token prefill)
-    runs of 16 tiles (plan 1); the rest runs of 8 (plan 2).  Measured on the
-    card (``launch.expert_kernels``, PERF.md)."""
+    splits the down pass's contraction across ``SPLIT[bits]`` blocks, so a
+    few live experts keep more SMs streaming; bf16 weights with groups of 64
+    rows or more (a 16384-token prefill) runs of 16 tiles (plan 1); the rest
+    runs of 8 (plan 2).  Measured on the card (``launch.expert_kernels
+    --splits``, PERF.md)."""
     rows = n_tiles * TILE - (TILE - 1) * num_experts + TILE - 1
     if rows < 8 * num_experts:
         if max_runs(n_tiles, num_experts, 1) <= SPLIT_RUNS:
-            return MmaPlan(1, 0, SPLIT_UP, SPLIT_DOWN)
+            return MmaPlan(1, 0, SPLIT[bits])
         return MmaPlan(1, 0)
     if bits == 0 and rows >= 64 * num_experts:
         return MmaPlan(16, 1)
@@ -309,8 +308,8 @@ def grouped_mlp(
 
 
 def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name, plan: Optional[MmaPlan] = None):
-    """The tensor-core kernel (the run table, up/gate and down, and a merge
-    after each split pass); each weight a (values, scales or None) pair;
+    """The tensor-core kernel (the run table, up/gate, down, and a merge
+    after a split down pass); each weight a (values, scales or None) pair;
     ``plan`` defaults to ``mma_plan``'s."""
     Ct, D = xg.shape
     E, Fd = wi[0].shape[0], wi[0].shape[-1]
@@ -320,8 +319,8 @@ def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name, plan: Optional[MmaPla
     out = torch.empty_like(xg)
     runs = torch.empty(nt + 2, dtype=torch.int32, device=xg.device)
     part = None
-    if plan.split_up > 1 or plan.split_down > 1:
-        n = max(plan.split_up * 2 * Fd, plan.split_down * D) * max_runs(nt, E, plan.R) * plan.R * TILE
+    if plan.split > 1:
+        n = plan.split * D * max_runs(nt, E, plan.R) * plan.R * TILE
         part = torch.empty(n, dtype=torch.float32, device=xg.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(xg.device):
@@ -329,8 +328,7 @@ def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name, plan: Optional[MmaPla
         err = _mma_library().grouped_mlp_mma(
             xg.data_ptr(), te.data_ptr(), rows_used.data_ptr(), ptr(wi[0]), ptr(wi[1]),
             ptr(wg[0]), ptr(wg[1]), ptr(wo[0]), ptr(wo[1]), act.data_ptr(), out.data_ptr(),
-            runs.data_ptr(), ptr(part), nt, E, D, Fd, bits, plan.plan, plan.split_up,
-            plan.split_down, stream)
+            runs.data_ptr(), ptr(part), nt, E, D, Fd, bits, plan.plan, plan.split, stream)
     if err != 0:
         raise RuntimeError(f"{name}: tensor-core kernel launch failed with CUDA error {err}")
     return out

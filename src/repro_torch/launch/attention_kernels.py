@@ -38,7 +38,7 @@ import time
 
 import torch
 
-from repro_torch.launch.paged_kernels import BF16_TOL, F32_TOL, Cases, graph_ms, host_ms, rows
+from repro_torch.launch.paged_kernels import BF16_TOL, F32_TOL, Cases, graph_ms, rows
 
 LLAMA4, GLM4, NLG = (40, 8, 128), (32, 2, 128), (16, 16, 64)  # (heads, kv-heads, head dim)
 
@@ -69,6 +69,19 @@ def sdpa_decode_quant(q, kq, ks, vq, vs, kpos, qpos, scale):
     qh = q.reshape(B, Hkv * G, 1, dh)
     return lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
                                                   enable_gqa=True)
+
+
+def host_ms(fn, n=20) -> float:
+    """Host time of one call: ``n`` calls issued back to back (the device
+    runs behind them), then one synchronize outside the window."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 class Attn(Cases):

@@ -27,8 +27,8 @@ without the int8 / int4 widening (the raw bytes taken as bf16 fragments),
 and with only its up/gate or only its down pass launched (beside the run
 table), to show what bounds each format.  The outputs of a patched build
 are not checked.  ``--splits`` checks and times the tensor-core kernel's
-plan 0 at T = 4 and 8 with each pass's contraction split across 1 to 6
-blocks (``MmaPlan.split_up`` / ``split_down``), in turns.
+plan 0 at T = 4 and 8 with the down pass's contraction split across 1 to 6
+blocks (``MmaPlan.split``), in turns.
 
 It builds only the two grouped sources, so it is the quick loop for work on
 these kernels; to compare with another checkout, run this file from this
@@ -45,7 +45,8 @@ import time
 
 import torch
 
-from repro_torch.launch.paged_kernels import BF16_TOL, Cases, graph_ms, host_ms, rows
+from repro_torch.launch.attention_kernels import host_ms
+from repro_torch.launch.paged_kernels import BF16_TOL, Cases, graph_ms, rows
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 700 W
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
@@ -230,12 +231,11 @@ _NO_WIDEN_4 = ("""            const uint32_t y = __byte_perm(u, v, 0x4400 + 0x11
             a[m][c >> 1][s][2 * h + (c & 1)] = *reinterpret_cast<uint32_t*>(&b);""",
                """            (void)bias; (void)v;
             a[m][c >> 1][s][2 * h + (c & 1)] = u + c;""")
-_UP_ONLY = [("""  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split_down)""",
-             """  if (false) mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split_down)"""),
-            ("""  if (split_down > 1)""", """  if (false)""")]
-_DOWN_ONLY = [("""  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs, split_up)""",
-               """  if (false) mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs, split_up)"""),
-              ("""  if (split_up > 1)""", """  if (false)""")]
+_UP_ONLY = [("""  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split)""",
+             """  if (false) mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split)"""),
+            ("""  if (split > 1)\n    merge_splits""", """  if (false)\n    merge_splits""")]
+_DOWN_ONLY = [("""  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs)""",
+               """  if (false) mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs)""")]
 VARIANTS = {"kernel": [], "no_weight_loads": [_NO_WEIGHT_LOADS],
             "no_widen": [_NO_WIDEN_8, _NO_WIDEN_4], "up_only": _UP_ONLY,
             "down_only": _DOWN_ONLY}
@@ -293,22 +293,21 @@ def time_variants(libs, cases):
             build._loaded["grouped_mlp_mma"] = loaded
 
 
-def sweep_splits(c, fmt, moe, xs):
-    """``--splits``: plan 0 at T = 4 and 8 with each pass's contraction split
-    across 1-3 (up/gate) and 1-6 (down) blocks, each checked per row, then
-    timed from CUDA graphs in turns (every split twice, in opposite orders)."""
+def sweep_splits(c, fmt, bits, moe, xs):
+    """``--splits``: plan 0 at T = 4 and 8 with the down pass's contraction
+    split across 1, 2, 3, 4 and 6 blocks, each checked per row, then timed
+    from CUDA graphs in turns (every split twice, in opposite orders)."""
     from repro_torch.kernels import expert_mlp_grouped as gk
 
     calls = {}
     for T in (4, 8):
         a, info = routed(moe, xs[T], LLAMA4["K"])
-        print(f"{fmt} T {T}: mma_plan {tuple(gk.mma_plan(info['Ct'] // TILE, info['E'], 0))}",
+        print(f"{fmt} T {T}: mma_plan {tuple(gk.mma_plan(info['Ct'] // TILE, info['E'], bits))}",
               flush=True)
-        for su in (1, 2, 3):
-            for sd in (1, 2, 3, 4, 6):
-                call = mma_call(a, gk.MmaPlan(1, 0, su, sd))
-                c.check(f"llama4 {fmt} T {T} plan 0 split {su} / {sd}", moe, a, info, call=call)
-                calls[f"{fmt} T {T} split {su} / {sd}"] = call
+        for split in (1, 2, 3, 4, 6):
+            call = mma_call(a, gk.MmaPlan(1, 0, split))
+            c.check(f"llama4 {fmt} T {T} plan 0 split {split}", moe, a, info, call=call)
+            calls[f"{fmt} T {T} split {split}"] = call
     names = list(calls)
     for name in names + names[::-1]:
         print(f"grouped_mlp_mma {name}: {graph_ms(calls[name]):.4f} ms", flush=True)
@@ -321,8 +320,8 @@ def main(argv=None) -> int:
                     help="also time the tensor-core kernel without its weight loads, without "
                     "the int8 / int4 widening, and each of its passes alone")
     ap.add_argument("--splits", action="store_true",
-                    help="also check and time plan 0 at T = 4 and 8 with each pass's contraction "
-                    "split across blocks")
+                    help="also check and time plan 0 at T = 4 and 8 with the down pass's "
+                    "contraction split across blocks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("expert_kernels: no CUDA device", file=sys.stderr)
@@ -377,7 +376,7 @@ def main(argv=None) -> int:
                         info)
             del a
         if args.splits:
-            sweep_splits(c, fmt, moe, xs)
+            sweep_splits(c, fmt, bits or 0, moe, xs)
         del moe
         torch.cuda.empty_cache()
     if args.variants and "grouped_mlp_mma" in names:

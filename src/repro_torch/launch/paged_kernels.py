@@ -51,19 +51,6 @@ def graph_ms(fn, n=20, reps=5) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, n=20) -> float:
-    """Host time of one call: ``n`` calls issued back to back (the device
-    runs behind them), then one synchronize outside the window."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(n):
-        fn()
-    ms = (time.perf_counter() - t) / n * 1e3
-    torch.cuda.synchronize()
-    return ms
-
-
 def rows(out, ref) -> dict:
     """Largest |out - ref| relative to the largest |ref|, and per query row
     relative to that row's own largest |ref|; a row whose ref is 0 (no valid

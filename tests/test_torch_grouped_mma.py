@@ -1,11 +1,13 @@
 """The tensor-core grouped expert MLP (kernels 4 and 5,
 ``csrc/grouped_mlp_mma.cu``) on the CPU: its run table's plain version
-against the JAX package's grouped layout, the wrapper's static rules, and
-its order of quantized arithmetic (the column scale on the f32 sum) against
-the JAX package's oracle.
+against the JAX package's grouped layout and on tile maps no dispatch
+makes, the wrapper's static rules, the split down pass's contraction
+ranges, and its order of quantized arithmetic (the column scale on the f32
+sum) against the JAX package's oracle.
 
-Tolerances: run tables, variants and plans are integers, compared exactly.
-The quantized products: f32 activations and weights agree to 1e-5 (the
+Tolerances: run tables, variants and plans are integers, compared exactly;
+the split down pass's merged f32 partials agree with the whole f32 sum to
+1e-5 relative. The quantized products: f32 activations and weights agree to 1e-5 (the
 scale multiplies the sum instead of each weight, one more rounding per
 output in f32); bf16 activations to 2e-2 of the largest output, the
 kernels' bf16 tolerance on the card (``chip_smoke.py`` BF16_TOL), since the
@@ -136,18 +138,17 @@ def test_run_table_takes_any_tile_map(nt, live, E, R, grid_rows):
     assert (n > grid_rows) == (grid_rows < nt)
 
 
-SPLIT = (tk.SPLIT_UP, tk.SPLIT_DOWN)
-
-
 @pytest.mark.parametrize("T,K,E,bits,plan", [
-    (4, 1, 128, 0, (1, 0, *SPLIT)),  # static decode: groups of one tile, split passes
-    (1, 1, 128, 4, (1, 0, *SPLIT)),
-    (8, 1, 128, 8, (1, 0, *SPLIT)),  # the continuous engine's 8 slots
-    (16, 1, 128, 0, (1, 0, 1, 1)),  # 23 grid rows: no split
-    (256, 1, 128, 4, (1, 0, 1, 1)),  # a 256-token prefill: about 2 tokens an expert
-    (16384, 1, 128, 0, (16, 1, 1, 1)),  # the long prefill, bf16: runs of 16
-    (16384, 1, 128, 8, (8, 2, 1, 1)),  # ... int8
-    (64, 8, 32, 0, (8, 2, 1, 1)),  # kimi-k2 width, top-8 over 32 experts
+    (4, 1, 128, 0, (1, 0, 3)),  # static decode: groups of one tile, the down pass split
+    (1, 1, 128, 4, (1, 0, 4)),
+    (4, 1, 128, 8, (1, 0, 3)),
+    (8, 1, 128, 8, (1, 0, 3)),  # the continuous engine's 8 slots
+    (8, 1, 128, 4, (1, 0, 4)),
+    (16, 1, 128, 0, (1, 0, 1)),  # 23 grid rows: no split
+    (256, 1, 128, 4, (1, 0, 1)),  # a 256-token prefill: about 2 tokens an expert
+    (16384, 1, 128, 0, (16, 1, 1)),  # the long prefill, bf16: runs of 16
+    (16384, 1, 128, 8, (8, 2, 1)),  # ... int8
+    (64, 8, 32, 0, (8, 2, 1)),  # kimi-k2 width, top-8 over 32 experts
 ])
 def test_mma_plan(T, K, E, bits, plan):
     nt = tdg.grouped_rows(T, K, E) // TILE
@@ -158,7 +159,7 @@ def test_mma_plan(T, K, E, bits, plan):
 
 
 def split_sum(x, w, split):
-    """x . w in f32 as the split passes sum it: contraction stages of 32
+    """x . w in f32 as the split down pass sums it: contraction stages of 32
     rows cut into ``split`` ranges [z nk / split, (z + 1) nk / split), each
     summed alone, the partials then added in the order of z."""
     nk = x.shape[-1] // 32
