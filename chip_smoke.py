@@ -81,18 +81,24 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    grouped on the served layer at T = 4 (same expert ids, outputs within
    BF16_TOL); (c) the continuous trace (the bf16 run's preemptions, pool
    drained); (d) int8 experts and an int8 KV cache through ``Engine``
-   (kernels 1, 3 and 9); (e) reduced f32 card vs CPU under ``dense``,
+   (kernels 1, 3 and 9; every call of kernel 3 on the tensor-core kernel,
+   prefill and decode-step ms and the tokens printed); every served call of
+   kernel 1 must have taken its one-launch path; (e) reduced f32 card vs
+   CPU under ``dense``,
    ``einsum``, capacity factor 0.25 (the prefill drops, counted), int8 and
    int4 experts, and the continuous trace.
 10. kernels 1, 2 and 3 against their plain versions: gating on the served
-   router's logits at T = 4 and 256, on f32 logits at kimi-k2's width (E
-   384, K 8), with rows of equal logits and with logits biased past a
-   capacity (integer outputs identical); the expert MLPs on the served
-   layer at T = 256 and 4 (bf16, fp and int8), int8 at a 13926-token
-   prefill (C = 136, which the TPU kernel's grid would refuse) and at
-   reduced size in f32; each timed beside its bound, kernel 1 also from a
-   CUDA graph of its calls (its device time, below its wrapper's host
-   time).
+   router's logits at T = 4, 8 and 256, on f32 logits at kimi-k2's width (E
+   384, K 8), with rows of equal logits, with logits biased past a
+   capacity, and at 13926 tokens, past the one-launch slot bound (integer
+   outputs identical; the path each took asserted), and its one-launch
+   path from two streams and two CUDA graphs at once; the expert MLPs per
+   token row on the served layer at T = 256, 4 and 8 (bf16, fp and int8;
+   int8 on the tensor-core kernel, also against its order's plain
+   version), int8 at a 13926-token prefill (C = 136, which the TPU
+   kernel's grid would refuse) and at reduced size in f32 and bf16 (the
+   CUDA-core kernel); each timed beside its bound from a CUDA graph of its
+   calls, beside CUDA events and the wrapper's host time.
 11. nlg-350m-moe128, the paper's model, at its published size and full
    depth (24 layers, 128 GELU experts on every other layer, 13.1 G
    parameters in bf16) once the llama4 trees are deleted: ``Engine`` with
@@ -246,33 +252,43 @@ def graph_ms(fn, n=20, reps=5) -> float:
     return statistics.median(times)
 
 
-# the grouped kernels' (4, 5) launches by variant (tensor-core "mma", CUDA-core
-# "fma") in each served run, by the run's name (``read``)
+# the per-variant launches of kernels 4, 5 and 3 (tensor-core "mma", CUDA-core
+# "fma") and of kernel 1 (one launch, or two) in each served run, by the
+# run's name (``read``)
 VARIANTS_SEEN = {}
 
 
-def reset(*counters):
-    """Zero every launch count, and the grouped kernels' per-variant ones."""
+def variant_counters():
     from repro_torch.kernels import expert_mlp_grouped as gk
+    from repro_torch.kernels import expert_mlp_quant as k3
+    from repro_torch.kernels import moe_gating as k1
 
-    for c in (*counters, gk.variant_launches):
+    return gk.variant_launches, k3.variant_launches, k1.variant_launches
+
+
+def reset(*counters):
+    """Zero every launch count, and the per-variant ones."""
+    for c in (*counters, *variant_counters()):
         for k in c:
             c[k] = 0
 
 
 def read(counters, path) -> dict:
     """Every kernel's launches since the last ``reset``.  Each caller is a
-    served run at full width in bf16, so every call of kernels 4 and 5 must
-    have taken the tensor-core variant: their per-variant counts are checked
-    against the launches and kept in VARIANTS_SEEN[path]."""
-    from repro_torch.kernels import expert_mlp_grouped as gk
-
+    served run at full width in bf16, so every call of kernels 4, 5 and 3
+    must have taken the tensor-core variant, and every call of kernel 1 its
+    one-launch path (the served T*K are within its slot bound): their
+    per-variant counts are checked against the launches and kept in
+    VARIANTS_SEEN[path]."""
     got = {k: v for c in counters for k, v in c.items()}
-    v = VARIANTS_SEEN[path] = dict(gk.variant_launches)
-    for name in ("grouped_mlp", "grouped_mlp_quant"):
+    v = VARIANTS_SEEN[path] = {k: n for c in variant_counters() for k, n in c.items()}
+    for name in ("grouped_mlp", "grouped_mlp_quant", "expert_mlp_quant"):
         if v[f"{name}_mma"] != got[name] or v[f"{name}_fma"]:
             raise AssertionError(f"{path}: {name} launched {got[name]} times, variants {v}: a "
                                  f"served bf16 call left the tensor-core kernel")
+    if v["moe_gating_one_launch"] != got["moe_gating"] or v["moe_gating_two_launches"]:
+        raise AssertionError(f"{path}: moe_gating called {got['moe_gating']} times, variants {v}: "
+                             f"a served call took two launches")
     return got
 
 
@@ -419,6 +435,21 @@ def reduced_bf16_checks(rmoe) -> dict:
         info.update(check_grouped(kargs, BF16_TOL, "fma", quant=bits > 0))
         out[f"int{bits}_bf16_reduced" if bits else "bf16_reduced"] = info
     return out
+
+
+def reduced_capacity_bf16_check(rmoe) -> dict:
+    """Kernel 3 in bf16 at the reduced width (D 128, F 64), which the
+    tensor-core kernel does not take, so the CUDA-core capacity kernel of
+    ``grouped_mlp.cu``: int8 of the reduced layer's experts in bf16, T = 64,
+    per row against both plain versions, from a generator of its own."""
+    from repro_torch.quant.qarrays import QuantizedArray
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q = {n: QuantizedArray.quantize(rmoe[n].to(torch.bfloat16), bits=8) for n in ("wi", "wg", "wo")}
+    kargs, info = capacity_expert_case({**q, "router": rmoe["router"]}, 64, 1, gen, torch.bfloat16,
+                                       2.0)
+    info.update(check_capacity_experts(kargs, BF16_TOL, quant=True, variant="fma"))
+    return info
 
 
 def kimi_width_checks(gen) -> dict:
@@ -1471,13 +1502,9 @@ def gating_case(logits, K, cap):
     return (logits.contiguous(), K, cap), info
 
 
-def check_gating(args, timed=False) -> dict:
-    """Kernel 1 against its plain version: integer outputs identical, w and
-    probs within 1e-6."""
-    from repro_torch.kernels import moe_gating as k1
-
-    g, counts = k1.gating(*args)
-    pg, pcounts = k1.gating_plain(*args)
+def gating_agrees(g, counts, pg, pcounts) -> float:
+    """Kernel 1's outputs against its plain version's: integer outputs
+    identical, w and probs within 1e-6 (returned)."""
     torch.cuda.synchronize()
     for name in ("expert_idx", "position", "keep"):
         if not torch.equal(getattr(g, name), getattr(pg, name)):
@@ -1487,7 +1514,66 @@ def check_gating(args, timed=False) -> dict:
     err = max((g.combine_w - pg.combine_w).abs().max().item(), (g.probs - pg.probs).abs().max().item())
     if err > 1e-6:
         raise AssertionError(f"moe_gating w / probs differ from the plain version by {err:.3e}")
-    res = {"max_abs_err": err, "max_rel_err": err, "dropped": int((~g.keep).sum().item())}
+    return err
+
+
+def concurrent_gating_check(E, gen, T=256, calls=40) -> dict:
+    """Kernel 1's one-launch path with more than one block (so its ticket
+    counter) run at once: two streams issuing ``calls`` calls each without
+    waiting, then two CUDA graphs of 10 calls replayed on the two streams
+    ``calls`` times each; every output against its plain version
+    (``gating_agrees``)."""
+    from repro_torch.core.gating import expert_capacity
+    from repro_torch.kernels import moe_gating as k1
+
+    cap = expert_capacity(T, E, 1, 1.25)
+    logits = [torch.randn((T, E), generator=gen, device="cuda") for _ in range(2)]
+    plain = [k1.gating_plain(lg, 1, cap) for lg in logits]
+    streams = [torch.cuda.Stream() for _ in logits]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(calls):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(k1.gating(logits[i], 1, cap))
+    torch.cuda.synchronize()
+    err = max(gating_agrees(*o, *plain[i]) for i in range(2) for o in outs[i])
+    del outs
+    graphs, gouts = [], []
+    for i, lg in enumerate(logits):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gouts.append([k1.gating(lg, 1, cap) for _ in range(10)])
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        for graph, s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+    torch.cuda.synchronize()
+    err = max(err, *(gating_agrees(*o, *plain[i]) for i in range(2) for o in gouts[i]))
+    del graphs, gouts
+    return {"T": T, "E": E, "K": 1, "capacity": cap, "blocks": -(-T // 8),
+            "eager_calls": 2 * calls, "graph_replays": 2 * calls, "max_abs_err": err,
+            "max_rel_err": err}
+
+
+def check_gating(args, timed=False) -> dict:
+    """Kernel 1 against its plain version: integer outputs identical, w and
+    probs within 1e-6; and the path it took: one launch up to
+    ``ONE_LAUNCH_SLOTS`` slots, two past it."""
+    from repro_torch.kernels import moe_gating as k1
+
+    before = dict(k1.variant_launches)
+    g, counts = k1.gating(*args)
+    took = [k for k, v in k1.variant_launches.items() if v != before[k]]
+    T, E = args[0].shape
+    want = "moe_gating_one_launch" if T * args[1] <= k1.ONE_LAUNCH_SLOTS else "moe_gating_two_launches"
+    if took != [want]:
+        raise AssertionError(f"moe_gating at T*K = {T * args[1]} took {took}, expected {want}")
+    err = gating_agrees(g, counts, *k1.gating_plain(*args))
+    res = {"max_abs_err": err, "max_rel_err": err, "dropped": int((~g.keep).sum().item()),
+           "variant": want}
     if timed:
         # ms: the two passes' device time, from a CUDA graph of wrapper
         # calls; host_ms: one wrapper call as the MoE layer pays it (its
@@ -1503,8 +1589,9 @@ def capacity_expert_case(moe, T, K, gen, dtype, cf):
     """Kernel 2's (or 3's, for quantized ``moe``) inputs as the MoE layer
     builds them: T random tokens routed by the layer's router with
     ``expert_capacity``, scattered into the [E, C, D] buffer; the counts as
-    fill.  The bound counts the weights of the experts with tokens, the
-    kept rows, the whole output and the fill, and 2*kept*3*D*F operations."""
+    fill (kernel 3 is also told the T*K assignments, as the layer tells
+    it).  The bound counts the weights of the experts with tokens, the kept
+    rows, the whole output and the fill, and 2*kept*3*D*F operations."""
     from repro_torch.core.dispatch import dispatch_dense
     from repro_torch.core.gating import expert_capacity
     from repro_torch.kernels.moe_gating import gating_plain
@@ -1521,22 +1608,49 @@ def capacity_expert_case(moe, T, K, gen, dtype, cf):
     need = live * expert_bytes(moe) + (kept + E * cap) * D * b + E * 4
     info = {"T": T, "K": K, "C": cap, "kept": kept, "dropped": T * K - kept, "live_experts": live,
             **bound(need, 2 * kept * 3 * D * F, dtype)}
-    return (xe, moe["wi"], moe["wg"], moe["wo"], counts), info
+    args = (xe, moe["wi"], moe["wg"], moe["wo"], counts)
+    if not torch.is_tensor(moe["wi"]):
+        args += (T * K,)
+    return args, info
 
 
-def check_capacity_experts(args, tol, quant=False) -> dict:
+def check_capacity_experts(args, tol, quant=False, variant=None, timed=False, n=20) -> dict:
+    """Kernel 2 (or 3) against its plain version, per token row (a row past
+    an expert's fill must come out 0 as the plain version's); kernel 3 also
+    against the tensor-core order's plain version, and the variant it took
+    must be ``variant`` ("mma" at the served widths in bf16, "fma" in f32);
+    timed: ``ms`` from a CUDA graph of ``n`` calls, ``events_ms`` CUDA events
+    around calls issued back to back, ``host_ms`` one wrapper call on the
+    host's clock."""
     from repro_torch.kernels import expert_mlp as k2
     from repro_torch.kernels import expert_mlp_quant as k3
+    from repro_torch.launch.attention_kernels import host_ms
 
     kernel, plain_fn = ((k3.expert_mlp_quant, k3.expert_mlp_quant_plain) if quant
                         else (k2.expert_mlp, k2.expert_mlp_plain))
+    before = dict(k3.variant_launches)
     out = kernel(*args)
     torch.cuda.synchronize()
+    if quant:
+        took = [k.rsplit("_", 1)[1] for k, v in k3.variant_launches.items() if v != before[k]]
+        if took != [variant]:
+            raise AssertionError(f"expert_mlp_quant: took the {took} kernel, expected {variant}")
     t0 = time.perf_counter()
-    plain = plain_fn(*args)
+    plain = plain_fn(*args[:5])
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    return {**compare(kernel.__name__, out, plain, tol), "plain_ms": plain_ms}
+    res = {**compare_rows(kernel.__name__, out, plain, tol), "plain_ms": plain_ms}
+    if quant:
+        res["variant"] = variant
+        res["vs_mma_plain"] = compare_rows(kernel.__name__ + " (tensor-core order)", out,
+                                           k3.expert_mlp_quant_mma_plain(*args[:5]), tol)
+    del out, plain
+    if timed:
+        fn = lambda: kernel(*args)
+        res["ms"] = graph_ms(fn, n=n)
+        res["events_ms"] = time_ms(fn, n=min(10, n), warmup=1)
+        res["host_ms"] = host_ms(fn, n=n)
+    return res
 
 
 def nlg_serve(counters) -> list:
@@ -2211,7 +2325,8 @@ def main() -> int:
     # shapes, then timed beside their bounds
     E1 = moe["router"].shape[1]
     gshapes = {}
-    for label, T in (("decode", BATCH), ("prefill", BATCH * PROMPT)):
+    for label, T in (("decode", BATCH), ("prefill", BATCH * PROMPT),
+                     ("continuous_decode", CONT["slots"])):
         x = torch.randn((T, cfg.d_model), generator=gen, device="cuda").bfloat16()
         args, info = gating_case(x.float() @ moe["router"], 1, expert_capacity(T, E1, 1, 1.25))
         info.update(check_gating(args, timed=True))
@@ -2234,13 +2349,24 @@ def main() -> int:
     if info["dropped"] == 0:
         raise AssertionError("the drop case of kernel 1 dropped nothing")
     gshapes["drops"] = info
-    log(f"kernel moe_gating ties (rows of equal logits, K 2) and drops (logits biased to expert 0): "
-        + json.dumps({k: gshapes[k] for k in ("ties", "drops")}))
+    # past the one-launch slot bound: the 13926-token prefill's gating (two
+    # launches, the rank scan over 14 chunks)
+    args, info = gating_case(torch.randn((13926, E1), generator=gen, device="cuda"), 1,
+                             expert_capacity(13926, E1, 1, 1.25))
+    info.update(check_gating(args, timed=True))
+    gshapes["past_one_launch_13926"] = info
+    log(f"kernel moe_gating ties (rows of equal logits, K 2), drops (logits biased to expert 0) "
+        f"and 13926 tokens (past the one-launch bound of {k1.ONE_LAUNCH_SLOTS} slots): "
+        + json.dumps({k: gshapes[k] for k in ("ties", "drops", "past_one_launch_13926")}))
+    cgen2 = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    gshapes["concurrent"] = concurrent_gating_check(E1, cgen2)
+    log(f"kernel moe_gating one launch on two streams and two graphs at once: "
+        f"{json.dumps(gshapes['concurrent'])}")
     cshapes = {}
-    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH),
+                     ("continuous_decode", CONT["slots"])):
         kargs, info = capacity_expert_case(moe, T, 1, gen, torch.bfloat16, 1.25)
-        info.update(check_capacity_experts(kargs, BF16_TOL))
-        info["ms"] = time_ms(lambda: k2.expert_mlp(*kargs))
+        info.update(check_capacity_experts(kargs, BF16_TOL, timed=True))
         cshapes[label] = info
         log(f"kernel expert_mlp bf16 {label}: {json.dumps(info)}")
     kargs, info = capacity_expert_case(rmoe, 64, 1, gen, torch.float32, 2.0)
@@ -2248,10 +2374,10 @@ def main() -> int:
     cshapes["f32_reduced"] = info
     log(f"kernel expert_mlp f32 reduced: {json.dumps(info)}")
     cqshapes = {}
-    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+    for label, T in (("prefill", BATCH * PROMPT), ("decode", BATCH),
+                     ("continuous_decode", CONT["slots"])):
         kargs, info = capacity_expert_case(qmoe, T, 1, gen, torch.bfloat16, 1.25)
-        info.update(check_capacity_experts(kargs, BF16_TOL, quant=True))
-        info["ms"] = time_ms(lambda: k3.expert_mlp_quant(*kargs))
+        info.update(check_capacity_experts(kargs, BF16_TOL, quant=True, variant="mma", timed=True))
         cqshapes[f"int8_{label}"] = info
         log(f"kernel expert_mlp_quant int8 bf16 {label}: {json.dumps(info)}")
     # a long prefill: C = 136 is past the TPU kernel's 128-row block and not
@@ -2259,14 +2385,16 @@ def main() -> int:
     kargs, info = capacity_expert_case(qmoe, 13926, 1, gen, torch.bfloat16, 1.25)
     if info["C"] != 136 or not k3.check_kernel_compat(*kargs[:4]):
         raise AssertionError(f"expert_mlp_quant: C={info['C']} is not taken by the kernel")
-    info.update(check_capacity_experts(kargs, BF16_TOL, quant=True))
+    info.update(check_capacity_experts(kargs, BF16_TOL, quant=True, variant="mma", timed=True, n=3))
     cqshapes["int8_prefill_c136"] = info
     log(f"kernel expert_mlp_quant int8 bf16 prefill of 13926 tokens (C 136): {json.dumps(info)}")
     rq = {n: QuantizedArray.quantize(rmoe[n], bits=8) for n in ("wi", "wg", "wo")}
     kargs, info = capacity_expert_case({**rq, "router": rmoe["router"]}, 64, 1, gen, torch.float32, 2.0)
-    info.update(check_capacity_experts(kargs, F32_TOL, quant=True))
+    info.update(check_capacity_experts(kargs, F32_TOL, quant=True, variant="fma"))
     cqshapes["int8_f32_reduced"] = info
     log(f"kernel expert_mlp_quant int8 f32 reduced: {json.dumps(info)}")
+    cqshapes["int8_bf16_reduced"] = info = reduced_capacity_bf16_check(rmoe)
+    log(f"kernel expert_mlp_quant int8 bf16 reduced (CUDA-core kernel): {json.dumps(info)}")
     del kargs, args
 
     # 11. the paper's own model at its published size, once the llama4 trees
@@ -2312,8 +2440,9 @@ def main() -> int:
 
     def grouped_variants(name):
         """Per served run that launched ``name``: its launches by variant."""
-        by_path = {path: {k.rsplit("_", 1)[1]: n for k, n in v.items() if k.rsplit("_", 1)[0] == name}
-                   for path, v in VARIANTS_SEEN.items()}
+        kinds = ("mma", "fma", "one_launch", "two_launches")
+        by_path = {path: {k[len(name) + 1:]: n for k, n in v.items() if k[len(name) + 1:] in kinds
+                          and k.startswith(name + "_")} for path, v in VARIANTS_SEEN.items()}
         return {path: v for path, v in by_path.items() if sum(v.values())}
 
     def attn_entry(name, source, replaces, main, checks=attn, launches=cont_launches,
@@ -2398,20 +2527,25 @@ def main() -> int:
              "none: no single PyTorch call computes capacity gating"),
             ("expert_mlp", "src/repro_torch/csrc/grouped_mlp.cu", "src/repro/kernels/expert_mlp.py:56",
              cap_static, cshapes, "decode", "none: no single PyTorch call computes an expert SwiGLU MLP"),
-            ("expert_mlp_quant", "src/repro_torch/csrc/grouped_mlp.cu",
+            ("expert_mlp_quant", "src/repro_torch/csrc/grouped_mlp_mma.cu",
              "src/repro/kernels/expert_mlp_quant.py:66", cap_qstatic, cqshapes, "int8_decode",
              "none: no single PyTorch call computes an int8 expert SwiGLU MLP")):
         m = checks[main]
         by_path = {p: c[kname] for p, c in paths}
+        entry = {"name": kname, "route": "cuda", "source": source, "replaces": replaces}
         if kname == "moe_gating":
             by_path["nlg_static"] = nlg_launches[kname]
+            entry["variant_launches_by_path"] = grouped_variants("moe_gating")
+        if kname == "expert_mlp_quant":
+            entry["source_f32"] = "src/repro_torch/csrc/grouped_mlp.cu"
+            entry["variant_launches_by_path"] = grouped_variants("expert_mlp_quant")
         kernels.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname], "launches_by_path": by_path,
+            **entry, "launches": launches[kname], "launches_by_path": by_path,
             "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
             "max_rel_err": max(v["max_rel_err"] for v in checks.values()),
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None, "library_call": call, "shapes": checks,
+            "ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": None,
+            "library_call": call, "shapes": checks,
         })
     m6 = fshapes["static_llama4"]
     kernels.append({

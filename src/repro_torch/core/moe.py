@@ -72,13 +72,15 @@ def init_moe(gen, cfg: ModelConfig, spec: FFNSpec, dtype, device, *, lead=()) ->
     return p
 
 
-def experts_ffn(params: dict, xe: torch.Tensor, act: str, fill=None) -> torch.Tensor:
+def experts_ffn(params: dict, xe: torch.Tensor, act: str, fill=None, n_assign=None) -> torch.Tensor:
     """xe [E, C, D] -> [E, C, D]: each expert's MLP over its capacity buffer.
     ``fill`` ([E] int32, the gating kernel's counts): rows at or past it are
-    zero, which lets the SwiGLU kernels skip them."""
+    zero, which lets the SwiGLU kernels skip them.  ``n_assign``: the
+    assignments the buffer can hold at most (T*K, static), which bounds the
+    int8 tensor-core kernel's grid."""
     wi, wo = params["wi"], params["wo"]
     if isinstance(wi, QuantizedArray):
-        return _experts_ffn_quant(params, xe, act, fill)
+        return _experts_ffn_quant(params, xe, act, fill, n_assign)
     if act == "swiglu":
         return expert_mlp(xe, wi, params["wg"], wo, fill)
     # GELU / ReLU experts: plain batched products in the input type, as the
@@ -86,7 +88,7 @@ def experts_ffn(params: dict, xe: torch.Tensor, act: str, fill=None) -> torch.Te
     return torch.bmm(act_fn(act)(torch.bmm(xe, wi)), wo)
 
 
-def _experts_ffn_quant(params: dict, xe: torch.Tensor, act: str, fill) -> torch.Tensor:
+def _experts_ffn_quant(params: dict, xe: torch.Tensor, act: str, fill, n_assign) -> torch.Tensor:
     """Quantized experts: kernel 3 where ``check_kernel_compat`` takes the
     layout (int8 per output column), else the plain dequantize path, as the
     JAX package's ``_experts_ffn_quant`` does on the TPU.  The choice reads
@@ -95,7 +97,7 @@ def _experts_ffn_quant(params: dict, xe: torch.Tensor, act: str, fill) -> torch.
     wg = params.get("wg")
     if act == "swiglu":
         if check_kernel_compat(xe, wi, wg, wo):
-            return expert_mlp_quant(xe, wi, wg, wo, fill)
+            return expert_mlp_quant(xe, wi, wg, wo, fill, n_assign)
         return expert_mlp_quant_plain(xe, wi, wg, wo, fill)
     return torch.bmm(act_fn(act)(torch.bmm(xe, materialize(wi))), materialize(wo))
 
@@ -147,7 +149,7 @@ def moe_layer(
     else:
         capacity = expert_capacity(T, E, K, spec.capacity_factor)
         g, counts = gating(logits, K, capacity)
-        ef = lambda xe: experts_ffn(params, xe, spec.act, counts)
+        ef = lambda xe: experts_ffn(params, xe, spec.act, counts, T * K)
         if impl == "einsum":
             y = dispatch_einsum.moe_einsum(xs, g, capacity, ef)
         else:  # dense mapping table

@@ -53,7 +53,9 @@
 // it replaces repro/kernels/expert_mlp.py::expert_mlp_kernel (TPU kernel 2,
 // weights in the input type) and repro/kernels/expert_mlp_quant.py::
 // expert_mlp_quant_kernel (TPU kernel 3, int8 weights with f32 column
-// scales), over the mapping table's [E, C, D] buffer viewed as [E*C, D].  C
+// scales; for bf16 activations at widths that are multiples of 256 it runs
+// on the tensor cores in grouped_mlp_mma.cu, and here only for f32 and other
+// widths), over the mapping table's [E, C, D] buffer viewed as [E*C, D].  C
 // is a multiple of 8, so tile t belongs to expert t / (C/8), and the gating
 // kernel's per-expert counts (fill) take the place of rows_used: a tile
 // whose first row is at or past its expert's fill holds only zero rows (the

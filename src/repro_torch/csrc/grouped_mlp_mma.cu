@@ -1,15 +1,17 @@
-// Grouped (dropless) expert SwiGLU MLP on the tensor cores, for Hopper
-// (sm_90a), bf16 activations.
+// Grouped (dropless) and capacity expert SwiGLU MLP on the tensor cores,
+// for Hopper (sm_90a), bf16 activations.
 //
 // Replaces, for bf16 activations, the TPU kernels
 // repro/kernels/expert_mlp_grouped.py::grouped_mlp_kernel (kernel 4, bf16
-// weights) and ::grouped_mlp_quant_kernel (kernel 5, MoQ weights: int8
+// weights), ::grouped_mlp_quant_kernel (kernel 5, MoQ weights: int8
 // [E, D, F] / [E, F, D], or int4 packed two per byte along the contraction
 // axis, [E, D/2, F] / [E, F/2, D], byte (r, n) holding rows 2r and 2r+1 of
 // column n in its low and high nibble; f32 scales [E, 1, F] / [E, 1, D], one
-// per output column).  The same function as grouped_mlp.cu, whose CUDA-core
-// kernels keep f32 activations and the shapes this file does not take (the
-// wrapper's static rule, kernels/expert_mlp_grouped.py::kernel_variant):
+// per output column) and repro/kernels/expert_mlp_quant.py::
+// expert_mlp_quant_kernel (kernel 3: kernel 5's int8 function over the
+// capacity buffer, below).  The same function as grouped_mlp.cu, whose
+// CUDA-core kernels keep f32 activations and the shapes this file does not
+// take (the wrappers' static rule, kernels/expert_mlp_grouped.py::kernel_variant):
 //
 //     out[t] = (silu(x . wg[e]) * (x . wi[e])) . wo[e]    for each live tile t, e = te[t]
 //
@@ -28,9 +30,12 @@
 // 1. Runs: one weight stream per run of tiles.  The dispatch sorts tiles by
 //    expert, so neighbouring tiles share weights.  A first launch (runs_kernel,
 //    one block, a block-wide scan of te) cuts the live tiles [0, rows_used / 8)
-//    into runs of at most R consecutive tiles of one expert, in order:
-//    starts[0 .. n_runs] with starts[n_runs] = live tiles, in a table of
-//    n_tiles + 2 entries, which any te fits.  Dead tiles past rows_used (te
+//    into runs of at most R consecutive tiles of one expert, in order: a
+//    run is its first tile and its end (one past its last), so a run table
+//    can also skip tiles (the capacity layout below); here each run ends
+//    where the next starts, which the passes read (run_of) in place of the
+//    ends the table also carries.  Any te fits the table's 2 n_tiles + 2
+//    entries (the layout: runs_kernel's note).  Dead tiles past rows_used (te
 //    clamped to E-1) join no run; the launch's other blocks write their output
 //    rows' zeros.  The grid has max_runs_of rows, a static bound on the run
 //    count of the dispatch's buffers (each expert adds at most one partial run,
@@ -84,6 +89,22 @@
 // not the bytes; at 16384 tokens, mma.sync's operand traffic through shared
 // memory (the build without weight loads takes 20 of the 22.6 ms): wgmma,
 // which reads its operands from shared memory once per warpgroup, is next.
+//
+// Kernel 3, the capacity layout: the buffer [E C, D] (C a multiple of 8)
+// holds expert e's rows at [e C, e C + min(fill[e], C)), zeros after them,
+// so it is the grouped layout with every group padded to C and its tiles
+// t -> t / tpe (tpe = C / 8 tiles an expert; no te array).  A first launch
+// (capacity_runs_kernel) cuts each expert's live tiles [e tpe, e tpe +
+// ceil(min(fill[e], C) / 8)) into runs of at most R, in expert order (a scan
+// over E of each expert's run count), and its other blocks write the zeros
+// of every expert's rows past its live tiles; fill is read on the device,
+// so nothing waits for the host.  Rows of a live tile past fill are zero on
+// input and come out zero through the products.  The grid's rows bound the
+// runs by min(E ceil(tpe / R), n_assign): each run holds at least one filled
+// row, and the rows hold at most the n_assign = T K assignments the wrapper
+// is told of (the MoE layer's static T K).  At decode (T = 4, C = 8) that is
+// 4 rows, so the down pass splits as kernel 5's does.  Same passes, plans
+// and numerics as kernels 4 / 5.
 //
 // Two passes, as before: up/gate writes act [Ct, F] (bf16) and the down pass
 // reads it (the round trip is Ct F 2 bytes each way, small beside the
@@ -265,6 +286,24 @@ __device__ __forceinline__ int column(int i, int q, int g) {
   else return 4 * g + 2 * i + (q >> 1);
 }
 
+// Run n of a table over nt tiles, in the layout CAP: its first tile, its
+// end and its expert.  The grouped layout's runs end where the next starts
+// and take their expert from te; the capacity layout's (CAP) read their ends
+// and take expert t0 / tpe.  A template argument, so kernels 4 / 5 read no
+// more than they did before the capacity layout.
+template <bool CAP>
+__device__ __forceinline__ void run_of(const int32_t* runs, int nt, int n, const int32_t* te,
+                                       int tpe, int& t0, int& end, size_t& e) {
+  t0 = runs[n];
+  if constexpr (CAP) {
+    end = runs[nt + 1 + n];
+    e = (size_t)(t0 / tpe);
+  } else {
+    end = runs[n + 1];
+    e = (size_t)te[t0];
+  }
+}
+
 // One pass over a block of output columns for the runs of blockIdx.y,
 // blockIdx.y + gridDim.y, ...  NW = 2: up/gate, y is act [Ct, N = F] =
 // bf16(silu(x . w1 * s1) * (x . w0 * s0)); NW = 1: down, y is out [Ct, N = D]
@@ -274,17 +313,19 @@ __device__ __forceinline__ int column(int i, int q, int g) {
 // [z nk / split, (z + 1) nk / split) of its first run into f32 partials,
 // part[z gridDim.y + run] (R TILE rows of N each), which merge_splits adds in
 // the order of z; a later run of the block (only when te holds more runs
-// than the grid's rows) is summed whole by the z = 0 block.
-template <int BITS, int NW, class P>
+// than the grid's rows) is summed whole by the z = 0 block.  CAP: the
+// capacity layout (run_of).
+template <int BITS, int NW, class P, bool CAP>
 __global__ void __launch_bounds__(P::THREADS)
 mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, int n_tiles,
-         const int32_t* __restrict__ te, const void* __restrict__ w0, const float* __restrict__ s0,
+         const int32_t* __restrict__ te, int tpe, const void* __restrict__ w0,
+         const float* __restrict__ s0,
          const void* __restrict__ w1, const float* __restrict__ s1, __nv_bfloat16* __restrict__ y,
          float* __restrict__ part, int K, int N) {
   using Fm = Fmt<BITS>;
   using Rg = Ring<BITS, NW, P>;
   constexpr int RW = P::RW, WC = P::WC;
-  const int n_runs = runs[n_tiles + 1];
+  const int n_runs = runs[2 * n_tiles + 1];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int wc = warp % WC, r0 = (warp / WC) * RW;  // this warp's first tile of a run
   const int bcol = blockIdx.x * WC * WN, col0 = bcol + wc * WN;
@@ -297,9 +338,11 @@ mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, 
   for (int run = blockIdx.y; run < n_runs; run += gridDim.y) {
     const bool partial = NW == 1 && split > 1 && run < gridDim.y;
     if (z > 0 && !partial) break;
-    const int t0 = runs[run], nrt = runs[run + 1] - t0;
+    int t0, end;
+    size_t e;
+    run_of<CAP>(runs, n_tiles, run, te, tpe, t0, end, e);
+    const int nrt = end - t0;
     const int nw = min(RW, nrt - r0);  // this warp's tiles of the run
-    const size_t e = (size_t)te[t0];
     const int k0 = partial ? z * nk / split : 0;
     const int nks = (partial ? (z + 1) * nk / split : nk) - k0;
     const uint8_t* w[NW];
@@ -434,14 +477,17 @@ mma_pass(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ runs, 
 // of the pass), the partials of its rows summed over z = 0 .. split - 1 in
 // that order, times the column scales (null for bf16 weights), to bf16.
 // Threads take 4 adjacent columns of a row.
+template <bool CAP>
 __global__ void __launch_bounds__(256)
 merge_splits(const float* __restrict__ part, const int32_t* __restrict__ runs, int n_tiles,
-             const int32_t* __restrict__ te, const float* __restrict__ scale,
+             const int32_t* __restrict__ te, int tpe, const float* __restrict__ scale,
              __nv_bfloat16* __restrict__ y, int N, int run_rows, int split) {
   const int run = blockIdx.y;
-  if (run >= runs[n_tiles + 1]) return;
-  const int t0 = runs[run], rows = (runs[run + 1] - t0) * TILE, nq = N / 4;
-  const size_t e = (size_t)te[t0];
+  if (run >= runs[2 * n_tiles + 1]) return;
+  int t0, end;
+  size_t e;
+  run_of<CAP>(runs, n_tiles, run, te, tpe, t0, end, e);
+  const int rows = (end - t0) * TILE, nq = N / 4;
   const size_t stride = (size_t)gridDim.y * run_rows * N;  // between splits' partials
   const float* p = part + (size_t)run * run_rows * N;
   for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < rows * nq; u += gridDim.x * blockDim.x) {
@@ -496,12 +542,16 @@ __device__ int block_scan(int v, int* tmp, Op op, int ident) {
   return warp > 0 ? op(v, tmp[warp - 1]) : v;
 }
 
-// Block 0: the run table.  Tile j < live starts a run when it is the
-// (multiple of R)-th tile of its expert's group, the group starting at the
-// last tile j' <= j with te[j'] != te[j' - 1]; runs[n] = the n-th start,
-// runs[n_runs] = live, runs[nt + 1] = n_runs (n_runs <= live <= nt, so the
-// table fits its nt + 2 entries whatever te holds).  Other blocks: zeros in
-// the output rows [8 live, Ct) (D % 8 == 0), which no run writes.
+// A run table of nt tiles has 2 nt + 2 entries: runs[n] the first tile of
+// run n, runs[n_runs] the live tile count, runs[nt + 1 + n] the end of run n
+// (one past its last tile), runs[2 nt + 1] = n_runs.  n_runs <= live <= nt,
+// so whatever te or fill holds the table fits.
+//
+// runs_kernel, block 0: the grouped layout's table.  Tile j < live starts a
+// run when it is the (multiple of R)-th tile of its expert's group, the
+// group starting at the last tile j' <= j with te[j'] != te[j' - 1]; a run
+// ends where the next starts (the last at live).  Other blocks: zeros in the
+// output rows [8 live, Ct) (D % 8 == 0), which no run writes.
 __global__ void __launch_bounds__(SCAN)
 runs_kernel(const int32_t* __restrict__ te, const int32_t* __restrict__ rows_used, int nt, int R,
             int32_t* __restrict__ runs, __nv_bfloat16* __restrict__ out, int D, int Ct) {
@@ -536,17 +586,67 @@ runs_kernel(const int32_t* __restrict__ te, const int32_t* __restrict__ rows_use
   }
   if (threadIdx.x == 0) {
     runs[n] = live;
-    runs[nt + 1] = n;
+    runs[2 * nt + 1] = n;
+  }
+  __syncthreads();  // the starts (global, this block's) visible to every thread
+  for (int i = threadIdx.x; i < n; i += blockDim.x) runs[nt + 1 + i] = runs[i + 1];
+}
+
+// capacity_runs_kernel, block 0: the capacity layout's table (tpe tiles an
+// expert).  Expert e has L_e = ceil(min(fill[e], C) / 8) live tiles from
+// e tpe, cut into ceil(L_e / R) runs; a block-wide scan over the experts
+// (chunks of the block's width, carried) places each expert's runs, in
+// expert order.  Other blocks: zeros in each expert's rows past its live
+// tiles, [e C + 8 L_e, (e + 1) C) (D % 8 == 0), which no run writes.
+__global__ void __launch_bounds__(SCAN)
+capacity_runs_kernel(const int32_t* __restrict__ fill, int E, int tpe, int R,
+                     int32_t* __restrict__ runs, __nv_bfloat16* __restrict__ out, int D) {
+  const int nt = E * tpe, C = tpe * TILE;
+  auto live_tiles = [&](int e) { return (min(max(__ldg(fill + e), 0), C) + TILE - 1) / TILE; };
+  if (blockIdx.x > 0) {
+    const size_t row16 = D / 8;  // 16-byte words of a row
+    for (int e = blockIdx.x - 1; e < E; e += gridDim.x - 1) {
+      uint4* o = reinterpret_cast<uint4*>(out) + (size_t)e * C * row16;
+      for (size_t u = (size_t)live_tiles(e) * TILE * row16 + threadIdx.x; u < (size_t)C * row16;
+           u += blockDim.x)
+        o[u] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  __shared__ int tmp[32];
+  int n = 0, live = 0;  // carried across chunks: runs and live tiles so far
+  for (int base = 0; base < E; base += blockDim.x) {
+    const int e = base + threadIdx.x;
+    const int L = e < E ? live_tiles(e) : 0, r = (L + R - 1) / R;
+    const int upto = block_scan(r, tmp, Sum(), 0);
+    const int lsum = block_scan(L, tmp, Sum(), 0);
+    const int t0 = e * tpe;
+    for (int i = 0, o = n + upto - r; i < r; ++i, ++o) {
+      runs[o] = t0 + i * R;
+      runs[nt + 1 + o] = t0 + min((i + 1) * R, L);
+    }
+    __syncthreads();
+    if (threadIdx.x == blockDim.x - 1) {
+      tmp[0] = n + upto;
+      tmp[1] = live + lsum;
+    }
+    __syncthreads();
+    n = tmp[0];
+    live = tmp[1];
+  }
+  if (threadIdx.x == 0) {
+    runs[n] = live;
+    runs[2 * nt + 1] = n;
   }
 }
 
 // Lets a kernel take its ring in dynamic shared memory (past 48 KB); one
 // attribute call per instantiation.
-template <int BITS, int NW, class P>
+template <int BITS, int NW, class P, bool CAP>
 int prepare() {
   static bool done = false;
   if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(mma_pass<BITS, NW, P>,
+  const cudaError_t err = cudaFuncSetAttribute(mma_pass<BITS, NW, P, CAP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                Ring<BITS, NW, P>::BYTES);
   done = err == cudaSuccess;
@@ -567,64 +667,81 @@ int max_runs_of(int n_tiles, int E, int R) {
   return bound < 1 ? 1 : bound;
 }
 
+// The same over the capacity layout: at most ceil(tpe / R) runs an expert,
+// and, with n_assign > 0 assignments, at most n_assign runs (each run holds
+// a filled row).  A fill past that bound is still computed whole.
+int capacity_max_runs_of(int E, int tpe, int R, int n_assign) {
+  int bound = E * ((tpe + R - 1) / R);
+  if (n_assign > 0 && n_assign < bound) bound = n_assign;
+  return bound < 1 ? 1 : bound;
+}
+
 // Blocks of merge_splits for one run slot: 4 columns a thread.
 int merge_blocks(int R, int N) {
   const int quads = R * TILE * N / 4;
   return (quads + 255) / 256;
 }
 
-template <int BITS, class P>
-int launch(const void* xg, const void* te, const void* rows_used, const void* wi, const void* wi_s,
-           const void* wg, const void* wg_s, const void* wo, const void* wo_s, void* act, void* out,
-           void* runs, void* part, int n_tiles, int E, int D, int F, int split, cudaStream_t s) {
-  if (D % P::BN || F % P::BN || D % KC || F % KC || n_tiles < 1 || E < 1 || split < 1 ||
-      split > F / KC || (split > 1 && part == nullptr))
+// One call's arguments: the grouped layout (te, rows_used; tpe 0) or the
+// capacity layout (CAP: fill, tpe = C / 8, n_assign; te null).
+struct Call {
+  const void *x, *te, *rows_used, *fill, *wi, *wi_s, *wg, *wg_s, *wo, *wo_s;
+  void *act, *out, *runs, *part;
+  int n_tiles, E, D, F, tpe, n_assign, split;
+  cudaStream_t s;
+};
+
+template <int BITS, class P, bool CAP>
+int launch(const Call& c) {
+  const int D = c.D, F = c.F, split = c.split;
+  if (D % P::BN || F % P::BN || D % KC || F % KC || c.n_tiles < 1 || c.E < 1 || split < 1 ||
+      split > F / KC || (split > 1 && c.part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int max_runs = max_runs_of(n_tiles, E, P::R);
-  runs_kernel<<<1 + ZERO_BLOCKS, SCAN, 0, s>>>(
-      static_cast<const int32_t*>(te), static_cast<const int32_t*>(rows_used), n_tiles, P::R,
-      static_cast<int32_t*>(runs), static_cast<__nv_bfloat16*>(out), D, n_tiles * TILE);
+  int32_t* r = static_cast<int32_t*>(c.runs);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(c.out);
+  int max_runs;
+  if constexpr (CAP) {
+    max_runs = capacity_max_runs_of(c.E, c.tpe, P::R, c.n_assign);
+    capacity_runs_kernel<<<1 + ZERO_BLOCKS, SCAN, 0, c.s>>>(static_cast<const int32_t*>(c.fill), c.E,
+                                                            c.tpe, P::R, r, o, D);
+  } else {
+    max_runs = max_runs_of(c.n_tiles, c.E, P::R);
+    runs_kernel<<<1 + ZERO_BLOCKS, SCAN, 0, c.s>>>(static_cast<const int32_t*>(c.te),
+                                                   static_cast<const int32_t*>(c.rows_used),
+                                                   c.n_tiles, P::R, r, o, D, c.n_tiles * TILE);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  int rc = prepare<BITS, 2, P>();
+  int rc = prepare<BITS, 2, P, CAP>();
   if (rc) return rc;
-  rc = prepare<BITS, 1, P>();
+  rc = prepare<BITS, 1, P, CAP>();
   if (rc) return rc;
-  const int32_t* r = static_cast<const int32_t*>(runs);
-  const int32_t* t = static_cast<const int32_t*>(te);
-  const float* so = static_cast<const float*>(wo_s);
-  __nv_bfloat16 *a = static_cast<__nv_bfloat16*>(act), *o = static_cast<__nv_bfloat16*>(out);
-  mma_pass<BITS, 2, P><<<dim3(F / P::BN, max_runs), P::THREADS, Ring<BITS, 2, P>::BYTES, s>>>(
-      static_cast<const __nv_bfloat16*>(xg), r, n_tiles, t, wi, static_cast<const float*>(wi_s), wg,
-      static_cast<const float*>(wg_s), a, nullptr, D, F);
+  const int32_t* t = static_cast<const int32_t*>(c.te);
+  const float* so = static_cast<const float*>(c.wo_s);
+  __nv_bfloat16* a = static_cast<__nv_bfloat16*>(c.act);
+  mma_pass<BITS, 2, P, CAP><<<dim3(F / P::BN, max_runs), P::THREADS, Ring<BITS, 2, P>::BYTES, c.s>>>(
+      static_cast<const __nv_bfloat16*>(c.x), r, c.n_tiles, t, c.tpe, c.wi,
+      static_cast<const float*>(c.wi_s), c.wg, static_cast<const float*>(c.wg_s), a, nullptr, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* pt = static_cast<float*>(part);
-  mma_pass<BITS, 1, P><<<dim3(D / P::BN, max_runs, split), P::THREADS, Ring<BITS, 1, P>::BYTES, s>>>(
-      a, r, n_tiles, t, wo, so, nullptr, nullptr, o, pt, F, D);
+  float* pt = static_cast<float*>(c.part);
+  mma_pass<BITS, 1, P, CAP>
+      <<<dim3(D / P::BN, max_runs, split), P::THREADS, Ring<BITS, 1, P>::BYTES, c.s>>>(
+          a, r, c.n_tiles, t, c.tpe, c.wo, so, nullptr, nullptr, o, pt, F, D);
   if (split > 1)
-    merge_splits<<<dim3(merge_blocks(P::R, D), max_runs), 256, 0, s>>>(pt, r, n_tiles, t, so, o, D,
-                                                                      P::R * TILE, split);
+    merge_splits<CAP><<<dim3(merge_blocks(P::R, D), max_runs), 256, 0, c.s>>>(
+        pt, r, c.n_tiles, t, c.tpe, so, o, D, P::R * TILE, split);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The plans of the note above: 0, 1 (bf16 weights only) and 2.
-template <int BITS>
-int launch_plan(const void* xg, const void* te, const void* rows_used, const void* wi,
-                const void* wi_s, const void* wg, const void* wg_s, const void* wo, const void* wo_s,
-                void* act, void* out, void* runs, void* part, int n_tiles, int E, int D, int F,
-                int plan, int split, cudaStream_t s) {
-  if (plan == 0)
-    return launch<BITS, Plan<1, 8, 1, 110592>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act,
-                                               out, runs, part, n_tiles, E, D, F, split, s);
+template <int BITS, bool CAP>
+int launch_plan(const Call& c, int plan) {
+  if (plan == 0) return launch<BITS, Plan<1, 8, 1, 110592>, CAP>(c);
   if constexpr (BITS == 0) {
-    if (plan == 1)
-      return launch<BITS, Plan<16, 4, 2, 163840>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s,
-                                                  act, out, runs, part, n_tiles, E, D, F, split, s);
+    if (plan == 1) return launch<BITS, Plan<16, 4, 2, 163840>, CAP>(c);
   }
-  if (plan == 2)
-    return launch<BITS, Plan<8, 8, 1, 110592>>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act,
-                                               out, runs, part, n_tiles, E, D, F, split, s);
+  if (plan == 2) return launch<BITS, Plan<8, 8, 1, 110592>, CAP>(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -634,7 +751,7 @@ int launch_plan(const void* xg, const void* te, const void* rows_used, const voi
 // [Ct, D] bf16, te [Ct/8] and rows_used [1] int32, the weights (bits 0: bf16;
 // 8: int8; 4: packed int4) with f32 scales for bits 8 and 4 (null for 0), act
 // [Ct, F] and out [Ct, D] bf16 allocated by the caller, runs an int32
-// workspace of n_tiles + 2 entries, plan one of launch_plan's, split the
+// workspace of 2 n_tiles + 2 entries, plan one of launch_plan's, split the
 // blocks that share the down pass's contraction (1 to F / 32), part an f32
 // workspace of split D max_runs R 8 entries when split > 1 (max_runs_of,
 // with the plan's R; else null); stream a cudaStream_t.  D and F must be multiples of
@@ -646,27 +763,45 @@ int grouped_mlp_mma(const void* xg, const void* te, const void* rows_used, const
                     const void* wi_s, const void* wg, const void* wg_s, const void* wo,
                     const void* wo_s, void* act, void* out, void* runs, void* part, int n_tiles,
                     int E, int D, int F, int bits, int plan, int split, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 0)
-    return launch_plan<0>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
-                          n_tiles, E, D, F, plan, split, s);
-  if (bits == 8)
-    return launch_plan<8>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
-                          n_tiles, E, D, F, plan, split, s);
-  if (bits == 4)
-    return launch_plan<4>(xg, te, rows_used, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
-                          n_tiles, E, D, F, plan, split, s);
+  const Call c{xg, te, rows_used, nullptr, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
+               n_tiles, E, D, F, 0, 0, split, static_cast<cudaStream_t>(stream)};
+  if (bits == 0) return launch_plan<0, false>(c, plan);
+  if (bits == 8) return launch_plan<8, false>(c, plan);
+  if (bits == 4) return launch_plan<4, false>(c, plan);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The run table alone (what grouped_mlp_mma's first launch writes into runs,
-// n_tiles + 2 entries), for checking it against its plain version.
+// Kernel 3 over the capacity buffer xe [E, C, D] (C a multiple of 8), int8
+// weights with their scales: fill [E] int32 (rows at or past fill[e] are
+// zero; any value, the gating kernel's counts included), n_assign the
+// assignments the buffer can hold at most (T K; 0 if unknown), act [E C, F],
+// out [E, C, D], runs 2 E C / 8 + 2 entries, part as above with
+// capacity_max_runs_of's bound; plan 0 or 2.
+int expert_mlp_mma(const void* xe, const void* fill, const void* wi, const void* wi_s,
+                   const void* wg, const void* wg_s, const void* wo, const void* wo_s, void* act,
+                   void* out, void* runs, void* part, int E, int C, int D, int F, int n_assign,
+                   int plan, int split, void* stream) {
+  if (C < TILE || C % TILE) return static_cast<int>(cudaErrorInvalidValue);
+  const Call c{xe, nullptr, nullptr, fill, wi, wi_s, wg, wg_s, wo, wo_s, act, out, runs, part,
+               E * (C / TILE), E, D, F, C / TILE, n_assign, split, static_cast<cudaStream_t>(stream)};
+  return launch_plan<8, true>(c, plan);
+}
+
+// The run tables alone (what the first launch writes into runs, 2 n_tiles
+// + 2 entries), for checking them against their plain versions.
 int grouped_mlp_runs(const void* te, const void* rows_used, void* runs, int n_tiles, int R,
                      void* stream) {
   if (n_tiles < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   runs_kernel<<<1, SCAN, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(te), static_cast<const int32_t*>(rows_used), n_tiles, R,
       static_cast<int32_t*>(runs), nullptr, 0, n_tiles * TILE);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int expert_mlp_mma_runs(const void* fill, void* runs, int E, int C, int R, void* stream) {
+  if (E < 1 || C < TILE || C % TILE || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  capacity_runs_kernel<<<1, SCAN, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(fill), E, C / TILE, R, static_cast<int32_t*>(runs), nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,45 +15,87 @@
 //
 // A TPU grid runs in order, so the TPU kernel carries the per-expert counts from
 // one 128-token tile to the next in VMEM.  Blocks on the card run in no order,
-// so this runs two passes on the stream:
-//   a. softmax and top-k: one warp per token, each lane holding E/32 of the
-//      row.  The argmax reduction compares (value, id) pairs, so a tie goes to
-//      the lowest expert id as jnp.argmax (and jax.lax.top_k) give it.  Writes
+// and the rank of a slot depends on every earlier slot, so the ranks are one
+// block's work.  Two steps:
+//   a. softmax and top-k: one warp per token, each lane holding PL = E/32
+//      (rounded up to 4, 8, 12 or 16, a template argument) of the row.  The
+//      argmax reduction compares (value, id) pairs, so a tie goes to the
+//      lowest expert id as jnp.argmax (and jax.lax.top_k) give it.  Writes
 //      probs, eidx and the (renormalised) gate.
-//   b. positions: one block, thread e walks the [T*K] expert list in slot order
-//      (staged through shared memory) and numbers the slots of expert e.  Exact
-//      and deterministic with no atomics; O(E*T*K) shared-memory reads, which is
-//      a few microseconds at the served T*K of at most a few thousand.  It also
-//      writes keep, zeroes the dropped slots' weight, clamps their position, and
-//      writes counts[e], which the expert kernels read (fill = min(counts, C))
-//      so that they skip empty experts without a host sync.
+//   b. ranks: a parallel scan over the T*K slots in chunks of the block's
+//      width (up to 1024 threads), one slot a thread, in slot order.  In a warp,
+//      __match_any_sync on the expert id and a popcount of the lower lanes
+//      give a slot's rank among the warp's equal ids; the lowest such lane
+//      writes the warp's count of that id into shared memory (a byte per warp
+//      and expert); a slot then adds the counts of its id in the earlier
+//      warps and the expert's carry from earlier chunks, and the chunk's last
+//      slot of each expert advances that carry.  Exact and deterministic, no
+//      atomics; three barriers a chunk.  It writes keep, zeroes the dropped
+//      slots' weight, clamps their position, and writes counts[e] (the final
+//      carries), which the expert kernels read (fill = min(counts, C)) so that
+//      they skip empty experts without a host sync.
+// One launch (gating_one_kernel, up to the wrapper's slot bound,
+// kernels/moe_gating.py::ONE_LAUNCH_SLOTS, which every served shape is
+// within): blocks of up to 8 warps run a, a token a warp, then each block
+// takes a ticket; the block that takes the last one runs b over every
+// block's outputs (the writers fence before their tickets, the reader reads
+// past L1) and resets the counter for the next call.  A grid of one block (T
+// <= 8: decode) skips the ticket.  The counter is a word of g_tickets that no
+// call running at the same time shares (ticket_word): the word of the call's
+// stream for a call issued eagerly, as a stream's calls run in order, and a
+// word of its own for good for each stream of each CUDA graph capture, as
+// replays of two graphs, or a graph and eager calls, may overlap; two
+// replays of one graph do not.  Measured on the card (PERF.md): one block
+// of 1024 threads running a and b queued a's tokens on one SM (0.026 ms at T
+// = 256, 0.097 at kimi-k2's width); blocks of 32 tokens with a ticket took
+// 0.0051 / 0.0064 / 0.021 ms at T = 4 / 256 / kimi-k2, behind the two
+// launches below (0.0047 / 0.0053 / 0.0146): big blocks put a's tokens on
+// few SMs, and every thread's fence and the rank block's 1024 threads cost
+// more than a second launch in a graph.  Blocks of 8 tokens (this design)
+// take 0.0030 / 0.0050 / 0.0148 ms, the two launches 0.0040 / 0.0045 /
+// 0.0144: on one block one launch wins, on more the two launches win by up
+// to 10% in a graph, so the one launch past one block is kept only for the
+// one launch a served call costs the host.  Two launches (past the bound):
+// a on blocks of 8 tokens, b as a second launch of one block reading a's
+// outputs, as wide as the slots (up to 1024 threads).
 //
 // Bound: the logits in, probs and the [T, K] outputs out; below a microsecond
-// at every served shape, so the two launches' latency sets its time.
+// at every served shape, so a launch's latency sets its time.  The first
+// version took two launches at every shape and walked the slots serially (a
+// thread per expert reading all T*K of them).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
-constexpr int WARPS = 8;             // tokens per block in pass a
+constexpr int WARPS = 8;             // tokens per block of step a
+constexpr int THREADS = 1024;        // the widest rank block
 constexpr int MAX_PER_LANE = 16;     // E <= 512
+constexpr int MAX_E = 32 * MAX_PER_LANE;
 constexpr int MAX_K = 32;            // gate k lives in lane k
-constexpr int CHUNK = 2048;          // slots staged per step in pass b
 constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(WARPS * 32)
-topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
-            int32_t* __restrict__ eidx, float* __restrict__ w, int T, int E, int K,
-            int normalize) {
-  const int lane = threadIdx.x % 32;
-  const int t = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (t >= T) return;  // whole warps exit together
+// Ticket counters of one-launch calls: word w counts the blocks of its call
+// that have finished step a; the last resets it.  Zero at load.
+constexpr int TICKETS = 4096;
+__device__ unsigned int g_tickets[TICKETS] = {};
+
+// Step a for token t in one warp, PL values a lane (E <= 32 PL): writes
+// probs[t]; lane k < K returns the k-th (gate, id).
+template <int PL>
+__device__ __forceinline__ void topk_row(const float* __restrict__ logits,
+                                         float* __restrict__ probs, int t, int E, int K,
+                                         int normalize, int lane, float& my_gate, int& my_id) {
   const float* row = logits + (size_t)t * E;
-  float v[MAX_PER_LANE];
+  float v[PL];
   float m = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < MAX_PER_LANE; ++j) {
+  for (int j = 0; j < PL; ++j) {
     const int e = lane + 32 * j;
     v[j] = e < E ? row[e] : -INFINITY;
     m = fmaxf(m, v[j]);
@@ -62,7 +104,7 @@ topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
   for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < MAX_PER_LANE; ++j) {
+  for (int j = 0; j < PL; ++j) {
     if (lane + 32 * j < E) {
       v[j] = expf(v[j] - m);
       s += v[j];
@@ -72,7 +114,7 @@ topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
   for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(FULL, s, off);
   float* prow = probs + (size_t)t * E;
 #pragma unroll
-  for (int j = 0; j < MAX_PER_LANE; ++j) {
+  for (int j = 0; j < PL; ++j) {
     const int e = lane + 32 * j;
     if (e < E) {
       v[j] = v[j] / s;
@@ -80,13 +122,13 @@ topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
     }
   }
   // k rounds of masked argmax; lane k keeps round k's (gate, id)
-  float my_gate = 0.f;
-  int my_id = 0;
+  my_gate = 0.f;
+  my_id = 0;
   for (int k = 0; k < K; ++k) {
     float bv = -INFINITY;
     int bi = 0x7fffffff;
 #pragma unroll
-    for (int j = 0; j < MAX_PER_LANE; ++j) {
+    for (int j = 0; j < PL; ++j) {
       const int e = lane + 32 * j;  // increasing: strict > keeps the lane's first max
       if (e < E && v[j] > bv) {
         bv = v[j];
@@ -107,7 +149,7 @@ topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
       my_id = bi;
     }
 #pragma unroll
-    for (int j = 0; j < MAX_PER_LANE; ++j)
+    for (int j = 0; j < PL; ++j)
       if (lane + 32 * j == bi) v[j] = -INFINITY;
   }
   if (normalize && K > 1) {
@@ -115,38 +157,182 @@ topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
     for (int k = 0; k < K; ++k) gs += __shfl_sync(FULL, my_gate, k);
     my_gate = my_gate / gs;
   }
+}
+
+// Step a on many blocks: one warp per token.
+template <int PL>
+__global__ void __launch_bounds__(WARPS * 32)
+topk_kernel(const float* __restrict__ logits, float* __restrict__ probs,
+            int32_t* __restrict__ eidx, float* __restrict__ w, int T, int E, int K,
+            int normalize) {
+  const int lane = threadIdx.x % 32;
+  const int t = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (t >= T) return;  // whole warps exit together
+  float gate;
+  int id;
+  topk_row<PL>(logits, probs, t, E, K, normalize, lane, gate, id);
   if (lane < K) {
-    eidx[(size_t)t * K + lane] = my_id;
-    w[(size_t)t * K + lane] = my_gate;
+    eidx[(size_t)t * K + lane] = id;
+    w[(size_t)t * K + lane] = gate;
   }
 }
 
-__global__ void positions_kernel(const int32_t* __restrict__ eidx, float* __restrict__ w,
-                                 int32_t* __restrict__ pos, uint8_t* __restrict__ keep,
-                                 int32_t* __restrict__ counts, int TK, int E, int C) {
-  __shared__ int32_t ids[CHUNK];
-  for (int e0 = 0; e0 < E; e0 += blockDim.x) {
-    const int e = e0 + threadIdx.x;
-    int count = 0;
-    for (int base = 0; base < TK; base += CHUNK) {
-      const int n = min(CHUNK, TK - base);
-      __syncthreads();
-      for (int i = threadIdx.x; i < n; i += blockDim.x) ids[i] = eidx[base + i];
-      __syncthreads();
-      if (e < E) {
-        for (int i = 0; i < n; ++i) {
-          if (ids[i] != e) continue;
-          const int slot = base + i;
-          const bool kept = count < C;
-          pos[slot] = kept ? count : C - 1;
-          keep[slot] = kept;
-          if (!kept) w[slot] = 0.f;
-          ++count;
-        }
+// Step b's shared state for a block of up to NW warps: per warp and
+// expert, the warp's slots of that expert in the current chunk (at most 32,
+// a byte); per expert, the slots of earlier chunks.
+template <int NW>
+struct Ranks {
+  uint8_t cnt[NW][MAX_E];
+  int carry[MAX_E];
+};
+
+// Step b over slots [0, TK) by the whole block (whole warps, at most
+// THREADS): id_of(s) is slot s's expert, out(s, rank) takes its rank;
+// counts[e] the slots of expert e.  Starts and ends on a barrier.
+template <int NW, class IdOf, class Out>
+__device__ __forceinline__ void rank_slots(int TK, int E, Ranks<NW>& sh, IdOf id_of, Out out,
+                                           int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < nw * E; i += blockDim.x) sh.cnt[i / E][i % E] = 0;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) sh.carry[e] = 0;
+  __syncthreads();
+  for (int base = 0; base < TK; base += blockDim.x) {
+    const int slot = base + threadIdx.x;
+    const int id = slot < TK ? id_of(slot) : -1;
+    const unsigned same = __match_any_sync(FULL, id);
+    const int lower = __popc(same & ((1u << lane) - 1u));  // equal ids on lower lanes
+    const bool lead = id >= 0 && lower == 0;
+    if (lead) sh.cnt[warp][id] = static_cast<uint8_t>(__popc(same));
+    __syncthreads();
+    int rank = 0;
+    bool last = false;
+    if (id >= 0) {
+      int before = 0, after = 0;
+      for (int v = 0; v < nw; ++v) {
+        const int c = sh.cnt[v][id];
+        before += v < warp ? c : 0;
+        after += v > warp ? c : 0;
       }
+      rank = sh.carry[id] + before + lower;
+      last = after == 0 && (same >> lane) == 1u;  // the chunk's last slot of expert id
+      out(slot, rank);
     }
-    if (e < E) counts[e] = count;
+    __syncthreads();  // every carry read before it advances
+    if (last) sh.carry[id] = rank + 1;
+    if (lead) sh.cnt[warp][id] = 0;
+    __syncthreads();
   }
+  for (int e = threadIdx.x; e < E; e += blockDim.x) counts[e] = sh.carry[e];
+}
+
+// Step b on its own (two launches): one block over topk_kernel's outputs.
+__global__ void __launch_bounds__(THREADS)
+rank_kernel(const int32_t* __restrict__ eidx, float* __restrict__ w, int32_t* __restrict__ pos,
+            uint8_t* __restrict__ keep, int32_t* __restrict__ counts, int TK, int E, int C) {
+  __shared__ Ranks<THREADS / 32> sh;
+  rank_slots(
+      TK, E, sh, [&](int s) { return static_cast<int>(__ldg(eidx + s)); },
+      [&](int s, int r) {
+        const bool kept = r < C;
+        pos[s] = kept ? r : C - 1;
+        keep[s] = kept;
+        if (!kept) w[s] = 0.f;
+      },
+      counts);
+}
+
+// Steps a and b in one launch: blocks of up to WARPS warps, warp v of block
+// b taking token WARPS b + v; the block that finishes a last runs b, the
+// blocks counted in g_tickets[ticket] (unused with one block).
+template <int PL>
+__global__ void __launch_bounds__(WARPS * 32)
+gating_one_kernel(const float* __restrict__ logits, float* __restrict__ probs,
+                  int32_t* __restrict__ eidx, float* __restrict__ w, int32_t* __restrict__ pos,
+                  uint8_t* __restrict__ keep, int32_t* __restrict__ counts, int T, int E, int K,
+                  int C, int normalize, int ticket) {
+  __shared__ Ranks<WARPS> sh;
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, t = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (t < T) {  // whole warps
+    float gate;
+    int id;
+    topk_row<PL>(logits, probs, t, E, K, normalize, lane, gate, id);
+    if (lane < K) {
+      eidx[(size_t)t * K + lane] = id;
+      w[(size_t)t * K + lane] = gate;
+      if (gridDim.x > 1) __threadfence();  // visible on the device before the ticket
+    }
+  }
+  if (gridDim.x > 1) {
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&g_tickets[ticket], 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+  }
+  rank_slots(
+      T * K, E, sh, [&](int s) { return static_cast<int>(__ldcg(eidx + s)); },
+      [&](int s, int r) {
+        const bool kept = r < C;
+        pos[s] = kept ? r : C - 1;
+        keep[s] = kept;
+        if (!kept) w[s] = 0.f;
+      },
+      counts);
+  if (threadIdx.x == 0 && gridDim.x > 1) g_tickets[ticket] = 0;
+}
+
+// The ticket word of a one-launch call of more than one block on stream s,
+// on the current device: one per (device, stream, capture), where an eager
+// call's capture is 0 and a captured call's the capture's id (unique in the
+// process), handed out in order and kept.  cudaErrorMemoryAllocation once a
+// device's TICKETS words are all handed out.
+int ticket_word(cudaStream_t s, int* word) {
+  cudaStreamCaptureStatus status;
+  unsigned long long capture = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, &capture);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive) capture = 0;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::mutex mu;
+  static std::map<std::tuple<int, cudaStream_t, unsigned long long>, int> words;
+  static std::map<int, int> taken;  // per device
+  std::lock_guard<std::mutex> hold(mu);
+  const auto key = std::make_tuple(dev, s, capture);
+  const auto it = words.find(key);
+  if (it != words.end()) {
+    *word = it->second;
+    return 0;
+  }
+  int& n = taken[dev];
+  if (n >= TICKETS) return static_cast<int>(cudaErrorMemoryAllocation);
+  *word = n++;
+  words.emplace(key, *word);
+  return 0;
+}
+
+template <int PL>
+int launch(const float* lg, float* pr, int32_t* ei, float* wt, int32_t* ps, uint8_t* kp,
+           int32_t* ct, int T, int E, int K, int C, int normalize, int one_launch, cudaStream_t s) {
+  const int blocks = (T + WARPS - 1) / WARPS;
+  if (one_launch) {  // one block of T warps at decode, else blocks of WARPS
+    int ticket = 0;
+    if (blocks > 1) {
+      const int rc = ticket_word(s, &ticket);
+      if (rc) return rc;
+    }
+    gating_one_kernel<PL><<<blocks, 32 * (T < WARPS ? T : WARPS), 0, s>>>(
+        lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, ticket);
+    return static_cast<int>(cudaGetLastError());
+  }
+  topk_kernel<PL><<<blocks, WARPS * 32, 0, s>>>(lg, pr, ei, wt, T, E, K, normalize);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int slots = (T * K + 31) / 32 * 32;
+  rank_kernel<<<1, slots < THREADS ? slots : THREADS, 0, s>>>(ei, wt, ps, kp, ct, T * K, E, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -154,24 +340,26 @@ __global__ void positions_kernel(const int32_t* __restrict__ eidx, float* __rest
 // Plain C interface, loaded with ctypes.  Pointers are device pointers of
 // contiguous tensors allocated by the caller: logits [T, E] f32 in; probs
 // [T, E] f32, eidx [T, K] i32, w [T, K] f32, pos [T, K] i32, keep [T, K] bool
-// (one byte each), counts [E] i32 out.  stream is a cudaStream_t.  Returns
-// cudaGetLastError() after the launches (0 = success), or cudaErrorInvalidValue
-// for a shape the kernel does not take (E > 512, K > 32 or K > E).
+// (one byte each), counts [E] i32 out.  one_launch: 1 for the one-launch
+// kernel, 0 for the many-block top-k and the rank launch.  stream is a
+// cudaStream_t.  Returns cudaGetLastError() after the launches (0 =
+// success), cudaErrorInvalidValue for a shape the kernel does not take
+// (E > 512, K > 32 or K > E), or ticket_word's error.
 extern "C" int moe_gating_f32(const void* logits, void* probs, void* eidx, void* w, void* pos,
                               void* keep, void* counts, int T, int E, int K, int C,
-                              int normalize, void* stream) {
-  if (T < 1 || E < 1 || E > 32 * MAX_PER_LANE || K < 1 || K > MAX_K || K > E || C < 1)
+                              int normalize, int one_launch, void* stream) {
+  if (T < 1 || E < 1 || E > MAX_E || K < 1 || K > MAX_K || K > E || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  topk_kernel<<<(T + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
-      static_cast<const float*>(logits), static_cast<float*>(probs), static_cast<int32_t*>(eidx),
-      static_cast<float*>(w), T, E, K, normalize);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = min(1024, (E + 31) / 32 * 32);
-  positions_kernel<<<1, threads, 0, s>>>(static_cast<const int32_t*>(eidx),
-                                         static_cast<float*>(w), static_cast<int32_t*>(pos),
-                                         static_cast<uint8_t*>(keep),
-                                         static_cast<int32_t*>(counts), T * K, E, C);
-  return static_cast<int>(cudaGetLastError());
+  const float* lg = static_cast<const float*>(logits);
+  float* pr = static_cast<float*>(probs);
+  int32_t* ei = static_cast<int32_t*>(eidx);
+  float* wt = static_cast<float*>(w);
+  int32_t* ps = static_cast<int32_t*>(pos);
+  uint8_t* kp = static_cast<uint8_t*>(keep);
+  int32_t* ct = static_cast<int32_t*>(counts);
+  if (E <= 128) return launch<4>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
+  if (E <= 256) return launch<8>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
+  if (E <= 384) return launch<12>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
+  return launch<16>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
 }

@@ -44,20 +44,23 @@ def library():
     return lib
 
 
-def experts_plain(xe: torch.Tensor, fill: Optional[torch.Tensor], weights_of) -> torch.Tensor:
+def experts_plain(xe: torch.Tensor, fill: Optional[torch.Tensor], weights_of,
+                  scales_of=None) -> torch.Tensor:
     """``expert_mlp_ref``'s function, one expert at a time (at full width an
     einsum over every expert in f32 would widen tens of GB at once):
-    ``weights_of(e)`` gives expert e's (wi, wg, wo).  With ``fill``, experts
-    whose buffer holds no token are skipped; their rows are zero and give
-    zero rows, so the result is the same."""
+    ``weights_of(e)`` gives expert e's (wi, wg, wo); ``scales_of(e)``, if
+    given, their per-column scales, which multiply each f32 sum.  With
+    ``fill``, experts whose buffer holds no token are skipped; their rows
+    are zero and give zero rows, so the result is the same."""
     E = xe.shape[0]
     out = torch.zeros_like(xe)
     live = range(E) if fill is None else torch.nonzero(fill > 0).flatten().tolist()
     for e in live:
         wi, wg, wo = weights_of(e)
+        si, sg, so = scales_of(e) if scales_of is not None else (1.0, 1.0, 1.0)
         x = xe[e].float()
-        act = (F.silu(x @ wg.float()) * (x @ wi.float())).to(xe.dtype)
-        out[e] = (act.float() @ wo.float()).to(xe.dtype)
+        act = (F.silu((x @ wg.float()) * sg) * ((x @ wi.float()) * si)).to(xe.dtype)
+        out[e] = ((act.float() @ wo.float()) * so).to(xe.dtype)
     return out
 
 

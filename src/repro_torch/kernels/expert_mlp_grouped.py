@@ -12,6 +12,10 @@ the widths and the bits alone.  A tensor on the CPU takes the plain version;
 a CUDA tensor launches a kernel or raises.  ``launches`` counts the wrappers'
 kernel launches, so a run can show that its main path went through the
 kernel, and ``variant_launches`` which of the two kernels each call took.
+The tensor-core kernel also computes kernel 3 over the capacity buffer
+(``kernels/expert_mlp_quant.py``): its plan, grid bound and run table for
+that layout are here too (``capacity_mma_plan``, ``capacity_max_runs``,
+``capacity_run_table_plain``).
 """
 from __future__ import annotations
 
@@ -51,12 +55,21 @@ def _library():
     return lib
 
 
+_mma_bound = None  # the library whose signatures are bound
+
+
 def _mma_library():
+    """The tensor-core library, its signatures bound once per loaded copy."""
+    global _mma_bound
     lib = build.load_library("grouped_mlp_mma")
-    lib.grouped_mlp_mma.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.grouped_mlp_mma.restype = ctypes.c_int
-    lib.grouped_mlp_runs.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.grouped_mlp_runs.restype = ctypes.c_int
+    if lib is not _mma_bound:
+        for fn, args in ((lib.grouped_mlp_mma, [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7),
+                         (lib.expert_mlp_mma, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7),
+                         (lib.grouped_mlp_runs, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2),
+                         (lib.expert_mlp_mma_runs, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)):
+            fn.argtypes = args + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _mma_bound = lib
     return lib
 
 
@@ -107,6 +120,34 @@ def mma_plan(n_tiles: int, num_experts: int, bits: int) -> MmaPlan:
     return MmaPlan(8, 2)
 
 
+def capacity_max_runs(num_experts: int, C: int, R: int, n_assign: Optional[int] = None) -> int:
+    """The tensor-core kernel's grid rows over the capacity buffer
+    (``capacity_max_runs_of`` in the source): at most ceil(C / 8 / R) runs
+    an expert, and, given ``n_assign`` (the T*K assignments the buffer can
+    hold at most), at most n_assign runs, since each run holds a filled row.
+    A ``fill`` past the bound is still computed whole (a block takes several
+    runs)."""
+    bound = num_experts * -(-(C // TILE) // R)
+    if n_assign:
+        bound = min(bound, n_assign)
+    return max(1, bound)
+
+
+def capacity_mma_plan(num_experts: int, C: int, n_assign: Optional[int], bits: int) -> MmaPlan:
+    """The tensor-core kernel's launch over the capacity buffer [E, C, D]:
+    buffers of at most 2 tiles an expert (C <= 16: every served decode and
+    256-token prefill, where ``expert_capacity`` gives C = 8) take runs of
+    one tile (plan 0), and a grid of at most ``SPLIT_RUNS`` rows (T*K <= 15)
+    splits the down pass across ``SPLIT[bits]`` blocks, as ``mma_plan``
+    does on the grouped buffer; deeper buffers (C = 136 at a 13926-token
+    prefill) runs of 8 (plan 2).  Plan 1 takes bf16 weights only."""
+    if C // TILE <= 2:
+        if capacity_max_runs(num_experts, C, 1, n_assign) <= SPLIT_RUNS:
+            return MmaPlan(1, 0, SPLIT[bits])
+        return MmaPlan(1, 0)
+    return MmaPlan(8, 2)
+
+
 def max_runs(n_tiles: int, num_experts: int, R: int) -> int:
     """The tensor-core kernel's grid rows (``max_runs_of`` in the source): a
     static bound on the run count of the dispatch's buffers, where a run
@@ -118,12 +159,42 @@ def max_runs(n_tiles: int, num_experts: int, R: int) -> int:
     return max(1, min(n_tiles, -(-n_tiles // R) + num_experts, assignments))
 
 
+def _table(nt: int, starts: torch.Tensor, ends: torch.Tensor, live: int) -> torch.Tensor:
+    """A run table of ``nt`` tiles: [2 nt + 2] int32, entries 0 .. n_runs - 1
+    the runs' first tiles, entry n_runs the live tile count, entries
+    nt + 1 .. nt + n_runs the runs' ends (one past their last tiles), and
+    n_runs in the last entry; entries no run uses are 0 (the kernel leaves
+    them unwritten)."""
+    n = starts.numel()
+    out = torch.zeros(2 * nt + 2, dtype=torch.int32)
+    out[:n] = starts.to(torch.int32)
+    out[n] = live
+    out[nt + 1: nt + 1 + n] = ends.to(torch.int32)
+    out[-1] = n
+    return out
+
+
+def table_runs(table: torch.Tensor) -> list:
+    """The (first tile, end) pairs of a run table."""
+    nt = (table.shape[0] - 2) // 2
+    n = int(table[-1])
+    return list(zip(table[:n].tolist(), table[nt + 1: nt + 1 + n].tolist()))
+
+
+def tables_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two run tables hold the same runs and live count (entries no
+    run uses are not compared: the kernel leaves them unwritten)."""
+    n = int(a[-1])
+    return a.shape == b.shape and n == int(b[-1]) and int(a[n]) == int(b[n]) \
+        and table_runs(a.cpu()) == table_runs(b.cpu())
+
+
 def run_table_plain(te: torch.Tensor, rows_used: torch.Tensor, R: int) -> torch.Tensor:
-    """The tensor-core kernel's run table (``runs_kernel``): [n_tiles + 2]
-    int32, entries 0 .. n_runs the first tile of each run of at most R
-    consecutive live tiles of one expert, in order, then the live tile count
-    (``rows_used / TILE``), and n_runs in the last entry.  A run starts at
-    every (multiple of R)-th tile of an expert's group; tiles at or past
+    """The tensor-core kernel's run table of the grouped layout
+    (``runs_kernel``; layout in ``_table``): runs of at most R consecutive
+    live tiles of one expert, in order, each ending where the next starts;
+    the live tile count is ``rows_used / TILE``.  A run starts at every
+    (multiple of R)-th tile of an expert's group; tiles at or past
     ``rows_used`` join none.  Any ``te`` fits: n_runs <= live <= n_tiles."""
     nt = te.shape[0]
     live = min(int(rows_used.reshape(-1)[0]) // TILE, nt)
@@ -133,11 +204,26 @@ def run_table_plain(te: torch.Tensor, rows_used: torch.Tensor, R: int) -> torch.
     idx = torch.arange(live)
     group = torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
     starts = idx[(idx - group) % R == 0]
-    out = torch.zeros(nt + 2, dtype=torch.int32)
-    out[: starts.numel()] = starts.to(torch.int32)
-    out[starts.numel()] = live
-    out[-1] = starts.numel()
-    return out
+    ends = torch.cat([starts[1:], torch.tensor([live])]) if starts.numel() else starts
+    return _table(nt, starts, ends, live)
+
+
+def capacity_run_table_plain(fill: torch.Tensor, C: int, R: int) -> torch.Tensor:
+    """The tensor-core kernel's run table of the capacity layout
+    (``capacity_runs_kernel``; layout in ``_table``): expert e's live tiles
+    [e C/8, e C/8 + L_e), L_e = ceil(min(fill[e], C) / 8) (a fill past C,
+    the gating's count of an overflowing expert, cut to C; a negative one to
+    0), cut into runs of at most R, in expert order.  Any ``fill`` fits:
+    n_runs <= live <= E C / 8."""
+    E, tpe = fill.shape[0], C // TILE
+    L = (fill.cpu().long().clamp(0, C) + TILE - 1) // TILE
+    starts, ends = [], []
+    for e in range(E):
+        for i in range(0, int(L[e]), R):
+            starts.append(e * tpe + i)
+            ends.append(e * tpe + min(i + R, int(L[e])))
+    return _table(E * tpe, torch.tensor(starts, dtype=torch.long),
+                  torch.tensor(ends, dtype=torch.long), int(L.sum()))
 
 
 def grouped_mlp_plain(
@@ -317,7 +403,7 @@ def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name, plan: Optional[MmaPla
     plan = plan or mma_plan(nt, E, bits)
     act = torch.empty((Ct, Fd), dtype=xg.dtype, device=xg.device)
     out = torch.empty_like(xg)
-    runs = torch.empty(nt + 2, dtype=torch.int32, device=xg.device)
+    runs = torch.empty(2 * nt + 2, dtype=torch.int32, device=xg.device)
     part = None
     if plan.split > 1:
         n = plan.split * D * max_runs(nt, E, plan.R) * plan.R * TILE
@@ -334,13 +420,58 @@ def _launch_mma(xg, te, rows_used, wi, wg, wo, bits, name, plan: Optional[MmaPla
     return out
 
 
+def launch_capacity_mma(xe, fill, wi, wg, wo, name, n_assign=None,
+                        plan: Optional[MmaPlan] = None):
+    """The tensor-core kernel over the capacity buffer xe [E, C, D] (the
+    capacity run table, up/gate, down, and a merge after a split down pass);
+    each weight an (int8 values, f32 scales) pair (kernel 3's format, the
+    only one its entry takes); ``plan`` defaults to ``capacity_mma_plan``'s."""
+    E, C, D = xe.shape
+    Fd = wi[0].shape[-1]
+    nt = E * C // TILE
+    plan = plan or capacity_mma_plan(E, C, n_assign, 8)
+    act = torch.empty((E * C, Fd), dtype=xe.dtype, device=xe.device)
+    out = torch.empty_like(xe)
+    runs = torch.empty(2 * nt + 2, dtype=torch.int32, device=xe.device)
+    part = None
+    if plan.split > 1:
+        n = plan.split * D * capacity_max_runs(E, C, plan.R, n_assign) * plan.R * TILE
+        part = torch.empty(n, dtype=torch.float32, device=xe.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(xe.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _mma_library().expert_mlp_mma(
+            xe.data_ptr(), fill.data_ptr(), ptr(wi[0]), ptr(wi[1]), ptr(wg[0]), ptr(wg[1]),
+            ptr(wo[0]), ptr(wo[1]), act.data_ptr(), out.data_ptr(), runs.data_ptr(), ptr(part),
+            E, C, D, Fd, n_assign or 0, plan.plan, plan.split, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: tensor-core kernel launch failed with CUDA error {err}")
+    return out
+
+
+def capacity_run_table(fill: torch.Tensor, C: int, R: int) -> torch.Tensor:
+    """The capacity run table the tensor-core kernel's first launch builds,
+    built on the card alone (for checking it against
+    ``capacity_run_table_plain``)."""
+    if fill.device.type != "cuda":
+        return capacity_run_table_plain(fill, C, R)
+    nt = fill.shape[0] * C // TILE
+    runs = torch.empty(2 * nt + 2, dtype=torch.int32, device=fill.device)
+    with torch.cuda.device(fill.device):
+        err = _mma_library().expert_mlp_mma_runs(fill.data_ptr(), runs.data_ptr(), fill.shape[0], C,
+                                                 R, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"capacity_run_table: kernel launch failed with CUDA error {err}")
+    return runs
+
+
 def run_table(te: torch.Tensor, rows_used: torch.Tensor, R: int) -> torch.Tensor:
     """The run table the tensor-core kernel's first launch builds, built on
     the card alone (for checking it against ``run_table_plain``)."""
     if te.device.type != "cuda":
         return run_table_plain(te, rows_used, R)
     nt = te.shape[0]
-    runs = torch.empty(nt + 2, dtype=torch.int32, device=te.device)
+    runs = torch.empty(2 * nt + 2, dtype=torch.int32, device=te.device)
     with torch.cuda.device(te.device):
         err = _mma_library().grouped_mlp_runs(te.data_ptr(), rows_used.data_ptr(), runs.data_ptr(),
                                               nt, R, torch.cuda.current_stream().cuda_stream)

@@ -1,19 +1,25 @@
 """Expert SwiGLU MLP over the capacity buffer with MoQ int8 weights: the
-wrapper of the hand-written Hopper kernel (``csrc/grouped_mlp.cu``, its int8
-capacity entry points) and its plain PyTorch version.
+wrapper of the hand-written Hopper kernels (``csrc/grouped_mlp_mma.cu``, the
+tensor-core kernel over the capacity layout, for bf16 activations at widths
+it takes; ``csrc/grouped_mlp.cu``, its CUDA-core int8 capacity entry points,
+for f32 activations and other widths) and their plain PyTorch versions.
 
-The kernel replaces ``repro/kernels/expert_mlp_quant.py::expert_mlp_quant_kernel``
-(the TPU kernel 3): int8 weights with one f32 scale per output column, each
-widened, times its scale in f32 and rounded to the activation type before
-its product, as the TPU kernel dequantizes a tile in VMEM and casts it
-before its dot.  ``check_kernel_compat`` takes the layout part of the JAX
-package's rule (int8 per output column) and this kernel's own shape rule;
-other layouts (int4, group-wise scales) take the plain dequantize path in
-``core/moe.py``, as they do in JAX.  The TPU grid's rule that C and F divide
-into its 128 / 256 blocks does not apply: the kernel takes any C that is a
-multiple of 8, as ``expert_capacity`` gives.  A tensor on the CPU
-takes the plain version; a CUDA tensor launches the kernel or raises.
-``launches`` counts the wrapper's kernel launches.
+The kernels replace ``repro/kernels/expert_mlp_quant.py::expert_mlp_quant_kernel``
+(the TPU kernel 3).  The CUDA-core kernel, like the TPU kernel, widens each
+int8 weight, multiplies it by its f32 column scale and rounds it to the
+activation type before its product (``expert_mlp_quant_plain``, the CPU
+path); the tensor-core kernel sums the integer weights' products in f32 and
+multiplies the sum by the column scale once (``expert_mlp_quant_mma_plain``),
+as kernel 5's does.  ``kernel_variant`` (``expert_mlp_grouped``) picks one
+from the dtype and the widths alone.  ``check_kernel_compat`` takes the
+layout part of the JAX package's rule (int8 per output column) and this
+kernel's own shape rule; other layouts (int4, group-wise scales) take the
+plain dequantize path in ``core/moe.py``, as they do in JAX.  The TPU grid's
+rule that C and F divide into its 128 / 256 blocks does not apply: the
+kernels take any C that is a multiple of 8, as ``expert_capacity`` gives.
+A tensor on the CPU takes the plain version; a CUDA tensor launches a kernel
+or raises.  ``launches`` counts the wrapper's kernel launches and
+``variant_launches`` which kernel each took.
 """
 from __future__ import annotations
 
@@ -22,10 +28,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.expert_mlp import check_buffer, check_fill, experts_plain, library
-from repro_torch.kernels.expert_mlp_grouped import TILE, VEC, _expert
-from repro_torch.quant.qarrays import QuantizedArray
+from repro_torch.kernels.expert_mlp_grouped import (TILE, VEC, _expert, kernel_variant,
+                                                    launch_capacity_mma)
+from repro_torch.quant.qarrays import QuantizedArray, dequantize_values
 
 launches = {"expert_mlp_quant": 0}
+variant_launches = {"expert_mlp_quant_mma": 0, "expert_mlp_quant_fma": 0}
 
 
 def check_kernel_compat(xe, wi, wg, wo) -> bool:
@@ -47,10 +55,24 @@ def expert_mlp_quant_plain(xe, wi: QuantizedArray, wg: QuantizedArray, wo: Quant
                            fill: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``expert_mlp_quant_ref``'s function: each expert dequantized to the
     weights' original type (any bits and group size), then
-    ``expert_mlp_plain``'s products.  The kernel rounds each dequantized
-    weight to the activation type, the same value when the activations are
-    in the weights' original type."""
+    ``expert_mlp_plain``'s products.  The CUDA-core kernel rounds each
+    dequantized weight to the activation type, the same value when the
+    activations are in the weights' original type."""
     return experts_plain(xe, fill, lambda e: (_expert(wi, e), _expert(wg, e), _expert(wo, e)))
+
+
+def expert_mlp_quant_mma_plain(xe, wi: QuantizedArray, wg: QuantizedArray, wo: QuantizedArray,
+                               fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 3's function in the tensor-core kernel's order: the integer
+    weights times the activations summed in f32, then times each output
+    column's scale once, ``(x . q) * s`` (per-output-column scales only),
+    where ``expert_mlp_quant_plain`` rounds every dequantized weight to the
+    weights' type first."""
+    def values(w, e):  # the integers, unscaled
+        return dequantize_values(w.q[e], torch.ones_like(w.scale[e]), w.bits, 0, w.axis, torch.float32)
+
+    return experts_plain(xe, fill, lambda e: (values(wi, e), values(wg, e), values(wo, e)),
+                         lambda e: (wi.scale[e], wg.scale[e], wo.scale[e]))
 
 
 def expert_mlp_quant(
@@ -59,8 +81,12 @@ def expert_mlp_quant(
     wg: QuantizedArray,
     wo: QuantizedArray,  # [E, F, D] int8, scales [E, 1, D]
     fill: Optional[torch.Tensor] = None,  # [E] int32
+    n_assign: Optional[int] = None,
 ) -> torch.Tensor:
-    """``expert_mlp`` over int8 per-output-column experts (kernel 3)."""
+    """``expert_mlp`` over int8 per-output-column experts (kernel 3).
+    ``n_assign``: the assignments the buffer can hold at most (the MoE
+    layer's T*K, a static shape value), which bounds the tensor-core
+    kernel's grid (``capacity_mma_plan``); None if unknown."""
     if xe.device.type == "cpu":
         return expert_mlp_quant_plain(xe, wi, wg, wo, fill)
     if xe.device.type != "cuda":
@@ -84,16 +110,22 @@ def expert_mlp_quant(
         for part, t in (("q", w.q), ("scale", w.scale)):
             if t.device != xe.device or not t.is_contiguous():
                 raise ValueError(f"expert_mlp_quant: {name}.{part} must be contiguous on {xe.device}")
-    lib = library()
-    fn = lib.expert_mlp_quant_bf16 if xe.dtype == torch.bfloat16 else lib.expert_mlp_quant_f32
-    act = torch.empty((E * C, Fd), dtype=xe.dtype, device=xe.device)
-    out = torch.empty_like(xe)
-    with torch.cuda.device(xe.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xe.data_ptr(), fill.data_ptr(), wi.q.data_ptr(), wi.scale.data_ptr(),
-                 wg.q.data_ptr(), wg.scale.data_ptr(), wo.q.data_ptr(), wo.scale.data_ptr(),
-                 act.data_ptr(), out.data_ptr(), E, C, D, Fd, stream)
-    if err != 0:
-        raise RuntimeError(f"expert_mlp_quant: kernel launch failed with CUDA error {err}")
+    variant = kernel_variant(xe.dtype, D, Fd, 8)
+    if variant == "mma":
+        out = launch_capacity_mma(xe, fill, (wi.q, wi.scale), (wg.q, wg.scale), (wo.q, wo.scale),
+                                  "expert_mlp_quant", n_assign)
+    else:
+        lib = library()
+        fn = lib.expert_mlp_quant_bf16 if xe.dtype == torch.bfloat16 else lib.expert_mlp_quant_f32
+        act = torch.empty((E * C, Fd), dtype=xe.dtype, device=xe.device)
+        out = torch.empty_like(xe)
+        with torch.cuda.device(xe.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(xe.data_ptr(), fill.data_ptr(), wi.q.data_ptr(), wi.scale.data_ptr(),
+                     wg.q.data_ptr(), wg.scale.data_ptr(), wo.q.data_ptr(), wo.scale.data_ptr(),
+                     act.data_ptr(), out.data_ptr(), E, C, D, Fd, stream)
+        if err != 0:
+            raise RuntimeError(f"expert_mlp_quant: kernel launch failed with CUDA error {err}")
     launches["expert_mlp_quant"] += 1
+    variant_launches[f"expert_mlp_quant_{variant}"] += 1
     return out

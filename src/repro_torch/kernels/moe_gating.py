@@ -7,9 +7,17 @@ softmax, top-k with ties to the lower expert id, token-major positions in
 each expert's capacity buffer, renormalised gates for K > 1, drops past the
 capacity.  It also returns the per-expert assignment counts on the device,
 which the capacity-buffer expert kernels read to skip empty experts (no host
-sync).  The design and bound are in the source's note.  A tensor on the CPU
-takes the plain version; a CUDA tensor launches the kernel or raises.
-``launches`` counts the wrapper's kernel launches.
+sync).  The design and bound are in the source's note: up to
+``ONE_LAUNCH_SLOTS`` slots (every served shape) one launch,
+past it two.  A one-launch call of more than one block elects the block
+that ranks with a ticket counter that no call running at the same time
+shares (the source's ``ticket_word``: one per stream for eager calls, one
+per stream of each CUDA graph capture), so calls may run on several
+streams and graphs at once.  ``positions_scan_plain`` repeats its rank
+scan's order on the CPU.  A tensor on the CPU takes the plain version; a
+CUDA tensor launches the kernel or raises.  ``launches`` counts the
+wrapper's calls that launched the kernel, and ``variant_launches`` which
+path each took (one launch, or two).
 """
 from __future__ import annotations
 
@@ -23,17 +31,59 @@ from repro_torch.kernels import build
 
 MAX_EXPERTS = 512  # 16 values per lane of the token's warp
 MAX_TOP_K = 32  # gate k lives in lane k
+# slots (T*K) up to which top-k and ranks run in one launch; every served
+# shape is below it: T <= 264 at K = 1, and 256 x 8 at kimi-k2's width
+ONE_LAUNCH_SLOTS = 4096
+# the rank scan's chunk, one slot a thread of its block: up to 1024 in the
+# rank launch, 32 a token up to 8 tokens in the one-launch path
+RANK_THREADS = 1024
 
 launches = {"moe_gating": 0}
+variant_launches = {"moe_gating_one_launch": 0, "moe_gating_two_launches": 0}
 
-_C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_bound = None  # the loaded library whose signature is bound
 
 
 def _library():
+    global _bound
     lib = build.load_library("moe_gating")
-    lib.moe_gating_f32.argtypes = _C_ARGS
-    lib.moe_gating_f32.restype = ctypes.c_int
+    if lib is not _bound:
+        lib.moe_gating_f32.argtypes = _C_ARGS
+        lib.moe_gating_f32.restype = ctypes.c_int
+        _bound = lib
     return lib
+
+
+def positions_scan_plain(flat_expert: torch.Tensor, num_experts: int,
+                         chunk: int = RANK_THREADS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's rank scan in its own order, on the CPU: slots in chunks
+    of ``chunk`` (one slot a thread), each chunk in warps of 32; a slot's
+    rank is its expert's carry from earlier chunks, plus the slots of its
+    expert in the chunk's earlier warps, plus those on lower lanes of its
+    own warp.  Returns (ranks [T*K], counts [E]), which must equal the
+    stable ranks of ``top_k_gating`` and the per-expert counts."""
+    ids = flat_expert.reshape(-1).long()
+    n = ids.numel()
+    ranks = torch.empty(n, dtype=torch.long)
+    carry = torch.zeros(num_experts, dtype=torch.long)
+    for base in range(0, n, chunk):
+        c = ids[base: base + chunk]
+        pad = -(-c.numel() // 32) * 32 - c.numel()
+        w = torch.cat([c, torch.full((pad,), -1, dtype=torch.long)]).view(-1, 32)  # [warps, lanes]
+        same = w[:, :, None] == w[:, None, :]  # [warp, lane, lane']
+        lower = torch.tril(same, diagonal=-1).sum(-1)  # equal ids on lower lanes
+        onehot = torch.zeros(w.shape[0], num_experts + 1, dtype=torch.long)
+        onehot.scatter_add_(1, torch.where(w < 0, num_experts, w), torch.ones_like(w))
+        per_warp = onehot[:, :num_experts]  # [warp, E]: the warp's slots of each expert
+        before = torch.cumsum(per_warp, 0) - per_warp  # earlier warps of the chunk
+        wi = torch.arange(w.shape[0])[:, None].expand_as(w)
+        valid = w >= 0
+        e = w.clamp(min=0)
+        r = carry[e] + before[wi, e] + lower
+        ranks[base: base + c.numel()] = r[valid]
+        carry += per_warp.sum(0)
+    return ranks, carry
 
 
 def gating_plain(logits: torch.Tensor, top_k: int, capacity: int, *,
@@ -49,7 +99,15 @@ def gating(logits: torch.Tensor, top_k: int, capacity: int, *,
            normalize: bool = True) -> Tuple[Gating, torch.Tensor]:
     """logits [T, E] -> (``Gating``, counts [E] int32).  ``counts[e]`` is the
     number of (token, k) slots routed to expert e before capacity, so
-    ``min(counts, capacity)`` rows of its buffer hold tokens."""
+    ``min(counts, capacity)`` rows of its buffer hold tokens.  On the card,
+    one launch up to ``ONE_LAUNCH_SLOTS`` slots (T*K), two past it."""
+    return _gating(logits, top_k, capacity, normalize, logits.shape[0] * top_k <= ONE_LAUNCH_SLOTS)
+
+
+def _gating(logits: torch.Tensor, top_k: int, capacity: int, normalize: bool,
+            one_launch: bool) -> Tuple[Gating, torch.Tensor]:
+    """``gating`` on the path ``one_launch`` names, whatever the slot count
+    (the quick loop ``launch/expert_kernels.py`` measures both paths)."""
     if logits.device.type == "cpu":
         return gating_plain(logits, top_k, capacity, normalize=normalize)
     if logits.device.type != "cuda":
@@ -63,19 +121,25 @@ def gating(logits: torch.Tensor, top_k: int, capacity: int, *,
                          f"min(E, {MAX_TOP_K}), capacity >= 1; got T={T}, E={E}, top_k={top_k}, "
                          f"capacity={capacity}")
     dev = logits.device
-    probs = torch.empty((T, E), dtype=torch.float32, device=dev)
-    eidx = torch.empty((T, top_k), dtype=torch.int32, device=dev)
-    w = torch.empty((T, top_k), dtype=torch.float32, device=dev)
-    pos = torch.empty((T, top_k), dtype=torch.int32, device=dev)
-    keep = torch.empty((T, top_k), dtype=torch.bool, device=dev)
-    counts = torch.empty((E,), dtype=torch.int32, device=dev)
+    TE, TK = T * E, T * top_k
+    # one allocation of 4-byte words carved into the six outputs: probs,
+    # eidx, w, pos, counts, then keep's bytes
+    buf = torch.empty(TE + 3 * TK + E + (TK + 3) // 4, dtype=torch.int32, device=dev)
+    f32 = buf.view(torch.float32)
+    probs = f32.as_strided((T, E), (E, 1), 0)
+    eidx = buf.as_strided((T, top_k), (top_k, 1), TE)
+    w = f32.as_strided((T, top_k), (top_k, 1), TE + TK)
+    pos = buf.as_strided((T, top_k), (top_k, 1), TE + 2 * TK)
+    counts = buf.as_strided((E,), (1,), TE + 3 * TK)
+    keep = buf.view(torch.bool).as_strided((T, top_k), (top_k, 1), 4 * (TE + 3 * TK + E))
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.moe_gating_f32(logits.data_ptr(), probs.data_ptr(), eidx.data_ptr(), w.data_ptr(),
                                  pos.data_ptr(), keep.data_ptr(), counts.data_ptr(), T, E, top_k,
-                                 capacity, int(normalize), stream)
+                                 capacity, int(normalize), int(one_launch), stream)
     if err != 0:
         raise RuntimeError(f"moe_gating: kernel launch failed with CUDA error {err}")
     launches["moe_gating"] += 1
+    variant_launches["moe_gating_one_launch" if one_launch else "moe_gating_two_launches"] += 1
     return Gating(eidx, w, pos, keep, probs), counts

@@ -19,6 +19,7 @@ checkout has the tensor-core kernel, every case also checks its run table
 against the plain version.
 
   PYTHONPATH=src python -m repro_torch.launch.expert_kernels [--long-only] [--variants] [--splits]
+  PYTHONPATH=src python -m repro_torch.launch.expert_kernels --capacity
 
 ``--variants`` also times the tensor-core kernel built from patched copies
 of ``csrc/grouped_mlp_mma.cu`` (in ``build/``), in turns with the unpatched
@@ -29,6 +30,22 @@ table), to show what bounds each format.  The outputs of a patched build
 are not checked.  ``--splits`` checks and times the tensor-core kernel's
 plan 0 at T = 4 and 8 with the down pass's contraction split across 1 to 6
 blocks (``MmaPlan.split``), in turns.
+
+``--capacity`` takes the capacity dispatch's kernels instead (and builds
+``moe_gating`` too): kernel 3 (int8 experts over the ``[E, C, D]`` buffer)
+with kernel 2 (the same experts in bf16) beside it, on llama4 tokens routed
+by ``expert_capacity`` at T = 4, 8 and 256 (C = 8) and, kernel 3 alone, at
+13926 tokens (C = 136), each per row against its plain versions (kernel 3:
+``expert_mlp_quant_plain`` and the tensor-core order's
+``expert_mlp_quant_mma_plain``) and kernel 3 against the function in f64 on
+the exact weights, its worst row no farther than ``expert_mlp_quant_plain``'s;
+the capacity run tables against their plain version; graph and host times
+beside the bound; the tensor-core plans at C = 8 and 136 and the decode
+split, checked and timed in turns.  Then kernel 1 at ``chip_smoke.py``'s
+phase 10 cases and past the one-launch slot bound, integer outputs identical
+to its plain version, graph and host times, and its one- and two-launch
+paths timed in turns over T*K.  Against another tree (whose wrappers may
+lack the tensor-core path) it times what that tree has.
 
 It builds only the two grouped sources, so it is the quick loop for work on
 these kernels; to compare with another checkout, run this file from this
@@ -201,9 +218,8 @@ class Grouped(Cases):
             for R in (1, 8, 16):
                 table = gk.run_table(te, used, R).cpu()
                 want = gk.run_table_plain(te.cpu(), used.cpu(), R)
-                n = int(want[-1])  # entries past n_runs + 1 are not written
-                same = int(table[-1]) == n and torch.equal(table[: n + 1], want[: n + 1])
-                res[f"run_table_R{R}"] = {"n_runs": n, "equal": same}
+                same = gk.tables_equal(table, want)
+                res[f"run_table_R{R}"] = {"n_runs": int(want[-1]), "equal": same}
                 ok &= same
         del out, ref
         if timed:
@@ -313,6 +329,236 @@ def sweep_splits(c, fmt, bits, moe, xs):
         print(f"grouped_mlp_mma {name}: {graph_ms(calls[name]):.4f} ms", flush=True)
 
 
+def capacity_bound(moe, xe, fill, n_assign) -> dict:
+    """The bound of kernels 2 / 3 on these inputs: the weights of the experts
+    with tokens, the kept input rows, the whole [E, C, D] output and the
+    fill, over the memory rate; or 2 * kept * 3 * D * F operations over the
+    peak of xe's dtype, whichever is larger."""
+    E, D, F = moe["wi"].shape
+    C = xe.shape[1]
+    kept = int(fill.clamp(max=C).sum().item())
+    live = int((fill > 0).sum().item())
+    need = live * expert_bytes(moe) + (kept + E * C) * D * xe.element_size() + E * 4
+    ops = 2 * kept * 3 * D * F
+    b, o = need / HBM_BYTES_PER_S, ops / PEAK_OPS[xe.dtype]
+    return {"C": C, "kept": kept, "dropped": n_assign - kept, "live_experts": live,
+            "bound_ms": max(b, o) * 1e3, "bound_by": "bytes" if b >= o else "operations",
+            "bytes": need, "ops": ops}
+
+
+def capacity_routed(moe, x, K, cf=1.25):
+    """The capacity expert MLP's inputs as the MoE layer builds them from
+    tokens x [T, D]: routed by ``moe``'s router with ``expert_capacity``
+    slots an expert, scattered into the [E, C, D] buffer, the gating's
+    counts as fill; and its bound."""
+    from repro_torch.core.dispatch import dispatch_dense
+    from repro_torch.core.gating import expert_capacity
+    from repro_torch.kernels.moe_gating import gating_plain
+
+    T, D = x.shape
+    E = moe["wi"].shape[0]
+    cap = expert_capacity(T, E, K, cf)
+    g, counts = gating_plain(x.float() @ moe["router"], K, cap)
+    xe = dispatch_dense(x, g, cap, E)
+    info = {"T": T, "K": K, "E": E, **capacity_bound(moe, xe, counts, T * K)}
+    return (xe, moe["wi"], moe["wg"], moe["wo"], counts), info
+
+
+def exact_capacity(xe, wi, wg, wo, fill):
+    """Kernel 3's function in f64 on the exact weights q * s, over the
+    capacity buffer (``exact``'s, expert by expert)."""
+    from repro_torch.quant.qarrays import dequantize_values
+
+    def w(q, e):
+        vals = dequantize_values(q.q[e], torch.ones_like(q.scale[e]), q.bits, 0, q.axis, torch.float32)
+        return vals.double() * q.scale[e].double()
+
+    out = torch.zeros(xe.shape, dtype=torch.float64, device=xe.device)
+    for e in torch.nonzero(fill > 0).flatten().tolist():
+        x = xe[e].double()
+        act = (torch.nn.functional.silu(x @ w(wg, e)) * (x @ w(wi, e))).to(xe.dtype).double()
+        out[e] = act @ w(wo, e)
+    return out
+
+
+class Capacity(Cases):
+    def tokens(self, T, D):
+        return self.randn(T, D, dtype=torch.bfloat16)
+
+    def check(self, name, moe, args, info, timed=False, plan=None):
+        """Kernel 3 (int8 ``moe``) or kernel 2 against its plain versions per
+        row; kernel 3 against ``exact_capacity``, the tensor-core kernel's
+        worst row no farther than the plain version's; the capacity run
+        tables; ``plan``: a tensor-core launch with its own ``MmaPlan``."""
+        import inspect
+
+        from repro_torch.kernels import expert_mlp as k2
+        from repro_torch.kernels import expert_mlp_grouped as gk
+        from repro_torch.kernels import expert_mlp_quant as k3
+
+        quant = not torch.is_tensor(moe["wi"])
+        n_assign = info["T"] * info["K"]
+        if not quant:
+            fn = lambda: k2.expert_mlp(*args)
+            plains = {"plain": k2.expert_mlp_plain}
+        else:
+            xe, wi, wg, wo, fill = args
+            if plan is not None:
+                fn = lambda: gk.launch_capacity_mma(xe, fill, (wi.q, wi.scale), (wg.q, wg.scale),
+                                                    (wo.q, wo.scale), "expert_mlp_quant",
+                                                    n_assign, plan)
+            elif "n_assign" in inspect.signature(k3.expert_mlp_quant).parameters:
+                fn = lambda: k3.expert_mlp_quant(*args, n_assign=n_assign)
+            else:  # a tree without the tensor-core path
+                fn = lambda: k3.expert_mlp_quant(*args)
+            plains = {"plain": k3.expert_mlp_quant_plain}
+            if hasattr(k3, "expert_mlp_quant_mma_plain"):
+                plains["mma_plain"] = k3.expert_mlp_quant_mma_plain
+        counts = getattr(k3, "variant_launches", None) if quant else None
+        before = dict(counts) if counts is not None else None
+        out = fn()
+        torch.cuda.synchronize()
+        res, ok = dict(info), True
+        if plan is not None:
+            res["plan"] = tuple(plan)
+        elif counts is not None:
+            res["variant"] = [k for k in counts if counts[k] != before[k]]
+            if quant and hasattr(gk, "capacity_mma_plan"):
+                res["plan"] = tuple(gk.capacity_mma_plan(info["E"], info["C"], n_assign, 8))
+        refs = {}
+        for label, plain in plains.items():
+            refs[label] = plain(*args)
+            r = res[label] = rows(out, refs[label])
+            ok &= bool(r.get("finite", True) and r["max_rel_err"] <= BF16_TOL
+                       and r["max_row_rel_err"] <= BF16_TOL and r["zero_rows_max"] == 0)
+        if quant:
+            ex = exact_capacity(*args)
+            res["vs_f64"] = {"kernel": rows(out, ex)["max_row_rel_err"],
+                             "plain": rows(refs["plain"], ex)["max_row_rel_err"]}
+            if plan is not None or res.get("variant") == ["expert_mlp_quant_mma"]:
+                ok &= res["vs_f64"]["kernel"] <= res["vs_f64"]["plain"]
+            del ex
+        if quant and hasattr(gk, "capacity_run_table") and plan is None:
+            fill = args[-1]
+            C = info["C"]
+            wild = fill * 7 - 3  # past C and negative
+            for R in (1, 8):
+                for label, f in (("fill", fill), ("wild", wild)):
+                    same = gk.tables_equal(gk.capacity_run_table(f, C, R).cpu(),
+                                           gk.capacity_run_table_plain(f.cpu(), C, R))
+                    res[f"run_table_{label}_R{R}"] = same
+                    ok &= same
+        del out, refs
+        if timed:
+            n = 3 if info["T"] > 1000 else 20
+            res["ms"] = graph_ms(fn, n=n)
+            res["host_ms"] = host_ms(fn, n=n)
+        self.ok &= bool(ok)
+        print(f"{'ok  ' if ok else 'FAIL'} {name} {json.dumps(res)}", flush=True)
+        return fn
+
+
+def gating_cases(c, router):
+    """``chip_smoke.py``'s phase 10 gating cases: (name, logits, K, capacity)."""
+    from repro_torch.core.gating import expert_capacity
+
+    E = router.shape[1]
+    out = []
+    for T in (4, 8, 256):
+        x = c.randn(T, router.shape[0], dtype=torch.bfloat16)
+        out.append((f"served router T {T}", x.float() @ router, 1, expert_capacity(T, E, 1, 1.25)))
+    out.append(("kimi-k2 width T 256, E 384, K 8", c.randn(256, 384), 8,
+                expert_capacity(256, 384, 8, 1.25)))
+    ties = (c.randn(256, E) * 2).round() / 2
+    ties[::4] = 0.5
+    out.append(("ties, K 2", ties, 2, expert_capacity(256, E, 2, 1.25)))
+    skew = c.randn(256, E)
+    skew[:, 0] += 4.0
+    out.append(("drops", skew, 1, expert_capacity(256, E, 1, 1.25)))
+    out.append(("past the one-launch bound, T 13926", c.randn(13926, E), 1,
+                expert_capacity(13926, E, 1, 1.25)))
+    return out
+
+
+def check_gating(c, name, logits, K, cap, one_launch=None):
+    """Kernel 1 against its plain version: integer outputs identical, w and
+    probs within 1e-6; graph and host times.  ``one_launch`` forces a path
+    (None: ``gating``'s rule).  Returns the timed call."""
+    from repro_torch.kernels import moe_gating as k1
+
+    if one_launch is None:
+        fn = lambda: k1.gating(logits, K, cap)
+    else:
+        fn = lambda: k1._gating(logits, K, cap, True, one_launch)
+    counts = getattr(k1, "variant_launches", None)
+    before = dict(counts) if counts is not None else None
+    g, n = fn()
+    pg, pn = k1.gating_plain(logits, K, cap)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(getattr(g, a), getattr(pg, a)) for a in ("expert_idx", "position", "keep"))
+    ok &= torch.equal(n, pn)
+    err = max((g.combine_w - pg.combine_w).abs().max().item(), (g.probs - pg.probs).abs().max().item())
+    ok &= err <= 1e-6
+    res = {"T": logits.shape[0], "E": logits.shape[1], "K": K, "capacity": cap, "max_abs_err": err,
+           "dropped": int((~g.keep).sum().item())}
+    if counts is not None:
+        res["variant"] = [k for k in counts if counts[k] != before[k]]
+    res["ms"] = graph_ms(fn)
+    res["host_ms"] = host_ms(fn)
+    c.ok &= bool(ok)
+    print(f"{'ok  ' if ok else 'FAIL'} moe_gating {name} {json.dumps(res)}", flush=True)
+    return fn
+
+
+def capacity_main(c, gen) -> None:
+    """``--capacity``: kernels 3 and 2 at the capacity dispatch's shapes, the
+    tensor-core plans, then kernel 1."""
+    from repro_torch.kernels import expert_mlp_grouped as gk
+    from repro_torch.kernels import moe_gating as k1
+    from repro_torch.quant.qarrays import QuantizedArray
+
+    bf = experts(LLAMA4, gen)
+    q8 = {**{n: QuantizedArray.quantize(bf[n], bits=8) for n in ("wi", "wg", "wo")},
+          "router": bf["router"]}
+    D, K = LLAMA4["D"], LLAMA4["K"]
+    mma = hasattr(gk, "launch_capacity_mma")
+    for T in (4, 8, 256, 13926):
+        x = c.tokens(T, D)
+        a, info = capacity_routed(q8, x, K)
+        c.check(f"expert_mlp_quant int8 T {T}", q8, a, info, timed=True)
+        if mma and T in (4, 8):
+            for split in (1, 2, 3, 4):
+                c.check(f"expert_mlp_quant int8 T {T} plan 0 split {split}", q8, a, info, timed=True,
+                        plan=gk.MmaPlan(1, 0, split))
+        if mma and T in (256, 13926):
+            for plan in (gk.MmaPlan(1, 0), gk.MmaPlan(8, 2)):
+                c.check(f"expert_mlp_quant int8 T {T} plan {tuple(plan)}", q8, a, info, timed=True,
+                        plan=plan)
+        if T < 1000:
+            a2, info2 = capacity_routed(bf, x, K)
+            c.check(f"expert_mlp bf16 T {T}", bf, a2, info2, timed=True)
+            del a2
+        del a, x
+        torch.cuda.empty_cache()
+    router = bf["router"]
+    del bf, q8
+    torch.cuda.empty_cache()
+    for name, logits, k, cap in gating_cases(c, router):
+        check_gating(c, name, logits, k, cap)
+    if hasattr(k1, "_gating"):  # the one-launch bound: both paths in turns over T*K
+        calls = {}
+        for T, E, k in ((4, 128, 1), (256, 128, 1), (1024, 128, 1), (4096, 128, 1),
+                        (13926, 128, 1), (256, 384, 8), (1024, 384, 8)):
+            logits = c.randn(T, E)
+            cap = max(8, T * k // E)
+            for one in (True, False):
+                calls[f"T {T} E {E} K {k} one_launch {one}"] = check_gating(
+                    c, f"T {T} E {E} K {k} one_launch {one}", logits, k, cap, one_launch=one)
+        names = list(calls)
+        for name in names + names[::-1]:
+            print(f"moe_gating {name}: {graph_ms(calls[name]):.5f} ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--long-only", action="store_true", help="only the timed cases")
@@ -322,6 +568,8 @@ def main(argv=None) -> int:
     ap.add_argument("--splits", action="store_true",
                     help="also check and time plan 0 at T = 4 and 8 with the down pass's "
                     "contraction split across blocks")
+    ap.add_argument("--capacity", action="store_true",
+                    help="kernels 3, 2 and 1 (the capacity dispatch) instead of 4 and 5")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("expert_kernels: no CUDA device", file=sys.stderr)
@@ -332,7 +580,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    names = [n for n in ("grouped_mlp", "grouped_mlp_mma") if n in build.sources()]
+    names = [n for n in ("grouped_mlp", "grouped_mlp_mma", "moe_gating")[: 3 if args.capacity else 2]
+             if n in build.sources()]
     build.build(names)
     print(f"build {time.perf_counter() - t0:.1f} s ({', '.join(names)}); "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -340,9 +589,14 @@ def main(argv=None) -> int:
         for line in build.build_log(n).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {n}: {line.strip()}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.capacity:
+        c = Capacity()
+        capacity_main(c, gen)
+        print("all cases agree" if c.ok else "SOME CASES DISAGREE", flush=True)
+        return 0 if c.ok else 1
     c = Grouped()
     c.tables = not args.long_only and hasattr(gk, "run_table")
-    gen = torch.Generator(device="cuda").manual_seed(0)
     timed_calls = {}
     bf = experts(LLAMA4, gen)
     D = LLAMA4["D"]

@@ -81,9 +81,10 @@ def test_run_table_plain_vs_jax_layout(case, R):
 
     used = torch.tensor([rows_used], dtype=torch.int32)
     table = tk.run_table_plain(torch.from_numpy(te.copy()), used, R)
-    assert table.shape == (nt + 2,)
+    assert table.shape == (2 * nt + 2,)
     n = int(table[-1])
     starts = table[: n + 1].tolist()
+    assert [b for _, b in tk.table_runs(table)] == starts[1:]  # a run ends where the next starts
     live = rows_used // TILE
     assert starts[0] == 0 and starts[-1] == live
     assert all(a < b for a, b in zip(starts, starts[1:]))  # every live tile once, in order
@@ -127,13 +128,14 @@ def test_run_table_takes_any_tile_map(nt, live, E, R, grid_rows):
     tile is a run of its own; or a buffer shorter than the dispatch's) can
     hold more runs than the kernel's grid has rows (``max_runs``, which
     bounds the dispatch's buffers only): the table still holds every run in
-    its nt + 2 entries, each live tile once, and the grid's rows then take
+    its 2 nt + 2 entries, each live tile once, and the grid's rows then take
     several runs each."""
     te = (torch.arange(nt) % min(3, E)).to(torch.int32)
     table = tk.run_table_plain(te, torch.tensor([live * TILE], dtype=torch.int32), R)
-    assert table.shape == (nt + 2,)
+    assert table.shape == (2 * nt + 2,)
     n = int(table[-1])
     assert n == live and table[: n + 1].tolist() == list(range(live + 1))  # every tile its own run
+    assert tk.table_runs(table) == [(j, j + 1) for j in range(live)]
     assert tk.max_runs(nt, E, R) == grid_rows
     assert (n > grid_rows) == (grid_rows < nt)
 
