@@ -23,6 +23,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    after; TTFT per request, median decode tick, tokens/s, preemptions (at
    least one), pool drained.  A torch.profiler account of 5 decode ticks of
    8 decoding slots.
+4b. prefix trace: the same weights and pool (CONT, ``prefix_sharing=True``),
+   ``submit_n`` of 4 samples of a 700-token prompt, then 8 requests whose
+   prompts share a 1024-token prefix (64 pages) and end in suffixes of
+   40-400 tokens, 32 new tokens each, greedy; run under
+   ``prefill_mode="chunked"``, under ``"batched"`` (kernel 8's batched
+   entry, once per layer per tick that prefills; the single-row entry
+   never), under ``"batched"`` over an int8 pool, then unshared (chunked):
+   prefix hits, hit tokens, prefill tokens computed and skipped, CoW copies
+   (both above 0 when shared), TTFT per request, tok/s, decode-tick median,
+   launches (set to 0 before, read after, each against its expected
+   count); pool and index drained.  Each request's first-token logits of
+   the shared bf16 runs within BF16_LOGITS_TOL of the unshared run's.
+4c. contiguous engine: ``ContinuousEngine(paged=False, slots=8,
+   capacity=2048)`` on the phase-4 trace, bf16 and an int8 cache: kernel 6
+   once per layer per admission, kernel 9 (int8) once per layer per decode
+   tick, no paged kernel; TTFT, tick median, tok/s.
 5. chunked prefill at full width: a 512-token prompt through two 256-token
    ``paged_prefill_chunk`` calls (kernel 8) against the static prefill of the
    same prompt, both bf16: logits within BF16_LOGITS_TOL, same argmax.
@@ -30,6 +46,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the card (kernels) and on the CPU (plain versions), from the same weights,
    with a pool small enough to preempt: identical tokens and preemption
    count, last tick's logits within 1e-5 relative.
+6c. the same card against CPU for prefix sharing under the chunked, batched
+   and scatter modes with ``submit_n``, the contiguous engine (fp and int8
+   cache), and the batched tick under llama4's own capacity dispatch:
+   identical tokens, preemptions, prefix hits, CoW copies, drained pools.
 7. quantized serving (MoQ): the bf16 tree's experts quantized to int8 on the
    card (``quantize_params``, one expert matrix at a time; every other
    tensor shared), then (a) ``Engine(kv_cache_bits=8)`` on the same 4
@@ -66,7 +86,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    one row of a single key), a chunk of 256 and of 40 queries over 1777
    tokens of history, with glm4-9b's heads (G = 16, dh = 128) and
    nlg-350m-moe128's (G = 1, dh = 64) at small sizes, and over tables of 800
-   and 1400 entries (several compaction windows).  The attention kernels
+   and 1400 entries (several compaction windows); the batched kernel 8 /
+   8q at 8 rows of 256-query chunks over 0, 256, 1008 and 1777 tokens of
+   history, one row inactive and one of 40 queries and padding (exactly 0),
+   timed beside SDPA over the gathered rows and the same rows as 8
+   single-row launches, and at reduced heads with a window and a softcap in
+   bf16 and f32; kernel 9 at the contiguous engine's served shape (layer
+   0's int8 cache of 8 x 2048 slots mid-run, rows at their own positions,
+   the idle ones at 0; and 7 rows at the trace's positions beside one
+   inactive row).  The attention kernels
    are held per query row (a row with no valid key must be exactly 0).  Then
    each is timed beside its bound and, for attention, beside
    scaled_dot_product_attention: kernels 4, 5, the attention kernels and
@@ -125,8 +153,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12 and the
 reduced references) attends through kernel 6 (flash attention), once per
-layer call; the continuous phases prefill through kernel 8 and launch it
-never.  Phase 6b, between 6 and 7 while the card holds only the bf16 tree:
+layer call, and so does every admission of the contiguous engine (4c); the
+paged continuous phases prefill through kernel 8 (4b's batched runs through
+its batched entry) and launch kernel 6 never.  Phase 6b, between 6 and 7 while the card holds only the bf16 tree:
 a long static prefill at full width, ``Engine(max_batch=1,
 max_prefill=16384, max_decode=8)`` on one 16384-token prompt (kernel 6
 twice, kernel 4 once per MoE call, the first time past T = 256), where the
@@ -1046,7 +1075,7 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None, w
     eng.run_until_done()
     eng.done.clear()
     eng.metrics_log.clear()
-    eng.preemptions = eng.prefill_tokens_total = eng.prefill_chunks_total = 0
+    eng.preemptions = eng.prefill_tokens_total = eng.prefill_calls_total = 0
     torch.cuda.synchronize()
     snap = None
     first = {}
@@ -1101,9 +1130,9 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None, w
     ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
     sfx = "_int8" if kv_cache_bits else ""
     want = {k: 0 for k in launches}
-    n_calls = n_moe * (len(ticks) + eng.prefill_chunks_total)
+    n_calls = n_moe * (len(ticks) + eng.prefill_calls_total)
     want.update({f"paged_decode_attention{sfx}": n_layers * len(ticks),
-                 f"paged_prefill_attention{sfx}": n_layers * eng.prefill_chunks_total,
+                 f"paged_prefill_attention{sfx}": n_layers * eng.prefill_calls_total,
                  expert_kernel(cfg, params): n_calls})
     if capacity(cfg):
         want["moe_gating"] = n_calls
@@ -1118,7 +1147,7 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None, w
         f"{what}: {len(ids)} requests x {CONT_NEW} tokens (prompts {CONT_PROMPTS}) in "
         f"{wall * 1e3:.3f} ms ({n_tok / wall:.1f} tok/s); {len(eng.metrics_log)} ticks, "
         f"{len(ticks)} with decode, decode phase median {tick_ms:.3f} ms; "
-        f"{eng.prefill_tokens_total} prefill tokens in {eng.prefill_chunks_total} chunks; "
+        f"{eng.prefill_tokens_total} prefill tokens in {eng.prefill_calls_total} chunks; "
         f"preemptions {eng.preemptions}; launches {launches}; pool drained "
         f"(free {eng.pool.free_count} == n_pages {eng.n_pages}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
@@ -1126,6 +1155,337 @@ def continuous_serve(cfg, params, counters, kv_cache_bits=0, preemptions=None, w
         f"{what}: tokens of request 0: {done[ids[0]].tokens}",
     ]
     return lines, launches, snap, eng
+
+
+# ---------------------------------------------------------------------------
+# Prefix sharing, the batched prefill tick and the contiguous engine
+# ---------------------------------------------------------------------------
+
+# the prefix trace (phase 4b): 8 requests whose prompts share a 1024-token
+# prefix (64 pages of 16) and end in distinct suffixes of 40-400 tokens,
+# after one submit_n of FORK_N samples of a 700-token prompt (admitted first,
+# so its forks share every page of its base, the partial boundary page too)
+PREFIX_LEN = 1024
+PREFIX_SUFFIXES = [40, 400, 123, 256, 77, 311, 190, 64]
+FORK_PROMPT, FORK_N = 700, 4
+
+
+def expected_launches(cfg, params, launches, eng, ticks, kv8=False) -> dict:
+    """Every kernel's launches in one engine run: each layer of each decode
+    tick launches kernel 7 (paged) or, over an int8 contiguous cache, 9;
+    each prefill call launches per layer kernel 8 (chunked), the batched
+    kernel 8 (batched) or kernel 6 (scatter, contiguous); every MoE layer
+    call its expert kernel (and kernel 1 under the capacity dispatch)."""
+    n_layers = cfg.num_layers
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    sfx = "_int8" if kv8 else ""
+    calls = eng.prefill_calls_total
+    want = {k: 0 for k in launches}
+    if eng.paged:
+        want[f"paged_decode_attention{sfx}"] = n_layers * ticks
+        prefill = {"chunked": f"paged_prefill_attention{sfx}",
+                   "batched": f"paged_prefill_attention_batched{sfx}",
+                   "scatter": "flash_attention"}[eng.prefill_mode]
+        want[prefill] = n_layers * calls
+    else:
+        want["flash_attention"] = n_layers * calls
+        if kv8:
+            want["decode_attention_quant"] = n_layers * ticks
+    want[expert_kernel(cfg, params)] = n_moe * (ticks + calls)
+    if capacity(cfg):
+        want["moe_gating"] = n_moe * (ticks + calls)
+    return want
+
+
+def clear_run_state(eng) -> None:
+    """Forget a warm-up run's results and counts (the pool is drained)."""
+    eng.done.clear()
+    eng.metrics_log.clear()
+    for name in ("preemptions", "prefill_tokens_total", "prefill_tokens_skipped",
+                 "prefill_calls_total", "prefix_hits", "prefix_hit_tokens", "cow_copies"):
+        setattr(eng, name, 0)
+
+
+def timed_run(eng, submit, on_tick=None) -> tuple:
+    """``submit()`` (returns request ids), then ticks until the engine is
+    idle; returns (ids, wall seconds, TTFT ms per id from the submission)."""
+    first = {}
+
+    def seen(now):
+        for s in eng.slots:
+            if s.active and not s.prefilling and s.request_id not in first:
+                first[s.request_id] = now
+        for rid in eng.done:
+            first.setdefault(rid, now)
+
+    t0 = time.perf_counter()
+    ids = submit()
+    seen(time.perf_counter())
+    while True:
+        n = eng.step()
+        seen(time.perf_counter())
+        if on_tick is not None:
+            on_tick()
+        if n == 0 and not eng.queue:
+            break
+    wall = time.perf_counter() - t0
+    return ids, wall, [round((first[i] - t0) * 1e3, 3) for i in ids]
+
+
+def capture_first_logits(eng) -> dict:
+    """{request id: the logits its first token was drawn from}, kept on the
+    card (no read-back): the engine's prefill completions and fork
+    admissions wrapped."""
+    firsts = {}
+    finish, admit_fork = eng._finish_prefill, eng._admit_fork
+
+    def finish_prefill(i, first, logits):
+        firsts.setdefault(eng.slots[i].request_id, logits.detach().float().clone())
+        finish(i, first, logits)
+
+    def fork(i, b, item):
+        firsts.setdefault(item.rid, eng.slots[b].prefill_logits.detach().float().clone())
+        admit_fork(i, b, item)
+
+    eng._finish_prefill, eng._admit_fork = finish_prefill, fork
+    return firsts
+
+
+def prefix_trace(cfg, params, counters, prefill_mode="chunked", sharing=True, kv_cache_bits=0):
+    """The prefix trace through the paged engine (CONT's pool; sharing on or
+    off; chunked or batched; an int8 pool); returns (lines, launches, first-
+    token logits by request id, the engine)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    what = (f"prefix trace {prefill_mode}" + ("" if sharing else " unshared")
+            + (" int8 KV" if kv_cache_bits else ""))
+    eng = ContinuousEngine(cfg, params, paged=True, device="cuda", prefill_mode=prefill_mode,
+                           prefix_sharing=sharing, kv_cache_bits=kv_cache_bits, **CONT)
+    rng = torch.Generator().manual_seed(SEED + 3)
+    draw = lambda n: torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+    prefix = draw(PREFIX_LEN)
+    prompts = [prefix + draw(n) for n in PREFIX_SUFFIXES]
+    fork = draw(FORK_PROMPT)
+    eng.submit(Request(draw(300), 4))  # warm-up
+    eng.run_until_done()
+    clear_run_state(eng)
+    firsts = capture_first_logits(eng)
+    torch.cuda.synchronize()
+    reset(*counters)
+    ids, wall, ttft = timed_run(eng, lambda: eng.submit_n(Request(fork, CONT_NEW), FORK_N)
+                                + [eng.submit(Request(p, CONT_NEW)) for p in prompts])
+    launches = read(counters, what)
+    done = eng.done
+    assert sorted(done) == sorted(ids) and all(len(done[i].tokens) == CONT_NEW for i in ids)
+    assert all(0 <= t < cfg.vocab_size for i in ids for t in done[i].tokens)
+    if eng.pool.free_count != eng.n_pages or (sharing and len(eng.prefix)):
+        raise AssertionError(f"{what}: the pool or the prefix index did not drain")
+    if sharing and (eng.prefix_hits < 1 or eng.cow_copies < 1):
+        raise AssertionError(f"{what}: {eng.prefix_hits} prefix hits, {eng.cow_copies} CoW copies")
+    ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
+    want = expected_launches(cfg, params, launches, eng, len(ticks), kv8=bool(kv_cache_bits))
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, expected {want}")
+    prefill_ticks = [m for m in eng.metrics_log if m["prefill_calls"]]
+    if prefill_mode == "batched" and (len(prefill_ticks) != eng.prefill_calls_total
+                                      or any(m["prefill_calls"] != 1 for m in prefill_ticks)):
+        raise AssertionError(f"{what}: {eng.prefill_calls_total} batched calls over "
+                             f"{len(prefill_ticks)} ticks that prefilled")
+    n_tok = sum(len(done[i].tokens) for i in ids)
+    tick_ms = statistics.median(m["decode_s"] for m in ticks) * 1e3
+    lines = [
+        f"{what}: {len(ids)} requests x {CONT_NEW} tokens ({FORK_N} samples of a {FORK_PROMPT}-"
+        f"token prompt, then {len(prompts)} prompts of a shared {PREFIX_LEN}-token prefix and "
+        f"suffixes {PREFIX_SUFFIXES}) in {wall * 1e3:.3f} ms ({n_tok / wall:.1f} tok/s); "
+        f"{len(eng.metrics_log)} ticks, {len(ticks)} with decode, decode phase median "
+        f"{tick_ms:.3f} ms; prefill tokens computed {eng.prefill_tokens_total}, skipped "
+        f"{eng.prefill_tokens_skipped}, in {eng.prefill_calls_total} calls "
+        f"({len(prefill_ticks)} ticks prefilled); prefix hits {eng.prefix_hits}, hit tokens "
+        f"{eng.prefix_hit_tokens}; CoW copies {eng.cow_copies}; preemptions {eng.preemptions}; "
+        f"launches {launches}; pool drained",
+        f"{what}: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f})",
+    ]
+    return lines, launches, firsts, eng
+
+
+def compare_first_logits(what, got, ref) -> str:
+    """Each request's first-token logits within BF16_LOGITS_TOL of the
+    reference run's, relative to that request's largest reference logit."""
+    worst, same = 0.0, 0
+    for rid, r in ref.items():
+        g = got[rid]
+        worst = max(worst, (g - r).abs().max().item() / r.abs().max().item())
+        same += int(g.argmax().item() == r.argmax().item())
+    if worst > BF16_LOGITS_TOL:
+        raise AssertionError(f"{what}: first-token logits differ by {worst:.3e} of the "
+                             f"unshared run's largest (tolerance {BF16_LOGITS_TOL})")
+    return (f"{what} vs unshared: first-token logits of {len(ref)} requests within {worst:.3e} "
+            f"of max|logit| (tolerance {BF16_LOGITS_TOL}); first tokens equal for {same}")
+
+
+def contiguous_trace(cfg, params, counters, kv_cache_bits=0):
+    """The phase-4 trace (CONT_PROMPTS) through the contiguous engine: every
+    admission prefills its whole prompt into its slot's row (kernel 6), every
+    tick decodes the 8 rows (kernel 9 over an int8 cache, the plain ``_sdpa``
+    over a bf16 one).  Returns (lines, launches, kernel 9's inputs at a
+    tick with an inactive row (int8), the engine)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    what = "contiguous serve" + (" int8 KV" if kv_cache_bits else "")
+    eng = ContinuousEngine(cfg, params, paged=False, slots=CONT["slots"],
+                           capacity=CONT["capacity"], kv_cache_bits=kv_cache_bits, device="cuda")
+    rng = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in CONT_PROMPTS]
+    eng.submit(Request(prompts[0][:300], 4))  # warm-up
+    eng.run_until_done()
+    clear_run_state(eng)
+    snap = []
+
+    def on_tick():
+        active = [s.active for s in eng.slots]
+        if kv_cache_bits and not snap and 3 <= sum(active) < len(active):
+            c = eng.caches["seg0"]["pos0"]["self"]
+            kv = [(c[n].q[0].clone(), c[n].scale[0].clone()) for n in ("k", "v")]
+            qpos = torch.tensor([s.pos if s.active else 0 for s in eng.slots], dtype=torch.int32,
+                                device="cuda")
+            snap.append((kv, c["pos"][0].clone(), qpos))
+
+    torch.cuda.synchronize()
+    reset(*counters)
+    ids, wall, ttft = timed_run(eng, lambda: [eng.submit(Request(p, CONT_NEW)) for p in prompts],
+                                on_tick)
+    launches = read(counters, what)
+    done = eng.done
+    assert sorted(done) == sorted(ids) and all(len(done[i].tokens) == CONT_NEW for i in ids)
+    assert all(0 <= t < cfg.vocab_size for i in ids for t in done[i].tokens)
+    ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
+    want = expected_launches(cfg, params, launches, eng, len(ticks), kv8=bool(kv_cache_bits))
+    if launches != want or eng.prefill_calls_total != len(prompts):
+        raise AssertionError(f"{what} launches {launches} in {eng.prefill_calls_total} "
+                             f"admissions, expected {want}")
+    if kv_cache_bits and not snap:
+        raise AssertionError(f"{what}: no tick had an inactive row beside 3 active ones")
+    n_tok = sum(len(done[i].tokens) for i in ids)
+    tick_ms = statistics.median(m["decode_s"] for m in ticks) * 1e3
+    lines = [
+        f"{what}: {len(ids)} requests x {CONT_NEW} tokens (prompts {CONT_PROMPTS}), "
+        f"{CONT['slots']} slots x {CONT['capacity']} in {wall * 1e3:.3f} ms ({n_tok / wall:.1f} "
+        f"tok/s); {len(ticks)} decode ticks, median {tick_ms:.3f} ms; {eng.prefill_calls_total} "
+        f"admissions ({eng.prefill_tokens_total} prefill tokens); launches {launches}",
+        f"{what}: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f})",
+    ]
+    return lines, launches, (snap[0] if snap else None), eng
+
+
+def slice6_reference_checks(red, red_cap) -> list:
+    """Reduced f32 llama4, the same weights on the card (kernels) and on the
+    CPU (plain versions), through prefix sharing under the chunked, batched
+    and scatter modes, ``submit_n``, the contiguous engine with an fp and an
+    int8 cache, and the batched tick under the capacity dispatch: identical
+    tokens, preemptions, prefix hits, CoW copies and drained pools."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(SEED + 6)
+    draw = lambda n: rng.integers(1, red.vocab_size, n).tolist()
+    pre = draw(8)  # two pages of 4
+    prompts = [pre + draw(5), pre + draw(9), draw(6), pre + draw(17), pre + draw(30), draw(13)]
+    fork = pre + draw(3)
+    paged = dict(paged=True, slots=3, capacity=48, page_size=4, n_pages=14, prefill_chunk=8)
+    cases = [(f"prefix {m}", red, dict(paged, prefix_sharing=True, prefill_mode=m))
+             for m in ("chunked", "batched", "scatter")]
+    cases += [("contiguous", red, dict(slots=3, capacity=48)),
+              ("contiguous int8 KV", red, dict(slots=3, capacity=48, kv_cache_bits=8)),
+              ("batched capacity dispatch", red_cap, dict(paged, prefill_mode="batched"))]
+    trees = {}
+    lines = []
+    for label, cfg, kw in cases:
+        if cfg.name + cfg.moe_impl not in trees:
+            on_card = init_params(cfg, seed=SEED, device="cuda")
+            trees[cfg.name + cfg.moe_impl] = (on_card, copy.deepcopy(on_card).to("cpu"))
+        recs = []
+        for dev, params in zip(("cuda", "cpu"), trees[cfg.name + cfg.moe_impl]):
+            eng = ContinuousEngine(cfg, params, device=dev, **kw)
+            ids = eng.submit_n(Request(fork, 7), 2) + [eng.submit(Request(p, 7)) for p in prompts]
+            done = eng.run_until_done()
+            rec = {"tokens": [done[i].tokens for i in ids], "preemptions": eng.preemptions,
+                   "prefix_hits": eng.prefix_hits, "cow_copies": eng.cow_copies,
+                   "drained": not eng.paged or eng.pool.free_count == eng.n_pages}
+            recs.append(rec)
+        if recs[0] != recs[1] or not recs[0]["drained"]:
+            raise AssertionError(f"reduced {red.name} {label}: card {recs[0]}, CPU {recs[1]}")
+        r = recs[0]
+        lines.append(f"slice-6 reference: reduced {cfg.name} f32 ({cfg.moe_impl}), {label}, card "
+                     f"(kernels) vs CPU (plain versions): tokens identical, preemptions "
+                     f"{r['preemptions']}, prefix hits {r['prefix_hits']}, CoW copies "
+                     f"{r['cow_copies']} on both; pools drained")
+    return lines
+
+
+def sdpa_prefill_batched(q, k, v, kpos, tables, qpos, ck, cv, scale, k_scale=None, v_scale=None):
+    """The batched kernel 8's yardstick: each row's pages (dequantized, for
+    an int8 pool) and chunk K/V gathered into [B, Hkv, T, dh] beforehand,
+    then one scaled_dot_product_attention over the batch with each row's
+    mask (a padded query's row is all masked: its output is not used)."""
+    import torch.nn.functional as F
+
+    B, C, Hkv, G, dh = q.shape
+    idx = tables.long()
+
+    def gather():
+        kg = torch.cat([gathered(k, k_scale, idx, q.dtype).reshape(B, -1, Hkv, dh), ck], 1)
+        vg = torch.cat([gathered(v, v_scale, idx, q.dtype).reshape(B, -1, Hkv, dh), cv], 1)
+        return kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+
+    kg, vg = gather()
+    hist = kpos[idx].reshape(B, -1)
+    kp = torch.cat([torch.where(hist >= qpos[:, :1], -1, hist), qpos], 1)  # [B, T]
+    mask = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qpos[:, :, None]))[:, None]
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, Hkv * G, C, dh)
+    call = lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+    return call, gather
+
+
+def batched_kernel_checks(cfg, red, k8, kv_int8=False) -> dict:
+    """The batched kernel 8 (8q over an int8 pool) against its plain version
+    per query row: at the served width, 8 rows of 256-query chunks over 0,
+    256, 1008 and 1777 tokens of history, one row inactive and one of 40
+    queries and padding (timed from CUDA graphs beside its bound, SDPA over
+    gathered K/V and the same rows as 8 single-row launches); at the
+    reduced heads with a window and a softcap in bf16 and f32.  Padded
+    queries and the inactive row must be exactly 0."""
+    from repro_torch.launch.paged_kernels import (BATCHED, BATCHED_VALID, batched_case,
+                                                  single_row_launches)
+
+    name = "paged_prefill_attention_batched" + ("_int8" if kv_int8 else "")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    G, rG = cfg.num_heads // cfg.num_kv_heads, red.num_heads // red.num_kv_heads
+    served = dict(scale=1.0 / math.sqrt(cfg.head_dim))
+    ws = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
+    small = ([30, None, 0, 9], [40, 0, 13, 40], 40, red.num_kv_heads, rG, red.head_dim, 8, 30, 16)
+    out = {}
+    for label, case, dt, kw, tol, timed in (
+            ("bf16_served", (BATCHED, BATCHED_VALID, 256, cfg.num_kv_heads, G, cfg.head_dim, 16,
+                             8 * 128 + 1, 128), torch.bfloat16, served, BF16_TOL, True),
+            ("bf16_window_softcap", small, torch.bfloat16, ws, BF16_TOL, False),
+            ("f32_window_softcap", small, torch.float32, ws, F32_TOL, False)):
+        args, qkw, info = batched_case(gen, *case, dt, kv_int8)
+        kwa = dict(kw, **qkw)
+        info.update(check_paged(name, k8.paged_prefill_attention_batched,
+                                k8.paged_prefill_attention_batched_plain, args, kwa, tol,
+                                timed=timed, library=sdpa_prefill_batched))
+        pad = args[5] < 0
+        if k8.paged_prefill_attention_batched(*args, **kwa)[pad].abs().max().item() != 0:
+            raise AssertionError(f"{name}: a padded query or an inactive row is not exactly 0")
+        if timed:
+            info["single_row_launches_ms"] = graph_ms(single_row_launches(args, kwa), n=5)
+        out[label] = info
+        log(f"kernel {name} {label}: {json.dumps(info)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2079,11 +2439,42 @@ def main() -> int:
     for line in profile_ticks(ceng, cfg):
         log(line)
 
+    # 4b. the prefix trace: prefix sharing and copy-on-write through the
+    # chunked and the batched tick (bf16, and the batched tick over an int8
+    # pool), then the same requests without sharing, whose first-token
+    # logits the shared runs are held against
+    prefix_runs = {}
+    for key, mode, sharing, kv in (("chunked", "chunked", True, 0), ("batched", "batched", True, 0),
+                                   ("batched_int8", "batched", True, 8),
+                                   ("unshared", "chunked", False, 0)):
+        lines, launches, firsts, peng = prefix_trace(cfg, params, counters, mode, sharing, kv)
+        del peng
+        for line in lines:
+            log(line)
+        prefix_runs[key] = (launches, firsts)
+    for key in ("chunked", "batched"):
+        log(compare_first_logits(f"prefix trace {key}", prefix_runs[key][1],
+                                 prefix_runs["unshared"][1]))
+    del firsts
+    prefix_runs = {k: v[0] for k, v in prefix_runs.items()}
+
+    # 4c. the contiguous engine on the phase-4 trace, bf16 and an int8 cache
+    contig = {}
+    for kv in (0, 8):
+        lines, contig[kv], snap9, e = contiguous_trace(cfg, params, counters, kv_cache_bits=kv)
+        del e
+        for line in lines:
+            log(line)
+
     # 5. full-width chunked prefill against the static prefill
     log(chunked_prefill_check(cfg, params))
 
     # 6. reduced f32 continuous serve, card vs CPU
     log(continuous_reference_check(red))
+    # 6c. the same for prefix sharing, the batched tick, the scatter oracle and
+    # the contiguous engine, and the batched tick under the capacity dispatch
+    for line in slice6_reference_checks(red, make_reduced(full)):
+        log(line)
 
     # 6b. a long static prefill at full width, while only the bf16 tree is held
     lines, long_launches, long_check, long_grouped = long_prefill(cfg, params, counters)
@@ -2163,6 +2554,7 @@ def main() -> int:
     dec, pre = redesign_checks(cfg, k7, k8, gen)
     attn["paged_decode_attention"].update(dec)
     attn["paged_prefill_attention"].update(pre)
+    battn = {"paged_prefill_attention_batched": batched_kernel_checks(cfg, red, k8)}
     # reduced size with a window and a softcap (llama4 uses neither)
     kw = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
     rG = red.num_heads // red.num_kv_heads
@@ -2264,6 +2656,42 @@ def main() -> int:
             log(f"kernel decode_attention_quant {label} {case}: {json.dumps(info)}")
     del caches, served_kv, c0
     qattn["decode_attention_quant"].update(decode_quant_redesign_checks(cfg, G, k9))
+    # kernel 9 at the contiguous engine's served shape: 8 rows x 2048 slots of
+    # layer 0's int8 cache mid-run, rows at their own positions, idle ones at 0
+    (kv9, kpos9c, qpos9c) = snap9
+    args, info = decode_quant_case(CONT["slots"], CONT["capacity"], 0, cfg.num_kv_heads, G,
+                                   cfg.head_dim, torch.bfloat16,
+                                   torch.Generator(device="cuda").manual_seed(SEED + 14),
+                                   kpos=kpos9c, qpos=qpos9c, kv=kv9)
+    info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
+                            k9.decode_attention_quant_plain, args, dict(scale=scale), BF16_TOL,
+                            timed=True, library=sdpa_contiguous))
+    info["row_positions"] = qpos9c.tolist()
+    qattn["decode_attention_quant"]["bf16_contiguous_served"] = info
+    log(f"kernel decode_attention_quant bf16 contiguous served (layer 0's cache of the int8 "
+        f"contiguous serve mid-run): {json.dumps(info)}")
+    del kv9, kpos9c, qpos9c, snap9
+    # the same shape with exactly one inactive row (at position 0, one key
+    # written, as an idle slot's decode leaves it) beside 7 rows filled as
+    # the trace's first 7 requests at their last decode step
+    lens = [n + CONT_NEW - 1 for n in CONT_PROMPTS[:CONT["slots"] - 1]] + [0]
+    kpos9r = torch.full((CONT["slots"], CONT["capacity"]), -1, dtype=torch.int32, device="cuda")
+    for b, n in enumerate(lens):
+        kpos9r[b, : n + 1] = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+    args, info = decode_quant_case(CONT["slots"], CONT["capacity"], 0, cfg.num_kv_heads, G,
+                                   cfg.head_dim, torch.bfloat16,
+                                   torch.Generator(device="cuda").manual_seed(SEED + 15),
+                                   kpos=kpos9r, qpos=torch.tensor(lens, dtype=torch.int32,
+                                                                  device="cuda"))
+    info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
+                            k9.decode_attention_quant_plain, args, dict(scale=scale), BF16_TOL,
+                            timed=True, library=sdpa_contiguous))
+    info["row_positions"] = lens
+    qattn["decode_attention_quant"]["bf16_contiguous_one_inactive"] = info
+    log(f"kernel decode_attention_quant bf16 contiguous 8 x 2048, ragged positions, one row "
+        f"inactive: {json.dumps(info)}")
+    del kpos9r
+    qbattn = {"paged_prefill_attention_batched_int8": batched_kernel_checks(cfg, red, k8, True)}
     dec, pre = redesign_checks(cfg, k7, k8, gen, kv_int8=True)
     qattn["paged_decode_attention_int8"].update(dec)
     qattn["paged_prefill_attention_int8"].update(pre)
@@ -2519,7 +2947,28 @@ def main() -> int:
         attn_entry("decode_attention_quant", "src/repro_torch/csrc/decode_attention_quant.cu",
                    "src/repro/kernels/attention_quant.py:120", "bf16_served", qattn,
                    qstatic_launches, qlibrary_call),
+        attn_entry("paged_prefill_attention_batched", "src/repro_torch/csrc/paged_prefill_attention.cu",
+                   "src/repro/kernels/attention_prefill_paged.py:207", "bf16_served", battn,
+                   prefix_runs["batched"]),
+        attn_entry("paged_prefill_attention_batched_int8",
+                   "src/repro_torch/csrc/paged_prefill_attention.cu",
+                   "src/repro/kernels/attention_prefill_paged.py:207", "bf16_served", qbattn,
+                   prefix_runs["batched_int8"], qlibrary_call),
     ]
+    by_name = {k["name"]: k for k in kernels}
+    for kname in ("paged_prefill_attention_batched", "paged_prefill_attention_batched_int8"):
+        by_name[kname]["single_row_launches_ms"] = (battn if "int8" not in kname else qbattn)[
+            kname]["bf16_served"]["single_row_launches_ms"]
+    by_name["paged_prefill_attention"]["launches_by_path"] = {
+        "continuous": cont_launches["paged_prefill_attention"],
+        "prefix_chunked": prefix_runs["chunked"]["paged_prefill_attention"],
+        "prefix_unshared": prefix_runs["unshared"]["paged_prefill_attention"]}
+    by_name["paged_decode_attention"]["launches_by_path"] = {
+        "continuous": cont_launches["paged_decode_attention"],
+        **{f"prefix_{k}": v["paged_decode_attention"] for k, v in prefix_runs.items()}}
+    by_name["decode_attention_quant"]["launches_by_path"] = {
+        "quantized_static": qstatic_launches["decode_attention_quant"],
+        "contiguous_int8": contig[8]["decode_attention_quant"]}
     paths = (("static", cap_static), ("continuous", cap_cont), ("quantized_static", cap_qstatic))
     for kname, source, replaces, launches, checks, main, call in (
             ("moe_gating", "src/repro_torch/csrc/moe_gating.cu", "src/repro/kernels/moe_gating.py:92",
@@ -2561,7 +3010,9 @@ def main() -> int:
                              "capacity_continuous": cap_cont["flash_attention"],
                              "capacity_quantized_static": cap_qstatic["flash_attention"],
                              "nlg_static": nlg_launches["flash_attention"],
-                             "glm4_static": glm4_launches["flash_attention"]},
+                             "glm4_static": glm4_launches["flash_attention"],
+                             "contiguous": contig[0]["flash_attention"],
+                             "contiguous_int8": contig[8]["flash_attention"]},
         "max_abs_err": max(v["max_abs_err"] for v in fshapes.values()),
         "max_rel_err": max(v["max_rel_err"] for v in fshapes.values()),
         "max_row_rel_err": max(v["max_row_rel_err"] for v in fshapes.values()),

@@ -10,6 +10,13 @@ with f32 scales per (key, kv-head) (``k_scale``/``v_scale`` given, kernel
 tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``launches`` counts the wrapper's kernel launches per branch.
 
+``paged_prefill_attention_batched`` is the same kernel over B rows at once
+(one launch, a row index on the grid), for the engine's batched prefill
+tick: each row has its own table row, chunk positions (-1 at padding, all -1
+for an inactive row) and chunk K/V, and masks its pool history from its own
+chunk start.  A padded query, and every query of an inactive row, gives
+exactly 0.  It counts its launches under its own keys.
+
 The caller hands it the PRE-write pool: the chunk's own K/V arrive as
 ``ck``/``cv``, in q's type also over an int8 pool, and are written (and
 quantized) into their pages after this call.  The int8 pool is dequantized as
@@ -29,11 +36,17 @@ from repro_torch.kernels.attention_paged import check_pool_args, kv_values, mask
 
 PREFILL_PV = "hgct,thd->chgd"
 
-launches = {"paged_prefill_attention": 0, "paged_prefill_attention_int8": 0}
+launches = {"paged_prefill_attention": 0, "paged_prefill_attention_int8": 0,
+            "paged_prefill_attention_batched": 0, "paged_prefill_attention_batched_int8": 0}
 
-_C_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_HEAD = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                                       ctypes.c_float]
+_C_ARGS = _HEAD + [ctypes.c_void_p]
 _C_ARGS_INT8 = [ctypes.c_void_p] * 2 + _C_ARGS  # + the two scale pointers
+# batched: + B and the row strides of q / out, ck / cv, table and qpos
+_C_ARGS_BATCHED = _HEAD + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+_C_ARGS_BATCHED_INT8 = [ctypes.c_void_p] * 2 + _C_ARGS_BATCHED
 
 
 def _library():
@@ -41,7 +54,11 @@ def _library():
     for fn, args in ((lib.paged_prefill_attention_bf16, _C_ARGS),
                      (lib.paged_prefill_attention_f32, _C_ARGS),
                      (lib.paged_prefill_attention_int8_bf16, _C_ARGS_INT8),
-                     (lib.paged_prefill_attention_int8_f32, _C_ARGS_INT8)):
+                     (lib.paged_prefill_attention_int8_f32, _C_ARGS_INT8),
+                     (lib.paged_prefill_attention_batched_bf16, _C_ARGS_BATCHED),
+                     (lib.paged_prefill_attention_batched_f32, _C_ARGS_BATCHED),
+                     (lib.paged_prefill_attention_batched_int8_bf16, _C_ARGS_BATCHED_INT8),
+                     (lib.paged_prefill_attention_batched_int8_f32, _C_ARGS_BATCHED_INT8)):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
@@ -130,5 +147,92 @@ def paged_prefill_attention(
                  Pt, float(scale), int(causal), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill_attention: kernel launch failed with CUDA error {err}")
+    launches[key] += 1
+    return out
+
+
+BATCHED_PV = "bhgct,bthd->bchgd"
+
+
+def paged_prefill_attention_batched_plain(q, k_pool, v_pool, kpos, tables, qpos, ck, cv, *,
+                                          scale: float, causal: bool = True, window: int = 0,
+                                          softcap: float = 0.0, k_scale=None, v_scale=None):
+    """The batched kernel's function in PyTorch: per row, the table row's
+    pages as a contiguous history (keys at positions >= the row's own chunk
+    start ``qpos[b, 0]`` masked) with the row's chunk K/V appended, and a
+    masked f32 softmax over the union; padded queries (position < 0) give 0,
+    as in ``_paged_prefill_chunk_attend_batched``'s kernel path."""
+    B, C, Hkv, G, dh = q.shape
+    ps = k_pool.shape[1]
+    idx = tables.long()
+    n = idx.shape[1] * ps
+    gather = lambda pool, w: None if pool is None else pool[idx].reshape(B, n, Hkv, w)
+    k = torch.cat([kv_values(gather(k_pool, dh), gather(k_scale, 1), q.dtype), ck.float()], 1)
+    v = torch.cat([kv_values(gather(v_pool, dh), gather(v_scale, 1), q.dtype), cv.float()], 1)
+    hist = kpos[idx].reshape(B, n)
+    hist = torch.where(hist >= qpos[:, :1], -1, hist)  # each row's pool is strictly pre-chunk
+    kp = torch.cat([hist, qpos], 1)[:, None, None, None, :]  # [B, 1, 1, 1, T]
+    qp = qpos.reshape(B, 1, 1, C, 1)
+    s = torch.einsum("bchgd,bthd->bhgct", q.float(), k)
+    out = masked_softmax_pv(s, kp, qp, v, BATCHED_PV, scale=scale, causal=causal, window=window,
+                            softcap=softcap)
+    return torch.where(qpos[:, :, None, None, None] >= 0, out, 0.0).to(q.dtype)
+
+
+def paged_prefill_attention_batched(
+    q: torch.Tensor,  # [B, C, Hkv, G, dh] — one chunk of prompt queries per row
+    k_pool: torch.Tensor,  # [Pt, ps, Hkv, dh] page pool, before the chunks' writes
+    v_pool: torch.Tensor,  # [Pt, ps, Hkv, dh]
+    kpos: torch.Tensor,  # [Pt, ps] int32 — absolute position per entry, -1 empty
+    tables: torch.Tensor,  # [B, nt] int32 — each row's page ids, pre-clamped
+    qpos: torch.Tensor,  # [B, C] int32 — absolute positions, -1 at padding
+    ck: torch.Tensor,  # [B, C, Hkv, dh] — the chunks' in-flight keys
+    cv: torch.Tensor,  # [B, C, Hkv, dh] — the chunks' in-flight values
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,  # [Pt, ps, Hkv, 1] f32: the pool is int8
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[B, C, Hkv, G, dh] attention output in q's type, every row in one
+    launch.  With ``k_scale`` / ``v_scale`` the pool holds int8 values
+    (kernel 8q)."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_batched_plain(
+            q, k_pool, v_pool, kpos, tables, qpos, ck, cv, scale=scale, causal=causal,
+            window=window, softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention_batched: no kernel for device {q.device}")
+    name = "paged_prefill_attention_batched"
+    B, C, Hkv, G, dh = q.shape
+    if (tables.ndim != 2 or tables.shape[0] != B or qpos.shape != (B, C)
+            or ck.shape != (B, C, Hkv, dh) or cv.shape != ck.shape):
+        raise ValueError(f"{name}: tables {tuple(tables.shape)}, qpos {tuple(qpos.shape)}, ck "
+                         f"{tuple(ck.shape)}, cv {tuple(cv.shape)} do not match q {tuple(q.shape)}")
+    check_pool_args(name, q.view(B * C, Hkv, G, dh), k_pool, v_pool, kpos, tables, qpos,
+                    extra=(("ck", ck), ("cv", cv)), k_scale=k_scale, v_scale=v_scale)
+    Pt, ps = kpos.shape
+    lib = _library()
+    bf16 = q.dtype == torch.bfloat16
+    if k_scale is None:
+        key = name
+        fn = lib.paged_prefill_attention_batched_bf16 if bf16 else lib.paged_prefill_attention_batched_f32
+        kv = (k_pool.data_ptr(), v_pool.data_ptr())
+    else:
+        key = f"{name}_int8"
+        fn = (lib.paged_prefill_attention_batched_int8_bf16 if bf16
+              else lib.paged_prefill_attention_batched_int8_f32)
+        kv = (k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr())
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), *kv, kpos.data_ptr(), tables.data_ptr(), qpos.data_ptr(),
+                 ck.data_ptr(), cv.data_ptr(), out.data_ptr(), C, Hkv, G, dh, ps, tables.shape[1],
+                 Pt, float(scale), int(causal), int(window), float(softcap), B, q.stride(0),
+                 ck.stride(0), tables.stride(0), qpos.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launches[key] += 1
     return out

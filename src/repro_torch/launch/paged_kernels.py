@@ -1,12 +1,16 @@
 """Per-row checks and CUDA-graph timings of the paged attention kernels on the
-card: kernels 7 / 7q (decode) and 8 / 8q (chunk prefill) in bf16 and f32,
-each held per query row against its plain version, at the served llama4
-shapes (8 kv-heads, G = 5, dh 128, page size 16, 128 table entries), at
-stress shapes (rows of about 1800 tokens, tables of several compaction
-windows, glm4's and nlg-350m-moe128's heads, a window and a softcap), and,
-with ``--splits``, kernel 7 timed at several split counts.
+card: kernels 7 / 7q (decode) and 8 / 8q (chunk prefill, single-row and
+batched) in bf16 and f32, each held per query row against its plain
+version, at the served llama4 shapes (8 kv-heads, G = 5, dh 128, page size
+16, 128 table entries), at stress shapes (rows of about 1800 tokens, tables
+of several compaction windows, glm4's and nlg-350m-moe128's heads, a window
+and a softcap), and, with ``--splits``, kernel 7 timed at several split
+counts.  ``--batched-only`` runs the batched kernel 8 / 8q's cases alone (8
+rows of 256-query chunks over 0-1777 tokens of history, one row inactive,
+one of 40 queries and padding), timed beside the same rows as 8 single-row
+launches.
 
-  PYTHONPATH=src python -m repro_torch.launch.paged_kernels [--splits]
+  PYTHONPATH=src python -m repro_torch.launch.paged_kernels [--splits] [--batched-only]
 
 It builds only the two paged sources, so it is the quick loop for work on
 these kernels; run it from two checkouts in one call on the card to compare
@@ -146,14 +150,104 @@ class Cases:
         self.report(name, out, ref, BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                     (lambda: k7.paged_decode_attention(*args, **kwa)) if timed else None)
 
+    def batched(self, hists, valid, C, Hkv, G, dh, ps, Pt, nt, dtype, int8, kw, timed=False):
+        """The batched kernel 8 against its plain version per query row;
+        padded queries and inactive rows must be exactly 0."""
+        from repro_torch.kernels import attention_prefill_paged as k8
+
+        args, qkw, info = batched_case(self.gen, hists, valid, C, Hkv, G, dh, ps, Pt, nt, dtype,
+                                       int8)
+        kwa = dict(kw, **qkw)
+        out = k8.paged_prefill_attention_batched(*args, **kwa)
+        torch.cuda.synchronize()
+        ref = k8.paged_prefill_attention_batched_plain(*args, **kwa)
+        pad = args[5] < 0
+        zero_ok = out[pad].abs().max().item() == 0 if pad.any() else True
+        name = (f"kernel 8{'q' if int8 else ''} batched {str(dtype)[6:]} histories {hists} valid "
+                f"{valid} C {C} Hkv {Hkv} G {G} dh {dh} ps {ps} nt {nt} {kw}")
+        if timed:
+            singles = single_row_launches(args, kwa)
+            print(f"     single-row launches x{len(hists)}: {graph_ms(singles, n=5):.5f} ms; bound "
+                  f"{info['bound_ms']:.5f} ms ({info['bound_by']})", flush=True)
+        self.ok &= zero_ok
+        if not zero_ok:
+            print(f"FAIL {name}: a padded or inactive query is not exactly 0", flush=True)
+        self.report(name, out, ref, BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+                    (lambda: k8.paged_prefill_attention_batched(*args, **kwa)) if timed else None)
+
+
+def batched_case(gen, hists, valid, C, Hkv, G, dh, ps, Pt, nt, dtype, int8):
+    """The batched kernel 8's inputs: row b a chunk of C queries after
+    ``hists[b]`` tokens of history on randomly drawn pages (None: an
+    inactive row, positions and table all -1 / trash), its first
+    ``valid[b]`` queries real and the rest padding (position -1).  Returns
+    (args, kw with the int8 scales, info with the bound: per row the live
+    entries' positions and the K/V of the history keys before the row's
+    chunk start, q, out, ck, cv, the tables and positions in full, and 4 *
+    H * dh operations per unmasked (query, key) pair)."""
+    from repro_torch.quant.kv import kv_quantize_values
+
+    dev = gen.device
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+    k, v = randn(Pt, ps, Hkv, dh), randn(Pt, ps, Hkv, dh)
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = kv_quantize_values(k), kv_quantize_values(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    B = len(hists)
+    kpos = torch.full((Pt, ps), -1, dtype=torch.int32, device=dev)
+    tables = torch.full((B, nt), Pt - 1, dtype=torch.int32, device=dev)
+    qpos = torch.full((B, C), -1, dtype=torch.int32, device=dev)
+    perm = torch.randperm(Pt - 1, generator=torch.Generator().manual_seed(2)).to(dev)
+    used = pairs = live = 0
+    kv_bytes = (dh + 4 if int8 else dh * k.element_size()) * 2 * Hkv  # a key's K and V, all heads
+    need = 0
+    for b, (n, nq) in enumerate(zip(hists, valid)):
+        if n is None:
+            continue
+        pages = perm[used:used + -(-(n + nq) // ps)]
+        used += pages.numel()
+        tables[b, :pages.numel()] = pages.to(torch.int32)
+        hist = torch.arange(n, device=dev)
+        kpos[pages[hist // ps], hist % ps] = hist.to(torch.int32)
+        qpos[b, :nq] = torch.arange(n, n + nq, dtype=torch.int32, device=dev)
+        pairs += nq * n + nq * (nq + 1) // 2
+        live += pages.numel()
+        need += pages.numel() * ps * 4 + n * kv_bytes
+    q, ck, cv = randn(B, C, Hkv, G, dh), randn(B, C, Hkv, dh), randn(B, C, Hkv, dh)
+    el = q.element_size()
+    need += (2 * q.numel() + 2 * ck.numel()) * el + tables.numel() * 4 + qpos.numel() * 4
+    ops = 4 * Hkv * G * dh * pairs
+    peak = 989e12 if dtype == torch.bfloat16 else 67e12
+    b_ms, o_ms = need / 3.35e12 * 1e3, ops / peak * 1e3
+    info = {"B": B, "C": C, "histories": hists, "valid": valid, "Hkv": Hkv, "G": G, "dh": dh,
+            "ps": ps, "nt": nt, "live_entries": live, "pairs": pairs, "bytes": need, "ops": ops,
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+    return (q, k, v, kpos, tables, qpos, ck, cv), kw, info
+
+
+def single_row_launches(args, kw):
+    """The batched case's rows as B launches of the single-row kernel 8."""
+    from repro_torch.kernels import attention_prefill_paged as k8
+
+    q, k, v, kpos, tables, qpos, ck, cv = args
+    rows = [(q[b], tables[b], qpos[b], ck[b], cv[b]) for b in range(q.shape[0])]
+    return lambda: [k8.paged_prefill_attention(qb, k, v, kpos, tb, pb, kb, vb, **kw)
+                    for qb, tb, pb, kb, vb in rows]
+
 
 SERVED = [1500, 0, 900, 1, 512, 60, 1777, 333]  # 8 slots of the continuous trace's prompts
 FEW = [600, 0, 0, 580, 0, 0, 631, 0]  # 3 active slots, as the served snapshot mid-run
+# the batched kernel 8's served case: 8 rows of 256-query chunks, one inactive
+# (None), one of 40 queries and padding
+BATCHED = [0, 256, 1008, 1777, None, 1008, 0, 1777]
+BATCHED_VALID = [256, 256, 256, 256, 0, 256, 256, 40]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--splits", action="store_true", help="also time kernel 7 at split counts")
+    ap.add_argument("--batched-only", action="store_true", help="only the batched kernel 8's cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("paged_kernels: no CUDA device", file=sys.stderr)
@@ -169,6 +263,12 @@ def main(argv=None) -> int:
     s128, s64 = dict(scale=1 / math.sqrt(128)), dict(scale=1 / math.sqrt(64))
     ws = dict(scale=0.18, window=37, softcap=20.0)
     for int8 in (False, True):
+        c.batched(BATCHED, BATCHED_VALID, 256, 8, 5, 128, 16, 1025, 128, bf, int8, s128, timed=True)
+        c.batched([30, None, 0, 9], [40, 0, 13, 40], 40, 2, 4, 32, 8, 30, 16, bf, int8, ws)
+        c.batched([30, None, 0, 9], [40, 0, 13, 40], 40, 2, 4, 32, 8, 30, 16, f32, int8, ws)
+        c.batched([300, 0, None], [40, 7, 0], 40, 2, 16, 128, 16, 100, 64, bf, int8, s128)
+        if args.batched_only:
+            continue
         c.prefill(1008, 256, 8, 5, 128, 16, 345, 128, bf, int8, s128, timed=True)
         c.prefill(0, 256, 8, 5, 128, 16, 345, 128, bf, int8, s128, timed=True)
         c.prefill(1777, 256, 8, 5, 128, 16, 345, 128, bf, int8, s128, timed=True)

@@ -1,8 +1,10 @@
 """Serving launcher of the port: randomly initialises (or loads) a model and
 serves synthetic requests through the static batched engine, reporting
 prefill and per-step decode latency, or with ``--paged`` through the
-continuous-batching engine over a paged KV pool (chunked prefill), reporting
-its per-tick numbers.
+continuous-batching engine over a paged KV pool, reporting its per-tick
+numbers: ``--prefill-mode chunked|batched|scatter`` picks its admission
+prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write, and
+``--n-samples N`` serves N parallel samples of each prompt.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
       --reduced                                 # on the card, the arch's own moe_impl
@@ -10,6 +12,7 @@ its per-tick numbers.
   ... --moe-impl grouped                        # dropless grouped dispatch instead
   PYTHONPATH=src python -m repro_torch.launch.serve --arch nlg-350m-moe128 --reduced
   ... --paged --page-size 16 --pages 64 --slots 4 --prefill-chunk 32 --device cpu
+  ... --paged --prefix-sharing --n-samples 2 --prefill-mode batched
   ... --quant-bits 8 --quant-policy experts --kv-bits 8   # MoQ weights, int8 KV cache
 
 A subset of ``repro.launch.serve``'s flags; the others exit with an error
@@ -32,8 +35,6 @@ from repro_torch.serving.engine import Engine, EngineConfig, Request
 
 # flags of the JAX launcher this slice does not port -> where they are queued
 UNPORTED = {
-    "--prefix-sharing": "queue 1 item 3 (prefix sharing)",
-    "--n-samples": "queue 1 item 3 (submit_n)",
     "--spec-draft": "queue 1 item 6 (speculative decoding)",
     "--spec-k": "queue 1 item 6 (speculative decoding)",
     "--ep-devices": "queue 1 item 7 (expert parallelism)",
@@ -81,9 +82,17 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8],
                     help="KV-cache quantization: 8 = int8 cache with per-head, per-timestep "
                          "scales, 0 = full precision")
-    ap.add_argument("--prefill-mode", default="chunked", choices=["chunked"],
-                    help="with --paged: only 'chunked' is ported (ROADMAP.md, queue 1 item 3: "
-                         "batched prefill)")
+    ap.add_argument("--prefill-mode", default="chunked", choices=["chunked", "batched", "scatter"],
+                    help="with --paged: 'chunked' prefills one slot's chunks per tick "
+                         "(default), 'batched' advances every prefilling slot one chunk in "
+                         "one call per tick, 'scatter' prefills a whole context at admission "
+                         "(the parity oracle)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="with --paged: contexts repeating an indexed full-page prefix share "
+                         "its pages (refcounted, copy-on-write) and skip its prefill")
+    ap.add_argument("--n-samples", type=int, default=1,
+                    help="parallel samples per prompt (paged engine); with --prefix-sharing "
+                         "they share all prompt pages and diverge by copy-on-write")
     for flag in UNPORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -92,6 +101,15 @@ def main(argv=None) -> None:
             ap.error(f"{flag} is not ported yet (ROADMAP.md, {item})")
     if (args.prefill_chunk or args.slots or args.pages) and not args.paged:
         ap.error("--pages/--slots/--prefill-chunk apply to the paged engine; pass --paged")
+    if args.prefix_sharing and not args.paged:
+        ap.error("--prefix-sharing requires --paged (block tables)")
+    if args.prefill_mode != "chunked" and not args.paged:
+        ap.error(f"--prefill-mode {args.prefill_mode} is an admission policy of the paged "
+                 "continuous engine; pass --paged")
+    if args.n_samples > 1 and not args.paged:
+        ap.error("--n-samples > 1 is served by the paged continuous engine; pass --paged")
+    if args.n_samples < 1:
+        ap.error(f"--n-samples must be >= 1, got {args.n_samples}")
     if args.paged and args.prefill_chunk and args.prefill_chunk < args.page_size:
         ap.error(f"--prefill-chunk {args.prefill_chunk} must be >= --page-size "
                  f"{args.page_size} (chunk boundaries are page-aligned)")
@@ -190,7 +208,8 @@ def serve_paged(args, cfg, params, reqs) -> None:
         cfg, params, slots=args.slots or args.batch, capacity=args.prompt_len + args.new_tokens,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, paged=True,
         page_size=args.page_size, n_pages=args.pages, prefill_chunk=args.prefill_chunk,
-        prefill_mode=args.prefill_mode, kv_cache_bits=args.kv_bits, device=args.device)
+        prefill_mode=args.prefill_mode, prefix_sharing=args.prefix_sharing,
+        kv_cache_bits=args.kv_bits, device=args.device)
     pool_b = kv_cache_bytes(init_paged_caches(cfg, eng.n_slots, eng.capacity, n_pages=eng.n_pages,
                                               page_size=eng.page_size, kv_bits=args.kv_bits,
                                               device="meta"))
@@ -203,9 +222,13 @@ def serve_paged(args, cfg, params, reqs) -> None:
     eng.run_until_done()
     eng.done.clear()
     eng.metrics_log.clear()
-    eng.preemptions = eng.prefill_tokens_total = 0
+    eng.preemptions = eng.prefill_tokens_total = eng.prefill_tokens_skipped = 0
+    eng.prefix_hits = eng.prefix_hit_tokens = eng.cow_copies = 0
     t0 = time.perf_counter()
-    ids = [eng.submit(r) for r in reqs]
+    if args.n_samples > 1:
+        ids = [rid for r in reqs for rid in eng.submit_n(r, args.n_samples)]
+    else:
+        ids = [eng.submit(r) for r in reqs]
     done = eng.run_until_done()
     dt = time.perf_counter() - t0
     n_tok = sum(len(done[i].tokens) for i in ids)
@@ -217,6 +240,9 @@ def serve_paged(args, cfg, params, reqs) -> None:
           f"{(statistics.median(decode) * 1e3) if decode else float('nan'):.3f} ms over "
           f"{len(decode)} ticks; {eng.prefill_tokens_total} prefill tokens; "
           f"{eng.preemptions} preemptions; free pages {eng.pool.free_count}/{eng.n_pages}")
+    if args.prefix_sharing:
+        print(f"  prefix sharing: {eng.prefix_hits} hits, {eng.prefix_hit_tokens} hit tokens, "
+              f"{eng.prefill_tokens_skipped} prefill tokens skipped, {eng.cow_copies} CoW copies")
     print("sample:", done[ids[0]].tokens[:10])
 
 

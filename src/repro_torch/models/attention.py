@@ -1,10 +1,13 @@
 """GQA self-attention with contiguous and paged KV caches
 (``repro/models/attention.py``, global kind).
 
-Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) run over
-contiguous caches; ``decode_paged`` and ``prefill_chunk`` over a shared page
-pool addressed through block tables, through the hand-written paged kernels
-(``kernels/attention_paged.py``, ``kernels/attention_prefill_paged.py``).
+Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) and
+``decode_ragged`` (per-row positions, the contiguous continuous engine) run
+over contiguous caches; ``decode_paged``, ``prefill_chunk`` and
+``prefill_chunk_batched`` (one chunk per slot, the batched prefill tick)
+over a shared page pool addressed through block tables, through the
+hand-written paged kernels (``kernels/attention_paged.py``,
+``kernels/attention_prefill_paged.py``).
 With ``kv_bits=8`` the caches hold int8 ``QuantizedKV`` pairs, quantized on
 every write; decode over a contiguous int8 cache goes through
 ``kernels/attention_quant.py``, and the paged kernels take their int8
@@ -21,8 +24,8 @@ attend through ``attend_chunked`` / ``attend_full``, which on the card is
 one launch of the hand-written flash-attention kernel per layer call
 (``kernels/flash_attention.py``, kernel 6: it tiles the queries itself and
 never builds the ``[S, T]`` logits) and on the CPU its plain version, which
-attends 1024 queries at a time.  The contiguous fp decode keeps the
-plain ``_sdpa``, whose softmax runs in f32 exactly as the JAX ``_sdpa``
+attends 1024 queries at a time.  The contiguous fp decode (uniform or
+ragged) keeps the plain ``_sdpa``, whose softmax runs in f32 exactly as the JAX ``_sdpa``
 does (f32 logits, probabilities cast to ``v``'s type).
 """
 from __future__ import annotations
@@ -34,7 +37,10 @@ import torch
 
 from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.kernels.attention_paged import paged_decode_attention
-from repro_torch.kernels.attention_prefill_paged import paged_prefill_attention
+from repro_torch.kernels.attention_prefill_paged import (
+    paged_prefill_attention,
+    paged_prefill_attention_batched,
+)
 from repro_torch.kernels.attention_quant import decode_attention_quant
 from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.models.modules import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
@@ -48,12 +54,9 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
 
 
-MODES = ("train", "prefill", "decode", "decode_paged", "prefill_chunk")
-# modes of the JAX attention not ported yet
-UNPORTED_MODES = {
-    "prefill_chunk_batched": "item 3, batched multi-slot prefill",
-    "decode_ragged": "item 3, the contiguous (paged=False) ContinuousEngine",
-}
+MODES = ("train", "prefill", "decode", "decode_ragged", "decode_paged", "prefill_chunk",
+         "prefill_chunk_batched")
+PAGED_MODES = ("decode_paged", "prefill_chunk", "prefill_chunk_batched")
 
 
 def check_spec(spec: AttnSpec) -> None:
@@ -135,18 +138,23 @@ def _cache_write_prefill(cache: dict, k, v, positions) -> dict:
     return cache
 
 
-def _cache_write_decode(cache: dict, k_new, v_new, index: int) -> dict:
-    """Write one token per row at slot ``index % capacity`` (uniform index,
-    in place)."""
+def _cache_write_decode(cache: dict, k_new, v_new, index) -> dict:
+    """Write one token per row at slot ``index % capacity`` (in place):
+    ``index`` an int (uniform batch) or an int32 tensor [B] (ragged, each
+    row at its own position)."""
     cap = cache["k"].shape[1]
-    slot = index % cap
+    if isinstance(index, int):
+        rows, slot, pos = slice(None), index % cap, index
+    else:
+        rows = torch.arange(index.shape[0], device=index.device)
+        slot, pos = index.long() % cap, index.to(torch.int32)
 
     def write(buf, vals):
-        buf[:, slot] = vals[:, 0]
+        buf[rows, slot] = vals[:, 0]
 
     _write_kv(cache["k"], k_new, write)
     _write_kv(cache["v"], v_new, write)
-    cache["pos"][:, slot] = index
+    cache["pos"][rows, slot] = pos
     return cache
 
 
@@ -227,6 +235,32 @@ def _paged_cache_write_chunk(cache: dict, k_new, v_new, positions, table_row) ->
     return cache
 
 
+def _paged_cache_write_chunk_batched(cache: dict, k_new, v_new, positions, tables) -> dict:
+    """Every row's chunk [B, C] written into its own block-table pages in one
+    scatter (in place).  positions [B, C] hold -1 at padding and for an
+    inactive row; those entries, unmapped ones, and shared-prefix entries
+    that already hold the position (the ``already`` rule of
+    ``_paged_cache_write_chunk``) go to the trash page with position -1.
+    Distinct valid entries never collide: a page written this tick is not
+    yet in the prefix index, so no other row's table holds it; the trash
+    page's writes all carry -1, so their order does not matter."""
+    Pt, ps = cache["pos"].shape
+    valid = positions >= 0
+    pos = positions.long().clamp_min(0)
+    offs = pos % ps
+    pages = tables.long().gather(1, pos // ps)
+    already = cache["pos"][pages, offs] == positions
+    pages = torch.where(already | ~valid, Pt - 1, pages)
+
+    def write(buf, vals):
+        buf[pages, offs] = vals
+
+    _write_kv(cache["k"], k_new, write)
+    _write_kv(cache["v"], v_new, write)
+    cache["pos"][pages, offs] = torch.where(pages == Pt - 1, -1, positions)
+    return cache
+
+
 def _kv_args(cache: dict) -> tuple:
     """(k, v, scales) of a cache for the paged kernels: the int8 tensors and
     ``dict(k_scale=, v_scale=)`` of a ``QuantizedKV`` pool, else the fp
@@ -279,6 +313,23 @@ def _paged_prefill_chunk_attend(q, k, v, cache: dict, positions, table_row, spec
         scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
         softcap=spec.logit_softcap, **scales)
     return y.reshape(1, C, H, dh)
+
+
+def _paged_prefill_chunk_attend_batched(q, k, v, cache: dict, positions, tables, spec: AttnSpec,
+                                        scale: float):
+    """Every row's chunk attends over its own pages (BEFORE this call's
+    writes; pool keys at positions >= the row's chunk start masked) plus its
+    own fp K/V, causal, in ONE launch of the batched kernel 8 (its int8
+    branch over an int8 pool).  q/k/v: [B, C, ...]; positions [B, C] with -1
+    at padding; a padded query gives 0."""
+    B, C, H, dh = q.shape
+    Hkv = k.shape[2]
+    pk, pv, scales = _kv_args(cache)
+    y = paged_prefill_attention_batched(
+        q.reshape(B, C, Hkv, H // Hkv, dh).contiguous(), pk, pv, cache["pos"], tables,
+        positions, k.contiguous(), v.contiguous(), scale=scale, causal=spec.causal,
+        window=spec.window if spec.kind == "local" else 0, softcap=spec.logit_softcap, **scales)
+    return y.reshape(B, C, H, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -362,13 +413,15 @@ def attention(
     index: Optional[int] = None,
     block_table: Optional[torch.Tensor] = None,
 ):
-    """Returns (y, cache).  mode: train | prefill | decode | decode_paged |
-    prefill_chunk.
+    """Returns (y, cache).  mode: train | prefill | decode | decode_ragged |
+    decode_paged | prefill_chunk | prefill_chunk_batched.
 
     - train:   causal self-attention over x, no cache IO (kernel 6).
     - prefill: the same, and writes the cache (in place).
     - decode:  x is [B, 1, d]; writes the token at slot ``index`` (the
                uniform batch position), then attends over the cache.
+    - decode_ragged: the same at per-row ``positions`` [B, 1] (contiguous
+               continuous batching; kernel 9 over an int8 cache).
     - decode_paged: x is [B, 1, d] at per-row ``positions`` [B, 1]; the
                cache is a page pool addressed through ``block_table``
                [B, max_pages] (int32, clamped); writes each row's token into its page, then
@@ -377,14 +430,18 @@ def attention(
                ``positions``; attends over the pool's pages named by
                ``block_table`` (its earlier chunks) plus the chunk itself
                (kernel 8), then writes the chunk's K/V into its pages.
+    - prefill_chunk_batched: x is [B, C, d], one chunk per row at
+               ``positions`` [B, C] (-1 at padding), ``block_table`` [B,
+               max_pages] (an inactive row's all trash); every row attends
+               in one launch of the batched kernel 8, then the chunks are
+               written.
     """
     check_spec(spec)
-    if mode in UNPORTED_MODES:
-        _unported(f"attention mode {mode!r}", UNPORTED_MODES[mode])
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
-    if mode in ("decode_paged", "prefill_chunk") and (block_table is None or not spec_is_paged(spec)):
-        _unported(f"{mode} without a page pool", "item 3, the contiguous (paged=False) ContinuousEngine")
+    if mode in PAGED_MODES and (block_table is None or not spec_is_paged(spec)):
+        # a layer whose cache stays beside the pool under paged serving
+        _unported(f"{mode} without a page pool (per-slot state)", "item 5, the other mixers")
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
@@ -404,21 +461,29 @@ def attention(
         table_row = block_table[0] if block_table.ndim == 2 else block_table
         y = _paged_prefill_chunk_attend(q, k, v, cache, pos1d, table_row, spec, scale)
         cache = _paged_cache_write_chunk(cache, k, v, pos1d, table_row)
+    elif mode == "prefill_chunk_batched":
+        pos2d = positions.expand(B, S).contiguous()
+        y = _paged_prefill_chunk_attend_batched(q, k, v, cache, pos2d, block_table, spec, scale)
+        cache = _paged_cache_write_chunk_batched(cache, k, v, pos2d, block_table)
     elif mode == "decode_paged":
         row_pos = positions.reshape(B)
         cache = _paged_cache_write_decode(cache, k, v, row_pos, block_table)
         y = _paged_decode_attend(q, cache, row_pos, block_table, spec, scale)
-    elif mode == "decode":
-        assert cache is not None and S == 1 and index is not None
-        cache = _cache_write_decode(cache, k, v, index)
+    elif mode in ("decode", "decode_ragged"):
+        assert cache is not None and S == 1
+        if mode == "decode":
+            assert index is not None
+            row_pos = torch.full((B,), index, dtype=torch.int32, device=x.device)
+            cache = _cache_write_decode(cache, k, v, index)
+        else:
+            row_pos = positions.reshape(B)
+            cache = _cache_write_decode(cache, k, v, row_pos)
         if isinstance(cache["k"], QuantizedKV):
             # the just-written token is read back quantized too, as the
             # kernel streams it
-            row_pos = torch.full((B,), index, dtype=torch.int32, device=x.device)
             y = _decode_attend_quant(q, cache, row_pos, spec, scale)
         else:
-            q_pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
-            mask = _window_causal_mask(q_pos, cache["pos"], 0, spec.causal)
+            mask = _window_causal_mask(row_pos[:, None], cache["pos"], 0, spec.causal)
             y = _sdpa(q, cache["k"], cache["v"], mask, scale, spec.logit_softcap)
     else:
         pos2d = positions if positions.ndim == 2 else positions[None]

@@ -3,12 +3,15 @@ final norm -> logits.
 
 Entry points: ``init_params``, ``init_caches``, ``forward`` (teacher-forced
 logits), ``prefill`` (logits of the last position, caches filled) and
-``decode_step`` (one token, caches updated in place); for paged serving
-``init_paged_caches``, ``paged_prefill_chunk``, ``paged_ragged_decode_step``
-and ``paged_reset_pages``.  Parameters live in a
-:class:`ParamTree`, an ``nn.Module`` whose nesting and leaf names are the JAX
-package's parameter tree, so a JAX tree converts leaf for leaf
-(``repro_torch.convert``).
+``decode_step`` (one token, caches updated in place); for contiguous
+continuous batching ``prefill_into_slot`` and ``ragged_decode_step``; for
+paged serving ``init_paged_caches``, ``paged_prefill_chunk``,
+``paged_prefill_chunk_batched``, ``paged_prefill_into_slot`` (the scatter
+oracle), ``paged_ragged_decode_step``, ``paged_reset_pages``,
+``paged_copy_page`` (copy-on-write) and ``paged_copy_slot_leaves``.
+Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose nesting and
+leaf names are the JAX package's parameter tree, so a JAX tree converts leaf
+for leaf (``repro_torch.convert``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.models.attention import _paged_clamp_table, spec_is_paged
 from repro_torch.models.modules import DTYPES, embed_init, init_rmsnorm, rmsnorm
 from repro_torch.models.transformer import apply_segment, init_segment, init_segment_cache
+from repro_torch.quant.kv import QuantizedKV
 from repro_torch.quant.qarrays import materialize
 
 
@@ -190,6 +194,75 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, index: int,
     return logits_out(cfg, params, x)[:, 0], caches
 
 
+def _tensors(tree):
+    """Every tensor of a cache tree: the (q, scale) pair of a ``QuantizedKV``."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, QuantizedKV):
+        yield tree.q
+        yield tree.scale
+    else:
+        for v in tree.values():
+            yield from _tensors(v)
+
+
+def _map_tensors(tree, fn):
+    """The tree with ``fn`` applied to every tensor (``QuantizedKV`` kept)."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, QuantizedKV):
+        return QuantizedKV(fn(tree.q), fn(tree.scale), tree.orig_dtype)
+    return {k: _map_tensors(v, fn) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Contiguous continuous batching (one cache row per slot)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions: torch.Tensor,
+                       active: torch.Tensor, caches: dict) -> Tuple[torch.Tensor, dict]:
+    """Continuous-batching decode tick over contiguous slot caches: token [B,
+    1] at per-row ``positions`` [B]; ``active`` [B] bool.  Returns (logits
+    [B, V], caches updated in place).
+
+    Every row is written and attends, as in JAX (an inactive row at its
+    position, 0 from the engine, so under a capacity dispatch it routes as
+    JAX's does); then the one entry each row wrote is put back for the
+    inactive rows, which is JAX's masked merge of the whole cache restricted
+    to what the step touched: inactive rows stay bit-identical, and no step
+    copies the cache."""
+    x = embed_tokens(cfg, params, token)
+    pos = positions.to(torch.int32)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    touched = []
+    for t in _tensors(caches):  # [repeats, B, capacity, ...]
+        slot = pos.long() % t.shape[2]
+        touched.append((t, slot, t[:, rows, slot].clone()))
+    x, caches, _ = _run_segments(cfg, params, x, pos[:, None], caches, "decode_ragged")
+    for t, slot, old in touched:
+        keep = active.reshape((1, -1) + (1,) * (old.ndim - 2))
+        t[:, rows, slot] = torch.where(keep, t[:, rows, slot], old)
+    return logits_out(cfg, params, x)[:, 0], caches
+
+
+@torch.no_grad()
+def prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor, positions: torch.Tensor,
+                      slot: int, caches: dict) -> Tuple[torch.Tensor, dict]:
+    """Prefill one request (tokens [1, S] at ``positions`` [1, S]) into row
+    ``slot`` of the pooled slot caches, in place: the row is reset to a fresh
+    cache (K/V 0, positions -1), as JAX writes a fresh single-row cache over
+    it, and the prefill writes its first S entries (kernel 6 attends).
+    Returns (logits of the last position [1, V], caches)."""
+    row = _map_tensors(caches, lambda t: t[:, slot : slot + 1])
+    for t in _tensors(row):
+        t.fill_(-1 if t.dtype == torch.int32 else 0)
+    x = embed_tokens(cfg, params, tokens)
+    x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), row, "prefill")
+    return logits_out(cfg, params, x[:, -1:])[:, 0], caches
+
+
 # ---------------------------------------------------------------------------
 # Paged serving entry points (shared page pool + per-slot block tables)
 # ---------------------------------------------------------------------------
@@ -209,11 +282,15 @@ def arch_fully_paged(cfg: ModelConfig) -> bool:
     return all(paged for _, _, _, paged in _layer_entries(cfg))
 
 
+def _pool_layer(cfg: ModelConfig, caches: dict) -> dict:
+    """The first paged layer's pool (every paged layer has the same layout)."""
+    return next(caches[sk][pk]["self"] for sk, pk, _, paged in _layer_entries(cfg) if paged)
+
+
 def _clamped(cfg: ModelConfig, caches: dict, table: torch.Tensor) -> torch.Tensor:
     """The block table with -1 entries clamped to the trash page, once per
     call rather than in every layer (every paged layer shares one pool size)."""
-    sk, pk = next((sk, pk) for sk, pk, _, paged in _layer_entries(cfg) if paged)
-    return _paged_clamp_table(table, caches[sk][pk]["self"]["pos"].shape[-2])
+    return _paged_clamp_table(table, _pool_layer(cfg, caches)["pos"].shape[-2])
 
 
 @torch.no_grad()
@@ -265,3 +342,103 @@ def paged_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, position
     x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
                                  "prefill_chunk", block_table=_clamped(cfg, caches, table_row[None]))
     return logits_out(cfg, params, x[:, -1:])[:, 0], caches
+
+
+@torch.no_grad()
+def paged_prefill_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
+                                positions: torch.Tensor, reset: torch.Tensor, active: torch.Tensor,
+                                last_idx: torch.Tensor, caches: dict,
+                                block_tables: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Every mid-prefill slot advances one chunk in ONE call (the batched
+    prefill tick): tokens [S, C] (0-padded), ``positions`` [S, C] (-1 at
+    padding, all -1 for a row without a chunk), ``block_tables`` [S,
+    max_pages] (-1 unmapped, all -1 for an inactive row).  Each layer
+    attends through one launch of the batched kernel 8 and writes every
+    row's chunk into its pages; padding and inactive rows write to the
+    trash page.  Returns (logits at each row's last valid token
+    ``last_idx`` [S] -> [S, V], caches updated in place).
+
+    ``reset`` / ``active`` [S] bool select, in JAX, the rows whose per-slot
+    leaves restart or advance; the port has no per-slot leaves yet
+    (``init_paged_caches``), so they only keep the signature."""
+    S = tokens.shape[0]
+    if reset.shape != (S,) or active.shape != (S,) or last_idx.shape != (S,):
+        raise ValueError(f"paged_prefill_chunk_batched: reset {tuple(reset.shape)}, active "
+                         f"{tuple(active.shape)}, last_idx {tuple(last_idx.shape)} for {S} rows")
+    x = embed_tokens(cfg, params, tokens)
+    x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
+                                 "prefill_chunk_batched",
+                                 block_table=_clamped(cfg, caches, block_tables))
+    xe = x[torch.arange(S, device=x.device), last_idx.long()]  # [S, D]
+    return logits_out(cfg, params, xe[:, None])[:, 0], caches
+
+
+@torch.no_grad()
+def paged_copy_page(cfg: ModelConfig, caches: dict, src: int, dst: int) -> dict:
+    """Copy physical page ``src`` to ``dst`` in every paged layer's pool, in
+    place on the device: k, v and pos, an int8 pool's (q, scale) pairs as
+    they are.  The device half of copy-on-write: the scheduler calls it
+    after ``KVBlockPool.fork`` and before the slot's next append, so the
+    shared original is never written.  ``src`` / ``dst`` are the host's
+    page ids: no read of a device value."""
+    for sk, pk, _, paged in _layer_entries(cfg):
+        if paged:
+            for t in _tensors(caches[sk][pk]["self"]):  # [repeats, n_pages + 1, page_size, ...]
+                t[:, dst] = t[:, src]
+    return caches
+
+
+@torch.no_grad()
+def paged_copy_slot_leaves(cfg: ModelConfig, caches: dict, src: int, dst: int) -> dict:
+    """Copy row ``src`` to ``dst`` of every cache leaf that is NOT a shared
+    page pool (window rings, SSM/LRU states, cross caches: ``[repeats,
+    slots, ...]``), in place.  A parallel-sample fork shares its base's
+    pages through its table and takes the rest this way.  The port's paged
+    caches hold pool leaves only (per-slot state comes with ROADMAP item 5),
+    so today this copies nothing; item 5's leaves are copied as they are
+    added."""
+    for sk, pk, _, paged in _layer_entries(cfg):
+        for key, leaf in caches[sk][pk].items():
+            if key == "self" and paged:
+                continue  # the shared pool: the table carries the fork
+            for t in _tensors(leaf):
+                t[:, dst] = t[:, src]
+    return caches
+
+
+@torch.no_grad()
+def paged_prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor,
+                            positions: torch.Tensor, caches: dict, table_row: torch.Tensor, *,
+                            scatter_start: int = 0) -> Tuple[torch.Tensor, dict]:
+    """One-shot admission prefill, the parity oracle of chunked prefill
+    (``prefill_mode="scatter"``): the contiguous prefill of tokens [1, S]
+    into a temporary single-sequence cache (kernel 6, numerics of the
+    static path), then its K/V (an int8 cache's (q, scale) pairs as they
+    are) scattered into the pages of ``table_row`` [max_pages] (-1
+    unmapped), in place.  Positions below ``scatter_start`` lie in pages
+    shared with other slots: their writes, and unmapped ones, go to the
+    trash page with position -1, so a shared page is never written (the
+    compute still covers them).  Returns (logits of the last position [1,
+    V], caches)."""
+    S = tokens.shape[1]
+    kv_bits = 8 if isinstance(_pool_layer(cfg, caches)["k"], QuantizedKV) else 0
+    tmp = init_caches(cfg, 1, S, kv_bits=kv_bits, device=tokens.device)
+    x = embed_tokens(cfg, params, tokens)
+    pos = positions.to(torch.int32)
+    x, tmp, _ = _run_segments(cfg, params, x, pos, tmp, "prefill")
+    logits = logits_out(cfg, params, x[:, -1:])[:, 0]
+    pos_vec = pos[0]
+    for sk, pk, _, paged in _layer_entries(cfg):
+        if not paged:
+            continue
+        pool, one = caches[sk][pk]["self"], tmp[sk][pk]["self"]
+        Pt, ps = pool["pos"].shape[1:]
+        pages = table_row.long()[pos_vec.long() // ps]
+        pages = torch.where((pages < 0) | (pos_vec < scatter_start), Pt - 1, pages)
+        offs = pos_vec.long() % ps
+        for name in ("k", "v"):
+            for dst, val in zip(_tensors(pool[name]), _tensors(one[name])):
+                dst[:, pages, offs] = val[:, 0, :S].to(dst.dtype)
+        pool["pos"][:, pages, offs] = torch.where(pages == Pt - 1, -1, pos_vec).expand(
+            pool["pos"].shape[0], S)
+    return logits, caches

@@ -1,27 +1,59 @@
-"""Continuous batching over a paged KV pool (``repro/serving/continuous.py``,
-``paged=True``, ``prefill_mode="chunked"``).
+"""Continuous batching (``repro/serving/continuous.py``): a fixed pool of
+decode *slots*, requests admitted into free slots, every engine tick one
+batched decode step over every slot at its own position.
 
-The engine keeps a fixed pool of decode *slots*.  Cache memory is a shared
-pool of ``page_size``-token pages (``serving/kv_pool.py``); each slot holds a
-block table.  Admission goes by free-block count: a request is admitted into
-a free slot when the pool has pages for its whole context (all or nothing),
-and the queue head blocks rather than being skipped.  Admission then runs as
-a resumable state machine: each ``step()`` spends at most ``prefill_chunk``
-tokens of prefill compute (page-aligned chunks written straight into the
-slot's pages by ``models.model.paged_prefill_chunk``, through kernel 8),
-then decodes every slot that is not mid-prefill in one batched step
-(``paged_ragged_decode_step``, kernel 7).  Tables grow lazily as sequences
-decode; pages return to the pool (their positions reset to -1) the moment a
-request finishes; when the pool runs dry the youngest slot is preempted back
-to the queue head and later resumes by re-prefilling prompt + generated
-tokens, so greedy decoding continues token-exact.
+Two KV-storage models share the scheduler, as in JAX:
+
+  * **contiguous** (``paged=False``, the default): each slot owns a
+    ``capacity``-token cache row.  Admission prefills the whole context into
+    the slot's row (``models.model.prefill_into_slot``, kernel 6), and each
+    tick decodes every slot through ``ragged_decode_step`` (kernel 9 over an
+    int8 cache, the plain ``_sdpa`` over an fp one, as JAX does).
+  * **paged** (``paged=True``): cache memory is a shared pool of
+    ``page_size``-token pages (``serving/kv_pool.py``); each slot holds a
+    block table.  Admission goes by free-block count: a request is admitted
+    into a free slot when the pool has pages for its whole context (all or
+    nothing), and the queue head blocks rather than being skipped.  Tables
+    grow lazily as sequences decode; pages return to the pool (their
+    positions reset to -1) the moment a request finishes; when the pool runs
+    dry the youngest slot is preempted back to the queue head and later
+    resumes by re-prefilling prompt + generated tokens, so greedy decoding
+    continues token-exact.  Decode goes through ``paged_ragged_decode_step``
+    (kernel 7).
+
+Paged admission prefill has three modes (``prefill_mode``):
+
+  * ``"chunked"`` (default): a resumable state machine; each ``step()``
+    spends at most ``prefill_chunk`` tokens of prefill compute (page-aligned
+    chunks written straight into the slot's pages by
+    ``paged_prefill_chunk``, kernel 8), then decodes every slot that is not
+    mid-prefill.
+  * ``"batched"``: every mid-prefill slot advances one chunk per tick in ONE
+    model call (``paged_prefill_chunk_batched``: one launch of the batched
+    kernel 8 per layer), padded to ``[slots, prefill_chunk]``.
+  * ``"scatter"``: the parity oracle; admission prefills the whole context
+    into a temporary contiguous cache and scatters it into the pages
+    (``paged_prefill_into_slot``, kernel 6).
+
+``prefix_sharing=True`` adds prefix sharing with copy-on-write: a radix
+index over full-page token chunks (``serving/prefix_index.py``) maps live
+prompt prefixes to physical pages, so a request whose context repeats an
+admitted prefix points its table at the existing pages (refcounted through
+``KVBlockPool.share``) and, since every layer of the served archs is paged,
+skips their prefill compute.  ``submit_n`` rides the same mechanism: n
+samples of one prompt share ALL its pages, the partial boundary page too,
+and draw their first tokens from the base's stashed prefill logits.  Before
+a slot appends into a page another slot holds, ``_ensure_pages`` forks it a
+private copy (``pool.fork`` + ``paged_copy_page``, a device copy of host-
+known page ids), so a page visible to another slot is never written.
 
 Device work per tick: at most one upload of the tick's tokens, positions and
-block table (one int32 buffer), the prefill chunks, one decode step, and one
-read-back of the sampled tokens (the stop and admission decisions need them
-on the host).  A prefill chunk that completes a prompt reads its first token
-back too, and a tick that ran prefill fences the device before its decode
-phase so the tick's prefill/decode times are device times (as the JAX
+tables (one int32 buffer) per model call, the prefill, the CoW copies, one
+decode step, and one read-back of the sampled tokens (the stop and admission
+decisions need them on the host).  A prefill call that completes prompts
+reads their first tokens back too (one read-back for every row that finishes
+in a batched call), and a tick that ran prefill fences the device before its
+decode phase so the tick's prefill/decode times are device times (as the JAX
 engine's ``block_until_ready``).
 
 Sampling draws from a ``torch.Generator``, so sampled (temperature > 0)
@@ -29,23 +61,22 @@ tokens differ from the JAX engine's; greedy tokens are the same.
 
 Under the capacity dispatch (each config's own ``moe_impl``, ``dense`` or
 ``ep`` without a mesh) every row of a decode step, inactive and mid-prefill
-slots included, and every token of a chunk competes for its expert's slots
-in token-major order.  The engine feeds those rows what the JAX engine feeds
-them (the slot's last token at position 0, the chunk's tokens unpadded).  An
-inactive row's attention sees no valid key, and the paged kernels give it 0,
-as the JAX package's Pallas kernels do, so past one expert's capacity (more
-than 8 slots) the two engines drop and route alike when the JAX engine runs
-its kernels.  Its CPU oracle path gives such a row a uniform average
-instead (ROADMAP.md, queue 3).
+slots included, and every token of a chunk (a batched chunk's padding
+included) competes for its expert's slots in token-major order.  The engine
+feeds those rows what the JAX engine feeds them (the slot's last token at
+position 0, a batched chunk padded with token 0 at position -1).  A paged
+row or a padded query with no valid key gets attention 0 from the kernels,
+as from the JAX package's Pallas kernels, so past one expert's capacity the
+two engines drop and route alike when the JAX engine runs its kernels; its
+CPU oracle path gives such a row a uniform average instead (ROADMAP.md,
+queue 3).
 
 Like ``Engine``, it takes MoQ-quantized parameters, and
-``kv_cache_bits=8`` makes the pool's pages int8 (quantized on write, read by
-the int8 branches of the paged kernels).
+``kv_cache_bits=8`` makes the cache int8 (quantized on write, read by the
+int8 branches of the kernels).
 
 Not ported here, each raising ``NotImplementedError`` that names its ROADMAP
-item: the contiguous mode (``paged=False``), prefix sharing with
-copy-on-write, ``submit_n``, the batched and scatter prefill modes,
-speculative decoding, expert-parallel meshes and observability.
+item: speculative decoding, expert-parallel meshes and observability.
 """
 from __future__ import annotations
 
@@ -58,15 +89,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (
+    arch_fully_paged,
+    init_caches,
     init_paged_caches,
+    paged_copy_page,
+    paged_copy_slot_leaves,
     paged_prefill_chunk,
+    paged_prefill_chunk_batched,
+    paged_prefill_into_slot,
     paged_ragged_decode_step,
     paged_reset_pages,
+    prefill_into_slot,
+    ragged_decode_step,
     resolve_device,
 )
 from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.engine import Request, Response
 from repro_torch.serving.kv_pool import BlockTables, KVBlockPool
+from repro_torch.serving.prefix_index import PrefixIndex
 from repro_torch.serving.sampling import sample
 
 
@@ -79,9 +119,10 @@ class SlotState:
     """One decode slot's scheduler-side state.
 
     ``prefilling`` implies ``active``: the slot holds all its pages but is
-    left out of decode ticks and of lazy growth.  While prefilling, ``pos ==
-    prefill_done`` = positions already written, and ``generated`` holds only
-    tokens carried over from a preemption; once prefill completes,
+    left out of decode ticks and of lazy growth and CoW.  While prefilling,
+    ``pos == prefill_done`` = positions already written (a prefix-sharing
+    admission starts both past the shared pages), and ``generated`` holds
+    only tokens carried over from a preemption; once prefill completes,
     ``generated[-1]`` is sampled but not yet written."""
 
     request_id: int = -1
@@ -95,27 +136,37 @@ class SlotState:
     # (prompt, generated) separately, so a second preemption does not
     # duplicate the generated prefix
     prompt: List[int] = field(default_factory=list)
+    # the last context token's logits [1, V] on the device, kept under prefix
+    # sharing until the slot's first decode tick: forks draw their first
+    # token from it without a prefill
+    prefill_logits: Optional[torch.Tensor] = None
     prefilling: bool = False
     prefill_ctx: List[int] = field(default_factory=list)
     prefill_done: int = 0
+    prefill_started: bool = False  # a chunk of this admission has run
 
 
 @dataclass
 class _Pending:
     """Queue entry; ``generated`` is non-empty for a preempted request, which
-    re-admission prefills over ``prompt + generated``."""
+    re-admission prefills over ``prompt + generated``.  ``fork_of`` >= 0: a
+    parallel sample of that request id (``submit_n``), which shares all its
+    base's pages if the base is still at its admission state when this
+    entry reaches the queue head."""
 
     rid: int
     prompt: List[int]
     budget: int  # total response budget, clamped to capacity - 1
     generated: List[int]
     prompt_len: int
+    fork_of: int = -1
 
 
 class ContinuousEngine:
-    """Slot-pool continuous batching over a paged KV pool, on ``device`` (the
-    card unless the caller passes ``"cpu"``).  ``step()`` is one engine
-    tick; ``submit()`` queues a request and admits what fits."""
+    """Slot-pool continuous batching on ``device`` (the card unless the
+    caller passes ``"cpu"``).  ``step()`` is one engine tick; ``submit()``
+    queues a request and admits what fits; ``submit_n()`` queues parallel
+    samples of one prompt."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4, capacity: int = 256,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
@@ -124,15 +175,14 @@ class ContinuousEngine:
                  n_pages: Optional[int] = None, prefix_sharing: bool = False,
                  prefill_chunk: int = 0, prefill_mode: str = "chunked",
                  spec_draft: Optional[tuple] = None, obs=None, device="cuda"):
+        if prefix_sharing and not paged:
+            raise ValueError("prefix_sharing requires paged=True (block tables)")
         if prefill_mode not in ("chunked", "batched", "scatter"):
             raise ValueError(
                 f"prefill_mode must be 'chunked', 'batched' or 'scatter', got {prefill_mode!r}")
-        if not paged:
-            _unported("the contiguous mode (paged=False)", "item 3, contiguous continuous mode")
-        if prefill_mode != "chunked":
-            _unported(f"prefill_mode={prefill_mode!r}", "item 3, batched prefill / scatter oracle")
-        if prefix_sharing:
-            _unported("prefix sharing with copy-on-write", "item 3, prefix sharing")
+        if prefill_mode == "batched" and not paged:
+            raise ValueError("prefill_mode='batched' requires paged=True: the batched chunk "
+                             "prefill writes directly into pool pages through block tables")
         if spec_draft is not None:
             _unported("speculative decoding", "item 6")
         if cfg.ep_mesh:
@@ -152,37 +202,58 @@ class ContinuousEngine:
         self.top_k = top_k
         self.top_p = top_p
         self.eos_id = eos_id
-        self.page_size = page_size = int(page_size or 16)
-        # tokens of prefill compute per tick (0 = auto); chunk boundaries are
-        # page-aligned, so at least one page per tick
-        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else max(64, page_size)
-        if self.prefill_chunk < page_size:
-            raise ValueError(f"prefill_chunk={self.prefill_chunk} must be >= page_size="
-                             f"{page_size} (chunk boundaries are page-aligned)")
-        self.max_pages = -(-capacity // page_size)  # table entries per slot
-        # n_pages None/0 = auto: the contiguous worst case
-        self.n_pages = int(n_pages) if n_pages else slots * self.max_pages
-        if self.n_pages < self.max_pages:
-            raise ValueError(f"n_pages={self.n_pages} cannot hold even one full-capacity "
-                             f"sequence ({self.max_pages} pages of {page_size})")
-        self.pool = KVBlockPool(self.n_pages, page_size)
-        self.tables = BlockTables(slots, self.max_pages)
         self.kv_cache_bits = kv_cache_bits
-        self.caches = init_paged_caches(cfg, slots, capacity, n_pages=self.n_pages,
-                                        page_size=page_size, kv_bits=kv_cache_bits,
-                                        device=self.device)
+        self.paged = paged
+        self.prefix_sharing = prefix_sharing
+        self.prefill_mode = prefill_mode
+        self.prefix: Optional[PrefixIndex] = None
+        if paged:
+            self.page_size = page_size = int(page_size or 16)
+            # tokens of prefill compute per tick (0 = auto); chunk boundaries
+            # are page-aligned, so at least one page per tick
+            self.prefill_chunk = int(prefill_chunk) if prefill_chunk else max(64, page_size)
+            if self.prefill_chunk < page_size:
+                raise ValueError(f"prefill_chunk={self.prefill_chunk} must be >= page_size="
+                                 f"{page_size} (chunk boundaries are page-aligned)")
+            # a shared prefix's prefill compute is skipped when every mixer's
+            # state is paged (always, for the archs the paged caches take)
+            self._skip_shared_compute = arch_fully_paged(cfg)
+            self.max_pages = -(-capacity // page_size)  # table entries per slot
+            # n_pages None/0 = auto: the contiguous worst case
+            self.n_pages = int(n_pages) if n_pages else slots * self.max_pages
+            if self.n_pages < self.max_pages:
+                raise ValueError(f"n_pages={self.n_pages} cannot hold even one full-capacity "
+                                 f"sequence ({self.max_pages} pages of {page_size})")
+            self.pool = KVBlockPool(self.n_pages, page_size)
+            self.tables = BlockTables(slots, self.max_pages)
+            if prefix_sharing:
+                self.prefix = PrefixIndex(page_size)
+            self.caches = init_paged_caches(cfg, slots, capacity, n_pages=self.n_pages,
+                                            page_size=page_size, kv_bits=kv_cache_bits,
+                                            device=self.device)
+        else:
+            self.caches = init_caches(cfg, slots, capacity, kv_bits=kv_cache_bits,
+                                      device=self.device)
         self.slots = [SlotState() for _ in range(slots)]
         self.queue: List[_Pending] = []
         self.done: Dict[int, Response] = {}
         self.preemptions = 0
+        self.cow_copies = 0  # pages privately copied before a divergent append
+        self.prefix_hits = 0  # admissions that shared at least one page
+        self.prefix_hit_tokens = 0  # context tokens served from shared pages
         self.prefill_tokens_total = 0  # prompt tokens computed at prefill
-        self.prefill_chunks_total = 0  # paged_prefill_chunk calls
+        # context tokens whose prefill compute was skipped because their K/V
+        # is read from shared pages in place (chunked and batched modes)
+        self.prefill_tokens_skipped = 0
+        self.prefill_calls_total = 0  # model prefill calls: chunks, batched calls, admissions
         self.metrics_log: List[dict] = []  # one entry per tick, the last 65536
         self.last_logits: Optional[torch.Tensor] = None  # the last decode tick's [slots, V]
         # the current tick's shared prefill budget (None outside step()):
         # admissions cascaded from completions mid-tick draw from it too
         self._tick_budget: Optional[int] = None
         self._tick_prefill_done = 0
+        self._tick_prefill_calls = 0
+        self._batched_occ_tick = 0.0  # rows with a chunk in this tick's batched call / slots
         self._next_id = 0
         self._admit_counter = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -207,45 +278,185 @@ class ContinuousEngine:
         return rid
 
     def submit_n(self, req: Request, n: int) -> List[int]:
-        _unported("submit_n (parallel samples over shared pages)", "item 3, submit_n")
+        """Submit ``n`` parallel samples of one prompt (one request id each).
+        Under ``prefix_sharing`` the first is admitted normally and the rest
+        fork it: their tables share ALL its pages (the partial boundary page
+        too), so n samples cost one prompt's pages and one prefill until they
+        diverge by copy-on-write.  Without sharing (or when slots or pages
+        stagger the admissions) each sample is an independent request: the
+        same tokens, no sharing."""
+        if n < 1:
+            raise ValueError(f"need n >= 1 samples, got {n}")
+        budget = self._clamped_budget(req)
+        rids: List[int] = []
+        for j in range(n):
+            rid = self._next_id
+            self._next_id += 1
+            self.queue.append(_Pending(rid=rid, prompt=list(req.prompt), budget=budget,
+                                       generated=[], prompt_len=len(req.prompt),
+                                       fork_of=rids[0] if j else -1))
+            rids.append(rid)
+        self._admit()
+        return rids
 
     # ------------------------------------------------------------------
+    def _fork_base_slot(self, item: _Pending) -> Optional[int]:
+        """Slot of ``item``'s fork base iff the base is still exactly at its
+        admission state: active, no decode tick since (its cache holds the
+        context and nothing else; its one generated token is sampled but not
+        written), prefill logits stashed.  Otherwise the boundary page may
+        hold divergent tokens, and the fork is admitted as a request."""
+        if self.prefix is None or item.fork_of < 0:
+            return None
+        for b, s in enumerate(self.slots):
+            if (s.active and not s.prefilling and s.request_id == item.fork_of
+                    and len(s.generated) == 1 and s.prefill_logits is not None):
+                return b
+        return None
+
+    def _fork_base_prefilling(self, item: _Pending) -> bool:
+        """True while ``item``'s fork base is mid-prefill: the queue head
+        blocks until the base reaches its shareable state (a bounded number
+        of ticks), as FIFO admission never skips the head."""
+        if self.prefix is None or item.fork_of < 0:
+            return False
+        return any(s.active and s.prefilling and s.request_id == item.fork_of for s in self.slots)
+
+    def _admit_fork(self, i: int, b: int, item: _Pending) -> None:
+        """Admit ``item`` into slot ``i`` as a parallel sample of slot ``b``:
+        share every page ``b`` holds, point ``i``'s table at them, copy the
+        per-slot leaves, and draw the first token from the base's stashed
+        prefill logits.  No new page, no prefill; the first divergent append
+        copies the boundary page."""
+        base = self.slots[b]
+        pages = [int(p) for p in self.tables.row(b) if p >= 0]
+        self.pool.share(pages, owner=i)
+        self.tables.copy_row(i, b)
+        self.caches = paged_copy_slot_leaves(self.cfg, self.caches, b, i)
+        first = int(self._sample(base.prefill_logits)[0])  # the fork's first token, to the host
+        self.slots[i] = SlotState(
+            request_id=item.rid, pos=base.pos, generated=[first], budget=item.budget, active=True,
+            admit_seq=self._admit_counter, prompt_len=item.prompt_len, prompt=item.prompt,
+            prefill_logits=base.prefill_logits)
+        self._admit_counter += 1
+        self._cur_token[i] = first
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += base.pos
+        self._finish_if_done(i)
+
     def _admit(self) -> None:
-        """FIFO admission by free-block count: reserve a free slot and every
-        page of the request's context (the last ``capacity - remaining``
-        tokens), then run its first prefill chunk; later chunks run one
-        budget per ``step()``."""
+        """FIFO admission into free slots.  Paged: only when the pool has
+        pages for the request's whole context (the last ``capacity -
+        remaining`` tokens); under prefix sharing the pages of an indexed
+        full-page prefix are shared rather than allocated.  Chunked and
+        batched modes reserve the pages and leave the slot ``prefilling``
+        (chunked runs its first chunk here; batched joins the next tick's
+        call); the scatter mode and the contiguous engine prefill the whole
+        context here."""
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if not s.active]
             if not free:
                 return
             i = free[0]
             item = self.queue[0]
+            fork_base = self._fork_base_slot(item)
+            if fork_base is not None:
+                self.queue.pop(0)
+                self._admit_fork(i, fork_base, item)
+                continue
+            if self._fork_base_prefilling(item):
+                return  # the base reaches its shareable state in a few ticks
             remaining = item.budget - len(item.generated)
             # keep the LAST (capacity - remaining) context tokens, leaving
             # exactly `remaining` cache tokens to decode
             keep = self.capacity - remaining
             ctx = (item.prompt + item.generated)[-keep:]
-            fresh = self.pool.alloc(self.pool.pages_for(len(ctx)), owner=i)
-            if fresh is None:
-                return  # wait for frees / completions
-            self.tables.append(i, fresh)
+            shared: List[int] = []
+            if self.paged:
+                if self.prefix is not None:
+                    # leave at least one token to prefill: its logits seed
+                    # the first sample
+                    shared = self.prefix.lookup(ctx, max_tokens=len(ctx) - 1)
+                fresh = self.pool.alloc(self.pool.pages_for(len(ctx)) - len(shared), owner=i)
+                if fresh is None:
+                    return  # wait for frees / completions
+                if shared:
+                    self.pool.share(shared, owner=i)
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += len(shared) * self.page_size
+                self.tables.append(i, shared + fresh)
             self.queue.pop(0)
+            if self.paged and self.prefill_mode in ("chunked", "batched"):
+                # the shared prefix is read from its pages in place, never
+                # computed
+                start = len(shared) * self.page_size if self._skip_shared_compute else 0
+                self.prefill_tokens_skipped += start
+                self.slots[i] = SlotState(
+                    request_id=item.rid, pos=start, generated=list(item.generated),
+                    budget=item.budget, active=True, admit_seq=self._admit_counter,
+                    prompt_len=item.prompt_len, prompt=item.prompt, prefilling=True,
+                    prefill_ctx=ctx, prefill_done=start)
+                self._admit_counter += 1
+                if self.prefill_mode == "chunked":
+                    self._advance_prefill(i)
+                continue
+            # one upload: the context's tokens (paged: then the slot's table row)
+            host = np.asarray(ctx, np.int32)
+            if self.paged:
+                host = np.concatenate([host, self.tables.row(i)])
+            buf = torch.from_numpy(host).to(self.device)
+            toks = buf[: len(ctx)].long()[None]
+            pos = torch.arange(len(ctx), dtype=torch.int32, device=self.device)[None]
+            if self.paged:
+                # the scatter oracle: shared positions are computed, their
+                # writes go to the trash page
+                logits, self.caches = paged_prefill_into_slot(
+                    self.cfg, self.params, toks, pos, self.caches, buf[len(ctx):],
+                    scatter_start=len(shared) * self.page_size)
+            else:
+                logits, self.caches = prefill_into_slot(self.cfg, self.params, toks, pos, i,
+                                                        self.caches)
+            self.prefill_tokens_total += len(ctx)
+            self.prefill_calls_total += 1
+            first = int(self._sample(logits)[0])  # the request's first token, to the host
             self.slots[i] = SlotState(
-                request_id=item.rid, pos=0, generated=list(item.generated), budget=item.budget,
-                active=True, admit_seq=self._admit_counter, prompt_len=item.prompt_len,
-                prompt=item.prompt, prefilling=True, prefill_ctx=ctx, prefill_done=0,
-            )
+                request_id=item.rid, pos=len(ctx), generated=item.generated + [first],
+                budget=item.budget, active=True, admit_seq=self._admit_counter,
+                prompt_len=item.prompt_len, prompt=item.prompt,
+                prefill_logits=logits if self.prefix is not None else None)
             self._admit_counter += 1
-            self._advance_prefill(i)
+            self._cur_token[i] = first
+            if self.prefix is not None:
+                self._register_prefix(i, ctx, len(ctx))
+            self._finish_if_done(i)
+
+    def _register_prefix(self, i: int, ctx: List[int], end: int) -> None:
+        """Index the full pages of ``ctx[:end]`` that slot ``i`` holds (pages
+        already indexed keep their mapping: first writer wins).  Called once
+        the pages are written, never during the call that writes them."""
+        n_full = end // self.page_size
+        if n_full:
+            self.prefix.insert(ctx, [int(p) for p in self.tables.row(i)[:n_full]])
+
+    def _finish_prefill(self, i: int, first: int, logits: Optional[torch.Tensor]) -> None:
+        """Slot ``i`` wrote its whole context: ``first`` is its first token;
+        ``logits`` [1, V], stashed under prefix sharing for forks."""
+        slot = self.slots[i]
+        slot.prefilling = False
+        slot.prefill_ctx = []
+        slot.generated = slot.generated + [first]
+        slot.prefill_logits = logits if self.prefix is not None else None
+        self._cur_token[i] = first
+        self._finish_if_done(i)
 
     def _advance_prefill(self, i: int) -> int:
         """Run slot ``i``'s chunked prefill up to the available budget (the
         tick's shared budget inside ``step()``, one ``prefill_chunk`` on
         admission from ``submit()``); returns the tokens computed.  Chunks
         end on page boundaries except the last, which takes the remainder;
-        a leftover budget under one page waits for the next tick.  The last
-        chunk's logits give the request's first token."""
+        a leftover budget under one page waits for the next tick.  Full
+        pages enter the prefix index as soon as their chunk is written; the
+        last chunk's logits give the request's first token."""
         slot = self.slots[i]
         done = 0
         local_budget = self.prefill_chunk if self._tick_budget is None else None
@@ -271,20 +482,21 @@ class ContinuousEngine:
             n = end - start
             done += n
             self.prefill_tokens_total += n
-            self.prefill_chunks_total += 1
+            self.prefill_calls_total += 1
+            self._tick_prefill_calls += 1
+            slot.prefill_started = True
             if local_budget is None:
                 self._tick_budget -= n
                 self._tick_prefill_done += n
             else:
                 local_budget -= n
             slot.prefill_done = slot.pos = end
+            if self.prefix is not None:
+                self._register_prefix(i, ctx, end)
             if end == len(ctx):
-                first = int(self._sample(logits)[0])  # the request's first token, to the host
-                slot.prefilling = False
-                slot.prefill_ctx = []
-                slot.generated = slot.generated + [first]
-                self._cur_token[i] = first
-                self._finish_if_done(i)
+                self._finish_prefill(i, int(self._sample(logits)[0]), logits)
+                if self.queue:
+                    self._admit()  # a fork blocked on this slot's prefill can share it now
         return done
 
     def _prefill_tick(self) -> None:
@@ -297,6 +509,69 @@ class ContinuousEngine:
                 break
             self._advance_prefill(i)
 
+    def _prefill_tick_batched(self) -> None:
+        """One tick's admission prefill as ONE model call: every mid-prefill
+        slot advances one chunk (up to ``prefill_chunk`` tokens, page-aligned
+        as in ``_advance_prefill``) through ``paged_prefill_chunk_batched``
+        on a fixed ``[slots, prefill_chunk]`` shape; rows without a chunk
+        ride along with all -1 positions and tables.  One upload of the
+        tick's tokens, positions and tables, one read-back of the first
+        tokens of the rows that finish their prompt; prefix registration and
+        completions follow the call, in admission order."""
+        order = sorted((i for i, s in enumerate(self.slots) if s.active and s.prefilling),
+                       key=lambda i: self.slots[i].admit_seq)
+        plan: Dict[int, tuple] = {}
+        for i in order:
+            slot = self.slots[i]
+            ctx, start = slot.prefill_ctx, slot.prefill_done
+            end = min(len(ctx), start + self.prefill_chunk)
+            if end < len(ctx):
+                end -= end % self.page_size
+                if end <= start:
+                    continue  # < one page of room: resume next tick
+            plan[i] = (start, end)
+        if not plan:
+            return
+        S, C, MP = self.n_slots, self.prefill_chunk, self.max_pages
+        tokens = np.zeros((S, C), np.int32)
+        positions = np.full((S, C), -1, np.int32)
+        flags = np.zeros((3, S), np.int32)  # reset, active, last_idx
+        tbl = np.full((S, MP), -1, np.int32)
+        for i, (start, end) in plan.items():
+            n = end - start
+            tokens[i, :n] = self.slots[i].prefill_ctx[start:end]
+            positions[i, :n] = np.arange(start, end, dtype=np.int32)
+            flags[:, i] = (not self.slots[i].prefill_started, 1, n - 1)
+            tbl[i] = self.tables.row(i)
+        buf = torch.from_numpy(np.concatenate(
+            [tokens.reshape(-1), positions.reshape(-1), flags.reshape(-1), tbl.reshape(-1)])
+        ).to(self.device)  # the tick's one upload
+        o = 2 * S * C
+        logits, self.caches = paged_prefill_chunk_batched(
+            self.cfg, self.params, buf[: S * C].view(S, C).long(), buf[S * C : o].view(S, C),
+            buf[o : o + S].bool(), buf[o + S : o + 2 * S].bool(), buf[o + 2 * S : o + 3 * S],
+            self.caches, buf[o + 3 * S :].view(S, MP))
+        self.prefill_calls_total += 1
+        self._tick_prefill_calls += 1
+        self._batched_occ_tick = len(plan) / S
+        finishing = [i for i, (_, end) in plan.items() if end == len(self.slots[i].prefill_ctx)]
+        # one read-back serves every row that finishes its prompt this tick
+        firsts = self._sample(logits).cpu().numpy() if finishing else None
+        for i, (start, end) in plan.items():  # admission order
+            slot = self.slots[i]
+            n = end - start
+            self._tick_prefill_done += n
+            self.prefill_tokens_total += n
+            slot.prefill_started = True
+            slot.prefill_done = slot.pos = end
+            ctx = slot.prefill_ctx
+            if self.prefix is not None:
+                self._register_prefix(i, ctx, end)
+            if end == len(ctx):
+                self._finish_prefill(i, int(firsts[i]), logits[i : i + 1])
+        if self.queue:
+            self._admit()  # a fork blocked on a base that just finished can share it now
+
     def _end_tick_prefill(self) -> int:
         """Close the tick's prefill budget; returns tokens spent this tick."""
         if self._tick_budget is None:
@@ -307,15 +582,20 @@ class ContinuousEngine:
         return done
 
     def _release_slot(self, i: int) -> None:
-        freed = self.pool.release(i)
-        self.tables.reset(i)
-        if freed:
-            # invalidate the recycled pages' positions on the device, or a
-            # later owner would see the previous occupant's K/V
-            mask = np.zeros((self.n_pages + 1,), bool)
-            mask[freed] = True
-            self.caches = paged_reset_pages(self.cfg, self.caches,
-                                            torch.from_numpy(mask).to(self.device))
+        if self.paged:
+            # decref the slot's pages; only those no other slot holds are
+            # freed (and leave the prefix index)
+            freed = self.pool.release(i)
+            self.tables.reset(i)
+            if freed:
+                if self.prefix is not None:
+                    self.prefix.evict_pages(freed)
+                # invalidate the recycled pages' positions on the device, or
+                # a later owner would see the previous occupant's K/V
+                mask = np.zeros((self.n_pages + 1,), bool)
+                mask[freed] = True
+                self.caches = paged_reset_pages(self.cfg, self.caches,
+                                                torch.from_numpy(mask).to(self.device))
         self.slots[i] = SlotState()
 
     def _finish_if_done(self, i: int) -> None:
@@ -330,8 +610,9 @@ class ContinuousEngine:
             self._admit()
 
     def _preempt(self, i: int) -> None:
-        """Push slot ``i`` back to the queue head and free its pages; it
-        resumes by re-prefilling prompt + generated-so-far."""
+        """Push slot ``i`` back to the queue head and release its pages (a
+        shared page is decref'd, not freed); it resumes by re-prefilling
+        prompt + generated-so-far."""
         slot = self.slots[i]
         self.queue.insert(0, _Pending(rid=slot.request_id, prompt=slot.prompt, budget=slot.budget,
                                       generated=slot.generated, prompt_len=slot.prompt_len))
@@ -343,11 +624,17 @@ class ContinuousEngine:
                    key=lambda j: self.slots[j].admit_seq)
 
     def _ensure_pages(self) -> None:
-        """Lazy table growth before the decode step, per decoding slot in
-        admission order: map a page for the slot's write position; when the
-        pool is dry, preempt the youngest active slot.  (The JAX engine also
-        copies a shared write page here; without prefix sharing every page
-        has one holder.)  Mid-prefill slots hold all their pages already."""
+        """Before the decode step, per decoding slot in admission order:
+
+        1. lazy table growth: map a page for the slot's write position; when
+           the pool is dry, preempt the youngest active slot;
+        2. copy-on-write: if the write position's page has another holder
+           (a prefix or fork sharer), give this slot a private copy (a fresh
+           page, the device copy, the table entry remapped, the original
+           decref'd), so the step's write never lands in a shared page.
+
+        Mid-prefill slots hold all their pages already, and their chunks
+        write only fresh pages."""
         order = sorted((i for i, s in enumerate(self.slots) if s.active and not s.prefilling),
                        key=lambda i: self.slots[i].admit_seq)
         for i in order:
@@ -361,21 +648,43 @@ class ContinuousEngine:
                 self._preempt(victim)
                 if victim == i:
                     break  # this slot itself re-queued
+            while self.slots[i].active:
+                entry = slot.pos // self.page_size
+                page = int(self.tables.row(i)[entry])
+                if self.pool.refcount(page) <= 1:
+                    break
+                new = self.pool.fork(page, i)
+                if new is None:
+                    victim = self._youngest_active()
+                    self._preempt(victim)
+                    if victim == i:
+                        break  # re-queued; a sharer keeps the page alive
+                    continue  # a preemption may have dropped the refcount
+                self.caches = paged_copy_page(self.cfg, self.caches, page, new)
+                self.tables.set_entry(i, entry, new)
+                self.cow_copies += 1
 
     # ------------------------------------------------------------------
     def step(self) -> int:
-        """One engine tick: at most one chunk budget of admission prefill,
-        then one decode step over every active slot that is not mid-prefill.
-        Returns the number of active slots (decoding + prefilling)."""
+        """One engine tick: at most one chunk budget of admission prefill
+        (chunked; batched: one chunk per prefilling slot, one call), then one
+        decode step over every active slot that is not mid-prefill.  Returns
+        the number of active slots (decoding + prefilling)."""
         t0 = time.perf_counter()
-        self._tick_budget = self.prefill_chunk
+        if self.paged and self.prefill_mode in ("chunked", "batched"):
+            self._tick_budget = self.prefill_chunk
         if not any(s.active for s in self.slots):
             self._admit()
             if not any(s.active for s in self.slots):
                 self._end_tick_prefill()
                 return 0
-        self._prefill_tick()
-        self._ensure_pages()
+        if self._tick_budget is not None:
+            if self.prefill_mode == "batched":
+                self._prefill_tick_batched()
+            else:
+                self._prefill_tick()
+        if self.paged:
+            self._ensure_pages()
         # mid-prefill slots do not decode; their table rows are masked to -1
         # so the decode step's writes land in the trash page
         decoding = np.asarray([s.active and not s.prefilling for s in self.slots])
@@ -390,13 +699,21 @@ class ContinuousEngine:
             return n_active
         S = self.n_slots
         positions = np.asarray([s.pos if s.active else 0 for s in self.slots], np.int32)
-        tbl = np.where(decoding[:, None], self.tables.table, -1)
-        # one upload per tick: tokens, positions and the block table
-        buf = torch.from_numpy(np.concatenate(
-            [self._cur_token, positions, tbl.reshape(-1)]).astype(np.int32)).to(self.device)
-        logits, self.caches = paged_ragged_decode_step(
-            self.cfg, self.params, buf[:S].long()[:, None], buf[S : 2 * S], self.caches,
-            buf[2 * S :].view(S, self.max_pages))
+        if self.paged:
+            tbl = np.where(decoding[:, None], self.tables.table, -1)
+            # one upload per tick: tokens, positions and the block table
+            buf = torch.from_numpy(np.concatenate(
+                [self._cur_token, positions, tbl.reshape(-1)]).astype(np.int32)).to(self.device)
+            logits, self.caches = paged_ragged_decode_step(
+                self.cfg, self.params, buf[:S].long()[:, None], buf[S : 2 * S], self.caches,
+                buf[2 * S :].view(S, self.max_pages))
+        else:
+            # one upload per tick: tokens, positions and the active mask
+            buf = torch.from_numpy(np.concatenate(
+                [self._cur_token, positions, decoding]).astype(np.int32)).to(self.device)
+            logits, self.caches = ragged_decode_step(
+                self.cfg, self.params, buf[:S].long()[:, None], buf[S : 2 * S],
+                buf[2 * S :].bool(), self.caches)
         self.last_logits = logits
         nxt = self._sample(logits).cpu().numpy()  # THE per-tick read-back
         n_decoded = int(decoding.sum())
@@ -408,6 +725,9 @@ class ContinuousEngine:
                 continue
             slot.pos += 1
             slot.generated.append(int(nxt[i]))
+            # the stashed prefill logits serve forks only before the first
+            # decode tick
+            slot.prefill_logits = None
             self._cur_token[i] = int(nxt[i])
             self._finish_if_done(i)
         prefill_toks = self._end_tick_prefill()
@@ -417,16 +737,26 @@ class ContinuousEngine:
 
     def _record_metrics(self, n_decoded: int, dt: float, prefill_toks: int, n_active: int,
                         prefill_s: float, decode_s: float) -> None:
-        self.metrics_log.append({
+        m = {
             "active_slots": n_active,  # slots holding pages, mid-prefill ones included
             "tokens_this_tick": n_decoded,
             "prefill_tokens": prefill_toks,
+            "prefill_calls": self._tick_prefill_calls,  # model prefill calls this tick
             "tick_s": dt,
             "prefill_s": prefill_s,  # up to the fence after the tick's prefill
             "decode_s": decode_s,  # the decode step and its token read-back
             "preemptions": self.preemptions,
-            "free_pages": self.pool.free_count,
-        })
+        }
+        self._tick_prefill_calls = 0
+        if self.paged:
+            m.update(free_pages=self.pool.free_count, shared_pages=self.pool.shared_count,
+                     cow_copies=self.cow_copies)
+            if self.prefix is not None:
+                m.update(prefix_hits=self.prefix_hits, prefix_hit_tokens=self.prefix_hit_tokens)
+            if self.prefill_mode == "batched":
+                m["batched_prefill_occupancy"] = self._batched_occ_tick
+                self._batched_occ_tick = 0.0
+        self.metrics_log.append(m)
         if len(self.metrics_log) > 65_536:
             del self.metrics_log[:-65_536]
 

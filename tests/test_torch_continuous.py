@@ -24,7 +24,6 @@ from repro.serving.engine import Request as JaxRequest
 from repro_torch import convert
 from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.launch import serve as tserve
-from repro_torch.models import attention as tattn
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
 
@@ -175,17 +174,9 @@ def test_prompt_truncated_to_capacity(llama4):
 
 
 UNPORTED = [
-    ("paged=False", dict(paged=False), "contiguous"),
-    ("prefix_sharing", dict(prefix_sharing=True), "prefix sharing"),
-    ("prefill_mode=batched", dict(prefill_mode="batched"), "batched"),
-    ("prefill_mode=scatter", dict(prefill_mode="scatter"), "scatter"),
     ("spec_draft", dict(spec_draft=("cfg", "params")), "item 6"),
-    ("kv_cache_bits", dict(kv_cache_bits=8, paged=False), "contiguous"),
     ("ep_mesh", dict(ep_mesh=(2,)), "item 7"),
     ("obs", dict(obs=object()), "item 9"),
-    ("submit_n", dict(call="submit_n"), "submit_n"),
-    ("mode prefill_chunk_batched", dict(mode="prefill_chunk_batched"), "batched"),
-    ("mode decode_ragged", dict(mode="decode_ragged"), "contiguous"),
     ("per-slot state (window rings)", dict(arch="gemma3-27b"), "item 5"),
 ]
 
@@ -195,15 +186,9 @@ def test_unported_options_raise(llama4, opt, match):
     _, tcfg, _, tparams = llama4
     opt = dict(opt)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
-        if "mode" in opt:
-            ls = tcfg.segments[0].pattern[0]
-            tattn.attention(tcfg, ls.mixer, None, None, None, mode=opt["mode"])
-        elif opt.pop("call", None):
-            ContinuousEngine(tcfg, tparams, device="cpu", slots=1, **PAGED).submit_n(Request([1]), 2)
-        else:
-            cfg = tcfg.replace(ep_mesh=opt.pop("ep_mesh")) if "ep_mesh" in opt else tcfg
-            cfg = make_reduced(get_config(opt.pop("arch"))) if "arch" in opt else cfg
-            ContinuousEngine(cfg, tparams, device="cpu", **{**PAGED, **opt})
+        cfg = tcfg.replace(ep_mesh=opt.pop("ep_mesh")) if "ep_mesh" in opt else tcfg
+        cfg = make_reduced(get_config(opt.pop("arch"))) if "arch" in opt else cfg
+        ContinuousEngine(cfg, tparams, device="cpu", **{**PAGED, **opt})
 
 
 def test_cli_paged_on_cpu(capsys):
@@ -216,11 +201,31 @@ def test_cli_paged_on_cpu(capsys):
     assert "free pages 8/8" in out
 
 
+@pytest.mark.parametrize("flags,extra", [
+    (["--prefix-sharing"], "prefix sharing: "),
+    (["--n-samples", "2"], "served 6 requests, 24 tokens"),
+    (["--prefill-mode", "batched"], "prefill_mode=batched"),
+    (["--prefill-mode", "scatter"], "prefill_mode=scatter"),
+    (["--prefix-sharing", "--n-samples", "2", "--prefill-mode", "batched"], "prefix sharing: "),
+], ids=["prefix-sharing", "n-samples", "batched", "scatter", "all-three"])
+def test_cli_paged_modes_on_cpu(capsys, flags, extra):
+    """The paged engine's prefill modes, prefix sharing and parallel samples
+    from the command line, on the CPU; the pool drains."""
+    tserve.main(["--arch", ARCHS[0], "--reduced", "--moe-impl", "grouped", "--device", "cpu",
+                 "--paged", "--page-size", "4", "--pages", "12", "--slots", "3",
+                 "--prefill-chunk", "8", "--requests", "3", "--prompt-len", "6",
+                 "--new-tokens", "4", *flags])
+    out = capsys.readouterr().out
+    assert extra in out and "free pages 12/12" in out
+
+
 @pytest.mark.parametrize("flags,err", [
-    (["--paged", "--prefix-sharing"], "--prefix-sharing is not ported yet"),
-    (["--paged", "--n-samples", "2"], "--n-samples is not ported yet"),
-    (["--paged", "--prefill-mode", "batched"], "invalid choice"),
     (["--slots", "2"], "pass --paged"),
+    (["--prefix-sharing"], "--prefix-sharing requires --paged"),
+    (["--prefill-mode", "batched"], "pass --paged"),
+    (["--n-samples", "2"], "pass --paged"),
+    (["--paged", "--n-samples", "0"], "--n-samples must be >= 1"),
+    (["--paged", "--spec-draft", "llama3-8b"], "--spec-draft is not ported yet"),
 ])
 def test_cli_rejects_unported_paged_flags(capsys, flags, err):
     with pytest.raises(SystemExit):

@@ -249,7 +249,9 @@ def test_paged_prefill_int8_plain_matches_jax(case, kw):
                                       k_scale=t(ks), v_scale=t(vs), **kw).numpy()
     ref = np.asarray(jk8.paged_prefill_attention_ref(*jargs, **kw))
     np.testing.assert_allclose(got, ref, **TOL)
-    assert tk8.launches == {"paged_prefill_attention": 0, "paged_prefill_attention_int8": 0}
+    assert tk8.launches == {"paged_prefill_attention": 0, "paged_prefill_attention_int8": 0,
+                            "paged_prefill_attention_batched": 0,
+                            "paged_prefill_attention_batched_int8": 0}
 
 
 # ---------------------------------------------------------------------------
