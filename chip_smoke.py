@@ -50,6 +50,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and scatter modes with ``submit_n``, the contiguous engine (fp and int8
    cache), and the batched tick under llama4's own capacity dispatch:
    identical tokens, preemptions, prefix hits, CoW copies, drained pools.
+6d. speculative decoding: the phase-4 weights, pool and trace with the
+   target as its own drafter (``spec_draft=(cfg, params)``, k = 4; the
+   drafter's only memory is its contiguous cache) over a bf16 and an int8
+   pool, each after the non-speculative run of the same trace: windows,
+   drafted, accepted, emitted, the accept share, the median tick split into
+   plan, draft, verify and commit, tok/s against the baseline's, TTFT,
+   preemptions, CoW copies, the share of requests whose tokens equal the
+   baseline's, and launches against their counts (kernel 7 never; the
+   batched kernel 8 / 8q once per layer per verify tick; kernel 4 per MoE
+   call of target and drafter; kernel 6 once per drafter layer per sync);
+   pools drained.  Then reduced f32 card vs CPU (llama4 grouped with a
+   seed-1 drafter, prefix sharing and ``submit_n``, and over an int8 pool;
+   llama4 under its own capacity dispatch with itself as the drafter;
+   glm4-9b with a seed-1 drafter under batched prefill; pools that
+   preempt): identical tokens, per-tick spec records, preemptions and CoW
+   copies.
 7. quantized serving (MoQ): the bf16 tree's experts quantized to int8 on the
    card (``quantize_params``, one expert matrix at a time; every other
    tensor shared), then (a) ``Engine(kv_cache_bits=8)`` on the same 4
@@ -65,7 +81,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 8. kernels: each kernel against its plain PyTorch version on the same inputs
    at the served path's shapes, in bf16 and f32 (the grouped MLP, kernels 4
    and 5, per token row: the served MoE layer at T = 256, 4 and the
-   continuous engine's 8 slots, bf16, int8 and int4 weights, and for 5 at a
+   continuous engine's 8 slots (4 also at 40 tokens, the speculative
+   verify pass's 8 x 5), bf16, int8 and int4 weights, and for 5 at a
    16384-token prefill (kernel 4 there on the long prefill's own MoE inputs,
    phase 6b); at kimi-k2-1t-a32b's expert width, D 7168, F 2048, top-8 over
    32 random experts, T = 64; on tile -> expert maps cycling over three
@@ -91,7 +108,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    history, one row inactive and one of 40 queries and padding (exactly 0),
    timed beside SDPA over the gathered rows and the same rows as 8
    single-row launches, and at reduced heads with a window and a softcap in
-   bf16 and f32; kernel 9 at the contiguous engine's served shape (layer
+   bf16 and f32; the batched kernel 8 / 8q at the verify pass's C = 5 over
+   8 rows of the trace's histories (timed the same way), and at glm4-9b's,
+   nlg-350m-moe128's and the reduced heads; kernel 9 at the contiguous engine's served shape (layer
    0's int8 cache of 8 x 2048 slots mid-run, rows at their own positions,
    the idle ones at 0; and 7 rows at the trace's positions beside one
    inactive row).  The attention kernels
@@ -133,6 +152,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    its own ``moe_impl="dense"`` on 4 requests (kernel 1 once per MoE layer
    call; GELU experts are plain products, so no expert kernel), and a
    profile of 5 decode steps.
+11b. the paper's pairing, speculative, at published sizes: nlg-350m (dense,
+   bf16) drafting for nlg-350m-moe128 through the paged engine (8 slots,
+   pages of 16, 8 requests of 32 new tokens with prompts of 64-512 tokens,
+   k = 4) beside the non-speculative run, reported as in 6d.
 12. glm4-9b, a dense global arch, at its published size once nlg's tree is
    freed (40 layers, 32 query heads over 2 kv-heads, 9.4 G parameters in
    bf16): ``Engine`` on 4 requests (kernel 6 once per layer at the prefill,
@@ -155,7 +178,8 @@ Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12 and the
 reduced references) attends through kernel 6 (flash attention), once per
 layer call, and so does every admission of the contiguous engine (4c); the
 paged continuous phases prefill through kernel 8 (4b's batched runs through
-its batched entry) and launch kernel 6 never.  Phase 6b, between 6 and 7 while the card holds only the bf16 tree:
+its batched entry) and launch kernel 6 never, but for the speculative
+drafter's syncs (6d, 11b: once per drafter layer per sync).  Phase 6b, between 6 and 7 while the card holds only the bf16 tree:
 a long static prefill at full width, ``Engine(max_batch=1,
 max_prefill=16384, max_decode=8)`` on one 16384-token prompt (kernel 6
 twice, kernel 4 once per MoE call, the first time past T = 256), where the
@@ -1489,6 +1513,279 @@ def batched_kernel_checks(cfg, red, k8, kv_int8=False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Speculative decoding
+# ---------------------------------------------------------------------------
+
+# drafted tokens per verify window in every speculative phase
+SPEC_K = 4
+# phase 11b, the paper's pairing at published sizes: 8 requests of CONT_NEW
+# new tokens with prompts of 64-512 tokens on a paged pool of 16-token pages
+NLG_SPEC_PROMPTS = [64, 512, 300, 128, 450, 200, 96, 384]
+NLG_SPEC_POOL = dict(slots=8, capacity=1024, page_size=16, prefill_chunk=256)
+# the verify pass's batched kernel 8 at C = SPEC_K + 1: 8 rows, one per slot,
+# over the phase-4 trace's histories, one row inactive
+VERIFY_HISTS = [1500, 1200, None, 700, 512, 300, 1777, 100]
+
+
+def swiglu_experts(cfg) -> bool:
+    """Whether the config's MoE layers have SwiGLU experts, which launch an
+    expert kernel (GELU experts are plain products, as in JAX)."""
+    return any(ls.ffn.kind == "moe" and ls.ffn.act == "swiglu" for ls in cfg.layer_specs())
+
+
+def moe_launches(cfg, params, n_calls, want) -> None:
+    """Add ``n_calls`` MoE layer calls of ``cfg`` to ``want``: kernel 1 under
+    the capacity dispatch, and the expert kernel for SwiGLU experts."""
+    if not n_calls:
+        return
+    if capacity(cfg):
+        want["moe_gating"] += n_calls
+    if swiglu_experts(cfg):
+        want[expert_kernel(cfg, params)] += n_calls
+
+
+def spec_expected_launches(cfg, params, dcfg, dparams, launches, eng, kv8=False) -> dict:
+    """Every kernel's launches in a speculative run (chunked admission): per
+    layer, the batched kernel 8 once per verify tick and the single-row
+    kernel 8 once per admission chunk, kernel 7 never; per MoE layer call of
+    the target (one per verify and per chunk) and of the drafter (one per
+    sync and per propose step, k + 1 a propose) kernel 1 under the capacity
+    dispatch and the SwiGLU expert kernel; the drafter's kernel 6 once per
+    layer per sync (its decode steps attend through the plain ``_sdpa``)."""
+    sfx = "_int8" if kv8 else ""
+    verifies = sum("spec" in m for m in eng.metrics_log)
+    calls = eng.prefill_calls_total
+    d = eng.drafter
+    n_moe = lambda c: sum(ls.ffn.kind == "moe" for ls in c.layer_specs())
+    want = {k: 0 for k in launches}
+    want[f"paged_prefill_attention_batched{sfx}"] = cfg.num_layers * verifies
+    want[f"paged_prefill_attention{sfx}"] = cfg.num_layers * calls
+    want["flash_attention"] = dcfg.num_layers * d.syncs
+    moe_launches(cfg, params, n_moe(cfg) * (verifies + calls), want)
+    moe_launches(dcfg, dparams, n_moe(dcfg) * (d.syncs + d.proposes * (SPEC_K + 1)), want)
+    return want
+
+
+def spec_trace(cfg, params, dcfg, dparams, counters, pool, lens, kv_cache_bits=0, what="spec",
+               seed=SEED + 1):
+    """One trace (prompts of ``lens`` tokens drawn from ``seed``, CONT_NEW new
+    tokens each) through the paged engine twice: without speculation (the
+    baseline: kernel 7 every decode tick) and with the drafter (``dcfg``,
+    ``dparams``) at k = SPEC_K (kernel 7 never; the batched kernel 8 once per
+    layer per verify tick).  Counts set to 0 before each run and read after,
+    each against its expected count; both pools drain.  Returns (lines, the
+    spec run's launches, the baseline's, a summary)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    rng = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
+    sfx = "_int8" if kv_cache_bits else ""
+    runs = {}
+    for label, spec in (("baseline", {}),
+                        ("spec", dict(spec_draft=(dcfg, dparams), spec_k=SPEC_K))):
+        eng = ContinuousEngine(cfg, params, paged=True, device="cuda", kv_cache_bits=kv_cache_bits,
+                               **pool, **spec)
+        eng.submit(Request(prompts[0][:300], 2 * SPEC_K))  # warm-up
+        eng.run_until_done()
+        clear_run_state(eng)
+        if eng.drafter is not None:
+            eng.drafter.syncs = eng.drafter.proposes = 0
+        torch.cuda.synchronize()
+        reset(*counters)
+        ids, wall, ttft = timed_run(eng, lambda: [eng.submit(Request(p, CONT_NEW)) for p in prompts])
+        launches = read(counters, f"{what} {label}")
+        done = eng.done
+        toks = [done[i].tokens for i in ids]
+        assert sorted(done) == sorted(ids) and all(len(t) == CONT_NEW for t in toks), toks
+        assert all(0 <= t < cfg.vocab_size for r in toks for t in r)
+        if eng.pool.free_count != eng.n_pages or (eng.prefix is not None and len(eng.prefix)):
+            raise AssertionError(f"{what} {label}: the pool or the prefix index did not drain")
+        ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
+        if spec:
+            want = spec_expected_launches(cfg, params, dcfg, dparams, launches, eng,
+                                          kv8=bool(kv_cache_bits))
+        else:
+            want = expected_launches(cfg, params, launches, eng, len(ticks), kv8=bool(kv_cache_bits))
+            if not swiglu_experts(cfg):
+                want[expert_kernel(cfg, params)] = 0
+        if launches != want:
+            raise AssertionError(f"{what} {label} launches {launches}, expected {want}")
+        runs[label] = dict(eng=eng, wall=wall, ttft=ttft, toks=toks, launches=launches,
+                           ticks=ticks, n_tok=sum(len(t) for t in toks))
+    base, sp = runs["baseline"], runs["spec"]
+    eng = sp["eng"]
+    recs = [m["spec"] for m in eng.metrics_log if "spec" in m]
+    tot = {k: sum(r.get(k, 0) for r in recs) for k in ("windows", "drafted", "accepted",
+                                                       "emitted", "resyncs")}
+    if sp["launches"][f"paged_decode_attention{sfx}"] or not recs:
+        raise AssertionError(f"{what}: kernel 7 launched in the speculative run, or no verify tick")
+    spec_ticks = [m for m in eng.metrics_log if "spec" in m]
+    med = {k: statistics.median(m[k] for m in spec_ticks) * 1e3
+           for k in ("decode_s", "plan_s", "draft_s", "verify_s", "commit_s")}
+    same = sum(a == b for a, b in zip(sp["toks"], base["toks"]))
+    summary = {
+        **tot, "accept_share": tot["accepted"] / max(tot["drafted"], 1),
+        "tokens_per_verify": tot["emitted"] / max(tot["windows"], 1),
+        "verify_ticks": len(recs), "drafter_syncs": eng.drafter.syncs,
+        "drafter_proposes": eng.drafter.proposes,
+        "tick_ms": med["decode_s"], "plan_ms": med["plan_s"], "draft_ms": med["draft_s"],
+        "verify_ms": med["verify_s"], "commit_ms": med["commit_s"],
+        "tok_s": sp["n_tok"] / sp["wall"], "baseline_tok_s": base["n_tok"] / base["wall"],
+        "baseline_tick_ms": statistics.median(m["decode_s"] for m in base["ticks"]) * 1e3,
+        "ttft_median_ms": statistics.median(sp["ttft"]),
+        "baseline_ttft_median_ms": statistics.median(base["ttft"]),
+        "preemptions": eng.preemptions, "baseline_preemptions": base["eng"].preemptions,
+        "cow_copies": eng.cow_copies, "requests_equal_to_baseline": same,
+        "requests": len(sp["toks"]),
+    }
+    lines = [
+        f"{what}: {len(lens)} requests x {CONT_NEW} tokens (prompts {lens}), k = {SPEC_K}, drafter "
+        f"{dcfg.name}{' (the target itself)' if dparams is params else ''}: {tot['windows']} "
+        f"windows, {tot['drafted']} drafted, {tot['accepted']} accepted (share "
+        f"{summary['accept_share']:.3f}), {tot['emitted']} emitted "
+        f"({summary['tokens_per_verify']:.3f} per verify) over {len(recs)} verify ticks; "
+        f"{eng.drafter.syncs} drafter syncs, {eng.drafter.proposes} proposes",
+        f"{what}: {sp['wall'] * 1e3:.3f} ms ({summary['tok_s']:.1f} tok/s) against the baseline's "
+        f"{base['wall'] * 1e3:.3f} ms ({summary['baseline_tok_s']:.1f} tok/s); spec tick median "
+        f"{med['decode_s']:.3f} ms = plan {med['plan_s']:.3f} + draft {med['draft_s']:.3f} + "
+        f"verify {med['verify_s']:.3f} + commit {med['commit_s']:.3f} (medians of each), "
+        f"baseline decode tick median {summary['baseline_tick_ms']:.3f} ms; TTFT median "
+        f"{summary['ttft_median_ms']:.3f} ms (baseline {summary['baseline_ttft_median_ms']:.3f}); "
+        f"preemptions {eng.preemptions} (baseline {base['eng'].preemptions}); CoW copies "
+        f"{eng.cow_copies}; pools drained",
+        f"{what}: launches {sp['launches']} (baseline {base['launches']}); requests whose tokens "
+        f"equal the baseline's: {same} of {len(sp['toks'])}",
+        f"{what}: TTFT ms per request {sp['ttft']}",
+        f"{what}: tokens of request 0: {sp['toks'][0]} (baseline {base['toks'][0]})",
+    ]
+    return lines, sp["launches"], base["launches"], summary
+
+
+def spec_reference_checks(red_grouped, red_cap, red_glm4) -> list:
+    """Speculative decoding on a small input: reduced f32 weights on the card
+    (kernels) and on the CPU (plain versions), 14 pages for 3 slots of 48 so
+    that the pool preempts, k = SPEC_K: llama4 grouped with a seed-1
+    drafter, prefix sharing and ``submit_n``; the same over an int8 pool;
+    llama4 under its own capacity dispatch with itself as the drafter;
+    glm4-9b with a seed-1 drafter.  Identical tokens, per-tick spec records,
+    preemptions and CoW copies; drained pools and indexes."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(SEED + 7)
+    draw = lambda n: rng.integers(1, red_grouped.vocab_size, n).tolist()
+    pre = draw(8)  # two pages of 4
+    prompts = [pre + draw(5), pre + draw(9), draw(6), pre + draw(17), draw(30), draw(13)]
+    fork = pre + draw(3)
+    paged = dict(paged=True, slots=3, capacity=48, page_size=4, n_pages=14, prefill_chunk=8,
+                 spec_k=SPEC_K)
+    cases = [("llama4 grouped, seed-1 drafter, prefix sharing", red_grouped, 1,
+              dict(paged, prefix_sharing=True)),
+             ("llama4 grouped, seed-1 drafter, int8 pool", red_grouped, 1,
+              dict(paged, kv_cache_bits=8)),
+             ("llama4 own capacity dispatch, self drafter", red_cap, 0, paged),
+             ("glm4-9b, seed-1 drafter, batched prefill", red_glm4, 1,
+              dict(paged, prefill_mode="batched"))]
+    lines, preempted = [], 0
+    for label, cfg, dseed, kw in cases:
+        target = init_params(cfg, seed=SEED, device="cuda")
+        draft = target if dseed == 0 else init_params(cfg, seed=SEED + dseed, device="cuda")
+        recs = []
+        for dev in ("cuda", "cpu"):
+            tp = target if dev == "cuda" else copy.deepcopy(target).to("cpu")
+            dp = (draft if dev == "cuda" else copy.deepcopy(draft).to("cpu")) if dseed else tp
+            eng = ContinuousEngine(cfg, tp, device=dev, spec_draft=(cfg, dp), **kw)
+            ids = eng.submit_n(Request(fork, 9), 2) + [eng.submit(Request(p, 9)) for p in prompts]
+            done = eng.run_until_done()
+            eng.pool.check()
+            recs.append({"tokens": [done[i].tokens for i in ids],
+                         "spec": [m["spec"] for m in eng.metrics_log if "spec" in m],
+                         "preemptions": eng.preemptions, "cow_copies": eng.cow_copies,
+                         "drained": eng.pool.free_count == eng.n_pages
+                         and (eng.prefix is None or not len(eng.prefix))})
+        if recs[0] != recs[1] or not recs[0]["drained"]:
+            raise AssertionError(f"spec reference {label}: card {recs[0]}, CPU {recs[1]}")
+        r = recs[0]
+        preempted += r["preemptions"]
+        drafted = sum(s["drafted"] for s in r["spec"])
+        accepted = sum(s["accepted"] for s in r["spec"])
+        lines.append(f"spec reference: reduced {cfg.name} f32 ({cfg.moe_impl}), {label}, card "
+                     f"(kernels) vs CPU (plain versions): tokens and {len(r['spec'])} per-tick "
+                     f"spec records identical ({accepted} of {drafted} drafts accepted), "
+                     f"preemptions {r['preemptions']}, CoW copies {r['cow_copies']} on both; pools "
+                     f"drained")
+    if not preempted:
+        raise AssertionError("no spec reference case preempted; the pool was meant to run dry")
+    return lines
+
+
+def nlg_spec_serve(counters) -> tuple:
+    """The paper's pairing at published sizes: the dense nlg-350m (the
+    student) drafting for nlg-350m-moe128 (the MoE teacher, 24 layers, 128
+    GELU experts, its own ``moe_impl="dense"``: kernel 1 on every MoE call),
+    bf16 random weights from seeds, both vocabularies 51200, through the
+    paged engine on NLG_SPEC_PROMPTS at k = SPEC_K beside the non-speculative
+    run (``spec_trace``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params
+
+    cfg, dcfg = get_config("nlg-350m-moe128"), get_config("nlg-350m")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    dparams = init_params(dcfg, seed=SEED + 1, device="cuda")
+    lines, launches, base, summary = spec_trace(cfg, params, dcfg, dparams, counters,
+                                                NLG_SPEC_POOL, NLG_SPEC_PROMPTS,
+                                                what="spec nlg pairing", seed=SEED + 17)
+    lines.append(f"spec nlg pairing: peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return lines, launches, base, summary
+
+
+def verify_kernel_checks(cfg, red, k8, kv_int8=False) -> dict:
+    """The batched kernel 8 (8q) at the verify pass's shape, C = SPEC_K + 1
+    queries a row, against its plain version per query row: at the served
+    width over VERIFY_HISTS (timed from CUDA graphs beside its bound, SDPA
+    over gathered K/V and the same rows as single-row launches), and at
+    glm4-9b's heads (G = 16, dh 128), nlg-350m-moe128's (G = 1, dh 64) and
+    the reduced heads with a window and a softcap, where G * C query rows
+    fill part of a tile.  Padded queries and the inactive row must be 0."""
+    from repro_torch.launch.paged_kernels import batched_case, single_row_launches
+
+    name = "paged_prefill_attention_batched" + ("_int8" if kv_int8 else "")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    C = SPEC_K + 1
+    G = cfg.num_heads // cfg.num_kv_heads
+    valid = [0 if h is None else C for h in VERIFY_HISTS]
+    valid[-1] = 2  # a window clamped by the budget: 2 queries and padding
+    ws = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
+    rG = red.num_heads // red.num_kv_heads
+    out = {}
+    for label, case, kw, timed in (
+            ("bf16_verify_c5", (VERIFY_HISTS, valid, C, cfg.num_kv_heads, G, cfg.head_dim, 16,
+                                8 * 128 + 1, 128), dict(scale=1.0 / math.sqrt(cfg.head_dim)), True),
+            ("bf16_verify_c5_glm4_heads", ([300, None, 17], [C, 0, 3], C, 2, 16, 128, 16, 60, 32),
+             dict(scale=128 ** -0.5), False),
+            ("bf16_verify_c5_nlg_heads", ([300, 9, None], [C, C, 0], C, 16, 1, 64, 16, 60, 32),
+             dict(scale=64 ** -0.5), False),
+            ("bf16_verify_c5_window_softcap", ([30, None, 0, 9], [C, 0, 2, C], C, red.num_kv_heads,
+                                               rG, red.head_dim, 8, 30, 16), ws, False)):
+        args, qkw, info = batched_case(gen, *case, torch.bfloat16, kv_int8)
+        kwa = dict(kw, **qkw)
+        info.update(check_paged(name, k8.paged_prefill_attention_batched,
+                                k8.paged_prefill_attention_batched_plain, args, kwa, BF16_TOL,
+                                timed=timed, library=sdpa_prefill_batched))
+        pad = args[5] < 0
+        if k8.paged_prefill_attention_batched(*args, **kwa)[pad].abs().max().item() != 0:
+            raise AssertionError(f"{name} {label}: a padded query or an inactive row is not 0")
+        if timed:
+            info["single_row_launches_ms"] = graph_ms(single_row_launches(args, kwa), n=5)
+        out[label] = info
+        log(f"kernel {name} {label}: {json.dumps(info)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Quantized serving (MoQ int8 / int4 experts, int8 KV cache)
 # ---------------------------------------------------------------------------
 
@@ -2475,6 +2772,19 @@ def main() -> int:
     # the contiguous engine, and the batched tick under the capacity dispatch
     for line in slice6_reference_checks(red, make_reduced(full)):
         log(line)
+    # 6d. speculative decoding at full width: phase 4's weights, pool and
+    # trace, the target as its own drafter, over a bf16 and an int8 pool,
+    # each beside the non-speculative run; then reduced f32 card vs CPU
+    spec_runs = {}
+    for kv in (0, 8):
+        lines, sl, bl, summary = spec_trace(cfg, params, cfg, params, counters, CONT, CONT_PROMPTS,
+                                            kv_cache_bits=kv,
+                                            what="spec llama4" + (" int8 KV" if kv else ""))
+        for line in lines:
+            log(line)
+        spec_runs["llama4" + ("_int8" if kv else "")] = (sl, bl, summary)
+    for line in spec_reference_checks(red, make_reduced(full), make_reduced(get_config("glm4-9b"))):
+        log(line)
 
     # 6b. a long static prefill at full width, while only the bf16 tree is held
     lines, long_launches, long_check, long_grouped = long_prefill(cfg, params, counters)
@@ -2517,6 +2827,14 @@ def main() -> int:
         shapes[label] = info
         log(f"kernel grouped_mlp bf16 {label}: {json.dumps(info)}")
     shapes["long_prefill"] = long_grouped
+    # the verify pass's MoE input (phase 6d): T = slots x (SPEC_K + 1), from a
+    # generator of its own
+    T = CONT["slots"] * (SPEC_K + 1)
+    kargs, info = grouped_case(moe, T, 1, torch.Generator(device="cuda").manual_seed(SEED + 18),
+                               torch.bfloat16)
+    info.update(check_grouped(kargs, BF16_TOL, "mma", timed=True))
+    shapes["spec_verify"] = info
+    log(f"kernel grouped_mlp bf16 spec_verify (T = {T}): {json.dumps(info)}")
     # tile -> expert maps with more runs than the grid has rows, from a
     # generator of their own
     cgen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -2555,6 +2873,7 @@ def main() -> int:
     attn["paged_decode_attention"].update(dec)
     attn["paged_prefill_attention"].update(pre)
     battn = {"paged_prefill_attention_batched": batched_kernel_checks(cfg, red, k8)}
+    battn["paged_prefill_attention_batched"].update(verify_kernel_checks(cfg, red, k8))
     # reduced size with a window and a softcap (llama4 uses neither)
     kw = dict(scale=1.0 / math.sqrt(red.head_dim), window=37, softcap=20.0)
     rG = red.num_heads // red.num_kv_heads
@@ -2692,6 +3011,7 @@ def main() -> int:
         f"inactive: {json.dumps(info)}")
     del kpos9r
     qbattn = {"paged_prefill_attention_batched_int8": batched_kernel_checks(cfg, red, k8, True)}
+    qbattn["paged_prefill_attention_batched_int8"].update(verify_kernel_checks(cfg, red, k8, True))
     dec, pre = redesign_checks(cfg, k7, k8, gen, kv_int8=True)
     qattn["paged_decode_attention_int8"].update(dec)
     qattn["paged_prefill_attention_int8"].update(pre)
@@ -2837,6 +3157,13 @@ def main() -> int:
     lines, nlg_launches = nlg_serve(counters)
     for line in lines:
         log(line)
+    # 11b. the paper's pairing, speculative, at published sizes
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, sl, bl, summary = nlg_spec_serve(counters)
+    for line in lines:
+        log(line)
+    spec_runs["nlg"] = (sl, bl, summary)
 
     # 12. glm4-9b at its published size, once nlg's tree is gone
     gc.collect()
@@ -2957,8 +3284,12 @@ def main() -> int:
     ]
     by_name = {k["name"]: k for k in kernels}
     for kname in ("paged_prefill_attention_batched", "paged_prefill_attention_batched_int8"):
-        by_name[kname]["single_row_launches_ms"] = (battn if "int8" not in kname else qbattn)[
-            kname]["bf16_served"]["single_row_launches_ms"]
+        checks = (battn if "int8" not in kname else qbattn)[kname]
+        by_name[kname]["single_row_launches_ms"] = checks["bf16_served"]["single_row_launches_ms"]
+        # the verify pass's shape: C = SPEC_K + 1 queries a row
+        by_name[kname]["verify_c5"] = {k: checks["bf16_verify_c5"][k] for k in (
+            "ms", "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_gather_ms", "single_row_launches_ms")}
     by_name["paged_prefill_attention"]["launches_by_path"] = {
         "continuous": cont_launches["paged_prefill_attention"],
         "prefix_chunked": prefix_runs["chunked"]["paged_prefill_attention"],
@@ -3025,6 +3356,13 @@ def main() -> int:
                         "are device times from CUDA graphs, host_ms a wrapper call's",
         "shapes": fshapes,
     })
+    # every kernel's launches in the speculative runs and their baselines
+    for path, (sl, bl, _) in spec_runs.items():
+        for k in kernels:
+            k.setdefault("launches_by_path", {})
+            k["launches_by_path"][f"spec_{path}"] = sl[k["name"]]
+            k["launches_by_path"][f"spec_{path}_baseline"] = bl[k["name"]]
+    log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

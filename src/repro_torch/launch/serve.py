@@ -3,8 +3,9 @@ serves synthetic requests through the static batched engine, reporting
 prefill and per-step decode latency, or with ``--paged`` through the
 continuous-batching engine over a paged KV pool, reporting its per-tick
 numbers: ``--prefill-mode chunked|batched|scatter`` picks its admission
-prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write, and
-``--n-samples N`` serves N parallel samples of each prompt.
+prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write,
+``--n-samples N`` serves N parallel samples of each prompt, and
+``--spec-draft ARCH|self --spec-k K`` decodes speculatively (greedy only).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
       --reduced                                 # on the card, the arch's own moe_impl
@@ -13,6 +14,7 @@ prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write, and
   PYTHONPATH=src python -m repro_torch.launch.serve --arch nlg-350m-moe128 --reduced
   ... --paged --page-size 16 --pages 64 --slots 4 --prefill-chunk 32 --device cpu
   ... --paged --prefix-sharing --n-samples 2 --prefill-mode batched
+  ... --paged --spec-draft self --spec-k 3    # or a registry arch as the drafter
   ... --quant-bits 8 --quant-policy experts --kv-bits 8   # MoQ weights, int8 KV cache
 
 A subset of ``repro.launch.serve``'s flags; the others exit with an error
@@ -35,8 +37,6 @@ from repro_torch.serving.engine import Engine, EngineConfig, Request
 
 # flags of the JAX launcher this slice does not port -> where they are queued
 UNPORTED = {
-    "--spec-draft": "queue 1 item 6 (speculative decoding)",
-    "--spec-k": "queue 1 item 6 (speculative decoding)",
     "--ep-devices": "queue 1 item 7 (expert parallelism)",
     "--trace-out": "queue 1 item 9 (tooling)",
     "--metrics-out": "queue 1 item 9 (tooling)",
@@ -93,6 +93,12 @@ def main(argv=None) -> None:
     ap.add_argument("--n-samples", type=int, default=1,
                     help="parallel samples per prompt (paged engine); with --prefix-sharing "
                          "they share all prompt pages and diverge by copy-on-write")
+    ap.add_argument("--spec-draft", default=None, metavar="ARCH",
+                    help="draft-then-verify speculative decoding: registry arch of the drafter "
+                         "(random weights from seed 1, --reduced applies) or 'self' for the "
+                         "target as its own drafter; greedy only, needs --paged")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="with --spec-draft: drafted tokens per verify window")
     for flag in UNPORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -116,6 +122,16 @@ def main(argv=None) -> None:
     if args.temperature <= 0.0 and (args.top_k or args.top_p):
         ap.error("--top-k/--top-p have no effect at --temperature 0 (greedy); "
                  "pass --temperature > 0")
+    if args.spec_draft:
+        if not args.paged:
+            ap.error("--spec-draft rides the paged continuous engine (CoW page forks); "
+                     "pass --paged")
+        if args.temperature > 0.0:
+            ap.error("--spec-draft is greedy-only: verification accepts the longest draft "
+                     "prefix matching the target's argmax, which is exact only at "
+                     "--temperature 0")
+        if args.spec_k < 1:
+            ap.error(f"--spec-k must be >= 1, got {args.spec_k}")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -129,6 +145,13 @@ def main(argv=None) -> None:
                      "layers to dispatch — pick an MoE arch (e.g. "
                      "nlg-350m-moe128) or drop the flag")
         cfg = cfg.replace(moe_impl=args.moe_impl)
+    if args.spec_draft and args.spec_draft != "self":
+        dcfg = get_config(args.spec_draft)
+        if args.reduced:
+            dcfg = make_reduced(dcfg)
+        if dcfg.vocab_size != cfg.vocab_size:
+            ap.error(f"--spec-draft {args.spec_draft}: drafter vocab {dcfg.vocab_size} != target "
+                     f"vocab {cfg.vocab_size}; greedy verification needs a shared token space")
 
     params = load_params(args, cfg)
     rng = np.random.default_rng(0)
@@ -136,7 +159,12 @@ def main(argv=None) -> None:
                     max_new_tokens=args.new_tokens)
             for _ in range(args.requests)]
     if args.paged:
-        serve_paged(args, cfg, params, reqs)
+        spec_draft = None
+        if args.spec_draft == "self":
+            spec_draft = (cfg, params)
+        elif args.spec_draft:
+            spec_draft = (dcfg, init_params(dcfg, seed=1, device=args.device))
+        serve_paged(args, cfg, params, reqs, spec_draft)
         return
     ec = EngineConfig(max_batch=args.batch, max_prefill=args.prompt_len,
                       max_decode=args.new_tokens, temperature=args.temperature,
@@ -203,13 +231,18 @@ def load_params(args, cfg):
     return params
 
 
-def serve_paged(args, cfg, params, reqs) -> None:
+def serve_paged(args, cfg, params, reqs, spec_draft=None) -> None:
     eng = ContinuousEngine(
         cfg, params, slots=args.slots or args.batch, capacity=args.prompt_len + args.new_tokens,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, paged=True,
         page_size=args.page_size, n_pages=args.pages, prefill_chunk=args.prefill_chunk,
         prefill_mode=args.prefill_mode, prefix_sharing=args.prefix_sharing,
-        kv_cache_bits=args.kv_bits, device=args.device)
+        kv_cache_bits=args.kv_bits, spec_draft=spec_draft, spec_k=args.spec_k,
+        device=args.device)
+    if spec_draft is not None:
+        print(f"speculative decoding: drafter={spec_draft[0].name}"
+              f"{' (self)' if args.spec_draft == 'self' else ''}, k={args.spec_k} drafted tokens "
+              "per verify window")
     pool_b = kv_cache_bytes(init_paged_caches(cfg, eng.n_slots, eng.capacity, n_pages=eng.n_pages,
                                               page_size=eng.page_size, kv_bits=args.kv_bits,
                                               device="meta"))
@@ -243,6 +276,15 @@ def serve_paged(args, cfg, params, reqs) -> None:
     if args.prefix_sharing:
         print(f"  prefix sharing: {eng.prefix_hits} hits, {eng.prefix_hit_tokens} hit tokens, "
               f"{eng.prefill_tokens_skipped} prefill tokens skipped, {eng.cow_copies} CoW copies")
+    if eng.drafter is not None:
+        sp = [m["spec"] for m in eng.metrics_log if "spec" in m]
+        drafted = sum(s["drafted"] for s in sp)
+        accepted = sum(s["accepted"] for s in sp)
+        windows = sum(s["windows"] for s in sp)
+        emitted = sum(s["emitted"] for s in sp)
+        print(f"speculation: {emitted} tokens / {windows} verify passes = "
+              f"{emitted / max(windows, 1):.2f} tok/verify (accept rate "
+              f"{accepted / max(drafted, 1):.2f}, k={eng.spec_k})")
     print("sample:", done[ids[0]].tokens[:10])
 
 

@@ -8,7 +8,9 @@ continuous batching ``prefill_into_slot`` and ``ragged_decode_step``; for
 paged serving ``init_paged_caches``, ``paged_prefill_chunk``,
 ``paged_prefill_chunk_batched``, ``paged_prefill_into_slot`` (the scatter
 oracle), ``paged_ragged_decode_step``, ``paged_reset_pages``,
-``paged_copy_page`` (copy-on-write) and ``paged_copy_slot_leaves``.
+``paged_copy_page`` (copy-on-write) and ``paged_copy_slot_leaves``; for
+speculative decoding ``paged_verify_chunk_batched`` and
+``paged_reset_page_tails``.
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose nesting and
 leaf names are the JAX package's parameter tree, so a JAX tree converts leaf
 for leaf (``repro_torch.convert``).
@@ -371,6 +373,60 @@ def paged_prefill_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
                                  block_table=_clamped(cfg, caches, block_tables))
     xe = x[torch.arange(S, device=x.device), last_idx.long()]  # [S, D]
     return logits_out(cfg, params, xe[:, None])[:, 0], caches
+
+
+@torch.no_grad()
+def paged_verify_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
+                               positions: torch.Tensor, active: torch.Tensor, caches: dict,
+                               block_tables: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Speculative VERIFY: every decoding slot's window (its unwritten
+    current token and its k drafted tokens) scored in ONE batched pass,
+    ``paged_prefill_chunk_batched`` without an admission reset: tokens [S,
+    C], ``positions`` [S, C] (-1 at padding; an inactive row all -1 with an
+    all -1 table row), ``block_tables`` [S, max_pages] whose window entries
+    point at the copy-on-write forks and fresh pages the scheduler planned,
+    so a rejected write is rolled back by dropping pages.  Each layer
+    attends through one launch of the batched kernel 8.  Returns (logits at
+    EVERY window position [S, C, V]: position j scores the token at
+    ``positions[:, j] + 1``, caches updated in place).
+
+    JAX returns the per-slot leaves (window rings, SSM/LRU states)
+    unchanged, since a rejection could not roll them back; the port has no
+    per-slot leaves yet (``init_paged_caches``), so only pool pages are
+    written and ``active`` [S] bool only keeps the signature."""
+    S = tokens.shape[0]
+    if active.shape != (S,):
+        raise ValueError(f"paged_verify_chunk_batched: active {tuple(active.shape)} for {S} rows")
+    x = embed_tokens(cfg, params, tokens)
+    x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
+                                 "prefill_chunk_batched",
+                                 block_table=_clamped(cfg, caches, block_tables))
+    return logits_out(cfg, params, x), caches
+
+
+@torch.no_grad()
+def paged_reset_page_tails(cfg: ModelConfig, caches: dict, pages: torch.Tensor,
+                           start_offs: torch.Tensor) -> dict:
+    """Invalidate the tail of each slot's last committed page, in place:
+    offsets >= ``start_offs[i]`` of page ``pages[i]`` [S] get ``pos = -1`` in
+    every paged layer's pool (``pages[i] = -1`` rows match nothing,
+    ``start_offs[i] = page_size`` touches nothing); one fixed-shape mask for
+    every slot and layer.
+
+    Required for correctness: a committed window page still holds the
+    verify pass's writes beyond the accepted point (rejected drafts).  The
+    next window writes those positions for real, and the ``already``-stored
+    write guard (``models/attention.py``) would send that K/V to the trash
+    page.  After the reset a live page holds no position >= its slot's
+    length."""
+    P, ps = _pool_layer(cfg, caches)["pos"].shape[1:]
+    hit = torch.arange(P, device=pages.device)[None, :] == pages[:, None]  # [S, P]
+    offm = torch.arange(ps, device=pages.device)[None, :] >= start_offs[:, None]  # [S, ps]
+    mask = (hit[:, :, None] & offm[:, None, :]).any(0)  # [P, ps]
+    for sk, pk, _, paged in _layer_entries(cfg):
+        if paged:
+            caches[sk][pk]["self"]["pos"].masked_fill_(mask[None], -1)
+    return caches
 
 
 @torch.no_grad()

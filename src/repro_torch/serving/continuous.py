@@ -75,8 +75,18 @@ Like ``Engine``, it takes MoQ-quantized parameters, and
 ``kv_cache_bits=8`` makes the cache int8 (quantized on write, read by the
 int8 branches of the kernels).
 
+``spec_draft=(drafter cfg, drafter params)`` (paged, greedy) makes every
+decode tick speculative (``serving/spec.py``): the drafter proposes
+``spec_k`` tokens per decoding slot, ONE batched verify pass over every
+slot's ``k + 1`` window (``paged_verify_chunk_batched``: the batched kernel 8
+once per layer, no kernel 7) writes the window into copy-on-write forks and
+fresh pages, the longest agreeing prefix commits by refcount handoff and
+the rest rolls back by dropping pages.  The tokens are the non-speculative
+greedy engine's.  A speculative tick reads back twice: the proposals and
+the verify argmax ``[slots, k + 1]``.
+
 Not ported here, each raising ``NotImplementedError`` that names its ROADMAP
-item: speculative decoding, expert-parallel meshes and observability.
+item: expert-parallel meshes and observability.
 """
 from __future__ import annotations
 
@@ -98,7 +108,9 @@ from repro_torch.models.model import (
     paged_prefill_chunk_batched,
     paged_prefill_into_slot,
     paged_ragged_decode_step,
+    paged_reset_page_tails,
     paged_reset_pages,
+    paged_verify_chunk_batched,
     prefill_into_slot,
     ragged_decode_step,
     resolve_device,
@@ -108,6 +120,7 @@ from repro_torch.serving.engine import Request, Response
 from repro_torch.serving.kv_pool import BlockTables, KVBlockPool
 from repro_torch.serving.prefix_index import PrefixIndex
 from repro_torch.serving.sampling import sample
+from repro_torch.serving.spec import Drafter, accept_length
 
 
 def _unported(what: str, item: str):
@@ -144,6 +157,10 @@ class SlotState:
     prefill_ctx: List[int] = field(default_factory=list)
     prefill_done: int = 0
     prefill_started: bool = False  # a chunk of this admission has run
+    # tokens by cache position from prefill completion on: context, then the
+    # generated tokens; len(seq) == pos + 1 and seq[pos] == generated[-1]
+    # (sampled, not yet written).  The drafter is fed and re-synced from it.
+    seq: List[int] = field(default_factory=list)
 
 
 @dataclass
@@ -174,7 +191,8 @@ class ContinuousEngine:
                  paged: bool = False, page_size: Optional[int] = None,
                  n_pages: Optional[int] = None, prefix_sharing: bool = False,
                  prefill_chunk: int = 0, prefill_mode: str = "chunked",
-                 spec_draft: Optional[tuple] = None, obs=None, device="cuda"):
+                 spec_draft: Optional[tuple] = None, spec_k: int = 4, obs=None,
+                 device="cuda"):
         if prefix_sharing and not paged:
             raise ValueError("prefix_sharing requires paged=True (block tables)")
         if prefill_mode not in ("chunked", "batched", "scatter"):
@@ -184,7 +202,20 @@ class ContinuousEngine:
             raise ValueError("prefill_mode='batched' requires paged=True: the batched chunk "
                              "prefill writes directly into pool pages through block tables")
         if spec_draft is not None:
-            _unported("speculative decoding", "item 6")
+            # draft-then-verify (serving/spec.py): spec_draft = (drafter cfg, params)
+            if not paged:
+                raise ValueError("speculative decoding requires paged=True: rollback is "
+                                 "implemented as dropping CoW page forks")
+            if temperature > 0.0:
+                raise ValueError("speculative decoding is greedy-only: verification accepts the "
+                                 "longest argmax-agreeing draft prefix, which is exact for "
+                                 "temperature=0 and has no sampling analogue here")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if spec_draft[0].vocab_size != cfg.vocab_size:
+                raise ValueError(f"drafter vocab_size {spec_draft[0].vocab_size} != target "
+                                 f"vocab_size {cfg.vocab_size}: drafted token ids must be target "
+                                 "token ids for verification to compare them")
         if cfg.ep_mesh:
             _unported("an expert-parallel mesh", "item 7")
         if obs is not None:
@@ -258,6 +289,22 @@ class ContinuousEngine:
         self._admit_counter = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._cur_token = np.zeros((slots,), np.int32)
+        # speculative decoding: the drafter, this tick's spec record (JAX's
+        # keys), its phase times, and running counts (JAX's spec.* counters)
+        self.spec_k = int(spec_k) if spec_draft is not None else 0
+        self.drafter: Optional[Drafter] = None
+        self._spec_tick_m: dict = {}
+        self._spec_times: dict = {}
+        self.spec_draft_tokens = self.spec_accepted_tokens = self.spec_verify_windows = 0
+        self.spec_committed_pages = self.spec_rolled_back_pages = 0
+        if spec_draft is not None:
+            dcfg, dparams = spec_draft
+            self.drafter = Drafter(dcfg, prepare_params_for_serving(dcfg, dparams), slots=slots,
+                                   capacity=capacity, spec_k=self.spec_k, device=self.device)
+            if self.drafter.params["embed"].device != self.device:
+                raise ValueError(f"ContinuousEngine: drafter parameters are on "
+                                 f"{self.drafter.params['embed'].device}, the engine on "
+                                 f"{self.device}")
 
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -337,7 +384,7 @@ class ContinuousEngine:
         self.slots[i] = SlotState(
             request_id=item.rid, pos=base.pos, generated=[first], budget=item.budget, active=True,
             admit_seq=self._admit_counter, prompt_len=item.prompt_len, prompt=item.prompt,
-            prefill_logits=base.prefill_logits)
+            prefill_logits=base.prefill_logits, seq=base.seq[:-1] + [first])
         self._admit_counter += 1
         self._cur_token[i] = first
         self.prefix_hits += 1
@@ -423,7 +470,8 @@ class ContinuousEngine:
                 request_id=item.rid, pos=len(ctx), generated=item.generated + [first],
                 budget=item.budget, active=True, admit_seq=self._admit_counter,
                 prompt_len=item.prompt_len, prompt=item.prompt,
-                prefill_logits=logits if self.prefix is not None else None)
+                prefill_logits=logits if self.prefix is not None else None,
+                seq=list(ctx) + [first])
             self._admit_counter += 1
             self._cur_token[i] = first
             if self.prefix is not None:
@@ -443,6 +491,7 @@ class ContinuousEngine:
         ``logits`` [1, V], stashed under prefix sharing for forks."""
         slot = self.slots[i]
         slot.prefilling = False
+        slot.seq = list(slot.prefill_ctx) + [first]
         slot.prefill_ctx = []
         slot.generated = slot.generated + [first]
         slot.prefill_logits = logits if self.prefix is not None else None
@@ -587,6 +636,10 @@ class ContinuousEngine:
             # freed (and leave the prefix index)
             freed = self.pool.release(i)
             self.tables.reset(i)
+            if self.drafter is not None:
+                # the next occupant (or this request's re-admission) re-syncs
+                # the drafter at its first speculative tick
+                self.drafter.invalidate(i)
             if freed:
                 if self.prefix is not None:
                     self.prefix.evict_pages(freed)
@@ -664,6 +717,216 @@ class ContinuousEngine:
                 self.tables.set_entry(i, entry, new)
                 self.cow_copies += 1
 
+    # -- speculative decoding (serving/spec.py holds the drafter) ----------
+    def _spec_plan_pages(self, decoding) -> Dict[int, dict]:
+        """Per decoding slot, in admission order: the window size ``k`` and
+        the pages the verify pass writes.  The window covers positions ``p ..
+        p + k`` (the unwritten current token and k drafted ones), table
+        entries ``e0 = p // ps`` through ``e1 = (p + k) // ps``:
+
+          * the boundary entry ``e0`` (only when ``p`` is mid-page) is the
+            partly filled tail page.  Shared (refcount > 1), it is forked: a
+            fresh page, the device copy (``paged_copy_page`` of host page
+            ids), and the verify table points at the fork, so the shared page
+            is never written (commit: ``commit_fork_run``).  A private
+            boundary is written in place: it always commits, since every
+            window emits at least one token;
+          * entries past ``e0`` are fresh pages, allocated all or nothing;
+            a dry pool preempts the youngest active slot, as
+            ``_ensure_pages`` does (which spec mode replaces).  On commit
+            the entries through the last accepted position's page join the
+            table, the rest are dropped (``drop_fork_run``).
+
+        A preemption may take a slot planned earlier (its plan is dropped at
+        the end; ``_release_slot`` freed its window pages) or the slot being
+        planned (no plan)."""
+        ps = self.page_size
+        order = sorted((i for i in range(self.n_slots) if decoding[i]),
+                       key=lambda i: self.slots[i].admit_seq)
+        plans: Dict[int, dict] = {}
+        for i in order:
+            slot = self.slots[i]
+            if not slot.active or slot.prefilling:
+                continue  # preempted by an earlier plan's allocation
+            p = slot.pos
+            remaining = slot.budget - len(slot.generated)
+            k = max(0, min(self.spec_k, remaining - 1, self.capacity - 1 - p))
+            e0, e1 = p // ps, (p + k) // ps
+            while True:
+                slot = self.slots[i]
+                if not slot.active or slot.prefilling:
+                    break  # this slot itself was preempted: no plan
+                boundary = int(self.tables.row(i)[e0]) if p % ps else -1
+                fork_boundary = boundary >= 0 and self.pool.refcount(boundary) > 1
+                need = (e1 - e0) + (0 if p % ps else 1) + (1 if fork_boundary else 0)
+                got = self.pool.alloc(need, owner=i)
+                if got is not None:
+                    window: Dict[int, int] = {}
+                    fork = -1
+                    if fork_boundary:
+                        fork = got.pop()
+                        self.caches = paged_copy_page(self.cfg, self.caches, boundary, fork)
+                        self.cow_copies += 1
+                        window[e0] = fork
+                    elif boundary >= 0:
+                        window[e0] = boundary  # private: written in place
+                    for e, pg in zip((e for e in range(e0, e1 + 1) if e not in window), got):
+                        window[e] = pg
+                    plans[i] = dict(rid=slot.request_id, k=k, p=p, e0=e0, e1=e1, window=window,
+                                    boundary_base=boundary if fork_boundary else -1,
+                                    boundary_fork=fork)
+                    break
+                victim = self._youngest_active()
+                self._preempt(victim)
+                if victim == i:
+                    break
+        # drop the plans of slots a later allocation preempted: their window
+        # pages were freed (and reset on the device) by _release_slot
+        return {i: pl for i, pl in plans.items()
+                if self.slots[i].active and not self.slots[i].prefilling
+                and self.slots[i].request_id == pl["rid"]}
+
+    def _spec_decode_tick(self, decoding) -> int:
+        """One speculative decode tick: draft ``k`` tokens per decoding slot,
+        verify every slot's ``k + 1`` window in ONE batched target pass over
+        the planned fork tables, commit the longest argmax-agreeing prefix
+        (and the target's own token at the first disagreement) by refcount
+        handoff, and roll the rejected suffix back by dropping pages.
+        Returns the tokens emitted.
+
+        The order is JAX's: plan (may preempt) -> drafter sync and one
+        propose -> verify -> host accept and page bookkeeping -> one page-
+        tail reset (and the rolled-back pages' reset) -> completions, which
+        may cascade admissions and so come after the resets (or an admitted
+        slot's first chunk would be clobbered)."""
+        t0 = time.perf_counter()
+        plans = self._spec_plan_pages(decoding)
+        if not plans:
+            return 0
+        ps = self.page_size
+        S, C = self.n_slots, self.spec_k + 1
+        t_plan = time.perf_counter()
+
+        # draft: lazily (re)sync the drafter, then one propose for every slot
+        need_draft = []
+        for i, pl in plans.items():
+            slot = self.slots[i]
+            if pl["k"] == 0:
+                continue  # the window is the current token alone
+            if self.drafter.needs_sync(i, slot.pos):
+                # a fresh or re-admitted slot (JAX also counts resyncs of
+                # recurrent drafters here, which the port does not take)
+                self.drafter.sync(i, slot.seq, slot.pos)
+            forced = slot.seq[int(self.drafter.next_pos[i]):slot.pos + 1]
+            need_draft.append((i, forced, pl["k"]))
+        proposals = self.drafter.propose(need_draft) if need_draft else {}
+        for i, pl in plans.items():
+            pl["proposal"] = proposals.get(i, [])
+        t_draft = time.perf_counter()
+
+        # verify: every window in one batched pass over the fork tables; one
+        # upload of tokens, positions, the active mask and the tables
+        tokens = np.zeros((S, C), np.int32)
+        positions = np.full((S, C), -1, np.int32)
+        active = np.zeros((S,), np.int32)
+        tbl = np.full((S, self.max_pages), -1, np.int32)
+        for i, pl in plans.items():
+            k, p = pl["k"], pl["p"]
+            tokens[i, 0] = self._cur_token[i]
+            tokens[i, 1:1 + k] = pl["proposal"]
+            positions[i, :k + 1] = np.arange(p, p + k + 1, dtype=np.int32)
+            active[i] = 1
+            tbl[i] = self.tables.row(i)
+            for e, pg in pl["window"].items():
+                tbl[i, e] = pg
+        buf = torch.from_numpy(np.concatenate(
+            [tokens.reshape(-1), positions.reshape(-1), active, tbl.reshape(-1)])).to(self.device)
+        o = 2 * S * C
+        logits, self.caches = paged_verify_chunk_batched(
+            self.cfg, self.params, buf[: S * C].view(S, C).long(), buf[S * C : o].view(S, C),
+            buf[o : o + S].bool(), self.caches, buf[o + S :].view(S, self.max_pages))
+        # greedy-only: the argmax on the device, [S, C] int32 to the host
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()  # THE read-back
+        t_verify = time.perf_counter()
+
+        # accept, commit and roll back (host side, admission order);
+        # greedy[i, j] is the target's token for position p + j + 1
+        tail_pages = np.full((S,), -1, np.int32)
+        tail_offs = np.zeros((S,), np.int32)
+        reset_mask = np.zeros((self.n_pages + 1,), np.int32)
+        any_reset = False
+        commit_rows = []
+        emitted_total = accepted_total = drafted_total = 0
+        for i, pl in plans.items():
+            slot = self.slots[i]
+            k, p = pl["k"], pl["p"]
+            a = accept_length(pl["proposal"], greedy[i])
+            # the accepted drafts, then the target's own token at the first
+            # disagreement (the bonus token after a full accept)
+            appended = [int(t) for t in pl["proposal"][:a]] + [int(greedy[i, a])]
+            if self.eos_id >= 0 and self.eos_id in appended:
+                appended = appended[:appended.index(self.eos_id) + 1]
+            n = len(appended)  # 1 <= n <= k + 1 <= the remaining budget
+            # entries through eb, the page of the last accepted position,
+            # commit; later window entries roll back.  n >= 1, so eb >= e0:
+            # the boundary entry always commits
+            eb = (p + n - 1) // ps
+            if pl["boundary_fork"] >= 0:
+                freed = self.pool.commit_fork_run([pl["boundary_base"]], i)
+                self.tables.set_entry(i, pl["e0"], pl["boundary_fork"])
+                if freed:  # a sharer left mid-tick and left the base to this slot
+                    if self.prefix is not None:
+                        self.prefix.evict_pages(freed)
+                    reset_mask[freed] = 1
+                    any_reset = True
+            grow = [pl["window"][e] for e in range(self.tables.n_mapped(i), eb + 1)]
+            if grow:
+                self.tables.append(i, grow)
+            rollback = [pl["window"][e] for e in range(eb + 1, pl["e1"] + 1)]
+            if rollback:
+                freed = self.pool.drop_fork_run(rollback, i)
+                reset_mask[freed] = 1
+                any_reset = True
+                self.spec_rolled_back_pages += len(freed)
+            self.spec_committed_pages += len(grow)
+            # position p + n - 1 is the last valid write of page eb; the
+            # verify's writes past it (rejected drafts) are reset below
+            tail_pages[i] = int(self.tables.row(i)[eb])
+            tail_offs[i] = (p + n - 1) % ps + 1
+            slot.pos = p + n
+            slot.generated.extend(appended)
+            slot.seq.extend(appended)
+            slot.prefill_logits = None
+            self._cur_token[i] = appended[-1]
+            self.drafter.after_commit(i, p, k, slot.pos)
+            emitted_total += n
+            accepted_total += a
+            drafted_total += k
+            commit_rows.append((i, pl, appended))
+        self.spec_verify_windows += len(commit_rows)
+        self.spec_draft_tokens += drafted_total
+        self.spec_accepted_tokens += accepted_total
+
+        # device-side invalidation, one upload: the committed pages' tails
+        # (one fixed-shape call every tick) and the rolled-back pages
+        buf = torch.from_numpy(np.concatenate([tail_pages, tail_offs, reset_mask])).to(self.device)
+        self.caches = paged_reset_page_tails(self.cfg, self.caches, buf[:S], buf[S : 2 * S])
+        if any_reset:
+            self.caches = paged_reset_pages(self.cfg, self.caches, buf[2 * S :].bool())
+        t_commit = time.perf_counter()
+
+        # completions last: _finish_if_done may release a slot and cascade an
+        # admission into it
+        for i, pl, appended in commit_rows:
+            if self.slots[i].request_id != pl["rid"]:
+                continue  # released and re-admitted earlier in this loop
+            self._finish_if_done(i)
+        self._spec_tick_m.update(windows=len(commit_rows), drafted=drafted_total,
+                                 accepted=accepted_total, emitted=emitted_total)
+        self._spec_times = dict(plan_s=t_plan - t0, draft_s=t_draft - t_plan,
+                                verify_s=t_verify - t_draft, commit_s=t_commit - t_verify)
+        return emitted_total
+
     # ------------------------------------------------------------------
     def step(self) -> int:
         """One engine tick: at most one chunk budget of admission prefill
@@ -683,7 +946,9 @@ class ContinuousEngine:
                 self._prefill_tick_batched()
             else:
                 self._prefill_tick()
-        if self.paged:
+        if self.paged and self.drafter is None:
+            # spec mode plans lazy growth and CoW for the whole window
+            # (_spec_plan_pages) instead
             self._ensure_pages()
         # mid-prefill slots do not decode; their table rows are masked to -1
         # so the decode step's writes land in the trash page
@@ -696,6 +961,14 @@ class ContinuousEngine:
             prefill_toks = self._end_tick_prefill()
             if n_active or prefill_toks:
                 self._record_metrics(0, t_mid - t0, prefill_toks, n_active, t_mid - t0, 0.0)
+            return n_active
+        if self.drafter is not None:
+            # the speculative tick takes the place of the one-token decode step
+            n_decoded = self._spec_decode_tick(decoding)
+            prefill_toks = self._end_tick_prefill()
+            t1 = time.perf_counter()
+            self._record_metrics(n_decoded, t1 - t0, prefill_toks, n_active, t_mid - t0,
+                                 t1 - t_mid)
             return n_active
         S = self.n_slots
         positions = np.asarray([s.pos if s.active else 0 for s in self.slots], np.int32)
@@ -725,6 +998,7 @@ class ContinuousEngine:
                 continue
             slot.pos += 1
             slot.generated.append(int(nxt[i]))
+            slot.seq.append(int(nxt[i]))
             # the stashed prefill logits serve forks only before the first
             # decode tick
             slot.prefill_logits = None
@@ -744,9 +1018,16 @@ class ContinuousEngine:
             "prefill_calls": self._tick_prefill_calls,  # model prefill calls this tick
             "tick_s": dt,
             "prefill_s": prefill_s,  # up to the fence after the tick's prefill
-            "decode_s": decode_s,  # the decode step and its token read-back
+            "decode_s": decode_s,  # the decode step (or spec tick) and its read-backs
             "preemptions": self.preemptions,
         }
+        if self._spec_tick_m:
+            # windows, drafted, accepted, emitted: JAX's keys
+            m["spec"] = self._spec_tick_m
+            self._spec_tick_m = {}
+        if self._spec_times:
+            m.update(self._spec_times)  # plan_s, draft_s, verify_s, commit_s
+            self._spec_times = {}
         self._tick_prefill_calls = 0
         if self.paged:
             m.update(free_pages=self.pool.free_count, shared_pages=self.pool.shared_count,
