@@ -171,8 +171,34 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    a 4096-token causal prompt, and in the TPU kernel's index form at S != T,
    causal; the served shapes and the long prompts timed beside their bounds
    and beside scaled_dot_product_attention.
-14. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
-   ``{"ok": true, "device": ...}`` line.
+14. slice 8, once glm4's tree is freed: gemma3-27b (d_model 5376, 32 heads
+   over 16 kv-heads, dh 128, vocab 262144, qk-norm; depth cut to one period
+   of its 5 local : 1 global pattern plus the 2-layer local tail, 8 of 62
+   layers), recurrentgemma-2b (26 layers: RG-LRU and sliding-window
+   attention of dh 256) and mamba2-370m (48 Mamba-2 SSD layers), each at
+   its published widths, one tree at a time: ``Engine`` on 4 prompts of
+   1500 tokens (past gemma3's window of 1024), bf16 and int8 KV (kernel 6
+   once per attention layer, the local ones with their window; kernel 9
+   once per attention layer and decode step over the int8 caches, rings
+   included); a profile of 5 static decode steps; the paged engine on the
+   phase-4 trace (gemma3 chunked and batched over bf16 and int8 pools;
+   recurrentgemma with a 2500-token prompt, so a ring of 2048 wraps inside
+   a prefill, over bf16 and int8 rings; mamba2): global layers on kernels 7
+   / 8 / batched 8, rings on kernel 9 over int8, SSD and LRU layers on no
+   kernel, launches counted against that; gemma3's prefix trace shared and
+   unshared (the shared prefix is recomputed: the same prefill tokens);
+   recurrentgemma's and mamba2's prefill launches at 250 and 2500 tokens
+   (no loop over tokens); the reduced f32 models card vs CPU (static, paged
+   with preemption, the batched tick with sharing and forks, scatter,
+   int8 rings, the contiguous engine).  Then kernel 6 with a window at
+   gemma3's local shape (4 x 2048 and 1 x 8192 tokens) and at dh 256
+   (recurrentgemma's 10 heads over 1, 4096 tokens, window 2048; and with
+   every mask in f32 and bf16), and kernel 9 over wrapped int8 rings at dh
+   128 and 256, each against its plain version, timed beside its bound and
+   SDPA with the window-causal mask.
+15. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
+   ``flash_attention_dh256`` and ``decode_attention_quant_ring``), the
+   nvidia-smi line, and last the ``{"ok": true, "device": ...}`` line.
 
 Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12 and the
 reduced references) attends through kernel 6 (flash attention), once per
@@ -193,6 +219,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import statistics
@@ -846,13 +873,15 @@ def q_tile_of(q) -> int:
     return k6.q_tile_rows(S, H, B, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
-def check_flash(args, kw, tol, timed=True, n=20, plain_n=3) -> dict:
+def check_flash(args, kw, tol, timed=True, n=20, plain_n=3, library=None) -> dict:
     """Kernel 6 (``flash_attention_gqa``) against its plain version on the
     same inputs, then timed: ``ms`` is its device time and ``library_ms``
     SDPA's, each from a CUDA graph of its calls (``graph_ms``: at the served
     4 x 64 tokens the wrapper's host work exceeds the kernel), ``host_ms`` one
     wrapper call as the layer pays it (``time_ms``), ``plain_ms`` the plain
-    version's; ``n`` and ``plain_n`` calls per timed window."""
+    version's; ``n`` and ``plain_n`` calls per timed window.  ``library()``
+    gives SDPA's (call, layout) where a mask is needed (``sdpa_window``);
+    by default the causal ``sdpa_full``."""
     from repro_torch.kernels import flash_attention as k6
 
     out = k6.flash_attention_gqa(*args, **kw)
@@ -866,7 +895,7 @@ def check_flash(args, kw, tol, timed=True, n=20, plain_n=3) -> dict:
         res["host_ms"] = time_ms(kernel, n=min(10, n))
         res["plain_ms"] = time_ms(lambda: k6.flash_attention_plain(*args, **kw), n=plain_n,
                                   reps=3, warmup=1)
-        call, layout = sdpa_full(args[0], args[1], args[2], kw["scale"])
+        call, layout = library() if library else sdpa_full(args[0], args[1], args[2], kw["scale"])
         res["library_ms"] = graph_ms(call, n=n)
         res["library_layout_ms"] = time_ms(layout, n=plain_n)
     return res
@@ -1195,27 +1224,37 @@ FORK_PROMPT, FORK_N = 700, 4
 
 
 def expected_launches(cfg, params, launches, eng, ticks, kv8=False) -> dict:
-    """Every kernel's launches in one engine run: each layer of each decode
-    tick launches kernel 7 (paged) or, over an int8 contiguous cache, 9;
-    each prefill call launches per layer kernel 8 (chunked), the batched
-    kernel 8 (batched) or kernel 6 (scatter, contiguous); every MoE layer
-    call its expert kernel (and kernel 1 under the capacity dispatch)."""
-    n_layers = cfg.num_layers
+    """Every kernel's launches in one engine run: each global attention
+    layer of each decode tick launches kernel 7 (paged) or, over an int8
+    contiguous cache, 9, each sliding-window layer (its ring beside the
+    pool) kernel 9 over an int8 ring and nothing over a bf16 one; each
+    prefill call launches per global layer kernel 8 (chunked) or the batched
+    kernel 8 (batched), and per attention layer kernel 6 (scatter,
+    contiguous; a ring's paged chunk launches nothing); every MoE layer call
+    its expert kernel (and kernel 1 under the capacity dispatch); SSD and
+    RG-LRU layers launch none."""
+    n_global, n_local = layer_counts(cfg)
+    n_attn = n_global + n_local
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
     sfx = "_int8" if kv8 else ""
     calls = eng.prefill_calls_total
     want = {k: 0 for k in launches}
     if eng.paged:
-        want[f"paged_decode_attention{sfx}"] = n_layers * ticks
-        prefill = {"chunked": f"paged_prefill_attention{sfx}",
-                   "batched": f"paged_prefill_attention_batched{sfx}",
-                   "scatter": "flash_attention"}[eng.prefill_mode]
-        want[prefill] = n_layers * calls
-    else:
-        want["flash_attention"] = n_layers * calls
+        want[f"paged_decode_attention{sfx}"] = n_global * ticks
+        if eng.prefill_mode == "scatter":
+            want["flash_attention"] = n_attn * calls
+        else:
+            prefill = {"chunked": f"paged_prefill_attention{sfx}",
+                       "batched": f"paged_prefill_attention_batched{sfx}"}[eng.prefill_mode]
+            want[prefill] = n_global * calls
         if kv8:
-            want["decode_attention_quant"] = n_layers * ticks
-    want[expert_kernel(cfg, params)] = n_moe * (ticks + calls)
+            want["decode_attention_quant"] = n_local * ticks
+    else:
+        want["flash_attention"] = n_attn * calls
+        if kv8:
+            want["decode_attention_quant"] = n_attn * ticks
+    if n_moe:
+        want[expert_kernel(cfg, params)] = n_moe * (ticks + calls)
     if capacity(cfg):
         want["moe_gating"] = n_moe * (ticks + calls)
     return want
@@ -1970,9 +2009,10 @@ def decode_quant_redesign_checks(cfg, G, k9) -> dict:
     return out
 
 
-def sdpa_contiguous(q, kq, ks, vq, vs, kpos, qpos, scale):
+def sdpa_contiguous(q, kq, ks, vq, vs, kpos, qpos, scale, window=0):
     """Kernel 9's yardstick: the cache dequantized into [B, Hkv, T, dh]
-    beforehand, then scaled_dot_product_attention with the same mask."""
+    beforehand, then scaled_dot_product_attention with the same mask (the
+    window included)."""
     import torch.nn.functional as F
 
     B, Hkv, G, dh = q.shape
@@ -1983,7 +2023,10 @@ def sdpa_contiguous(q, kq, ks, vq, vs, kpos, qpos, scale):
         return kg, vg
 
     kg, vg = gather()
-    mask = ((kpos >= 0) & (kpos <= qpos[:, None]))[:, None, None, :]
+    mask = (kpos >= 0) & (kpos <= qpos[:, None])
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos < window)
+    mask = mask[:, None, None, :]
     qh = q.reshape(B, Hkv * G, 1, dh)
     call = lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
                                                   enable_gqa=True)
@@ -2640,6 +2683,397 @@ def glm4_serve(counters) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Slice 8: sliding-window rings, RG-LRU and Mamba-2 SSD (phase 14)
+# ---------------------------------------------------------------------------
+
+# the static serve of each arch: 4 requests of 1500-token prompts (past
+# gemma3's window of 1024), 16 new tokens
+MIXED_PROMPT, MIXED_NEW = 1500, 16
+# recurrentgemma's continuous trace adds one 2500-token prompt, so that a
+# 2048-slot ring wraps inside a prefill; its slots are sized for it
+MIXED_LONG = 2500
+MIXED_CONT = dict(CONT, capacity=2560, n_pages=None)
+# the prefill launch counts (recurrentgemma, mamba2): a short and a long prompt
+LAUNCH_PROMPTS = (250, 2500)
+
+
+def slice8_config(name):
+    """The full config served in phase 14: gemma3-27b cut to one period of
+    its 5 local : 1 global pattern plus its 2-layer local tail (8 of 62
+    layers, at its published widths), the others at their published depth."""
+    from repro_torch.configs.base import Segment
+    from repro_torch.configs.registry import get_config
+
+    full = get_config(name)
+    if name == "gemma3-27b":
+        return full.replace(segments=(Segment(full.segments[0].pattern, 1), full.segments[1]))
+    return full
+
+
+def layer_counts(cfg) -> tuple:
+    """(global attention layers, sliding-window layers) of a config."""
+    from repro_torch.configs.base import AttnSpec
+
+    specs = [ls.mixer for ls in cfg.layer_specs()]
+    local = sum(isinstance(m, AttnSpec) and m.kind == "local" for m in specs)
+    return sum(isinstance(m, AttnSpec) for m in specs) - local, local
+
+
+def mixed_static_serve(cfg, params, counters, kv_cache_bits=0) -> tuple:
+    """``Engine`` on 4 requests of MIXED_PROMPT tokens, MIXED_NEW new ones:
+    kernel 6 once per attention layer at the prefill (the local layers with
+    their window), kernel 9 once per attention layer per decode step over an
+    int8 cache (rings included), nothing else.  Returns (lines, launches,
+    the engine, the tokens)."""
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    what = f"{cfg.name} static serve" + (" int8 KV" if kv_cache_bits else "")
+    eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=MIXED_PROMPT,
+                                           max_decode=MIXED_NEW, kv_cache_bits=kv_cache_bits),
+                 device="cuda")
+    rng = torch.Generator().manual_seed(SEED + 20)
+    reqs = [Request(torch.randint(0, cfg.vocab_size, (MIXED_PROMPT,), generator=rng).tolist(),
+                    MIXED_NEW) for _ in range(BATCH)]
+    eng.generate(reqs)  # warm-up
+    torch.cuda.synchronize()
+    reset(*counters)
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    got = read(counters, what)
+    assert len(out) == BATCH and all(len(r.tokens) == MIXED_NEW for r in out)
+    assert all(0 <= t < cfg.vocab_size for r in out for t in r.tokens)
+    n_global, n_local = layer_counts(cfg)
+    want = {k: 0 for k in got}
+    want["flash_attention"] = n_global + n_local
+    if kv_cache_bits:
+        want["decode_attention_quant"] = (n_global + n_local) * (MIXED_NEW - 1)
+    if got != want:
+        raise AssertionError(f"{what} launches {got}, expected {want}")
+    tm = eng.last_timings
+    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+    lines = [f"{what}: {BATCH} requests x {MIXED_NEW} tokens (prompts of {MIXED_PROMPT}) in "
+             f"{wall * 1e3:.3f} ms ({BATCH * MIXED_NEW / wall:.1f} tok/s); prefill "
+             f"{tm['prefill_s'] * 1e3:.3f} ms; decode step median {step_ms:.3f} ms ({BATCH / step_ms * 1e3:.1f} "
+             f"tok/s) over {len(tm['decode_step_s'])} steps; launches {got}; peak memory "
+             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+             f"{what}: tokens of request 0: {out[0].tokens}"]
+    return lines, got, eng, [r.tokens for r in out]
+
+
+def mixed_continuous(cfg, params, counters, prefill_mode="chunked", kv_cache_bits=0, long=False):
+    """The phase-4 trace (CONT_PROMPTS, and MIXED_LONG with ``long``)
+    through the paged engine (MIXED_CONT: no preemption): the global layers'
+    paged kernels 7 / 8 (or the batched 8), kernel 9 once per sliding-window
+    layer per decode tick over an int8 ring, no kernel for a ring's chunk
+    (the plain ``_sdpa`` over ``cat(ring, chunk)``) nor for an SSD / LRU
+    layer.  Returns (lines, launches)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    what = (f"{cfg.name} continuous {prefill_mode}" + (" int8 KV" if kv_cache_bits else ""))
+    eng = ContinuousEngine(cfg, params, paged=True, device="cuda", prefill_mode=prefill_mode,
+                           kv_cache_bits=kv_cache_bits, **MIXED_CONT)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    lens = CONT_PROMPTS + ([MIXED_LONG] if long else [])
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
+    eng.submit(Request(prompts[0][:300], 4))  # warm-up
+    eng.run_until_done()
+    clear_run_state(eng)
+    torch.cuda.synchronize()
+    reset(*counters)
+    ids, wall, ttft = timed_run(eng, lambda: [eng.submit(Request(p, CONT_NEW)) for p in prompts])
+    launches = read(counters, what)
+    done = eng.done
+    assert sorted(done) == sorted(ids) and all(len(done[i].tokens) == CONT_NEW for i in ids)
+    assert all(0 <= t < cfg.vocab_size for i in ids for t in done[i].tokens)
+    if eng.pool.free_count != eng.n_pages:
+        raise AssertionError(f"{what}: the pool did not drain")
+    ticks = [m for m in eng.metrics_log if m["tokens_this_tick"]]
+    want = expected_launches(cfg, params, launches, eng, len(ticks), kv8=bool(kv_cache_bits))
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, expected {want}")
+    n_tok = sum(len(done[i].tokens) for i in ids)
+    tick_ms = statistics.median(m["decode_s"] for m in ticks) * 1e3
+    return [
+        f"{what}: {len(ids)} requests x {CONT_NEW} tokens (prompts {lens}), {MIXED_CONT['slots']} "
+        f"slots, pages of {MIXED_CONT['page_size']} in {wall * 1e3:.3f} ms ({n_tok / wall:.1f} "
+        f"tok/s); {len(ticks)} decode ticks, median {tick_ms:.3f} ms; {eng.prefill_tokens_total} "
+        f"prefill tokens in {eng.prefill_calls_total} calls; preemptions {eng.preemptions}; "
+        f"launches {launches}; pool drained",
+        f"{what}: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f}); tokens of "
+        f"request 0: {done[ids[0]].tokens}",
+    ], launches
+
+
+def prefill_launches(cfg, params, S) -> tuple:
+    """(kernel launches, kernels on the device) of one ``prefill`` of S
+    tokens (batch 1), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import init_caches, prefill
+
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device="cuda")
+    prefill(cfg, params, toks, init_caches(cfg, 1, S, device="cuda"))  # warm-up
+    caches = init_caches(cfg, 1, S, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(cfg, params, toks, caches)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    n_launch = sum(ev.count for ev in evs if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    n_kern = sum(ev.count for ev in evs
+                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0)
+    return n_launch, n_kern
+
+
+def prefill_launch_check(cfg, params) -> str:
+    """No prefill loops over tokens: recurrentgemma's launches at 2500
+    tokens under twice those at 250 (``lru_scan``'s log-step rounds), and
+    mamba2's growing by at most 8 per layer for each further 256-token
+    chunk (the inter-chunk state pass)."""
+    from repro_torch.configs.base import SSMSpec
+
+    got = {S: prefill_launches(cfg, params, S) for S in LAUNCH_PROMPTS}
+    short, long_ = (max(got[S]) for S in LAUNCH_PROMPTS)
+    ssm = [ls.mixer for ls in cfg.layer_specs() if isinstance(ls.mixer, SSMSpec)]
+    if ssm:
+        chunk = ssm[0].chunk
+        extra = -(-LAUNCH_PROMPTS[1] // chunk) - -(-LAUNCH_PROMPTS[0] // chunk)
+        limit = short + 8 * len(ssm) * extra
+        rule = f"at most {short} + 8 x {len(ssm)} layers x {extra} chunks = {limit}"
+        ok = long_ <= limit
+    else:
+        limit, rule = 2 * short, f"under twice the {LAUNCH_PROMPTS[0]}-token count ({2 * short})"
+        ok = long_ < limit
+    line = (f"{cfg.name} prefill launches (kernel launches, kernels on the device) at "
+            f"{LAUNCH_PROMPTS[0]} tokens {got[LAUNCH_PROMPTS[0]]}, at {LAUNCH_PROMPTS[1]} tokens "
+            f"{got[LAUNCH_PROMPTS[1]]}: {rule}")
+    if not ok:
+        raise AssertionError(line)
+    return line
+
+
+def slice8_reference_checks(red) -> list:
+    """A reduced f32 arch with per-slot state, the same weights on the card
+    (kernels) and on the CPU (plain versions): the static path
+    (``reference_check``), the paged engine that preempts
+    (``continuous_reference_check``), and the batched tick with prefix
+    sharing and ``submit_n`` forks, the scatter mode, the contiguous engine
+    and int8 rings: identical tokens, preemptions, prefix hits and CoW
+    copies, drained pools."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    on_card = init_params(red, seed=SEED, device="cuda")
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    lines = [reference_check(red, on_card), continuous_reference_check(red, on_card)]
+    rng = np.random.default_rng(SEED + 21)
+    draw = lambda n: rng.integers(1, red.vocab_size, n).tolist()
+    pre = draw(8)  # two pages of 4
+    prompts = [pre + draw(5), pre + draw(9), draw(6), pre + draw(17), pre + draw(30), draw(13)]
+    fork = pre + draw(3)
+    paged = dict(paged=True, slots=3, capacity=48, page_size=4, n_pages=14, prefill_chunk=8)
+    cases = [("prefix batched", dict(paged, prefix_sharing=True, prefill_mode="batched")),
+             ("prefix scatter int8 KV", dict(paged, prefix_sharing=True, prefill_mode="scatter",
+                                             kv_cache_bits=8)),
+             ("chunked int8 KV", dict(paged, kv_cache_bits=8)),
+             ("contiguous int8 KV", dict(slots=3, capacity=48, kv_cache_bits=8))]
+    for label, kw in cases:
+        recs = []
+        for dev, params in (("cuda", on_card), ("cpu", on_cpu)):
+            eng = ContinuousEngine(red, params, device=dev, **kw)
+            ids = eng.submit_n(Request(fork, 7), 2) + [eng.submit(Request(p, 7)) for p in prompts]
+            done = eng.run_until_done()
+            recs.append({"tokens": [done[i].tokens for i in ids], "preemptions": eng.preemptions,
+                         "prefix_hits": eng.prefix_hits, "cow_copies": eng.cow_copies,
+                         "drained": not eng.paged or eng.pool.free_count == eng.n_pages})
+        if recs[0] != recs[1] or not recs[0]["drained"]:
+            raise AssertionError(f"reduced {red.name} {label}: card {recs[0]}, CPU {recs[1]}")
+        r = recs[0]
+        lines.append(f"slice-8 reference: reduced {red.name} f32, {label}, card (kernels) vs CPU "
+                     f"(plain versions): tokens identical, preemptions {r['preemptions']}, prefix "
+                     f"hits {r['prefix_hits']}, CoW copies {r['cow_copies']} on both; pools drained")
+    return lines
+
+
+def sdpa_window(q, k, v, q_pos, k_pos, scale, window):
+    """Kernel 6's yardstick with a window: one scaled_dot_product_attention
+    with the window-causal boolean mask and ``enable_gqa`` over [B, heads,
+    tokens, dh] copies of the model's layouts (the copies timed apart as the
+    layout); torch picks the backend that takes the mask."""
+    import torch.nn.functional as F
+
+    to_heads = lambda: tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qh, kh, vh = to_heads()
+    qp, kp = q_pos[:, None, :, None], k_pos[:, None, None, :]
+    mask = (kp >= 0) & (kp <= qp) & (qp - kp < window)  # [B, 1, S, T]
+
+    def call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale,
+                                              enable_gqa=True)
+
+    out = call()
+    return call, lambda: (to_heads(), out.transpose(1, 2).contiguous())
+
+
+def slice8_kernel_checks(gen) -> tuple:
+    """Kernel 6 with a window at gemma3's local shape (4 x 2048 and 1 x 8192
+    tokens, window 1024, dh 128 on wgmma) and at recurrentgemma's (dh 256 on
+    mma.sync, 10 heads over 1, 4096 tokens, window 2048), and at dh 256 with
+    every mask and a row with no valid key (f32 and bf16); kernel 9 over a
+    wrapped int8 ring at gemma3's (8 x 1024, 16 kv-heads, G 2, dh 128) and
+    recurrentgemma's shape (8 x 2048, 1 kv-head, G 10, dh 256), rows at their
+    own positions past the ring (the newest key before the oldest in
+    memory), one row not yet wrapped, and at dh 256 in f32.  Each held per
+    query row against its plain version and timed beside its bound and
+    SDPA.  Returns ({shape: info} of the windowed 6, of the dh-256 6, of the
+    ring 9)."""
+    from repro_torch.kernels import attention_quant as k9
+    from repro_torch.kernels import flash_attention as k6
+
+    win, d256, ring = {}, {}, {}
+    for store, label, (B, S, H, Hkv, dh, window) in (
+            (win, "gemma3_local_4x2048", (4, 2048, 32, 16, 128, 1024)),
+            (win, "gemma3_local_1x8192", (1, 8192, 32, 16, 128, 1024)),
+            (d256, "recurrentgemma_local_1x4096", (1, 4096, 10, 1, 256, 2048))):
+        args, kw = flash_case(B, S, H, Hkv, dh, torch.bfloat16, gen)
+        kw["window"] = window
+        info = flash_info(args[0], args[1], args[3], args[4], kw)
+        q, k, v, qp, kp = args
+        info.update(check_flash(args, kw, BF16_TOL, n=10,
+                                library=lambda: sdpa_window(q, k, v, qp, kp, kw["scale"], window)))
+        info["window"] = window
+        store[label] = info
+        log(f"kernel flash_attention bf16 windowed {label} (window {window}): {json.dumps(info)}")
+        del args, q, k, v
+    for dt, tol, label in ((torch.float32, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16")):
+        args, _ = flash_case(3, 300, 10, 1, 256, dt, gen)
+        q, k, v, _, _ = args
+        pos = (torch.arange(300, dtype=torch.int32, device="cuda")[None]
+               + torch.tensor([[5], [400], [0]], dtype=torch.int32, device="cuda")).contiguous()
+        kpos = pos.clone()
+        kpos[:, 3::7] = -1
+        kpos[2] = -1
+        kw = dict(scale=1.0 / 16.0, causal=True, window=37, softcap=20.0)
+        info = flash_info(q, k, pos, kpos, kw)
+        info.update(check_flash((q, k, v, pos, kpos), kw, tol, timed=False))
+        if k6.flash_attention_gqa(q, k, v, pos, kpos, **kw)[2].abs().max().item() != 0:
+            raise AssertionError(f"kernel 6 dh 256 {label}: a row with no valid key must give 0")
+        d256[f"{label}_window_softcap"] = info
+        log(f"kernel flash_attention {label} dh 256, S = T = 300, offset positions, empty slots, "
+            f"window 37, softcap 20 (a row with no valid key gives 0): {json.dumps(info)}")
+    for label, (B, cap, Hkv, G, dh, dt, timed) in (
+            ("gemma3_ring_8x1024", (8, 1024, 16, 2, 128, torch.bfloat16, True)),
+            ("recurrentgemma_ring_8x2048", (8, 2048, 1, 10, 256, torch.bfloat16, True)),
+            ("f32_dh256_ring_3x300", (3, 300, 1, 10, 256, torch.float32, False))):
+        # row b's newest key at qpos[b], in slot qpos[b] % cap; the last row
+        # has not wrapped (its slots past qpos empty)
+        qpos = torch.tensor([cap + 37 * b + 11 for b in range(B - 1)] + [cap // 3], dtype=torch.int32,
+                            device="cuda")
+        slot = torch.arange(cap, device="cuda")[None]
+        newest = qpos[:, None].long()
+        kpos = (newest - (newest % cap - slot) % cap).to(torch.int32)
+        kpos[-1, cap // 3 + 1:] = -1
+        args, info = decode_quant_case(B, cap, 0, Hkv, G, dh, dt, gen, kpos=kpos.contiguous(),
+                                       qpos=qpos)
+        kw = dict(scale=1.0 / math.sqrt(dh), window=cap)
+        info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
+                                k9.decode_attention_quant_plain, args, kw,
+                                BF16_TOL if dt == torch.bfloat16 else F32_TOL, timed=timed,
+                                library=lambda *a, **_: sdpa_contiguous(*a, window=cap)))
+        info["window"] = cap
+        ring[label] = info
+        log(f"kernel decode_attention_quant {label} (a wrapped int8 ring, window {cap}): "
+            f"{json.dumps(info)}")
+    return win, d256, ring
+
+
+def slice8_serve(counters, gen) -> tuple:
+    """Phase 14: gemma3-27b (cut to 8 layers), recurrentgemma-2b and
+    mamba2-370m at their published widths, one after the other (each tree
+    freed before the next): the static engine (bf16, and int8 KV where the
+    arch has attention), the paged continuous engine on the phase-4 trace
+    (gemma3: chunked and batched over bf16 and int8 pools, and the prefix
+    trace shared and unshared; recurrentgemma: with a 2500-token prompt,
+    over bf16 and int8 rings; mamba2), a profile of the static decode step,
+    the prefill launch counts (recurrentgemma, mamba2), and the reduced f32
+    card-vs-CPU references.  Returns (launches by path, the kernel checks'
+    shapes)."""
+    from repro_torch.configs.registry import make_reduced
+    from repro_torch.models.model import init_params
+
+    paths = {}
+    for name in ("gemma3-27b", "recurrentgemma-2b", "mamba2-370m"):
+        cfg = slice8_config(name)
+        short = name.split("-")[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(b.numel() for b in params.buffers())
+        n_global, n_local = layer_counts(cfg)
+        cut = (f", depth cut to {cfg.num_layers} of 62 layers (one period of 5 local : 1 global "
+               "plus the 2-layer local tail)" if name == "gemma3-27b" else ", full depth")
+        log(f"slice 8: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} layers ({n_global} global "
+            f"attention, {n_local} sliding-window){cut}; {cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads}, dh {cfg.head_dim}, vocab {cfg.vocab_size}; {n_params / 1e9:.2f} G "
+            f"parameters ({torch.cuda.memory_allocated() / 1e9:.1f} GB) drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for kv in ((0, 8) if n_global + n_local else (0,)):
+            lines, got, eng, _ = mixed_static_serve(cfg, params, counters, kv)
+            paths[f"{short}_static" + ("_int8" if kv else "")] = got
+            for line in lines:
+                log(line)
+            if not kv:
+                for line in profile_decode(eng, cfg, params, what=f"{short} decode"):
+                    log(line)
+            del eng
+        runs = [("chunked", 0), ("batched", 0), ("chunked", 8), ("batched", 8)]
+        if name != "gemma3-27b":
+            runs = [("chunked", 0), ("batched", 8)] if n_local else [("chunked", 0), ("batched", 0)]
+        for mode, kv in runs:
+            lines, got = mixed_continuous(cfg, params, counters, mode, kv,
+                                          long=name == "recurrentgemma-2b")
+            paths[f"{short}_continuous_{mode}" + ("_int8" if kv else "")] = got
+            for line in lines:
+                log(line)
+        if name == "gemma3-27b":
+            # the prefix trace: the shared prefix is recomputed (rings are
+            # rebuilt), its pages still shared
+            computed = {}
+            for sharing in (True, False):
+                lines, got, _, peng = prefix_trace(cfg, params, counters, "chunked", sharing)
+                key = "shared" if sharing else "unshared"
+                paths[f"{short}_prefix_{key}"] = got
+                computed[key] = (peng.prefill_tokens_total, peng.prefill_tokens_skipped,
+                                 peng.prefix_hit_tokens)
+                del peng
+                for line in lines:
+                    log(line)
+            if computed["shared"][1] != 0:
+                raise AssertionError(f"gemma3 prefix trace: prefill tokens (computed, skipped, hit) "
+                                     f"{computed}; the shared prefix must be recomputed")
+            log(f"gemma3 prefix trace: prefill tokens computed shared {computed['shared'][0]}, "
+                f"unshared {computed['unshared'][0]}, skipped 0 ({computed['shared'][2]} context "
+                f"tokens on shared pages, recomputed to rebuild the rings; only the forks, which "
+                f"take their base's rows, compute less)")
+        if name != "gemma3-27b":
+            log(prefill_launch_check(cfg, params))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in slice8_reference_checks(make_reduced(cfg)):
+            log(line)
+    return paths, slice8_kernel_checks(gen)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3149,7 +3583,6 @@ def main() -> int:
     # are gone
     del (params, qparams, eng, ceng, out, moe, qmoe, rp, rmoe, rq, snap, qsnap, pool, tbl, qpos,
          dargs, args9, ties, skew)
-    import gc
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3178,6 +3611,13 @@ def main() -> int:
     # 13. kernel 6 against its plain version at the served shapes, reduced
     # f32 with every mask, and the TPU kernel's index form at S != T
     fshapes = {"long_prefill": long_check, **flash_checks(full, red, gen)}
+
+    # 14. slice 8: gemma3-27b, recurrentgemma-2b and mamba2-370m served at
+    # their published widths, their reduced f32 references, and kernels 6
+    # (windowed, and at dh 256) and 9 (over wrapped int8 rings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    s8_paths, (s8_win, s8_d256, s8_ring) = slice8_serve(counters, gen)
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -3362,6 +3802,40 @@ def main() -> int:
             k.setdefault("launches_by_path", {})
             k["launches_by_path"][f"spec_{path}"] = sl[k["name"]]
             k["launches_by_path"][f"spec_{path}_baseline"] = bl[k["name"]]
+    # slice 8: every kernel's launches in its runs, then the windowed kernel
+    # 6, kernel 6 at dh 256 and kernel 9 over a ring, each with the runs
+    # that launched it
+    for k in kernels:
+        if k["name"] in s8_paths["gemma3_static"]:
+            k["launches_by_path"].update({f"slice8_{p}": c[k["name"]] for p, c in s8_paths.items()})
+    window_call = ("F.scaled_dot_product_attention(attn_mask=the window-causal boolean mask, "
+                   "enable_gqa=True) over [B, heads, tokens, dh] copies of the model's layouts "
+                   "(the copies timed on their own: library_layout_ms), any backend that takes "
+                   "the mask; ms and library_ms are device times from CUDA graphs")
+    for kname, base, source, replaces, checks, main_shape, path, call in (
+            ("flash_attention_window", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:88", s8_win, "gemma3_local_4x2048",
+             "gemma3_static", window_call),
+            ("flash_attention_dh256", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:88", s8_d256, "recurrentgemma_local_1x4096",
+             "recurrentgemma_static", window_call),
+            ("decode_attention_quant_ring", "decode_attention_quant",
+             "src/repro_torch/csrc/decode_attention_quant.cu", "src/repro/kernels/attention_quant.py:120",
+             s8_ring, "recurrentgemma_ring_8x2048", "recurrentgemma_static_int8",
+             qlibrary_call.replace("the same boolean mask", "the same boolean mask (window "
+                                   "included)"))):
+        m = checks[main_shape]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": s8_paths[path][base],
+            "launches_by_path": {p: c[base] for p, c in s8_paths.items() if c[base]},
+            "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+            "max_rel_err": max(v["max_rel_err"] for v in checks.values()),
+            "max_row_rel_err": max(v["max_row_rel_err"] for v in checks.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"], "library_call": call,
+            "shapes": checks,
+        })
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

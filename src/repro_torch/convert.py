@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.models import rglru, ssm
 from repro_torch.models.model import ParamTree, init_params
 from repro_torch.models.modules import DTYPES
 from repro_torch.quant.ptq import leaf_quant_args
@@ -104,6 +105,11 @@ def _checked(cfg: ModelConfig, flat: dict, where: str, qcfg: Optional[QuantConfi
     return quant
 
 
+# leaves kept in their own type (f32) when a tree is cast: the routers, and
+# the SSD and RG-LRU leaves the JAX package keeps in f32 at any width
+_OWN_TYPE_LEAVES = ("router",) + ssm.F32_LEAVES + rglru.F32_LEAVES
+
+
 def _build(cfg: ModelConfig, flat: dict, quant: dict, device, dtype) -> ParamTree:
     """Flat numpy leaves -> ParamTree; each quantized leaf's q/scale pair
     becomes a ``QuantizedArray`` of the original type ``dtype`` (None: the
@@ -114,7 +120,7 @@ def _build(cfg: ModelConfig, flat: dict, quant: dict, device, dtype) -> ParamTre
         kw = quant.get(parent)
         if kw is None:
             t = _to_tensor(arr, device)
-            out[key] = t if (dtype is None or key.endswith("/router")) else t.to(dtype)
+            out[key] = t if (dtype is None or name in _OWN_TYPE_LEAVES) else t.to(dtype)
         elif name == "q":
             q, scale = _to_tensor(arr, device), _to_tensor(flat[f"{parent}/scale"], device)
             out[parent] = QuantizedArray(q, scale, kw["bits"], kw["group_size"],
@@ -125,8 +131,9 @@ def _build(cfg: ModelConfig, flat: dict, quant: dict, device, dtype) -> ParamTre
 def params_from_numpy(cfg: ModelConfig, tree: dict, device, dtype=None,
                       qcfg: Optional[QuantConfig] = None) -> ParamTree:
     """JAX parameter tree (nested dicts of numpy arrays) -> ParamTree on
-    ``device``.  ``dtype`` casts every leaf but the routers, which stay f32
-    as in the JAX package; None keeps each leaf's own type.  ``qcfg``: the
+    ``device``.  ``dtype`` casts every leaf but the routers and the SSD /
+    RG-LRU f32 leaves (``dt_bias``, ``A_log``, ``D``, ``Lambda``), which stay
+    f32 as in the JAX package; None keeps each leaf's own type.  ``qcfg``: the
     tree was quantized with it (quantized leaves as ``{"q", "scale"}``)."""
     flat = {k: np.asarray(v) for k, v in _flatten(tree)}
     quant = _checked(cfg, flat, "params_from_numpy", qcfg)

@@ -113,7 +113,7 @@ def grouped_experts_ffn(params: dict, xg, te, rows_used, act: str):
     if act != "swiglu":
         raise NotImplementedError(
             f"grouped experts with act={act!r} are not ported yet: the grouped "
-            "kernel is SwiGLU-only (ROADMAP.md, queue 2: nlg GELU experts); "
+            "kernel is SwiGLU-only (ROADMAP.md, queue 1 item 5: GELU / ReLU grouped experts); "
             "moe_impl='dense' serves them")
     wi, wg, wo = params["wi"], params["wg"], params["wo"]
     if isinstance(wi, QuantizedArray):

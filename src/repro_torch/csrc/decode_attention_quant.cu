@@ -17,6 +17,10 @@
 // such a row a uniform average; the engines never read one (a decode token
 // always sees itself).
 //
+// Head dims 32, 64, 128 and 256 (recurrentgemma-2b's int8 rings; at 256 the
+// query rows stay in shared memory and their A fragments are reloaded for
+// every tile, paged_mma.cuh's scores_smem_q: a simple, unoptimised instance).
+//
 // bf16 (the served path): kernel 7q's split-K tile walk (paged_mma.cuh) over
 // the contiguous row, which it reads as implicit pages of 64 keys (key i of
 // row b is cache row b * T + i; no table, no compaction; windows of 256
@@ -130,6 +134,7 @@ int dispatch_split(const void* q, const void* kq, const void* ks, const void* vq
     case 32: return launch_split<32>(p, splits, st);
     case 64: return launch_split<64>(p, splits, st);
     case 128: return launch_split<128>(p, splits, st);
+    case 256: return launch_split<256>(p, splits, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -138,14 +143,16 @@ int dispatch_split(const void* q, const void* kq, const void* ks, const void* vq
 // f32: CUDA cores, the shared code of paged_attention.cuh
 // ---------------------------------------------------------------------------
 
-constexpr int NT = 128;  // threads per block
 constexpr int RT = 16;   // query rows per block: G <= 16
 
 template <int DH>
-__global__ void __launch_bounds__(NT) decode_quant_kernel(
+constexpr int kThreads = DH > 128 ? DH : 128;  // a multiple of DH
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads<DH>) decode_quant_kernel(
     const float* __restrict__ q, const paged::KVq8 cache, const int* __restrict__ kpos,
     const int* __restrict__ qpos, float* __restrict__ out, int Hkv, int G, int T_, paged::Mask mk) {
-  using A = paged::Attn<float, DH, RT, NT>;
+  using A = paged::Attn<float, DH, RT, kThreads<DH>>;
   extern __shared__ __align__(16) unsigned char smem[];
   A a(*reinterpret_cast<typename A::Smem*>(smem), mk);
   const int h = blockIdx.x, b = blockIdx.y;
@@ -157,11 +164,11 @@ __global__ void __launch_bounds__(NT) decode_quant_kernel(
 template <int DH>
 int launch(const void* q, const paged::KVq8& cache, const void* kpos, const void* qpos, void* out,
            int B, int Hkv, int G, int T_, const paged::Mask& mk, void* stream) {
-  const int smem = (int)sizeof(typename paged::Attn<float, DH, RT, NT>::Smem);
+  const int smem = (int)sizeof(typename paged::Attn<float, DH, RT, kThreads<DH>>::Smem);
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_quant_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  decode_quant_kernel<DH><<<dim3(Hkv, B), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  decode_quant_kernel<DH><<<dim3(Hkv, B), kThreads<DH>, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), cache, static_cast<const int*>(kpos),
       static_cast<const int*>(qpos), static_cast<float*>(out), Hkv, G, T_, mk);
   return cudaGetLastError();
@@ -177,6 +184,7 @@ int dispatch(const void* q, const void* kq, const void* ks, const void* vq, cons
     case 32: return launch<32>(q, cache, kpos, qpos, out, B, Hkv, G, T_, mk, stream);
     case 64: return launch<64>(q, cache, kpos, qpos, out, B, Hkv, G, T_, mk, stream);
     case 128: return launch<128>(q, cache, kpos, qpos, out, B, Hkv, G, T_, mk, stream);
+    case 256: return launch<256>(q, cache, kpos, qpos, out, B, Hkv, G, T_, mk, stream);
     default: return cudaErrorInvalidValue;
   }
 }

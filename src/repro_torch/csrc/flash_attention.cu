@@ -77,6 +77,11 @@
 // fragments (ldmatrix), K/V tiles of 64 keys double-buffered with cp.async,
 // the query tile staged in the second K buffer (three blocks to an SM), and
 // the same position-driven marks computed by each block from the positions.
+// Head dim 256 (recurrentgemma-2b) takes the same kernel with the query tile
+// kept in shared memory of its own and its A fragments reloaded by ldmatrix
+// for every k-step of every key tile, since a thread cannot hold both them
+// and its 128 f32 output accumulators: 169 KB a block, one block (4 warps)
+// to an SM.  A simple, unoptimised instance.
 //
 // f32 (reduced checks): plain FMA on CUDA cores (no TF32), the shared code
 // of paged_attention.cuh walking the contiguous rows (16 query rows of one
@@ -147,11 +152,16 @@ struct Params {
 template <int DH>
 struct Smem16 {
   static constexpr int LD = DH + 8;  // padded row: ldmatrix rows on distinct banks
-  // the query tile is staged in k[1] (BQ == BK): its fragments move to
+  // QS (dh 256): the query tile stays in q, its fragments reloaded for every
+  // key tile (16 k-steps x 4 registers would not fit beside 32 n-tiles x 4
+  // f32 accumulators in a thread's 255 registers); 169 KB, one block to an
+  // SM.  Otherwise it is staged in k[1] (BQ == BK): its fragments move to
   // registers before the second K/V tile is loaded there, which keeps the
   // block at 71 KB, three blocks to an SM
+  static constexpr bool QS = DH > 128;
   bf16 k[2][BK][LD];
   bf16 v[2][BK][LD];
+  bf16 q[QS ? BQ : 1][QS ? LD : 8];
   int kp[2][BK];   // key positions of a tile, -1 past T
   int qp[BQ];      // query positions of the block
   unsigned live[MAX_TILE_WORDS];  // tiles that hold a key valid for some row
@@ -160,8 +170,9 @@ struct Smem16 {
 };
 
 template <int DH>
-__global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(const Params p) {
   using Sm = Smem16<DH>;
+  constexpr bool QS = Sm::QS;
   constexpr int CH = DH / 8;   // 16-byte chunks per row
   constexpr int KS = DH / 16;  // k-steps of Q K^T; pairs of 8-wide dh tiles of P V
   constexpr int NS = BK / 8;   // 8-key tiles of S
@@ -177,10 +188,11 @@ __global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
   const int* kpos = p.kpos + (size_t)b * p.T;
 
   // the query tile (rows past S zero-filled, never stored) and its positions
+  bf16(*qt)[Sm::LD] = QS ? reinterpret_cast<bf16(*)[Sm::LD]>(&s.q[0][0]) : s.k[1];
   for (int i = tid; i < BQ * CH; i += NT) {
     const int r = i / CH, c = (i - r * CH) * 8, sq = s0 + r;
     const bool ok = sq < p.S;
-    cp_async16(&s.k[1][r][c], Q + (ok ? (((size_t)b * p.S + sq) * p.H + h) * DH + c : 0), ok);
+    cp_async16(&qt[r][c], Q + (ok ? (((size_t)b * p.S + sq) * p.H + h) * DH + c : 0), ok);
   }
   cp_async_commit();
   if (tid < BQ) s.qp[tid] = s0 + tid < p.S ? __ldg(p.qpos + (size_t)b * p.S + s0 + tid) : 0;
@@ -227,9 +239,12 @@ __global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
   __syncthreads();
 
   // Q fragments for every k-step, once; then k[1] is free for the next tile
-  uint32_t qf[KS][4];
+  // (QS: none here, each k-step's are loaded where they are used)
+  uint32_t qf[QS ? 1 : KS][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], &s.k[1][warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+    for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], &qt[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+  }
   const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int qpr[2] = {s.qp[r0], s.qp[r0 + 8]};
   const int c0 = (lane & 3) * 2;           // this thread's first column in an 8-wide tile
@@ -251,12 +266,19 @@ __global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
     for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QS) {
+        ldmatrix_x4(qa, &qt[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kb[4];
         ldmatrix_x4(kb, &s.k[buf][np * 16 + (lane >> 4) * 8 + (lane & 7)][kk * 16 + ((lane >> 3) & 1) * 8]);
-        mma_bf16(sc[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(sc[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(sc[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -814,7 +836,8 @@ __global__ void __launch_bounds__(NTF) flash_f32_kernel(const Params p) {
 
 template <int DH>
 int launch_f32(const Params& p, cudaStream_t stream) {
-  constexpr int NTF = DH % 32 == 0 ? 128 : 2 * DH;  // a multiple of both 32 and DH (112 -> 224)
+  // a multiple of both 32 and DH (112 -> 224, 256 -> 256)
+  constexpr int NTF = DH % 32 == 0 ? (DH > 128 ? DH : 128) : 2 * DH;
   const int smem = (int)sizeof(typename paged::Attn<float, DH, RT, NTF>::Smem);
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_f32_kernel<DH, NTF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -843,6 +866,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* qpos, cons
     case 64: return launch_f32<64>(p, st);
     case 112: return BF16 ? launch_bf16<112>(p, st) : launch_f32<112>(p, st);
     case 128: return launch_f32<128>(p, st);
+    case 256: return BF16 ? launch_bf16<256>(p, st) : launch_f32<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }

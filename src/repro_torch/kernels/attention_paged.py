@@ -200,10 +200,11 @@ def paged_decode_attention_plain(q, k_pool, v_pool, kpos, table, qpos, *, scale:
     return out.to(q.dtype)
 
 
-def check_kv_args(name, q, k, v, k_scale, v_scale, extra=()):
+def check_kv_args(name, q, k, v, k_scale, v_scale, extra=(), head_dims=HEAD_DIMS):
     """Checks of the K/V a kernel reads: the cache ``k``/``v`` in q's type,
     or int8 with f32 scales ``[..., 1]`` matching them; ``extra`` are
-    further (name, tensor) pairs in q's type (the chunk's K/V)."""
+    further (name, tensor) pairs in q's type (the chunk's K/V); ``head_dims``
+    the kernel's instances."""
     dev = q.device
     quant = k_scale is not None
     if quant != (v_scale is not None):
@@ -229,8 +230,8 @@ def check_kv_args(name, q, k, v, k_scale, v_scale, extra=()):
                                  f"got {t.dtype} {tuple(t.shape)}")
     if v.shape != k.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
-    if k.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {k.shape[-1]} not supported (kernels built for {HEAD_DIMS})")
+    if k.shape[-1] not in head_dims:
+        raise ValueError(f"{name}: head_dim {k.shape[-1]} not supported (kernels built for {head_dims})")
 
 
 def check_pool_args(name, q, k_pool, v_pool, kpos, table, qpos, extra=(), k_scale=None,

@@ -37,6 +37,7 @@ from repro_torch.kernels.attention_paged import (DECODE_PV, MAX_G, TILE_KEYS, _s
 launches = {"decode_attention_quant": 0}
 
 WINDOW_TILES = 256  # paged_mma.cuh MAXL: a contiguous row's tiles marked and split per window
+HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for (256: recurrentgemma)
 
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _C_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + _TAIL  # f32: unsplit
@@ -135,7 +136,7 @@ def decode_attention_quant(
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_quant: no kernel for device {q.device}")
     name = "decode_attention_quant"
-    check_kv_args(name, q, kq, vq, ks, vs)
+    check_kv_args(name, q, kq, vq, ks, vs, head_dims=HEAD_DIMS)
     B, Hkv, G, dh = q.shape
     T = kq.shape[1]
     for n, t in (("q", q), ("kpos", kpos), ("qpos", qpos)):

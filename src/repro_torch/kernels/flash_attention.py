@@ -35,7 +35,9 @@ and ``summary_marks`` in plain PyTorch; a row of at most ``ONE_TILE_KEYS``
 keys is one tile and takes neither), and reads q, k and v through 4-D
 tensor maps
 (``tensor_map_args``), which need 16-byte aligned bases and strides
-(``check_tma``).  Head dims 32 and 112 keep the ``mma.sync`` kernel.
+(``check_tma``).  Head dims 32, 112 and 256 keep the ``mma.sync`` kernel
+(at 256, recurrentgemma-2b's, with the query tile in shared memory: a
+simple instance, not tuned).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attention_paged import _sm_count
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 112, 128)  # head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 112, 128, 256)  # head dims the kernel is instantiated for
 Q_CHUNK = 1024  # the plain version's query chunk (the JAX package's Q_CHUNK)
 MAX_KEYS = 128 * 32 * 64  # csrc/flash_attention.cu: the live-tile bitmask's reach
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims on wgmma + TMA; 32 and 112 keep mma.sync

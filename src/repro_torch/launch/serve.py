@@ -16,6 +16,8 @@ prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write,
   ... --paged --prefix-sharing --n-samples 2 --prefill-mode batched
   ... --paged --spec-draft self --spec-k 3    # or a registry arch as the drafter
   ... --quant-bits 8 --quant-policy experts --kv-bits 8   # MoQ weights, int8 KV cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --reduced
+  ... --arch recurrentgemma-2b | mamba2-370m     # window rings, RG-LRU, Mamba-2 SSD
 
 A subset of ``repro.launch.serve``'s flags; the others exit with an error
 naming the ROADMAP item that ports them.
@@ -30,7 +32,7 @@ import numpy as np
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.configs.registry import get_config, make_reduced
-from repro_torch.models.model import init_caches, init_paged_caches, init_params
+from repro_torch.models.model import arch_fully_paged, init_caches, init_paged_caches, init_params
 from repro_torch.quant import kv_cache_bytes, quantize_params, quantized_leaf_paths, tree_bytes
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
@@ -160,6 +162,10 @@ def main(argv=None) -> None:
             for _ in range(args.requests)]
     if args.paged:
         spec_draft = None
+        if args.spec_draft and not (arch_fully_paged(cfg) and arch_fully_paged(
+                cfg if args.spec_draft == "self" else dcfg)):
+            ap.error("--spec-draft with an arch that keeps per-slot state (window rings, SSM / "
+                     "LRU states) is not ported yet (ROADMAP.md, queue 1 item 5)")
         if args.spec_draft == "self":
             spec_draft = (cfg, params)
         elif args.spec_draft:

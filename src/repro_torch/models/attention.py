@@ -1,5 +1,5 @@
-"""GQA self-attention with contiguous and paged KV caches
-(``repro/models/attention.py``, global kind).
+"""GQA self-attention with contiguous, ring and paged KV caches
+(``repro/models/attention.py``, global and sliding-window kinds).
 
 Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) and
 ``decode_ragged`` (per-row positions, the contiguous continuous engine) run
@@ -8,6 +8,16 @@ over contiguous caches; ``decode_paged``, ``prefill_chunk`` and
 over a shared page pool addressed through block tables, through the
 hand-written paged kernels (``kernels/attention_paged.py``,
 ``kernels/attention_prefill_paged.py``).
+A sliding-window layer (kind ``local``) keeps a ring of ``min(window,
+capacity)`` slots, token at position p in slot ``p % cap``, its ``pos``
+-1 where empty; under paged serving the ring is per slot, beside the pool
+(``spec_is_paged``).  Its static prefill attends through kernel 6 with the
+window mask and writes only the last ``cap`` tokens; a chunk that resumes a
+ring (chunked prefill, contiguous or per slot) attends over ``cat(ring,
+chunk)`` through the plain ``_sdpa``, as JAX does (no TPU kernel computes
+it), and then writes the chunk into the ring; a decode token goes to slot
+``pos % cap`` and attends through ``_sdpa`` (fp) or kernel 9 with the
+window (int8).
 With ``kv_bits=8`` the caches hold int8 ``QuantizedKV`` pairs, quantized on
 every write; decode over a contiguous int8 cache goes through
 ``kernels/attention_quant.py``, and the paged kernels take their int8
@@ -44,7 +54,7 @@ from repro_torch.kernels.attention_prefill_paged import (
 from repro_torch.kernels.attention_quant import decode_attention_quant
 from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.models.modules import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
-from repro_torch.quant.kv import QuantizedKV, kv_quantize_values
+from repro_torch.quant.kv import QuantizedKV, kv_quantize_values, materialize_kv
 from repro_torch.quant.qarrays import materialize
 
 NEG_INF = -1e30
@@ -60,13 +70,15 @@ PAGED_MODES = ("decode_paged", "prefill_chunk", "prefill_chunk_batched")
 
 
 def check_spec(spec: AttnSpec) -> None:
-    """Raise for the attention kinds this slice does not port."""
-    if spec.kind == "local" and spec.window > 0:
-        _unported("local (sliding-window) attention", "item 5, the other mixers")
+    """Raise for the attention kinds the port does not take."""
     if spec.kind == "cross":
         _unported("cross attention", "item 5, the other mixers")
-    if spec.kind != "global":
+    if spec.kind not in ("global", "local"):
         raise ValueError(f"unknown attention kind {spec.kind!r}")
+
+
+def _window(spec: AttnSpec) -> int:
+    return spec.window if spec.kind == "local" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -123,11 +135,12 @@ def _write_kv(old, new_vals, write) -> None:
 
 
 def _cache_write_prefill(cache: dict, k, v, positions) -> dict:
-    """Write a prefill of S tokens into slots ``[0, S)`` (in place)."""
-    cap = cache["k"].shape[1]
+    """Write a prefill of S tokens (positions [B, S]) in place: into slots
+    ``[0, S)``, or, into a ring of cap < S slots, only the last cap tokens,
+    token p at slot ``p % cap`` (every slot written)."""
     S = k.shape[1]
-    if S > cap:
-        raise ValueError(f"prefill of {S} tokens exceeds the cache capacity {cap}")
+    if S > cache["k"].shape[1]:
+        return _cache_write_chunk(cache, k, v, positions)
 
     def write(buf, vals):
         buf[:, :S] = vals
@@ -135,6 +148,56 @@ def _cache_write_prefill(cache: dict, k, v, positions) -> dict:
     _write_kv(cache["k"], k, write)
     _write_kv(cache["v"], v, write)
     cache["pos"][:, :S] = positions.to(torch.int32)
+    return cache
+
+
+def _cache_write_chunk(cache: dict, k, v, positions) -> dict:
+    """Append one prefill chunk (positions [B, C], consecutive, the same
+    for every row) to a ring or contiguous cache that holds the earlier
+    chunks, in place, token p at slot ``p % cap``: C <= cap positions go
+    to distinct slots (a chunk may start mid-ring); of a chunk longer than
+    the ring only its last cap tokens are kept."""
+    cap = cache["k"].shape[1]
+    k, v, positions = k[:, -cap:], v[:, -cap:], positions[:, -cap:].to(torch.int32)
+    slots = positions[0].long() % cap
+
+    def write(buf, vals):
+        buf[:, slots] = vals
+
+    _write_kv(cache["k"], k, write)
+    _write_kv(cache["v"], v, write)
+    cache["pos"][:, slots] = positions
+    return cache
+
+
+def _cache_write_chunk_batched(cache: dict, k, v, positions) -> dict:
+    """Each row's chunk (positions [B, C], -1 at padding) into its own ring,
+    in place: a row keeps its last cap valid tokens at slots ``p % cap``.
+    JAX drops the other entries (an out-of-bounds scatter); here each of
+    them rewrites its row's last valid entry with that entry's own values,
+    so the write is one scatter whose colliding entries carry equal values.
+    A row with no valid entry writes garbage at slot ``-1 % cap``: only
+    inactive rows have none, and the caller restores those."""
+    cap = cache["k"].shape[1]
+    B, C = positions.shape
+    pos = positions.to(torch.int32)
+    row_max = pos.amax(dim=1, keepdim=True)
+    keep = (pos >= 0) & (pos > row_max - cap)
+    last = (pos >= 0).sum(dim=1, keepdim=True).clamp_min(1) - 1  # each row's last valid entry
+    src = torch.where(keep, torch.arange(C, device=pos.device)[None], last)  # [B, C]
+    src_pos = pos.gather(1, src)
+    slots = src_pos.long() % cap
+    rows = torch.arange(B, device=pos.device)[:, None]
+
+    def gathered(vals):
+        return vals.gather(1, src.reshape(B, C, *([1] * (vals.ndim - 2))).expand(vals.shape))
+
+    def write(buf, vals):
+        buf[rows, slots] = vals
+
+    _write_kv(cache["k"], gathered(k), write)
+    _write_kv(cache["v"], gathered(v), write)
+    cache["pos"][rows, slots] = src_pos
     return cache
 
 
@@ -161,7 +224,7 @@ def _cache_write_decode(cache: dict, k_new, v_new, index) -> dict:
 def spec_is_paged(spec: AttnSpec) -> bool:
     """Whether a self-attention layer's cache goes into the shared page pool
     under paged serving: every layer but sliding-window ones, which keep
-    per-slot rings (those are not ported yet, ``check_spec``)."""
+    per-slot rings beside the pool (a ring is already fixed-size)."""
     return not (spec.kind == "local" and spec.window > 0)
 
 
@@ -279,8 +342,7 @@ def _decode_attend_quant(q, cache: dict, row_pos, spec: AttnSpec, scale: float):
     qg = q[:, 0].reshape(B, Hkv, H // Hkv, dh).contiguous()
     y = decode_attention_quant(
         qg, cache["k"].q, cache["k"].scale, cache["v"].q, cache["v"].scale, cache["pos"], row_pos,
-        scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
-        softcap=spec.logit_softcap)
+        scale=scale, causal=spec.causal, window=_window(spec), softcap=spec.logit_softcap)
     return y.reshape(B, 1, H, dh)
 
 
@@ -294,7 +356,7 @@ def _paged_decode_attend(q, cache: dict, row_pos, table, spec: AttnSpec, scale: 
     k, v, scales = _kv_args(cache)
     y = paged_decode_attention(
         qg, k, v, cache["pos"], table, row_pos,
-        scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        scale=scale, causal=spec.causal, window=_window(spec),
         softcap=spec.logit_softcap, **scales)
     return y.reshape(B, 1, H, dh)
 
@@ -310,7 +372,7 @@ def _paged_prefill_chunk_attend(q, k, v, cache: dict, positions, table_row, spec
     y = paged_prefill_attention(
         q[0].reshape(C, Hkv, H // Hkv, dh).contiguous(), pk, pv, cache["pos"],
         table_row, positions, k[0].contiguous(), v[0].contiguous(),
-        scale=scale, causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        scale=scale, causal=spec.causal, window=_window(spec),
         softcap=spec.logit_softcap, **scales)
     return y.reshape(1, C, H, dh)
 
@@ -328,7 +390,7 @@ def _paged_prefill_chunk_attend_batched(q, k, v, cache: dict, positions, tables,
     y = paged_prefill_attention_batched(
         q.reshape(B, C, Hkv, H // Hkv, dh).contiguous(), pk, pv, cache["pos"], tables,
         positions, k.contiguous(), v.contiguous(), scale=scale, causal=spec.causal,
-        window=spec.window if spec.kind == "local" else 0, softcap=spec.logit_softcap, **scales)
+        window=_window(spec), softcap=spec.logit_softcap, **scales)
     return y.reshape(B, C, H, dh)
 
 
@@ -380,7 +442,7 @@ def attend_full(q, k, v, q_pos, k_pos, spec: AttnSpec, scale: float):
     k_pos = (k_pos if k_pos.ndim == 2 else k_pos[None]).expand(B, T).to(torch.int32).contiguous()
     return flash_attention_gqa(
         q.contiguous(), k.contiguous(), v.contiguous(), q_pos, k_pos, scale=scale,
-        causal=spec.causal, window=spec.window if spec.kind == "local" else 0,
+        causal=spec.causal, window=_window(spec),
         softcap=spec.logit_softcap)
 
 
@@ -435,13 +497,17 @@ def attention(
                max_pages] (an inactive row's all trash); every row attends
                in one launch of the batched kernel 8, then the chunks are
                written.
+
+    A sliding-window layer keeps its per-slot ring in the paged modes: a
+    paged decode is a ragged decode of the ring, and a chunk resumes it
+    (``_sdpa`` over ``cat(ring, chunk)``, then the ring write).
     """
     check_spec(spec)
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
-    if mode in PAGED_MODES and (block_table is None or not spec_is_paged(spec)):
-        # a layer whose cache stays beside the pool under paged serving
-        _unported(f"{mode} without a page pool (per-slot state)", "item 5, the other mixers")
+    paged = mode in PAGED_MODES and spec_is_paged(spec)
+    if paged and block_table is None:
+        raise ValueError(f"attention: {mode} of a paged layer needs a block table")
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
@@ -456,7 +522,20 @@ def attention(
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
 
-    if mode == "prefill_chunk":
+    if mode in ("prefill_chunk", "prefill_chunk_batched") and not paged:
+        # a ring (or contiguous cache) resumed: the earlier chunks are in the
+        # cache, read before this chunk is written; per row in both modes
+        pos2d = positions.expand(B, S).to(torch.int32)
+        kcat = torch.cat([materialize_kv(cache["k"]).to(k.dtype), k], dim=1)
+        vcat = torch.cat([materialize_kv(cache["v"]).to(v.dtype), v], dim=1)
+        k_pos = torch.cat([cache["pos"], pos2d], dim=1)
+        mask = _window_causal_mask(pos2d, k_pos, _window(spec), spec.causal)
+        y = _sdpa(q, kcat, vcat, mask, scale, spec.logit_softcap)
+        if mode == "prefill_chunk_batched":
+            cache = _cache_write_chunk_batched(cache, k, v, pos2d)
+        else:
+            cache = _cache_write_chunk(cache, k, v, pos2d)
+    elif mode == "prefill_chunk":
         pos1d = positions.reshape(-1)
         table_row = block_table[0] if block_table.ndim == 2 else block_table
         y = _paged_prefill_chunk_attend(q, k, v, cache, pos1d, table_row, spec, scale)
@@ -465,11 +544,11 @@ def attention(
         pos2d = positions.expand(B, S).contiguous()
         y = _paged_prefill_chunk_attend_batched(q, k, v, cache, pos2d, block_table, spec, scale)
         cache = _paged_cache_write_chunk_batched(cache, k, v, pos2d, block_table)
-    elif mode == "decode_paged":
+    elif mode == "decode_paged" and paged:
         row_pos = positions.reshape(B)
         cache = _paged_cache_write_decode(cache, k, v, row_pos, block_table)
         y = _paged_decode_attend(q, cache, row_pos, block_table, spec, scale)
-    elif mode in ("decode", "decode_ragged"):
+    elif mode in ("decode", "decode_ragged", "decode_paged"):
         assert cache is not None and S == 1
         if mode == "decode":
             assert index is not None
@@ -483,7 +562,7 @@ def attention(
             # kernel streams it
             y = _decode_attend_quant(q, cache, row_pos, spec, scale)
         else:
-            mask = _window_causal_mask(row_pos[:, None], cache["pos"], 0, spec.causal)
+            mask = _window_causal_mask(row_pos[:, None], cache["pos"], _window(spec), spec.causal)
             y = _sdpa(q, cache["k"], cache["v"], mask, scale, spec.logit_softcap)
     else:
         pos2d = positions if positions.ndim == 2 else positions[None]

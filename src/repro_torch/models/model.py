@@ -11,6 +11,12 @@ oracle), ``paged_ragged_decode_step``, ``paged_reset_pages``,
 ``paged_copy_page`` (copy-on-write) and ``paged_copy_slot_leaves``; for
 speculative decoding ``paged_verify_chunk_batched`` and
 ``paged_reset_page_tails``.
+Layers whose state is not paged (sliding-window rings, Mamba-2 SSD and
+RG-LRU states) keep it per slot, ``[repeats, slots, ...]`` beside the page
+pool, as the JAX package does: a paged decode merges those leaves under the
+rows' ``active`` mask, a chunk resumes them (or, for an admission's first
+chunk, starts them fresh), and the scatter and contiguous admissions prefill
+them in the slot's row.
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose nesting and
 leaf names are the JAX package's parameter tree, so a JAX tree converts leaf
 for leaf (``repro_torch.convert``).
@@ -111,20 +117,14 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, kv_bits: int = 0
 
 def init_paged_caches(cfg: ModelConfig, slots: int, capacity: int, *, n_pages: int,
                       page_size: int, kv_bits: int = 0, device="cuda") -> dict:
-    """Paged serving caches: every self-attention layer's K/V lives in a
-    shared page pool ``[repeats, n_pages + 1, page_size, Hkv, dh]`` addressed
-    through per-slot block tables.  ``capacity`` stays the per-sequence
-    context bound (it sizes the tables, not the pool).  ``kv_bits=8`` makes
-    the pages int8 with per-(token, head) scales.
-
-    Layers with per-slot state (window rings, SSM/LRU states, cross caches),
-    which the JAX package keeps beside the pool, are not ported yet
-    (ROADMAP.md queue 1 item 5), so these caches hold pool leaves only."""
+    """Paged serving caches: every global self-attention layer's K/V lives
+    in a shared page pool ``[repeats, n_pages + 1, page_size, Hkv, dh]``
+    addressed through per-slot block tables; window rings and SSM / LRU
+    states stay per slot, ``[repeats, slots, ...]``.  ``capacity`` stays the
+    per-sequence context bound (it sizes the tables and the rings, not the
+    pool).  ``kv_bits=8`` makes the pages and rings int8 with per-(token,
+    head) scales."""
     _check_cfg(cfg)
-    if not arch_fully_paged(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: paged serving of layers with per-slot state (window rings, SSM/LRU) "
-            "is not ported yet (ROADMAP.md, queue 1 item 5)")
     device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     return {f"seg{i}": init_segment_cache(cfg, seg, slots, capacity, dt, device,
@@ -217,6 +217,61 @@ def _map_tensors(tree, fn):
     return {k: _map_tensors(v, fn) for k, v in tree.items()}
 
 
+def _fresh(ls, t: torch.Tensor) -> int:
+    """A fresh cache's value of tensor ``t`` of layer ``ls``: -1 for an
+    attention cache's positions (empty slots), 0 everywhere else."""
+    return -1 if isinstance(ls.mixer, AttnSpec) and t.dtype == torch.int32 else 0
+
+
+def _slot_leaves(cfg: ModelConfig, caches: dict, paged: bool):
+    """(LayerSpec, leaf) of every cache leaf held per slot ``[repeats,
+    slots, ...]``: under paged serving (``paged``) every leaf but the pools,
+    in the contiguous caches every leaf."""
+    for sk, pk, ls, pooled in _layer_entries(cfg):
+        for key, leaf in caches[sk][pk].items():
+            if not (paged and key == "self" and pooled):
+                yield ls, leaf
+
+
+def _reset_rows(cfg: ModelConfig, caches: dict, rows, paged: bool) -> None:
+    """The per-slot leaves' rows ``rows`` (a slot index, or a bool [slots]
+    mask on the device) back to a fresh cache's values, in place."""
+    for ls, leaf in _slot_leaves(cfg, caches, paged):
+        for t in _tensors(leaf):
+            if torch.is_tensor(rows):
+                m = rows.reshape((1, -1) + (1,) * (t.ndim - 2))
+                t.copy_(torch.where(m, torch.full((), _fresh(ls, t), dtype=t.dtype, device=t.device), t))
+            else:
+                t[:, int(rows)].fill_(_fresh(ls, t))
+
+
+class _RowMerge:
+    """What a step that runs every slot row writes into the per-slot leaves,
+    put back for the rows outside ``active`` [slots] bool after the step
+    (JAX's masked merge of the whole leaves): an attention cache's step
+    writes one entry per row, at slot ``pos % cap``, so only that entry is
+    kept (``positions`` [slots]); a recurrent state is rewritten whole, so
+    it is kept whole (``positions`` None: every leaf kept whole).  No step
+    copies a ring."""
+
+    def __init__(self, cfg: ModelConfig, caches: dict, paged: bool, positions=None):
+        self.saved = []
+        if positions is not None:
+            rows = torch.arange(positions.shape[0], device=positions.device)
+        for ls, leaf in _slot_leaves(cfg, caches, paged):
+            for t in _tensors(leaf):
+                if positions is not None and isinstance(ls.mixer, AttnSpec):
+                    slot = positions.long() % t.shape[2]  # [repeats, slots, capacity, ...]
+                    self.saved.append((t, (slice(None), rows, slot), t[:, rows, slot].clone()))
+                else:
+                    self.saved.append((t, (slice(None),), t.clone()))
+
+    def restore(self, active: torch.Tensor) -> None:
+        for t, idx, old in self.saved:
+            keep = active.reshape((1, -1) + (1,) * (old.ndim - 2))
+            t[idx] = torch.where(keep, t[idx], old)
+
+
 # ---------------------------------------------------------------------------
 # Contiguous continuous batching (one cache row per slot)
 # ---------------------------------------------------------------------------
@@ -231,21 +286,16 @@ def ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions:
 
     Every row is written and attends, as in JAX (an inactive row at its
     position, 0 from the engine, so under a capacity dispatch it routes as
-    JAX's does); then the one entry each row wrote is put back for the
-    inactive rows, which is JAX's masked merge of the whole cache restricted
-    to what the step touched: inactive rows stay bit-identical, and no step
-    copies the cache."""
+    JAX's does); then what each row wrote is put back for the inactive rows
+    (``_RowMerge``: one entry per attention cache, the whole recurrent
+    states), which is JAX's masked merge of the whole cache restricted to
+    what the step touched: inactive rows stay bit-identical, and no step
+    copies a KV cache."""
     x = embed_tokens(cfg, params, token)
     pos = positions.to(torch.int32)
-    rows = torch.arange(pos.shape[0], device=pos.device)
-    touched = []
-    for t in _tensors(caches):  # [repeats, B, capacity, ...]
-        slot = pos.long() % t.shape[2]
-        touched.append((t, slot, t[:, rows, slot].clone()))
+    merge = _RowMerge(cfg, caches, False, pos)
     x, caches, _ = _run_segments(cfg, params, x, pos[:, None], caches, "decode_ragged")
-    for t, slot, old in touched:
-        keep = active.reshape((1, -1) + (1,) * (old.ndim - 2))
-        t[:, rows, slot] = torch.where(keep, t[:, rows, slot], old)
+    merge.restore(active)
     return logits_out(cfg, params, x)[:, 0], caches
 
 
@@ -254,12 +304,12 @@ def prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor, positions:
                       slot: int, caches: dict) -> Tuple[torch.Tensor, dict]:
     """Prefill one request (tokens [1, S] at ``positions`` [1, S]) into row
     ``slot`` of the pooled slot caches, in place: the row is reset to a fresh
-    cache (K/V 0, positions -1), as JAX writes a fresh single-row cache over
-    it, and the prefill writes its first S entries (kernel 6 attends).
-    Returns (logits of the last position [1, V], caches)."""
+    cache (K/V 0, positions -1, recurrent states 0), as JAX writes a fresh
+    single-row cache over it, and the prefill writes its first S entries (a
+    ring its last ones; kernel 6 attends).  Returns (logits of the last
+    position [1, V], caches)."""
+    _reset_rows(cfg, caches, slot, False)
     row = _map_tensors(caches, lambda t: t[:, slot : slot + 1])
-    for t in _tensors(row):
-        t.fill_(-1 if t.dtype == torch.int32 else 0)
     x = embed_tokens(cfg, params, tokens)
     x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), row, "prefill")
     return logits_out(cfg, params, x[:, -1:])[:, 0], caches
@@ -284,33 +334,60 @@ def arch_fully_paged(cfg: ModelConfig) -> bool:
     return all(paged for _, _, _, paged in _layer_entries(cfg))
 
 
-def _pool_layer(cfg: ModelConfig, caches: dict) -> dict:
-    """The first paged layer's pool (every paged layer has the same layout)."""
-    return next(caches[sk][pk]["self"] for sk, pk, _, paged in _layer_entries(cfg) if paged)
+def _pool_layer(cfg: ModelConfig, caches: dict) -> Optional[dict]:
+    """The first paged layer's pool (every paged layer has the same layout);
+    None for an arch without one (mamba2, recurrentgemma)."""
+    return next((caches[sk][pk]["self"] for sk, pk, _, paged in _layer_entries(cfg) if paged),
+                None)
 
 
 def _clamped(cfg: ModelConfig, caches: dict, table: torch.Tensor) -> torch.Tensor:
     """The block table with -1 entries clamped to the trash page, once per
     call rather than in every layer (every paged layer shares one pool size)."""
-    return _paged_clamp_table(table, _pool_layer(cfg, caches)["pos"].shape[-2])
+    pool = _pool_layer(cfg, caches)
+    return table.to(torch.int32) if pool is None else _paged_clamp_table(table, pool["pos"].shape[-2])
+
+
+def _slot_row(cfg: ModelConfig, caches: dict, slot: Optional[int], reset: bool) -> dict:
+    """The cache tree of one chunk of slot ``slot``: the pools as they are,
+    the per-slot leaves as views of the slot's row (fresh first if
+    ``reset``)."""
+    if arch_fully_paged(cfg):
+        return caches
+    if slot is None:
+        raise ValueError(f"{cfg.name} keeps per-slot state: pass the chunk's slot")
+    if reset:
+        _reset_rows(cfg, caches, int(slot), True)
+    out = {}
+    for sk, pk, _, paged in _layer_entries(cfg):
+        out.setdefault(sk, {})[pk] = {
+            key: leaf if (key == "self" and paged) else _map_tensors(leaf, lambda t: t[:, slot : slot + 1])
+            for key, leaf in caches[sk][pk].items()}
+    return out
 
 
 @torch.no_grad()
 def paged_ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions: torch.Tensor,
-                             caches: dict, block_table: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+                             caches: dict, block_table: torch.Tensor,
+                             active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """Continuous-batching decode tick over paged caches: token [B, 1] at
     per-row ``positions`` [B]; ``block_table`` [B, max_pages] int32 with -1
     unmapped.  Returns (logits [B, V], caches updated in place).
 
     The pool writes mask themselves: an inactive row's table row is all -1,
     so its write lands in the trash page with position -1, and its
-    attention sees no valid key (its logits are discarded).  The JAX
-    function also merges per-slot leaves under an ``active`` mask; the port
-    has none (``init_paged_caches``), so it takes no mask."""
+    attention sees no valid key (its logits are discarded).  The per-slot
+    leaves (window rings, SSM / LRU states) of the rows outside ``active``
+    [B] bool are put back after the step (``_RowMerge``), JAX's masked
+    merge; ``active`` None: every row decodes."""
     x = embed_tokens(cfg, params, token)
     pos2d = positions.to(torch.int32)[:, None]
+    merge = (_RowMerge(cfg, caches, True, pos2d[:, 0])
+             if active is not None and not arch_fully_paged(cfg) else None)
     x, caches, _ = _run_segments(cfg, params, x, pos2d, caches, "decode_paged",
                                  block_table=_clamped(cfg, caches, block_table))
+    if merge is not None:
+        merge.restore(active)
     return logits_out(cfg, params, x)[:, 0], caches
 
 
@@ -329,7 +406,8 @@ def paged_reset_pages(cfg: ModelConfig, caches: dict, page_mask: torch.Tensor) -
 
 @torch.no_grad()
 def paged_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, positions: torch.Tensor,
-                        caches: dict, table_row: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+                        caches: dict, table_row: torch.Tensor, *, slot: Optional[int] = None,
+                        reset: bool = False) -> Tuple[torch.Tensor, dict]:
     """One chunk of a resumable admission prefill, written straight into
     pool pages: tokens [1, C] at absolute ``positions`` [1, C] (the chunk
     start .. end - 1), ``table_row`` [max_pages] the slot's block table with
@@ -338,11 +416,16 @@ def paged_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, position
     then writes the chunk's K/V into its pages.  Returns (logits of the
     chunk's last position [1, V], caches updated in place).
 
-    The JAX function also resets (first chunk) or resumes the slot's per-slot
-    leaves (``slot``, ``reset``); the port has none (``init_paged_caches``)."""
+    The per-slot leaves of row ``slot`` (window rings, SSM / LRU states)
+    advance by the chunk: a ring appends at ``pos % cap`` after attending
+    over ``cat(ring, chunk)``, a recurrence resumes from its state and conv
+    prefix.  ``reset`` (an admission's first chunk) starts them from a fresh
+    cache's values instead: the row still holds its previous occupant's
+    state."""
     x = embed_tokens(cfg, params, tokens)
-    x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
-                                 "prefill_chunk", block_table=_clamped(cfg, caches, table_row[None]))
+    one = _slot_row(cfg, caches, slot, reset)
+    x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), one,
+                            "prefill_chunk", block_table=_clamped(cfg, caches, table_row[None]))
     return logits_out(cfg, params, x[:, -1:])[:, 0], caches
 
 
@@ -360,17 +443,26 @@ def paged_prefill_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
     trash page.  Returns (logits at each row's last valid token
     ``last_idx`` [S] -> [S, V], caches updated in place).
 
-    ``reset`` / ``active`` [S] bool select, in JAX, the rows whose per-slot
-    leaves restart or advance; the port has no per-slot leaves yet
-    (``init_paged_caches``), so they only keep the signature."""
+    The per-slot leaves (window rings, SSM / LRU states) of the ``reset``
+    [S] rows start from a fresh cache's values, every row's advance by its
+    chunk (padding is inert: ring writes keep a row's last valid tokens, an
+    SSD step with dt = 0 and an LRU step with a = 1, b = 0 are the
+    identity), and the rows outside ``active`` [S] are put back as they
+    came in, JAX's masked merge."""
     S = tokens.shape[0]
     if reset.shape != (S,) or active.shape != (S,) or last_idx.shape != (S,):
         raise ValueError(f"paged_prefill_chunk_batched: reset {tuple(reset.shape)}, active "
                          f"{tuple(active.shape)}, last_idx {tuple(last_idx.shape)} for {S} rows")
     x = embed_tokens(cfg, params, tokens)
+    merge = None
+    if not arch_fully_paged(cfg):
+        merge = _RowMerge(cfg, caches, True)
+        _reset_rows(cfg, caches, reset, True)
     x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
                                  "prefill_chunk_batched",
                                  block_table=_clamped(cfg, caches, block_tables))
+    if merge is not None:
+        merge.restore(active)
     xe = x[torch.arange(S, device=x.device), last_idx.long()]  # [S, D]
     return logits_out(cfg, params, xe[:, None])[:, 0], caches
 
@@ -390,17 +482,19 @@ def paged_verify_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
     EVERY window position [S, C, V]: position j scores the token at
     ``positions[:, j] + 1``, caches updated in place).
 
-    JAX returns the per-slot leaves (window rings, SSM/LRU states)
-    unchanged, since a rejection could not roll them back; the port has no
-    per-slot leaves yet (``init_paged_caches``), so only pool pages are
-    written and ``active`` [S] bool only keeps the signature."""
+    The per-slot leaves (window rings, SSM / LRU states) come back
+    unchanged, as in JAX: a rejection could not roll them back, so only pool
+    pages are written.  ``active`` [S] bool keeps JAX's signature."""
     S = tokens.shape[0]
     if active.shape != (S,):
         raise ValueError(f"paged_verify_chunk_batched: active {tuple(active.shape)} for {S} rows")
     x = embed_tokens(cfg, params, tokens)
+    merge = _RowMerge(cfg, caches, True) if not arch_fully_paged(cfg) else None
     x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
                                  "prefill_chunk_batched",
                                  block_table=_clamped(cfg, caches, block_tables))
+    if merge is not None:
+        merge.restore(torch.zeros_like(active))
     return logits_out(cfg, params, x), caches
 
 
@@ -419,7 +513,10 @@ def paged_reset_page_tails(cfg: ModelConfig, caches: dict, pages: torch.Tensor,
     write guard (``models/attention.py``) would send that K/V to the trash
     page.  After the reset a live page holds no position >= its slot's
     length."""
-    P, ps = _pool_layer(cfg, caches)["pos"].shape[1:]
+    pool = _pool_layer(cfg, caches)
+    if pool is None:
+        return caches
+    P, ps = pool["pos"].shape[1:]
     hit = torch.arange(P, device=pages.device)[None, :] == pages[:, None]  # [S, P]
     offm = torch.arange(ps, device=pages.device)[None, :] >= start_offs[:, None]  # [S, ps]
     mask = (hit[:, :, None] & offm[:, None, :]).any(0)  # [P, ps]
@@ -449,23 +546,19 @@ def paged_copy_slot_leaves(cfg: ModelConfig, caches: dict, src: int, dst: int) -
     """Copy row ``src`` to ``dst`` of every cache leaf that is NOT a shared
     page pool (window rings, SSM/LRU states, cross caches: ``[repeats,
     slots, ...]``), in place.  A parallel-sample fork shares its base's
-    pages through its table and takes the rest this way.  The port's paged
-    caches hold pool leaves only (per-slot state comes with ROADMAP item 5),
-    so today this copies nothing; item 5's leaves are copied as they are
-    added."""
-    for sk, pk, _, paged in _layer_entries(cfg):
-        for key, leaf in caches[sk][pk].items():
-            if key == "self" and paged:
-                continue  # the shared pool: the table carries the fork
-            for t in _tensors(leaf):
-                t[:, dst] = t[:, src]
+    pages through its table and takes the rest this way (the shared pools:
+    the table carries the fork)."""
+    for _, leaf in _slot_leaves(cfg, caches, True):
+        for t in _tensors(leaf):
+            t[:, dst] = t[:, src]
     return caches
 
 
 @torch.no_grad()
 def paged_prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor,
                             positions: torch.Tensor, caches: dict, table_row: torch.Tensor, *,
-                            scatter_start: int = 0) -> Tuple[torch.Tensor, dict]:
+                            scatter_start: int = 0,
+                            slot: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """One-shot admission prefill, the parity oracle of chunked prefill
     (``prefill_mode="scatter"``): the contiguous prefill of tokens [1, S]
     into a temporary single-sequence cache (kernel 6, numerics of the
@@ -474,11 +567,18 @@ def paged_prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor,
     unmapped), in place.  Positions below ``scatter_start`` lie in pages
     shared with other slots: their writes, and unmapped ones, go to the
     trash page with position -1, so a shared page is never written (the
-    compute still covers them).  Returns (logits of the last position [1,
-    V], caches)."""
+    compute still covers them).  The per-slot leaves (window rings, SSM /
+    LRU states) are prefilled in row ``slot``, reset first, as JAX writes
+    the temporary cache's row over them.  Returns (logits of the last
+    position [1, V], caches)."""
     S = tokens.shape[1]
-    kv_bits = 8 if isinstance(_pool_layer(cfg, caches)["k"], QuantizedKV) else 0
+    kv_bits = 8 if any(isinstance(leaf.get("k"), QuantizedKV)
+                       for _, leaf in _slot_leaves(cfg, caches, False)) else 0
     tmp = init_caches(cfg, 1, S, kv_bits=kv_bits, device=tokens.device)
+    row = _slot_row(cfg, caches, slot, True)
+    for sk, pk, _, paged in _layer_entries(cfg):
+        if not paged:
+            tmp[sk][pk] = row[sk][pk]  # the slot's own leaves, prefilled in place
     x = embed_tokens(cfg, params, tokens)
     pos = positions.to(torch.int32)
     x, tmp, _ = _run_segments(cfg, params, x, pos, tmp, "prefill")

@@ -1,6 +1,7 @@
 """Block and segment assembly (``repro/models/transformer.py``).
 
-A block is pre-norm attention + pre-norm FFN (dense or MoE), both residual.
+A block is a pre-norm mixer (attention, Mamba-2 SSD or RG-LRU) + a pre-norm
+FFN (dense, MoE or none), both residual.
 Parameters and caches of a segment keep the JAX package's layout, stacked on
 a leading ``[repeats]`` axis; the JAX ``lax.scan`` over repeats becomes a
 Python loop that takes repeat ``r``'s views of both.
@@ -11,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import AttnSpec, LayerSpec, ModelConfig, Segment
+from repro_torch.configs.base import AttnSpec, LayerSpec, LRUSpec, ModelConfig, Segment, SSMSpec
 from repro_torch.core.moe import init_moe, moe_layer
 from repro_torch.models.attention import (
     attention,
@@ -22,25 +23,31 @@ from repro_torch.models.attention import (
     spec_is_paged,
 )
 from repro_torch.models.modules import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.models.rglru import init_lru, init_lru_cache, lru_layer
+from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_layer
 from repro_torch.quant.kv import QuantizedKV
 from repro_torch.quant.qarrays import QuantizedArray
 
 
 def check_layer(ls: LayerSpec) -> None:
-    if not isinstance(ls.mixer, AttnSpec):
-        raise NotImplementedError(
-            f"{type(ls.mixer).__name__} mixers are not ported yet (ROADMAP.md, queue 1 item 5)")
-    check_spec(ls.mixer)
+    if isinstance(ls.mixer, AttnSpec):
+        check_spec(ls.mixer)
+    elif not isinstance(ls.mixer, (SSMSpec, LRUSpec)):
+        raise TypeError(ls.mixer)
     if ls.cross is not None:
         check_spec(ls.cross)
 
 
 def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) -> dict:
     check_layer(ls)
-    p = {
-        "norm_mixer": init_rmsnorm(cfg.d_model, dtype, device, lead=lead),
-        "attn": init_attention(gen, cfg, ls.mixer, dtype, device, lead=lead),
-    }
+    p = {"norm_mixer": init_rmsnorm(cfg.d_model, dtype, device, lead=lead)}
+    m = ls.mixer
+    if isinstance(m, AttnSpec):
+        p["attn"] = init_attention(gen, cfg, m, dtype, device, lead=lead)
+    elif isinstance(m, SSMSpec):
+        p["ssm"] = init_ssm(gen, cfg, m, dtype, device, lead=lead)
+    else:
+        p["lru"] = init_lru(gen, cfg, m, dtype, device, lead=lead)
     if ls.ffn.kind == "dense":
         p["norm_ffn"] = init_rmsnorm(cfg.d_model, dtype, device, lead=lead)
         p["ffn"] = init_mlp(gen, cfg.d_model, ls.ffn.d_ff, ls.ffn.act, dtype, device, lead=lead)
@@ -52,15 +59,25 @@ def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) 
 
 def init_layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, capacity: int, dtype, device,
                      *, lead=(), pages=None, kv_bits: int = 0) -> dict:
-    """``pages = (n_pages, page_size)`` puts the self-attention K/V into a
-    shared page pool addressed through block tables (paged serving);
-    ``kv_bits=8`` stores them as int8 ``QuantizedKV``."""
+    """``capacity`` is the full-context length of a global layer's cache; a
+    sliding-window layer gets a ring of ``min(window, capacity)`` slots.
+    ``pages = (n_pages, page_size)`` puts a global layer's K/V into a shared
+    page pool addressed through block tables (paged serving); rings and
+    SSM / LRU states stay per-slot (``batch`` rows).  ``kv_bits=8`` stores
+    self-attention K/V as int8 ``QuantizedKV`` (recurrent states stay
+    full precision)."""
     check_layer(ls)
-    if pages is not None and spec_is_paged(ls.mixer):
+    m = ls.mixer
+    if isinstance(m, SSMSpec):
+        return {"self": init_ssm_cache(batch, m, dtype, device, lead=lead)}
+    if isinstance(m, LRUSpec):
+        return {"self": init_lru_cache(batch, m, dtype, device, lead=lead)}
+    if pages is not None and spec_is_paged(m):
         n_pages, page_size = pages
         return {"self": init_paged_kv_cache(n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
                                             dtype, device, lead=lead, kv_bits=kv_bits)}
-    return {"self": init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim, dtype, device,
+    cap = min(m.window, capacity) if (m.kind == "local" and m.window > 0) else capacity
+    return {"self": init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype, device,
                                   lead=lead, kv_bits=kv_bits)}
 
 
@@ -80,8 +97,14 @@ def apply_layer(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["norm_mixer"], x, cfg.rms_eps)
     sc = cache.get("self") if cache is not None else None
-    y, sc = attention(cfg, ls.mixer, params["attn"], h, positions, cache=sc, mode=mode, index=index,
-                      block_table=block_table)
+    m = ls.mixer
+    if isinstance(m, AttnSpec):
+        y, _ = attention(cfg, m, params["attn"], h, positions, cache=sc, mode=mode, index=index,
+                         block_table=block_table)
+    elif isinstance(m, SSMSpec):
+        y, _ = ssm_layer(cfg, m, params["ssm"], h, cache=sc, mode=mode, positions=positions)
+    else:
+        y, _ = lru_layer(cfg, m, params["lru"], h, cache=sc, mode=mode, positions=positions)
     x = x + y
     if ls.ffn.kind == "dense":
         h = rmsnorm(params["norm_ffn"], x, cfg.rms_eps)

@@ -7,9 +7,10 @@ One cache tensor (K or V) is two tensors:
   * ``scale``  f32  ``[..., T, H_kv, 1]``, amax / 127 per (timestep, head).
 
 Each written token is scaled on its own, so a write never touches earlier
-entries: the contiguous caches ``[B, T, ...]`` and the page pools
-``[n_pages + 1, page_size, ...]`` are written in place, a (q, scale) pair
-at a time (``models/attention.py``).  At head_dim 128 a token and head
+entries: the contiguous caches ``[B, T, ...]``, the sliding-window rings
+``[B, window, ...]`` (a token overwrites the slot ``pos % window``, scale
+and all) and the page pools ``[n_pages + 1, page_size, ...]`` are written
+in place, a (q, scale) pair at a time (``models/attention.py``).  At head_dim 128 a token and head
 take 132 bytes instead of 256 in bf16.
 
 An all-zero slot quantizes to (q = 0, scale = 1e-8 / 127) and dequantizes to

@@ -39,8 +39,11 @@ Paged admission prefill has three modes (``prefill_mode``):
 index over full-page token chunks (``serving/prefix_index.py``) maps live
 prompt prefixes to physical pages, so a request whose context repeats an
 admitted prefix points its table at the existing pages (refcounted through
-``KVBlockPool.share``) and, since every layer of the served archs is paged,
-skips their prefill compute.  ``submit_n`` rides the same mechanism: n
+``KVBlockPool.share``) and, where every layer of the arch is paged, skips
+their prefill compute; an arch with window rings or SSM / LRU states
+(gemma3, recurrentgemma, mamba2), which keeps them per slot beside the
+pool, recomputes the shared prefix to rebuild them, its writes into the
+shared pages sent to the trash page.  ``submit_n`` rides the same mechanism: n
 samples of one prompt share ALL its pages, the partial boundary page too,
 and draw their first tokens from the base's stashed prefill logits.  Before
 a slot appends into a page another slot holds, ``_ensure_pages`` forks it a
@@ -86,7 +89,8 @@ greedy engine's.  A speculative tick reads back twice: the proposals and
 the verify argmax ``[slots, k + 1]``.
 
 Not ported here, each raising ``NotImplementedError`` that names its ROADMAP
-item: expert-parallel meshes and observability.
+item: expert-parallel meshes, observability, and speculative decoding with
+per-slot state in the target or the drafter.
 """
 from __future__ import annotations
 
@@ -203,6 +207,11 @@ class ContinuousEngine:
                              "prefill writes directly into pool pages through block tables")
         if spec_draft is not None:
             # draft-then-verify (serving/spec.py): spec_draft = (drafter cfg, params)
+            if not (arch_fully_paged(cfg) and arch_fully_paged(spec_draft[0])):
+                # JAX re-runs the accepted tokens to advance the per-slot
+                # leaves (_spec_commit) and resyncs recurrent drafters
+                _unported("speculative decoding with per-slot state (window rings, SSM / LRU "
+                          "states) in the target or the drafter", "item 5")
             if not paged:
                 raise ValueError("speculative decoding requires paged=True: rollback is "
                                  "implemented as dropping CoW page forks")
@@ -247,7 +256,9 @@ class ContinuousEngine:
                 raise ValueError(f"prefill_chunk={self.prefill_chunk} must be >= page_size="
                                  f"{page_size} (chunk boundaries are page-aligned)")
             # a shared prefix's prefill compute is skipped when every mixer's
-            # state is paged (always, for the archs the paged caches take)
+            # state is paged; window rings and SSM / LRU states are rebuilt by
+            # running the prefix (its writes into shared pages go to the trash
+            # page: the attention layers' ``already`` rule)
             self._skip_shared_compute = arch_fully_paged(cfg)
             self.max_pages = -(-capacity // page_size)  # table entries per slot
             # n_pages None/0 = auto: the contiguous worst case
@@ -459,7 +470,7 @@ class ContinuousEngine:
                 # writes go to the trash page
                 logits, self.caches = paged_prefill_into_slot(
                     self.cfg, self.params, toks, pos, self.caches, buf[len(ctx):],
-                    scatter_start=len(shared) * self.page_size)
+                    scatter_start=len(shared) * self.page_size, slot=i)
             else:
                 logits, self.caches = prefill_into_slot(self.cfg, self.params, toks, pos, i,
                                                         self.caches)
@@ -526,8 +537,11 @@ class ContinuousEngine:
                 [np.asarray(ctx[start:end], np.int32), self.tables.row(i)])).to(self.device)
             toks = buf[: end - start].long()[None]
             pos = torch.arange(start, end, dtype=torch.int32, device=self.device)[None]
+            # the first chunk of an admission starts the slot's per-slot
+            # leaves fresh; later ones resume them
             logits, self.caches = paged_prefill_chunk(self.cfg, self.params, toks, pos, self.caches,
-                                                      buf[end - start:])
+                                                      buf[end - start:], slot=i,
+                                                      reset=not slot.prefill_started)
             n = end - start
             done += n
             self.prefill_tokens_total += n
@@ -974,12 +988,14 @@ class ContinuousEngine:
         positions = np.asarray([s.pos if s.active else 0 for s in self.slots], np.int32)
         if self.paged:
             tbl = np.where(decoding[:, None], self.tables.table, -1)
-            # one upload per tick: tokens, positions and the block table
+            # one upload per tick: tokens, positions, the decoding rows (the
+            # per-slot leaves' merge) and the block table
             buf = torch.from_numpy(np.concatenate(
-                [self._cur_token, positions, tbl.reshape(-1)]).astype(np.int32)).to(self.device)
+                [self._cur_token, positions, decoding, tbl.reshape(-1)]).astype(np.int32)
+            ).to(self.device)
             logits, self.caches = paged_ragged_decode_step(
                 self.cfg, self.params, buf[:S].long()[:, None], buf[S : 2 * S], self.caches,
-                buf[2 * S :].view(S, self.max_pages))
+                buf[3 * S :].view(S, self.max_pages), active=buf[2 * S : 3 * S].bool())
         else:
             # one upload per tick: tokens, positions and the active mask
             buf = torch.from_numpy(np.concatenate(

@@ -133,9 +133,9 @@ def test_continuous_engine_drops_at_decode_as_the_jax_kernel_path(llama4, monkey
     steps = []  # per decode step: [inactive rows, dropped assignments]
     step, gate = tcontinuous.paged_ragged_decode_step, tmoe.gating
 
-    def record_step(cfg, params, token, positions, caches, table):
+    def record_step(cfg, params, token, positions, caches, table, **kw):
         steps.append([int((table < 0).all(1).sum()), 0])
-        return step(cfg, params, token, positions, caches, table)
+        return step(cfg, params, token, positions, caches, table, **kw)
 
     def record_gating(logits, top_k, capacity, **kw):
         g, counts = gate(logits, top_k, capacity, **kw)

@@ -179,7 +179,10 @@ UNPORTED = [
      "item 5"),
     ("ep_mesh", dict(ep_mesh=(2,)), "item 7"),
     ("obs", dict(obs=object()), "item 9"),
-    ("per-slot state (window rings)", dict(arch="gemma3-27b"), "item 5"),
+    # a target with per-slot state (window rings) under speculative decoding
+    ("per-slot state (window rings)",
+     dict(arch="gemma3-27b", spec_draft=(make_reduced(get_config("llama3-8b")), "params")),
+     "item 5"),
 ]
 
 

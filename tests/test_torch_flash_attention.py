@@ -128,8 +128,7 @@ def test_window_matches_jax(G, dh):
     """A sliding window (kind "local"): the port's ``attend_full`` against
     JAX's ``attend_full`` and its local ``attend_chunked``, which reads only
     the window's K/V per chunk.  The port's ``attend_chunked`` is its
-    ``attend_full``; a local layer's ``attention`` still raises (``check_spec``)
-    until the item that ports local layers."""
+    ``attend_full``; ``check_spec`` takes local layers."""
     q, k, v, q_pos, k_pos, _ = _gqa_inputs(G, dh, 64, 64, "plain", seed=5)
     spec, jspec = AttnSpec(kind="local", window=13), JAttnSpec(kind="local", window=13)
     scale = dh ** -0.5
@@ -140,8 +139,7 @@ def test_window_matches_jax(G, dh):
     np.testing.assert_allclose(got, np.asarray(jchunk), **TOL)
     np.testing.assert_allclose(tattn.attend_chunked(*_t(q, k, v, q_pos, k_pos), spec, scale).numpy(),
                                np.asarray(jchunk), **TOL)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tattn.check_spec(spec)
+    tattn.check_spec(spec)
 
 
 def test_row_without_valid_key_gives_zero():

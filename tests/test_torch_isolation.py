@@ -35,7 +35,8 @@ BLOCKED_IMPORTS = textwrap.dedent(r"""
     assert {"repro_torch.quant.qarrays", "repro_torch.quant.kv", "repro_torch.quant.ptq",
             "repro_torch.kernels.attention_quant", "repro_torch.kernels.moe_gating",
             "repro_torch.kernels.expert_mlp", "repro_torch.kernels.expert_mlp_quant",
-            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.flash_attention", "repro_torch.models.ssm",
+            "repro_torch.models.rglru",
             "repro_torch.core.dispatch", "repro_torch.core.dispatch_einsum"} <= set(names), names
     print(len(names), "modules")
 """)

@@ -109,9 +109,10 @@ def test_attention_prefill_then_decode(cfgs):
 def test_unported_attention_raises():
     from repro_torch.configs.base import AttnSpec
 
+    tattn.check_spec(AttnSpec(kind="local", window=8))  # sliding windows are ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.check_spec(AttnSpec(kind="local", window=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.check_spec(AttnSpec(kind="cross", causal=False))
+    with pytest.raises(ValueError, match="block table"):  # a paged layer's paged mode
         tattn.attention(None, AttnSpec(), {}, torch.zeros(1, 1, 4), torch.zeros(1, 1), mode="decode_paged")
 
 
