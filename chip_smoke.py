@@ -151,7 +151,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    parameters in bf16) once the llama4 trees are deleted: ``Engine`` with
    its own ``moe_impl="dense"`` on 4 requests (kernel 1 once per MoE layer
    call; GELU experts are plain products, so no expert kernel), and a
-   profile of 5 decode steps.
+   profile of 5 decode steps; then the same tree and requests under
+   ``moe_impl="grouped"`` (kernel 1 never; GELU experts over the grouped
+   layout are plain products over each tile's gathered weights, in blocks
+   under 1 GB), a profile of 5 decode steps, and the reduced f32 model
+   under grouped, card against CPU.
 11b. the paper's pairing, speculative, at published sizes: nlg-350m (dense,
    bf16) drafting for nlg-350m-moe128 through the paged engine (8 slots,
    pages of 16, 8 requests of 32 new tokens with prompts of 64-512 tokens,
@@ -190,19 +194,45 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    recurrentgemma's and mamba2's prefill launches at 250 and 2500 tokens
    (no loop over tokens); the reduced f32 models card vs CPU (static, paged
    with preemption, the batched tick with sharing and forks, scatter,
-   int8 rings, the contiguous engine).  Then kernel 6 with a window at
+   int8 rings, the contiguous engine).  Slice 9: gemma3 (over bf16 and
+   int8 pools) and recurrentgemma drafting for themselves at k = 4 on the
+   same paged trace beside the plain run, reported as in 6d (the commit time
+   now includes the committed recurrent-state pass, which launches the
+   batched kernel 8 once per global layer per verify tick, as the verify
+   does; resyncs); then reduced f32 card vs CPU for recurrentgemma with a
+   seed-1 recurrentgemma drafter (resyncs) and gemma3 drafting for glm4-9b
+   (cross family), over pools that preempt.  Then kernel 6 with a window at
    gemma3's local shape (4 x 2048 and 1 x 8192 tokens) and at dh 256
    (recurrentgemma's 10 heads over 1, 4096 tokens, window 2048; and with
    every mask in f32 and bf16), and kernel 9 over wrapped int8 rings at dh
    128 and 256, each against its plain version, timed beside its bound and
    SDPA with the window-causal mask.
-15. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
-   ``flash_attention_dh256`` and ``decode_attention_quant_ring``), the
+15. slice 9, once slice 8's trees are freed: seamless-m4t-medium (12
+   encoder + 12 decoder layers, d_model 1024, 16 heads over 16, vocab
+   256206, 0.88 G parameters) at its published size: ``encode`` of 4 stub
+   sources of 1024 frames (kernel 6 once per encoder layer, non-causal),
+   then ``Engine(memory=...)`` on 4 prompts of 64 tokens for 16 (per
+   prefill kernel 6 once per decoder layer, causal, and once per cross
+   attention, non-causal, 64 queries over 1024 keys; decode reads the cross
+   caches through ``_sdpa``); internvl2-1b (24 layers, 14 heads over 2: G =
+   7) at its published size through ``Engine(prefix_embeds=...)``, 256 stub
+   patches + 64 prompt tokens (kernel 6 once per layer, S = 320); each
+   kernel-6 call recorded by (causal, S, T, G) and held against those
+   counts; a profile of 5 decode steps each; the reduced f32 models card vs
+   CPU (memory, logits, tokens).  Then kernel 6 against its plain version in
+   bf16 and f32 at those shapes (non-causal 4 x 1024 at G = 1; non-causal
+   64 queries at position 0 over 1024 keys; causal 4 x 320 at G = 7), timed
+   beside its bound and SDPA, and non-causal with empty keys (a row with no
+   valid key gives 0).
+16. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
+   ``flash_attention_dh256``, ``decode_attention_quant_ring``,
+   ``flash_attention_noncausal`` and ``flash_attention_g7``), the
    nvidia-smi line, and last the ``{"ok": true, "device": ...}`` line.
 
-Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12 and the
-reduced references) attends through kernel 6 (flash attention), once per
-layer call, and so does every admission of the contiguous engine (4c); the
+Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12, 14, 15
+and the reduced references) and every encoder layer attends through kernel
+6 (flash attention), once per layer call (a cross attention's prefill
+too), and so does every admission of the contiguous engine (4c); the
 paged continuous phases prefill through kernel 8 (4b's batched runs through
 its batched entry) and launch kernel 6 never, but for the speculative
 drafter's syncs (6d, 11b: once per drafter layer per sync).  Phase 6b, between 6 and 7 while the card holds only the bf16 tree:
@@ -813,7 +843,7 @@ def flash_pairs(q_pos, k_pos, causal, window, chunk=1024) -> int:
     kp = k_pos[:, None, :]
     for s0 in range(0, q_pos.shape[1], chunk):
         qp = q_pos[:, s0 : s0 + chunk, None]
-        valid = kp >= 0
+        valid = (kp >= 0).expand(-1, qp.shape[1], -1)
         if causal:
             valid = valid & (kp <= qp)
         if window > 0:
@@ -843,23 +873,30 @@ def flash_case(B, S, H, Hkv, dh, dtype, gen):
     return (q, k, v, pos, pos), dict(scale=1.0 / math.sqrt(dh), causal=True)
 
 
-def sdpa_full(q, k, v, scale):
-    """The library yardstick for a causal static prefill: one
-    scaled_dot_product_attention(is_causal=True, enable_gqa=True) over
+def sdpa_full(q, k, v, scale, causal=True):
+    """The library yardstick for a causal static prefill (``causal``; an
+    encoder's or a cross attention's, every key valid, without): one
+    scaled_dot_product_attention(is_causal=causal, enable_gqa=True) over
     [B, heads, tokens, dh] copies of the model's layouts (the copies, and
     the output's copy back, timed apart as the layout).  The math backend,
-    which would build the [S, T] logits, is excluded."""
+    which would build the [S, T] logits, is excluded.  In f32 no fused
+    backend takes grouped heads, so there K and V are repeated to every
+    query head as part of the layout."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
-    to_heads = lambda: tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+    rep = G if q.dtype == torch.float32 else 1
+    to_heads = lambda: (q.transpose(1, 2).contiguous(),
+                        *(t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+                          for t in (k, v)))
     qh, kh, vh = to_heads()
 
     def call():
         with sdpa_kernel(fused):
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=scale,
+                                                  enable_gqa=rep == 1)
 
     out = call()
     return call, lambda: (to_heads(), out.transpose(1, 2).contiguous())
@@ -961,20 +998,23 @@ QUANT_WRITE_OPS = ("aten::abs", "aten::amax", "aten::clamp_min", "aten::div", "a
 
 def profile_decode(eng, cfg, params, steps=5, what="decode", named_ops=()) -> list:
     """Where a static decode step's time goes, as the engine runs it (greedy
-    token read back every step)."""
+    token read back every step; the engine's encoder memory and patch
+    embeddings, and its decode index)."""
     from repro_torch.models.model import decode_step, prefill
 
     toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda")
 
     def run(prof):
         caches = eng._make_caches(BATCH)
-        logits, caches = prefill(cfg, params, toks, caches)
+        logits, caches = prefill(cfg, params, toks, caches, memory=eng.memory,
+                                 prefix_embeds=eng.prefix_embeds)
         cur = logits.argmax(-1)[:, None]
         cur.cpu()
         with prof or contextlib.nullcontext():
             t0 = time.perf_counter()
             for t in range(steps):
-                logits, caches = decode_step(cfg, params, cur, PROMPT + t, caches)
+                logits, caches = decode_step(cfg, params, cur, PROMPT + eng._offset + t, caches,
+                                             memory=eng.memory)
                 cur = logits.argmax(-1)[:, None]
                 cur.cpu()
             return (time.perf_counter() - t0) / steps * 1e3
@@ -1585,22 +1625,29 @@ def moe_launches(cfg, params, n_calls, want) -> None:
 
 def spec_expected_launches(cfg, params, dcfg, dparams, launches, eng, kv8=False) -> dict:
     """Every kernel's launches in a speculative run (chunked admission): per
-    layer, the batched kernel 8 once per verify tick and the single-row
-    kernel 8 once per admission chunk, kernel 7 never; per MoE layer call of
-    the target (one per verify and per chunk) and of the drafter (one per
-    sync and per propose step, k + 1 a propose) kernel 1 under the capacity
-    dispatch and the SwiGLU expert kernel; the drafter's kernel 6 once per
-    layer per sync (its decode steps attend through the plain ``_sdpa``)."""
+    global (paged) layer, the batched kernel 8 once per verify tick, and
+    once more per tick for the committed recurrent-state pass of a target
+    with per-slot state, and the single-row kernel 8 once per admission
+    chunk; kernel 7 never, and no kernel for a ring's chunk or an SSD / LRU
+    layer; per MoE layer call of the target (one per verify, commit pass and
+    chunk) and of the drafter (one per sync and per propose step, k + 1 a
+    propose) kernel 1 under the capacity dispatch and the SwiGLU expert
+    kernel; the drafter's kernel 6 once per attention layer per sync (its
+    decode steps attend through the plain ``_sdpa``)."""
+    from repro_torch.models.model import arch_fully_paged
+
     sfx = "_int8" if kv8 else ""
     verifies = sum("spec" in m for m in eng.metrics_log)
+    passes = verifies * (1 if arch_fully_paged(cfg) else 2)
     calls = eng.prefill_calls_total
     d = eng.drafter
     n_moe = lambda c: sum(ls.ffn.kind == "moe" for ls in c.layer_specs())
+    n_global = layer_counts(cfg)[0]
     want = {k: 0 for k in launches}
-    want[f"paged_prefill_attention_batched{sfx}"] = cfg.num_layers * verifies
-    want[f"paged_prefill_attention{sfx}"] = cfg.num_layers * calls
-    want["flash_attention"] = dcfg.num_layers * d.syncs
-    moe_launches(cfg, params, n_moe(cfg) * (verifies + calls), want)
+    want[f"paged_prefill_attention_batched{sfx}"] = n_global * passes
+    want[f"paged_prefill_attention{sfx}"] = n_global * calls
+    want["flash_attention"] = sum(layer_counts(dcfg)) * d.syncs
+    moe_launches(cfg, params, n_moe(cfg) * (passes + calls), want)
     moe_launches(dcfg, dparams, n_moe(dcfg) * (d.syncs + d.proposes * (SPEC_K + 1)), want)
     return want
 
@@ -1646,7 +1693,7 @@ def spec_trace(cfg, params, dcfg, dparams, counters, pool, lens, kv_cache_bits=0
                                           kv8=bool(kv_cache_bits))
         else:
             want = expected_launches(cfg, params, launches, eng, len(ticks), kv8=bool(kv_cache_bits))
-            if not swiglu_experts(cfg):
+            if any(ls.ffn.kind == "moe" for ls in cfg.layer_specs()) and not swiglu_experts(cfg):
                 want[expert_kernel(cfg, params)] = 0
         if launches != want:
             raise AssertionError(f"{what} {label} launches {launches}, expected {want}")
@@ -1684,7 +1731,8 @@ def spec_trace(cfg, params, dcfg, dparams, counters, pool, lens, kv_cache_bits=0
         f"windows, {tot['drafted']} drafted, {tot['accepted']} accepted (share "
         f"{summary['accept_share']:.3f}), {tot['emitted']} emitted "
         f"({summary['tokens_per_verify']:.3f} per verify) over {len(recs)} verify ticks; "
-        f"{eng.drafter.syncs} drafter syncs, {eng.drafter.proposes} proposes",
+        f"{eng.drafter.syncs} drafter syncs ({eng.spec_resyncs} resyncs), "
+        f"{eng.drafter.proposes} proposes",
         f"{what}: {sp['wall'] * 1e3:.3f} ms ({summary['tok_s']:.1f} tok/s) against the baseline's "
         f"{base['wall'] * 1e3:.3f} ms ({summary['baseline_tok_s']:.1f} tok/s); spec tick median "
         f"{med['decode_s']:.3f} ms = plan {med['plan_s']:.3f} + draft {med['draft_s']:.3f} + "
@@ -2353,13 +2401,19 @@ def check_capacity_experts(args, tol, quant=False, variant=None, timed=False, n=
     return res
 
 
-def nlg_serve(counters) -> list:
+def nlg_serve(counters) -> tuple:
     """The paper's nlg-350m-moe128 at its published size, full depth (24
     layers, 128 GELU experts of d_ff 4096 on every other layer), bf16 random
     weights from the seed, through ``Engine`` with its own
     ``moe_impl="dense"``: kernel 1 once per MoE layer call, no expert kernel
-    (GELU experts are plain products, as in the JAX package)."""
-    from repro_torch.configs.registry import get_config
+    (GELU experts are plain products, as in the JAX package); then the same
+    tree and requests under ``moe_impl="grouped"``: no kernel 1 and no
+    expert kernel (GELU experts over the grouped layout are plain products
+    over gathered tile weights, as JAX's ``grouped_mlp_ref``), kernel 6 once
+    per layer; each with a profile of 5 decode steps; and the reduced f32
+    model under grouped, card against CPU.  Returns (lines, launches of the
+    dense run, of the grouped run)."""
+    from repro_torch.configs.registry import get_config, make_reduced
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
@@ -2370,39 +2424,57 @@ def nlg_serve(counters) -> list:
     torch.cuda.synchronize()
     n_params = sum(b.numel() for b in params.buffers())
     init_s = time.perf_counter() - t0
-    eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW),
-                 device="cuda")
     rng = torch.Generator().manual_seed(SEED + 4)
     reqs = [Request(torch.randint(0, cfg.vocab_size, (PROMPT,), generator=rng).tolist(), NEW)
             for _ in range(BATCH)]
-    eng.generate(reqs)  # warm-up
-    torch.cuda.synchronize()
-    reset(*counters)
-    t0 = time.perf_counter()
-    out = eng.generate(reqs)
-    wall = time.perf_counter() - t0
-    got = read(counters, "nlg serve")
-    assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
-    assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
     n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
-    want = {k: 0 for k in got}
-    want.update({"moe_gating": n_moe * NEW, "flash_attention": cfg.num_layers})
-    if got != want:
-        raise AssertionError(f"nlg serve launches {got}, expected {want}")
-    tm = eng.last_timings
-    step_ms = statistics.median(tm["decode_step_s"]) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    return [
-        f"nlg serve: {cfg.name} at its published size, {cfg.num_layers} layers ({n_moe} MoE, "
-        f"{cfg.layer_specs()[1].ffn.num_experts} GELU experts of d_ff "
-        f"{cfg.layer_specs()[1].ffn.d_ff}), d_model {cfg.d_model}, {n_params / 1e9:.2f} G "
-        f"parameters bf16 drawn in {init_s:.1f} s, moe_impl={cfg.moe_impl!r}: {BATCH} requests x "
-        f"{NEW} tokens in {wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill "
-        f"{tm['prefill_s'] * 1e3:.3f} ms (batch {BATCH} x {PROMPT}); decode step median "
-        f"{step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; launches {got}; peak memory "
-        f"{peak:.1f} GB",
-        f"nlg serve: tokens of request 0: {out[0].tokens}",
-    ] + profile_decode(eng, cfg, params, what="nlg decode"), got
+    lines, runs = [], {}
+    for impl in ("dense", "grouped"):
+        rcfg = cfg.replace(moe_impl=impl)
+        what = "nlg serve" + (" grouped" if impl == "grouped" else "")
+        eng = Engine(rcfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT,
+                                                max_decode=NEW), device="cuda")
+        eng.generate(reqs)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(*counters)
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        wall = time.perf_counter() - t0
+        got = read(counters, what)
+        assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
+        assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
+        want = {k: 0 for k in got}
+        want["flash_attention"] = cfg.num_layers
+        if impl == "dense":
+            want["moe_gating"] = n_moe * NEW
+        if got != want:
+            raise AssertionError(f"{what} launches {got}, expected {want}")
+        runs[impl] = (got, [r.tokens for r in out])
+        tm = eng.last_timings
+        step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lines += [
+            f"{what}: {cfg.name} at its published size, {cfg.num_layers} layers ({n_moe} MoE, "
+            f"{cfg.layer_specs()[1].ffn.num_experts} GELU experts of d_ff "
+            f"{cfg.layer_specs()[1].ffn.d_ff}), d_model {cfg.d_model}, {n_params / 1e9:.2f} G "
+            f"parameters bf16 drawn in {init_s:.1f} s, moe_impl={impl!r}: {BATCH} requests x "
+            f"{NEW} tokens in {wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill "
+            f"{tm['prefill_s'] * 1e3:.3f} ms (batch {BATCH} x {PROMPT}); decode step median "
+            f"{step_ms:.3f} ms over {len(tm['decode_step_s'])} steps; launches {got}; peak memory "
+            f"{peak:.1f} GB",
+            f"{what}: tokens of request 0: {out[0].tokens}",
+        ] + profile_decode(eng, rcfg, params, what=what.replace("serve", "decode"))
+        del eng
+    same = sum(a == b for a, b in zip(runs["dense"][1], runs["grouped"][1]))
+    lines.append(f"nlg serve grouped: requests whose tokens equal the dense dispatch's: {same} of "
+                 f"{BATCH} (the capacity dispatch drops past each expert's slots; grouped is "
+                 f"dropless)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines.append(reference_check(make_reduced(cfg).replace(moe_impl="grouped")))
+    return lines, runs["dense"][0], runs["grouped"][0]
 
 
 def flash_checks(full, red, gen) -> dict:
@@ -2992,6 +3064,66 @@ def slice8_kernel_checks(gen) -> tuple:
     return win, d256, ring
 
 
+def slice9_spec_reference_checks() -> list:
+    """Speculative decoding with per-slot state on a small input: reduced f32
+    weights on the card (kernels) and on the CPU (plain versions), 14 pages
+    for 3 slots of 48 so that the pool preempts, k = SPEC_K: recurrentgemma
+    with a seed-1 recurrentgemma drafter (the commit pass, and a resync after
+    every partial accept) and the cross-family pair of JAX's tests, gemma3
+    (rings) drafting for glm4-9b.  Identical tokens, per-tick spec records (resyncs
+    included), preemptions and CoW copies; drained pools."""
+    from repro_torch.configs.registry import get_config, make_reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    rg, g3, glm = (make_reduced(get_config(n)) for n in ("recurrentgemma-2b", "gemma3-27b",
+                                                         "glm4-9b"))
+    rng = np.random.default_rng(SEED + 23)
+    draw = lambda n: rng.integers(1, rg.vocab_size, n).tolist()
+    pre = draw(8)  # two pages of 4
+    prompts = [pre + draw(5), pre + draw(9), draw(6), pre + draw(17), draw(30), draw(13)]
+    paged = dict(paged=True, slots=3, capacity=48, page_size=4, n_pages=14, prefill_chunk=8,
+                 spec_k=SPEC_K)
+    cases = [("recurrentgemma, seed-1 recurrentgemma drafter", rg, rg),
+             ("glm4-9b, seed-1 gemma3 drafter (cross family)", glm, g3)]
+    lines, preempted = [], 0
+    for label, cfg, dcfg in cases:
+        target = init_params(cfg, seed=SEED, device="cuda")
+        draft = init_params(dcfg, seed=SEED + 1, device="cuda")
+        recs = []
+        for dev in ("cuda", "cpu"):
+            tp, dp = ((target, draft) if dev == "cuda" else
+                      (copy.deepcopy(target).to("cpu"), copy.deepcopy(draft).to("cpu")))
+            eng = ContinuousEngine(cfg, tp, device=dev, spec_draft=(dcfg, dp), **paged)
+            ids = [eng.submit(Request(p, 9)) for p in prompts]
+            done = eng.run_until_done()
+            eng.pool.check()
+            recs.append({"tokens": [done[i].tokens for i in ids],
+                         "spec": [m["spec"] for m in eng.metrics_log if "spec" in m],
+                         "preemptions": eng.preemptions, "cow_copies": eng.cow_copies,
+                         "resyncs": eng.spec_resyncs,
+                         "drained": eng.pool.free_count == eng.n_pages})
+        if recs[0] != recs[1] or not recs[0]["drained"]:
+            raise AssertionError(f"slice-9 spec reference {label}: card {recs[0]}, CPU {recs[1]}")
+        r = recs[0]
+        preempted += r["preemptions"]
+        drafted = sum(s["drafted"] for s in r["spec"])
+        accepted = sum(s["accepted"] for s in r["spec"])
+        if dcfg is rg and not r["resyncs"]:
+            raise AssertionError(f"slice-9 spec reference {label}: no resync after {accepted} of "
+                                 f"{drafted} drafts accepted")
+        lines.append(f"slice-9 spec reference: reduced {cfg.name} f32, {label}, card (kernels) vs "
+                     f"CPU (plain versions): tokens and {len(r['spec'])} per-tick spec records "
+                     f"identical ({accepted} of {drafted} drafts accepted, {r['resyncs']} "
+                     f"resyncs), preemptions {r['preemptions']}, CoW copies {r['cow_copies']} on "
+                     f"both; pools drained")
+    if not preempted:
+        raise AssertionError("no slice-9 spec reference case preempted; the pool was meant to run "
+                             "dry")
+    return lines
+
+
 def slice8_serve(counters, gen) -> tuple:
     """Phase 14: gemma3-27b (cut to 8 layers), recurrentgemma-2b and
     mamba2-370m at their published widths, one after the other (each tree
@@ -3001,12 +3133,15 @@ def slice8_serve(counters, gen) -> tuple:
     trace shared and unshared; recurrentgemma: with a 2500-token prompt,
     over bf16 and int8 rings; mamba2), a profile of the static decode step,
     the prefill launch counts (recurrentgemma, mamba2), and the reduced f32
-    card-vs-CPU references.  Returns (launches by path, the kernel checks'
-    shapes)."""
+    card-vs-CPU references.  Slice 9 adds gemma3 (bf16 and int8 pools) and
+    recurrentgemma drafting for themselves on the paged trace beside the
+    plain run (``spec_trace``), and the reduced speculative references
+    (``slice9_spec_reference_checks``).  Returns (launches by path, the
+    kernel checks' shapes, the speculative runs)."""
     from repro_torch.configs.registry import make_reduced
     from repro_torch.models.model import init_params
 
-    paths = {}
+    paths, spec = {}, {}
     for name in ("gemma3-27b", "recurrentgemma-2b", "mamba2-370m"):
         cfg = slice8_config(name)
         short = name.split("-")[0]
@@ -3043,6 +3178,17 @@ def slice8_serve(counters, gen) -> tuple:
             paths[f"{short}_continuous_{mode}" + ("_int8" if kv else "")] = got
             for line in lines:
                 log(line)
+        if name != "mamba2-370m":
+            # slice 9: the arch drafting for itself on the same trace, beside
+            # the plain run; the verify and commit passes on the batched 8
+            lens = CONT_PROMPTS + ([MIXED_LONG] if name == "recurrentgemma-2b" else [])
+            for kv in ((0, 8) if name == "gemma3-27b" else (0,)):
+                key = short + ("_int8" if kv else "")
+                lines, sl, bl, summary = spec_trace(cfg, params, cfg, params, counters, MIXED_CONT,
+                                                    lens, kv, what=f"spec {key}")
+                spec[key] = (sl, bl, summary)
+                for line in lines:
+                    log(line)
         if name == "gemma3-27b":
             # the prefix trace: the shared prefix is recomputed (rings are
             # rebuilt), its pages still shared
@@ -3070,7 +3216,260 @@ def slice8_serve(counters, gen) -> tuple:
         torch.cuda.empty_cache()
         for line in slice8_reference_checks(make_reduced(cfg)):
             log(line)
-    return paths, slice8_kernel_checks(gen)
+    for line in slice9_spec_reference_checks():
+        log(line)
+    return paths, slice8_kernel_checks(gen), spec
+
+
+# ---------------------------------------------------------------------------
+# Slice 9: the encoder-decoder and VLM families (phase 15)
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium: 4 stub sources of 1024 frames; both families serve
+# BATCH prompts of PROMPT tokens for NEW new ones; internvl2-1b prepends
+# 256 stub patches to each
+ENC_FRAMES = 1024
+
+
+@contextlib.contextmanager
+def recorded_flash():
+    """Record (causal, S, T, G) of every kernel-6 call the attention layers
+    make inside the block; each call goes on to the wrapper, which counts
+    the launch."""
+    import repro_torch.models.attention as ma
+
+    seen, real = [], ma.flash_attention_gqa
+
+    def rec(q, k, v, q_pos, k_pos, **kw):
+        seen.append((bool(kw.get("causal", True)), q.shape[1], k.shape[1], q.shape[2] // k.shape[2]))
+        return real(q, k, v, q_pos, k_pos, **kw)
+
+    ma.flash_attention_gqa = rec
+    try:
+        yield seen
+    finally:
+        ma.flash_attention_gqa = real
+
+
+def flash_calls(seen) -> dict:
+    """{"causal S x T G g" or "non-causal ...": calls} of a recorded run."""
+    out = {}
+    for causal, S, T, G in seen:
+        key = f"{'causal' if causal else 'non-causal'} {S}x{T} G{G}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def slice9_reference_check(cfg) -> str:
+    """A reduced f32 encoder-decoder or vlm config, the same weights and stub
+    embeddings on the card (kernels) and on the CPU (plain versions): the
+    encoder memory (seamless) and the teacher-forced logits within 1e-4
+    (f32, TF32 off), and ``Engine`` greedy tokens identical."""
+    from repro_torch.models.model import encode, forward, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    on_card = init_params(cfg, seed=SEED, device="cuda")
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    g = torch.Generator().manual_seed(SEED + 24)
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=g)
+    n = 37 if cfg.encoder is not None else cfg.frontend.n_tokens
+    emb = torch.randn((3, n, cfg.frontend.embed_dim), generator=g)
+    kw, errs = {}, {}
+    for dev, params in (("cuda", on_card), ("cpu", on_cpu)):
+        e = emb.to(dev)
+        if cfg.encoder is not None:
+            kw[dev] = dict(memory=encode(cfg, params, e))
+        else:
+            kw[dev] = dict(prefix_embeds=e)
+    if cfg.encoder is not None:
+        errs["memory"] = (kw["cuda"]["memory"].cpu() - kw["cpu"]["memory"]).abs().max().item()
+    a, _ = forward(cfg, on_card, toks.cuda(), **kw["cuda"])
+    b, _ = forward(cfg, on_cpu, toks, **kw["cpu"])
+    assert a.shape == b.shape and torch.isfinite(a).all()
+    errs["logits"] = (a.cpu() - b).abs().max().item()
+    if not (torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4) and errs.get("memory", 0) <= 1e-4):
+        raise AssertionError(f"reduced {cfg.name}: card against CPU max|d| {errs}")
+    ec = EngineConfig(max_batch=3, max_prefill=12, max_decode=8)
+    reqs = [Request(toks[i, : 12 - 3 * i].tolist(), 8) for i in range(3)]
+    card = [r.tokens for r in Engine(cfg, on_card, ec, device="cuda", **kw["cuda"]).generate(reqs)]
+    cpu = [r.tokens for r in Engine(cfg, on_cpu, ec, device="cpu", **kw["cpu"]).generate(reqs)]
+    if card != cpu:
+        raise AssertionError(f"reduced {cfg.name}: greedy tokens on the card {card} != CPU {cpu}")
+    return (f"slice-9 reference: reduced {cfg.name} f32, card (kernels) vs CPU (plain versions): "
+            + ", ".join(f"{k} max|d| {v:.3e}" for k, v in errs.items())
+            + f" (tolerance 1e-4), greedy tokens identical {card}")
+
+
+def slice9_serve(counters) -> tuple:
+    """Phase 15: seamless-m4t-medium and internvl2-1b at their published
+    sizes, bf16 random weights and seeded stub embeddings, one tree at a
+    time.  seamless: ``encode`` of 4 sources of ENC_FRAMES frames (kernel 6
+    once per encoder layer, non-causal, S = T = 1024), then ``Engine(
+    memory=...)`` on 4 prompts of PROMPT tokens for NEW (per prefill kernel
+    6 once per decoder layer causal and once per cross attention,
+    non-causal, 64 queries over 1024 keys; decode steps read the cross
+    caches through ``_sdpa``: no kernel).  internvl2: ``Engine(
+    prefix_embeds=...)``, 256 patches + PROMPT tokens (kernel 6 once per
+    layer, causal, S = 320, G = 7).  Launches counted against those; a
+    profile of 5 decode steps each; the reduced f32 models card vs CPU.
+    Returns (launches by path, kernel-6 calls by path)."""
+    from repro_torch.configs.registry import get_config, make_reduced
+    from repro_torch.models.model import encode, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    paths, calls = {}, {}
+    for name in ("seamless-m4t-medium", "internvl2-1b"):
+        cfg = get_config(name)
+        short = name.split("-")[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(b.numel() for b in params.buffers())
+        G = cfg.num_heads // cfg.num_kv_heads
+        n_enc = sum(s.num_layers for s in cfg.encoder.segments) if cfg.encoder is not None else 0
+        enc = f"{n_enc} encoder + " if n_enc else ""
+        log(f"slice 9: {cfg.name} at its published size, {enc}{cfg.num_layers} decoder layers, "
+            f"d_model {cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} (G = {G}), dh "
+            f"{cfg.head_dim}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} G parameters "
+            f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        egen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+        rng = torch.Generator().manual_seed(SEED + 26)
+        reqs = [Request(torch.randint(0, cfg.vocab_size, (PROMPT,), generator=rng).tolist(), NEW)
+                for _ in range(BATCH)]
+        kw = {}
+        if cfg.encoder is not None:
+            src = torch.randn((BATCH, ENC_FRAMES, cfg.frontend.embed_dim), generator=egen,
+                              device="cuda").bfloat16()
+            encode(cfg, params, src)  # warm-up
+            torch.cuda.synchronize()
+            reset(*counters)
+            with recorded_flash() as seen:
+                t0 = time.perf_counter()
+                memory = encode(cfg, params, src)
+                torch.cuda.synchronize()
+                enc_ms = (time.perf_counter() - t0) * 1e3
+            got = read(counters, f"{short} encode")
+            want = {k: 0 for k in got}
+            want["flash_attention"] = n_enc
+            ref_calls = {f"non-causal {ENC_FRAMES}x{ENC_FRAMES} G{G}": n_enc}
+            if got != want or flash_calls(seen) != ref_calls:
+                raise AssertionError(f"{short} encode launches {got} ({flash_calls(seen)}), expected "
+                                     f"{want} ({ref_calls})")
+            assert memory.shape == (BATCH, ENC_FRAMES, cfg.d_model) and torch.isfinite(memory).all()
+            paths[f"{short}_encode"], calls[f"{short}_encode"] = got, flash_calls(seen)
+            log(f"{short} encode: {BATCH} sources x {ENC_FRAMES} frames through {n_enc} encoder "
+                f"layers in {enc_ms:.3f} ms; memory {tuple(memory.shape)} finite; launches {got}; "
+                f"kernel-6 calls {flash_calls(seen)}")
+
+            def run_encode(prof):
+                with prof or contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    encode(cfg, params, src)
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t0) * 1e3
+
+            for line in profile_account(run_encode, 1, f"{short} encode"):
+                log(line)
+            kw = dict(memory=memory)
+            prefill_calls = {f"causal {PROMPT}x{PROMPT} G{G}": cfg.num_layers,
+                             f"non-causal {PROMPT}x{ENC_FRAMES} G{G}": cfg.num_layers}
+        else:
+            P = cfg.frontend.n_tokens
+            kw = dict(prefix_embeds=torch.randn((BATCH, P, cfg.frontend.embed_dim), generator=egen,
+                                                device="cuda").bfloat16())
+            prefill_calls = {f"causal {P + PROMPT}x{P + PROMPT} G{G}": cfg.num_layers}
+        eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW),
+                     device="cuda", **kw)
+        eng.generate(reqs)  # warm-up
+        torch.cuda.synchronize()
+        reset(*counters)
+        with recorded_flash() as seen:
+            t0 = time.perf_counter()
+            out = eng.generate(reqs)
+            wall = time.perf_counter() - t0
+        got = read(counters, f"{short} serve")
+        assert len(out) == BATCH and all(len(r.tokens) == NEW for r in out)
+        assert all(0 <= tok < cfg.vocab_size for r in out for tok in r.tokens)
+        want = {k: 0 for k in got}
+        want["flash_attention"] = sum(prefill_calls.values())
+        if got != want or flash_calls(seen) != prefill_calls:
+            raise AssertionError(f"{short} serve launches {got} ({flash_calls(seen)}), expected "
+                                 f"{want} ({prefill_calls})")
+        paths[f"{short}_static"], calls[f"{short}_static"] = got, flash_calls(seen)
+        tm = eng.last_timings
+        step_ms = statistics.median(tm["decode_step_s"]) * 1e3
+        given = (f"a memory of {ENC_FRAMES} frames" if cfg.encoder is not None
+                 else f"{cfg.frontend.n_tokens} patches before each")
+        log(f"{short} serve: {BATCH} requests x {NEW} tokens (prompts of {PROMPT}, {given}) in "
+            f"{wall * 1e3:.3f} ms ({BATCH * NEW / wall:.1f} tok/s); prefill "
+            f"{tm['prefill_s'] * 1e3:.3f} ms; decode step median {step_ms:.3f} ms over "
+            f"{len(tm['decode_step_s'])} steps; launches {got}; kernel-6 calls {flash_calls(seen)}; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"{short} serve: tokens of request 0: {out[0].tokens}")
+        for line in profile_decode(eng, cfg, params, what=f"{short} decode"):
+            log(line)
+        del eng, params, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(slice9_reference_check(make_reduced(cfg)))
+    return paths, calls
+
+
+def slice9_kernel_checks(gen) -> dict:
+    """Kernel 6 against its plain version at the slice-9 shapes, in bf16 and
+    f32, each timed from CUDA graphs beside its bound and SDPA: non-causal
+    4 x 1024 at 16 heads over 16 (G = 1, dh 64: seamless's encoder),
+    non-causal 64 queries at position 0 over 1024 keys (its cross
+    attention), causal 4 x 320 at 14 heads over 2 (G = 7, dh 64:
+    internvl2's prefill); and untimed, non-causal with empty keys (k_pos
+    -1: every 5th key, and all of row 2's, which must give 0).  Returns
+    ({shape: info} non-causal, {shape: info} G = 7)."""
+    from repro_torch.kernels import flash_attention as k6
+
+    nc, g7 = {}, {}
+    for dt, tol, dl in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
+        for store, label, (B, S, T, H, Hkv, causal, qzero) in (
+                (nc, "encoder_4x1024", (BATCH, ENC_FRAMES, ENC_FRAMES, 16, 16, False, False)),
+                (nc, "cross_64x1024", (BATCH, PROMPT, ENC_FRAMES, 16, 16, False, True)),
+                (g7, "internvl2_4x320", (BATCH, 256 + PROMPT, 256 + PROMPT, 14, 2, True, False))):
+            q = torch.randn((B, S, H, 64), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((B, T, Hkv, 64), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            qpos = (torch.zeros((B, S), dtype=torch.int32, device="cuda") if qzero else
+                    torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S).contiguous())
+            kpos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T).contiguous()
+            kw = dict(scale=0.125, causal=causal)
+            info = flash_info(q, k, qpos, kpos, kw)
+            if dt == torch.bfloat16:
+                info["q_tile"] = q_tile_of(q)
+            info.update(check_flash((q, k, v, qpos, kpos), kw, tol, n=10,
+                                    library=lambda: sdpa_full(q, k, v, kw["scale"], causal)))
+            info.update(causal=causal, G=H // Hkv)
+            store[f"{dl}_{label}"] = info
+            log(f"kernel flash_attention {dl} {label} ({'causal' if causal else 'non-causal'}, "
+                f"{H} heads over {Hkv}, dh 64{', queries at position 0' if qzero else ''}): "
+                f"{json.dumps(info)}")
+            del q, k, v
+        # empty keys, non-causal: every 5th key empty, row 2's all
+        q = torch.randn((3, PROMPT, 16, 64), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((3, 300, 16, 64), generator=gen, device="cuda").to(dt) for _ in range(2))
+        qpos = torch.zeros((3, PROMPT), dtype=torch.int32, device="cuda")
+        kpos = torch.arange(300, dtype=torch.int32, device="cuda").expand(3, 300).contiguous()
+        kpos[:, ::5] = -1
+        kpos[2] = -1
+        kw = dict(scale=0.125, causal=False)
+        info = flash_info(q, k, qpos, kpos, kw)
+        info.update(check_flash((q, k, v, qpos, kpos), kw, tol, timed=False))
+        if k6.flash_attention_gqa(q, k, v, qpos, kpos, **kw)[2].abs().max().item() != 0:
+            raise AssertionError(f"kernel 6 non-causal {dl}: a row with no valid key must give 0")
+        nc[f"{dl}_empty_keys_64x300"] = info
+        log(f"kernel flash_attention {dl} non-causal, 64 queries over 300 keys, every 5th key "
+            f"and all of row 2 empty (row 2 gives 0): {json.dumps(info)}")
+    return nc, g7
 
 
 # ---------------------------------------------------------------------------
@@ -3587,7 +3986,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"llama4 trees deleted: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
-    lines, nlg_launches = nlg_serve(counters)
+    lines, nlg_launches, nlg_grouped_launches = nlg_serve(counters)
     for line in lines:
         log(line)
     # 11b. the paper's pairing, speculative, at published sizes
@@ -3617,7 +4016,16 @@ def main() -> int:
     # (windowed, and at dh 256) and 9 (over wrapped int8 rings)
     gc.collect()
     torch.cuda.empty_cache()
-    s8_paths, (s8_win, s8_d256, s8_ring) = slice8_serve(counters, gen)
+    s8_paths, (s8_win, s8_d256, s8_ring), s9_spec = slice8_serve(counters, gen)
+    spec_runs.update(s9_spec)
+
+    # 15. slice 9: seamless-m4t-medium (encoder, cross attention) and
+    # internvl2-1b (prefix embeddings) at their published sizes, and kernel
+    # 6 non-causal and at G = 7
+    gc.collect()
+    torch.cuda.empty_cache()
+    s9_paths, s9_calls = slice9_serve(counters)
+    s9_nc, s9_g7 = slice9_kernel_checks(gen)
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -3781,6 +4189,8 @@ def main() -> int:
                              "capacity_continuous": cap_cont["flash_attention"],
                              "capacity_quantized_static": cap_qstatic["flash_attention"],
                              "nlg_static": nlg_launches["flash_attention"],
+                             "nlg_grouped_static": nlg_grouped_launches["flash_attention"],
+                             **{f"slice9_{p}": c["flash_attention"] for p, c in s9_paths.items()},
                              "glm4_static": glm4_launches["flash_attention"],
                              "contiguous": contig[0]["flash_attention"],
                              "contiguous_int8": contig[8]["flash_attention"]},
@@ -3836,6 +4246,34 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "library_call": call,
             "shapes": checks,
         })
+    # slice 9: kernel 6 without a causal mask (seamless's encoder and cross
+    # attention) and at G = 7 (internvl2), each with its launches in the
+    # slice-9 paths, from the recorded calls
+    nc_calls = lambda p: sum(n for key, n in s9_calls[p].items() if key.startswith("non-causal"))
+    g7_calls = lambda p: sum(n for key, n in s9_calls[p].items() if key.endswith("G7"))
+    for kname, checks, main_shape, by_path, call in (
+            ("flash_attention_noncausal", s9_nc, "bf16_encoder_4x1024",
+             {p: nc_calls(p) for p in s9_calls if nc_calls(p)},
+             "F.scaled_dot_product_attention(is_causal=False, enable_gqa=True) over [B, heads, "
+             "tokens, dh] copies of the model's layouts, fused backends only (the copies timed on "
+             "their own: library_layout_ms); ms and library_ms are device times from CUDA graphs"),
+            ("flash_attention_g7", s9_g7, "bf16_internvl2_4x320",
+             {p: g7_calls(p) for p in s9_calls if g7_calls(p)},
+             "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), as for "
+             "flash_attention")):
+        m = checks[main_shape]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:88",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+            "max_rel_err": max(v["max_rel_err"] for v in checks.values()),
+            "max_row_rel_err": max(v["max_row_rel_err"] for v in checks.values()),
+            "ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_layout_ms": m["library_layout_ms"], "library_call": call, "shapes": checks,
+        })
+    log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

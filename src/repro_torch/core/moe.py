@@ -11,7 +11,9 @@ Dispatch implementations (``cfg.moe_impl``):
                   (core/dispatch_einsum.py; the paper's baseline);
   * ``grouped`` — the dropless expert-sorted dispatch (core/dispatch_grouped.py),
                   whose expert MLP is the grouped kernel (kernel 4, kernel 5
-                  for MoQ int8 / int4 experts);
+                  for MoQ int8 / int4 experts) for SwiGLU experts, and for
+                  GELU / ReLU experts plain batched products over each
+                  tile's gathered weights (``grouped_act_ffn``);
   * ``ep``, ``ep_serve``, ``ep_grouped`` — expert parallelism, which needs a
                   mesh; the port has none (ROADMAP.md, queue 1 item 7), so
                   they resolve as the JAX package resolves them without one:
@@ -28,7 +30,7 @@ shared expert).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,7 +51,11 @@ from repro_torch.kernels.expert_mlp_quant import (
 )
 from repro_torch.kernels.moe_gating import gating
 from repro_torch.models.modules import act_fn, dense_init, init_mlp, mlp
-from repro_torch.quant.qarrays import QuantizedArray, materialize
+from repro_torch.quant.qarrays import QuantizedArray, dequantize_values, materialize
+
+# the most bytes of per-tile expert weights (gathered, and their f32 copies)
+# that one block of ``grouped_act_ffn`` holds at a time
+GATHER_BYTES = 1 << 30
 
 # the expert-parallel names without a mesh (``repro/core/moe.py``: "ep" and
 # "ep_serve" take the dense mapping table, "ep_grouped" the grouped kernel)
@@ -102,19 +108,59 @@ def _experts_ffn_quant(params: dict, xe: torch.Tensor, act: str, fill, n_assign)
     return torch.bmm(act_fn(act)(torch.bmm(xe, materialize(wi))), materialize(wo))
 
 
-def grouped_experts_ffn(params: dict, xg, te, rows_used, act: str):
+def _gathered(w, idx: torch.Tensor) -> torch.Tensor:
+    """Experts ``idx`` of a [E, Din, Dout] leaf, [n, Din, Dout] in f32: a
+    quantized leaf dequantized to its original type first, as
+    ``QuantizedArray.dequantize`` does in JAX."""
+    if isinstance(w, QuantizedArray):
+        w = dequantize_values(w.q[idx], w.scale[idx], w.bits, w.group_size, w.axis, w.orig_dtype)
+    else:
+        w = w[idx]
+    return w.float()
+
+
+def grouped_act_ffn(params: dict, xg: torch.Tensor, te: torch.Tensor, act: str,
+                    n_assign: Optional[int] = None) -> torch.Tensor:
+    """GELU / ReLU experts over the grouped layout (xg [Ct, D], te [Ct /
+    tile]) -> [Ct, D]: what the JAX package's ``grouped_mlp_ref`` /
+    ``grouped_mlp_quant_ref`` compute outside any Pallas kernel, each tile's
+    expert weights gathered, f32 products, the activation rounded to the
+    input type.  The live tiles are a prefix of at most ``n_assign`` (T*K:
+    each holds an assignment) tiles; only those are computed, and the rest
+    are zeros, as every activation maps their zero rows to.  They go in
+    blocks whose gathered weights stay under ``GATHER_BYTES``.  The tile
+    and block counts follow from the shapes, so no step reads a device
+    value."""
+    wi, wo = params["wi"], params["wo"]
+    Ct, D = xg.shape
+    nt = te.shape[0]
+    live = nt if n_assign is None else min(nt, n_assign)
+    F = wi.shape[-1]
+    step = max(1, GATHER_BYTES // (2 * D * F * (wi.dtype.itemsize + 4)))
+    fn = act_fn(act)
+    xt = xg.view(nt, Ct // nt, D)
+    out = torch.zeros_like(xt)
+    for t0 in range(0, live, step):
+        t1 = min(live, t0 + step)
+        idx = te[t0:t1].long()
+        h = fn(torch.bmm(xt[t0:t1].float(), _gathered(wi, idx))).to(xg.dtype)
+        out[t0:t1] = torch.bmm(h.float(), _gathered(wo, idx)).to(xg.dtype)
+    return out.view(Ct, D)
+
+
+def grouped_experts_ffn(params: dict, xg, te, rows_used, act: str,
+                        n_assign: Optional[int] = None):
     """xg: [Ct, D] expert-sorted tile-padded tokens; te: [Ct/tile] tile ->
     expert map -> [Ct, D], through the grouped kernel (SwiGLU experts).
 
     Quantized experts take kernel 5 when their layout suits it
     (``check_grouped_quant_compat``: per-output-column scales); others
     (group-wise scales) take the plain dequantize path, as the JAX package
-    does on the TPU.  The choice reads the weights' layout only."""
+    does on the TPU.  The choice reads the weights' layout only.  GELU /
+    ReLU experts take ``grouped_act_ffn``, fp and quantized, over at most
+    ``n_assign`` (T*K) live tiles."""
     if act != "swiglu":
-        raise NotImplementedError(
-            f"grouped experts with act={act!r} are not ported yet: the grouped "
-            "kernel is SwiGLU-only (ROADMAP.md, queue 1 item 5: GELU / ReLU grouped experts); "
-            "moe_impl='dense' serves them")
+        return grouped_act_ffn(params, xg, te, act, n_assign)
     wi, wg, wo = params["wi"], params["wg"], params["wo"]
     if isinstance(wi, QuantizedArray):
         if check_grouped_quant_compat(wi, wg, wo):
@@ -145,7 +191,8 @@ def moe_layer(
         # dropless: capacity = T*K, so every assignment keeps its expert
         g = top_k_gating(logits, K, T * K)
         y = dispatch_grouped.moe_grouped(
-            xs, g, E, lambda xg, te, rows: grouped_experts_ffn(params, xg, te, rows, spec.act))
+            xs, g, E, lambda xg, te, rows: grouped_experts_ffn(params, xg, te, rows, spec.act,
+                                                               T * K))
     else:
         capacity = expert_capacity(T, E, K, spec.capacity_factor)
         g, counts = gating(logits, K, capacity)

@@ -18,9 +18,14 @@ prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write,
   ... --quant-bits 8 --quant-policy experts --kv-bits 8   # MoQ weights, int8 KV cache
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --reduced
   ... --arch recurrentgemma-2b | mamba2-370m     # window rings, RG-LRU, Mamba-2 SSD
+  ... --paged --spec-draft self                  # any of them as target or drafter
 
 A subset of ``repro.launch.serve``'s flags; the others exit with an error
-naming the ROADMAP item that ports them.
+naming the ROADMAP item that ports them.  An encoder-decoder arch
+(seamless-m4t-medium) exits with an error: the launcher has no encoder
+input to give it (``Engine(memory=encode(...))`` serves it from Python); a
+vlm arch serves text tokens without patch embeddings, as the JAX launcher
+does.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import numpy as np
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.configs.registry import get_config, make_reduced
-from repro_torch.models.model import arch_fully_paged, init_caches, init_paged_caches, init_params
+from repro_torch.models.model import init_caches, init_paged_caches, init_params
 from repro_torch.quant import kv_cache_bytes, quantize_params, quantized_leaf_paths, tree_bytes
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
@@ -138,6 +143,9 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
+    if cfg.encoder is not None:
+        ap.error(f"--arch {cfg.name} is an encoder-decoder model: the launcher has no encoder "
+                 "input for it; serve it through Engine(memory=encode(...))")
     if args.top_k > cfg.vocab_size:
         ap.error(f"--top-k {args.top_k} exceeds vocab_size {cfg.vocab_size}")
     if args.moe_impl:
@@ -162,10 +170,6 @@ def main(argv=None) -> None:
             for _ in range(args.requests)]
     if args.paged:
         spec_draft = None
-        if args.spec_draft and not (arch_fully_paged(cfg) and arch_fully_paged(
-                cfg if args.spec_draft == "self" else dcfg)):
-            ap.error("--spec-draft with an arch that keeps per-slot state (window rings, SSM / "
-                     "LRU states) is not ported yet (ROADMAP.md, queue 1 item 5)")
         if args.spec_draft == "self":
             spec_draft = (cfg, params)
         elif args.spec_draft:
@@ -290,7 +294,8 @@ def serve_paged(args, cfg, params, reqs, spec_draft=None) -> None:
         emitted = sum(s["emitted"] for s in sp)
         print(f"speculation: {emitted} tokens / {windows} verify passes = "
               f"{emitted / max(windows, 1):.2f} tok/verify (accept rate "
-              f"{accepted / max(drafted, 1):.2f}, k={eng.spec_k})")
+              f"{accepted / max(drafted, 1):.2f}, k={eng.spec_k}); {eng.spec_resyncs} drafter "
+              "resyncs")
     print("sample:", done[ids[0]].tokens[:10])
 
 

@@ -1,5 +1,5 @@
-"""GQA self-attention with contiguous, ring and paged KV caches
-(``repro/models/attention.py``, global and sliding-window kinds).
+"""GQA attention with contiguous, ring and paged KV caches
+(``repro/models/attention.py``: global, sliding-window and cross kinds).
 
 Modes ``train`` / ``prefill`` / ``decode`` (uniform batch index) and
 ``decode_ragged`` (per-row positions, the contiguous continuous engine) run
@@ -37,6 +37,12 @@ never builds the ``[S, T]`` logits) and on the CPU its plain version, which
 attends 1024 queries at a time.  The contiguous fp decode (uniform or
 ragged) keeps the plain ``_sdpa``, whose softmax runs in f32 exactly as the JAX ``_sdpa``
 does (f32 logits, probabilities cast to ``v``'s type).
+Cross attention (kind ``cross``, an encoder-decoder's decoder) attends over
+the encoder's ``memory`` with no causal mask and no RoPE: at prefill it
+projects K/V from the memory, attends through kernel 6 (query positions 0,
+key positions the memory's) and writes its per-row cross cache, full
+precision whatever the self caches are; a decode step reads that cache
+through ``_sdpa``.
 """
 from __future__ import annotations
 
@@ -60,20 +66,14 @@ from repro_torch.quant.qarrays import materialize
 NEG_INF = -1e30
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
-
-
 MODES = ("train", "prefill", "decode", "decode_ragged", "decode_paged", "prefill_chunk",
          "prefill_chunk_batched")
 PAGED_MODES = ("decode_paged", "prefill_chunk", "prefill_chunk_batched")
 
 
 def check_spec(spec: AttnSpec) -> None:
-    """Raise for the attention kinds the port does not take."""
-    if spec.kind == "cross":
-        _unported("cross attention", "item 5, the other mixers")
-    if spec.kind not in ("global", "local"):
+    """Raise for an attention kind the JAX package does not have."""
+    if spec.kind not in ("global", "local", "cross"):
         raise ValueError(f"unknown attention kind {spec.kind!r}")
 
 
@@ -463,6 +463,47 @@ def _proj(x, w):
     return (x @ w.reshape(d, -1)).view(*x.shape[:-1], *w.shape[1:])
 
 
+def _cross_attention(cfg: ModelConfig, spec: AttnSpec, params: dict, x: torch.Tensor,
+                     memory: Optional[torch.Tensor], cache: Optional[dict], mode: str):
+    """The ``cross`` kind: queries of x [B, S, d] over the encoder memory [B,
+    T, d], no causal mask, no RoPE (JAX ``attention``'s cross branch).  A
+    decode mode reads the cross cache; every other mode projects K/V from
+    ``memory``, attends through kernel 6 (query positions 0, key positions
+    0 .. T - 1, non-causal) and, in a prefill mode, writes the cache's
+    first T entries (a chunk rewrites the same values)."""
+    B, S, _ = x.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q = _proj(x, materialize(params["wq"]))
+    if spec.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.rms_eps)
+    if cache is not None and mode.startswith("decode"):
+        q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+        mask = _window_causal_mask(q_pos, cache["pos"], 0, causal=False)
+        y = _sdpa(q, cache["k"], cache["v"], mask, scale, spec.logit_softcap)
+    else:
+        if memory is None:
+            raise ValueError("cross attention needs the encoder memory outside a decode step")
+        mem = memory.to(x.dtype)
+        k = _proj(mem, materialize(params["wk"]))
+        v = _proj(mem, materialize(params["wv"]))
+        if spec.qk_norm:
+            k = rmsnorm(params["k_norm"], k, cfg.rms_eps)
+        T = k.shape[1]
+        k_pos = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+        q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+        y = attend_full(q, k, v, q_pos, k_pos, spec, scale)
+        if cache is not None and mode in ("prefill", "prefill_chunk", "prefill_chunk_batched"):
+            if T > cache["k"].shape[1]:
+                raise ValueError(f"cross attention: a memory of {T} positions for a cross cache "
+                                 f"of {cache['k'].shape[1]}")
+            cache["k"][:, :T] = k.to(cache["k"].dtype)
+            cache["v"][:, :T] = v.to(cache["v"].dtype)
+            cache["pos"][:, :T] = k_pos
+    wo = materialize(params["wo"])
+    H, dh, d = wo.shape
+    return y.reshape(B, S, H * dh) @ wo.reshape(H * dh, d), cache
+
+
 def attention(
     cfg: ModelConfig,
     spec: AttnSpec,
@@ -474,6 +515,7 @@ def attention(
     mode: str = "train",
     index: Optional[int] = None,
     block_table: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,
 ):
     """Returns (y, cache).  mode: train | prefill | decode | decode_ragged |
     decode_paged | prefill_chunk | prefill_chunk_batched.
@@ -500,11 +542,14 @@ def attention(
 
     A sliding-window layer keeps its per-slot ring in the paged modes: a
     paged decode is a ragged decode of the ring, and a chunk resumes it
-    (``_sdpa`` over ``cat(ring, chunk)``, then the ring write).
+    (``_sdpa`` over ``cat(ring, chunk)``, then the ring write).  A ``cross``
+    layer attends over ``memory`` (``_cross_attention``).
     """
     check_spec(spec)
     if mode not in MODES:
         raise ValueError(f"unknown attention mode {mode!r}")
+    if spec.kind == "cross":
+        return _cross_attention(cfg, spec, params, x, memory, cache, mode)
     paged = mode in PAGED_MODES and spec_is_paged(spec)
     if paged and block_table is None:
         raise ValueError(f"attention: {mode} of a paged layer needs a block table")

@@ -2,8 +2,9 @@
 final norm -> logits.
 
 Entry points: ``init_params``, ``init_caches``, ``forward`` (teacher-forced
-logits), ``prefill`` (logits of the last position, caches filled) and
-``decode_step`` (one token, caches updated in place); for contiguous
+logits), ``prefill`` (logits of the last position, caches filled),
+``decode_step`` (one token, caches updated in place) and ``encode`` (the
+encoder stack of an encoder-decoder model); for contiguous
 continuous batching ``prefill_into_slot`` and ``ragged_decode_step``; for
 paged serving ``init_paged_caches``, ``paged_prefill_chunk``,
 ``paged_prefill_chunk_batched``, ``paged_prefill_into_slot`` (the scatter
@@ -17,6 +18,11 @@ pool, as the JAX package does: a paged decode merges those leaves under the
 rows' ``active`` mask, a chunk resumes them (or, for an admission's first
 chunk, starts them fresh), and the scatter and contiguous admissions prefill
 them in the slot's row.
+Frontend-stub models take precomputed frame or patch embeddings: a learned
+projector (``frontend_proj``) maps them to d_model, and they feed the
+encoder (audio encoder-decoder: ``encode``, whose output is the ``memory``
+the decoder's cross attention reads) or are prepended to the token
+embeddings (vlm: ``prefix_embeds``).
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose nesting and
 leaf names are the JAX package's parameter tree, so a JAX tree converts leaf
 for leaf (``repro_torch.convert``).
@@ -31,7 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.models.attention import _paged_clamp_table, spec_is_paged
-from repro_torch.models.modules import DTYPES, embed_init, init_rmsnorm, rmsnorm
+from repro_torch.models.modules import DTYPES, dense_init, embed_init, init_rmsnorm, rmsnorm
 from repro_torch.models.transformer import apply_segment, init_segment, init_segment_cache
 from repro_torch.quant.kv import QuantizedKV
 from repro_torch.quant.qarrays import materialize
@@ -61,13 +67,6 @@ class ParamTree(nn.Module):
         return [(k, self[k]) for k in self._keys]
 
 
-def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models are not ported yet "
-            "(ROADMAP.md, queue 1 item 5)")
-
-
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; ``cuda`` without an index names the
     current card, and raises where there is none."""
@@ -87,8 +86,9 @@ def resolve_device(device) -> torch.device:
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> ParamTree:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
-    seeded with ``seed`` (``device="meta"`` gives shapes only)."""
-    _check_cfg(cfg)
+    seeded with ``seed`` (``device="meta"`` gives shapes only); an
+    encoder-decoder config also gets ``encoder`` (its segments and final
+    norm), a frontend config ``frontend_proj`` [embed_dim, d_model]."""
     device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
@@ -100,18 +100,27 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> ParamTree:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device).T.contiguous()  # [D, V]
+    if cfg.encoder is not None:
+        p["encoder"] = {
+            "segments": {f"seg{i}": init_segment(gen, cfg, seg, dt, device)
+                         for i, seg in enumerate(cfg.encoder.segments)},
+            "final_norm": init_rmsnorm(cfg.d_model, dt, device),
+        }
+    if cfg.frontend is not None:
+        p["frontend_proj"] = dense_init(gen, cfg.frontend.embed_dim, cfg.d_model, dt, device)
     return ParamTree(p)
 
 
-def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, kv_bits: int = 0,
-                device="cuda") -> dict:
+def init_caches(cfg: ModelConfig, batch: int, capacity: int, *, cross_len: int = 0,
+                kv_bits: int = 0, device="cuda") -> dict:
     """Contiguous KV caches, ``[repeats, batch, capacity, ...]`` per segment
     position; ``kv_bits=8`` stores K/V as int8 ``QuantizedKV`` (quantized on
-    write), 0 in full precision."""
-    _check_cfg(cfg)
+    write), 0 in full precision.  Cross-attention layers get a cross cache
+    of ``max(cross_len, 1)`` entries, full precision."""
     device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
-    return {f"seg{i}": init_segment_cache(cfg, seg, batch, capacity, dt, device, kv_bits=kv_bits)
+    return {f"seg{i}": init_segment_cache(cfg, seg, batch, capacity, dt, device, kv_bits=kv_bits,
+                                          cross_len=cross_len)
             for i, seg in enumerate(cfg.segments)}
 
 
@@ -124,7 +133,6 @@ def init_paged_caches(cfg: ModelConfig, slots: int, capacity: int, *, n_pages: i
     per-sequence context bound (it sizes the tables and the rings, not the
     pool).  ``kv_bits=8`` makes the pages and rings int8 with per-(token,
     head) scales."""
-    _check_cfg(cfg)
     device = resolve_device(device)
     dt = DTYPES[cfg.param_dtype]
     return {f"seg{i}": init_segment_cache(cfg, seg, slots, capacity, dt, device,
@@ -150,49 +158,93 @@ def logits_out(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def _with_prefix(cfg: ModelConfig, params, x: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The token embeddings x [B, S, D] with the projected patch embeddings
+    ``prefix_embeds`` [B, P, De] prepended (vlm), or x as it is."""
+    if prefix_embeds is None:
+        return x
+    pre = prefix_embeds.to(x.dtype) @ materialize(params["frontend_proj"])
+    return torch.cat([pre, x], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Encoder (encoder-decoder models)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def encode(cfg: ModelConfig, params, source: torch.Tensor) -> torch.Tensor:
+    """The encoder stack: ``source`` [B, T, frontend.embed_dim] (stubbed
+    frontend embeddings, projected by ``frontend_proj``) or token ids [B,
+    T]; its segments in ``train`` mode (every self-attention layer through
+    kernel 6, non-causal), then the encoder's final norm -> the memory [B,
+    T, d_model]."""
+    if cfg.frontend is not None and source.ndim == 3:
+        x = source.to(DTYPES[cfg.compute_dtype]) @ materialize(params["frontend_proj"])
+    else:
+        x = embed_tokens(cfg, params, source)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+    enc = params["encoder"]
+    for i, seg in enumerate(cfg.encoder.segments):
+        x, _, _ = apply_segment(cfg, seg, enc["segments"][f"seg{i}"], x, pos, mode="train")
+    return rmsnorm(enc["final_norm"], x, cfg.rms_eps)
+
+
 # ---------------------------------------------------------------------------
 # Decoder entry points
 # ---------------------------------------------------------------------------
 
 
-def _run_segments(cfg, params, x, positions, caches, mode, index=None, block_table=None):
+def _run_segments(cfg, params, x, positions, caches, mode, index=None, block_table=None,
+                  memory=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(cfg.segments):
         c = caches[f"seg{i}"] if caches is not None else None
         x, _, a = apply_segment(cfg, seg, params["segments"][f"seg{i}"], x, positions,
-                                caches=c, mode=mode, index=index, block_table=block_table)
+                                caches=c, mode=mode, index=index, block_table=block_table,
+                                memory=memory)
         aux = aux + a
     return x, caches, aux
 
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced logits [B, S, V] and the summed aux loss."""
-    x = embed_tokens(cfg, params, tokens)
+            positions: Optional[torch.Tensor] = None, memory: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits [B, S (+ P), V] and the summed aux loss;
+    ``memory`` the encoder output the cross attention reads, ``prefix_embeds``
+    [B, P, De] patch embeddings prepended to the tokens."""
+    x = _with_prefix(cfg, params, embed_tokens(cfg, params, tokens), prefix_embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
-    x, _, aux = _run_segments(cfg, params, x, positions, None, "train")
+    x, _, aux = _run_segments(cfg, params, x, positions, None, "train", memory=memory)
     return logits_out(cfg, params, x), aux
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, caches: dict) -> Tuple[torch.Tensor, dict]:
-    """Returns (logits for the last position [B, V], caches filled in place)."""
-    x = embed_tokens(cfg, params, tokens)
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, caches: dict, *,
+            memory: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+    """Returns (logits for the last position [B, V], caches filled in place);
+    ``memory`` and ``prefix_embeds`` as in ``forward`` (the cross caches are
+    written from the memory)."""
+    x = _with_prefix(cfg, params, embed_tokens(cfg, params, tokens), prefix_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
-    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "prefill")
+    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "prefill", memory=memory)
     return logits_out(cfg, params, x[:, -1:])[:, 0], caches
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, index: int,
-                caches: dict) -> Tuple[torch.Tensor, dict]:
+                caches: dict, *, memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """One decode step at absolute position ``index`` (uniform over the
-    batch): returns (logits [B, V], caches updated in place)."""
+    batch): returns (logits [B, V], caches updated in place).  The cross
+    attention reads its cache; ``memory`` keeps JAX's signature."""
     x = embed_tokens(cfg, params, token)
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
-    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "decode", index=index)
+    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "decode", index=index,
+                                 memory=memory)
     return logits_out(cfg, params, x)[:, 0], caches
 
 

@@ -1,7 +1,8 @@
 """Block and segment assembly (``repro/models/transformer.py``).
 
-A block is a pre-norm mixer (attention, Mamba-2 SSD or RG-LRU) + a pre-norm
-FFN (dense, MoE or none), both residual.
+A block is a pre-norm mixer (attention, Mamba-2 SSD or RG-LRU) [+ a pre-norm
+cross attention over the encoder memory, in an encoder-decoder's decoder] + a
+pre-norm FFN (dense, MoE or none), all residual.
 Parameters and caches of a segment keep the JAX package's layout, stacked on
 a leading ``[repeats]`` axis; the JAX ``lax.scan`` over repeats becomes a
 Python loop that takes repeat ``r``'s views of both.
@@ -48,6 +49,9 @@ def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) 
         p["ssm"] = init_ssm(gen, cfg, m, dtype, device, lead=lead)
     else:
         p["lru"] = init_lru(gen, cfg, m, dtype, device, lead=lead)
+    if ls.cross is not None:
+        p["norm_cross"] = init_rmsnorm(cfg.d_model, dtype, device, lead=lead)
+        p["cross"] = init_attention(gen, cfg, ls.cross, dtype, device, lead=lead)
     if ls.ffn.kind == "dense":
         p["norm_ffn"] = init_rmsnorm(cfg.d_model, dtype, device, lead=lead)
         p["ffn"] = init_mlp(gen, cfg.d_model, ls.ffn.d_ff, ls.ffn.act, dtype, device, lead=lead)
@@ -58,27 +62,33 @@ def init_layer(gen, cfg: ModelConfig, ls: LayerSpec, dtype, device, *, lead=()) 
 
 
 def init_layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, capacity: int, dtype, device,
-                     *, lead=(), pages=None, kv_bits: int = 0) -> dict:
+                     *, lead=(), pages=None, kv_bits: int = 0, cross_len: int = 0) -> dict:
     """``capacity`` is the full-context length of a global layer's cache; a
     sliding-window layer gets a ring of ``min(window, capacity)`` slots.
     ``pages = (n_pages, page_size)`` puts a global layer's K/V into a shared
     page pool addressed through block tables (paged serving); rings and
     SSM / LRU states stay per-slot (``batch`` rows).  ``kv_bits=8`` stores
     self-attention K/V as int8 ``QuantizedKV`` (recurrent states stay
-    full precision)."""
+    full precision).  A layer with cross attention also gets a ``cross``
+    cache of ``max(cross_len, 1)`` entries per row, full precision."""
     check_layer(ls)
     m = ls.mixer
     if isinstance(m, SSMSpec):
-        return {"self": init_ssm_cache(batch, m, dtype, device, lead=lead)}
-    if isinstance(m, LRUSpec):
-        return {"self": init_lru_cache(batch, m, dtype, device, lead=lead)}
-    if pages is not None and spec_is_paged(m):
+        c = {"self": init_ssm_cache(batch, m, dtype, device, lead=lead)}
+    elif isinstance(m, LRUSpec):
+        c = {"self": init_lru_cache(batch, m, dtype, device, lead=lead)}
+    elif pages is not None and spec_is_paged(m):
         n_pages, page_size = pages
-        return {"self": init_paged_kv_cache(n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
-                                            dtype, device, lead=lead, kv_bits=kv_bits)}
-    cap = min(m.window, capacity) if (m.kind == "local" and m.window > 0) else capacity
-    return {"self": init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype, device,
-                                  lead=lead, kv_bits=kv_bits)}
+        c = {"self": init_paged_kv_cache(n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
+                                         dtype, device, lead=lead, kv_bits=kv_bits)}
+    else:
+        cap = min(m.window, capacity) if (m.kind == "local" and m.window > 0) else capacity
+        c = {"self": init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype, device,
+                                   lead=lead, kv_bits=kv_bits)}
+    if ls.cross is not None:
+        c["cross"] = init_kv_cache(batch, max(cross_len, 1), cfg.num_kv_heads, cfg.head_dim,
+                                   dtype, device, lead=lead)
+    return c
 
 
 def apply_layer(
@@ -92,8 +102,11 @@ def apply_layer(
     mode: str = "train",
     index: Optional[int] = None,
     block_table: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,
 ):
-    """Returns (x, cache, aux_loss); the cache is updated in place."""
+    """Returns (x, cache, aux_loss); the cache is updated in place.
+    ``memory`` [B, T, d] is the encoder output a cross-attention sublayer
+    attends over."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["norm_mixer"], x, cfg.rms_eps)
     sc = cache.get("self") if cache is not None else None
@@ -106,6 +119,11 @@ def apply_layer(
     else:
         y, _ = lru_layer(cfg, m, params["lru"], h, cache=sc, mode=mode, positions=positions)
     x = x + y
+    if ls.cross is not None:
+        h = rmsnorm(params["norm_cross"], x, cfg.rms_eps)
+        y, _ = attention(cfg, ls.cross, params["cross"], h, positions, memory=memory, mode=mode,
+                         cache=cache.get("cross") if cache is not None else None)
+        x = x + y
     if ls.ffn.kind == "dense":
         h = rmsnorm(params["norm_ffn"], x, cfg.rms_eps)
         x = x + mlp(params["ffn"], h, ls.ffn.act)
@@ -137,9 +155,9 @@ def init_segment(gen, cfg: ModelConfig, seg: Segment, dtype, device) -> dict:
 
 
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int, capacity: int, dtype,
-                       device, *, pages=None, kv_bits: int = 0) -> dict:
+                       device, *, pages=None, kv_bits: int = 0, cross_len: int = 0) -> dict:
     return {f"pos{j}": init_layer_cache(cfg, ls, batch, capacity, dtype, device, lead=(seg.repeats,),
-                                        pages=pages, kv_bits=kv_bits)
+                                        pages=pages, kv_bits=kv_bits, cross_len=cross_len)
             for j, ls in enumerate(seg.pattern)}
 
 
@@ -154,16 +172,19 @@ def apply_segment(
     mode: str = "train",
     index: Optional[int] = None,
     block_table: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,
 ):
     """Returns (x, caches, aux_sum); ``caches`` mirror the params with a
     leading ``repeats`` axis and are written in place.  ``block_table`` (the
-    paged modes) is the same for every layer."""
+    paged modes) and ``memory`` (cross attention) are the same for every
+    layer."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(seg.repeats):
         for j, ls in enumerate(seg.pattern):
             key = f"pos{j}"
             c = take(caches[key], r) if caches is not None else None
             x, _, a = apply_layer(cfg, ls, take(params[key], r), x, positions,
-                                  cache=c, mode=mode, index=index, block_table=block_table)
+                                  cache=c, mode=mode, index=index, block_table=block_table,
+                                  memory=memory)
             aux = aux + a
     return x, caches, aux

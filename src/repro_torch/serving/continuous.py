@@ -86,11 +86,21 @@ once per layer, no kernel 7) writes the window into copy-on-write forks and
 fresh pages, the longest agreeing prefix commits by refcount handoff and
 the rest rolls back by dropping pages.  The tokens are the non-speculative
 greedy engine's.  A speculative tick reads back twice: the proposals and
-the verify argmax ``[slots, k + 1]``.
+the verify argmax ``[slots, k + 1]``.  A target with per-slot state
+(window rings, SSM / LRU states), which the verify pass leaves untouched,
+re-runs each slot's accepted tokens after the commit through
+``paged_prefill_chunk_batched`` (the batched kernel 8 once per paged layer),
+which advances those leaves; its pool writes all go to the trash page (the
+``already`` guard: every accepted position is stored in a committed page).
+A drafter with per-slot state resyncs after a partial accept
+(``serving/spec.py``); ``spec_resyncs`` counts it.
+
+An encoder-decoder config is refused with a ``ValueError``: the engine takes
+no encoder memory, as the JAX engine takes none.  A vlm config serves its
+text tokens (no patch embeddings), as the JAX engine does.
 
 Not ported here, each raising ``NotImplementedError`` that names its ROADMAP
-item: expert-parallel meshes, observability, and speculative decoding with
-per-slot state in the target or the drafter.
+item: expert-parallel meshes and observability.
 """
 from __future__ import annotations
 
@@ -205,13 +215,11 @@ class ContinuousEngine:
         if prefill_mode == "batched" and not paged:
             raise ValueError("prefill_mode='batched' requires paged=True: the batched chunk "
                              "prefill writes directly into pool pages through block tables")
+        if cfg.encoder is not None:
+            raise ValueError(f"ContinuousEngine: {cfg.name} is an encoder-decoder model, and the "
+                             "engine takes no encoder memory; serve it through Engine(memory=...)")
         if spec_draft is not None:
             # draft-then-verify (serving/spec.py): spec_draft = (drafter cfg, params)
-            if not (arch_fully_paged(cfg) and arch_fully_paged(spec_draft[0])):
-                # JAX re-runs the accepted tokens to advance the per-slot
-                # leaves (_spec_commit) and resyncs recurrent drafters
-                _unported("speculative decoding with per-slot state (window rings, SSM / LRU "
-                          "states) in the target or the drafter", "item 5")
             if not paged:
                 raise ValueError("speculative decoding requires paged=True: rollback is "
                                  "implemented as dropping CoW page forks")
@@ -307,7 +315,7 @@ class ContinuousEngine:
         self._spec_tick_m: dict = {}
         self._spec_times: dict = {}
         self.spec_draft_tokens = self.spec_accepted_tokens = self.spec_verify_windows = 0
-        self.spec_committed_pages = self.spec_rolled_back_pages = 0
+        self.spec_committed_pages = self.spec_rolled_back_pages = self.spec_resyncs = 0
         if spec_draft is not None:
             dcfg, dparams = spec_draft
             self.drafter = Drafter(dcfg, prepare_params_for_serving(dcfg, dparams), slots=slots,
@@ -828,8 +836,10 @@ class ContinuousEngine:
             if pl["k"] == 0:
                 continue  # the window is the current token alone
             if self.drafter.needs_sync(i, slot.pos):
-                # a fresh or re-admitted slot (JAX also counts resyncs of
-                # recurrent drafters here, which the port does not take)
+                # a fresh or re-admitted slot; one whose watermark is valid
+                # but too far behind counts as a resync, as in JAX
+                if self.drafter.next_pos[i] >= 0:
+                    self._count_resync()
                 self.drafter.sync(i, slot.seq, slot.pos)
             forced = slot.seq[int(self.drafter.next_pos[i]):slot.pos + 1]
             need_draft.append((i, forced, pl["k"]))
@@ -912,7 +922,8 @@ class ContinuousEngine:
             slot.seq.extend(appended)
             slot.prefill_logits = None
             self._cur_token[i] = appended[-1]
-            self.drafter.after_commit(i, p, k, slot.pos)
+            if self.drafter.after_commit(i, p, k, a == k, slot.pos):
+                self._count_resync()  # a drafter with per-slot state, after a partial accept
             emitted_total += n
             accepted_total += a
             drafted_total += k
@@ -920,6 +931,9 @@ class ContinuousEngine:
         self.spec_verify_windows += len(commit_rows)
         self.spec_draft_tokens += drafted_total
         self.spec_accepted_tokens += accepted_total
+
+        if not arch_fully_paged(self.cfg):
+            self._spec_commit(commit_rows, S, C)
 
         # device-side invalidation, one upload: the committed pages' tails
         # (one fixed-shape call every tick) and the rolled-back pages
@@ -940,6 +954,41 @@ class ContinuousEngine:
         self._spec_times = dict(plan_s=t_plan - t0, draft_s=t_draft - t_plan,
                                 verify_s=t_verify - t_draft, commit_s=t_commit - t_verify)
         return emitted_total
+
+    def _count_resync(self) -> None:
+        self.spec_resyncs += 1
+        self._spec_tick_m["resyncs"] = self._spec_tick_m.get("resyncs", 0) + 1
+
+    def _spec_commit(self, commit_rows, S: int, C: int) -> None:
+        """The committed recurrent-state pass (JAX ``_spec_commit``): each
+        committed slot's accepted tokens (its current token and the accepted
+        drafts, positions ``p .. p + n - 1``) re-run through
+        ``paged_prefill_chunk_batched``, no reset, the other rows inactive,
+        so the per-slot leaves advance over exactly the committed tokens.
+        Its pool writes are inert: every position it writes is already
+        stored in a committed page, so the ``already`` guard sends it to the
+        trash page.  One upload."""
+        tokens = np.zeros((S, C), np.int32)
+        positions = np.full((S, C), -1, np.int32)
+        active = np.zeros((S,), np.int32)
+        last = np.zeros((S,), np.int32)
+        tbl = np.full((S, self.max_pages), -1, np.int32)
+        for i, pl, appended in commit_rows:
+            n, p = len(appended), pl["p"]
+            tokens[i, :n] = self.slots[i].seq[p : p + n]
+            positions[i, :n] = np.arange(p, p + n, dtype=np.int32)
+            active[i] = 1
+            last[i] = n - 1
+            tbl[i] = self.tables.row(i)
+        buf = torch.from_numpy(np.concatenate(
+            [tokens.reshape(-1), positions.reshape(-1), active, last, tbl.reshape(-1)])
+        ).to(self.device)
+        o = 2 * S * C
+        act = buf[o : o + S].bool()
+        _, self.caches = paged_prefill_chunk_batched(
+            self.cfg, self.params, buf[: S * C].view(S, C).long(), buf[S * C : o].view(S, C),
+            torch.zeros_like(act), act, buf[o + S : o + 2 * S].long(), self.caches,
+            buf[o + 2 * S :].view(S, self.max_pages))
 
     # ------------------------------------------------------------------
     def step(self) -> int:

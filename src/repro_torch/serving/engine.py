@@ -20,9 +20,17 @@ inside the grouped expert kernel or at their product sites), and
 ``EngineConfig.kv_cache_bits=8`` keeps the caches in int8, quantized on
 write and read by the int8 decode kernel.
 
+An encoder-decoder config serves with ``memory`` (the output of
+``models.model.encode``, [B, T, d_model]): every prefill writes the cross
+caches of ``T`` entries from it, and decode steps read them.  A vlm config
+takes ``prefix_embeds`` [B, P, embed_dim] (patch embeddings, prepended to
+every batch's prompts after ``frontend_proj``): its capacity grows by the
+frontend's ``n_tokens`` and its decode index is ``S + n_tokens + t``, as in
+the JAX engine (with or without ``prefix_embeds``).  Either tensor holds one
+row per request of a batch.
+
 Not ported here: meshes (expert-parallel serving), which raise if asked
-for; encoder memory, frontend embeddings and observability, which the
-engine takes no argument for.
+for, and observability, which the engine takes no argument for.
 """
 from __future__ import annotations
 
@@ -72,7 +80,8 @@ class Engine:
     """Synchronous batched engine: one prefill, then one decode step per
     token, on ``device`` (the card unless the caller passes ``"cpu"``)."""
 
-    def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, *, memory=None,
+                 prefix_embeds=None, device="cuda"):
         if cfg.ep_mesh:
             _unported("an expert-parallel mesh", "item 7")
         if ec.kv_cache_bits not in (0, 8):
@@ -82,15 +91,24 @@ class Engine:
         leaf = params["embed"]
         if leaf.device != self.device:
             raise ValueError(f"Engine: parameters are on {leaf.device}, the engine on {self.device}")
+        for what, t in (("memory", memory), ("prefix_embeds", prefix_embeds)):
+            if t is not None and t.device != self.device:
+                raise ValueError(f"Engine: {what} is on {t.device}, the engine on {self.device}")
         self.cfg = cfg
         self.params = params
         self.ec = ec
-        self._capacity = ec.max_prefill + ec.max_decode
+        self.memory = memory
+        self.prefix_embeds = prefix_embeds
+        # a vlm's patch positions come first: its decode index is S + offset + t
+        self._offset = cfg.frontend.n_tokens if (cfg.frontend is not None
+                                                 and cfg.family == "vlm") else 0
+        self._capacity = ec.max_prefill + ec.max_decode + self._offset
+        self._cross_len = memory.shape[1] if memory is not None else 0
         self.last_timings: dict = {}
 
     def _make_caches(self, batch: int) -> dict:
-        return init_caches(self.cfg, batch, self._capacity, kv_bits=self.ec.kv_cache_bits,
-                           device=self.device)
+        return init_caches(self.cfg, batch, self._capacity, cross_len=self._cross_len,
+                           kv_bits=self.ec.kv_cache_bits, device=self.device)
 
     def generate(self, requests: Sequence[Request], *, seed: int = 0) -> List[Response]:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -117,7 +135,8 @@ class Engine:
 
         caches = self._make_caches(B)
         t0 = time.perf_counter()
-        logits, caches = prefill(cfg, self.params, torch.from_numpy(toks).to(self.device), caches)
+        logits, caches = prefill(cfg, self.params, torch.from_numpy(toks).to(self.device), caches,
+                                 memory=self.memory, prefix_embeds=self.prefix_embeds)
         cur = self._sample(logits, gen)
 
         max_new = min(max(r.max_new_tokens for r in reqs), ec.max_decode)
@@ -138,7 +157,8 @@ class Engine:
             if done.all() or t == max_new - 1:
                 generated = generated[:, : t + 1]
                 break
-            logits, caches = decode_step(cfg, self.params, cur[:, None].long(), S + t, caches)
+            logits, caches = decode_step(cfg, self.params, cur[:, None].long(),
+                                         S + self._offset + t, caches, memory=self.memory)
             cur = self._sample(logits, gen)
         self.last_timings = {"prefill_s": prefill_s, "decode_step_s": step_s,
                              "batch": B, "prompt_len": S}

@@ -25,11 +25,14 @@ tokens from position ``p`` the drafter has consumed ``p .. p + k - 1``; on
 commit the watermark becomes ``min(p + k, p')`` (``p'`` the slot's new
 position).  After a full accept the next propose force-feeds 2 tokens (the
 bonus token too).  After a partial accept the tokens past the accept point
-were wrong, which is still exact for attention-only drafters: contiguous
-attention masks by position, and the next window's steps overwrite the
-stale entries index by index before attending to them.  Drafters with
-recurrent state would have to re-prefill after a partial accept; they are
-not ported (ROADMAP.md queue 1 item 5).  A slot release only invalidates the
+were wrong, which is still exact for drafters whose every layer attends
+over a full-context cache (``exact_partial``): contiguous attention masks by
+position, and the next window's steps overwrite the stale entries index by
+index before attending to them.  A drafter with per-slot state (window
+rings, whose stale writes evict keys still in the window; SSM / LRU states,
+which cannot step back) is invalidated instead (``after_commit`` returns
+True) and re-prefills through ``sync`` at the slot's next speculative tick;
+the engine counts those resyncs.  A slot release only invalidates the
 watermark, and the drafter re-prefills lazily at the slot's next
 speculative tick.
 """
@@ -67,10 +70,6 @@ class Drafter:
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int, capacity: int, spec_k: int,
                  device):
-        if not arch_fully_paged(cfg):
-            raise NotImplementedError(
-                f"Drafter: {cfg.name} has recurrent or windowed state; drafters with per-slot "
-                "state are not ported yet (ROADMAP.md, queue 1 item 5)")
         self.cfg = cfg
         self.params = params
         self.n_slots = int(slots)
@@ -80,6 +79,10 @@ class Drafter:
         self.caches = init_caches(cfg, slots, capacity, kv_bits=0, device=device)
         # sequence tokens correctly consumed per slot (-1 = cache invalid)
         self.next_pos = np.full((slots,), -1, np.int64)
+        # full-context attention only: exact across partial accepts (stale
+        # entries are overwritten before they are read); per-slot state
+        # (rings, SSM / LRU states) resyncs instead
+        self.exact_partial = arch_fully_paged(cfg)
         self.syncs = self.proposes = 0  # model calls: prefills, propose loops
 
     def invalidate(self, slot: int) -> None:
@@ -141,9 +144,13 @@ class Drafter:
         return {slot: [int(x) for x in outs[len(ftoks) - 1:len(ftoks) - 1 + k, slot]]
                 for slot, ftoks, k in rows}
 
-    def after_commit(self, slot: int, p: int, k: int, new_pos: int) -> None:
+    def after_commit(self, slot: int, p: int, k: int, accepted_all: bool, new_pos: int) -> bool:
         """Advance the validity watermark after a commit: the drafter
-        consumed positions ``p .. p + k - 1``, correct up to ``new_pos``.
-        Exact after a partial accept too, for the attention-only drafters
-        the constructor takes (JAX invalidates a recurrent drafter here)."""
-        self.next_pos[slot] = min(p + k, new_pos)
+        consumed positions ``p .. p + k - 1``, correct up to ``new_pos``.  A
+        drafter with per-slot state after a partial accept is invalidated
+        instead; returns True then (the engine counts a resync)."""
+        if self.exact_partial or accepted_all:
+            self.next_pos[slot] = min(p + k, new_pos)
+            return False
+        self.invalidate(slot)
+        return True

@@ -31,6 +31,7 @@ from repro_torch.models import model as tm
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
 from test_torch_prefix import PRE, both, copy_into, leaves_like, load, record, serve
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PAGED = dict(capacity=32, paged=True, page_size=4)

@@ -50,6 +50,7 @@ from repro_torch.kernels import moe_gating as tk1
 from repro_torch.quant import qarrays as tq
 from test_grouped import tiny_cfg
 from test_torch_moe import t
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 

@@ -27,6 +27,7 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.models import model as tm
 from repro_torch.serving import engine as te
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCHS = ["llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "nlg-350m-moe128", "nlg-350m-prmoe-32-64"]
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -37,6 +37,7 @@ from repro_torch.serving import continuous as tcontinuous
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
 from test_torch_capacity_engine import greedy, load
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCH = "llama4-maverick-400b-a17b"
 

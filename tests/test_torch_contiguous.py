@@ -22,6 +22,7 @@ from repro_torch.models import model as tm
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
 from test_torch_prefix import both, leaves_like, load, serve
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -26,6 +26,7 @@ from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.launch import serve as tserve
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCHS = ["llama4-maverick-400b-a17b", "kimi-k2-1t-a32b"]
 # page size 4, chunk budget 6: every chunk but the last ends on a page
@@ -174,15 +175,8 @@ def test_prompt_truncated_to_capacity(llama4):
 
 
 UNPORTED = [
-    # speculative decoding is ported; a drafter with recurrent state is not
-    ("spec_draft", dict(spec_draft=(make_reduced(get_config("recurrentgemma-2b")), "params")),
-     "item 5"),
     ("ep_mesh", dict(ep_mesh=(2,)), "item 7"),
     ("obs", dict(obs=object()), "item 9"),
-    # a target with per-slot state (window rings) under speculative decoding
-    ("per-slot state (window rings)",
-     dict(arch="gemma3-27b", spec_draft=(make_reduced(get_config("llama3-8b")), "params")),
-     "item 5"),
 ]
 
 
@@ -192,7 +186,6 @@ def test_unported_options_raise(llama4, opt, match):
     opt = dict(opt)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         cfg = tcfg.replace(ep_mesh=opt.pop("ep_mesh")) if "ep_mesh" in opt else tcfg
-        cfg = make_reduced(get_config(opt.pop("arch"))) if "arch" in opt else cfg
         ContinuousEngine(cfg, tparams, device="cpu", **{**PAGED, **opt})
 
 

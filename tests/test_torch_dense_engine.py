@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.models import model as tm
 from repro_torch.serving import engine as te
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCHS = ["glm4-9b", "llama3-8b", "deepseek-67b"]
 TOL = dict(atol=1e-4, rtol=1e-4)

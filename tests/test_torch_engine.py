@@ -22,6 +22,7 @@ from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tm
 from repro_torch.serving import engine as te
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCHS = ["llama4-maverick-400b-a17b", "kimi-k2-1t-a32b"]
 TOL = dict(atol=1e-4, rtol=1e-4)

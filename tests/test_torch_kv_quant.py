@@ -45,6 +45,7 @@ from repro_torch.quant import quantize_params
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
 from test_torch_paged import chunk_case, decode_case
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

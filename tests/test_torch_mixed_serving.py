@@ -11,8 +11,10 @@ and ``tests/test_prefix.py:211`` (a ring-size chunk starting mid-ring, LRU
 resume, slot reuse resetting rings and recurrent states, the batched tick
 with prefix sharing on and off, forks copying the rings, preemption)
 against the port's own oracles (the scatter mode, an unshared engine, a
-generous pool), as those tests hold the JAX engine against its own; the
-refusal of speculative decoding with per-slot state, and the CLI.
+generous pool), as those tests hold the JAX engine against its own;
+speculative decoding with each arch as target and as drafter (against a
+plain llama3 partner) against the non-speculative engine, the refusal of an
+encoder-decoder config by the continuous engine and the CLI, and the CLI.
 """
 import functools
 
@@ -35,6 +37,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tm
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 PRE = [7, 7, 3, 5, 1, 2, 9, 4]  # 2 full pages at page_size=4: a shared preamble
 # prompts past the reduced window (8), one of exactly a window, and the
@@ -83,16 +86,6 @@ def serve(cfg, params, prompts, news, **kw):
         eng.pool.check()
     return [done[i].tokens for i in ids], eng
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this file's tiny tensors: with several test
-    workers on the CPU, per-op thread pools oversubscribe it many times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------------------
 # Against the JAX engines
@@ -245,14 +238,21 @@ def test_preemption_resumes_exactly(name):
 
 
 @pytest.mark.parametrize("name", ["gemma3-27b", "recurrentgemma-2b", "mamba2-370m"])
-def test_spec_draft_with_per_slot_state_raises(name):
-    """Speculative decoding's recurrent half (JAX's ``_spec_commit``) is the
-    next slice: a target or a drafter with per-slot state raises."""
-    cfg, params = own(name)
-    plain, pparams = own("llama3-8b")
-    for target, drafter in (((cfg, params), (plain, pparams)), ((plain, pparams), (cfg, params))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-            ContinuousEngine(*target, device="cpu", spec_draft=drafter, **PAGED)
+@pytest.mark.parametrize("role", ["target", "drafter"])
+def test_spec_draft_with_per_slot_state(name, role):
+    """Speculative decoding with the arch as the target (a plain llama3
+    drafter) or as the drafter (for a llama3 target) on this file's trace:
+    the non-speculative engine's greedy tokens; the commit pass advances a
+    target's per-slot leaves, a drafter with per-slot state resyncs after a
+    partial accept."""
+    arch, plain = own(name), own("llama3-8b")
+    target, drafter = (arch, plain) if role == "target" else (plain, arch)
+    base, _ = serve(*target, PROMPTS, NEW, **PAGED)
+    spec, eng = serve(*target, PROMPTS, NEW, spec_draft=drafter, spec_k=3, **PAGED)
+    assert spec == base
+    sp = [m["spec"] for m in eng.metrics_log if "spec" in m]
+    if role == "drafter" and any(s["accepted"] < s["drafted"] for s in sp):
+        assert eng.spec_resyncs > 0
 
 
 @pytest.mark.parametrize("name", ["gemma3-27b", "recurrentgemma-2b", "mamba2-370m"])
@@ -268,11 +268,28 @@ def test_cli_serves_on_cpu(capsys, name, flags):
         assert "free pages 12/12" in out
 
 
-def test_cli_refuses_spec_draft_with_per_slot_state(capsys):
+def test_cli_spec_draft_self_serves_gemma3(capsys):
+    tserve.main(["--arch", "gemma3-27b", "--reduced", "--device", "cpu", "--paged",
+                 "--page-size", "4", "--spec-draft", "self", "--spec-k", "3", "--requests", "3",
+                 "--prompt-len", "10", "--new-tokens", "5"])
+    out = capsys.readouterr().out
+    # each request's first token is its prefill's, the other 4 speculative
+    assert "served 3 requests, 15 tokens" in out and "speculation: 12 tokens / " in out
+    assert "accept rate 1.00" in out and "0 drafter resyncs" in out
+
+
+def test_continuous_engine_refuses_encoder_decoder():
+    cfg, params = own("seamless-m4t-medium")
+    for kw in (PAGED, dict(slots=2, capacity=40)):
+        with pytest.raises(ValueError, match="encoder-decoder.*memory"):
+            ContinuousEngine(cfg, params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("flags", [[], ["--paged"]], ids=["static", "paged"])
+def test_cli_refuses_encoder_decoder(capsys, flags):
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", "gemma3-27b", "--reduced", "--device", "cpu", "--paged",
-                     "--spec-draft", "self"])
-    assert "queue 1 item 5" in capsys.readouterr().err
+        tserve.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu", *flags])
+    assert "encoder-decoder" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name,kv_bits", [("gemma3-27b", 8), ("recurrentgemma-2b", 8),

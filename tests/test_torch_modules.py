@@ -110,8 +110,9 @@ def test_unported_attention_raises():
     from repro_torch.configs.base import AttnSpec
 
     tattn.check_spec(AttnSpec(kind="local", window=8))  # sliding windows are ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.check_spec(AttnSpec(kind="cross", causal=False))
+    tattn.check_spec(AttnSpec(kind="cross", causal=False))  # and cross attention
+    with pytest.raises(ValueError, match="unknown attention kind"):
+        tattn.check_spec(AttnSpec(kind="bidirectional"))
     with pytest.raises(ValueError, match="block table"):  # a paged layer's paged mode
         tattn.attention(None, AttnSpec(), {}, torch.zeros(1, 1, 4), torch.zeros(1, 1), mode="decode_paged")
 

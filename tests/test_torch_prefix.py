@@ -31,6 +31,7 @@ from repro_torch.models import model as tm
 from repro_torch.serving import prefix_index as tprefix
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 PRE = [7, 7, 3, 5, 1, 2, 9, 4]  # 2 full pages at page_size=4: the shared preamble
 SHARED = dict(capacity=32, paged=True, page_size=4, n_pages=24, prefix_sharing=True)

@@ -40,6 +40,7 @@ from repro_torch.quant import quantize_params, quantized_leaf_paths, tree_bytes
 from repro_torch.serving import engine as te
 from test_grouped import tiny_cfg
 from test_torch_moe import TOL, grouped_inputs, t
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCH = "llama4-maverick-400b-a17b"
 

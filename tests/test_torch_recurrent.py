@@ -32,6 +32,7 @@ from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.models import model as tm
 from repro_torch.models import rglru as tlru
 from repro_torch.models import ssm as tssm
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ARCHS = ["mamba2-370m", "recurrentgemma-2b", "gemma3-27b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -62,16 +63,6 @@ def _t(*arrays):
 def _close(got, want, **tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **(tol or TOL))
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this file's tiny tensors: with several test
-    workers on the CPU, per-op thread pools oversubscribe it many times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------------------
 # SSD (the cases of test_ssm_rglru.py::TestSSD, and the JAX function)

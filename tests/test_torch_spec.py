@@ -16,7 +16,15 @@ on reduced configs in f32 on the CPU, the kernels on their plain versions:
     capacity dispatch; glm4-9b with a low-accept drafter; llama4 under its
     own capacity dispatch): tokens and every tick's ``spec`` record;
   * ``paged_verify_chunk_batched`` and ``paged_reset_page_tails`` against
-    JAX's; the tail invariant after partial accepts.
+    JAX's; the tail invariant after partial accepts;
+  * the archs with per-slot state (the gemma3 and recurrentgemma cases of
+    ``tests/test_spec.py``, and mamba2): a self drafter, a low-accept drafter
+    (whose partial accepts resync a recurrent drafter), prefix sharing, and
+    cross-family pairs against the port's non-speculative engine; gemma3
+    over an int8 pool and a recurrentgemma low-accept run against the JAX
+    speculative engine (tokens and every tick's ``spec`` record, resyncs
+    included); the committed recurrent-state pass leaves every pool page
+    byte-identical and advances the per-slot leaves.
 
 Tolerances: greedy tokens, ``spec`` records, preemption counts and CoW
 copies are exact, pools drain (``check()``, every page free, an empty prefix
@@ -49,17 +57,21 @@ from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Request
 from test_torch_batched_prefill import assert_pools_close
 from test_torch_prefix import PRE, copy_into, leaves_like
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PAGED = dict(slots=3, capacity=64, paged=True, page_size=4)
 ARCHS = {"glm4": ("glm4-9b", None), "llama4_grouped": ("llama4-maverick-400b-a17b", "grouped")}
+# the archs with per-slot state beside (or instead of) the pool
+MIXED = {"gemma3": ("gemma3-27b", None), "recurrentgemma": ("recurrentgemma-2b", None),
+         "mamba2": ("mamba2-370m", None)}
 
 
 @functools.lru_cache(maxsize=None)
 def port_setup(key):
     """Reduced config, target params (seed 0) and drafter params (seed 1),
     drawn by the port on the CPU."""
-    name, moe_impl = ARCHS[key]
+    name, moe_impl = {**ARCHS, **MIXED}[key]
     cfg = make_reduced(get_config(name))
     if moe_impl:
         cfg = cfg.replace(moe_impl=moe_impl)
@@ -137,12 +149,6 @@ def test_spec_constructor_refusals(case):
     kw.setdefault("spec_k", 3)
     with pytest.raises(ValueError, match=match):
         ContinuousEngine(cfg, params, device="cpu", spec_draft=(dcfg, params), **kw)
-
-
-def test_recurrent_drafter_names_item_5():
-    cfg = make_reduced(get_config("recurrentgemma-2b"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tspec.Drafter(cfg, None, slots=2, capacity=16, spec_k=2, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +325,132 @@ def test_spec_matches_jax_spec_engine(case):
     assert spec_records(teng) == spec_records(jeng)
     assert (teng.preemptions, teng.cow_copies) == (jeng.preemptions, jeng.cow_copies)
     assert_drained(teng)
+
+
+# ---------------------------------------------------------------------------
+# Per-slot state: window rings, RG-LRU and SSD in the target or the drafter
+# ---------------------------------------------------------------------------
+
+# name -> (target, drafter ("self", "seed1" or another arch's seed-1 tree),
+# engine options, prompts)
+MIXED_CASES = {
+    "gemma3_self_oracle": ("gemma3", "self", {}, None),
+    "gemma3_low_accept": ("gemma3", "seed1", {}, None),
+    "gemma3_prefix_sharing": ("gemma3", "seed1", dict(prefix_sharing=True), "preamble"),
+    "recurrentgemma_self_oracle": ("recurrentgemma", "self", {}, None),
+    "recurrentgemma_low_accept": ("recurrentgemma", "seed1", {}, None),
+    "mamba2_low_accept_starved": ("mamba2", "seed1", dict(capacity=32, n_pages=10), "five"),
+    # JAX's cross-family case: gemma3 (window rings) drafting for glm4
+    "glm4_target_gemma3_drafter": ("glm4", "gemma3", {}, None),
+    "recurrentgemma_target_mamba2_drafter": ("recurrentgemma", "mamba2", {}, None),
+}
+
+
+@pytest.mark.parametrize("case", list(MIXED_CASES))
+def test_spec_with_per_slot_state_matches_reference(case):
+    """Speculative greedy tokens equal the non-speculative engine's with a
+    target or a drafter that keeps per-slot state; the verify pass leaves
+    those leaves alone and the commit pass advances them over the accepted
+    tokens; a drafter with per-slot state resyncs after every partial
+    accept (counted per tick and in ``spec_resyncs``); pools drain."""
+    target, draft, kw, which = MIXED_CASES[case]
+    cfg, params, dparams = port_setup(target)
+    dcfg, dp = (cfg, params) if draft == "self" else (
+        (cfg, dparams) if draft == "seed1" else port_setup(draft)[::2])
+    kw = dict(PAGED, **kw)
+    prompts = case_prompts(which)
+    eng = ContinuousEngine(cfg, params, device="cpu", spec_k=3, spec_draft=(dcfg, dp), **kw)
+    spec = serve(eng, Request, prompts, 10)
+    base = serve(ContinuousEngine(cfg, params, device="cpu", **kw), Request, prompts, 10)
+    assert spec == base
+    assert_drained(eng)
+    sp = spec_records(eng)
+    drafted, accepted = sum(s["drafted"] for s in sp), sum(s["accepted"] for s in sp)
+    resyncs = sum(s.get("resyncs", 0) for s in sp)
+    assert eng.spec_resyncs == resyncs
+    if draft == "self":
+        assert drafted > 0 and accepted == drafted and resyncs == 0
+    else:
+        assert accepted < drafted, "a seed-1 drafter should reject some drafts"
+    partial = sum(s["accepted"] < s["drafted"] for s in sp)  # ticks with a partial accept
+    if draft != "self" and not eng.drafter.exact_partial:
+        assert resyncs >= partial > 0, "a drafter with per-slot state resyncs after partial accepts"
+    if case.endswith("starved"):
+        assert eng.preemptions > 0
+
+
+@pytest.mark.parametrize("case", ["gemma3_int8_pool", "recurrentgemma_low_accept"])
+def test_spec_with_per_slot_state_matches_jax_spec_engine(case):
+    """Against the JAX speculative engine on the same weights: gemma3 (rings
+    beside the pool) over an int8 pool, and recurrentgemma (no pool: RG-LRU
+    and rings) with a low-accept drafter, whose resyncs JAX counts too.
+    Tokens and every tick's ``spec`` record equal."""
+    name = "gemma3-27b" if case.startswith("gemma3") else "recurrentgemma-2b"
+    jcfg, tcfg, jparams, tparams = jax_pair(name, 0)
+    _, _, jdparams, tdparams = jax_pair(name, 1)
+    kw = dict(PAGED, spec_k=3, kv_cache_bits=8 if "int8" in case else 0)
+    # one prompt length and few new tokens: the JAX engine compiles its
+    # prefill, and a resynced drafter's, anew for each length
+    prompts = prompts_of(lo=8, hi=9)
+    teng = ContinuousEngine(tcfg, tparams, device="cpu", spec_draft=(tcfg, tdparams), **kw)
+    tt = serve(teng, Request, prompts, 5)
+    jeng = JaxEngine(jcfg, jparams, spec_draft=(jcfg, jdparams), **kw)
+    jt = serve(jeng, JaxRequest, prompts, 5)
+    assert tt == jt
+    assert spec_records(teng) == spec_records(jeng)
+    assert_drained(teng)
+    if case.startswith("recurrentgemma"):
+        assert teng.spec_resyncs > 0
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_commit_pass_leaves_the_pool_untouched(kv_bits, monkeypatch):
+    """gemma3 with a low-accept drafter: before each call of the committed
+    recurrent-state pass the pool entries of the positions it re-runs (the
+    verify pass stored them; the pass masks them as keys) are set to a
+    sentinel; after it they still hold the sentinel, every other pool page
+    is byte-identical (its writes all go to the trash page, the ``already``
+    guard, whose positions stay -1), and the per-slot leaves have moved (the
+    rings advance).  The stored values are put back before the run goes on."""
+    cfg, params, dparams = port_setup("gemma3")
+    seen = {"calls": 0, "pool_same": True, "leaves_moved": 0}
+    commit = ContinuousEngine._spec_commit
+
+    def pages(caches):  # [repeats, pages, page_size, ...]: K / V (q, scale) and pos
+        return [x for sk, pk, _, paged in tm._layer_entries(cfg) if paged
+                for x in tm._tensors(caches[sk][pk]["self"])]
+
+    def checked(self, rows, S, C):
+        ps = self.page_size
+        at = [(int(self.tables.row(i)[q // ps]), q % ps) for i, pl, app in rows
+              for q in range(pl["p"], pl["p"] + len(app))]
+        idx = (slice(None), torch.tensor([a for a, _ in at]), torch.tensor([b for _, b in at]))
+        kv = [x for x in pages(self.caches) if x.dtype != torch.int32]
+        stored = [x[idx].clone() for x in kv]
+        for x in kv:
+            x[idx] = 99 if x.dtype == torch.int8 else 1234.5
+        before = [x[:, :-1].clone() for x in pages(self.caches)]
+        leaves = [x.clone() for _, leaf in tm._slot_leaves(cfg, self.caches, True)
+                  for x in tm._tensors(leaf)]
+        commit(self, rows, S, C)
+        seen["calls"] += 1
+        seen["pool_same"] &= all(torch.equal(a, b[:, :-1]) for a, b in zip(before,
+                                                                           pages(self.caches)))
+        seen["pool_same"] &= bool((tm._pool_layer(cfg, self.caches)["pos"][:, -1] == -1).all())
+        seen["leaves_moved"] += not all(torch.equal(a, b) for a, b in zip(
+            leaves, (x for _, leaf in tm._slot_leaves(cfg, self.caches, True)
+                     for x in tm._tensors(leaf))))
+        for x, v in zip(kv, stored):
+            x[idx] = v
+
+    monkeypatch.setattr(ContinuousEngine, "_spec_commit", checked)
+    eng = ContinuousEngine(cfg, params, device="cpu", spec_draft=(cfg, dparams), spec_k=3,
+                           kv_cache_bits=kv_bits, **PAGED)
+    toks = serve(eng, Request, prompts_of(), 8)
+    ticks = sum("spec" in m for m in eng.metrics_log)
+    assert seen == {"calls": ticks, "pool_same": True, "leaves_moved": ticks} and ticks > 0
+    assert toks == serve(ContinuousEngine(cfg, params, device="cpu", kv_cache_bits=kv_bits,
+                                          **PAGED), Request, prompts_of(), 8)
 
 
 # ---------------------------------------------------------------------------

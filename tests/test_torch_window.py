@@ -44,6 +44,7 @@ from repro_torch.models.transformer import take
 from repro_torch.quant.kv import QuantizedKV, kv_quantize_values
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
+from _torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LAYER_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -66,16 +67,6 @@ def _qkv(B, S, H, Hkv, dh, seed):
     return tuple(rng.standard_normal(s).astype(np.float32)
                  for s in ((B, S, H, dh), (B, S, Hkv, dh), (B, S, Hkv, dh)))
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this file's tiny tensors: with several test
-    workers on the CPU, per-op thread pools oversubscribe it many times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------------------
 # Mask and query chunking (test_attention.py:60-95)
