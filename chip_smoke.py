@@ -224,14 +224,39 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    64 queries at position 0 over 1024 keys; causal 4 x 320 at G = 7), timed
    beside its bound and SDPA, and non-causal with empty keys (a row with no
    valid key gives 0).
+17. slice 10 (runs after 15, once slice 9's trees are freed; its lines
+   come before 16's): (a) kernel 6b (flash attention backward) and kernel
+   1b (capacity gating backward) against their plain versions, per row, in
+   bf16 and f32, at ``launch/training_kernels.py``'s cases (nlg-350m-prmoe's
+   8 x 512 training shape, G = 4 at dh 128, a window, a softcap,
+   non-causal, dh 256 / 32 / 112; gating at T = 4096 over 32 and 64
+   experts, top-1, and top-2 with drops), timed from CUDA graphs beside
+   their bounds and the SDPA backward, with kernel 6's forward with and
+   without its L output; (b) nlg-350m-prmoe-32-64 at its published size
+   (4.11 G parameters, bf16, ``moe_impl="dense"``) trained 8 AdamW steps
+   of 8 x 512 Markov tokens: loss, ce, aux and grad norm per step, median
+   step ms, tokens/s, AdamW ms, peak memory, launches of 6 / 6b / 1 / 1b
+   against their counts (24 / 24 / 12 / 12 a step, nothing else), the last
+   loss below the first, a profile of one step; (c) the MoS student
+   nlg-350m-prmoe-mos (21 layers) distilled from it for 6 steps with
+   ``kd_stop_step`` 3 (α 1 then 0); (d) the student saved with the port's
+   checkpoint ``save``, loaded with ``load_checkpoint`` and served, 4
+   requests x 16 tokens through ``Engine``: the same tokens as the
+   in-memory tree; (e) reduced f32 card vs CPU: first-step gradients, 3
+   train steps under einsum and dense, 2 distill steps; (f) a grad-enabled
+   forward of reduced llama4 under ``grouped`` raises (kernel 4 has no
+   backward).
 16. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
    ``flash_attention_dh256``, ``decode_attention_quant_ring``,
-   ``flash_attention_noncausal`` and ``flash_attention_g7``), the
-   nvidia-smi line, and last the ``{"ok": true, "device": ...}`` line.
+   ``flash_attention_noncausal``, ``flash_attention_g7`` and, from phase
+   17, ``flash_attention_backward`` and ``moe_gating_backward``), a
+   training summary line, the nvidia-smi line, and last the ``{"ok":
+   true, "device": ...}`` line.
 
-Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12, 14, 15
-and the reduced references) and every encoder layer attends through kernel
-6 (flash attention), once per layer call (a cross attention's prefill
+Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12, 14, 15,
+17 and the reduced references) and every encoder layer attends through kernel
+6 (flash attention), once per layer call (a training step's backward
+through kernel 6b, once per layer) (a cross attention's prefill
 too), and so does every admission of the contiguous engine (4c); the
 paged continuous phases prefill through kernel 8 (4b's batched runs through
 its batched entry) and launch kernel 6 never, but for the speculative
@@ -1067,8 +1092,9 @@ def reference_check(cfg, on_card=None) -> str:
         on_card = init_params(cfg, seed=SEED, device="cuda")
     on_cpu = copy.deepcopy(on_card).to("cpu")
     toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=torch.Generator().manual_seed(SEED))
-    a, _ = forward(cfg, on_card, toks.cuda())
-    b, _ = forward(cfg, on_cpu, toks)
+    with torch.no_grad():  # a serving reference: no graph
+        a, _ = forward(cfg, on_card, toks.cuda())
+        b, _ = forward(cfg, on_cpu, toks)
     assert a.shape == b.shape and torch.isfinite(a).all()
     err = (a.cpu() - b).abs().max().item()
     if not torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4):
@@ -2223,10 +2249,11 @@ def capacity_reference_checks(red) -> list:
             ("capacity factor 0.25", with_capacity_factor(red, 0.25), fp),
             ("int8 experts", red, quantize_params(fp, QuantConfig(bits=8))),
             ("int4 experts", red, quantize_params(fp, QuantConfig(bits=4)))):
-        with recorded_gating() as seen:
+        with recorded_gating() as seen, torch.no_grad():
             a, _ = forward(cfg, params, toks.cuda())
         dropped, total = dropped_share(seen)
-        b, _ = forward(cfg, copy.deepcopy(params).to("cpu"), toks)
+        with torch.no_grad():
+            b, _ = forward(cfg, copy.deepcopy(params).to("cpu"), toks)
         rel = (a.cpu() - b).abs().max().item() / b.abs().max().item()
         if rel > F32_TOL:
             raise AssertionError(f"reduced {label}: card logits differ from the CPU's by {rel:.3e}")
@@ -3283,8 +3310,9 @@ def slice9_reference_check(cfg) -> str:
             kw[dev] = dict(prefix_embeds=e)
     if cfg.encoder is not None:
         errs["memory"] = (kw["cuda"]["memory"].cpu() - kw["cpu"]["memory"]).abs().max().item()
-    a, _ = forward(cfg, on_card, toks.cuda(), **kw["cuda"])
-    b, _ = forward(cfg, on_cpu, toks, **kw["cpu"])
+    with torch.no_grad():
+        a, _ = forward(cfg, on_card, toks.cuda(), **kw["cuda"])
+        b, _ = forward(cfg, on_cpu, toks, **kw["cpu"])
     assert a.shape == b.shape and torch.isfinite(a).all()
     errs["logits"] = (a.cpu() - b).abs().max().item()
     if not (torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4) and errs.get("memory", 0) <= 1e-4):
@@ -3470,6 +3498,377 @@ def slice9_kernel_checks(gen) -> dict:
         log(f"kernel flash_attention {dl} non-causal, 64 queries over 300 keys, every 5th key "
             f"and all of row 2 empty (row 2 gives 0): {json.dumps(info)}")
     return nc, g7
+
+
+# ---------------------------------------------------------------------------
+# Slice 10: training and Mixture-of-Students (phase 17)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, MOS_ARCH = "nlg-350m-prmoe-32-64", "nlg-350m-prmoe-mos"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # 4096 tokens a step
+TRAIN_STEPS, MOS_STEPS, KD_STOP = 8, 6, 3
+# peak LR, warmup of one step, cosine over the run: at 1e-3 (the launcher's
+# default) the full-size loss rose from 11.42 to 11.74 over 8 steps on the
+# H100 (Adam's first steps move every weight by about lr at once)
+TRAIN_LR = 1e-4
+# reduced f32, card against CPU: steps, and the parameters' tolerance after
+# them.  Adam's first steps move a value by about lr * sign(g), so a
+# gradient that is about 0 on both sides (within their f32 rounding) can
+# take opposite signs: each step may then part the two trees by up to 2 lr
+# (times the schedule's multiplier, at most 1).
+REF_STEPS, REF_LR = 3, 1e-3
+REF_PARAM_TOL = 2 * REF_LR * REF_STEPS
+
+
+@contextlib.contextmanager
+def timed_adamw(times):
+    """CUDA-event time of every AdamW update the trainer makes inside the
+    block (the name ``training/trainer.py`` imported, wrapped)."""
+    import repro_torch.training.trainer as tr
+
+    real = tr.adamw_update
+
+    def timed(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        times.append((e0, e1))
+        return out
+
+    tr.adamw_update = timed
+    try:
+        yield times
+    finally:
+        tr.adamw_update = real
+
+
+def train_want(cfg, launches, steps, remat=False, teacher=None) -> dict:
+    """Launches of ``steps`` training steps: per step kernel 6 once per
+    attention layer (twice under remat) and 6b once, kernel 1 once per MoE
+    layer (twice under remat) and 1b once; a teacher's no-grad forward adds
+    its kernel 6 and 1 calls; nothing else (GELU experts are products)."""
+    from repro_torch.configs.base import AttnSpec
+
+    n_attn = sum(isinstance(ls.mixer, AttnSpec) for ls in cfg.layer_specs())
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    fwd = 2 if remat else 1
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = fwd * n_attn * steps
+    want["flash_attention_backward"] = n_attn * steps
+    want["moe_gating"] = fwd * n_moe * steps
+    want["moe_gating_backward"] = n_moe * steps
+    if teacher is not None:
+        want["flash_attention"] += sum(isinstance(ls.mixer, AttnSpec)
+                                       for ls in teacher.layer_specs()) * steps
+        want["moe_gating"] += sum(ls.ffn.kind == "moe" for ls in teacher.layer_specs()) * steps
+    return want
+
+
+def run_steps(step_fn, params, opt, data, steps, counters, what, extra=()):
+    """``steps`` calls of a train or distill step, each on the host clock
+    ending in a sync; launches counted over them.  Returns (rows, ms per
+    step, AdamW ms per step, launches, params, opt)."""
+    rows, ms, adam = [], [], []
+    reset(*counters)
+    with timed_adamw(adam):
+        for _ in range(steps):
+            toks, labels = next(data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, *extra, toks, labels)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append({k: float(v) for k, v in m.items()})
+    got = read(counters, what)
+    adam_ms = [a.elapsed_time(b) for a, b in adam]
+    return rows, ms, adam_ms, got, params, opt
+
+
+def slice10_train(counters) -> tuple:
+    """Phase 17b-d.  b: nlg-350m-prmoe-32-64 at its published size (4.11 G
+    parameters, bf16, moe_impl "dense") trained TRAIN_STEPS AdamW steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens of the Markov data (seed 0): loss, ce,
+    aux and grad norm per step, median step ms, tokens/s, AdamW ms, peak
+    memory, launches of 6 / 6b / 1 / 1b against their counts (nothing else),
+    a profile of one step.  c: the MoS student nlg-350m-prmoe-mos (21
+    layers) distilled from the trained tree for MOS_STEPS steps with
+    kd_stop_step KD_STOP (α from 1 to 0).  d: the student saved with the
+    port's checkpoint ``save``, loaded back with ``load_checkpoint`` and
+    served (4 requests x 16 tokens) through ``Engine``: the tokens equal the
+    in-memory tree's.  Returns (launches by path, summary)."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import count_params
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import load_checkpoint
+    from repro_torch.data.pipeline import data_stream
+    from repro_torch.models.model import init_params, param_leaves, trainable
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+    from repro_torch.training.distill import KDConfig, make_distill_step
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+
+    paths, summary = {}, {}
+    cfg = get_config(TRAIN_ARCH).replace(moe_impl="dense")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in param_leaves(params).values())
+    if n_params != count_params(cfg):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, count_params {count_params(cfg)}")
+    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    log(f"train: {cfg.name} at its published size, {cfg.num_layers} layers ({n_moe} MoE: "
+        f"{', '.join(str(s.pattern[1].ffn.num_experts) + ' experts x ' + str(s.repeats) for s in cfg.segments)}; "
+        f"top-1, residual MLP), d_model {cfg.d_model}, {cfg.num_heads} heads, dh {cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}: {n_params} parameters (= count_params), bf16, drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s; moe_impl 'dense', no remat")
+    tc = TrainConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=TRAIN_STEPS)
+    opt = init_adamw(trainable(params))
+    data = data_stream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device="cuda")
+    step = make_train_step(cfg, tc)
+    rows, ms, adam_ms, got, params, opt = run_steps(step, params, opt, data, TRAIN_STEPS, counters,
+                                                    "train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, r in enumerate(rows):
+        log(f"train step {i}: loss {r['loss']:.5f} ce {r['ce']:.5f} aux {r['aux']:.5f} grad norm "
+            f"{r['grad_norm']:.4f} lr_scale {r['lr_scale']:.4f}; {ms[i]:.3f} ms (AdamW "
+            f"{adam_ms[i]:.3f} ms)")
+    want = train_want(cfg, got, TRAIN_STEPS)
+    if got != want:
+        raise AssertionError(f"train launches {got}, expected {want}")
+    if not all(math.isfinite(r["loss"]) for r in rows) or not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"train: losses {[r['loss'] for r in rows]}: the last is not below "
+                             "the first")
+    paths["train"] = got
+    med = statistics.median(ms[1:])
+    summary["train"] = {"step_ms_median": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+                        "adamw_ms_median": statistics.median(adam_ms[1:]), "peak_gb": peak,
+                        "first_step_ms": ms[0], "losses": [r["loss"] for r in rows],
+                        "params": n_params, "launches": got}
+    log(f"train summary: {json.dumps(summary['train'])}")
+
+    def run_profile(prof):
+        toks, labels = next(data)
+        nonlocal params, opt
+        torch.cuda.synchronize()
+        with prof or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, toks, labels)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    for line in profile_account(run_profile, 1, "train step"):
+        log(line)
+
+    # c. Mixture-of-Students: the trained tree as teacher, its moments freed
+    teacher = params
+    trainable(teacher, False)
+    del opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = get_config(MOS_ARCH).replace(moe_impl="dense")
+    torch.cuda.reset_peak_memory_stats()
+    student = init_params(scfg, seed=SEED + 1, device="cuda")
+    n_student = sum(t.numel() for t in param_leaves(student).values())
+    if n_student != count_params(scfg):
+        raise AssertionError(f"{scfg.name}: {n_student} parameters, count_params {count_params(scfg)}")
+    kdc = KDConfig(alpha=1.0, temperature=1.0, kd_stop_step=KD_STOP)
+    mtc = TrainConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=MOS_STEPS)
+    sopt = init_adamw(trainable(student))
+    dstep = make_distill_step(scfg, cfg, mtc, kdc)
+    rows, ms, adam_ms, got, student, sopt = run_steps(dstep, student, sopt, data, MOS_STEPS,
+                                                      counters, "mos", extra=(teacher,))
+    want = train_want(scfg, got, MOS_STEPS, teacher=cfg)
+    alphas = [r["kd_alpha"] for r in rows]
+    if got != want or alphas != [1.0] * KD_STOP + [0.0] * (MOS_STEPS - KD_STOP):
+        raise AssertionError(f"mos launches {got} (expected {want}), kd_alpha {alphas}")
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"mos: losses {[r['loss'] for r in rows]}")
+    paths["mos"] = got
+    log(f"mos: student {scfg.name}, {scfg.num_layers} layers, {n_student} parameters (= "
+        f"count_params), bf16, from the trained teacher; KD alpha 1.0, tau 1.0, kd_stop_step "
+        f"{KD_STOP}; launches {got}")
+    for i, r in enumerate(rows):
+        log(f"mos step {i}: loss {r['loss']:.5f} ce {r['ce']:.5f} kl {r['kl']:.5f} aux "
+            f"{r['aux']:.5f} kd_alpha {r['kd_alpha']:.1f} grad norm {r['grad_norm']:.4f}; "
+            f"{ms[i]:.3f} ms (AdamW {adam_ms[i]:.3f} ms)")
+    summary["mos"] = {"step_ms_median": statistics.median(ms[1:]),
+                      "adamw_ms_median": statistics.median(adam_ms[1:]),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "kd_alpha": alphas,
+                      "ce": [r["ce"] for r in rows], "kl": [r["kl"] for r in rows],
+                      "params": n_student, "launches": got}
+    log(f"mos summary: {json.dumps(summary['mos'])}")
+
+    # d. checkpoint the student, load it back, serve both trees
+    trainable(student, False)
+    del sopt, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = Path(__file__).resolve().parent / "build" / "slice10_student_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ck.parent).free
+    t0 = time.perf_counter()
+    nbytes = ckpt.save(str(ck), student, step=MOS_STEPS)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_checkpoint(str(ck), scfg, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(ck, ignore_errors=True)
+    rng = torch.Generator().manual_seed(SEED + 30)
+    reqs = [Request(torch.randint(0, scfg.vocab_size, (PROMPT,), generator=rng).tolist(), NEW)
+            for _ in range(BATCH)]
+    ec = EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW)
+    mem = [r.tokens for r in Engine(scfg, student, ec, device="cuda").generate(reqs)]
+    back = [r.tokens for r in Engine(scfg, loaded, ec, device="cuda").generate(reqs)]
+    if mem != back:
+        raise AssertionError(f"checkpoint: the loaded student serves {back}, the in-memory {mem}")
+    summary["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                             "disk_free_before_gb": free / 1e9}
+    log(f"checkpoint: the student saved ({nbytes} bytes in {save_s:.2f} s, "
+        f"{nbytes / save_s / 1e9:.2f} GB/s; disk free before {free / 1e9:.1f} GB) and loaded "
+        f"back onto the card in {load_s:.2f} s (load_checkpoint); {BATCH} requests x {NEW} "
+        f"tokens through Engine give identical tokens from both trees; request 0: {mem[0]}")
+    del student, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, summary
+
+
+def slice10_reference_checks() -> list:
+    """Phase 17e: reduced f32 nlg-350m-prmoe-32-64 from the same weights and
+    batches on the card (kernels 6, 6b, 1, 1b) and on the CPU (plain
+    versions): first-step gradients per leaf within 1e-4 of the leaf's
+    largest; REF_STEPS train steps under einsum and under dense, losses per
+    step within 1e-5 relative, parameters after them within REF_PARAM_TOL;
+    then 2 distill steps of the reduced MoS student from the trained trees,
+    losses within 1e-5 relative."""
+    from repro_torch.configs.registry import get_config, make_reduced
+    from repro_torch.data.synthetic import batches
+    from repro_torch.models.model import init_params, param_leaves, trainable
+    from repro_torch.training.distill import KDConfig, make_distill_step
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.trainer import TrainConfig, loss_fn, make_train_step
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    red = make_reduced(get_config(TRAIN_ARCH))
+    data = batches(red.vocab_size, 4, 32, seed=SEED + 5)
+    bat = [next(data) for _ in range(REF_STEPS + 2)]
+    on = lambda arr, dev: torch.from_numpy(arr.astype(np.int64)).to(dev)
+    tc = TrainConfig(lr=REF_LR, warmup_steps=1, decay_steps=REF_STEPS)
+    lines, trees = [], {}
+    for impl in ("einsum", "dense"):
+        cfg = red.replace(moe_impl=impl)
+        cpu = init_params(cfg, seed=SEED + 6, device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        grads = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            leaves = trainable(p)
+            with torch.enable_grad():
+                loss, _ = loss_fn(cfg, p, on(bat[0][0], dev), on(bat[0][1], dev))
+            grads[dev] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        worst = max((grads["cuda"][k].cpu() - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                    for k, g in grads["cpu"].items())
+        if worst > 1e-4:
+            raise AssertionError(f"reduced train {impl}: a first-step gradient differs by {worst:.3e} "
+                                 "of its leaf's largest")
+        losses = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            opt = init_adamw(trainable(p))
+            step = make_train_step(cfg, tc)
+            losses[dev] = []
+            for toks, labels in bat[:REF_STEPS]:
+                p, opt, m = step(p, opt, on(toks, dev), on(labels, dev))
+                losses[dev].append(float(m["loss"]))
+        lw = max(rel(a, b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        pc, pp = param_leaves(card), param_leaves(cpu)
+        dp = max((pc[k].detach().cpu() - v.detach()).abs().max().item() for k, v in pp.items())
+        n_far = sum(int(((pc[k].detach().cpu() - v.detach()).abs() > 1e-5).sum()) for k, v in pp.items())
+        n_all = sum(v.numel() for v in pp.values())
+        if lw > 1e-5 or dp > REF_PARAM_TOL:
+            raise AssertionError(f"reduced train {impl}: losses {losses} (worst rel {lw:.3e}), params "
+                                 f"apart by {dp:.3e} (tolerance {REF_PARAM_TOL})")
+        lines.append(f"reduced f32 train ({impl}), card vs CPU: first-step gradients within "
+                     f"{worst:.3e} of each leaf's largest; losses {losses['cuda']} vs "
+                     f"{losses['cpu']} (worst rel {lw:.3e}); params after {REF_STEPS} steps within "
+                     f"{dp:.3e} (tolerance {REF_PARAM_TOL:g}), {n_far} of {n_all} values apart by "
+                     f"more than 1e-5")
+        trees[impl] = (cfg, card, cpu)
+    cfg, card, cpu = trees["dense"]
+    scfg = make_reduced(get_config(MOS_ARCH))
+    s_cpu = init_params(scfg, seed=SEED + 7, device="cpu")
+    s_card = copy.deepcopy(s_cpu).to("cuda")
+    kdc = KDConfig(kd_stop_step=1)
+    losses = {}
+    for dev, s, t in (("cuda", s_card, card), ("cpu", s_cpu, cpu)):
+        trainable(t, False)
+        opt = init_adamw(trainable(s))
+        step = make_distill_step(scfg, cfg, tc, kdc)
+        losses[dev] = []
+        for toks, labels in bat[REF_STEPS:REF_STEPS + 2]:
+            s, opt, m = step(s, opt, t, on(toks, dev), on(labels, dev))
+            losses[dev].append((float(m["loss"]), float(m["kl"]), float(m["kd_alpha"])))
+    lw = max(rel(a[0], b[0]) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if lw > 1e-5 or [a[2] for a in losses["cuda"]] != [1.0, 0.0]:
+        raise AssertionError(f"reduced distill: (loss, kl, kd_alpha) {losses} (worst rel {lw:.3e})")
+    lines.append(f"reduced f32 distill (dense), card vs CPU: (loss, kl, kd_alpha) per step "
+                 f"{losses['cuda']} vs {losses['cpu']} (worst rel {lw:.3e})")
+    return lines
+
+
+def slice10_guard() -> str:
+    """Phase 17f: a grad-enabled forward of reduced llama4-maverick under
+    ``grouped`` (kernel 4, which has no backward) raises before it
+    launches."""
+    from repro_torch.configs.registry import get_config, make_reduced
+    from repro_torch.kernels import expert_mlp_grouped as gk
+    from repro_torch.models.model import forward, init_params, trainable
+
+    cfg = make_reduced(get_config(ARCH)).replace(moe_impl="grouped")
+    params = init_params(cfg, seed=SEED, device="cuda")
+    trainable(params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda")
+    before = gk.launches["grouped_mlp"]
+    try:
+        with torch.enable_grad():
+            forward(cfg, params, toks)
+    except RuntimeError as e:
+        if "no backward" not in str(e) or gk.launches["grouped_mlp"] != before:
+            raise
+        return f"guard: a grad-enabled forward of reduced {cfg.name} under grouped raises: {e}"
+    raise AssertionError("guard: a grad-enabled forward through kernel 4 ran without a backward")
+
+
+def slice10_kernel_checks(gen) -> tuple:
+    """Phase 17a: kernels 6b and 1b against their plain versions at
+    ``launch/training_kernels.py``'s cases (bf16 and f32), timed from CUDA
+    graphs beside their bounds and the SDPA backward, with kernel 6's
+    forward with and without its L output.  Returns ({case: info} 6b,
+    {case: info} 1b)."""
+    from repro_torch.launch import training_kernels as tk
+
+    fb, gb = {}, {}
+    for name, case in tk.FLASH_BWD_CASES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            res = tk.check_flash_bwd(name, *case, dt, gen, empty_key=name == "window")
+            key = f"{str(dt).split('.')[-1].replace('bfloat16', 'bf16').replace('float32', 'f32')}_{name}"
+            fb[key] = res
+            log(f"kernel flash_attention_backward {key}: {json.dumps(res)}")
+            if not res["ok"]:
+                raise AssertionError(f"kernel 6b {key} disagrees with its plain version")
+    for name, (T, E, K, cf, bias) in tk.GATING_BWD_CASES.items():
+        res = tk.check_gating_bwd(name, T, E, K, cf, bias, gen)
+        gb[name] = res
+        log(f"kernel moe_gating_backward {name}: {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"kernel 1b {name} disagrees with its plain version")
+    return fb, gb
 
 
 # ---------------------------------------------------------------------------
@@ -4027,6 +4426,18 @@ def main() -> int:
     s9_paths, s9_calls = slice9_serve(counters)
     s9_nc, s9_g7 = slice9_kernel_checks(gen)
 
+    # 17. slice 10, once slice 9's trees are freed: kernels 6b and 1b against
+    # their plain versions, the paper's PR-MoE trained at its published size,
+    # the MoS student distilled from it, checkpointed and served; reduced f32
+    # card vs CPU; the guard of a kernel without a backward
+    gc.collect()
+    torch.cuda.empty_cache()
+    s10_fb, s10_gb = slice10_kernel_checks(gen)
+    s10_paths, s10_summary = slice10_train(counters)
+    for line in slice10_reference_checks():
+        log(line)
+    log(slice10_guard())
+
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
                     "over K/V gathered into a contiguous tensor beforehand (the gather timed on "
@@ -4273,6 +4684,36 @@ def main() -> int:
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "library_layout_ms": m["library_layout_ms"], "library_call": call, "shapes": checks,
         })
+    # slice 10: the backward kernels, and the training runs' launches of
+    # kernels 6 and 1
+    for k in kernels:
+        if k["name"] in ("flash_attention", "moe_gating"):
+            k["launches_by_path"].update({f"slice10_{p}": c[k["name"]] for p, c in s10_paths.items()})
+        if k["name"] == "flash_attention":
+            k["training_forward_with_lse"] = {
+                key: {"fwd_ms": v["fwd_ms"], "fwd_lse_ms": v["fwd_lse_ms"]} for key, v in s10_fb.items()}
+    for kname, source, replaces, checks, main_shape, call in (
+            ("flash_attention_backward", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:88", s10_fb, "bf16_nlg_train_8x512",
+             "the backward of F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) over "
+             "[B, heads, tokens, dh] copies (a boolean mask for the window; none takes a softcap): "
+             "graph time of its forward and backward less its forward's"),
+            ("moe_gating_backward", "src/repro_torch/csrc/moe_gating.cu",
+             "src/repro/kernels/moe_gating.py:92", s10_gb, "T4096_E32_K1",
+             "none: no single PyTorch call computes the capacity gating's backward")):
+        m = checks[main_shape]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "note": "a backward kernel: the TPU kernel has none (JAX differentiates the jnp "
+                    "function with XLA); launches from the training run",
+            "launches": s10_paths["train"][kname],
+            "launches_by_path": {p: c[kname] for p, c in s10_paths.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"], "library_call": call,
+            "shapes": checks,
+        })
+    log("slice 10 training summary: " + json.dumps(s10_summary))
     log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
     log(json.dumps({"kernels": kernels}))

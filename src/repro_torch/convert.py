@@ -157,3 +157,26 @@ def load_checkpoint(path: str, cfg: ModelConfig, device,
         flat[e["key"]] = arr
     quant = _checked(cfg, flat, f"checkpoint {path!r}", qcfg)
     return _build(cfg, flat, quant, device, None)
+
+
+def params_to_numpy(params, bf16=None) -> dict:
+    """ParamTree (or nested dicts of tensors) -> nested dicts of numpy arrays
+    on the host, the JAX package's tree (``jax.tree.map(jnp.asarray, ...)``
+    takes it).  A bf16 leaf becomes 2-byte records (``|V2``), or, given a
+    numpy bfloat16 type as ``bf16`` (``ml_dtypes.bfloat16``), an array of
+    it; the bits are the tensor's."""
+    out = {}
+    for key, t in params.items():
+        if torch.is_tensor(t):
+            t = t.detach()
+            if t.dtype == torch.bfloat16:
+                a = t.view(torch.int16).cpu().numpy().view(bf16 or np.dtype("V2"))
+            else:
+                a = t.cpu().numpy().copy()
+            out[key] = a
+        elif isinstance(t, (dict, ParamTree)):
+            out[key] = params_to_numpy(t, bf16)
+        else:
+            raise TypeError(f"params_to_numpy: leaf {key!r} is a {type(t).__name__} (quantized "
+                            "trees are exchanged through quantize_params on each side)")
+    return out

@@ -4,12 +4,15 @@ router logits -> f32 softmax -> top-k expert ids -> position of each
 assignment in its expert's buffer (token-major priority) -> combine weights.
 Tie order follows ``jax.lax.top_k``: equal probabilities go to the lower
 expert id, which ``torch.topk`` does not promise, so top-k is an iterative
-masked argmax (``argmax`` returns the first maximum).
+masked argmax (``argmax`` returns the first maximum).  Also the trainer's
+parts: ``load_balance_stats``, ``RoutingStats`` / ``routing_stats`` /
+``summarize_routing`` (per-layer routing telemetry) and ``router_z_loss``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -89,10 +92,89 @@ def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int, *, normalize: 
     return Gating(expert_idx.to(torch.int32), combine_w, position.to(torch.int32), keep, probs)
 
 
-def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
-    """Switch-Transformer auxiliary loss ``E * sum_e f_e * P_e``: f counts
-    primary (k=0) assignments, P is the mean router probability."""
+def load_balance_stats(probs: torch.Tensor, expert_idx: torch.Tensor, num_experts: int):
+    """Per-expert (f_e, P_e): the fraction of primary (k=0) assignments (no
+    gradient: counts) and the mean router probability."""
     T = probs.shape[0]
     f = count_ids(expert_idx[:, 0], num_experts).float() / T
     p = torch.mean(probs, dim=0)
+    return f, p
+
+
+def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Switch-Transformer auxiliary loss ``E * sum_e f_e * P_e``: f counts
+    primary (k=0) assignments, P is the mean router probability."""
+    f, p = load_balance_stats(probs, expert_idx, num_experts)
     return num_experts * torch.sum(f * p)
+
+
+class RoutingStats(NamedTuple):
+    """Routing telemetry of one MoE layer (the JAX package's leaves and
+    shapes): tokens_per_expert [E] int32 (kept assignments over every k),
+    dropped_frac [] (assignments dropped by capacity), entropy [] (mean
+    router entropy, nats), imbalance [] (E * sum f * P; 1 = balanced), f [E],
+    p [E] (``load_balance_stats``)."""
+
+    tokens_per_expert: torch.Tensor
+    dropped_frac: torch.Tensor
+    entropy: torch.Tensor
+    imbalance: torch.Tensor
+    f: torch.Tensor
+    p: torch.Tensor
+
+
+@torch.no_grad()
+def routing_stats(g: Gating, num_experts: int) -> RoutingStats:
+    """RoutingStats of one layer's gating decision; ``f`` / ``p`` are exactly
+    ``load_balance_stats``, so telemetry cannot drift from the aux loss.
+    No gradient flows through it."""
+    f, p = load_balance_stats(g.probs, g.expert_idx, num_experts)
+    kept = torch.where(g.keep, g.expert_idx.long(), num_experts)  # dropped -> bucket E
+    tokens_per_expert = count_ids(kept, num_experts + 1)[:num_experts]
+    dropped = 1.0 - torch.mean(g.keep.float())
+    entropy = -torch.mean(torch.sum(g.probs * torch.log(g.probs + 1e-9), dim=-1))
+    imbalance = num_experts * torch.sum(f * p)
+    return RoutingStats(tokens_per_expert.to(torch.int32), dropped, entropy, imbalance, f, p)
+
+
+def stack_stats(per_repeat) -> RoutingStats:
+    """One segment position's RoutingStats of each repeat -> leaves stacked
+    ``[repeats, ...]``, as JAX's scan stacks them."""
+    return RoutingStats(*(torch.stack(leaves) for leaves in zip(*per_repeat)))
+
+
+def summarize_routing(stats_tree) -> dict:
+    """Host-side per-layer aggregation of ``forward(..., return_routing=True)``'s
+    tree ``{seg: {pos: RoutingStats with [repeats, ...] leaves}}`` (the JAX
+    package's ``summarize_routing``): overall means across MoE layers and a
+    per-layer breakdown keyed ``"{seg}/{pos}[repeat]"``, plain floats and
+    lists."""
+    host = lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+    per_layer = {}
+    for seg in sorted(stats_tree):
+        for pos in sorted(stats_tree[seg]):
+            st = RoutingStats(*(host(x) for x in stats_tree[seg][pos]))
+            for r in range(st.dropped_frac.shape[0]):
+                tpe = st.tokens_per_expert[r]
+                per_layer[f"{seg}/{pos}[{r}]"] = {
+                    "dropped_frac": float(st.dropped_frac[r]),
+                    "entropy": float(st.entropy[r]),
+                    "imbalance": float(st.imbalance[r]),
+                    "tokens_per_expert": tpe.tolist(),
+                    "max_expert_load": float(tpe.max() / max(tpe.sum(), 1)),
+                }
+    n = max(len(per_layer), 1)
+    return {
+        "moe_layers": len(per_layer),
+        "dropped_frac": sum(v["dropped_frac"] for v in per_layer.values()) / n,
+        "entropy": sum(v["entropy"] for v in per_layer.values()) / n,
+        "imbalance": sum(v["imbalance"] for v in per_layer.values()) / n,
+        "per_layer": per_layer,
+    }
+
+
+def router_z_loss(logits: torch.Tensor) -> torch.Tensor:
+    """Router z-loss (ST-MoE): the mean squared log-partition of the f32
+    router logits."""
+    z = torch.logsumexp(logits.float(), dim=-1)
+    return torch.mean(z ** 2)

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.configs.base import FFNSpec, ModelConfig
 from repro_torch.core import dispatch, dispatch_einsum, dispatch_grouped
-from repro_torch.core.gating import expert_capacity, load_balance_loss, top_k_gating
+from repro_torch.core.gating import expert_capacity, load_balance_loss, routing_stats, top_k_gating
 from repro_torch.kernels.expert_mlp import expert_mlp
 from repro_torch.kernels.expert_mlp_grouped import (
     check_grouped_quant_compat,
@@ -176,8 +176,10 @@ def moe_layer(
     x: torch.Tensor,  # [B, S, D]
     *,
     impl: str | None = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B, S, D], aux_loss)."""
+    with_stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Returns (y [B, S, D], aux_loss); with ``with_stats=True`` a third
+    element, the layer's ``RoutingStats`` (no gradient)."""
     impl = impl or cfg.moe_impl
     if impl not in IMPLS:
         raise ValueError(f"moe_impl={impl!r}: expected one of {IMPLS}")
@@ -205,4 +207,6 @@ def moe_layer(
     y = y.reshape(B, S, D)
     if spec.residual:
         y = y + mlp(params["residual"], x, spec.act)
+    if with_stats:
+        return y, aux, routing_stats(g, E)
     return y, aux

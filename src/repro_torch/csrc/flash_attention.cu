@@ -87,6 +87,13 @@
 // of paged_attention.cuh walking the contiguous rows (16 query rows of one
 // kv-head per block, key tiles of 32), as kernel 9 does.
 //
+// Training (kernel 6b's input, flash_attention_bwd.cu): an optional output L
+// [B, H, S], the row log-sum-exp of the scaled (softcapped) scores over the
+// valid keys, natural log (+inf for a row with none).  The wgmma and
+// mma.sync paths write it from an instance of their own (template LSE), so
+// the serving launch (a null L) runs the code it ran before; the f32 path
+// writes it after its store.
+//
 // Causal and window skip: before its loop, a block reads the key
 // positions of its batch row once and marks the key tiles that hold a key
 // valid for at least one of its rows (k_pos >= 0, k_pos <= its largest
@@ -143,6 +150,7 @@ struct Params {
   void* out;
   int B, S, T, H, Hkv, G;
   paged::Mask mk;
+  float* lse;  // [B, H, S] row log-sum-exp (training: kernel 6b's input), or null
 };
 
 // ---------------------------------------------------------------------------
@@ -169,7 +177,9 @@ struct Smem16 {
   int qp_lo, qp_hi;
 };
 
-template <int DH>
+// LSE: the instance that also writes the row log-sum-exp (training); the
+// serving instance compiles without it
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(const Params p) {
   using Sm = Smem16<DH>;
   constexpr bool QS = Sm::QS;
@@ -366,6 +376,8 @@ __global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int sq = s0 + r0 + 8 * i;
     if (sq >= p.S) continue;
+    if (LSE && (lane & 3) == 0)
+      p.lse[((size_t)b * p.H + h) * p.S + sq] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     bf16* row = out + (((size_t)b * p.S + sq) * p.H + h) * DH + c0;
 #pragma unroll
@@ -374,14 +386,20 @@ __global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(
   }
 }
 
-template <int DH>
-int launch_bf16(const Params& p, cudaStream_t stream) {
+template <int DH, bool LSE>
+int launch_bf16_instance(const Params& p, cudaStream_t stream) {
   const int smem = (int)sizeof(Smem16<DH>);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bf16_kernel<DH, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  flash_bf16_kernel<DH><<<dim3((p.S + BQ - 1) / BQ, p.H, p.B), NT, smem, stream>>>(p);
+  flash_bf16_kernel<DH, LSE><<<dim3((p.S + BQ - 1) / BQ, p.H, p.B), NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DH>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  return p.lse != nullptr ? launch_bf16_instance<DH, true>(p, stream)
+                          : launch_bf16_instance<DH, false>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -440,6 +458,7 @@ struct WgParams {
   paged::Mask mk;
   int capped;  // scores go through mk.score first (softcap, or a scale <= 0)
   float c;     // to the log2 domain: log2(e) * scale on raw products, log2(e) on capped scores
+  float* lse;  // [B, H, S] row log-sum-exp (training: kernel 6b's input), or null
 };
 
 // NWG = 2: 128 query rows, tiles of 128 keys, one block per SM.  NWG = 1
@@ -538,7 +557,8 @@ __device__ __forceinline__ void wgmma_s(float (&sc)[BN / 2], uint64_t da, uint64
     hopper::wgmma_ss_n64(sc, da, db, scale_d);
 }
 
-template <int DH, int NWG>
+// LSE as for flash_bf16_kernel
+template <int DH, int NWG, bool LSE>
 __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS)
     flash_wgmma_kernel(const __grid_constant__ WgParams p) {
   using namespace hopper;
@@ -712,6 +732,9 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const int sq = s0 + rl + 8 * r;
       if (sq >= p.S) continue;
+      if (LSE && (lane & 3) == 0)  // m in the log2 domain
+        p.lse[((size_t)b * p.H + h) * p.S + sq] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : INFINITY;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       bf16* row = p.out + (((size_t)b * p.S + sq) * p.H + h) * DH + cq;
 #pragma unroll
@@ -774,12 +797,12 @@ bool encode_positions(CUtensorMap* map, const int* base, size_t n, int box) {
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH, int NWG>
+template <int DH, int NWG, bool LSE>
 int launch_wgmma(WgParams& p, const void* q, const void* k, const void* v, cudaStream_t stream) {
   using C = WgCfg<DH, NWG>;
   const int smem = (int)sizeof(WgSmem<DH, NWG>) + 1024;  // + the 1024-byte alignment
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DH, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_wgmma_kernel<DH, NWG, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   if (!encode_map(&p.qmap, q, DH, p.H, p.S, p.B, C::BM) ||
       !encode_map(&p.kmap, k, DH, p.Hkv, p.T, p.B, C::BN) ||
@@ -792,14 +815,15 @@ int launch_wgmma(WgParams& p, const void* q, const void* k, const void* v, cudaS
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  flash_wgmma_kernel<DH, NWG><<<dim3(p.H, (p.S + C::BM - 1) / C::BM, p.B), C::NT, smem, stream>>>(p);
+  flash_wgmma_kernel<DH, NWG, LSE>
+      <<<dim3(p.H, (p.S + C::BM - 1) / C::BM, p.B), C::NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int DH>
 int dispatch_wgmma(const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
-                   void* out, void* summ, int B, int S, int T, int H, int Hkv, int q_tile,
-                   const paged::Mask& mk, cudaStream_t stream) {
+                   void* out, void* summ, float* lse, int B, int S, int T, int H, int Hkv,
+                   int q_tile, const paged::Mask& mk, cudaStream_t stream) {
   if ((q_tile != 64 && q_tile != 128) || S > 65535 * 64 || (summ == nullptr && T > 64))
     return cudaErrorInvalidValue;
   WgParams p{};
@@ -807,12 +831,16 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, const int* qpos,
   p.kpos = kpos;
   p.summ = static_cast<const int4*>(summ);
   p.out = static_cast<bf16*>(out);
+  p.lse = lse;
   p.B = B, p.S = S, p.T = T, p.H = H, p.Hkv = Hkv, p.G = H / Hkv, p.nS = (T + WBN - 1) / WBN;
   p.mk = mk;
   p.capped = mk.softcap > 0.f || mk.scale <= 0.f;
   p.c = p.capped ? 1.4426950408889634f : 1.4426950408889634f * mk.scale;
-  return q_tile == 64 ? launch_wgmma<DH, 1>(p, q, k, v, stream)
-                      : launch_wgmma<DH, 2>(p, q, k, v, stream);
+  if (lse != nullptr)
+    return q_tile == 64 ? launch_wgmma<DH, 1, true>(p, q, k, v, stream)
+                        : launch_wgmma<DH, 2, true>(p, q, k, v, stream);
+  return q_tile == 64 ? launch_wgmma<DH, 1, false>(p, q, k, v, stream)
+                      : launch_wgmma<DH, 2, false>(p, q, k, v, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -832,6 +860,13 @@ __global__ void __launch_bounds__(NTF) flash_f32_kernel(const Params p) {
   const paged::KVfp<float> kv{static_cast<const float*>(p.k), static_cast<const float*>(p.v)};
   a.attend_contiguous(kv, p.kpos + (size_t)b * p.T, p.T, (size_t)b * p.T, p.Hkv, h);
   a.store(static_cast<float*>(p.out) + qoff, p.Hkv, h, p.G, row0);
+  if (p.lse != nullptr) {  // m and l are final: the last tile's update ended on a barrier
+    for (int r = threadIdx.x; r < a.nrows; r += NTF) {
+      const int rg = row0 + r, c = rg / p.G, g = rg - c * p.G;
+      const float l = a.s.l[r];
+      p.lse[((size_t)b * p.H + h * p.G + g) * p.S + c] = l > 0.f ? a.s.m[r] + logf(l) : INFINITY;
+    }
+  }
 }
 
 template <int DH>
@@ -848,19 +883,20 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 
 template <bool BF16>
 int dispatch(const void* q, const void* k, const void* v, const void* qpos, const void* kpos,
-             void* out, void* summ, int B, int S, int T, int H, int Hkv, int dh, int q_tile,
-             float scale, int causal, int window, float softcap, void* stream) {
+             void* out, void* summ, void* lse, int B, int S, int T, int H, int Hkv, int dh,
+             int q_tile, float scale, int causal, int window, float softcap, void* stream) {
   if (B < 1 || S < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 || (T + BK - 1) / BK > MAX_TILE_WORDS * 32)
     return cudaErrorInvalidValue;
   const paged::Mask mk{scale, softcap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
+  float* ls = static_cast<float*>(lse);
   if (BF16 && dh == 64)
-    return dispatch_wgmma<64>(q, k, v, qp, kp, out, summ, B, S, T, H, Hkv, q_tile, mk, st);
+    return dispatch_wgmma<64>(q, k, v, qp, kp, out, summ, ls, B, S, T, H, Hkv, q_tile, mk, st);
   if (BF16 && dh == 128)
-    return dispatch_wgmma<128>(q, k, v, qp, kp, out, summ, B, S, T, H, Hkv, q_tile, mk, st);
-  const Params p{q, k, v, qp, kp, out, B, S, T, H, Hkv, H / Hkv, mk};
+    return dispatch_wgmma<128>(q, k, v, qp, kp, out, summ, ls, B, S, T, H, Hkv, q_tile, mk, st);
+  const Params p{q, k, v, qp, kp, out, B, S, T, H, Hkv, H / Hkv, mk, ls};
   switch (dh) {
     case 32: return BF16 ? launch_bf16<32>(p, st) : launch_f32<32>(p, st);
     case 64: return launch_f32<64>(p, st);
@@ -876,23 +912,24 @@ int dispatch(const void* q, const void* k, const void* v, const void* qpos, cons
 // Plain C interface, loaded with ctypes: device pointers, out (and, for the
 // bf16 entry at head dims 64 and 128, summ: B * ceil(T / 128) int4 tile
 // summaries that a first launch writes and the blocks mark from, or null
-// for rows of at most 64 keys)
+// for rows of at most 64 keys; and lse: [B, H, S] f32 row log-sum-exp for
+// the backward, kernel 6b, or null on every serving path)
 // allocated by the caller, q_tile the bf16 wgmma path's
 // query rows per block (64 or 128), stream a cudaStream_t; returns
 // cudaGetLastError() (0 = success), or cudaErrorInvalidValue for arguments
 // the kernels do not take (a tensor map that cannot be encoded among them).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, const void* qpos,
-                                    const void* kpos, void* out, void* summ, int B, int S,
-                                    int T, int H, int Hkv, int dh, int q_tile, float scale,
+                                    const void* kpos, void* out, void* summ, void* lse, int B,
+                                    int S, int T, int H, int Hkv, int dh, int q_tile, float scale,
                                     int causal, int window, float softcap, void* stream) {
-  return dispatch<true>(q, k, v, qpos, kpos, out, summ, B, S, T, H, Hkv, dh, q_tile, scale, causal,
-                        window, softcap, stream);
+  return dispatch<true>(q, k, v, qpos, kpos, out, summ, lse, B, S, T, H, Hkv, dh, q_tile, scale,
+                        causal, window, softcap, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, const void* qpos,
-                                   const void* kpos, void* out, int B, int S, int T, int H,
-                                   int Hkv, int dh, float scale, int causal, int window,
+                                   const void* kpos, void* out, void* lse, int B, int S, int T,
+                                   int H, int Hkv, int dh, float scale, int causal, int window,
                                    float softcap, void* stream) {
-  return dispatch<false>(q, k, v, qpos, kpos, out, nullptr, B, S, T, H, Hkv, dh, 128, scale,
+  return dispatch<false>(q, k, v, qpos, kpos, out, nullptr, lse, B, S, T, H, Hkv, dh, 128, scale,
                          causal, window, softcap, stream);
 }

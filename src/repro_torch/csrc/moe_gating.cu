@@ -60,7 +60,23 @@
 // outputs, as wide as the slots (up to 1024 threads).
 //
 // Bound: the logits in, probs and the [T, K] outputs out; below a microsecond
-// at every served shape, so a launch's latency sets its time.  The first
+// at every served shape, so a launch's latency sets its time.
+//
+// Kernel 1b, the backward (gating_bwd_kernel; no TPU kernel: JAX trains
+// through the jnp top_k_gating and differentiates it with XLA, and the
+// port's autograd cannot pass through this file's launch).  For the
+// gradients of combine_w [T, K] (dw) and probs [T, E] (dprobs, from the aux
+// loss; may be null), following repro/core/gating.py:67-95:
+//
+//     dg_k   = keep_k dw_k                                (dropped slots: 0)
+//     dp[idx_k] += (dg_k - sum_j dg_j g_j) / s,  s = sum_k p[idx_k], g_k = p[idx_k] / s
+//                                                 (normalize and K > 1; else += dg_k)
+//     dlogits = p * (dp - sum_e p_e dp_e)         (the softmax's backward), with
+//               dp = dprobs + the top-k terms
+//
+// One warp per token row, PL values a lane as in step a; the K slot terms
+// live in lanes 0 .. K - 1, and their sums run in k order.  A row
+// reduction: bound by its bytes (probs and dprobs in, dlogits out).  The first
 // version took two launches at every shape and walked the slots serially (a
 // thread per expert reading all T*K of them).
 #include <cuda_runtime.h>
@@ -282,6 +298,69 @@ gating_one_kernel(const float* __restrict__ logits, float* __restrict__ probs,
   if (threadIdx.x == 0 && gridDim.x > 1) g_tickets[ticket] = 0;
 }
 
+// Kernel 1b: one warp per token (blocks of WARPS tokens).
+template <int PL>
+__global__ void __launch_bounds__(WARPS * 32)
+gating_bwd_kernel(const float* __restrict__ probs, const int32_t* __restrict__ eidx,
+                  const uint8_t* __restrict__ keep, const float* __restrict__ dw,
+                  const float* __restrict__ dprobs, float* __restrict__ dlogits, int T, int E,
+                  int K, int normalize) {
+  const int lane = threadIdx.x % 32;
+  const int t = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (t >= T) return;  // whole warps exit together
+  const float* prow = probs + (size_t)t * E;
+  float p[PL], dp[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const int e = lane + 32 * j;
+    p[j] = e < E ? prow[e] : 0.f;
+    dp[j] = e < E && dprobs != nullptr ? dprobs[(size_t)t * E + e] : 0.f;
+  }
+  int id = -1;
+  float pk = 0.f, dg = 0.f;
+  if (lane < K) {
+    const size_t slot = (size_t)t * K + lane;
+    id = eidx[slot];
+    pk = prow[id];
+    dg = keep[slot] ? dw[slot] : 0.f;
+  }
+  float add = dg;
+  if (normalize && K > 1) {
+    float s = 0.f;  // in k order, the same sum in every lane
+    for (int k = 0; k < K; ++k) s += __shfl_sync(FULL, pk, k);
+    const float g = pk / s;
+    float c = 0.f;
+    for (int k = 0; k < K; ++k) c += __shfl_sync(FULL, dg * g, k);
+    add = (dg - c) / s;
+  }
+  for (int k = 0; k < K; ++k) {  // the K ids of a token are distinct
+    const int ik = __shfl_sync(FULL, id, k);
+    const float ak = __shfl_sync(FULL, add, k);
+#pragma unroll
+    for (int j = 0; j < PL; ++j)
+      if (lane + 32 * j == ik) dp[j] += ak;
+  }
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) dot = fmaf(p[j], dp[j], dot);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(FULL, dot, off);
+  float* out = dlogits + (size_t)t * E;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const int e = lane + 32 * j;
+    if (e < E) out[e] = p[j] * (dp[j] - dot);
+  }
+}
+
+template <int PL>
+int launch_bwd(const float* pr, const int32_t* ei, const uint8_t* kp, const float* dw,
+               const float* dprobs, float* dl, int T, int E, int K, int normalize, cudaStream_t s) {
+  gating_bwd_kernel<PL><<<(T + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(pr, ei, kp, dw, dprobs, dl, T,
+                                                                       E, K, normalize);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The ticket word of a one-launch call of more than one block on stream s,
 // on the current device: one per (device, stream, capture), where an eager
 // call's capture is 0 and a captured call's the capture's id (unique in the
@@ -362,4 +441,27 @@ extern "C" int moe_gating_f32(const void* logits, void* probs, void* eidx, void*
   if (E <= 256) return launch<8>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
   if (E <= 384) return launch<12>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
   return launch<16>(lg, pr, ei, wt, ps, kp, ct, T, E, K, C, normalize, one_launch, s);
+}
+
+// Kernel 1b.  Device pointers of contiguous tensors allocated by the caller:
+// probs [T, E] f32, eidx [T, K] i32, keep [T, K] bool (one byte each), dw
+// [T, K] f32 and dprobs [T, E] f32 (or null: no aux-loss gradient) in;
+// dlogits [T, E] f32 out.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int moe_gating_backward_f32(const void* probs, const void* eidx, const void* keep,
+                                       const void* dw, const void* dprobs, void* dlogits, int T,
+                                       int E, int K, int normalize, void* stream) {
+  if (T < 1 || E < 1 || E > MAX_E || K < 1 || K > MAX_K || K > E)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pr = static_cast<const float*>(probs);
+  const int32_t* ei = static_cast<const int32_t*>(eidx);
+  const uint8_t* kp = static_cast<const uint8_t*>(keep);
+  const float* gw = static_cast<const float*>(dw);
+  const float* gp = static_cast<const float*>(dprobs);
+  float* dl = static_cast<float*>(dlogits);
+  if (E <= 128) return launch_bwd<4>(pr, ei, kp, gw, gp, dl, T, E, K, normalize, s);
+  if (E <= 256) return launch_bwd<8>(pr, ei, kp, gw, gp, dl, T, E, K, normalize, s);
+  if (E <= 384) return launch_bwd<12>(pr, ei, kp, gw, gp, dl, T, E, K, normalize, s);
+  return launch_bwd<16>(pr, ei, kp, gw, gp, dl, T, E, K, normalize, s);
 }

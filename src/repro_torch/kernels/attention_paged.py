@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.quant.kv import QuantizedKV
+from repro_torch.kernels.no_backward import SERVING_KERNELS, refuse_grad
 
 NEG_INF = -1e30
 KEYS_PER_TILE = 32  # paged_attention.cuh KT: a page must fit in one f32 tile
@@ -285,6 +286,7 @@ def paged_decode_attention(
                                             k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
+    refuse_grad("paged_decode_attention", SERVING_KERNELS, q, k_pool, v_pool, k_scale, v_scale)
     check_pool_args("paged_decode_attention", q, k_pool, v_pool, kpos, table, qpos,
                     k_scale=k_scale, v_scale=v_scale)
     B, Hkv, G, dh = q.shape

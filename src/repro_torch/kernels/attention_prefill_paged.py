@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.attention_paged import check_pool_args, kv_values, masked_softmax_pv
+from repro_torch.kernels.no_backward import SERVING_KERNELS, refuse_grad
 
 PREFILL_PV = "hgct,thd->chgd"
 
@@ -121,6 +122,8 @@ def paged_prefill_attention(
                                              softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for device {q.device}")
+    refuse_grad("paged_prefill_attention", SERVING_KERNELS, q, k_pool, v_pool, ck, cv, k_scale,
+                v_scale)
     check_pool_args("paged_prefill_attention", q, k_pool, v_pool, kpos, table, qpos,
                     extra=(("ck", ck), ("cv", cv)), k_scale=k_scale, v_scale=v_scale)
     C, Hkv, G, dh = q.shape
@@ -205,6 +208,8 @@ def paged_prefill_attention_batched(
             window=window, softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention_batched: no kernel for device {q.device}")
+    refuse_grad("paged_prefill_attention_batched", SERVING_KERNELS, q, k_pool, v_pool, ck, cv,
+                k_scale, v_scale)
     name = "paged_prefill_attention_batched"
     B, C, Hkv, G, dh = q.shape
     if (tables.ndim != 2 or tables.shape[0] != B or qpos.shape != (B, C)

@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.no_backward import SERVING_KERNELS, refuse_grad
 from repro_torch.kernels.attention_paged import (DECODE_PV, MAX_G, TILE_KEYS, _sm_count,
                                                  check_kv_args, decode_splits, kv_values,
                                                  masked_partials, masked_softmax_pv, merge_partials,
@@ -135,6 +136,7 @@ def decode_attention_quant(
                                             causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_quant: no kernel for device {q.device}")
+    refuse_grad("decode_attention_quant", SERVING_KERNELS, q, ks, vs)
     name = "decode_attention_quant"
     check_kv_args(name, q, kq, vq, ks, vs, head_dims=HEAD_DIMS)
     B, Hkv, G, dh = q.shape

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.expert_mlp_grouped import TILE, VEC
+from repro_torch.kernels.no_backward import EXPERT_KERNELS, refuse_grad
 
 launches = {"expert_mlp": 0}
 
@@ -104,6 +105,7 @@ def expert_mlp(
         return expert_mlp_plain(xe, wi, wg, wo, fill)
     if xe.device.type != "cuda":
         raise ValueError(f"expert_mlp: no kernel for device {xe.device}")
+    refuse_grad("expert_mlp", EXPERT_KERNELS, xe, wi, wg, wo)
     E, C, D = xe.shape
     Fd = wi.shape[-1]
     check_buffer("expert_mlp", xe, Fd)

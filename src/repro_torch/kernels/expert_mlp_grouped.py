@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.quant.qarrays import QuantizedArray, dequantize_values
+from repro_torch.kernels.no_backward import EXPERT_KERNELS, quant_tensors, refuse_grad
 
 TILE = 8  # token rows per tile; must equal dispatch_grouped.GROUPED_TILE
 VEC = 4  # columns a kernel lane loads at once: D and F must be multiples
@@ -370,6 +371,7 @@ def grouped_mlp(
         return grouped_mlp_plain(xg, te, wi, wg, wo, rows_used)
     if xg.device.type != "cuda":
         raise ValueError(f"grouped_mlp: no kernel for device {xg.device}")
+    refuse_grad("grouped_mlp", EXPERT_KERNELS, xg, wi, wg, wo)
     Ct, D = xg.shape
     Fd = wi.shape[-1]
     _check(xg, te, wi, wg, wo, rows_used)
@@ -495,6 +497,7 @@ def grouped_mlp_quant(
         return grouped_mlp_quant_plain(xg, te, wi, wg, wo, rows_used)
     if xg.device.type != "cuda":
         raise ValueError(f"grouped_mlp_quant: no kernel for device {xg.device}")
+    refuse_grad("grouped_mlp_quant", EXPERT_KERNELS, xg, *quant_tensors(wi, wg, wo))
     if not check_grouped_quant_compat(wi, wg, wo):
         raise ValueError(
             "grouped_mlp_quant: the kernel takes int8/int4 per-output-column weights "

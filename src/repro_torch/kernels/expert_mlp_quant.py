@@ -31,6 +31,7 @@ from repro_torch.kernels.expert_mlp import check_buffer, check_fill, experts_pla
 from repro_torch.kernels.expert_mlp_grouped import (TILE, VEC, _expert, kernel_variant,
                                                     launch_capacity_mma)
 from repro_torch.quant.qarrays import QuantizedArray, dequantize_values
+from repro_torch.kernels.no_backward import EXPERT_KERNELS, quant_tensors, refuse_grad
 
 launches = {"expert_mlp_quant": 0}
 variant_launches = {"expert_mlp_quant_mma": 0, "expert_mlp_quant_fma": 0}
@@ -91,6 +92,7 @@ def expert_mlp_quant(
         return expert_mlp_quant_plain(xe, wi, wg, wo, fill)
     if xe.device.type != "cuda":
         raise ValueError(f"expert_mlp_quant: no kernel for device {xe.device}")
+    refuse_grad("expert_mlp_quant", EXPERT_KERNELS, xe, *quant_tensors(wi, wg, wo))
     if not check_kernel_compat(xe, wi, wg, wo):
         raise ValueError(
             "expert_mlp_quant: the kernel takes int8 per-output-column weights (group_size 0) "

@@ -18,6 +18,16 @@ Two entry points launch it:
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``launches`` counts the wrapper's kernel launches.
 
+Training (kernel 6b, ``csrc/flash_attention_bwd.cu``): under grad, with q,
+k or v requiring it, ``flash_attention_gqa`` goes through
+``FlashAttentionFn``, whose forward launches kernel 6 with its optional row
+log-sum-exp output L [B, H, S] (f32; null on every serving path, whose
+launch is unchanged) and whose backward launches kernel 6b
+(``flash_attention_backward``): the gradients of q, k and v that
+``jax.value_and_grad`` takes of the model's attention.  On the CPU the
+same function runs the plain versions (``flash_attention_plain`` with
+``return_lse``, ``flash_attention_backward_plain``).
+
 Both versions zero masked probabilities, as ``masked_softmax_pv`` does
 (``kernels/attention_paged.py``), so a row with no valid key gives 0.  The
 JAX ``_sdpa`` gives such a row a uniform average over its keys instead;
@@ -57,11 +67,12 @@ KEY_TILE = 128  # keys per tile summary, and per K/V tile of 128-row blocks (64 
 ONE_TILE_KEYS = 64  # rows of at most this many keys: one tile, no summaries
 BOX_COLS = 64  # columns of a TMA box: 128 bytes of bf16, the swizzle's span
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_backward": 0}
 
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-_C_ARGS_BF16 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + _TAIL  # + summ, q_tile
-_C_ARGS_F32 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _TAIL
+_C_ARGS_BF16 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + _TAIL  # + summ, lse, q_tile
+_C_ARGS_F32 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _TAIL  # + lse
+_C_ARGS_BWD = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + _TAIL
 
 
 def _library():
@@ -69,6 +80,13 @@ def _library():
     for fn, args in ((lib.flash_attention_bf16, _C_ARGS_BF16), (lib.flash_attention_f32, _C_ARGS_F32)):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _backward_library():
+    lib = build.load_library("flash_attention_bwd")
+    lib.flash_attention_backward.argtypes = _C_ARGS_BWD
+    lib.flash_attention_backward.restype = ctypes.c_int
     return lib
 
 
@@ -143,38 +161,94 @@ def check_tma(name, **tensors):
                              "bytes")
 
 
+def _chunk_scores(qc, kf, q_pos_c, k_pos, *, scale, causal, window, softcap):
+    """f32 scores [B, Hkv, G, c, T] of a chunk of queries (scaled, then
+    softcapped, as the model's ``_sdpa``) and their validity mask."""
+    B, c, H, dh = qc.shape
+    Hkv = kf.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst", qc.reshape(B, c, Hkv, H // Hkv, dh).float(), kf)
+    s.mul_(scale)
+    if softcap > 0.0:
+        s = torch.tanh(s.div_(softcap)).mul_(softcap)
+    kp = k_pos[:, None, None, None, :]  # [B, 1, 1, 1, T]
+    qp = q_pos_c[:, None, None, :, None]  # [B, 1, 1, c, 1]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window > 0:
+        valid = valid & (qp - kp < window)
+    return s, valid
+
+
 def flash_attention_plain(q, k, v, q_pos, k_pos, *, scale: float, causal: bool = True,
-                          window: int = 0, softcap: float = 0.0, q_chunk: int = Q_CHUNK):
+                          window: int = 0, softcap: float = 0.0, q_chunk: int = Q_CHUNK,
+                          return_lse: bool = False):
     """The kernel's function in PyTorch, as the model's ``_sdpa`` computes
     it (f32 logits scaled, softcapped and masked, f32 softmax, probabilities
     cast to v's type for the P.V product) with masked entries zeroed, over
-    ``q_chunk`` queries at a time."""
+    ``q_chunk`` queries at a time.  ``return_lse`` also returns the row
+    log-sum-exp L [B, H, S] f32 over the valid keys (+inf for a row with
+    none), kernel 6's optional output."""
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     kf = k.float()
-    kp = k_pos[:, None, None, None, :]  # [B, 1, 1, 1, T]
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hkv, G, S), dtype=torch.float32, device=q.device) if return_lse else None
     for s0 in range(0, S, q_chunk):
         qc = q[:, s0 : s0 + q_chunk]
         c = qc.shape[1]
-        s = torch.einsum("bskgd,btkd->bkgst", qc.reshape(B, c, Hkv, G, dh).float(), kf)
-        s.mul_(scale)
-        if softcap > 0.0:
-            s = torch.tanh(s.div_(softcap)).mul_(softcap)
-        qp = q_pos[:, s0 : s0 + c][:, None, None, :, None]  # [B, 1, 1, c, 1]
-        valid = kp >= 0
-        if causal:
-            valid = valid & (kp <= qp)
-        if window > 0:
-            valid = valid & (qp - kp < window)
+        s, valid = _chunk_scores(qc, kf, q_pos[:, s0 : s0 + c], k_pos, scale=scale, causal=causal,
+                                 window=window, softcap=softcap)
         s.masked_fill_(~valid, NEG_INF)
+        if return_lse:
+            lc = torch.logsumexp(s, dim=-1)
+            lse[..., s0 : s0 + c] = torch.where(valid.any(-1), lc, float("inf"))
         p = torch.softmax(s, dim=-1)
         del s
         p.masked_fill_(~valid, 0.0)
         y = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
         out[:, s0 : s0 + c] = y.reshape(B, c, H, dh)
+    if return_lse:
+        return out, lse.view(B, H, S)
     return out
+
+
+def flash_attention_backward_plain(q, k, v, q_pos, k_pos, out, dout, lse, *, scale: float,
+                                   causal: bool = True, window: int = 0, softcap: float = 0.0,
+                                   q_chunk: int = Q_CHUNK):
+    """Kernel 6b's function in PyTorch: (dq, dk, dv) in the types of q, k
+    and v, from the forward's output ``out``, its row log-sum-exp ``lse``
+    [B, H, S] and ``dout``.  P = exp(z - L) on valid keys (0 elsewhere),
+    D = rowsum(dO * O), dV = P^T dO with P rounded to v's type (the
+    forward's P.V operand), dZ = P * (dO V^T - D) (times 1 - (z / c)^2
+    under a softcap c), dQ = scale dZ K, dK = scale dZ^T Q, summed over a
+    kv-head's G query heads; f32 throughout, over ``q_chunk`` queries at a
+    time."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    L = lse.view(B, Hkv, G, S)
+    delta = torch.einsum("bshd,bshd->bhs", dout.float(), out.float()).reshape(B, Hkv, G, S)
+    for s0 in range(0, S, q_chunk):
+        qc = q[:, s0 : s0 + q_chunk]
+        c = qc.shape[1]
+        z, valid = _chunk_scores(qc, kf, q_pos[:, s0 : s0 + c], k_pos, scale=scale, causal=causal,
+                                 window=window, softcap=softcap)
+        p = torch.exp(z - L[..., s0 : s0 + c, None]).masked_fill_(~valid, 0.0)
+        doc = dout[:, s0 : s0 + c].float().reshape(B, c, Hkv, G, dh)
+        dv += torch.einsum("bkgst,bskgd->btkd", p.to(v.dtype).float(), doc)
+        dp = torch.einsum("bskgd,btkd->bkgst", doc, vf)
+        dz = p * (dp - delta[..., s0 : s0 + c, None])
+        if softcap > 0.0:
+            dz.mul_(1.0 - (z / softcap) ** 2)
+        dq[:, s0 : s0 + c] = torch.einsum("bkgst,btkd->bskgd", dz, kf).reshape(B, c, H, dh) * scale
+        dk += torch.einsum("bkgst,bskgd->btkd", dz, qc.float().reshape(B, c, Hkv, G, dh)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(name, q, k, v, q_pos, k_pos):
@@ -214,10 +288,76 @@ def flash_attention_gqa(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """[B, S, H, dh] attention output in q's type; head h reads kv-head
-    h // G."""
+    h // G.  Differentiable (``FlashAttentionFn``) when grad is enabled and
+    q, k or v requires it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, scale, causal, window, softcap)
+    return _forward(q, k, v, q_pos, k_pos, scale=scale, causal=causal, window=window,
+                    softcap=softcap)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel 6 with its L output, and kernel 6b as its backward (their
+    plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, scale, causal, window, softcap):
+        kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+        out, lse = _forward(q, k, v, q_pos, k_pos, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, q_pos, k_pos, out, dout.contiguous(), lse,
+                                              **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_backward(q, k, v, q_pos, k_pos, out, dout, lse, *, scale: float,
+                             causal: bool = True, window: int = 0, softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention_gqa`` at ``dout``, from its output
+    and row log-sum-exp: kernel 6b on the card (one count a call: its D
+    pass, dK / dV pass and dQ pass), the plain version on the CPU."""
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, q_pos, k_pos, out, dout, lse, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: no kernel for device {q.device}")
+    name = "flash_attention_backward"
+    _check(name, q, k, v, q_pos, k_pos)
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    for n, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be a contiguous {q.dtype} tensor of q's shape")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be a contiguous [B, H, S] float32 tensor")
+    lib = _backward_library()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, H, Hkv, dh, int(q.dtype == torch.bfloat16),
+            float(scale), int(causal), int(window), float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    launches[name] += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, q_pos, k_pos, *, scale: float, causal: bool, window: int, softcap: float,
+             return_lse: bool = False):
+    """Kernel 6 (its plain version on the CPU); ``return_lse``: also the row
+    log-sum-exp [B, H, S] f32, which the launch then writes."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, k_pos, scale=scale, causal=causal,
-                                     window=window, softcap=softcap)
+                                     window=window, softcap=softcap, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     name = "flash_attention"
@@ -226,6 +366,8 @@ def flash_attention_gqa(
     T, Hkv = k.shape[1], k.shape[2]
     lib = _library()
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if lse is not None else None
     if q.dtype == torch.bfloat16:
         fn, summ, q_tile = lib.flash_attention_bf16, None, 0
         if dh in WGMMA_HEAD_DIMS:
@@ -233,10 +375,10 @@ def flash_attention_gqa(
             q_tile = q_tile_rows(S, H, B, _sm_count(q.device.index))
             if T > ONE_TILE_KEYS:  # tile summaries {min, max, count} per 128 keys of each row
                 summ = torch.empty((B, -(-T // KEY_TILE), 4), dtype=torch.int32, device=q.device)
-        ptrs = (out.data_ptr(), summ.data_ptr() if summ is not None else None)
+        ptrs = (out.data_ptr(), summ.data_ptr() if summ is not None else None, lse_ptr)
         shapes = (B, S, T, H, Hkv, dh, q_tile)
     else:
-        fn, ptrs, shapes = lib.flash_attention_f32, (out.data_ptr(),), (B, S, T, H, Hkv, dh)
+        fn, ptrs, shapes = lib.flash_attention_f32, (out.data_ptr(), lse_ptr), (B, S, T, H, Hkv, dh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
@@ -244,7 +386,7 @@ def flash_attention_gqa(
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launches[name] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(

@@ -18,6 +18,13 @@ scan's order on the CPU.  A tensor on the CPU takes the plain version; a
 CUDA tensor launches the kernel or raises.  ``launches`` counts the
 wrapper's calls that launched the kernel, and ``variant_launches`` which
 path each took (one launch, or two).
+
+Training (kernel 1b, ``moe_gating_backward_f32`` in the same source): under
+grad, with the logits requiring it, ``gating`` goes through ``GatingFn``,
+whose backward maps the gradients of the gate weights and of the softmax
+probabilities (the aux loss's) to the logits' (``gating_backward``; its
+plain version ``gating_backward_plain`` on the CPU), as
+``jax.value_and_grad`` differentiates ``top_k_gating``.
 """
 from __future__ import annotations
 
@@ -38,10 +45,11 @@ ONE_LAUNCH_SLOTS = 4096
 # rank launch, 32 a token up to 8 tokens in the one-launch path
 RANK_THREADS = 1024
 
-launches = {"moe_gating": 0}
+launches = {"moe_gating": 0, "moe_gating_backward": 0}
 variant_launches = {"moe_gating_one_launch": 0, "moe_gating_two_launches": 0}
 
 _C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_C_ARGS_BWD = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _bound = None  # the loaded library whose signature is bound
 
 
@@ -51,6 +59,8 @@ def _library():
     if lib is not _bound:
         lib.moe_gating_f32.argtypes = _C_ARGS
         lib.moe_gating_f32.restype = ctypes.c_int
+        lib.moe_gating_backward_f32.argtypes = _C_ARGS_BWD
+        lib.moe_gating_backward_f32.restype = ctypes.c_int
         _bound = lib
     return lib
 
@@ -100,8 +110,96 @@ def gating(logits: torch.Tensor, top_k: int, capacity: int, *,
     """logits [T, E] -> (``Gating``, counts [E] int32).  ``counts[e]`` is the
     number of (token, k) slots routed to expert e before capacity, so
     ``min(counts, capacity)`` rows of its buffer hold tokens.  On the card,
-    one launch up to ``ONE_LAUNCH_SLOTS`` slots (T*K), two past it."""
-    return _gating(logits, top_k, capacity, normalize, logits.shape[0] * top_k <= ONE_LAUNCH_SLOTS)
+    one launch up to ``ONE_LAUNCH_SLOTS`` slots (T*K), two past it.
+    Differentiable in the logits (``GatingFn``) when grad is enabled and
+    they require it: ``combine_w`` and ``probs`` carry gradients."""
+    one_launch = logits.shape[0] * top_k <= ONE_LAUNCH_SLOTS
+    if torch.is_grad_enabled() and logits.requires_grad:
+        eidx, w, pos, keep, probs, counts = GatingFn.apply(logits, top_k, capacity, normalize,
+                                                           one_launch)
+        return Gating(eidx, w, pos, keep, probs), counts
+    return _gating(logits, top_k, capacity, normalize, one_launch)
+
+
+class GatingFn(torch.autograd.Function):
+    """Kernel 1 forward, kernel 1b backward (plain versions on the CPU).
+    The outputs are copies of the kernel's one carved buffer, so each is a
+    tensor of its own; ids, positions, keep and counts carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k, capacity, normalize, one_launch):
+        g, counts = _gating(logits, top_k, capacity, normalize, one_launch)
+        outs = [t.clone() for t in (g.expert_idx, g.combine_w, g.position, g.keep, g.probs, counts)]
+        eidx, _, pos, keep, probs, cnt = outs
+        ctx.save_for_backward(probs, eidx, keep)
+        ctx.normalize = normalize
+        ctx.mark_non_differentiable(eidx, pos, keep, cnt)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, _d_eidx, d_w, _d_pos, _d_keep, d_probs, _d_counts):
+        probs, eidx, keep = ctx.saved_tensors
+        if d_w is None:
+            d_w = torch.zeros(eidx.shape, dtype=torch.float32, device=probs.device)
+        d_logits = gating_backward(probs, eidx, keep, d_w, d_probs, normalize=ctx.normalize)
+        return d_logits, None, None, None, None
+
+
+def gating_backward_plain(probs, expert_idx, keep, d_w, d_probs=None, *,
+                          normalize: bool = True) -> torch.Tensor:
+    """Kernel 1b's function in PyTorch: d logits [T, E] f32 from the
+    gradients of ``combine_w`` (d_w [T, K]) and of ``probs`` (d_probs [T,
+    E], or None), as ``jax.value_and_grad`` takes them through
+    ``top_k_gating``: dg = keep * d_w; with ``normalize`` and K > 1, dp[idx_k]
+    += (dg_k - sum_j dg_j g_j) / s (s = sum_k p[idx_k], g = p[idx] / s),
+    else += dg_k; then the softmax's backward, p * (dp - sum(p * dp))."""
+    idx = expert_idx.long()
+    dg = torch.where(keep, d_w.float(), torch.zeros((), device=probs.device))
+    if normalize and idx.shape[1] > 1:
+        pk = probs.gather(1, idx)
+        s = pk.sum(-1, keepdim=True)
+        add = (dg - (dg * (pk / s)).sum(-1, keepdim=True)) / s
+    else:
+        add = dg
+    dp = (d_probs.float().clone() if d_probs is not None else torch.zeros_like(probs))
+    dp.scatter_add_(1, idx, add)
+    return probs * (dp - (probs * dp).sum(-1, keepdim=True))
+
+
+def gating_backward(probs, expert_idx, keep, d_w, d_probs=None, *,
+                    normalize: bool = True) -> torch.Tensor:
+    """d logits [T, E] f32: kernel 1b on the card (one warp per token), the
+    plain version on the CPU."""
+    if probs.device.type == "cpu":
+        return gating_backward_plain(probs, expert_idx, keep, d_w, d_probs, normalize=normalize)
+    if probs.device.type != "cuda":
+        raise ValueError(f"moe_gating_backward: no kernel for device {probs.device}")
+    name = "moe_gating_backward"
+    T, E = probs.shape
+    K = expert_idx.shape[1]
+    if probs.dtype != torch.float32 or not probs.is_contiguous():
+        raise TypeError(f"{name}: probs must be a contiguous [T, E] float32 tensor")
+    if expert_idx.dtype != torch.int32 or keep.dtype != torch.bool or expert_idx.shape != (T, K):
+        raise TypeError(f"{name}: expert_idx must be [T, K] int32 and keep [T, K] bool")
+    if not (1 <= K <= min(E, MAX_TOP_K)) or E > MAX_EXPERTS:
+        raise ValueError(f"{name}: the kernel takes E <= {MAX_EXPERTS} and 1 <= K <= min(E, "
+                         f"{MAX_TOP_K}); got E={E}, K={K}")
+    d_w = d_w.float().contiguous()
+    if d_probs is not None:
+        d_probs = d_probs.float().contiguous()
+    eidx, kp = expert_idx.contiguous(), keep.contiguous()
+    out = torch.empty((T, E), dtype=torch.float32, device=probs.device)
+    lib = _library()
+    with torch.cuda.device(probs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.moe_gating_backward_f32(
+            probs.data_ptr(), eidx.data_ptr(), kp.data_ptr(), d_w.data_ptr(),
+            d_probs.data_ptr() if d_probs is not None else None, out.data_ptr(), T, E, K,
+            int(normalize), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    launches[name] += 1
+    return out
 
 
 def _gating(logits: torch.Tensor, top_k: int, capacity: int, normalize: bool,

@@ -26,6 +26,10 @@ embeddings (vlm: ``prefix_embeds``).
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose nesting and
 leaf names are the JAX package's parameter tree, so a JAX tree converts leaf
 for leaf (``repro_torch.convert``).
+Training: ``forward`` is differentiable (every other entry point runs under
+``torch.no_grad``), with ``remat`` and ``return_routing`` as in JAX;
+``param_leaves`` lists the tree's tensors in the JAX tree's order and
+``trainable`` sets their ``requires_grad``.
 """
 from __future__ import annotations
 
@@ -65,6 +69,38 @@ class ParamTree(nn.Module):
 
     def items(self):
         return [(k, self[k]) for k in self._keys]
+
+
+def param_leaves(params) -> dict:
+    """``{path: tensor}`` of every leaf of a ParamTree (or nested dict), in
+    the JAX tree's flattening order (keys sorted at every level), path
+    ``"segments/seg0/pos1/moe/wi"`` as in the checkpoint manifest.  The
+    tensors are the tree's own (no copy)."""
+    out = {}
+
+    def walk(node, prefix):
+        for k in sorted(node._keys if isinstance(node, ParamTree) else node):
+            v = node[k]
+            if torch.is_tensor(v):
+                out[prefix + k] = v
+            elif isinstance(v, (dict, ParamTree)):
+                walk(v, prefix + k + "/")
+            else:
+                raise TypeError(f"param_leaves: leaf {prefix + k!r} is a {type(v).__name__}, "
+                                "not a tensor (quantized trees do not train)")
+
+    walk(params, "")
+    return out
+
+
+def trainable(params, on: bool = True) -> dict:
+    """Set ``requires_grad`` of every leaf of ``params`` (in place) and
+    return ``param_leaves``: the tensors a training step differentiates and
+    updates."""
+    leaves = param_leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(on)
+    return leaves
 
 
 def resolve_device(device) -> torch.device:
@@ -197,29 +233,41 @@ def encode(cfg: ModelConfig, params, source: torch.Tensor) -> torch.Tensor:
 
 
 def _run_segments(cfg, params, x, positions, caches, mode, index=None, block_table=None,
-                  memory=None):
+                  memory=None, remat=False, collect_stats=False):
+    """(x, caches, aux); with ``collect_stats`` a fourth element, ``{seg{i}:
+    {pos{j}: RoutingStats [repeats, ...]}}`` for every MoE position."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = {}
     for i, seg in enumerate(cfg.segments):
         c = caches[f"seg{i}"] if caches is not None else None
-        x, _, a = apply_segment(cfg, seg, params["segments"][f"seg{i}"], x, positions,
-                                caches=c, mode=mode, index=index, block_table=block_table,
-                                memory=memory)
+        out = apply_segment(cfg, seg, params["segments"][f"seg{i}"], x, positions,
+                            caches=c, mode=mode, index=index, block_table=block_table,
+                            memory=memory, remat=remat, collect_stats=collect_stats)
+        x, a = out[0], out[2]
+        if collect_stats and out[3]:
+            stats[f"seg{i}"] = out[3]
         aux = aux + a
-    return x, caches, aux
+    return (x, caches, aux, stats) if collect_stats else (x, caches, aux)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, memory: Optional[torch.Tensor] = None,
-            prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            prefix_embeds: Optional[torch.Tensor] = None, remat: bool = False,
+            return_routing: bool = False) -> Tuple[torch.Tensor, ...]:
     """Teacher-forced logits [B, S (+ P), V] and the summed aux loss;
     ``memory`` the encoder output the cross attention reads, ``prefix_embeds``
-    [B, P, De] patch embeddings prepended to the tokens."""
+    [B, P, De] patch embeddings prepended to the tokens.  Differentiable:
+    under grad, with the parameters ``trainable``, the kernels take their
+    backward kernels (6b, 1b) and a kernel without one raises.  ``remat``
+    recomputes each layer in the backward; ``return_routing`` appends the
+    per-layer routing-stats tree (``core/gating.py::summarize_routing``)."""
     x = _with_prefix(cfg, params, embed_tokens(cfg, params, tokens), prefix_embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
-    x, _, aux = _run_segments(cfg, params, x, positions, None, "train", memory=memory)
-    return logits_out(cfg, params, x), aux
+    out = _run_segments(cfg, params, x, positions, None, "train", memory=memory, remat=remat,
+                        collect_stats=return_routing)
+    logits = logits_out(cfg, params, out[0])
+    return (logits, out[2], out[3]) if return_routing else (logits, out[2])
 
 
 @torch.no_grad()

@@ -128,3 +128,27 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# bf16 backward (``repro/models/modules.py:121-138``): an identity whose
+# backward casts the gradient to the primal's type.  JAX's VJP promotes
+# cotangents to f32 once an f32 loss head is involved; the JAX model casts
+# the residual stream's cotangent back at every layer boundary under
+# ``BF16_BWD`` (``models/transformer.py``), and so does the port.
+# ---------------------------------------------------------------------------
+
+
+class GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    return GradCast.apply(x)

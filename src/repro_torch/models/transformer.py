@@ -5,13 +5,18 @@ cross attention over the encoder memory, in an encoder-decoder's decoder] + a
 pre-norm FFN (dense, MoE or none), all residual.
 Parameters and caches of a segment keep the JAX package's layout, stacked on
 a leading ``[repeats]`` axis; the JAX ``lax.scan`` over repeats becomes a
-Python loop that takes repeat ``r``'s views of both.
+Python loop over repeat ``r``'s views of both (``unbind``, ``take``).
+``remat=True`` (training) recomputes each layer in the backward
+(``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint`` of
+the scan body), and ``collect_stats=True`` returns each MoE position's
+``RoutingStats`` stacked over the repeats, as JAX's scan stacks them.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttnSpec, LayerSpec, LRUSpec, ModelConfig, Segment, SSMSpec
 from repro_torch.core.moe import init_moe, moe_layer
@@ -23,7 +28,8 @@ from repro_torch.models.attention import (
     init_paged_kv_cache,
     spec_is_paged,
 )
-from repro_torch.models.modules import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.core.gating import stack_stats
+from repro_torch.models.modules import grad_cast, init_mlp, init_rmsnorm, mlp, rmsnorm
 from repro_torch.models.rglru import init_lru, init_lru_cache, lru_layer
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_layer
 from repro_torch.quant.kv import QuantizedKV
@@ -103,11 +109,14 @@ def apply_layer(
     index: Optional[int] = None,
     block_table: Optional[torch.Tensor] = None,
     memory: Optional[torch.Tensor] = None,
+    collect_stats: bool = False,
 ):
     """Returns (x, cache, aux_loss); the cache is updated in place.
     ``memory`` [B, T, d] is the encoder output a cross-attention sublayer
-    attends over."""
+    attends over.  ``collect_stats=True`` appends the MoE layer's
+    ``RoutingStats`` (None for a layer without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = None
     h = rmsnorm(params["norm_mixer"], x, cfg.rms_eps)
     sc = cache.get("self") if cache is not None else None
     m = ls.mixer
@@ -129,8 +138,15 @@ def apply_layer(
         x = x + mlp(params["ffn"], h, ls.ffn.act)
     elif ls.ffn.kind == "moe":
         h = rmsnorm(params["norm_ffn"], x, cfg.rms_eps)
-        y, aux = moe_layer(cfg, ls.ffn, params["moe"], h)
+        if collect_stats:
+            y, aux, stats = moe_layer(cfg, ls.ffn, params["moe"], h, with_stats=True)
+        else:
+            y, aux = moe_layer(cfg, ls.ffn, params["moe"], h)
         x = x + y
+    if BF16_BWD[0]:
+        x = grad_cast(x)
+    if collect_stats:
+        return x, cache, aux, stats
     return x, cache, aux
 
 
@@ -147,6 +163,20 @@ def take(tree, r: int):
     if isinstance(tree, QuantizedArray):
         return tree.take(r)
     return {k: take(v, r) for k, v in tree.items()}
+
+
+def unbind(tree, n: int) -> list:
+    """Every repeat's views of a ``[repeats, ...]``-stacked parameter tree at
+    once (``torch.unbind``; quantized leaves through ``take``): under grad,
+    one leaf's gradient is then one stack of the repeats' gradients, where
+    an index per repeat would give each repeat's gradient as a zero-filled
+    tensor of the whole leaf."""
+    if torch.is_tensor(tree):
+        return list(tree.unbind(0))
+    if isinstance(tree, QuantizedArray):
+        return [tree.take(r) for r in range(n)]
+    parts = {k: unbind(v, n) for k, v in tree.items()}
+    return [{k: parts[k][r] for k in parts} for r in range(n)]
 
 
 def init_segment(gen, cfg: ModelConfig, seg: Segment, dtype, device) -> dict:
@@ -173,18 +203,43 @@ def apply_segment(
     index: Optional[int] = None,
     block_table: Optional[torch.Tensor] = None,
     memory: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    collect_stats: bool = False,
 ):
     """Returns (x, caches, aux_sum); ``caches`` mirror the params with a
     leading ``repeats`` axis and are written in place.  ``block_table`` (the
     paged modes) and ``memory`` (cross attention) are the same for every
-    layer."""
+    layer.  ``remat``: each layer is recomputed in the backward (no cache:
+    the training forward).  ``collect_stats``: a fourth element, ``{pos{j}:
+    RoutingStats [repeats, ...]}`` for the pattern's MoE positions."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = {f"pos{j}": [] for j, ls in enumerate(seg.pattern) if ls.ffn.kind == "moe"}
+    per_repeat = {k: unbind(v, seg.repeats) for k, v in params.items()}
     for r in range(seg.repeats):
         for j, ls in enumerate(seg.pattern):
             key = f"pos{j}"
             c = take(caches[key], r) if caches is not None else None
-            x, _, a = apply_layer(cfg, ls, take(params[key], r), x, positions,
-                                  cache=c, mode=mode, index=index, block_table=block_table,
-                                  memory=memory)
+            p = per_repeat[key][r]
+            kw = dict(cache=c, mode=mode, index=index, block_table=block_table, memory=memory,
+                      collect_stats=collect_stats)
+            if remat and caches is None:
+                out = checkpoint(apply_layer, cfg, ls, p, x, positions, use_reentrant=False, **kw)
+            else:
+                out = apply_layer(cfg, ls, p, x, positions, **kw)
+            x, a = out[0], out[2]
+            if collect_stats and key in stats:
+                stats[key].append(out[3])
             aux = aux + a
+    if collect_stats:
+        return x, caches, aux, {k: stack_stats(v) for k, v in stats.items()}
     return x, caches, aux
+
+
+# The bf16 backward switch (``repro/models/transformer.py``'s ``BF16_BWD``):
+# cast the residual stream's gradient to the activation type at every layer
+# boundary (``models/modules.py::grad_cast``).
+BF16_BWD = [False]
+
+
+def set_bf16_bwd(on: bool) -> None:
+    BF16_BWD[0] = bool(on)
