@@ -232,7 +232,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    non-causal, dh 256 / 32 / 112; gating at T = 4096 over 32 and 64
    experts, top-1, and top-2 with drops), timed from CUDA graphs beside
    their bounds and the SDPA backward, with kernel 6's forward with and
-   without its L output; (b) nlg-350m-prmoe-32-64 at its published size
+   without its L output; 6b (bf16 on the tensor cores) also
+   bit for bit over two launches, its blocks per pass beside the SM count; (b) nlg-350m-prmoe-32-64 at its published size
    (4.11 G parameters, bf16, ``moe_impl="dense"``) trained 8 AdamW steps
    of 8 x 512 Markov tokens: loss, ce, aux and grad norm per step, median
    step ms, tokens/s, AdamW ms, peak memory, launches of 6 / 6b / 1 / 1b
@@ -3849,7 +3850,9 @@ def slice10_kernel_checks(gen) -> tuple:
     """Phase 17a: kernels 6b and 1b against their plain versions at
     ``launch/training_kernels.py``'s cases (bf16 and f32), timed from CUDA
     graphs beside their bounds and the SDPA backward, with kernel 6's
-    forward with and without its L output.  Returns ({case: info} 6b,
+    forward with and without its L output; 6b also bit for bit over two
+    launches on the same inputs (``deterministic``), with its blocks per
+    pass beside the SM count (``blocks``).  Returns ({case: info} 6b,
     {case: info} 1b)."""
     from repro_torch.launch import training_kernels as tk
 
@@ -3861,7 +3864,8 @@ def slice10_kernel_checks(gen) -> tuple:
             fb[key] = res
             log(f"kernel flash_attention_backward {key}: {json.dumps(res)}")
             if not res["ok"]:
-                raise AssertionError(f"kernel 6b {key} disagrees with its plain version")
+                raise AssertionError(f"kernel 6b {key} disagrees with its plain version, or two "
+                                     f"launches differ (deterministic: {res['deterministic']})")
     for name, (T, E, K, cf, bias) in tk.GATING_BWD_CASES.items():
         res = tk.check_gating_bwd(name, T, E, K, cf, bias, gen)
         gb[name] = res
@@ -3872,6 +3876,26 @@ def slice10_kernel_checks(gen) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+
+
+def kernel_setup() -> tuple:
+    """The launch counters of every kernel wrapper, in the order each phase
+    takes them (``slice10_train`` among them), with TF32 off in PyTorch's
+    products on the card (the plain versions and library calls are f32 or
+    bf16 exactly).  ``src`` must be on the path."""
+    from repro_torch.kernels import attention_paged as k7
+    from repro_torch.kernels import attention_prefill_paged as k8
+    from repro_torch.kernels import attention_quant as k9
+    from repro_torch.kernels import expert_mlp as k2
+    from repro_torch.kernels import expert_mlp_grouped as gk
+    from repro_torch.kernels import expert_mlp_quant as k3
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.kernels import moe_gating as k1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return (gk.launches, k7.launches, k8.launches, k9.launches, k1.launches, k2.launches,
+            k3.launches, k6.launches)
 
 
 def main() -> int:
@@ -3897,14 +3921,11 @@ def main() -> int:
     from repro_torch.quant.qarrays import QuantizedArray
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
-    counters = (gk.launches, k7.launches, k8.launches, k9.launches, k1.launches, k2.launches,
-                k3.launches, k6.launches)
+    counters = kernel_setup()
 
     # 1. card
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
@@ -4655,6 +4676,7 @@ def main() -> int:
             "max_row_rel_err": max(v["max_row_rel_err"] for v in checks.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "library_call": call,
+            "deterministic": all(v.get("deterministic", True) for v in checks.values()),
             "shapes": checks,
         })
     # slice 9: kernel 6 without a causal mask (seamless's encoder and cross
@@ -4711,6 +4733,7 @@ def main() -> int:
             "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "library_call": call,
+            "deterministic": all(v.get("deterministic", True) for v in checks.values()),
             "shapes": checks,
         })
     log("slice 10 training summary: " + json.dumps(s10_summary))

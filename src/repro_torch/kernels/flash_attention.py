@@ -26,7 +26,14 @@ launch is unchanged) and whose backward launches kernel 6b
 (``flash_attention_backward``): the gradients of q, k and v that
 ``jax.value_and_grad`` takes of the model's attention.  On the CPU the
 same function runs the plain versions (``flash_attention_plain`` with
-``return_lse``, ``flash_attention_backward_plain``).
+``return_lse``, ``flash_attention_backward_plain``).  In bf16 kernel 6b
+runs on the tensor cores over 64-key and 64-query tiles
+(``BWD_TILE``): its dK / dV pass walks the query tiles that
+``query_tile_marks`` marks, and splits a kv-head's G query heads across
+``backward_head_splits`` blocks where its grid would leave SMs idle
+(f32 partials in a workspace the wrapper allocates, summed in order);
+``backward_blocks`` asks the built library for each pass's block count.
+f32 keeps the CUDA-core kernels.
 
 Both versions zero masked probabilities, as ``masked_softmax_pv`` does
 (``kernels/attention_paged.py``), so a row with no valid key gives 0.  The
@@ -66,13 +73,14 @@ WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims on wgmma + TMA; 32 and 112 keep mm
 KEY_TILE = 128  # keys per tile summary, and per K/V tile of 128-row blocks (64 at 64 rows)
 ONE_TILE_KEYS = 64  # rows of at most this many keys: one tile, no summaries
 BOX_COLS = 64  # columns of a TMA box: 128 bytes of bf16, the swizzle's span
+BWD_TILE = 64  # csrc/flash_attention_bwd.cu, bf16: keys per key tile, queries per query tile
 
 launches = {"flash_attention": 0, "flash_attention_backward": 0}
 
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _C_ARGS_BF16 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + _TAIL  # + summ, lse, q_tile
 _C_ARGS_F32 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _TAIL  # + lse
-_C_ARGS_BWD = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + _TAIL
+_C_ARGS_BWD = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + _TAIL  # + part; + is_bf16, splits
 
 
 def _library():
@@ -87,6 +95,8 @@ def _backward_library():
     lib = build.load_library("flash_attention_bwd")
     lib.flash_attention_backward.argtypes = _C_ARGS_BWD
     lib.flash_attention_backward.restype = ctypes.c_int
+    lib.flash_attention_backward_blocks.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flash_attention_backward_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -145,6 +155,67 @@ def summary_marks(summ: torch.Tensor, q_lo: int, q_hi: int, *, tile: int = KEY_T
         live = live & (hi > q_lo - window)
         full = full & (lo > q_hi - window)
     return live, full
+
+
+def query_tile_marks(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool = True,
+                     window: int = 0, tile: int = BWD_TILE) -> tuple:
+    """Kernel 6b's dK / dV pass marks in plain PyTorch, as its
+    ``mark_query_tiles`` sets them for one key tile: for each of the
+    ceil(S / ``tile``) query tiles of a batch row's positions ``q_pos`` [S],
+    ``live`` (some query may pair validly with some valid key of the tile:
+    the valid keys' min and max stand for them, so at worst a tile is
+    walked and masked) and ``full`` (every query pairs validly with every
+    key, exactly).  ``k_pos``: the key tile's positions, -1 for an empty
+    slot; a tile of fewer than ``tile`` keys (a row's last, past T) is never
+    full, and one without a valid key marks nothing.  Boolean [n] each."""
+    S = q_pos.shape[0]
+    n = -(-S // tile)
+    kp = k_pos.to(torch.int64).cpu()
+    valid = kp >= 0
+    kn = int(valid.sum())
+    if kn == 0:
+        return torch.zeros(n, dtype=torch.bool), torch.zeros(n, dtype=torch.bool)
+    klo, khi = int(kp[valid].min()), int(kp[valid].max())
+    qp = q_pos.to(torch.int64).cpu()
+    may = torch.ones(S, dtype=torch.bool)
+    every = torch.ones(S, dtype=torch.bool)
+    if causal:
+        may &= qp >= klo
+        every &= qp >= khi
+    if window > 0:
+        may &= qp - khi < window
+        every &= qp - klo < window
+    pad = n * tile - S  # queries past S do not count
+    live = torch.nn.functional.pad(may, (0, pad), value=False).view(n, tile).any(-1)
+    full = torch.nn.functional.pad(every, (0, pad), value=True).view(n, tile).all(-1)
+    return live, full & (kn == tile)
+
+
+def backward_head_splits(T: int, Hkv: int, B: int, G: int, n_sm: int) -> int:
+    """Blocks over which kernel 6b's bf16 dK / dV pass splits the G query
+    heads of a kv-head: 1 where its grid of ceil(T / 64) key tiles x Hkv x
+    B blocks fills the card's ``n_sm`` SMs, else as many as bring the grid
+    to ``n_sm`` blocks, at most G (one head a block).  Static shapes only,
+    so a call can be captured in a CUDA graph."""
+    base = -(-T // BWD_TILE) * Hkv * B
+    return 1 if base >= n_sm else min(G, -(-n_sm // base))
+
+
+def backward_blocks(B: int, S: int, T: int, H: int, Hkv: int, dh: int, dtype, n_sm: int) -> dict:
+    """Kernel 6b's blocks per pass for a call on a card of ``n_sm`` SMs, as
+    its launches size their grids (the library's
+    ``flash_attention_backward_blocks``; needs the built library): the D
+    pass, dK / dV (with its head splits), the sum of the splits' partials
+    (0 where it is not launched) and dQ."""
+    bf16 = dtype == torch.bfloat16
+    splits = backward_head_splits(T, Hkv, B, H // Hkv, n_sm) if bf16 else 1
+    out = (ctypes.c_longlong * 4)()
+    if _backward_library().flash_attention_backward_blocks(B, S, T, H, Hkv, dh, int(bf16), splits,
+                                                           out) != 0:
+        raise ValueError(f"backward_blocks: no kernel for B {B}, S {S}, T {T}, H {H}, Hkv {Hkv}, "
+                         f"dh {dh}, {dtype}")
+    return {"delta": out[0], "dkv": out[1], "sum_splits": out[2], "dq": out[3], "splits": splits,
+            "sm": n_sm}
 
 
 def check_tma(name, **tensors):
@@ -320,7 +391,9 @@ def flash_attention_backward(q, k, v, q_pos, k_pos, out, dout, lse, *, scale: fl
                              causal: bool = True, window: int = 0, softcap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention_gqa`` at ``dout``, from its output
     and row log-sum-exp: kernel 6b on the card (one count a call: its D
-    pass, dK / dV pass and dQ pass), the plain version on the CPU."""
+    pass, dK / dV pass, the sum of its head splits' partials where it splits
+    and its dQ pass; bf16 on the tensor cores, f32 on the CUDA cores), the
+    plain version on the CPU."""
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, q_pos, k_pos, out, dout, lse, **kw)
@@ -335,16 +408,23 @@ def flash_attention_backward(q, k, v, q_pos, k_pos, out, dout, lse, *, scale: fl
             raise ValueError(f"{name}: {n} must be a contiguous {q.dtype} tensor of q's shape")
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"{name}: lse must be a contiguous [B, H, S] float32 tensor")
+    if S > MAX_KEYS:
+        raise ValueError(f"{name}: {S} queries; the kernel takes at most {MAX_KEYS}")
     lib = _backward_library()
+    bf16 = q.dtype == torch.bfloat16
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    splits = backward_head_splits(T, Hkv, B, H // Hkv, _sm_count(q.device.index)) if bf16 else 1
+    part = (torch.empty((2, splits, B, T, Hkv, dh), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)  # the splits' f32 partials of dK and dV
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             q_pos.data_ptr(), k_pos.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, T, H, Hkv, dh, int(q.dtype == torch.bfloat16),
-            float(scale), int(causal), int(window), float(softcap), stream)
+            dk.data_ptr(), dv.data_ptr(), part.data_ptr() if part is not None else None, B, S, T,
+            H, Hkv, dh, int(bf16), splits, float(scale), int(causal), int(window), float(softcap),
+            stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     launches[name] += 1

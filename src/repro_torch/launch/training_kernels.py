@@ -10,7 +10,10 @@ dh 256, 32 and 112 small), in bf16 and f32: the forward's L against the
 plain forward's, then dq, dk and dv per row against
 ``flash_attention_backward_plain`` given the same out, L and dO (a row's
 error against the larger of its largest value and ``ROW_FLOOR`` of the
-tensor's: ``grad_rows``); timed
+tensor's: ``grad_rows``), and a second launch on the same inputs bit for
+bit against the first (``deterministic``), with each pass's block count
+beside the SM count (``blocks``: bf16 on the tensor cores, whose dK / dV
+pass splits a kv-head's heads across blocks on small grids); timed
 beside its bound (10 dh operations per valid (head, pair), or the bytes of
 q, k, v, O, dO, dQ, dK and dV) and beside the backward of
 ``scaled_dot_product_attention`` (graph time of its forward and backward
@@ -22,7 +25,11 @@ drops, beside its bound (bytes); no single PyTorch call computes it.
 
 ``--quick`` runs each case at its smallest size, untimed: the first call of
 a changed kernel.  It builds only the three sources involved.  Prints one
-line per case; exits non-zero if a case disagrees.
+line per case; exits non-zero if a case disagrees or is not deterministic.
+To hold a change against its parent on one card, unpack the parent with
+``git archive HEAD | tar -x -C build/parent`` and run both in one call, in
+turns: ``PYTHONPATH=build/parent/src python3
+src/repro_torch/launch/training_kernels.py`` (parent), then this module.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import sys
 
 import torch
 
+from repro_torch.kernels.attention_paged import _sm_count
 from repro_torch.launch.paged_kernels import BF16_TOL, F32_TOL, graph_ms, rows
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -158,10 +166,14 @@ def check_flash_bwd(name, B, S, H, Hkv, dh, causal, window, softcap, dtype, gen,
            "out": rows(out, out_ref)}
     args = (q, k, v, q_pos, k_pos, out, dout, lse)
     grads = k6.flash_attention_backward(*args, **kw)
+    again = k6.flash_attention_backward(*args, **kw)
     torch.cuda.synchronize()
     refs = k6.flash_attention_backward_plain(*args, **kw)
     tol = BWD_TOL[dtype]
-    ok = res["lse_max_abs_err"] <= LSE_TOL and res["lse_inf_agree"]
+    # two launches on the same inputs: bit for bit (no atomics in any sum)
+    res["deterministic"] = all(torch.equal(a, b) for a, b in zip(grads, again))
+    res["blocks"] = k6.backward_blocks(B, S, S, H, Hkv, dh, dtype, _sm_count(q.device.index))
+    ok = res["lse_max_abs_err"] <= LSE_TOL and res["lse_inf_agree"] and res["deterministic"]
     for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
         res[gname] = grad_rows(g, r)
         ok &= res[gname].get("finite", True) and res[gname]["max_row_rel_err"] <= tol

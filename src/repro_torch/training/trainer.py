@@ -74,10 +74,13 @@ def adamw_config(tc: TrainConfig) -> AdamWConfig:
 
 def apply_grads(opt: AdamWConfig, tc: TrainConfig, leaves: dict, loss, opt_state: AdamWState):
     """The gradients of ``loss`` in the leaves, then one AdamW step at the
-    schedule's multiplier of ``opt_state.step`` (in place).  Returns (state,
-    stats with ``lr_scale``)."""
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    grads = dict(zip(leaves, grads))
+    schedule's multiplier of ``opt_state.step`` (in place).  A leaf the loss
+    does not reach (internvl2's ``frontend_proj`` without prefix embeddings)
+    gets a zero gradient, as ``jax.value_and_grad`` gives it, and is still
+    decayed.  Returns (state, stats with ``lr_scale``)."""
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(leaf) if g is None else g
+             for (k, leaf), g in zip(leaves.items(), grads)}
     lr_scale = warmup_cosine(opt_state.step, warmup_steps=tc.warmup_steps,
                              decay_steps=tc.decay_steps, min_ratio=tc.min_lr_ratio)
     _, opt_state, stats = adamw_update(opt, grads, opt_state, leaves, lr_scale)

@@ -5,7 +5,11 @@ autograd function around kernel 6), on the CPU.
 backward; their plain versions here) is held against torch autograd of an
 out-of-place reference, against ``jax.grad`` of the JAX package's
 ``attend_full`` (the function JAX trains through) on the same numpy inputs,
-and its L against ``logsumexp`` of the masked scores.
+and its L against ``logsumexp`` of the masked scores.  Kernel 6b's plan in
+plain PyTorch: the query-tile marks of its dK / dV pass
+(``query_tile_marks``) against a brute-force pair mask, and the rule that
+splits a kv-head's query heads across blocks on small grids
+(``backward_head_splits``).
 
 Tolerances (f32): 1e-5 relative to each gradient's largest value against
 torch autograd and JAX (the same products in another order: S-term and
@@ -176,3 +180,89 @@ def test_grad_guard_of_kernels_without_a_backward(dtype):
         no_backward.refuse_grad("expert_mlp", no_backward.EXPERT_KERNELS, x, w)
     with torch.no_grad():
         no_backward.refuse_grad("expert_mlp", no_backward.EXPERT_KERNELS, x, w)
+
+
+def pair_mask(q_pos, k_pos, causal, window):
+    """[S, T] validity of every (query, key) pair, the masks of ``Mask``."""
+    qp, kp = q_pos.long()[:, None], k_pos.long()[None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (qp - kp < window)
+    return ok
+
+
+@pytest.mark.parametrize("layout", ["aligned", "shifted", "random"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 37), (False, 0), (False, 100)])
+def test_query_tile_marks_never_skip_a_valid_pair_and_mark_full_exactly(layout, causal, window):
+    """For every key tile of a row with empty slots (-1): a query tile
+    holding a valid pair with the key tile is live, and it is full only
+    where every pair of its queries with the tile's 64 key slots is valid
+    (a slot past T or empty is not).  Positions: a training row (queries
+    and keys at 0 .. S - 1), queries after a cached prefix, and random."""
+    rng = np.random.default_rng([len(layout), int(causal), window])
+    tile = fa.BWD_TILE
+    S, T = 300, 300 if layout == "aligned" else 333
+    if layout == "aligned":
+        q_pos, k_pos = np.arange(S), np.arange(T)
+    elif layout == "shifted":
+        q_pos, k_pos = np.arange(T - S, T), np.arange(T)
+    else:
+        q_pos, k_pos = rng.integers(0, 400, S), rng.integers(0, 400, T)
+    k_pos = np.where((rng.random(T) < 0.1) & (np.arange(T) >= tile), -1, k_pos)  # tile 0 whole
+    k_pos[2 * tile:3 * tile] = -1  # a tile with no valid key marks nothing
+    q_pos, k_pos = torch.from_numpy(q_pos.astype(np.int32)), torch.from_numpy(k_pos.astype(np.int32))
+    ok = pair_mask(q_pos, k_pos, causal, window)
+    n_q = -(-S // tile)
+    seen_full = seen_skip = 0
+    for j in range(-(-T // tile)):
+        keys = k_pos[j * tile:(j + 1) * tile]
+        live, full = fa.query_tile_marks(q_pos, keys, causal=causal, window=window)
+        assert live.shape == full.shape == (n_q,)
+        for t in range(n_q):
+            pairs = ok[t * tile:(t + 1) * tile, j * tile:(j + 1) * tile]
+            if pairs.any():
+                assert live[t], (j, t)
+            every = bool(pairs.all()) and pairs.shape[1] == tile
+            assert bool(full[t]) <= every, (j, t)  # full only where every pair is valid
+            if not bool(keys.lt(0).any()) and keys.numel() == tile and every:
+                assert full[t], (j, t)  # exact for a tile without empty slots
+            seen_full += int(full[t])
+            seen_skip += int(~live[t])
+        if not bool((keys >= 0).any()):
+            assert not live.any() and not full.any()
+    if layout == "aligned" and causal:
+        assert seen_skip > 0 and (seen_full > 0 or window > 0)  # the walk skips, spares masks
+
+
+def test_query_tile_marks_start_a_causal_walk_at_the_diagonal():
+    """A causal training row: key tile j is seen by query tiles j .. n - 1
+    only, and full below the diagonal tile."""
+    S = 5 * fa.BWD_TILE
+    pos = torch.arange(S, dtype=torch.int32)
+    for j in range(5):
+        live, full = fa.query_tile_marks(pos, pos[j * 64:(j + 1) * 64])
+        assert live.tolist() == [t >= j for t in range(5)]
+        assert full.tolist() == [t > j for t in range(5)]
+
+
+@pytest.mark.parametrize("T,Hkv,B,G,n_sm,want", [
+    (512, 16, 8, 1, 132, 1),    # nlg-350m-prmoe's step: 1024 blocks, no split
+    (1024, 8, 2, 4, 132, 1),    # 256 blocks already fill the card
+    (512, 4, 2, 2, 132, 2),     # 64 blocks: G = 2 halves each kv-head
+    (512, 1, 1, 4, 132, 4),     # 8 blocks, G = 4: one head a block
+    (2048, 1, 1, 10, 132, 5),   # recurrentgemma's 10 heads over 1: 32 x 5 >= 132
+    (256, 4, 2, 1, 132, 1),     # G = 1: nothing to split
+    (64, 1, 1, 16, 132, 16),    # one key tile: every head a block
+])
+def test_backward_head_splits_fill_the_card_where_g_allows(T, Hkv, B, G, n_sm, want):
+    splits = fa.backward_head_splits(T, Hkv, B, G, n_sm)
+    assert splits == want
+    base = -(-T // fa.BWD_TILE) * Hkv * B
+    assert 1 <= splits <= G
+    assert base * splits >= n_sm or splits == G  # the card is filled where G allows
+    if base >= n_sm:
+        assert splits == 1  # no split where the grid already fills it
+    else:
+        assert base * (splits - 1) < n_sm  # no more splits than it takes

@@ -354,6 +354,38 @@ def test_distill_step_matches_jax():
     assert_params_close(tstud, jstud)
 
 
+def test_unused_leaf_gets_a_zero_gradient_and_is_decayed_as_in_jax():
+    """Reduced internvl2-1b trained two steps on text alone: the loss never
+    reaches ``frontend_proj`` (it projects prefix embeddings), so JAX gives
+    it a zero gradient and AdamW only decays it; the port's step does the
+    same instead of raising."""
+    arch = "internvl2-1b"
+    jcfg, tcfg = jax_make_reduced(jax_get_config(arch)), make_reduced(get_config(arch))
+    assert jcfg.param_dtype == tcfg.param_dtype == "float32"
+    jparams = jax.jit(lambda k: jm.init_params(jcfg, k))(jax.random.PRNGKey(0))
+    tparams = port_params(tcfg, jparams)
+    toks, labels = next(jpipe.data_stream(jcfg.vocab_size, 2, 16, seed=0))
+    toks, labels = np.array(toks), np.array(labels)
+    tc = ttrain.TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    jtc = jtrain.TrainConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    jstep = jax.jit(jtrain.make_train_step(jcfg, jtc))
+    tstep = ttrain.make_train_step(tcfg, tc)
+    jst, tst = jopt.init_adamw(jparams), topt.init_adamw(tm.trainable(tparams))
+    jp = jparams
+    for _ in range(2):
+        jp, jst, jmet = jstep(jp, jst, toks, labels)
+        tparams, tst, tmet = tstep(tparams, tst, torch.from_numpy(toks).long(),
+                                   torch.from_numpy(labels).long())
+    assert float(jmet["loss"]) == pytest.approx(6.2182, abs=1e-4)
+    assert rel(tmet["loss"], jmet["loss"]) <= 1e-5
+    got = np32(tm.param_leaves(tparams)["frontend_proj"])
+    want, start = np.asarray(flat(jp)["frontend_proj"]), np.asarray(flat(jparams)["frontend_proj"])
+    assert got.shape == (32, 128)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+    assert not np.array_equal(want, start)  # decayed, though its gradient is 0
+    np.testing.assert_allclose(tst.m["frontend_proj"].numpy(), 0.0, atol=0)
+
+
 def test_remat_gives_the_same_loss_and_grads():
     tcfg = make_reduced(get_config(ARCH))
     tparams = tm.init_params(tcfg, seed=0, device="cpu")
