@@ -203,8 +203,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    seed-1 recurrentgemma drafter (resyncs) and gemma3 drafting for glm4-9b
    (cross family), over pools that preempt.  Then kernel 6 with a window at
    gemma3's local shape (4 x 2048 and 1 x 8192 tokens) and at dh 256
-   (recurrentgemma's 10 heads over 1, 4096 tokens, window 2048; and with
-   every mask in f32 and bf16), and kernel 9 over wrapped int8 rings at dh
+   (recurrentgemma's 10 heads over 1, window 2048: 1 x 4096 tokens and the
+   served 4 x 1500, each bit for bit over two launches; and with every mask
+   in f32 and bf16), and kernel 9 over wrapped int8 rings at dh
    128 and 256, each against its plain version, timed beside its bound and
    SDPA with the window-causal mask.
 15. slice 9, once slice 8's trees are freed: seamless-m4t-medium (12
@@ -932,8 +933,8 @@ def q_tile_of(q) -> int:
     """The query rows per block that kernel 6's wgmma path takes for q."""
     from repro_torch.kernels import flash_attention as k6
 
-    B, S, H, _ = q.shape
-    return k6.q_tile_rows(S, H, B, torch.cuda.get_device_properties(0).multi_processor_count)
+    B, S, H, dh = q.shape
+    return k6.q_tile_rows(S, H, B, torch.cuda.get_device_properties(0).multi_processor_count, dh)
 
 
 def check_flash(args, kw, tol, timed=True, n=20, plain_n=3, library=None) -> dict:
@@ -2510,7 +2511,8 @@ def flash_checks(full, red, gen) -> dict:
     (llama4-maverick, nlg-350m-moe128 and glm4-9b heads, 4 x 64 tokens,
     bf16), at reduced size in f32 and bf16 with every mask and a row with
     no valid key, at every head-dim instance in bf16 (wgmma at dh 64 and 128
-    with both query-tile heights, mma.sync at 32 and 112), at
+    with both query-tile heights and at 256 with 128-row tiles, mma.sync at
+    32 and 112), at
     nlg-350m-moe128's heads over a 4096-token prompt, and in the TPU kernel's
     index form at S != T; timed beside their bounds, plain versions and
     SDPA."""
@@ -2582,9 +2584,10 @@ def flash_checks(full, red, gen) -> dict:
     # every head-dim instance in bf16 with every mask and a row with no valid
     # key: wgmma at dh 64 and 128 with 128-row query tiles (S = 300, 32 heads
     # over 2 kv-heads: 288 blocks; the last key tile ragged) and 64-row ones
-    # (S = 40, 4 heads over 2), mma.sync at dh 32 and 112
+    # (S = 40, 4 heads over 2), at dh 256 with 128-row tiles at both,
+    # mma.sync at dh 32 and 112
     for dh in k6.HEAD_DIMS:
-        for S, H, want in ((300, 32, 128), (40, 4, 64)):
+        for S, H, want in ((300, 32, 128), (40, 4, 128 if dh == 256 else 64)):
             args, _ = flash_case(3, S, H, 2, dh, torch.bfloat16, gen)
             q, k, v, _, _ = args
             pos = (torch.arange(S, dtype=torch.int32, device="cuda")[None]
@@ -3023,15 +3026,19 @@ def sdpa_window(q, k, v, q_pos, k_pos, scale, window):
 def slice8_kernel_checks(gen) -> tuple:
     """Kernel 6 with a window at gemma3's local shape (4 x 2048 and 1 x 8192
     tokens, window 1024, dh 128 on wgmma) and at recurrentgemma's (dh 256 on
-    mma.sync, 10 heads over 1, 4096 tokens, window 2048), and at dh 256 with
-    every mask and a row with no valid key (f32 and bf16); kernel 9 over a
-    wrapped int8 ring at gemma3's (8 x 1024, 16 kv-heads, G 2, dh 128) and
-    recurrentgemma's shape (8 x 2048, 1 kv-head, G 10, dh 256), rows at their
-    own positions past the ring (the newest key before the oldest in
-    memory), one row not yet wrapped, and at dh 256 in f32.  Each held per
-    query row against its plain version and timed beside its bound and
-    SDPA.  Returns ({shape: info} of the windowed 6, of the dh-256 6, of the
-    ring 9)."""
+    wgmma, 10 heads over 1, window 2048: 1 x 4096 tokens and the served
+    static prefill of 4 x 1500, each also checked bit for bit over two
+    launches), and at dh 256 with every mask and a row with no valid key
+    (f32 and bf16); kernel 9 over a wrapped int8 ring at gemma3's (8 x 1024,
+    16 kv-heads, G 2, dh 128) and recurrentgemma's shape (8 x 2048, 1
+    kv-head, G 10, dh 256), rows at their own positions past the ring (the
+    newest key before the oldest in memory), one row not yet wrapped, and at
+    dh 256 in f32, in bf16 with window 37, softcap 20, empty slots and a row
+    with no valid key, and in bf16 over 72 rows (one split a row: the split
+    kernel writes the output itself).  Each held per query row against its
+    plain version, the served shapes timed beside their bound and SDPA.
+    Returns ({shape: info} of the windowed 6, of the dh-256 6, of the ring
+    9)."""
     from repro_torch.kernels import attention_quant as k9
     from repro_torch.kernels import flash_attention as k6
 
@@ -3039,7 +3046,8 @@ def slice8_kernel_checks(gen) -> tuple:
     for store, label, (B, S, H, Hkv, dh, window) in (
             (win, "gemma3_local_4x2048", (4, 2048, 32, 16, 128, 1024)),
             (win, "gemma3_local_1x8192", (1, 8192, 32, 16, 128, 1024)),
-            (d256, "recurrentgemma_local_1x4096", (1, 4096, 10, 1, 256, 2048))):
+            (d256, "recurrentgemma_local_1x4096", (1, 4096, 10, 1, 256, 2048)),
+            (d256, "recurrentgemma_local_4x1500", (4, 1500, 10, 1, 256, 2048))):
         args, kw = flash_case(B, S, H, Hkv, dh, torch.bfloat16, gen)
         kw["window"] = window
         info = flash_info(args[0], args[1], args[3], args[4], kw)
@@ -3047,6 +3055,11 @@ def slice8_kernel_checks(gen) -> tuple:
         info.update(check_flash(args, kw, BF16_TOL, n=10,
                                 library=lambda: sdpa_window(q, k, v, qp, kp, kw["scale"], window)))
         info["window"] = window
+        if store is d256:
+            info["deterministic"] = bool(torch.equal(k6.flash_attention_gqa(*args, **kw),
+                                                     k6.flash_attention_gqa(*args, **kw)))
+            if not info["deterministic"]:
+                raise AssertionError(f"kernel 6 dh 256 {label}: two launches differ")
         store[label] = info
         log(f"kernel flash_attention bf16 windowed {label} (window {window}): {json.dumps(info)}")
         del args, q, k, v
@@ -3066,28 +3079,45 @@ def slice8_kernel_checks(gen) -> tuple:
         d256[f"{label}_window_softcap"] = info
         log(f"kernel flash_attention {label} dh 256, S = T = 300, offset positions, empty slots, "
             f"window 37, softcap 20 (a row with no valid key gives 0): {json.dumps(info)}")
-    for label, (B, cap, Hkv, G, dh, dt, timed) in (
-            ("gemma3_ring_8x1024", (8, 1024, 16, 2, 128, torch.bfloat16, True)),
-            ("recurrentgemma_ring_8x2048", (8, 2048, 1, 10, 256, torch.bfloat16, True)),
-            ("f32_dh256_ring_3x300", (3, 300, 1, 10, 256, torch.float32, False))):
+    masks = dict(window=37, softcap=20.0, holes=True, empty_row=1)
+    for label, (B, cap, Hkv, G, dh, dt, timed), extra in (
+            ("gemma3_ring_8x1024", (8, 1024, 16, 2, 128, torch.bfloat16, True), {}),
+            ("recurrentgemma_ring_8x2048", (8, 2048, 1, 10, 256, torch.bfloat16, True), {}),
+            ("f32_dh256_ring_3x300", (3, 300, 1, 10, 256, torch.float32, False), {}),
+            ("bf16_dh256_ring_3x300_window_softcap", (3, 300, 1, 10, 256, torch.bfloat16, False),
+             masks),
+            ("bf16_dh256_ring_72x300_one_split", (72, 300, 1, 10, 256, torch.bfloat16, False),
+             dict(masks, window=300, empty_row=5))):
         # row b's newest key at qpos[b], in slot qpos[b] % cap; the last row
-        # has not wrapped (its slots past qpos empty)
+        # has not wrapped (its slots past qpos empty); with ``extra``, every
+        # 7th slot empty and one row with no valid key
         qpos = torch.tensor([cap + 37 * b + 11 for b in range(B - 1)] + [cap // 3], dtype=torch.int32,
                             device="cuda")
         slot = torch.arange(cap, device="cuda")[None]
         newest = qpos[:, None].long()
         kpos = (newest - (newest % cap - slot) % cap).to(torch.int32)
         kpos[-1, cap // 3 + 1:] = -1
+        if extra:
+            kpos[:, 3::7] = -1
+            kpos[extra["empty_row"]] = -1
         args, info = decode_quant_case(B, cap, 0, Hkv, G, dh, dt, gen, kpos=kpos.contiguous(),
                                        qpos=qpos)
-        kw = dict(scale=1.0 / math.sqrt(dh), window=cap)
+        kw = dict(scale=1.0 / math.sqrt(dh), window=extra.get("window", cap))
+        if "softcap" in extra:
+            kw["softcap"] = extra["softcap"]
         info.update(check_paged("decode_attention_quant", k9.decode_attention_quant,
                                 k9.decode_attention_quant_plain, args, kw,
                                 BF16_TOL if dt == torch.bfloat16 else F32_TOL, timed=timed,
                                 library=lambda *a, **_: sdpa_contiguous(*a, window=cap)))
-        info["window"] = cap
+        info["window"] = kw["window"]
+        if dt == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            info["splits"] = k9.decode_splits(cap, 1, B, Hkv, sms, dh)
+        if extra and k9.decode_attention_quant(*args, **kw)[extra["empty_row"]].abs().max().item():
+            raise AssertionError(f"kernel 9 {label}: a row with no valid key must give 0")
         ring[label] = info
-        log(f"kernel decode_attention_quant {label} (a wrapped int8 ring, window {cap}): "
+        log(f"kernel decode_attention_quant {label} (a wrapped int8 ring, window {kw['window']}"
+            f"{', softcap 20, every 7th slot empty, a row with no valid key' if extra else ''}): "
             f"{json.dumps(info)}")
     return win, d256, ring
 

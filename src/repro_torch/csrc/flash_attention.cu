@@ -24,16 +24,17 @@
 // accumulator in VMEM scratch; here one block owns a query tile and walks
 // its K/V tiles in a loop, with m and l in registers.
 //
-// bf16, head dims 64 and 128 (every served config: llama4-maverick and
-// glm4-9b at 128, nlg-350m-moe128 at 64): warp-specialised wgmma with TMA.
+// bf16, head dims 64, 128 and 256 (every served config: llama4-maverick
+// and glm4-9b at 128, nlg-350m-moe128 at 64, recurrentgemma-2b at 256):
+// warp-specialised wgmma with TMA.
 //   * A block holds BM = 128 query rows of one head: two consumer
 //     warpgroups of 64 rows each and one producer warpgroup, whose single
-//     thread keeps K/V tiles of BN = 128 keys in flight through TMA
-//     (cp.async.bulk.tensor over 4-D tensor maps of the model's layouts,
-//     read in place; 128-byte swizzle, a dh = 128 row as two 64-column
-//     boxes; zero-filled past T), with the tile's key positions (a 1-D map),
-//     into a ring of ST stages (2 at dh 128, 4 at 64).  K (with the
-//     positions) and V each have a "full" mbarrier (TMA bytes) and an
+//     thread keeps K/V tiles of BN = 128 keys (64 at dh 256) in flight
+//     through TMA (cp.async.bulk.tensor over 4-D tensor maps of the model's
+//     layouts, read in place; 128-byte swizzle, a row as dh / 64 boxes of 64
+//     columns; zero-filled past T), with the tile's key positions (a 1-D
+//     map), into a ring of ST stages (2 at dh 128 and 256, 4 at 64).  K
+//     (with the positions) and V each have a "full" mbarrier (TMA bytes) and an
 //     "empty" one (one arrival per consumer warp): K is released when the
 //     tile's softmax is done, V when its P V is, so the next K load starts a
 //     product earlier.  setmaxnreg moves registers from the producer (24)
@@ -42,15 +43,16 @@
 //     wrapper's q_tile_rows), takes blocks of one consumer warpgroup (64
 //     rows) and 64-key tiles instead: half the shared memory, two blocks per
 //     SM, the served prefill in one wave.
-//   * S = Q K^T: wgmma m64n128k16, Q (loaded once by TMA) and K from shared
+//   * S = Q K^T: wgmma m64n{BN}k16, Q (loaded once by TMA) and K from shared
 //     memory.  The online softmax runs on the accumulators in registers
 //     (each row's 4 threads a quad, as in mma.sync; exponentials as 2^x of
 //     the log2-scaled scores), P is rounded to bf16 (as _sdpa casts its
 //     probabilities to v's type) and packed in registers as the A operand of
 //     O += P V: wgmma m64n{dh}k16 with V transposed from shared memory.  A
 //     warpgroup issues tile j's S before tile j - 1's P V and runs tile j's
-//     softmax while that P V is on the tensor cores; the two warpgroups of
-//     a block interleave on the tensor cores as they come.  Masked entries
+//     softmax while that P V is on the tensor cores (not at dh 256, below);
+//     the two warpgroups of a block interleave on the tensor cores as they
+//     come.  Masked entries
 //     are set to -inf before the exponential, so they get probability
 //     exactly 0 (the running max stays finite).
 //   * Live and full tiles: a block marks the tiles that may hold a key
@@ -72,16 +74,27 @@
 //   * Query tiles are issued heaviest (last causal) first, all heads of one
 //     query tile together (grid x = head), so the G heads of a kv-head read
 //     the same K/V tiles from L2.
+//   * Head dim 256 (recurrentgemma-2b, 10 heads over 1, window 2048): Q (64
+//     KB, four boxes a row) stays in shared memory for the whole walk, and K
+//     and V are two stages of 64-key tiles (64 KB each): about 195 KB a
+//     block; a 64-key tile is marked from its 128-key summary.  It takes
+//     128-row blocks at every S: the reason for 64-row blocks elsewhere, two
+//     blocks to an SM, does not hold when one 64-row block needs 160 KB.
+//     O += P V is one m64n256k16.  A consumer thread holds 128 f32 of O, 32
+//     of S and 16 of packed P, so it runs a tile's S, softmax and P V in
+//     turn (the two warpgroups overlap each other) rather than overlapping
+//     its own softmax with the last tile's P V.  Every mbarrier wait is one
+//     block of PTX (wgmma_sm90.cuh's mbar_wait_ptx): with the C++ polling
+//     loop, ptxas serialised every wgmma of the kernel ("wgmma.mma_async
+//     instructions are serialized due to program dependence on
+//     compiler-inserted WG.DP in divergent path") and spilled 700 bytes a
+//     thread.  ptxas reports the same serialisation for the dh 64 / 128
+//     instances, which keep the loop they were measured with (PERF.md).
 // Head dims 32 and 112 (no served config) keep the first design: one block
 // of 4 warps per 64-row query tile on mma.sync m16n8k16, Q in registers as A
 // fragments (ldmatrix), K/V tiles of 64 keys double-buffered with cp.async,
 // the query tile staged in the second K buffer (three blocks to an SM), and
 // the same position-driven marks computed by each block from the positions.
-// Head dim 256 (recurrentgemma-2b) takes the same kernel with the query tile
-// kept in shared memory of its own and its A fragments reloaded by ldmatrix
-// for every k-step of every key tile, since a thread cannot hold both them
-// and its 128 f32 output accumulators: 169 KB a block, one block (4 warps)
-// to an SM.  A simple, unoptimised instance.
 //
 // f32 (reduced checks): plain FMA on CUDA cores (no TF32), the shared code
 // of paged_attention.cuh walking the contiguous rows (16 query rows of one
@@ -159,17 +172,13 @@ struct Params {
 
 template <int DH>
 struct Smem16 {
+  static_assert(DH <= 128, "a thread holds its Q fragments beside DH / 2 f32 accumulators");
   static constexpr int LD = DH + 8;  // padded row: ldmatrix rows on distinct banks
-  // QS (dh 256): the query tile stays in q, its fragments reloaded for every
-  // key tile (16 k-steps x 4 registers would not fit beside 32 n-tiles x 4
-  // f32 accumulators in a thread's 255 registers); 169 KB, one block to an
-  // SM.  Otherwise it is staged in k[1] (BQ == BK): its fragments move to
+  // the query tile is staged in k[1] (BQ == BK): its fragments move to
   // registers before the second K/V tile is loaded there, which keeps the
   // block at 71 KB, three blocks to an SM
-  static constexpr bool QS = DH > 128;
   bf16 k[2][BK][LD];
   bf16 v[2][BK][LD];
-  bf16 q[QS ? BQ : 1][QS ? LD : 8];
   int kp[2][BK];   // key positions of a tile, -1 past T
   int qp[BQ];      // query positions of the block
   unsigned live[MAX_TILE_WORDS];  // tiles that hold a key valid for some row
@@ -180,9 +189,8 @@ struct Smem16 {
 // LSE: the instance that also writes the row log-sum-exp (training); the
 // serving instance compiles without it
 template <int DH, bool LSE>
-__global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, 3) flash_bf16_kernel(const Params p) {
   using Sm = Smem16<DH>;
-  constexpr bool QS = Sm::QS;
   constexpr int CH = DH / 8;   // 16-byte chunks per row
   constexpr int KS = DH / 16;  // k-steps of Q K^T; pairs of 8-wide dh tiles of P V
   constexpr int NS = BK / 8;   // 8-key tiles of S
@@ -198,7 +206,7 @@ __global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(
   const int* kpos = p.kpos + (size_t)b * p.T;
 
   // the query tile (rows past S zero-filled, never stored) and its positions
-  bf16(*qt)[Sm::LD] = QS ? reinterpret_cast<bf16(*)[Sm::LD]>(&s.q[0][0]) : s.k[1];
+  bf16(*qt)[Sm::LD] = s.k[1];
   for (int i = tid; i < BQ * CH; i += NT) {
     const int r = i / CH, c = (i - r * CH) * 8, sq = s0 + r;
     const bool ok = sq < p.S;
@@ -249,12 +257,9 @@ __global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(
   __syncthreads();
 
   // Q fragments for every k-step, once; then k[1] is free for the next tile
-  // (QS: none here, each k-step's are loaded where they are used)
-  uint32_t qf[QS ? 1 : KS][4];
-  if constexpr (!QS) {
+  uint32_t qf[KS][4];
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], &qt[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
-  }
+  for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], &qt[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
   const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int qpr[2] = {s.qp[r0], s.qp[r0 + 8]};
   const int c0 = (lane & 3) * 2;           // this thread's first column in an 8-wide tile
@@ -276,19 +281,12 @@ __global__ void __launch_bounds__(NT, Smem16<DH>::QS ? 1 : 3) flash_bf16_kernel(
     for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4];
-      if constexpr (QS) {
-        ldmatrix_x4(qa, &qt[warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kb[4];
         ldmatrix_x4(kb, &s.k[buf][np * 16 + (lane >> 4) * 8 + (lane & 7)][kk * 16 + ((lane >> 3) & 1) * 8]);
-        mma_bf16(sc[2 * np], qa, kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16(sc[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
       }
     }
 
@@ -403,7 +401,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 128: wgmma with TMA
+// bf16, head dims 64, 128 and 256: wgmma with TMA
 // ---------------------------------------------------------------------------
 
 constexpr int WBN = 128;  // keys per tile summary
@@ -463,11 +461,13 @@ struct WgParams {
 
 // NWG = 2: 128 query rows, tiles of 128 keys, one block per SM.  NWG = 1
 // (a prefill of at most 64 tokens): 64 rows, tiles of 64 keys, half the
-// shared memory, two blocks per SM.
+// shared memory, two blocks per SM.  Head dim 256 takes NWG = 2 only, over
+// tiles of 64 keys: 128-key tiles would need 320 KB.
 template <int DH, int NWG>
 struct WgCfg {
+  static_assert(DH != 256 || NWG == 2, "head dim 256: 128-row blocks only");
   static constexpr int BM = 64 * NWG;                     // query rows per block
-  static constexpr int BN = 64 * NWG;                     // keys per K/V tile
+  static constexpr int BN = DH == 256 ? 64 : 64 * NWG;    // keys per K/V tile
   static constexpr int NC = DH / 64;                      // 128-byte column boxes per row
   static constexpr int ST = NWG == 2 && DH == 64 ? 4 : 2;  // K/V stages in flight
   static constexpr int NT = 128 * (NWG + 1);              // consumer warpgroups + the producer's
@@ -541,9 +541,15 @@ __device__ __forceinline__ void tile_softmax(float (&sc)[NS], const WgParams& p,
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DH == 128)
+// O += P V for 16 keys: v is the stage's first column box at the k-step's
+// first key (V's rows are keys, the K of the product; its 64-column boxes
+// BN * 128 bytes apart along dh, the N; 8-key groups 1024 bytes apart).
+template <int DH, int BN>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], const bf16* v) {
+  const uint64_t db = hopper::desc_sw128(v, BN * 128, 1024);
+  if constexpr (DH == 256)
+    hopper::wgmma_rs_n256_tb(o, a, db);
+  else if constexpr (DH == 128)
     hopper::wgmma_rs_n128_tb(o, a, db);
   else
     hopper::wgmma_rs_n64_tb(o, a, db);
@@ -555,6 +561,18 @@ __device__ __forceinline__ void wgmma_s(float (&sc)[BN / 2], uint64_t da, uint64
     hopper::wgmma_ss_n128(sc, da, db, scale_d);
   else
     hopper::wgmma_ss_n64(sc, da, db, scale_d);
+}
+
+// The kernel's mbarrier waits.  At dh 256 each is one block of PTX
+// (hopper::mbar_wait_ptx): with the C++ polling loop ptxas serialised every
+// wgmma of the kernel and spilled.  Head dims 64 and 128 keep the loop they
+// were measured with.
+template <int DH>
+__device__ __forceinline__ void stage_wait(uint64_t* bar, unsigned parity) {
+  if constexpr (DH == 256)
+    hopper::mbar_wait_ptx(bar, parity);
+  else
+    hopper::mbar_wait(bar, parity);
 }
 
 // LSE as for flash_bf16_kernel
@@ -630,12 +648,12 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
       for (int j = next_live(s.live, 0, nT); j < nT; j = next_live(s.live, j + 1, nT)) {
         // K (and positions) and V of a stage are released apart: K once the
         // tile's softmax is done, V once its P V is, so K runs further ahead
-        mbar_wait(&s.kempty[st], ph ^ 1u);  // a fresh stage passes at once
+        stage_wait<DH>(&s.kempty[st], ph ^ 1u);  // a fresh stage passes at once
         mbar_expect_tx(&s.kfull[st], NC * BN * 128 + BN * 4);
         for (int c = 0; c < NC; ++c)
           tma_load_4d(&s.k[st][c][0][0], &p.kmap, &s.kfull[st], c * 64, hk, j * BN, b);
         tma_load_1d(&s.kp[st][0], &p.pmap, &s.kfull[st], b * p.T + j * BN);
-        mbar_wait(&s.vempty[st], ph ^ 1u);
+        stage_wait<DH>(&s.vempty[st], ph ^ 1u);
         mbar_expect_tx(&s.vfull[st], NC * BN * 128);
         for (int c = 0; c < NC; ++c)
           tma_load_4d(&s.v[st][c][0][0], &p.vmap, &s.vfull[st], c * 64, hk, j * BN, b);
@@ -648,7 +666,11 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
   } else {
     // consumer warpgroup wg: query rows 64 wg .. 64 wg + 63 of the block.
     // Tile j's S product is issued before tile j - 1's P V, and its softmax
-    // runs while P V is on the tensor cores.
+    // runs while P V is on the tensor cores.  At dh 256 that overlap holds
+    // O, S and P at once (176 registers before any other): there each
+    // warpgroup runs a tile's S, softmax and P V in turn (SERIAL), and the
+    // two warpgroups overlap each other (measured faster, PERF.md).
+    constexpr bool SERIAL = DH == 256;
     setmaxnreg_inc<C::CONSUMER_REGS>();
     const int rl = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows: rl, rl + 8
     const int qpr[2] = {s.qp[rl], s.qp[rl + 8]};
@@ -662,13 +684,12 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
     float sc[BN / 2];
     int st = 0, pst = -1;  // this tile's stage; the pending P V's (-1: none)
     unsigned ph = 0, pph = 0;
-    // O += P V of the pending tile: V's rows are keys (K of the product),
-    // its 64-column boxes LBO apart along dh (N), 8-key groups 1024 bytes apart
+    // O += P V of the pending tile
     auto issue_pv = [&]() {
-      mbar_wait(&s.vfull[pst], pph);
+      stage_wait<DH>(&s.vfull[pst], pph);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_pv<DH>(o, pa[kk], desc_sw128(&s.v[pst][0][16 * kk][0], BN * 128, 1024));
+        wgmma_pv<DH, BN>(o, pa[kk], &s.v[pst][0][16 * kk][0]);
       wg_commit();
     };
     auto retire_pv = [&]() {
@@ -677,10 +698,10 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
       fence_regs(pa);
       if (lane == 0) mbar_arrive(&s.vempty[pst]);  // this warp's reads of that V are done
     };
-    mbar_wait(&s.qbar, 0);
+    stage_wait<DH>(&s.qbar, 0);
     for (int j = next_live(s.live, 0, nT); j < nT; j = next_live(s.live, j + 1, nT)) {
       const bool all = (s.all[j >> 5] >> (j & 31)) & 1u;
-      mbar_wait(&s.kfull[st], ph);
+      stage_wait<DH>(&s.kfull[st], ph);
       // S = Q K^T: 64 rows x BN keys, k-steps of 16 along dh (32 bytes
       // inside a 128-byte swizzled row, then the next box)
       wg_fence();
@@ -691,7 +712,7 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
                     desc_sw128(&s.k[st][c][0][e0], 16, 1024), kk);
       }
       wg_commit();
-      if (pst >= 0) {
+      if (!SERIAL && pst >= 0) {
         issue_pv();
         wg_wait<1>();  // S is done; P V may still run
       } else {
@@ -701,7 +722,7 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
       float alpha[2];
       tile_softmax(sc, p, s.kp[st], j * BN, all, qpr, cq, m, l, alpha);
       if (lane == 0) mbar_arrive(&s.kempty[st]);  // this warp is done with K and positions
-      if (pst >= 0) retire_pv();
+      if (!SERIAL && pst >= 0) retire_pv();
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       // P rounded to bf16 (as _sdpa casts it to v's type), keys 16 kk .. 16 kk + 15
@@ -714,12 +735,18 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
       }
       pst = st;
       pph = ph;
+      if constexpr (SERIAL) {
+        wg_fence();
+        issue_pv();
+        retire_pv();
+        pst = -1;
+      }
       if (++st == ST) {
         st = 0;
         ph ^= 1u;
       }
     }
-    if (pst >= 0) {  // the last tile's P V
+    if (!SERIAL && pst >= 0) {  // the last tile's P V
       wg_fence();
       issue_pv();
       retire_pv();
@@ -824,7 +851,8 @@ template <int DH>
 int dispatch_wgmma(const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
                    void* out, void* summ, float* lse, int B, int S, int T, int H, int Hkv,
                    int q_tile, const paged::Mask& mk, cudaStream_t stream) {
-  if ((q_tile != 64 && q_tile != 128) || S > 65535 * 64 || (summ == nullptr && T > 64))
+  if ((q_tile != 64 && q_tile != 128) || (DH == 256 && q_tile != 128) || S > 65535 * 64 ||
+      (summ == nullptr && T > 64))
     return cudaErrorInvalidValue;
   WgParams p{};
   p.qpos = qpos;
@@ -836,11 +864,16 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, const int* qpos,
   p.mk = mk;
   p.capped = mk.softcap > 0.f || mk.scale <= 0.f;
   p.c = p.capped ? 1.4426950408889634f : 1.4426950408889634f * mk.scale;
-  if (lse != nullptr)
-    return q_tile == 64 ? launch_wgmma<DH, 1, true>(p, q, k, v, stream)
-                        : launch_wgmma<DH, 2, true>(p, q, k, v, stream);
-  return q_tile == 64 ? launch_wgmma<DH, 1, false>(p, q, k, v, stream)
-                      : launch_wgmma<DH, 2, false>(p, q, k, v, stream);
+  if constexpr (DH == 256) {
+    return lse != nullptr ? launch_wgmma<DH, 2, true>(p, q, k, v, stream)
+                          : launch_wgmma<DH, 2, false>(p, q, k, v, stream);
+  } else {
+    if (lse != nullptr)
+      return q_tile == 64 ? launch_wgmma<DH, 1, true>(p, q, k, v, stream)
+                          : launch_wgmma<DH, 2, true>(p, q, k, v, stream);
+    return q_tile == 64 ? launch_wgmma<DH, 1, false>(p, q, k, v, stream)
+                        : launch_wgmma<DH, 2, false>(p, q, k, v, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -896,13 +929,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* qpos, cons
     return dispatch_wgmma<64>(q, k, v, qp, kp, out, summ, ls, B, S, T, H, Hkv, q_tile, mk, st);
   if (BF16 && dh == 128)
     return dispatch_wgmma<128>(q, k, v, qp, kp, out, summ, ls, B, S, T, H, Hkv, q_tile, mk, st);
+  if (BF16 && dh == 256)
+    return dispatch_wgmma<256>(q, k, v, qp, kp, out, summ, ls, B, S, T, H, Hkv, q_tile, mk, st);
   const Params p{q, k, v, qp, kp, out, B, S, T, H, Hkv, H / Hkv, mk, ls};
   switch (dh) {
     case 32: return BF16 ? launch_bf16<32>(p, st) : launch_f32<32>(p, st);
     case 64: return launch_f32<64>(p, st);
     case 112: return BF16 ? launch_bf16<112>(p, st) : launch_f32<112>(p, st);
     case 128: return launch_f32<128>(p, st);
-    case 256: return BF16 ? launch_bf16<256>(p, st) : launch_f32<256>(p, st);
+    case 256: return launch_f32<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -910,7 +945,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* qpos, cons
 }  // namespace
 
 // Plain C interface, loaded with ctypes: device pointers, out (and, for the
-// bf16 entry at head dims 64 and 128, summ: B * ceil(T / 128) int4 tile
+// bf16 entry at head dims 64, 128 and 256, summ: B * ceil(T / 128) int4 tile
 // summaries that a first launch writes and the blocks mark from, or null
 // for rows of at most 64 keys; and lse: [B, H, S] f32 row log-sum-exp for
 // the backward, kernel 6b, or null on every serving path)

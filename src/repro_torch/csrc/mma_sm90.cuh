@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy helpers for Hopper, sm_90a, shared by
 // the kernels that tile attention on the tensor cores: flash_attention.cu
-// (kernel 6) and paged_mma.cuh (the bf16 and int8 paths of the paged decode
-// and chunk-prefill kernels 7 / 7q and 8 / 8q).
+// (kernel 6), paged_mma.cuh (the bf16 and int8 paths of the paged decode
+// and chunk-prefill kernels 7 / 7q and 8 / 8q, and kernel 9 below dh 256)
+// and decode_attention_quant.cu (kernel 9 at dh 256).
 //
 //   * cp.async: 16 (or 4) bytes global -> shared without passing through registers,
 //     grouped by commit and awaited as a whole, so a tile's load stays in
@@ -42,6 +43,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {

@@ -1,9 +1,9 @@
 // Tensor-core attention over a page pool or a contiguous cache for Hopper,
 // sm_90a: the bf16 paths of paged_decode_attention.cu (kernels 7 and 7q),
 // paged_prefill_attention.cu (kernels 8 and 8q) and decode_attention_quant.cu
-// (kernel 9, a contiguous int8 cache).  Their f32 paths keep the CUDA-core
-// code of paged_attention.cuh, whose Mask (scale, softcap, causal, window)
-// all use.
+// (kernel 9, a contiguous int8 cache, at head dims up to 128; dh 256 has a
+// kernel of its own there).  Their f32 paths keep the CUDA-core code of
+// paged_attention.cuh, whose Mask (scale, softcap, causal, window) all use.
 //
 // A block of 4 warps attends, for one kv-head, over the live keys of one
 // row and then (prefill) over the chunk's own keys:
@@ -100,9 +100,6 @@ struct Smem {
   alignas(16) bf16 v[NB][BK][LD];
   alignas(16) int8_t k8[Q8 ? 2 : 1][Q8 ? BK : 1][Q8 ? DH : 16];
   alignas(16) int8_t v8[Q8 ? 2 : 1][Q8 ? BK : 1][Q8 ? DH : 16];
-  // a decode block's query rows at DH > 128 (kernel 9 at dh 256): kept here,
-  // their A fragments reloaded for every tile (decode_block)
-  alignas(16) bf16 q[DH > 128 ? 16 : 1][DH > 128 ? LD : 8];
   float ks[Q8 ? 2 : 1][Q8 ? BK : 1];  // per-key scales of a tile (1 for chunk keys)
   float vs[Q8 ? 2 : 1][Q8 ? BK : 1];
   int kp[2][BK];                      // key positions of a tile, -1 = masked
@@ -463,28 +460,6 @@ __device__ __forceinline__ void scores(const Sm& s, int cb, int key0, uint32_t (
   }
 }
 
-// The same with the A fragments loaded from the query rows q (row stride
-// DH + 8) at every k-step: DH > 128, where a thread cannot hold them beside
-// its DH / 2 f32 accumulators.
-template <int DH, int N, class Sm>
-__device__ __forceinline__ void scores_smem_q(const Sm& s, int cb, int key0, const bf16* q,
-                                              float (&sc)[N][4], int lane) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t qa[4];
-    ldmatrix_x4(qa, q + (lane & 15) * (DH + 8) + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < N / 2; ++np) {
-      uint32_t kb[4];
-      ldmatrix_x4(kb, &s.k[cb][key0 + np * 16 + (lane >> 4) * 8 + (lane & 7)][kk * 16 + ((lane >> 3) & 1) * 8]);
-      mma_bf16(sc[2 * np], qa, kb[0], kb[1]);
-      mma_bf16(sc[2 * np + 1], qa, kb[2], kb[3]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Split-K decode (kernels 7, 7q and 9): one block's share of one (slot,
 // kv-head) row, then the merge launch
@@ -551,14 +526,14 @@ __device__ __forceinline__ void decode_block(Smem<DH, Q8, NB>& s, const Src& src
                                              int nt, int sp, int S, bf16* out, float* ws,
                                              size_t R, size_t row0) {
   constexpr int KS = DH / 16, CH = DH / 8;
-  constexpr bool QS = DH > 128;  // the query rows stay in s.q (scores_smem_q)
+  static_assert(DH <= 128, "a thread holds its query fragments beside DH / 2 f32 accumulators");
   static_assert(sizeof(Smem<DH, Q8, NB>::k) + sizeof(Smem<DH, Q8, NB>::v) >=
                     sizeof(float) * NW * GR * DH,
                 "the warps' accumulators fit in the tile buffers");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // the G query rows (zero past G) into k[NB - 1], or s.q (QS); rows of DH + 8
-  bf16* qrows = QS ? &s.q[0][0] : &s.k[NB - 1][0][0];
+  // the G query rows (zero past G) into k[NB - 1], rows of DH + 8
+  bf16* qrows = &s.k[NB - 1][0][0];
   for (int i = tid; i < GR * CH; i += NT) {
     const int r = i / CH, c = (i - r * CH) * 8;
     const bool ok = r < G;
@@ -570,7 +545,7 @@ __device__ __forceinline__ void decode_block(Smem<DH, Q8, NB>& s, const Src& src
   Tiles<DH, Q8, NB> tiles(s, src, mk, scan);
   const int qpr[2] = {qp, qp};
   const int key0 = warp * 16;  // this warp's keys of each tile
-  uint32_t qf[QS ? 1 : KS][4];
+  uint32_t qf[KS][4];
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
   float o[2 * KS][4];
@@ -580,18 +555,13 @@ __device__ __forceinline__ void decode_block(Smem<DH, Q8, NB>& s, const Src& src
   tiles.walk(
       nt, sp, S,
       [&]() {
-        if constexpr (!QS) {
 #pragma unroll
-          for (int kk = 0; kk < KS; ++kk)
-            ldmatrix_x4(qf[kk], &s.k[NB - 1][lane & 15][kk * 16 + (lane >> 4) * 8]);
-        }
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], &s.k[NB - 1][lane & 15][kk * 16 + (lane >> 4) * 8]);
       },
       [&](int cb, int bb, bool full, int lim) {
         float sc[2][4];
-        if constexpr (QS)
-          scores_smem_q<DH, 2>(s, cb, key0, qrows, sc, lane);
-        else
-          scores<DH, 2>(s, cb, key0, qf, sc, lane);
+        scores<DH, 2>(s, cb, key0, qf, sc, lane);
         update<DH, Q8, 2>(s, cb, bb, key0, full, lim, mk, qpr, sc, m, l, o, lane);
       });
 

@@ -46,6 +46,7 @@ KEYS_PER_TILE = 32  # paged_attention.cuh KT: a page must fit in one f32 tile
 TILE_KEYS = 64  # paged_mma.cuh BK: keys per tile of the bf16 kernels
 HEAD_DIMS = (32, 64, 128)  # head dims the kernels are instantiated for
 MAX_G = 16  # query heads per kv-head in one decode block
+MAX_SPLITS_DH256 = 32  # csrc/decode_attention_quant.cu d256::MAX_SPLITS
 
 launches = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 
@@ -71,13 +72,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def decode_splits(nt: int, ps: int, B: int, Hkv: int, n_sm: int) -> int:
+def decode_splits(nt: int, ps: int, B: int, Hkv: int, n_sm: int, dh: int = 0) -> int:
     """Blocks over which the bf16 kernel splits each row's live key tiles,
     from static shapes only (no read of a device value, so the call can be
     captured in a CUDA graph): about two blocks per SM over the B * Hkv
-    (slot, kv-head) pairs, and no more splits than a row has 64-key tiles."""
-    want = -(-2 * n_sm // (B * Hkv))
+    (slot, kv-head) pairs, and no more splits than a row has 64-key tiles.
+    At head dim 256 (kernel 9's kernel of its own) one wave of one block per
+    SM instead, fewer and heavier splits: a block walks several tiles with
+    the next one in flight, and the partials a second launch merges
+    shrink; at most ``MAX_SPLITS_DH256``, the merge's reach."""
     tiles = -(-nt * ps // TILE_KEYS)
+    if dh == 256:
+        want = min(n_sm // (B * Hkv), MAX_SPLITS_DH256)
+    else:
+        want = -(-2 * n_sm // (B * Hkv))
     return max(1, min(want, tiles))
 
 

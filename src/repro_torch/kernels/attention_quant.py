@@ -16,7 +16,8 @@ The plain version dequantizes K/V to q's type, as the JAX reference path does
 
 In bf16 the kernel splits each row's live 64-key tiles (those holding a
 key the query sees, found by every block from the row's positions) over
-``decode_splits`` blocks (from static shapes: ``ceil(T / 64)`` tiles),
+``decode_splits`` blocks (from static shapes: ``ceil(T / 64)`` tiles; at
+head dim 256, which has a kernel of its own, one wave of one block per SM),
 which write f32 partials that a second launch merges, as kernel 7 does;
 ``live_tiles`` and ``split_tiles`` are its plan and
 ``decode_attention_quant_split`` its arithmetic in plain PyTorch, for the
@@ -157,7 +158,7 @@ def decode_attention_quant(
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
         fn = lib.decode_attention_quant_bf16
-        splits = decode_splits(T, 1, B, Hkv, _sm_count(q.device.index))
+        splits = decode_splits(T, 1, B, Hkv, _sm_count(q.device.index), dh)
         # f32 partials m, l, acc per (split, slot, kv-head, row); one split
         # writes out itself
         ws = (torch.empty(splits * B * Hkv * G * (dh + 2), dtype=torch.float32, device=q.device)

@@ -44,17 +44,17 @@ The plain version attends ``q_chunk`` queries at a time (default
 ``[.., S, T]``; the kernel tiles the queries itself (one call for the whole
 S).
 
-In bf16 at head dims 64 and 128 (``WGMMA_HEAD_DIMS``) the kernel runs on
-wgmma with K/V through TMA: it takes ``q_tile_rows`` query rows per block,
-marks the key tiles its rows may see from per-tile summaries that a first
-launch writes into a workspace the wrapper allocates (``tile_summaries``
-and ``summary_marks`` in plain PyTorch; a row of at most ``ONE_TILE_KEYS``
-keys is one tile and takes neither), and reads q, k and v through 4-D
-tensor maps
-(``tensor_map_args``), which need 16-byte aligned bases and strides
-(``check_tma``).  Head dims 32, 112 and 256 keep the ``mma.sync`` kernel
-(at 256, recurrentgemma-2b's, with the query tile in shared memory: a
-simple instance, not tuned).
+In bf16 at head dims 64, 128 and 256 (``WGMMA_HEAD_DIMS``) the kernel runs
+on wgmma with K/V through TMA: it takes ``q_tile_rows`` query rows per
+block (always 128 at dh 256) over K/V tiles of ``kv_tile_keys``, marks the
+key tiles its rows may see from per-128-key summaries that a first launch
+writes into a workspace the wrapper allocates (``tile_summaries`` and
+``summary_marks`` in plain PyTorch, ``kv_tile_marks`` for 64-key tiles; a
+row of at most ``ONE_TILE_KEYS`` keys is one tile and takes neither), and
+reads q, k and v through 4-D tensor maps (``tensor_map_args``: a row is
+dh / 64 boxes), which need 16-byte aligned bases and strides
+(``check_tma``).  Head dims 32 and 112 (no served config) keep the
+``mma.sync`` kernel.
 """
 from __future__ import annotations
 
@@ -69,8 +69,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 112, 128, 256)  # head dims the kernel is instantiated for
 Q_CHUNK = 1024  # the plain version's query chunk (the JAX package's Q_CHUNK)
 MAX_KEYS = 128 * 32 * 64  # csrc/flash_attention.cu: the live-tile bitmask's reach
-WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims on wgmma + TMA; 32 and 112 keep mma.sync
-KEY_TILE = 128  # keys per tile summary, and per K/V tile of 128-row blocks (64 at 64 rows)
+WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 head dims on wgmma + TMA; 32 and 112 keep mma.sync
+KEY_TILE = 128  # keys per tile summary, and per K/V tile of 128-row blocks (64 at 64 rows, dh 256)
 ONE_TILE_KEYS = 64  # rows of at most this many keys: one tile, no summaries
 BOX_COLS = 64  # columns of a TMA box: 128 bytes of bf16, the swizzle's span
 BWD_TILE = 64  # csrc/flash_attention_bwd.cu, bf16: keys per key tile, queries per query tile
@@ -100,21 +100,32 @@ def _backward_library():
     return lib
 
 
-def q_tile_rows(S: int, H: int, B: int, n_sm: int) -> int:
+def q_tile_rows(S: int, H: int, B: int, n_sm: int, dh: int = 128) -> int:
     """Query rows per block of the wgmma path: 128 (two consumer
     warpgroups, 128-key tiles, one block per SM), or 64 (one warpgroup,
     64-key tiles, two blocks per SM) where S fits one 64-row tile (the
     served 4 x 64 prefill, whose 128-row tiles would be half empty and take
     two waves of the card) or where 128-row tiles would give fewer blocks
-    than the card has SMs."""
+    than the card has SMs.  Head dim 256 always takes 128: a 64-row block
+    would need 160 KB of shared memory, one block per SM, and gain
+    nothing."""
+    if dh == 256:
+        return 128
     return 64 if S <= 64 or -(-S // 128) * H * B < n_sm else 128
+
+
+def kv_tile_keys(dh: int, q_tile: int) -> int:
+    """Keys per K/V tile of the wgmma path (``WgCfg::BN``): 128 under
+    128-row blocks, 64 under 64-row blocks and at head dim 256 (two stages
+    of 128 keys would need 320 KB there)."""
+    return 64 if dh == 256 or q_tile == 64 else 128
 
 
 def tensor_map_args(shape, box_rows: int, elem_bytes: int = 2) -> tuple:
     """The 4-D TMA map the kernel encodes over a ``[B, N, heads, dh]``
     tensor (q: N = S; k, v: N = T): dims innermost first, the byte strides
     of dims 1-3, and the box (64 columns x 1 head x ``box_rows`` rows x 1
-    batch row)."""
+    batch row); a row is dh / 64 boxes, loaded one box at a time."""
     B, N, heads, dh = shape
     dims = (dh, heads, N, B)
     strides = (dh * elem_bytes, heads * dh * elem_bytes, N * heads * dh * elem_bytes)
@@ -155,6 +166,18 @@ def summary_marks(summ: torch.Tensor, q_lo: int, q_hi: int, *, tile: int = KEY_T
         live = live & (hi > q_lo - window)
         full = full & (lo > q_hi - window)
     return live, full
+
+
+def kv_tile_marks(summ: torch.Tensor, q_lo: int, q_hi: int, n_tiles: int, *, tile: int,
+                  causal: bool = True, window: int = 0) -> tuple:
+    """The marks of a row's ``n_tiles`` K/V tiles of ``tile`` keys (64 or
+    128) from its per-``KEY_TILE`` summaries, as the kernel sets them: tile
+    j takes the marks of summary j * tile // KEY_TILE (``summary_marks``),
+    so a 64-key half of a live summary tile may be loaded and masked, and a
+    half of a full one is full.  Boolean [n_tiles] each."""
+    live, full = summary_marks(summ, q_lo, q_hi, causal=causal, window=window)
+    idx = torch.arange(n_tiles) * tile // KEY_TILE
+    return live[idx], full[idx]
 
 
 def query_tile_marks(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool = True,
@@ -452,7 +475,7 @@ def _forward(q, k, v, q_pos, k_pos, *, scale: float, causal: bool, window: int, 
         fn, summ, q_tile = lib.flash_attention_bf16, None, 0
         if dh in WGMMA_HEAD_DIMS:
             check_tma(name, q=q, k=k, v=v, k_pos=k_pos)
-            q_tile = q_tile_rows(S, H, B, _sm_count(q.device.index))
+            q_tile = q_tile_rows(S, H, B, _sm_count(q.device.index), dh)
             if T > ONE_TILE_KEYS:  # tile summaries {min, max, count} per 128 keys of each row
                 summ = torch.empty((B, -(-T // KEY_TILE), 4), dtype=torch.int32, device=q.device)
         ptrs = (out.data_ptr(), summ.data_ptr() if summ is not None else None, lse_ptr)

@@ -9,8 +9,16 @@ static cache (4 x 80 slots), a static cache sized for 2048 new tokens at
 its first decode step (4 x 2112 slots, 80 filled), 8 x 2048 slots half
 filled, a 16392-slot cache with 8 keys filled, a wrapped ring with a window,
 glm4's and nlg's heads, timed beside SDPA over the cache dequantized
-beforehand.  Timed cases also report ``host_ms``, one wrapper call's host
-time.
+beforehand.  At recurrentgemma-2b's head dim 256 (10 heads over 1 kv-head,
+window 2048): kernel 6 at reduced size with every mask (bf16 and f32), at 1
+x 4096 tokens and the served static prefill of 4 x 1500, each timed beside
+SDPA with the window-causal mask and checked bit for bit over two
+launches; kernel 9 over a wrapped int8 ring of 8 x 2048 slots (timed), of
+3 x 300 with every mask and a row with no valid key (bf16 and f32), and of
+72 x 300 rows (one split a row); beside them the windowed dh-128 instances
+at gemma3-27b's shapes (kernel 6 at 4 x 2048, kernel 9 over an 8 x 1024
+ring), timed.  ``--long-only`` keeps the timed long cases.  Timed cases
+also report ``host_ms``, one wrapper call's host time.
 
   PYTHONPATH=src python -m repro_torch.launch.attention_kernels [--long-only] [--variants]
 
@@ -41,6 +49,7 @@ import torch
 from repro_torch.launch.paged_kernels import BF16_TOL, F32_TOL, Cases, graph_ms, rows
 
 LLAMA4, GLM4, NLG = (40, 8, 128), (32, 2, 128), (16, 16, 64)  # (heads, kv-heads, head dim)
+RGEMMA, GEMMA3 = (10, 1, 256), (32, 16, 128)  # recurrentgemma-2b's, gemma3-27b's
 
 
 def sdpa_causal(q, k, v, scale):
@@ -58,14 +67,29 @@ def sdpa_causal(q, k, v, scale):
     return call
 
 
-def sdpa_decode_quant(q, kq, ks, vq, vs, kpos, qpos, scale):
+def sdpa_window(q, k, v, q_pos, k_pos, scale, window):
+    """Graph-timeable SDPA over [B, heads, tokens, dh] copies with the
+    window-causal boolean mask (GQA); torch picks the backend."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qp, kp = q_pos[:, None, :, None], k_pos[:, None, None, :]
+    mask = (kp >= 0) & (kp <= qp) & (qp - kp < window)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+
+
+def sdpa_decode_quant(q, kq, ks, vq, vs, kpos, qpos, scale, window=0):
     """SDPA over the int8 cache dequantized beforehand, the same mask."""
     import torch.nn.functional as F
 
     B, Hkv, G, dh = q.shape
     kg = (kq.float() * ks).to(q.dtype).transpose(1, 2).contiguous()
     vg = (vq.float() * vs).to(q.dtype).transpose(1, 2).contiguous()
-    mask = ((kpos >= 0) & (kpos <= qpos[:, None]))[:, None, None, :]
+    mask = (kpos >= 0) & (kpos <= qpos[:, None])
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos < window)
+    mask = mask[:, None, None, :]
     qh = q.reshape(B, Hkv * G, 1, dh)
     return lambda: F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, scale=scale,
                                                   enable_gqa=True)
@@ -100,10 +124,11 @@ class Attn(Cases):
         print(f"{'ok  ' if ok else 'FAIL'} {name} {json.dumps(res)}", flush=True)
 
     def flash(self, B, S, heads, dtype, kw=None, offsets=None, holes=False, zero_row=None,
-              timed=False, sdpa=False):
+              timed=False, sdpa=False, twice=False):
         """Kernel 6 over a static prefill of S tokens per row (positions
         offset per row by ``offsets``; ``holes``: every 7th key empty;
-        ``zero_row``: a row with every key empty, which must give 0)."""
+        ``zero_row``: a row with every key empty, which must give 0;
+        ``twice``: a second launch must give the same bits)."""
         from repro_torch.kernels import flash_attention as k6
 
         H, Hkv, dh = heads
@@ -127,10 +152,23 @@ class Attn(Cases):
             name += f" holes {holes} offsets {offsets} zero_row {zero_row}"
         if hasattr(k6, "q_tile_rows") and dh in k6.WGMMA_HEAD_DIMS and dtype == torch.bfloat16:
             n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-            name += f" q_tile {k6.q_tile_rows(S, H, B, n_sm)}"
+            try:
+                tile = k6.q_tile_rows(S, H, B, n_sm, dh)
+            except TypeError:  # a tree whose q_tile_rows does not take the head dim
+                tile = k6.q_tile_rows(S, H, B, n_sm)
+            name += f" q_tile {tile}"
+        if twice:
+            same = torch.equal(out, k6.flash_attention_gqa(*args, **kwa))
+            name += f" bit-identical over two launches {same}"
+            self.ok &= same
         fn = (lambda: k6.flash_attention_gqa(*args, **kwa)) if timed else None
+        window = kwa.get("window", 0)
+        library = None
+        if sdpa:
+            library = (sdpa_window(q, k, v, pos, kpos, kwa["scale"], window) if window
+                       else sdpa_causal(q, k, v, kwa["scale"]))
         self.report(name, out, ref, BF16_TOL if dtype == torch.bfloat16 else F32_TOL, fn,
-                    library=sdpa_causal(q, k, v, kwa["scale"]) if sdpa else None)
+                    library=library)
 
     def index_form(self, BH, S, T, dh):
         from repro_torch.kernels import flash_attention as k6
@@ -167,9 +205,31 @@ class Attn(Cases):
         ref = k9.decode_attention_quant_plain(*args, **kwa)
         name = f"kernel 9 {str(dtype)[6:]} B {B} T {T} filled {filled} heads {heads} {kw or {}}"
         fn = (lambda: k9.decode_attention_quant(*args, **kwa)) if timed else None
-        lib = sdpa_decode_quant(*args, kwa["scale"]) if timed and not kw else None
-        self.report(name, out, ref, BF16_TOL if dtype == torch.bfloat16 else F32_TOL, fn,
-                    library=lib)
+        plain_mask = set(kw or {}) <= {"window"}
+        lib = (sdpa_decode_quant(*args, kwa["scale"], window=kwa.get("window", 0))
+               if timed and plain_mask else None)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        self.report(name, out, ref, tol, fn, library=lib)
+
+    def ring(self, B, cap, heads, dtype, kw=None, holes=False, empty_row=None, timed=False):
+        """Kernel 9 over a wrapped int8 ring of ``cap`` slots (``kw``: window
+        = cap unless given): row b's newest key at position cap + 37 b + 11 in
+        slot position % cap (the newest before the oldest in memory); the
+        last row not yet wrapped, its slots past cap / 3 empty; ``holes``:
+        every 7th slot empty; ``empty_row``: a row with no valid key, which
+        must give 0."""
+        qpos = torch.tensor([cap + 37 * b + 11 for b in range(B - 1)] + [cap // 3],
+                            dtype=torch.int32, device="cuda")
+        newest = qpos[:, None].long()
+        slot = torch.arange(cap, device="cuda")[None]
+        kpos = (newest - (newest % cap - slot) % cap).to(torch.int32)
+        kpos[-1, cap // 3 + 1:] = -1
+        if holes:
+            kpos[:, 3::7] = -1
+        if empty_row is not None:
+            kpos[empty_row] = -1
+        self.quant(B, cap, 0, heads, dtype, kw or dict(window=cap), kpos=kpos.contiguous(),
+                   qpos=qpos, timed=timed)
 
 
 # Patches for --variants: per source, per variant, (anchor, replacement)
@@ -178,12 +238,12 @@ _NO_LOAD = ("""        mbar_expect_tx(&s.kfull[st], NC * BN * 128 + BN * 4);
         for (int c = 0; c < NC; ++c)
           tma_load_4d(&s.k[st][c][0][0], &p.kmap, &s.kfull[st], c * 64, hk, j * BN, b);
         tma_load_1d(&s.kp[st][0], &p.pmap, &s.kfull[st], b * p.T + j * BN);
-        mbar_wait(&s.vempty[st], ph ^ 1u);
+        stage_wait<DH>(&s.vempty[st], ph ^ 1u);
         mbar_expect_tx(&s.vfull[st], NC * BN * 128);
         for (int c = 0; c < NC; ++c)
           tma_load_4d(&s.v[st][c][0][0], &p.vmap, &s.vfull[st], c * 64, hk, j * BN, b);""",
             """        mbar_arrive(&s.kfull[st]);
-        mbar_wait(&s.vempty[st], ph ^ 1u);
+        stage_wait<DH>(&s.vempty[st], ph ^ 1u);
         mbar_arrive(&s.vfull[st]);""")
 _NO_SOFTMAX = ("""      float alpha[2];
       tile_softmax(sc, p, s.kp[st], j * BN, all, qpr, cq, m, l, alpha);""",
@@ -314,7 +374,8 @@ def variant_cases(gen):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--long-only", action="store_true",
-                    help="only the timed cases (kernel 6 at 16384 tokens, kernel 9 at 8 x 2048)")
+                    help="only the timed long cases (kernel 6 at 16384 tokens and at "
+                    "recurrentgemma's prefill, kernel 9 at 8 x 2048)")
     ap.add_argument("--variants", action="store_true",
                     help="also time kernel 6 built without its loads / softmax (what bounds it) "
                     "and kernel 9 without its position scan")
@@ -333,7 +394,7 @@ def main(argv=None) -> int:
     if not args.long_only:
         for heads in (LLAMA4, GLM4, NLG):  # the static serves' prefill
             c.flash(4, 64, heads, bf, timed=True, sdpa=True)
-        for heads in ((4, 2, 128), (4, 2, 64), (4, 2, 32), (4, 2, 112)):
+        for heads in ((4, 2, 128), (4, 2, 64), (4, 2, 32), (4, 2, 112), RGEMMA):
             for dt in (bf, f32):
                 c.flash(3, 300, heads, dt, ws, offsets=[5, 400, 0], holes=True, zero_row=2)
             c.flash(2, 4500, heads, bf, dict(window=1500, softcap=20.0), offsets=[0, 37], holes=True)
@@ -356,9 +417,16 @@ def main(argv=None) -> int:
         qpos = torch.tensor([1299, 5, 1250], dtype=torch.int32, device="cuda")
         for dt in (bf, f32):
             c.quant(3, 300, 0, LLAMA4, dt, dict(window=200, softcap=20.0), kpos=kpos, qpos=qpos)
+            c.ring(3, 300, RGEMMA, dt, ws, holes=True, empty_row=1)
+        c.ring(72, 300, RGEMMA, bf, dict(softcap=20.0, window=300), holes=True, empty_row=5)
+        c.flash(4, 2048, GEMMA3, bf, dict(window=1024), timed=True, sdpa=True)
+        c.ring(8, 1024, GEMMA3, bf, timed=True)
     c.quant(8, 2048, 1024, LLAMA4, bf, timed=True)
     c.flash(1, 16384, LLAMA4, bf, timed=True, sdpa=True)
     c.flash(1, 4096, NLG, bf, timed=True, sdpa=True)
+    for B, S in ((1, 4096), (4, 1500)):  # recurrentgemma's prefill
+        c.flash(B, S, RGEMMA, bf, dict(window=2048), timed=True, sdpa=True, twice=True)
+    c.ring(8, 2048, RGEMMA, bf, timed=True)
     if args.variants:
         libs = build_variants()
         for source, cases in variant_cases(torch.Generator(device="cuda").manual_seed(1)).items():

@@ -161,3 +161,42 @@ def test_split_count_comes_from_static_shapes():
     assert tk7.decode_splits(2048, 1, 8, 8, 132) == 5  # 8 x 2048
     assert tk7.decode_splits(16392, 1, 1, 8, 132) == 33
     assert tk7.decode_splits(64, 1, 1, 1, 132) == 1
+
+
+def test_split_count_at_head_dim_256_is_one_wave():
+    """At dh 256 (its kernel of its own) ``decode_splits`` takes one wave of
+    one block per SM over the B * Hkv rows, never more splits than tiles and
+    at least one: 16 at recurrentgemma's 8 x 2048 ring (2 tiles a split)."""
+    assert tk7.decode_splits(2048, 1, 8, 1, 132, dh=256) == 16
+    assert tk7.decode_splits(2048, 1, 1, 1, 132, dh=256) == 32  # one row: a tile a split
+    assert tk7.decode_splits(300, 1, 3, 1, 132, dh=256) == 5
+    assert tk7.decode_splits(2048, 1, 200, 1, 132, dh=256) == 1
+    # the merge's reach: a long single row takes at most MAX_SPLITS_DH256
+    assert tk7.decode_splits(16392, 1, 1, 1, 132, dh=256) == tk7.MAX_SPLITS_DH256 == 32
+    for B in range(1, 140):
+        n = tk7.decode_splits(2048, 1, B, 1, 132, dh=256)
+        assert 1 <= n <= 32 and (B * n <= 132 or n == 1)
+    assert tk7.decode_splits(2048, 1, 8, 8, 132) == 5  # other head dims as before
+
+
+@pytest.mark.parametrize("kw", KW, ids=KW_IDS)
+def test_split_plan_at_head_dim_256_merges_to_the_unsplit_result(kw):
+    """recurrentgemma's heads (10 over 1, dh 256) over a ring of 200 slots
+    that wraps at slot 77, an empty row and a mostly empty one, split as
+    the wrapper splits a row at dh 256 (``decode_splits``), against the
+    unsplit plain version and the JAX oracle."""
+    rng = np.random.default_rng(256)
+    B, Hkv, G, dh = 4, 1, 10, 256
+    q = rng.standard_normal((B, Hkv, G, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((B, T, Hkv, dh)).astype(np.float32) for _ in range(2))
+    kq, ks = (np.asarray(a) for a in jkv.kv_quantize_values(jnp.asarray(k)))
+    vq, vs = (np.asarray(a) for a in jkv.kv_quantize_values(jnp.asarray(v)))
+    kpos = np.full((B, T), -1, np.int32)
+    kpos[0, :150] = np.arange(150)
+    kpos[2] = np.roll(np.arange(300, 500), 77)
+    kpos[3, :8] = np.arange(8)
+    arrs = (q, kq, ks, vq, vs, kpos, np.array([149, 0, 499, 7], np.int32))
+    splits = tk7.decode_splits(T, 1, B, Hkv, 132, dh=dh)
+    assert splits == 4  # ceil(200 / 64) tiles, under 132 // 4 = 33
+    got = tk9.decode_attention_quant_split(*(t(a) for a in arrs), splits, **kw)
+    check_rows(got, arrs, kw)

@@ -142,6 +142,62 @@ def test_window_matches_jax(G, dh):
     tattn.check_spec(spec)
 
 
+# Head dim 256: recurrentgemma-2b's 10 query heads over one kv-head (its
+# local layers' window is 2048; reduced here)
+RG_H, RG_DH = 10, 256
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_at_head_dim_256_matches_jax_kernel(dtype):
+    """The port's ``flash_attention_gqa`` at dh 256, causal, 10 heads over
+    one kv-head, against the JAX package's ``flash_attention`` (the Pallas
+    kernel in interpret mode, as its own tests run it) per head over the
+    shared kv-head, and against its oracle; bf16 inputs within
+    ``BF16_TOL``."""
+    rng = np.random.default_rng(256)
+    B, S = 2, 128
+    q = rng.standard_normal((B, S, RG_H, RG_DH)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, 1, RG_DH)).astype(np.float32) for _ in range(2))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    scale = RG_DH ** -0.5
+    jq = q.transpose(0, 2, 1, 3).reshape(B * RG_H, S, RG_DH)
+    jk, jv = (np.repeat(x.transpose(0, 2, 1, 3), RG_H, axis=1).reshape(B * RG_H, S, RG_DH)
+              for x in (k, v))
+    unflat = lambda y: np.asarray(y, np.float32).reshape(B, RG_H, S, RG_DH).transpose(0, 2, 1, 3)
+    tq, tk, tv = _t(q, k, v)
+    if dtype == "bfloat16":
+        jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (jq, jk, jv))
+        tq, tk, tv = (x.bfloat16() for x in (tq, tk, tv))
+    got = fa.flash_attention_gqa(tq, tk, tv, *_t(pos, pos), scale=scale, causal=True)
+    assert got.dtype == tq.dtype
+    want = unflat(jax_flash(jq, jk, jv, scale=scale, causal=True))
+    tol = BF16_TOL if dtype == "bfloat16" else TOL
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), unflat(flash_attention_ref(jq, jk, jv, scale=scale,
+                                                                           causal=True)), **TOL)
+
+
+@pytest.mark.parametrize("window,variant", [(13, "plain"), (40, "offset_empty_softcap")])
+def test_window_at_head_dim_256_matches_jax(window, variant):
+    """A local layer at dh 256 (recurrentgemma's heads, its window reduced
+    to fit 96 tokens): ``flash_attention_gqa`` with the window and the
+    port's ``attend_full`` against JAX's ``attend_full`` and its local
+    ``attend_chunked``, as ``test_window_matches_jax`` at smaller head
+    dims."""
+    q, k, v, q_pos, k_pos, cap = _gqa_inputs(RG_H, RG_DH, 96, 96, variant, seed=window, Hkv=1)
+    spec = AttnSpec(kind="local", window=window, logit_softcap=cap)
+    jspec = JAttnSpec(kind="local", window=window, logit_softcap=cap)
+    scale = RG_DH ** -0.5
+    jfull = jax.jit(lambda *a: jattn.attend_full(*a, jspec, scale))(q, k, v, q_pos, k_pos)
+    jchunk = jax.jit(lambda *a: jattn.attend_chunked(*a, jspec, scale, q_chunk=32))(q, k, v, q_pos, k_pos)
+    args = _t(q, k, v, q_pos, k_pos)
+    direct = fa.flash_attention_gqa(*args, scale=scale, causal=True, window=window, softcap=cap)
+    for got in (direct, tattn.attend_full(*args, spec, scale)):
+        for want in (jfull, jchunk):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_row_without_valid_key_gives_zero():
     """Batch row 1's keys are all empty (k_pos = -1): the port gives 0 there,
     as kernels 7-9 do, where the JAX ``_sdpa`` gives the uniform average of
