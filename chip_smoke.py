@@ -39,6 +39,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    capacity=2048)`` on the phase-4 trace, bf16 and an int8 cache: kernel 6
    once per layer per admission, kernel 9 (int8) once per layer per decode
    tick, no paged kernel; TTFT, tick median, tok/s.
+4d. observability (slice 13): the phase-4 trace (weights, pool, prompts)
+   through a fresh ``ContinuousEngine`` six times, in turns under
+   ``Obs.disabled()``, the default ``Obs()``, ``Obs(trace=True,
+   routing=True)``, full, default, disabled (kernels 4, 7, 8): the tokens
+   and every kernel's launches identical across the six and equal to phase
+   4's; the steady decode-tick median of each run; TTFT / TPOT / queue-wait
+   / tick p50 and p99 from the snapshots, the trace's event count, the
+   routing gauges; the default and full snapshots appended to
+   ``chiprun_out/obs_metrics.jsonl`` and the first full run's trace written
+   to ``chiprun_out/obs_trace.json``; a torch.profiler account of 5 steady
+   decode ticks under off, default and full: the default's host syncs per
+   tick equal the disabled one's, routing adds at most one.  Phase 11 adds
+   ``Engine`` under ``Obs(routing=True)`` on nlg-350m-moe128 (kernels 1, 6):
+   ``last_routing``'s MoE layers, dropped share and imbalance.
 5. chunked prefill at full width: a 512-token prompt through two 256-token
    ``paged_prefill_chunk`` calls (kernel 8) against the static prefill of the
    same prompt, both bf16: logits within BF16_LOGITS_TOL, same argmax.
@@ -970,12 +984,13 @@ def check_flash(args, kw, tol, timed=True, n=20, plain_n=3, library=None) -> dic
 # ---------------------------------------------------------------------------
 
 
-def profile_account(run, steps, what, named_ops=()) -> list:
+def profile_account(run, steps, what, named_ops=(), into=None) -> list:
     """torch.profiler account of ``run(prof)`` (which runs ``steps`` steps
     and returns wall ms per step), beside an unprofiled ``run(None)`` of the
     same steps: device time of the kernels by name, host operators, launches
     and host syncs per step, and the idle share measured under the profiler
-    and derived (profiled kernel time over the unprofiled wall time)."""
+    and derived (profiled kernel time over the unprofiled wall time).  The
+    per-step syncs and launches also go into the dict ``into``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -992,6 +1007,8 @@ def profile_account(run, steps, what, named_ops=()) -> list:
     n_launch = sum(ev.count for ev in evs if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                          "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     n_kern = sum(c for _, _, c in kern)
+    if into is not None:
+        into.update(syncs=syncs / steps, launches=n_launch / steps, wall_ms=plain_wall)
     if not kern or n_kern < n_launch:
         # CUPTI can drop device records: then the device time is not measured
         return [f"{what} profile: the profiler recorded {n_kern} kernels for {n_launch} launches; "
@@ -1049,7 +1066,7 @@ def profile_decode(eng, cfg, params, steps=5, what="decode", named_ops=()) -> li
     return profile_account(run, steps, what, named_ops)
 
 
-def profile_ticks(eng, cfg, steps=5) -> list:
+def profile_ticks(eng, cfg, steps=5, what="tick", into=None) -> list:
     """Where a continuous decode tick's time goes: every slot decoding (each
     prefill done), one ``step()`` per tick."""
     from repro_torch.serving.engine import Request
@@ -1073,7 +1090,7 @@ def profile_ticks(eng, cfg, steps=5) -> list:
         eng.run_until_done()
         return wall
 
-    return profile_account(run, steps, "tick")
+    return profile_account(run, steps, what, into=into)
 
 
 # ---------------------------------------------------------------------------
@@ -1508,6 +1525,133 @@ def contiguous_trace(cfg, params, counters, kv_cache_bits=0):
         f"{what}: TTFT ms per request {ttft} (median {statistics.median(ttft):.3f})",
     ]
     return lines, launches, (snap[0] if snap else None), eng
+
+
+# ---------------------------------------------------------------------------
+# Slice 13: observability (phase 4d)
+# ---------------------------------------------------------------------------
+
+# the six runs of the phase-4 trace, in turns, so that a drift of the host
+# over the phase falls on every setting alike
+OBS_ORDER = ("disabled", "default", "full", "full", "default", "disabled")
+# where the trace and the metrics go: the output directory beside the script
+# (listed in .gitignore), which holds the run logs too
+OBS_DIR = Path(__file__).resolve().parent / "chiprun_out"
+OBS_HISTOGRAMS = ("serve.ttft_s", "serve.tpot_s", "serve.queue_wait_s", "serve.tick_s")
+
+
+def make_obs(kind):
+    from repro_torch.obs import Obs
+
+    return {"disabled": Obs.disabled, "default": Obs,
+            "full": lambda: Obs(trace=True, routing=True)}[kind]()
+
+
+def obs_percentiles(snap) -> dict:
+    """{histogram: (p50 ms, p99 ms, count)} of the SLO histograms."""
+    return {n: (snap["histograms"][n]["p50"] * 1e3, snap["histograms"][n]["p99"] * 1e3,
+                snap["histograms"][n]["count"])
+            for n in OBS_HISTOGRAMS if snap["histograms"].get(n, {}).get("count")}
+
+
+def obs_phase(cfg, params, counters, want_launches, want_preemptions) -> tuple:
+    """Phase 4d: the phase-4 trace through a fresh paged engine per run
+    under ``OBS_ORDER``'s settings; returns (lines, launches, summary).
+    Fails unless every run gives the same tokens and the launches and
+    preemptions of phase 4, the counters agree with the engine's own
+    attributes, and a steady decode tick's host syncs (torch.profiler over
+    5 ticks of 8 decoding slots) are the disabled run's under the default
+    ``Obs()`` and at most one more with routing."""
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Request
+
+    rng = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in CONT_PROMPTS]
+    OBS_DIR.mkdir(exist_ok=True)
+    metrics_path, trace_path = OBS_DIR / "obs_metrics.jsonl", OBS_DIR / "obs_trace.json"
+    metrics_path.unlink(missing_ok=True)
+    lines, runs, tokens = [], [], None
+    for n, kind in enumerate(OBS_ORDER):
+        obs = make_obs(kind)
+        eng = ContinuousEngine(cfg, params, paged=True, device="cuda", obs=obs, **CONT)
+        torch.cuda.synchronize()
+        reset(*counters)
+        ids, wall, _ = timed_run(eng, lambda: [eng.submit(Request(p, CONT_NEW)) for p in prompts])
+        launches = read(counters, f"obs {kind} {n}")
+        got = [eng.done[i].tokens for i in ids]
+        tokens = tokens or got
+        if got != tokens:
+            raise AssertionError(f"obs run {n} ({kind}): the tokens differ from run 0's")
+        if launches != want_launches or eng.preemptions != want_preemptions:
+            raise AssertionError(f"obs run {n} ({kind}): launches {launches}, preemptions "
+                                 f"{eng.preemptions}; phase 4: {want_launches}, "
+                                 f"{want_preemptions}")
+        if eng.pool.free_count != eng.n_pages:
+            raise AssertionError(f"obs run {n} ({kind}): the pool did not drain")
+        snap = obs.metrics.snapshot()
+        c = snap["counters"]
+        decoded = sum(m["tokens_this_tick"] for m in eng.metrics_log)
+        if kind != "disabled" and (
+                c["serve.preemptions"] != eng.preemptions
+                or c["serve.prefill_tokens_computed"] != eng.prefill_tokens_total
+                or c["serve.decode_tokens"] != decoded
+                or c["serve.requests_completed"] != len(ids)
+                or snap["histograms"]["serve.tick_s"]["count"] != len(eng.metrics_log)
+                or c["serve.retraces"] != 0):
+            raise AssertionError(f"obs run {n} ({kind}): counters {c} disagree with the engine")
+        if kind == "disabled" and (snap != {"counters": {}, "gauges": {}, "histograms": {}}
+                                   or obs.tracer.n_events):
+            raise AssertionError(f"obs run {n}: Obs.disabled() recorded {snap}")
+        steady = [m["tick_s"] for m in eng.metrics_log
+                  if m["tokens_this_tick"] and not m["prefill_tokens"]]
+        run = {"run": n, "kind": kind, "steady_tick_ms": statistics.median(steady) * 1e3,
+               "steady_ticks": len(steady), "ticks": len(eng.metrics_log), "wall_ms": wall * 1e3,
+               "tok_per_s": sum(map(len, got)) / wall}
+        line = (f"obs run {n} ({kind}): steady decode tick median {run['steady_tick_ms']:.3f} ms "
+                f"over {len(steady)} of {len(eng.metrics_log)} ticks; {wall * 1e3:.3f} ms, "
+                f"{run['tok_per_s']:.1f} tok/s; launches and tokens as phase 4")
+        if kind != "disabled":
+            run["percentiles_ms"] = obs_percentiles(snap)
+            line += "; " + "; ".join(f"{h} p50 {a:.3f} / p99 {b:.3f} ms (n {k})"
+                                     for h, (a, b, k) in run["percentiles_ms"].items())
+            obs.metrics.write_jsonl(str(metrics_path), extra={"run": n, "kind": kind,
+                                                              "arch": cfg.name})
+        if kind == "full":
+            routed = [m["routing"] for m in eng.metrics_log if "routing" in m]
+            if len(routed) != sum(1 for m in eng.metrics_log if m["tokens_this_tick"]):
+                raise AssertionError(f"obs run {n}: {len(routed)} routing summaries")
+            run["routing_gauges"] = {g: snap["gauges"][g] for g in
+                                     ("routing.dropped_frac", "routing.entropy",
+                                      "routing.imbalance")}
+            run["trace_events"] = obs.tracer.n_events
+            line += (f"; trace {obs.tracer.n_events} events; routing gauges (last tick) "
+                     f"{run['routing_gauges']}; summaries on {len(routed)} decode ticks, mean "
+                     f"entropy {statistics.mean(r['entropy'] for r in routed):.4f}, mean "
+                     f"imbalance {statistics.mean(r['imbalance'] for r in routed):.4f}")
+            if not trace_path.exists():
+                obs.tracer.export(str(trace_path))
+                line += f" -> {trace_path.relative_to(OBS_DIR.parent)}"
+        runs.append(run)
+        lines.append(line)
+        del eng
+    by_kind = {k: [r["steady_tick_ms"] for r in runs if r["kind"] == k] for k in OBS_ORDER}
+    syncs = {}
+    for kind in ("disabled", "default", "full"):
+        eng = ContinuousEngine(cfg, params, paged=True, device="cuda", obs=make_obs(kind), **CONT)
+        into = {}
+        lines += profile_ticks(eng, cfg, what=f"obs {kind} tick", into=into)
+        syncs[kind] = into
+        del eng
+    if syncs["default"]["syncs"] != syncs["disabled"]["syncs"] or (
+            syncs["full"]["syncs"] > syncs["disabled"]["syncs"] + 1):
+        raise AssertionError(f"host syncs per steady decode tick: {syncs}")
+    summary = {"steady_tick_ms": by_kind, "profile": syncs, "runs": runs}
+    lines.append(f"obs: steady decode tick medians (ms) in turns, disabled / default / full: "
+                 f"{by_kind['disabled']} / {by_kind['default']} / {by_kind['full']}; host syncs "
+                 f"per steady tick {syncs['disabled']['syncs']:g} / {syncs['default']['syncs']:g} "
+                 f"/ {syncs['full']['syncs']:g}; metrics -> "
+                 f"{metrics_path.relative_to(OBS_DIR.parent)}")
+    return lines, launches, summary
 
 
 def slice6_reference_checks(red, red_cap) -> list:
@@ -2440,8 +2584,9 @@ def nlg_serve(counters) -> tuple:
     expert kernel (GELU experts over the grouped layout are plain products
     over gathered tile weights, as JAX's ``grouped_mlp_ref``), kernel 6 once
     per layer; each with a profile of 5 decode steps; and the reduced f32
-    model under grouped, card against CPU.  Returns (lines, launches of the
-    dense run, of the grouped run)."""
+    model under grouped, card against CPU; and the dense engine under
+    ``Obs(routing=True)`` (phase 4d).  Returns (lines, launches of the dense
+    run, of the grouped run, of the routing run)."""
     from repro_torch.configs.registry import get_config, make_reduced
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import Engine, EngineConfig, Request
@@ -2499,11 +2644,34 @@ def nlg_serve(counters) -> tuple:
     lines.append(f"nlg serve grouped: requests whose tokens equal the dense dispatch's: {same} of "
                  f"{BATCH} (the capacity dispatch drops past each expert's slots; grouped is "
                  f"dropless)")
-    del params
+    # phase 4d's static part: the dense engine under Obs(routing=True), which
+    # also runs the last token's step (for its routing, as the JAX engine)
+    from repro_torch.obs import Obs
+
+    eng = Engine(cfg, params, EngineConfig(max_batch=BATCH, max_prefill=PROMPT, max_decode=NEW),
+                 obs=Obs(routing=True), device="cuda")
+    reset(*counters)
+    out = eng.generate(reqs)
+    routed = read(counters, "nlg serve routing")
+    want = {k: 0 for k in routed}
+    want.update(flash_attention=cfg.num_layers, moe_gating=n_moe * (NEW + 1))
+    if routed != want or [r.tokens for r in out] != runs["dense"][1]:
+        raise AssertionError(f"nlg serve routing: launches {routed}, expected {want}, or tokens "
+                             f"that differ from the dense run's")
+    lr = eng.last_routing
+    if lr["moe_layers"] != n_moe:
+        raise AssertionError(f"nlg serve routing: last_routing over {lr['moe_layers']} layers")
+    step_ms = statistics.median(eng.last_timings["decode_step_s"]) * 1e3
+    lines.append(f"nlg serve routing: Engine under Obs(routing=True), the dense run's tokens; "
+                 f"last_routing: {lr['moe_layers']} MoE layers, mean dropped share "
+                 f"{lr['dropped_frac']:.6f}, imbalance {lr['imbalance']:.6f}, entropy "
+                 f"{lr['entropy']:.6f} nats; decode step median {step_ms:.3f} ms (one routing "
+                 f"copy a step); launches {routed}")
+    del eng, params
     gc.collect()
     torch.cuda.empty_cache()
     lines.append(reference_check(make_reduced(cfg).replace(moe_impl="grouped")))
-    return lines, runs["dense"][0], runs["grouped"][0]
+    return lines, runs["dense"][0], runs["grouped"][0], routed
 
 
 def flash_checks(full, red, gen) -> dict:
@@ -4046,6 +4214,13 @@ def main() -> int:
         for line in lines:
             log(line)
 
+    # 4d. observability: the phase-4 trace under Obs off / default / full, in
+    # turns, and the host syncs of a steady decode tick under each
+    lines, obs_launches, obs_summary = obs_phase(cfg, params, counters, cont_launches,
+                                                 cont_preemptions)
+    for line in lines:
+        log(line)
+
     # 5. full-width chunked prefill against the static prefill
     log(chunked_prefill_check(cfg, params))
 
@@ -4436,7 +4611,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"llama4 trees deleted: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
-    lines, nlg_launches, nlg_grouped_launches = nlg_serve(counters)
+    lines, nlg_launches, nlg_grouped_launches, nlg_routing_launches = nlg_serve(counters)
     for line in lines:
         log(line)
     # 11b. the paper's pairing, speculative, at published sizes
@@ -4674,6 +4849,11 @@ def main() -> int:
             k.setdefault("launches_by_path", {})
             k["launches_by_path"][f"spec_{path}"] = sl[k["name"]]
             k["launches_by_path"][f"spec_{path}_baseline"] = bl[k["name"]]
+    # slice 13: the obs phase's runs (each equal to phase 4's) and the nlg
+    # engine under Obs(routing=True)
+    for k in kernels:
+        k["launches_by_path"]["obs_trace"] = obs_launches[k["name"]]
+        k["launches_by_path"]["nlg_static_obs_routing"] = nlg_routing_launches[k["name"]]
     # slice 8: every kernel's launches in its runs, then the windowed kernel
     # 6, kernel 6 at dh 256 and kernel 9 over a ring, each with the runs
     # that launched it
@@ -4767,6 +4947,7 @@ def main() -> int:
             "shapes": checks,
         })
     log("slice 10 training summary: " + json.dumps(s10_summary))
+    log("obs summary: " + json.dumps(obs_summary))
     log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
     log(json.dumps({"kernels": kernels}))

@@ -6,7 +6,7 @@ Tie order follows ``jax.lax.top_k``: equal probabilities go to the lower
 expert id, which ``torch.topk`` does not promise, so top-k is an iterative
 masked argmax (``argmax`` returns the first maximum).  Also the trainer's
 parts: ``load_balance_stats``, ``RoutingStats`` / ``routing_stats`` /
-``summarize_routing`` (per-layer routing telemetry) and ``router_z_loss``.
+``routing_to_host`` / ``summarize_routing`` (per-layer routing telemetry) and ``router_z_loss``.
 """
 from __future__ import annotations
 
@@ -141,6 +141,28 @@ def stack_stats(per_repeat) -> RoutingStats:
     """One segment position's RoutingStats of each repeat -> leaves stacked
     ``[repeats, ...]``, as JAX's scan stacks them."""
     return RoutingStats(*(torch.stack(leaves) for leaves in zip(*per_repeat)))
+
+
+def routing_to_host(stats_tree) -> dict:
+    """The routing-stats tree with every leaf a numpy array, in ONE
+    device-to-host copy: the leaves are flattened into one f64 vector
+    (exact for the f32 statistics and the int32 counts) and split back on
+    the host.  What the engines hand ``summarize_routing`` each step."""
+    keys = [(s, p) for s in sorted(stats_tree) for p in sorted(stats_tree[s])]
+    leaves = [t for s, p in keys for t in stats_tree[s][p]]
+    if not leaves:
+        return {}
+    flat = torch.cat([t.detach().reshape(-1).double() for t in leaves]).cpu().numpy()
+    out, o = {}, 0
+    for s, p in keys:
+        parts = []
+        for t in stats_tree[s][p]:
+            n = t.numel()
+            a = flat[o : o + n].reshape(tuple(t.shape))
+            parts.append(a.astype(np.float32 if t.is_floating_point() else np.int32))
+            o += n
+        out.setdefault(s, {})[p] = RoutingStats(*parts)
+    return out
 
 
 def summarize_routing(stats_tree) -> dict:

@@ -6,6 +6,11 @@ numbers: ``--prefill-mode chunked|batched|scatter`` picks its admission
 prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write,
 ``--n-samples N`` serves N parallel samples of each prompt, and
 ``--spec-draft ARCH|self --spec-k K`` decodes speculatively (greedy only).
+Either engine runs under ``repro_torch.obs.Obs``: the measured run's
+metrics (reset after the warm-up) are printed from one snapshot, which
+``--metrics-out FILE`` appends as a JSON line; ``--trace-out FILE`` writes
+the Chrome / Perfetto trace of the run and ``--obs-routing`` adds the
+per-step routing statistics (the ``routing.*`` gauges).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
       --reduced                                 # on the card, the arch's own moe_impl
@@ -19,6 +24,7 @@ prefill, ``--prefix-sharing`` shares prompt pages with copy-on-write,
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --reduced
   ... --arch recurrentgemma-2b | mamba2-370m     # window rings, RG-LRU, Mamba-2 SSD
   ... --paged --spec-draft self                  # any of them as target or drafter
+  ... --trace-out trace.json --metrics-out metrics.jsonl --obs-routing
 
 A subset of ``repro.launch.serve``'s flags; the others exit with an error
 naming the ROADMAP item that ports them.  An encoder-decoder arch
@@ -38,6 +44,7 @@ import numpy as np
 from repro_torch.configs.base import QuantConfig
 from repro_torch.configs.registry import get_config, make_reduced
 from repro_torch.models.model import init_caches, init_paged_caches, init_params
+from repro_torch.obs import Obs
 from repro_torch.quant import kv_cache_bytes, quantize_params, quantized_leaf_paths, tree_bytes
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
@@ -45,9 +52,6 @@ from repro_torch.serving.engine import Engine, EngineConfig, Request
 # flags of the JAX launcher this slice does not port -> where they are queued
 UNPORTED = {
     "--ep-devices": "queue 1 item 7 (expert parallelism)",
-    "--trace-out": "queue 1 item 9 (tooling)",
-    "--metrics-out": "queue 1 item 9 (tooling)",
-    "--obs-routing": "queue 1 item 9 (tooling)",
 }
 
 
@@ -106,6 +110,14 @@ def main(argv=None) -> None:
                          "target as its own drafter; greedy only, needs --paged")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="with --spec-draft: drafted tokens per verify window")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write the run's Chrome / Perfetto trace (request, slot and engine "
+                         "tracks) to FILE; load it in ui.perfetto.dev")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE",
+                    help="append the run's metrics snapshot to FILE as one JSON line")
+    ap.add_argument("--obs-routing", action="store_true",
+                    help="collect per-step routing statistics (routing.* gauges: dropped "
+                         "share, gate entropy, imbalance)")
     for flag in UNPORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -139,6 +151,9 @@ def main(argv=None) -> None:
                      "--temperature 0")
         if args.spec_k < 1:
             ap.error(f"--spec-k must be >= 1, got {args.spec_k}")
+        if args.obs_routing:
+            ap.error("--obs-routing is incompatible with --spec-draft: the verify pass "
+                     "returns no routing statistics")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -164,6 +179,7 @@ def main(argv=None) -> None:
                      f"vocab {cfg.vocab_size}; greedy verification needs a shared token space")
 
     params = load_params(args, cfg)
+    obs = Obs(trace=bool(args.trace_out), routing=args.obs_routing)
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist(),
                     max_new_tokens=args.new_tokens)
@@ -174,18 +190,19 @@ def main(argv=None) -> None:
             spec_draft = (cfg, params)
         elif args.spec_draft:
             spec_draft = (dcfg, init_params(dcfg, seed=1, device=args.device))
-        serve_paged(args, cfg, params, reqs, spec_draft)
+        serve_paged(args, cfg, params, reqs, obs, spec_draft)
         return
     ec = EngineConfig(max_batch=args.batch, max_prefill=args.prompt_len,
                       max_decode=args.new_tokens, temperature=args.temperature,
                       top_k=args.top_k, top_p=args.top_p, kv_cache_bits=args.kv_bits)
-    eng = Engine(cfg, params, ec, device=args.device)
+    eng = Engine(cfg, params, ec, obs=obs, device=args.device)
     if args.kv_bits:
         fp_b, q_b = (kv_cache_bytes(init_caches(cfg, args.batch, eng._capacity, kv_bits=b,
                                                 device="meta")) for b in (0, args.kv_bits))
         print(f"KV cache int{args.kv_bits}: {fp_b / 1e6:.2f}MB -> {q_b / 1e6:.2f}MB "
               f"({fp_b / q_b:.2f}x fewer cache bytes)")
     eng.generate(reqs[: args.batch])  # warm-up: builds the kernels on the card
+    obs.metrics.reset_all()  # the warm-up's samples leave the window
     t0 = time.perf_counter()
     responses = eng.generate(reqs)
     dt = time.perf_counter() - t0
@@ -199,7 +216,20 @@ def main(argv=None) -> None:
           f"(batch {tm['batch']} x {tm['prompt_len']}), decode step median "
           f"{(statistics.median(steps) * 1e3) if steps else float('nan'):.3f} ms "
           f"over {len(steps)} steps")
+    report_obs(args, obs, cfg, dict(paged=False, requests=len(responses), tokens=n_tok, wall_s=dt))
     print("sample:", responses[0].tokens[:10])
+
+
+def report_obs(args, obs, cfg, extra: dict) -> None:
+    """The run's metrics from ONE snapshot (printed, and appended to
+    ``--metrics-out``), and the trace to ``--trace-out``."""
+    print(obs.metrics.render(prefix="  "))
+    if args.metrics_out:
+        obs.metrics.write_jsonl(args.metrics_out, extra={"arch": cfg.name, **extra})
+        print(f"metrics snapshot -> {args.metrics_out}")
+    if args.trace_out:
+        n = obs.tracer.export(args.trace_out)
+        print(f"trace ({n} events) -> {args.trace_out}; load in https://ui.perfetto.dev")
 
 
 def load_params(args, cfg):
@@ -241,13 +271,13 @@ def load_params(args, cfg):
     return params
 
 
-def serve_paged(args, cfg, params, reqs, spec_draft=None) -> None:
+def serve_paged(args, cfg, params, reqs, obs, spec_draft=None) -> None:
     eng = ContinuousEngine(
         cfg, params, slots=args.slots or args.batch, capacity=args.prompt_len + args.new_tokens,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, paged=True,
         page_size=args.page_size, n_pages=args.pages, prefill_chunk=args.prefill_chunk,
         prefill_mode=args.prefill_mode, prefix_sharing=args.prefix_sharing,
-        kv_cache_bits=args.kv_bits, spec_draft=spec_draft, spec_k=args.spec_k,
+        kv_cache_bits=args.kv_bits, spec_draft=spec_draft, spec_k=args.spec_k, obs=obs,
         device=args.device)
     if spec_draft is not None:
         print(f"speculative decoding: drafter={spec_draft[0].name}"
@@ -267,6 +297,7 @@ def serve_paged(args, cfg, params, reqs, spec_draft=None) -> None:
     eng.metrics_log.clear()
     eng.preemptions = eng.prefill_tokens_total = eng.prefill_tokens_skipped = 0
     eng.prefix_hits = eng.prefix_hit_tokens = eng.cow_copies = 0
+    obs.metrics.reset_all()  # the warm-up's samples leave the window
     t0 = time.perf_counter()
     if args.n_samples > 1:
         ids = [rid for r in reqs for rid in eng.submit_n(r, args.n_samples)]
@@ -296,6 +327,8 @@ def serve_paged(args, cfg, params, reqs, spec_draft=None) -> None:
               f"{emitted / max(windows, 1):.2f} tok/verify (accept rate "
               f"{accepted / max(drafted, 1):.2f}, k={eng.spec_k}); {eng.spec_resyncs} drafter "
               "resyncs")
+    report_obs(args, obs, cfg, dict(paged=True, requests=len(ids), tokens=n_tok, wall_s=dt,
+                                    prefill_mode=args.prefill_mode))
     print("sample:", done[ids[0]].tokens[:10])
 
 

@@ -19,7 +19,10 @@ q, k, v, O, dO, dQ, dK and dV) and beside the backward of
 ``scaled_dot_product_attention`` (graph time of its forward and backward
 less its forward's; never called by the port).  Kernel 1b at T = 4096 over
 E = 32 and 64 (top-1, capacity factor 1.25) and top-2 normalised with
-drops, beside its bound (bytes); no single PyTorch call computes it.
+drops, beside its bound (bytes); no single PyTorch call computes it; and,
+in the same call and with the same graph timing, the floor of one launch:
+kernel 1b at T = 1 (one warp) and the smallest PyTorch kernel, a ``zero_()``
+of one f32 element (``launch_floor``), with 1b at T = 4096 over each.
 
   PYTHONPATH=src python -m repro_torch.launch.training_kernels [--quick]
 
@@ -224,6 +227,25 @@ def check_gating_bwd(name, T, E, K, cf, bias, gen, timed=True) -> dict:
     return res
 
 
+def launch_floor(gen, gating_ms: dict) -> dict:
+    """What one graph-replayed launch costs on this card: kernel 1b over one
+    token (one warp) and a ``zero_()`` of one f32 element, beside each
+    T = 4096 case of 1b (``gating_ms``: case -> ms) as a ratio to the
+    one-warp launch."""
+    from repro_torch.kernels import moe_gating as k1
+
+    logits = torch.randn((1, 32), generator=gen, device="cuda")
+    g, _ = k1.gating(logits, 1, 8)
+    args = (g.probs, g.expert_idx, g.keep, torch.randn((1, 1), generator=gen, device="cuda"),
+            torch.rand((1, 32), generator=gen, device="cuda"))
+    one = torch.zeros(1, device="cuda")
+    res = {"moe_gating_backward_T1_E32_K1_ms": graph_ms(lambda: k1.gating_backward(*args)),
+           "zero_one_f32_ms": graph_ms(one.zero_)}
+    res["T4096_over_one_warp"] = {name: ms / res["moe_gating_backward_T1_E32_K1_ms"]
+                                  for name, ms in gating_ms.items()}
+    return res
+
+
 def quick_shape(case):
     """A case at its smallest size: a few tiles, the same heads and masks."""
     B, S, H, Hkv, dh, causal, window, softcap = case
@@ -252,12 +274,16 @@ def main(argv=None) -> int:
             ok &= res["ok"]
             print(f"{'ok  ' if res['ok'] else 'FAIL'} flash_attention_backward {name} "
                   f"{json.dumps(res)}", flush=True)
+    gating_ms = {}
     for name, (T, E, K, cf, bias) in GATING_BWD_CASES.items():
         res = check_gating_bwd(name, T if not args.quick else 256, E, K, cf, bias, gen,
                                timed=not args.quick)
         ok &= res["ok"]
+        gating_ms[name] = res.get("ms")
         print(f"{'ok  ' if res['ok'] else 'FAIL'} moe_gating_backward {name} {json.dumps(res)}",
               flush=True)
+    if not args.quick:
+        print(f"launch floor: {json.dumps(launch_floor(gen, gating_ms))}", flush=True)
     return 0 if ok else 1
 
 

@@ -285,15 +285,18 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, caches: dict, *,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, index: int,
-                caches: dict, *, memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+                caches: dict, *, memory: Optional[torch.Tensor] = None,
+                return_routing: bool = False) -> Tuple:
     """One decode step at absolute position ``index`` (uniform over the
     batch): returns (logits [B, V], caches updated in place).  The cross
-    attention reads its cache; ``memory`` keeps JAX's signature."""
+    attention reads its cache; ``memory`` keeps JAX's signature.
+    ``return_routing=True`` appends the routing-stats tree (on the device,
+    ``core/gating.py::routing_to_host`` copies it)."""
     x = embed_tokens(cfg, params, token)
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
-    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "decode", index=index,
-                                 memory=memory)
-    return logits_out(cfg, params, x)[:, 0], caches
+    out = _run_segments(cfg, params, x, positions, caches, "decode", index=index,
+                        memory=memory, collect_stats=return_routing)
+    return (logits_out(cfg, params, out[0])[:, 0], out[1]) + out[3:]
 
 
 def _tensors(tree):
@@ -379,10 +382,13 @@ class _RowMerge:
 
 @torch.no_grad()
 def ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions: torch.Tensor,
-                       active: torch.Tensor, caches: dict) -> Tuple[torch.Tensor, dict]:
+                       active: torch.Tensor, caches: dict, *,
+                       return_routing: bool = False) -> Tuple:
     """Continuous-batching decode tick over contiguous slot caches: token [B,
     1] at per-row ``positions`` [B]; ``active`` [B] bool.  Returns (logits
-    [B, V], caches updated in place).
+    [B, V], caches updated in place); ``return_routing=True`` appends the
+    routing-stats tree, which covers every slot row, the inactive ones too
+    (as JAX's: a sample of the load's shape, not exact counts).
 
     Every row is written and attends, as in JAX (an inactive row at its
     position, 0 from the engine, so under a capacity dispatch it routes as
@@ -394,9 +400,10 @@ def ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions:
     x = embed_tokens(cfg, params, token)
     pos = positions.to(torch.int32)
     merge = _RowMerge(cfg, caches, False, pos)
-    x, caches, _ = _run_segments(cfg, params, x, pos[:, None], caches, "decode_ragged")
+    out = _run_segments(cfg, params, x, pos[:, None], caches, "decode_ragged",
+                        collect_stats=return_routing)
     merge.restore(active)
-    return logits_out(cfg, params, x)[:, 0], caches
+    return (logits_out(cfg, params, out[0])[:, 0], caches) + out[3:]
 
 
 @torch.no_grad()
@@ -469,10 +476,13 @@ def _slot_row(cfg: ModelConfig, caches: dict, slot: Optional[int], reset: bool) 
 @torch.no_grad()
 def paged_ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions: torch.Tensor,
                              caches: dict, block_table: torch.Tensor,
-                             active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+                             active: Optional[torch.Tensor] = None, *,
+                             return_routing: bool = False) -> Tuple:
     """Continuous-batching decode tick over paged caches: token [B, 1] at
     per-row ``positions`` [B]; ``block_table`` [B, max_pages] int32 with -1
-    unmapped.  Returns (logits [B, V], caches updated in place).
+    unmapped.  Returns (logits [B, V], caches updated in place);
+    ``return_routing=True`` appends the routing-stats tree (every slot row,
+    as ``ragged_decode_step``'s).
 
     The pool writes mask themselves: an inactive row's table row is all -1,
     so its write lands in the trash page with position -1, and its
@@ -484,11 +494,12 @@ def paged_ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, posi
     pos2d = positions.to(torch.int32)[:, None]
     merge = (_RowMerge(cfg, caches, True, pos2d[:, 0])
              if active is not None and not arch_fully_paged(cfg) else None)
-    x, caches, _ = _run_segments(cfg, params, x, pos2d, caches, "decode_paged",
-                                 block_table=_clamped(cfg, caches, block_table))
+    out = _run_segments(cfg, params, x, pos2d, caches, "decode_paged",
+                        block_table=_clamped(cfg, caches, block_table),
+                        collect_stats=return_routing)
     if merge is not None:
         merge.restore(active)
-    return logits_out(cfg, params, x)[:, 0], caches
+    return (logits_out(cfg, params, out[0])[:, 0], caches) + out[3:]
 
 
 @torch.no_grad()

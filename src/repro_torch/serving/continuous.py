@@ -99,8 +99,29 @@ An encoder-decoder config is refused with a ``ValueError``: the engine takes
 no encoder memory, as the JAX engine takes none.  A vlm config serves its
 text tokens (no patch embeddings), as the JAX engine does.
 
-Not ported here, each raising ``NotImplementedError`` that names its ROADMAP
-item: expert-parallel meshes and observability.
+``obs`` (``repro_torch.obs.Obs``; a default one, metrics on, when None)
+records the JAX engine's instruments under the same names: the SLO
+histograms (``serve.queue_wait_s``, ``ttft_s``, ``tpot_s``, ``tick_s``,
+``preempts_per_req``), the lifecycle counters and the pool gauges, the
+``spec.*`` counters and histograms of a speculative engine, and, with
+``obs.routing``, the ``routing.*`` gauges of every decode tick (the stats
+stay on the device and reach the host in one copy per tick, after the
+tick's token read-back; ``metrics_log`` gets their summary).  The tracer
+(``obs.tracer``, when enabled) writes three span tracks: ``engine 0``
+(``tick`` spans; ``spec_draft`` / ``spec_verify`` / ``spec_commit`` inside a
+speculative tick; ``preempt`` and ``cow_copy`` instants), ``slot i`` (a
+``req{rid}`` span per residency, with ``chunk[a:b)`` spans inside) and
+``request rid`` (``queued`` -> ``prefill`` -> ``decode``, ``prefix_hit``,
+``preempted``, ``spec_commit`` and ``complete`` instants).  ``tick_s`` is
+read after the tick's token read-back (by then the device has finished the
+decode step) and the bookkeeping that follows it; a tick that prefills
+fences once after its prefill phase anyway.  The instruments add no sync.  ``serve.jitted_calls_per_tick``
+counts the model-step calls a tick makes (JAX's jitted calls, one per
+call site of its engine).  The port compiles nothing, so the watchdog
+registers no function and ``serve.retraces`` stays 0.
+
+Not ported here, raising ``NotImplementedError`` that names its ROADMAP
+item: expert-parallel meshes.
 """
 from __future__ import annotations
 
@@ -112,6 +133,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gating import routing_to_host, summarize_routing
 from repro_torch.models.model import (
     arch_fully_paged,
     init_caches,
@@ -129,6 +151,7 @@ from repro_torch.models.model import (
     ragged_decode_step,
     resolve_device,
 )
+from repro_torch.obs import Obs
 from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.engine import Request, Response
 from repro_torch.serving.kv_pool import BlockTables, KVBlockPool
@@ -235,8 +258,11 @@ class ContinuousEngine:
                                  "token ids for verification to compare them")
         if cfg.ep_mesh:
             _unported("an expert-parallel mesh", "item 7")
-        if obs is not None:
-            _unported("observability (Obs)", "item 9")
+        obs = obs if obs is not None else Obs()
+        if spec_draft is not None and obs.routing:
+            raise ValueError("routing collection is incompatible with speculative decoding: the "
+                             "verify pass replaces the plain decode step and returns no "
+                             "RoutingStats")
         self.device = resolve_device(device)
         params = prepare_params_for_serving(cfg, params)
         leaf = params["embed"]
@@ -304,19 +330,34 @@ class ContinuousEngine:
         self._tick_prefill_done = 0
         self._tick_prefill_calls = 0
         self._batched_occ_tick = 0.0  # rows with a chunk in this tick's batched call / slots
+        # model-step calls since the last recorded tick (JAX's jitted calls:
+        # prefills, page resets and copies, drafter calls, verify, decode)
+        self._jit_calls_tick = 0
+        self._tick = 0
         self._next_id = 0
         self._admit_counter = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._cur_token = np.zeros((slots,), np.int32)
+        self._init_obs(obs)
         # speculative decoding: the drafter, this tick's spec record (JAX's
-        # keys), its phase times, and running counts (JAX's spec.* counters)
+        # keys), its phase times, and the resyncs (also spec.draft_resyncs)
         self.spec_k = int(spec_k) if spec_draft is not None else 0
         self.drafter: Optional[Drafter] = None
         self._spec_tick_m: dict = {}
         self._spec_times: dict = {}
-        self.spec_draft_tokens = self.spec_accepted_tokens = self.spec_verify_windows = 0
-        self.spec_committed_pages = self.spec_rolled_back_pages = self.spec_resyncs = 0
+        self.spec_resyncs = 0
         if spec_draft is not None:
+            M = self.obs.metrics
+            self._h_accept = M.histogram("spec.accept_rate", unit="", lo=1.0 / (4 * self.spec_k),
+                                         hi=1.0 + 1e-9, n_buckets=16)
+            self._h_tok_verify = M.histogram("spec.tokens_per_verify", unit="tok", lo=1.0,
+                                             hi=float(self.spec_k + 1) + 1e-9, n_buckets=16)
+            self._c_spec_drafted = M.counter("spec.draft_tokens", unit="tok")
+            self._c_spec_accepted = M.counter("spec.accepted_tokens", unit="tok")
+            self._c_spec_verifies = M.counter("spec.verify_windows")
+            self._c_spec_commit_pages = M.counter("spec.committed_pages", unit="page")
+            self._c_spec_rollback_pages = M.counter("spec.rolled_back_pages", unit="page")
+            self._c_spec_resyncs = M.counter("spec.draft_resyncs")
             dcfg, dparams = spec_draft
             self.drafter = Drafter(dcfg, prepare_params_for_serving(dcfg, dparams), slots=slots,
                                    capacity=capacity, spec_k=self.spec_k, device=self.device)
@@ -324,6 +365,122 @@ class ContinuousEngine:
                 raise ValueError(f"ContinuousEngine: drafter parameters are on "
                                  f"{self.drafter.params['embed'].device}, the engine on "
                                  f"{self.device}")
+
+    # -- observability (the JAX engine's instruments, same names) --------
+    def _init_obs(self, obs: Obs) -> None:
+        self.obs = obs
+        # hoisted enabled-check: a disabled tracer costs one attribute test
+        self._tr = obs.tracer if obs.tracer.enabled else None
+        M = obs.metrics
+        self._h_queue = M.histogram("serve.queue_wait_s")
+        self._h_ttft = M.histogram("serve.ttft_s")
+        self._h_tpot = M.histogram("serve.tpot_s", lo=1e-5, hi=10.0)
+        self._h_tick = M.histogram("serve.tick_s")
+        self._h_preempts = M.histogram("serve.preempts_per_req", unit="", lo=1.0, hi=1024.0,
+                                       n_buckets=10)
+        self._c_submitted = M.counter("serve.requests_submitted", unit="req")
+        self._c_completed = M.counter("serve.requests_completed", unit="req")
+        self._c_decode_toks = M.counter("serve.decode_tokens", unit="tok")
+        self._c_prefill_toks = M.counter("serve.prefill_tokens_computed", unit="tok")
+        self._c_prefill_skip = M.counter("serve.prefill_tokens_skipped", unit="tok")
+        self._c_preempt = M.counter("serve.preemptions")
+        self._c_cow = M.counter("serve.cow_copies", unit="page")
+        self._c_prefix_hits = M.counter("serve.prefix_hits")
+        self._c_prefix_toks = M.counter("serve.prefix_hit_tokens", unit="tok")
+        self._c_retraces = M.counter("serve.retraces", unit="compile")
+        self._g_active = M.gauge("serve.active_slots")
+        self._g_queue = M.gauge("serve.queue_depth")
+        self._g_free_pages = M.gauge("serve.free_pages")
+        self._g_occupancy = M.gauge("serve.page_occupancy")
+        self._g_peak_occ = M.gauge("serve.peak_page_occupancy")
+        self._g_shared = M.gauge("serve.shared_pages")
+        self._g_jit_calls = M.gauge("serve.jitted_calls_per_tick", unit="call")
+        self._g_batch_occ = M.gauge("serve.batched_prefill_occupancy")
+        self._g_r_drop = M.gauge("routing.dropped_frac")
+        self._g_r_ent = M.gauge("routing.entropy", unit="nat")
+        self._g_r_imb = M.gauge("routing.imbalance")
+        # per-request SLO state (t_submit / t_admit / t_first / t_last /
+        # n_tokens / preempts), popped into the histograms at completion
+        self._req_obs: Dict[int, dict] = {}
+
+    def _obs_submitted(self, rid: int) -> None:
+        self._c_submitted.inc()
+        self._req_obs[rid] = {"t_submit": time.perf_counter(), "t_admit": None, "t_first": None,
+                              "t_last": None, "n_tokens": 0, "preempts": 0}
+        if self._tr:
+            self._tr.begin(("request", rid), "queued")
+
+    def _obs_admit_time(self, rid: int) -> float:
+        """Now; the request's queue wait, on its first admission only."""
+        now = time.perf_counter()
+        ro = self._req_obs.get(rid)
+        if ro is not None and ro["t_admit"] is None:
+            ro["t_admit"] = now
+            self._h_queue.observe(now - ro["t_submit"])
+        return now
+
+    def _obs_admitted(self, rid: int, i: int) -> None:
+        now = self._obs_admit_time(rid)
+        if self._tr:
+            self._tr.end(("request", rid), ts=now)  # queued
+            self._tr.begin(("request", rid), "prefill", ts=now)
+            self._tr.begin(("slot", i), f"req{rid}", ts=now)
+
+    def _obs_admitted_fork(self, rid: int, i: int, base_rid: int) -> None:
+        now = self._obs_admit_time(rid)
+        if self._tr:
+            self._tr.end(("request", rid), ts=now)  # queued
+            self._tr.instant(("request", rid), "prefix_hit", ts=now, args={"fork_of": base_rid})
+            self._tr.begin(("request", rid), "decode", ts=now)
+            self._tr.begin(("slot", i), f"req{rid}", ts=now)
+
+    def _obs_token(self, rid: int, now: float) -> None:
+        """One generated token: TTFT on the first, TPOT on the rest.  An
+        interval broken by a preemption is dropped (``t_last`` reset): the
+        re-queue wait is preemption cost, not inter-token latency."""
+        ro = self._req_obs.get(rid)
+        if ro is None:
+            return
+        if ro["t_first"] is None:
+            ro["t_first"] = now
+            self._h_ttft.observe(now - ro["t_submit"])
+        elif ro["t_last"] is not None:
+            self._h_tpot.observe(now - ro["t_last"])
+        ro["t_last"] = now
+        ro["n_tokens"] += 1
+
+    def _obs_first_token(self, rid: int) -> None:
+        """Prefill done, first token sampled: the request's prefill span
+        becomes a decode span."""
+        now = time.perf_counter()
+        self._obs_token(rid, now)
+        if self._tr:
+            self._tr.end(("request", rid), ts=now)  # prefill
+            self._tr.begin(("request", rid), "decode", ts=now)
+
+    def _obs_completed(self, rid: int) -> None:
+        now = time.perf_counter()
+        ro = self._req_obs.pop(rid, None)
+        if ro is not None:
+            self._c_completed.inc()
+            self._h_preempts.observe(ro["preempts"])
+        if self._tr:
+            self._tr.end(("request", rid), ts=now)  # decode
+            self._tr.instant(("request", rid), "complete", ts=now)
+
+    def _count_prefill(self, n: int) -> None:
+        self.prefill_tokens_total += n
+        self._c_prefill_toks.inc(n)
+
+    def _count_prefix_hit(self, tokens: int) -> None:
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += tokens
+        self._c_prefix_hits.inc()
+        self._c_prefix_toks.inc(tokens)
+
+    def _count_cow(self) -> None:
+        self.cow_copies += 1
+        self._c_cow.inc()
 
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -340,6 +497,7 @@ class ContinuousEngine:
         self._next_id += 1
         self.queue.append(_Pending(rid=rid, prompt=list(req.prompt), budget=self._clamped_budget(req),
                                    generated=[], prompt_len=len(req.prompt)))
+        self._obs_submitted(rid)
         self._admit()
         return rid
 
@@ -362,6 +520,7 @@ class ContinuousEngine:
                                        generated=[], prompt_len=len(req.prompt),
                                        fork_of=rids[0] if j else -1))
             rids.append(rid)
+            self._obs_submitted(rid)
         self._admit()
         return rids
 
@@ -395,9 +554,11 @@ class ContinuousEngine:
         prefill logits.  No new page, no prefill; the first divergent append
         copies the boundary page."""
         base = self.slots[b]
+        self._obs_admitted_fork(item.rid, i, base.request_id)
         pages = [int(p) for p in self.tables.row(b) if p >= 0]
         self.pool.share(pages, owner=i)
         self.tables.copy_row(i, b)
+        self._jit_calls_tick += 1
         self.caches = paged_copy_slot_leaves(self.cfg, self.caches, b, i)
         first = int(self._sample(base.prefill_logits)[0])  # the fork's first token, to the host
         self.slots[i] = SlotState(
@@ -406,8 +567,8 @@ class ContinuousEngine:
             prefill_logits=base.prefill_logits, seq=base.seq[:-1] + [first])
         self._admit_counter += 1
         self._cur_token[i] = first
-        self.prefix_hits += 1
-        self.prefix_hit_tokens += base.pos
+        self._count_prefix_hit(base.pos)
+        self._obs_token(item.rid, time.perf_counter())
         self._finish_if_done(i)
 
     def _admit(self) -> None:
@@ -448,15 +609,19 @@ class ContinuousEngine:
                     return  # wait for frees / completions
                 if shared:
                     self.pool.share(shared, owner=i)
-                    self.prefix_hits += 1
-                    self.prefix_hit_tokens += len(shared) * self.page_size
+                    self._count_prefix_hit(len(shared) * self.page_size)
+                    if self._tr:
+                        self._tr.instant(("request", item.rid), "prefix_hit",
+                                         args={"tokens": len(shared) * self.page_size})
                 self.tables.append(i, shared + fresh)
             self.queue.pop(0)
+            self._obs_admitted(item.rid, i)
             if self.paged and self.prefill_mode in ("chunked", "batched"):
                 # the shared prefix is read from its pages in place, never
                 # computed
                 start = len(shared) * self.page_size if self._skip_shared_compute else 0
                 self.prefill_tokens_skipped += start
+                self._c_prefill_skip.inc(start)
                 self.slots[i] = SlotState(
                     request_id=item.rid, pos=start, generated=list(item.generated),
                     budget=item.budget, active=True, admit_seq=self._admit_counter,
@@ -473,6 +638,7 @@ class ContinuousEngine:
             buf = torch.from_numpy(host).to(self.device)
             toks = buf[: len(ctx)].long()[None]
             pos = torch.arange(len(ctx), dtype=torch.int32, device=self.device)[None]
+            self._jit_calls_tick += 1
             if self.paged:
                 # the scatter oracle: shared positions are computed, their
                 # writes go to the trash page
@@ -482,7 +648,7 @@ class ContinuousEngine:
             else:
                 logits, self.caches = prefill_into_slot(self.cfg, self.params, toks, pos, i,
                                                         self.caches)
-            self.prefill_tokens_total += len(ctx)
+            self._count_prefill(len(ctx))
             self.prefill_calls_total += 1
             first = int(self._sample(logits)[0])  # the request's first token, to the host
             self.slots[i] = SlotState(
@@ -493,6 +659,7 @@ class ContinuousEngine:
                 seq=list(ctx) + [first])
             self._admit_counter += 1
             self._cur_token[i] = first
+            self._obs_first_token(item.rid)
             if self.prefix is not None:
                 self._register_prefix(i, ctx, len(ctx))
             self._finish_if_done(i)
@@ -515,6 +682,7 @@ class ContinuousEngine:
         slot.generated = slot.generated + [first]
         slot.prefill_logits = logits if self.prefix is not None else None
         self._cur_token[i] = first
+        self._obs_first_token(slot.request_id)
         self._finish_if_done(i)
 
     def _advance_prefill(self, i: int) -> int:
@@ -545,14 +713,19 @@ class ContinuousEngine:
                 [np.asarray(ctx[start:end], np.int32), self.tables.row(i)])).to(self.device)
             toks = buf[: end - start].long()[None]
             pos = torch.arange(start, end, dtype=torch.int32, device=self.device)[None]
+            if self._tr:
+                self._tr.begin(("slot", i), f"chunk[{start}:{end})", args={"rid": slot.request_id})
+            self._jit_calls_tick += 1
             # the first chunk of an admission starts the slot's per-slot
             # leaves fresh; later ones resume them
             logits, self.caches = paged_prefill_chunk(self.cfg, self.params, toks, pos, self.caches,
                                                       buf[end - start:], slot=i,
                                                       reset=not slot.prefill_started)
+            if self._tr:
+                self._tr.end(("slot", i))
             n = end - start
             done += n
-            self.prefill_tokens_total += n
+            self._count_prefill(n)
             self.prefill_calls_total += 1
             self._tick_prefill_calls += 1
             slot.prefill_started = True
@@ -614,14 +787,21 @@ class ContinuousEngine:
             positions[i, :n] = np.arange(start, end, dtype=np.int32)
             flags[:, i] = (not self.slots[i].prefill_started, 1, n - 1)
             tbl[i] = self.tables.row(i)
+            if self._tr:
+                self._tr.begin(("slot", i), f"chunk[{start}:{end})",
+                               args={"rid": self.slots[i].request_id})
         buf = torch.from_numpy(np.concatenate(
             [tokens.reshape(-1), positions.reshape(-1), flags.reshape(-1), tbl.reshape(-1)])
         ).to(self.device)  # the tick's one upload
         o = 2 * S * C
+        self._jit_calls_tick += 1
         logits, self.caches = paged_prefill_chunk_batched(
             self.cfg, self.params, buf[: S * C].view(S, C).long(), buf[S * C : o].view(S, C),
             buf[o : o + S].bool(), buf[o + S : o + 2 * S].bool(), buf[o + 2 * S : o + 3 * S],
             self.caches, buf[o + 3 * S :].view(S, MP))
+        if self._tr:
+            for i in plan:
+                self._tr.end(("slot", i))
         self.prefill_calls_total += 1
         self._tick_prefill_calls += 1
         self._batched_occ_tick = len(plan) / S
@@ -632,7 +812,7 @@ class ContinuousEngine:
             slot = self.slots[i]
             n = end - start
             self._tick_prefill_done += n
-            self.prefill_tokens_total += n
+            self._count_prefill(n)
             slot.prefill_started = True
             slot.prefill_done = slot.pos = end
             ctx = slot.prefill_ctx
@@ -653,6 +833,8 @@ class ContinuousEngine:
         return done
 
     def _release_slot(self, i: int) -> None:
+        if self._tr:
+            self._tr.end(("slot", i))  # the residency span opened at admission
         if self.paged:
             # decref the slot's pages; only those no other slot holds are
             # freed (and leave the prefix index)
@@ -669,6 +851,7 @@ class ContinuousEngine:
                 # a later owner would see the previous occupant's K/V
                 mask = np.zeros((self.n_pages + 1,), bool)
                 mask[freed] = True
+                self._jit_calls_tick += 1
                 self.caches = paged_reset_pages(self.cfg, self.caches,
                                                 torch.from_numpy(mask).to(self.device))
         self.slots[i] = SlotState()
@@ -681,6 +864,7 @@ class ContinuousEngine:
         if len(slot.generated) >= slot.budget or hit_eos:
             gen = slot.generated[:-1] if hit_eos else slot.generated
             self.done[slot.request_id] = Response(tokens=gen, prompt_len=slot.prompt_len)
+            self._obs_completed(slot.request_id)
             self._release_slot(i)
             self._admit()
 
@@ -689,10 +873,22 @@ class ContinuousEngine:
         shared page is decref'd, not freed); it resumes by re-prefilling
         prompt + generated-so-far."""
         slot = self.slots[i]
-        self.queue.insert(0, _Pending(rid=slot.request_id, prompt=slot.prompt, budget=slot.budget,
+        rid = slot.request_id
+        self.queue.insert(0, _Pending(rid=rid, prompt=slot.prompt, budget=slot.budget,
                                       generated=slot.generated, prompt_len=slot.prompt_len))
+        ro = self._req_obs.get(rid)
+        if ro is not None:
+            ro["preempts"] += 1
+            ro["t_last"] = None  # the re-queue wait is not a TPOT interval
+        if self._tr:
+            now = time.perf_counter()
+            self._tr.instant(("request", rid), "preempted", ts=now)
+            self._tr.end(("request", rid), ts=now)  # decode (or prefill)
+            self._tr.begin(("request", rid), "queued", ts=now)
+            self._tr.instant(("engine", 0), "preempt", ts=now, args={"rid": rid, "slot": i})
         self._release_slot(i)
         self.preemptions += 1
+        self._c_preempt.inc()
 
     def _youngest_active(self) -> int:
         return max((j for j, s in enumerate(self.slots) if s.active),
@@ -735,9 +931,13 @@ class ContinuousEngine:
                     if victim == i:
                         break  # re-queued; a sharer keeps the page alive
                     continue  # a preemption may have dropped the refcount
+                self._jit_calls_tick += 1
                 self.caches = paged_copy_page(self.cfg, self.caches, page, new)
                 self.tables.set_entry(i, entry, new)
-                self.cow_copies += 1
+                self._count_cow()
+                if self._tr:
+                    self._tr.instant(("engine", 0), "cow_copy", args={"slot": i, "src": page,
+                                                                      "dst": new})
 
     # -- speculative decoding (serving/spec.py holds the drafter) ----------
     def _spec_plan_pages(self, decoding) -> Dict[int, dict]:
@@ -787,8 +987,9 @@ class ContinuousEngine:
                     fork = -1
                     if fork_boundary:
                         fork = got.pop()
+                        self._jit_calls_tick += 1
                         self.caches = paged_copy_page(self.cfg, self.caches, boundary, fork)
-                        self.cow_copies += 1
+                        self._count_cow()
                         window[e0] = fork
                     elif boundary >= 0:
                         window[e0] = boundary  # private: written in place
@@ -830,6 +1031,9 @@ class ContinuousEngine:
         t_plan = time.perf_counter()
 
         # draft: lazily (re)sync the drafter, then one propose for every slot
+        tr = self._tr
+        if tr:
+            tr.begin(("engine", 0), "spec_draft")
         need_draft = []
         for i, pl in plans.items():
             slot = self.slots[i]
@@ -840,13 +1044,20 @@ class ContinuousEngine:
                 # but too far behind counts as a resync, as in JAX
                 if self.drafter.next_pos[i] >= 0:
                     self._count_resync()
+                self._jit_calls_tick += 1
                 self.drafter.sync(i, slot.seq, slot.pos)
             forced = slot.seq[int(self.drafter.next_pos[i]):slot.pos + 1]
             need_draft.append((i, forced, pl["k"]))
-        proposals = self.drafter.propose(need_draft) if need_draft else {}
+        proposals = {}
+        if need_draft:
+            self._jit_calls_tick += 1
+            proposals = self.drafter.propose(need_draft)
         for i, pl in plans.items():
             pl["proposal"] = proposals.get(i, [])
         t_draft = time.perf_counter()
+        if tr:
+            tr.end(("engine", 0), ts=t_draft)
+            tr.begin(("engine", 0), "spec_verify", ts=t_draft)
 
         # verify: every window in one batched pass over the fork tables; one
         # upload of tokens, positions, the active mask and the tables
@@ -866,12 +1077,16 @@ class ContinuousEngine:
         buf = torch.from_numpy(np.concatenate(
             [tokens.reshape(-1), positions.reshape(-1), active, tbl.reshape(-1)])).to(self.device)
         o = 2 * S * C
+        self._jit_calls_tick += 1
         logits, self.caches = paged_verify_chunk_batched(
             self.cfg, self.params, buf[: S * C].view(S, C).long(), buf[S * C : o].view(S, C),
             buf[o : o + S].bool(), self.caches, buf[o + S :].view(S, self.max_pages))
         # greedy-only: the argmax on the device, [S, C] int32 to the host
         greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()  # THE read-back
         t_verify = time.perf_counter()
+        if tr:
+            tr.end(("engine", 0), ts=t_verify)
+            tr.begin(("engine", 0), "spec_commit", ts=t_verify)
 
         # accept, commit and roll back (host side, admission order);
         # greedy[i, j] is the target's token for position p + j + 1
@@ -911,8 +1126,8 @@ class ContinuousEngine:
                 freed = self.pool.drop_fork_run(rollback, i)
                 reset_mask[freed] = 1
                 any_reset = True
-                self.spec_rolled_back_pages += len(freed)
-            self.spec_committed_pages += len(grow)
+                self._c_spec_rollback_pages.inc(len(freed))
+            self._c_spec_commit_pages.inc(len(grow))
             # position p + n - 1 is the last valid write of page eb; the
             # verify's writes past it (rejected drafts) are reset below
             tail_pages[i] = int(self.tables.row(i)[eb])
@@ -927,27 +1142,41 @@ class ContinuousEngine:
             emitted_total += n
             accepted_total += a
             drafted_total += k
+            self._c_spec_verifies.inc()
+            self._c_spec_drafted.inc(k)
+            self._c_spec_accepted.inc(a)
+            if k:
+                self._h_accept.observe(a / k)
+            self._h_tok_verify.observe(float(n))
+            if tr:
+                tr.instant(("request", slot.request_id), "spec_commit", ts=t_verify,
+                           args={"drafted": k, "accepted": a, "emitted": n})
             commit_rows.append((i, pl, appended))
-        self.spec_verify_windows += len(commit_rows)
-        self.spec_draft_tokens += drafted_total
-        self.spec_accepted_tokens += accepted_total
 
         if not arch_fully_paged(self.cfg):
+            self._jit_calls_tick += 1
             self._spec_commit(commit_rows, S, C)
 
         # device-side invalidation, one upload: the committed pages' tails
         # (one fixed-shape call every tick) and the rolled-back pages
         buf = torch.from_numpy(np.concatenate([tail_pages, tail_offs, reset_mask])).to(self.device)
+        self._jit_calls_tick += 1
         self.caches = paged_reset_page_tails(self.cfg, self.caches, buf[:S], buf[S : 2 * S])
         if any_reset:
+            self._jit_calls_tick += 1
             self.caches = paged_reset_pages(self.cfg, self.caches, buf[2 * S :].bool())
         t_commit = time.perf_counter()
+        if tr:
+            tr.end(("engine", 0), ts=t_commit)
 
         # completions last: _finish_if_done may release a slot and cascade an
-        # admission into it
+        # admission into it.  The emitted tokens share one timestamp: bursty
+        # TPOT is what speculative decoding delivers
         for i, pl, appended in commit_rows:
             if self.slots[i].request_id != pl["rid"]:
                 continue  # released and re-admitted earlier in this loop
+            for _ in appended:
+                self._obs_token(pl["rid"], t_verify)
             self._finish_if_done(i)
         self._spec_tick_m.update(windows=len(commit_rows), drafted=drafted_total,
                                  accepted=accepted_total, emitted=emitted_total)
@@ -957,6 +1186,7 @@ class ContinuousEngine:
 
     def _count_resync(self) -> None:
         self.spec_resyncs += 1
+        self._c_spec_resyncs.inc()
         self._spec_tick_m["resyncs"] = self._spec_tick_m.get("resyncs", 0) + 1
 
     def _spec_commit(self, commit_rows, S: int, C: int) -> None:
@@ -997,12 +1227,17 @@ class ContinuousEngine:
         decode step over every active slot that is not mid-prefill.  Returns
         the number of active slots (decoding + prefilling)."""
         t0 = time.perf_counter()
+        tr = self._tr
+        if tr:
+            tr.begin(("engine", 0), "tick", ts=t0, args={"tick": self._tick + 1})
         if self.paged and self.prefill_mode in ("chunked", "batched"):
             self._tick_budget = self.prefill_chunk
         if not any(s.active for s in self.slots):
             self._admit()
             if not any(s.active for s in self.slots):
                 self._end_tick_prefill()
+                if tr:
+                    tr.end(("engine", 0))
                 return 0
         if self._tick_budget is not None:
             if self.prefill_mode == "batched":
@@ -1024,6 +1259,8 @@ class ContinuousEngine:
             prefill_toks = self._end_tick_prefill()
             if n_active or prefill_toks:
                 self._record_metrics(0, t_mid - t0, prefill_toks, n_active, t_mid - t0, 0.0)
+            if tr:
+                tr.end(("engine", 0))
             return n_active
         if self.drafter is not None:
             # the speculative tick takes the place of the one-token decode step
@@ -1032,9 +1269,13 @@ class ContinuousEngine:
             t1 = time.perf_counter()
             self._record_metrics(n_decoded, t1 - t0, prefill_toks, n_active, t_mid - t0,
                                  t1 - t_mid)
+            if tr:
+                tr.end(("engine", 0))
             return n_active
         S = self.n_slots
+        routing = self.obs.routing
         positions = np.asarray([s.pos if s.active else 0 for s in self.slots], np.int32)
+        self._jit_calls_tick += 1
         if self.paged:
             tbl = np.where(decoding[:, None], self.tables.table, -1)
             # one upload per tick: tokens, positions, the decoding rows (the
@@ -1042,18 +1283,24 @@ class ContinuousEngine:
             buf = torch.from_numpy(np.concatenate(
                 [self._cur_token, positions, decoding, tbl.reshape(-1)]).astype(np.int32)
             ).to(self.device)
-            logits, self.caches = paged_ragged_decode_step(
+            out = paged_ragged_decode_step(
                 self.cfg, self.params, buf[:S].long()[:, None], buf[S : 2 * S], self.caches,
-                buf[3 * S :].view(S, self.max_pages), active=buf[2 * S : 3 * S].bool())
+                buf[3 * S :].view(S, self.max_pages), active=buf[2 * S : 3 * S].bool(),
+                return_routing=routing)
         else:
             # one upload per tick: tokens, positions and the active mask
             buf = torch.from_numpy(np.concatenate(
                 [self._cur_token, positions, decoding]).astype(np.int32)).to(self.device)
-            logits, self.caches = ragged_decode_step(
-                self.cfg, self.params, buf[:S].long()[:, None], buf[S : 2 * S],
-                buf[2 * S :].bool(), self.caches)
+            out = ragged_decode_step(self.cfg, self.params, buf[:S].long()[:, None],
+                                     buf[S : 2 * S], buf[2 * S :].bool(), self.caches,
+                                     return_routing=routing)
+        logits, self.caches = out[:2]
         self.last_logits = logits
         nxt = self._sample(logits).cpu().numpy()  # THE per-tick read-back
+        t_tok = time.perf_counter()
+        # the routing stats' one copy, while the device is idle (the step is
+        # done), before the completions below queue more work
+        routing_m = summarize_routing(routing_to_host(out[2])) if routing and out[2] else None
         n_decoded = int(decoding.sum())
         for i, slot in enumerate(self.slots):
             # gate on the pre-decode snapshot: a completion at row < i can
@@ -1068,15 +1315,33 @@ class ContinuousEngine:
             # decode tick
             slot.prefill_logits = None
             self._cur_token[i] = int(nxt[i])
+            self._obs_token(slot.request_id, t_tok)
             self._finish_if_done(i)
         prefill_toks = self._end_tick_prefill()
         t1 = time.perf_counter()
-        self._record_metrics(n_decoded, t1 - t0, prefill_toks, n_active, t_mid - t0, t1 - t_mid)
+        self._record_metrics(n_decoded, t1 - t0, prefill_toks, n_active, t_mid - t0, t1 - t_mid,
+                             routing=routing_m)
+        if tr:
+            tr.end(("engine", 0), ts=t1, args={"decoded": n_decoded})
         return n_active
 
     def _record_metrics(self, n_decoded: int, dt: float, prefill_toks: int, n_active: int,
-                        prefill_s: float, decode_s: float) -> None:
+                        prefill_s: float, decode_s: float, routing: Optional[dict] = None) -> None:
+        """One tick's ``metrics_log`` entry and its instruments: the tick
+        histogram, the decode-token counter, the gauges, and the routing
+        summary (``routing``) of a decode tick with ``obs.routing``."""
+        retraces = self.obs.watchdog.tick()
+        if retraces:
+            self._c_retraces.inc(retraces)
+        self._tick += 1
+        self._h_tick.observe(dt)
+        if n_decoded:
+            self._c_decode_toks.inc(n_decoded)
+        self._g_active.set(n_active)
+        self._g_queue.set(len(self.queue))
+        self._g_jit_calls.set(self._jit_calls_tick)
         m = {
+            "tick": self._tick,
             "active_slots": n_active,  # slots holding pages, mid-prefill ones included
             "tokens_this_tick": n_decoded,
             "prefill_tokens": prefill_toks,
@@ -1085,7 +1350,18 @@ class ContinuousEngine:
             "prefill_s": prefill_s,  # up to the fence after the tick's prefill
             "decode_s": decode_s,  # the decode step (or spec tick) and its read-backs
             "preemptions": self.preemptions,
+            "retraces": retraces,
+            # model-step calls this tick (JAX's "jitted_calls"), submit-time
+            # admissions since the last record included
+            "jitted_calls": self._jit_calls_tick,
         }
+        self._jit_calls_tick = 0
+        if routing is not None:
+            self._g_r_drop.set(routing["dropped_frac"])
+            self._g_r_ent.set(routing["entropy"])
+            self._g_r_imb.set(routing["imbalance"])
+            m["routing"] = {k: routing[k] for k in
+                            ("moe_layers", "dropped_frac", "entropy", "imbalance")}
         if self._spec_tick_m:
             # windows, drafted, accepted, emitted: JAX's keys
             m["spec"] = self._spec_tick_m
@@ -1095,12 +1371,18 @@ class ContinuousEngine:
             self._spec_times = {}
         self._tick_prefill_calls = 0
         if self.paged:
+            occ = self.pool.occupancy
+            self._g_free_pages.set(self.pool.free_count)
+            self._g_occupancy.set(round(occ, 4))
+            self._g_peak_occ.set(round(max(occ, self._g_peak_occ.value or 0.0), 4))
+            self._g_shared.set(self.pool.shared_count)
             m.update(free_pages=self.pool.free_count, shared_pages=self.pool.shared_count,
                      cow_copies=self.cow_copies)
             if self.prefix is not None:
                 m.update(prefix_hits=self.prefix_hits, prefix_hit_tokens=self.prefix_hit_tokens)
             if self.prefill_mode == "batched":
                 m["batched_prefill_occupancy"] = self._batched_occ_tick
+                self._g_batch_occ.set(round(self._batched_occ_tick, 4))
                 self._batched_occ_tick = 0.0
         self.metrics_log.append(m)
         if len(self.metrics_log) > 65_536:

@@ -29,8 +29,20 @@ frontend's ``n_tokens`` and its decode index is ``S + n_tokens + t``, as in
 the JAX engine (with or without ``prefix_embeds``).  Either tensor holds one
 row per request of a batch.
 
+``obs`` (``repro_torch.obs.Obs``, a default one when None) records what
+the JAX engine records: ``serve.batch_prefill_s`` (prefill to the first
+token read), ``serve.decode_step_s`` (between two token reads),
+``serve.decode_tokens``, ``serve.requests_completed``, ``serve.retraces``
+(0: the port compiles nothing) and, with ``obs.routing``, the
+``routing.*`` gauges and ``last_routing`` (``summarize_routing`` of the
+most recent decode step).  The clock reads happen at the token reads the
+loop makes anyway: no instrument adds a sync.  Routing statistics cost one
+device-to-host copy a step, made after the next token read, when the
+device has finished the step; as in JAX, the step that takes the last
+generated token runs too, so ``last_routing`` covers it.
+
 Not ported here: meshes (expert-parallel serving), which raise if asked
-for, and observability, which the engine takes no argument for.
+for.
 """
 from __future__ import annotations
 
@@ -42,7 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gating import routing_to_host, summarize_routing
 from repro_torch.models.model import decode_step, init_caches, prefill, resolve_device
+from repro_torch.obs import Obs
 from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.sampling import sample
 
@@ -81,7 +95,7 @@ class Engine:
     token, on ``device`` (the card unless the caller passes ``"cpu"``)."""
 
     def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, *, memory=None,
-                 prefix_embeds=None, device="cuda"):
+                 prefix_embeds=None, obs=None, device="cuda"):
         if cfg.ep_mesh:
             _unported("an expert-parallel mesh", "item 7")
         if ec.kv_cache_bits not in (0, 8):
@@ -105,6 +119,21 @@ class Engine:
         self._capacity = ec.max_prefill + ec.max_decode + self._offset
         self._cross_len = memory.shape[1] if memory is not None else 0
         self.last_timings: dict = {}
+        # the JAX engine's instruments: metrics on, tracer off, routing off
+        # unless the caller's Obs says otherwise
+        self.obs = obs if obs is not None else Obs()
+        self._tr = self.obs.tracer if self.obs.tracer.enabled else None
+        M = self.obs.metrics
+        self._h_prefill = M.histogram("serve.batch_prefill_s")
+        self._h_step = M.histogram("serve.decode_step_s", lo=1e-5, hi=10.0)
+        self._c_decode_toks = M.counter("serve.decode_tokens", unit="tok")
+        self._c_completed = M.counter("serve.requests_completed", unit="req")
+        self._c_retraces = M.counter("serve.retraces", unit="compile")
+        self._g_r_drop = M.gauge("routing.dropped_frac")
+        self._g_r_ent = M.gauge("routing.entropy", unit="nat")
+        self._g_r_imb = M.gauge("routing.imbalance")
+        # summarize_routing of the most recent decode step, with obs.routing
+        self.last_routing = None
 
     def _make_caches(self, batch: int) -> dict:
         return init_caches(self.cfg, batch, self._capacity, cross_len=self._cross_len,
@@ -116,6 +145,15 @@ class Engine:
         for start in range(0, len(requests), self.ec.max_batch):
             out.extend(self._generate_batch(requests[start : start + self.ec.max_batch], gen))
         return out
+
+    def _routing(self, stats) -> None:
+        """``last_routing`` and the routing gauges from a step's stats tree
+        (one device-to-host copy)."""
+        self.last_routing = summarize_routing(routing_to_host(stats)) if stats else None
+        if self.last_routing:
+            self._g_r_drop.set(self.last_routing["dropped_frac"])
+            self._g_r_ent.set(self.last_routing["entropy"])
+            self._g_r_imb.set(self.last_routing["imbalance"])
 
     def _sample(self, logits, gen):
         ec = self.ec
@@ -134,7 +172,10 @@ class Engine:
             toks[i, S - len(p):] = p
 
         caches = self._make_caches(B)
+        tr, routing = self._tr, self.obs.routing
         t0 = time.perf_counter()
+        if tr:
+            tr.begin(("engine", 0), "prefill", ts=t0, args={"batch": B, "prompt_len": S})
         logits, caches = prefill(cfg, self.params, torch.from_numpy(toks).to(self.device), caches,
                                  memory=self.memory, prefix_embeds=self.prefix_embeds)
         cur = self._sample(logits, gen)
@@ -145,21 +186,43 @@ class Engine:
         step_s = []
         prefill_s = None
         t_prev = t0
+        stats = None  # the last step's routing tree, copied once that step is done
         for t in range(max_new):
             generated[:, t] = cur.cpu().numpy()  # waits for the step in flight
             now = time.perf_counter()
             if t:
                 step_s.append(now - t_prev)
+                self._h_step.observe(now - t_prev)
             else:
                 prefill_s = now - t0
+                self._h_prefill.observe(prefill_s)
+                if tr:
+                    tr.end(("engine", 0), ts=now)
+                    tr.begin(("engine", 0), "decode", ts=now, args={"batch": B})
             t_prev = now
+            if stats is not None:
+                self._routing(stats)
+                stats = None
+            self._c_decode_toks.inc(int((~done).sum()))
             done |= generated[:, t] == ec.eos_id
-            if done.all() or t == max_new - 1:
+            last = t == max_new - 1
+            if done.all() or (last and not routing):
                 generated = generated[:, : t + 1]
                 break
-            logits, caches = decode_step(cfg, self.params, cur[:, None].long(),
-                                         S + self._offset + t, caches, memory=self.memory)
+            out = decode_step(cfg, self.params, cur[:, None].long(), S + self._offset + t, caches,
+                              memory=self.memory, return_routing=routing)
+            logits, caches = out[:2]
+            fresh = self.obs.watchdog.tick()
+            if fresh:
+                self._c_retraces.inc(fresh)
+            if last:  # the last token's step, run for its routing only
+                self._routing(out[2])
+                break
+            stats = out[2] if routing else None
             cur = self._sample(logits, gen)
+        if tr:
+            tr.end(("engine", 0))
+        self._c_completed.inc(B)
         self.last_timings = {"prefill_s": prefill_s, "decode_step_s": step_s,
                              "batch": B, "prompt_len": S}
 

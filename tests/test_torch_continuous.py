@@ -176,7 +176,6 @@ def test_prompt_truncated_to_capacity(llama4):
 
 UNPORTED = [
     ("ep_mesh", dict(ep_mesh=(2,)), "item 7"),
-    ("obs", dict(obs=object()), "item 9"),
 ]
 
 

@@ -242,7 +242,8 @@ def test_spec_matches_reference(arch, case):
     if not eng.preemptions and "eos_id" not in kw:
         # every token but each request's first (its prefill's) is a spec emission
         assert sum(s["emitted"] for s in sp) + len(spec) == sum(len(t) for t in spec)
-    assert eng.spec_draft_tokens == drafted and eng.spec_accepted_tokens == accepted
+    counters = eng.obs.metrics.snapshot()["counters"]
+    assert counters["spec.draft_tokens"] == drafted and counters["spec.accepted_tokens"] == accepted
     if draft == "self" and not case.startswith("eos"):
         assert drafted > 0 and accepted == drafted, "a self drafter accepts every window"
     if case == "low_accept":
