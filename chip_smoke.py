@@ -260,14 +260,33 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    requests x 16 tokens through ``Engine``: the same tokens as the
    in-memory tree; (e) reduced f32 card vs CPU: first-step gradients, 3
    train steps under einsum and dense, 2 distill steps; (f) a grad-enabled
-   forward of reduced llama4 under ``grouped`` raises (kernel 4 has no
-   backward).
+   forward of reduced llama4 under ``grouped`` with int8 experts raises
+   before kernel 5 launches (MoQ weights are post-training: no backward).
+   Slice 14 (phase 17 too): (a) also kernels 2b and 4b (the SwiGLU expert
+   MLP's backward over the capacity and the grouped buffer) against their
+   plain versions per row of dx, dwi, dwg and dwo, bf16 and f32, at
+   llama4-maverick's width (16 experts, top-1, T = 2048: C = 160), kimi-k2's
+   (32 experts, top-8, T = 1024), a capacity buffer with an empty expert
+   and one with trailing dead tiles holding garbage; dead rows and empty
+   experts exactly 0, bit for bit over two launches, timed beside their
+   bounds, the plain versions and a cuBLAS composite; and kernel 6b at
+   llama4's G = 5 (40 heads over 8, dh 128, 4 x 512); (g) llama4-maverick at
+   its published widths cut to 2 layers and 16 of 128 experts (4.59 G
+   parameters, bf16) trained 4 AdamW steps of 4 x 512 Markov tokens under
+   its own ``moe_impl="ep"`` (kernels 1, 1b, 2, 2b, 6, 6b) and 4 under
+   ``"grouped"`` (4, 4b, 6, 6b): the peak reckoned first, losses, ce, aux
+   and grad norm per step (finite), median step ms, tokens/s, AdamW ms,
+   peak memory, launches against their counts (2 / 2b or 4 / 4b once per
+   MoE layer a step), a profile of one step each; (h) reduced f32
+   llama4-maverick (``ep`` and ``grouped``) and kimi-k2 (``ep``, top-2)
+   card vs CPU: first-step gradients, 3 train steps.
 16. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
    ``flash_attention_dh256``, ``decode_attention_quant_ring``,
    ``flash_attention_noncausal``, ``flash_attention_g7`` and, from phase
-   17, ``flash_attention_backward`` and ``moe_gating_backward``), a
-   training summary line, the nvidia-smi line, and last the ``{"ok":
-   true, "device": ...}`` line.
+   17, ``flash_attention_backward``, ``moe_gating_backward``,
+   ``expert_mlp_backward`` and ``grouped_mlp_backward``), the training
+   summary lines, the nvidia-smi line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 Every static prefill and forward (phases 3, 5, 6b, 7, 9, 11, 12, 14, 15,
 17 and the reduced references) and every encoder layer attends through kernel
@@ -426,14 +445,16 @@ def reset(*counters):
 
 def read(counters, path) -> dict:
     """Every kernel's launches since the last ``reset``.  Each caller is a
-    served run at full width in bf16, so every call of kernels 4, 5 and 3
-    must have taken the tensor-core variant, and every call of kernel 1 its
+    served or trained run at full width in bf16, so every call of kernels 4,
+    5 and 3 and of the backwards 2b and 4b must have taken the tensor-core
+    variant, and every call of kernel 1 its
     one-launch path (the served T*K are within its slot bound): their
     per-variant counts are checked against the launches and kept in
     VARIANTS_SEEN[path]."""
     got = {k: v for c in counters for k, v in c.items()}
     v = VARIANTS_SEEN[path] = {k: n for c in variant_counters() for k, n in c.items()}
-    for name in ("grouped_mlp", "grouped_mlp_quant", "expert_mlp_quant"):
+    for name in ("grouped_mlp", "grouped_mlp_quant", "expert_mlp_quant", "grouped_mlp_backward",
+                 "expert_mlp_backward"):
         if v[f"{name}_mma"] != got[name] or v[f"{name}_fma"]:
             raise AssertionError(f"{path}: {name} launched {got[name]} times, variants {v}: a "
                                  f"served bf16 call left the tensor-core kernel")
@@ -3744,23 +3765,36 @@ def timed_adamw(times):
 
 def train_want(cfg, launches, steps, remat=False, teacher=None) -> dict:
     """Launches of ``steps`` training steps: per step kernel 6 once per
-    attention layer (twice under remat) and 6b once, kernel 1 once per MoE
-    layer (twice under remat) and 1b once; a teacher's no-grad forward adds
-    its kernel 6 and 1 calls; nothing else (GELU experts are products)."""
+    attention layer (twice under remat) and 6b once; per MoE layer under
+    the capacity dispatch kernel 1 once (twice under remat) and 1b once,
+    under ``grouped`` neither (its gating is plain); SwiGLU experts through
+    kernel 2 and 2b (capacity) or 4 and 4b (grouped) as often (GELU experts
+    are products); a teacher's no-grad forward adds its kernel 6, 1 and
+    expert calls; nothing else."""
     from repro_torch.configs.base import AttnSpec
+    from repro_torch.core.moe import NO_MESH_IMPL
 
-    n_attn = sum(isinstance(ls.mixer, AttnSpec) for ls in cfg.layer_specs())
-    n_moe = sum(ls.ffn.kind == "moe" for ls in cfg.layer_specs())
+    def counts(c):
+        moe = [ls.ffn for ls in c.layer_specs() if ls.ffn.kind == "moe"]
+        grouped = NO_MESH_IMPL.get(c.moe_impl, c.moe_impl) == "grouped"
+        swiglu = sum(f.act == "swiglu" for f in moe)
+        return (sum(isinstance(ls.mixer, AttnSpec) for ls in c.layer_specs()),
+                0 if grouped else len(moe), "grouped_mlp" if grouped else "expert_mlp", swiglu)
+
+    n_attn, n_gate, expert, n_swiglu = counts(cfg)
     fwd = 2 if remat else 1
     want = {k: 0 for k in launches}
     want["flash_attention"] = fwd * n_attn * steps
     want["flash_attention_backward"] = n_attn * steps
-    want["moe_gating"] = fwd * n_moe * steps
-    want["moe_gating_backward"] = n_moe * steps
+    want["moe_gating"] = fwd * n_gate * steps
+    want["moe_gating_backward"] = n_gate * steps
+    want[expert] = fwd * n_swiglu * steps
+    want[expert + "_backward"] = n_swiglu * steps
     if teacher is not None:
-        want["flash_attention"] += sum(isinstance(ls.mixer, AttnSpec)
-                                       for ls in teacher.layer_specs()) * steps
-        want["moe_gating"] += sum(ls.ffn.kind == "moe" for ls in teacher.layer_specs()) * steps
+        t_attn, t_gate, t_expert, t_swiglu = counts(teacher)
+        want["flash_attention"] += t_attn * steps
+        want["moe_gating"] += t_gate * steps
+        want[t_expert] += t_swiglu * steps
     return want
 
 
@@ -4023,38 +4057,56 @@ def slice10_reference_checks() -> list:
 
 def slice10_guard() -> str:
     """Phase 17f: a grad-enabled forward of reduced llama4-maverick under
-    ``grouped`` (kernel 4, which has no backward) raises before it
-    launches."""
+    ``grouped`` with int8 experts (kernel 5, MoQ weights: post-training, no
+    backward) raises before it launches."""
+    from repro_torch.configs.base import QuantConfig
     from repro_torch.configs.registry import get_config, make_reduced
     from repro_torch.kernels import expert_mlp_grouped as gk
     from repro_torch.models.model import forward, init_params, trainable
+    from repro_torch.quant import quantize_params
 
     cfg = make_reduced(get_config(ARCH)).replace(moe_impl="grouped")
     params = init_params(cfg, seed=SEED, device="cuda")
-    trainable(params)
+    trainable(params)  # every other leaf of the quantized tree is one of these
+    qparams = quantize_params(params, QuantConfig(bits=8, policy="experts"))
     toks = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda")
-    before = gk.launches["grouped_mlp"]
+    before = dict(gk.launches)
     try:
         with torch.enable_grad():
-            forward(cfg, params, toks)
+            forward(cfg, qparams, toks)
     except RuntimeError as e:
-        if "no backward" not in str(e) or gk.launches["grouped_mlp"] != before:
+        if "no backward" not in str(e) or gk.launches != before:
             raise
-        return f"guard: a grad-enabled forward of reduced {cfg.name} under grouped raises: {e}"
-    raise AssertionError("guard: a grad-enabled forward through kernel 4 ran without a backward")
+        return (f"guard: a grad-enabled forward of reduced {cfg.name} under grouped with int8 "
+                f"experts raises before kernel 5 launches: {e}")
+    raise AssertionError("guard: a grad-enabled forward through kernel 5 ran without a backward")
 
 
 def slice10_kernel_checks(gen) -> tuple:
-    """Phase 17a: kernels 6b and 1b against their plain versions at
+    """Phase 17a: kernels 6b, 1b, 2b and 4b against their plain versions at
     ``launch/training_kernels.py``'s cases (bf16 and f32), timed from CUDA
-    graphs beside their bounds and the SDPA backward, with kernel 6's
-    forward with and without its L output; 6b also bit for bit over two
-    launches on the same inputs (``deterministic``), with its blocks per
-    pass beside the SM count (``blocks``).  Returns ({case: info} 6b,
-    {case: info} 1b)."""
+    graphs beside their bounds and the SDPA backward (6b) or the cuBLAS
+    composite (2b, 4b), with kernel 6's forward with and without its L
+    output; 6b, 2b and 4b also bit for bit over two launches on the same
+    inputs (``deterministic``), 6b with its blocks per pass beside the SM
+    count (``blocks``), 2b and 4b with dead rows and empty experts exactly
+    0.  Returns ({case: info} 6b, {case: info} 1b, {case: info} 2b, {case:
+    info} 4b)."""
     from repro_torch.launch import training_kernels as tk
 
-    fb, gb = {}, {}
+    fb, gb, cb, ob = {}, {}, {}, {}
+    for name, case in tk.EXPERT_BWD_CASES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            res = tk.check_expert_bwd(name, *case, dt, gen)
+            key = f"{'bf16' if dt == torch.bfloat16 else 'f32'}_{name}"
+            kname = "expert_mlp_backward" if case[0] == "capacity" else "grouped_mlp_backward"
+            (cb if case[0] == "capacity" else ob)[key] = res
+            log(f"kernel {kname} {key}: {json.dumps(res)}")
+            want = ["mma"] if dt == torch.bfloat16 else ["fma"]
+            if not res["ok"] or res["variant"] != want:
+                raise AssertionError(f"kernel {kname} {key} disagrees with its plain version, two "
+                                     f"launches differ, a dead row or empty expert is not 0, or it "
+                                     f"took {res['variant']} (expected {want})")
     for name, case in tk.FLASH_BWD_CASES.items():
         for dt in (torch.bfloat16, torch.float32):
             res = tk.check_flash_bwd(name, *case, dt, gen, empty_key=name == "window")
@@ -4070,7 +4122,176 @@ def slice10_kernel_checks(gen) -> tuple:
         log(f"kernel moe_gating_backward {name}: {json.dumps(res)}")
         if not res["ok"]:
             raise AssertionError(f"kernel 1b {name} disagrees with its plain version")
-    return fb, gb
+    return fb, gb, cb, ob
+
+
+# ---------------------------------------------------------------------------
+# Slice 14: SwiGLU-MoE training (phases 17g, 17h)
+# ---------------------------------------------------------------------------
+
+S14_BATCH, S14_SEQ, S14_STEPS, S14_EXPERTS = 4, 512, 4, 16
+# bytes a parameter the PR-MoE step of phase 17b peaked at (52.8 GB for 4.11 G on one H100):
+# bf16 weights and gradients, f32 moments, activations
+S14_BYTES_PER_PARAM = 12.85
+
+
+def slice14_config():
+    """llama4-maverick-400b-a17b at its published widths (d_model 5120, 40
+    heads over 8 at dh 128, expert d_ff 8192 top-1 with capacity factor
+    1.25, dense d_ff 16384, a shared expert of d_ff 8192, vocab 202048),
+    cut in depth from 48 layers to one (dense, MoE) repeat and in experts
+    from 128 to S14_EXPERTS, so its weights, gradients and f32 moments fit
+    one card."""
+    import dataclasses
+
+    from repro_torch.configs.base import Segment
+    from repro_torch.configs.registry import get_config
+
+    full = get_config(ARCH)
+    pat = tuple(dataclasses.replace(ls, ffn=dataclasses.replace(ls.ffn, num_experts=S14_EXPERTS))
+                if ls.ffn.kind == "moe" else ls for ls in full.segments[0].pattern)
+    return full.replace(segments=(Segment(pat, 1),))
+
+
+def slice14_train(counters) -> tuple:
+    """Phase 17g: ``slice14_config`` trained S14_STEPS AdamW steps of
+    S14_BATCH x S14_SEQ tokens of the Markov data (seed 0, bf16 random
+    weights from the seed, lr TRAIN_LR), first under the registry's
+    ``moe_impl="ep"`` (the capacity table without a mesh: kernels 1, 1b, 2,
+    2b, 6, 6b), then from the same weights under ``"grouped"`` (kernels 4,
+    4b, 6, 6b): the peak reckoned from the parameter count first; loss, ce,
+    aux and grad norm per step (finite), median step ms, tokens/s, AdamW
+    ms, peak memory, launches against ``train_want`` (2 / 2b or 4 / 4b once
+    per MoE layer per step, nothing else new), a profile of one step.
+    Returns (launches by run, summary)."""
+    from repro_torch.configs.base import count_params
+    from repro_torch.data.pipeline import data_stream
+    from repro_torch.models.model import init_params, param_leaves, trainable
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+
+    base = slice14_config()
+    n_count = count_params(base)
+    reckon = n_count * S14_BYTES_PER_PARAM / 1e9
+    logits = 2 * S14_BATCH * S14_SEQ * base.vocab_size * 4 / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"llama4 train: {base.name} cut to {base.num_layers} layers and {S14_EXPERTS} of 128 "
+        f"experts, published widths; {n_count} parameters (count_params): reckoned peak "
+        f"{reckon:.1f} GB at {S14_BYTES_PER_PARAM} bytes a parameter (PR-MoE's) + {logits:.1f} GB "
+        f"of f32 logits (two copies) = {reckon + logits:.1f} GB of the card's {total:.1f} GB")
+    if reckon + logits > 0.95 * total:
+        raise AssertionError("llama4 train: the reckoned peak does not fit the card")
+    paths, summary = {}, {}
+    for impl in ("ep", "grouped"):
+        cfg = base.replace(moe_impl=impl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=SEED, device="cuda")
+        n_params = sum(t.numel() for t in param_leaves(params).values())
+        if n_params != n_count:
+            raise AssertionError(f"{cfg.name}: {n_params} parameters, count_params {n_count}")
+        tc = TrainConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=S14_STEPS)
+        opt = init_adamw(trainable(params))
+        data = data_stream(cfg.vocab_size, S14_BATCH, S14_SEQ, seed=SEED, device="cuda")
+        step = make_train_step(cfg, tc)
+        what = f"llama4 train {impl}"
+        rows, ms, adam_ms, got, params, opt = run_steps(step, params, opt, data, S14_STEPS, counters,
+                                                        what)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for i, r in enumerate(rows):
+            log(f"{what} step {i}: loss {r['loss']:.5f} ce {r['ce']:.5f} aux {r['aux']:.5f} grad "
+                f"norm {r['grad_norm']:.4f} lr_scale {r['lr_scale']:.4f}; {ms[i]:.3f} ms (AdamW "
+                f"{adam_ms[i]:.3f} ms)")
+        want = train_want(cfg, got, S14_STEPS)
+        if got != want:
+            raise AssertionError(f"{what} launches {got}, expected {want}")
+        if not all(math.isfinite(r[k]) for r in rows for k in ("loss", "ce", "aux", "grad_norm")):
+            raise AssertionError(f"{what}: metrics {rows} are not finite")
+        paths[impl] = got
+        med = statistics.median(ms[1:])
+        summary[impl] = {"step_ms_median": med,
+                         "tokens_per_s": S14_BATCH * S14_SEQ / med * 1e3,
+                         "adamw_ms_median": statistics.median(adam_ms[1:]),
+                         "adamw_share": statistics.median(adam_ms[1:]) / med,
+                         "peak_gb": peak, "reckoned_gb": reckon + logits, "first_step_ms": ms[0],
+                         "losses": [r["loss"] for r in rows], "params": n_params,
+                         "launches": {k: v for k, v in got.items() if v}}
+        log(f"{what} summary: {json.dumps(summary[impl])}")
+
+        def run_profile(prof):
+            toks, labels = next(data)
+            nonlocal params, opt
+            torch.cuda.synchronize()
+            with prof or contextlib.nullcontext():
+                t0 = time.perf_counter()
+                params, opt, _ = step(params, opt, toks, labels)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+        for line in profile_account(run_profile, 1, f"{what} step"):
+            log(line)
+        trainable(params, False)
+        del params, opt, step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, summary
+
+
+def slice14_reference_checks() -> list:
+    """Phase 17h: reduced f32 llama4-maverick under ``ep`` and ``grouped``
+    and kimi-k2 under ``ep`` (top-2 after reduction), from the same weights
+    and batches on the card (kernels 1 / 1b / 2 / 2b or 4 / 4b, 6 / 6b, f32)
+    and on the CPU (plain versions): first-step gradients per leaf within
+    1e-4 of the leaf's largest; REF_STEPS train steps, losses within 1e-5
+    relative, parameters after them within REF_PARAM_TOL."""
+    from repro_torch.configs.registry import get_config, make_reduced
+    from repro_torch.data.synthetic import batches
+    from repro_torch.models.model import init_params, param_leaves, trainable
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.trainer import TrainConfig, loss_fn, make_train_step
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    on = lambda arr, dev: torch.from_numpy(arr.astype(np.int64)).to(dev)
+    tc = TrainConfig(lr=REF_LR, warmup_steps=1, decay_steps=REF_STEPS)
+    lines = []
+    for arch, impl in ((ARCH, "ep"), (ARCH, "grouped"), ("kimi-k2-1t-a32b", "ep")):
+        cfg = make_reduced(get_config(arch)).replace(moe_impl=impl)
+        data = batches(cfg.vocab_size, 4, 32, seed=SEED + 8)
+        bat = [next(data) for _ in range(REF_STEPS)]
+        cpu = init_params(cfg, seed=SEED + 9, device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        grads = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            leaves = trainable(p)
+            with torch.enable_grad():
+                loss, _ = loss_fn(cfg, p, on(bat[0][0], dev), on(bat[0][1], dev))
+            grads[dev] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        worst = max((grads["cuda"][k].cpu() - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                    for k, g in grads["cpu"].items())
+        losses = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            opt = init_adamw(trainable(p))
+            step = make_train_step(cfg, tc)
+            losses[dev] = []
+            for toks, labels in bat:
+                p, opt, m = step(p, opt, on(toks, dev), on(labels, dev))
+                losses[dev].append(float(m["loss"]))
+        lw = max(rel(a, b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        pc, pp = param_leaves(card), param_leaves(cpu)
+        dp = max((pc[k].detach().cpu() - v.detach()).abs().max().item() for k, v in pp.items())
+        what = f"reduced f32 train {arch} ({impl}, top-{cfg.layer_specs()[-1].ffn.top_k})"
+        if worst > 1e-4 or lw > 1e-5 or dp > REF_PARAM_TOL:
+            raise AssertionError(f"{what}: first-step gradients within {worst:.3e}, losses {losses} "
+                                 f"(worst rel {lw:.3e}), params apart by {dp:.3e} (tolerance "
+                                 f"{REF_PARAM_TOL})")
+        lines.append(f"{what}, card vs CPU: first-step gradients within {worst:.3e} of each "
+                     f"leaf's largest; losses {losses['cuda']} vs {losses['cpu']} (worst rel "
+                     f"{lw:.3e}); params after {REF_STEPS} steps within {dp:.3e} (tolerance "
+                     f"{REF_PARAM_TOL:g})")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -4658,11 +4879,17 @@ def main() -> int:
     # card vs CPU; the guard of a kernel without a backward
     gc.collect()
     torch.cuda.empty_cache()
-    s10_fb, s10_gb = slice10_kernel_checks(gen)
+    s10_fb, s10_gb, s14_cb, s14_ob = slice10_kernel_checks(gen)
     s10_paths, s10_summary = slice10_train(counters)
     for line in slice10_reference_checks():
         log(line)
     log(slice10_guard())
+    # 17g-h. slice 14: llama4-maverick trained at its published widths
+    # under the capacity table and grouped (kernels 2b / 4b), and reduced
+    # llama4 and kimi-k2 card vs CPU
+    s14_paths, s14_summary = slice14_train(counters)
+    for line in slice14_reference_checks():
+        log(line)
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -4946,6 +5173,36 @@ def main() -> int:
             "deterministic": all(v.get("deterministic", True) for v in checks.values()),
             "shapes": checks,
         })
+    # slice 14: the training runs' launches of kernels 1, 2, 4 and 6, and the
+    # expert backward kernels
+    for k in kernels:
+        if k["name"] in ("flash_attention", "moe_gating", "expert_mlp", "grouped_mlp"):
+            k["launches_by_path"].update({f"slice14_train_{p}": c[k["name"]]
+                                          for p, c in s14_paths.items()})
+    for kname, base, checks, main_shape in (
+            ("expert_mlp_backward", "expert_mlp", s14_cb, "bf16_llama4_capacity"),
+            ("grouped_mlp_backward", "grouped_mlp", s14_ob, "bf16_llama4_grouped")):
+        m = checks[main_shape]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "src/repro_torch/csrc/grouped_mlp_bwd.cu",
+            "replaces": "src/repro/kernels/expert_mlp.py:56" if base == "expert_mlp"
+            else "src/repro/kernels/expert_mlp_grouped.py:88",
+            "note": "a backward kernel: the TPU kernel has none (JAX differentiates the experts' "
+                    "einsums with XLA); launches from the llama4 training runs",
+            "launches": s14_paths["ep" if base == "expert_mlp" else "grouped"][kname],
+            "launches_by_path": {f"slice14_train_{p}": c[kname] for p, c in s14_paths.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "library_call": "none: no single PyTorch call computes it",
+            "composite_ms": m["composite_ms"],
+            "composite_call": "not one call: eight torch.bmm (cuBLAS) and the SwiGLU's "
+                              "elementwise backward in f32 over the buffer padded per expert to "
+                              "[E, R, D]; graph time",
+            "deterministic": all(v["deterministic"] for v in checks.values()),
+            "shapes": checks,
+        })
+    log("slice 14 training summary: " + json.dumps(s14_summary))
     log("slice 10 training summary: " + json.dumps(s10_summary))
     log("obs summary: " + json.dumps(obs_summary))
     log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))

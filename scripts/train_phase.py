@@ -11,6 +11,13 @@ Prints the tree's phase-17 lines and, last, one JSON line with its
 training summary (step ms, AdamW ms, tokens/s, MoS step ms) and the card's
 name and power limit.  Needs the card; imports nothing of JAX.
 
+With ``--swiglu``, phases 17g-h instead (``slice14_train``: llama4-maverick
+at its published widths, 2 layers and 16 experts, 4 steps under ``ep``
+and 4 under ``grouped``; ``slice14_reference_checks``: reduced f32 llama4
+and kimi-k2 card vs CPU), and the JSON line holds their summary:
+
+  python3 scripts/train_phase.py --swiglu [tree]
+
 The launch counters and backend flags come from the tree's own
 ``chip_smoke.kernel_setup``.  An older tree, from before that function,
 gets them from ``_setup_before_kernel_setup``, a copy of what its
@@ -45,6 +52,8 @@ def _setup_before_kernel_setup() -> tuple:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    swiglu = "--swiglu" in argv
+    argv = [a for a in argv if a != "--swiglu"]
     root = Path(argv[0] if argv else Path(__file__).resolve().parents[1]).resolve()
     if not torch.cuda.is_available():
         print("train_phase: no CUDA device", file=sys.stderr)
@@ -57,6 +66,14 @@ def main(argv=None) -> int:
 
     counters = (cs.kernel_setup() if hasattr(cs, "kernel_setup")
                 else _setup_before_kernel_setup())
+    if swiglu:
+        build.build(["flash_attention", "flash_attention_bwd", "moe_gating", "grouped_mlp",
+                     "grouped_mlp_mma", "grouped_mlp_bwd"])
+        _, summary = cs.slice14_train(counters)
+        for line in cs.slice14_reference_checks():
+            print(line, flush=True)
+        print(json.dumps({"tree": str(root), "card": cs.nvidia_smi_line(), **summary}), flush=True)
+        return 0
     build.build(["flash_attention", "flash_attention_bwd", "moe_gating"])
     _, summary = cs.slice10_train(counters)
     train, mos = summary["train"], summary["mos"]

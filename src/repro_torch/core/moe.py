@@ -21,7 +21,8 @@ Dispatch implementations (``cfg.moe_impl``):
                   ``grouped``.
 
 Expert MLPs over the capacity buffer (``experts_ffn``): fp SwiGLU through
-kernel 2, int8 per-channel SwiGLU through kernel 3, other quantized layouts
+kernel 2 (under grad with its backward 2b; the grouped dispatch's kernel 4
+with 4b), int8 per-channel SwiGLU through kernel 3, other quantized layouts
 (int4, group-wise scales) through the plain dequantize path, and GELU / ReLU
 experts as plain products in the input type, as the JAX package computes
 them outside any Pallas kernel.  ``residual=True`` adds the Residual-MoE

@@ -14,6 +14,12 @@ int32 (the gating kernel's counts) lets it skip the tiles of rows no token
 fills, so a decode step reads only the experts it routes to.  A tensor on
 the CPU takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``launches`` counts the wrapper's kernel launches.
+
+Training: ``expert_mlp`` under grad is ``ExpertMlpFn``, kernel 2 forward and
+kernel 2b (``csrc/grouped_mlp_bwd.cu``, the device code of kernel 4b over
+the capacity layout) backward, or their plain versions on the CPU
+(``expert_mlp_backward_plain``).  Rows at or past ``min(fill[e], C)`` are
+dead: dx = 0 there and they add nothing to the weight gradients.
 """
 from __future__ import annotations
 
@@ -24,10 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.expert_mlp_grouped import TILE, VEC
-from repro_torch.kernels.no_backward import EXPERT_KERNELS, refuse_grad
+from repro_torch.kernels.expert_mlp_grouped import TILE, VEC, launch_backward, swiglu_backward_rows
 
-launches = {"expert_mlp": 0}
+launches = {"expert_mlp": 0, "expert_mlp_backward": 0}
 
 C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 C_ARGS_QUANT = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -91,6 +96,16 @@ def check_buffer(name: str, xe: torch.Tensor, Fd: int) -> None:
         raise ValueError(f"{name}: C={C} must be a multiple of {TILE}, D={D} and F={Fd} of {VEC}")
 
 
+def check_weights(name: str, xe: torch.Tensor, wi, wg, wo) -> None:
+    E, C, D = xe.shape
+    Fd = wi.shape[-1]
+    for n, t, shape in (("wi", wi, (E, D, Fd)), ("wg", wg, (E, D, Fd)), ("wo", wo, (E, Fd, D))):
+        if t.device != xe.device or t.dtype != xe.dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be a contiguous {xe.dtype} {shape} tensor "
+                             f"on {xe.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def expert_mlp(
     xe: torch.Tensor,  # [E, C, D] — the capacity buffer
     wi: torch.Tensor,  # [E, D, F]
@@ -100,21 +115,80 @@ def expert_mlp(
 ) -> torch.Tensor:
     """[E, C, D]: row c of expert e through expert e's SwiGLU MLP.  Rows at
     or past ``fill[e]`` must be zero (as the dispatch leaves them); the
-    kernel writes zeros for them without reading a weight."""
+    kernel writes zeros for them without reading a weight.  Differentiable
+    (``ExpertMlpFn``) when grad is enabled and xe or a weight requires it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xe, wi, wg, wo)):
+        return ExpertMlpFn.apply(xe, wi, wg, wo, fill)
+    return _expert_mlp(xe, wi, wg, wo, fill)
+
+
+class ExpertMlpFn(torch.autograd.Function):
+    """Kernel 2 forward, kernel 2b backward (plain versions on the CPU);
+    saves the inputs only: the backward recomputes u, g and a."""
+
+    @staticmethod
+    def forward(ctx, xe, wi, wg, wo, fill):
+        ctx.save_for_backward(xe, wi, wg, wo, fill)
+        return _expert_mlp(xe, wi, wg, wo, fill)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, wi, wg, wo, fill = ctx.saved_tensors
+        dx, dwi, dwg, dwo = expert_mlp_backward(xe, wi, wg, wo, dy.contiguous(), fill)
+        return dx, dwi, dwg, dwo, None
+
+
+def expert_mlp_backward_plain(xe, wi, wg, wo, dy, fill=None):
+    """Kernel 2b's function in PyTorch: (dxe, dwi, dwg, dwo) of
+    ``expert_mlp`` at output gradient ``dy`` [E, C, D], one expert at a time
+    over its live rows, the first ``min(fill[e], C)`` (all C without
+    ``fill``), by ``swiglu_backward_rows``: explicit formulas, not autograd.
+    Dead rows get dx = 0; an expert with no live row gets zero weight
+    gradients."""
+    E, C, _ = xe.shape
+    live = [C] * E if fill is None else fill.cpu().long().clamp(0, C).tolist()
+    dx = torch.zeros_like(xe)
+    grads = [torch.zeros_like(w) for w in (wi, wg, wo)]
+    for e in range(E):
+        n = live[e]
+        if n == 0:
+            continue
+        gx, *gw = swiglu_backward_rows(xe[e, :n], dy[e, :n], wi[e], wg[e], wo[e], xe.dtype)
+        dx[e, :n] = gx.to(xe.dtype)
+        for out, g in zip(grads, gw):
+            out[e] = g.to(out.dtype)
+    return (dx, *grads)
+
+
+def expert_mlp_backward(xe, wi, wg, wo, dy, fill=None):
+    """(dxe, dwi, dwg, dwo) of ``expert_mlp`` at ``dy``: kernel 2b on the
+    card (one count a call: its table kernel, row passes and weight passes;
+    the fill cut to C, as the forward cuts it), the plain version on the
+    CPU."""
+    if xe.device.type == "cpu":
+        return expert_mlp_backward_plain(xe, wi, wg, wo, dy, fill)
+    if xe.device.type != "cuda":
+        raise ValueError(f"expert_mlp_backward: no kernel for device {xe.device}")
+    name = "expert_mlp_backward"
+    check_buffer(name, xe, wi.shape[-1])
+    fill = check_fill(name, xe, fill)
+    check_weights(name, xe, wi, wg, wo)
+    out = launch_backward(name, xe, wi, wg, wo, dy, fill=fill)
+    launches[name] += 1
+    return out
+
+
+def _expert_mlp(xe, wi, wg, wo, fill):
+    """Kernel 2 (its plain version on the CPU)."""
     if xe.device.type == "cpu":
         return expert_mlp_plain(xe, wi, wg, wo, fill)
     if xe.device.type != "cuda":
         raise ValueError(f"expert_mlp: no kernel for device {xe.device}")
-    refuse_grad("expert_mlp", EXPERT_KERNELS, xe, wi, wg, wo)
     E, C, D = xe.shape
     Fd = wi.shape[-1]
     check_buffer("expert_mlp", xe, Fd)
     fill = check_fill("expert_mlp", xe, fill)
-    for name, t, shape in (("wi", wi, (E, D, Fd)), ("wg", wg, (E, D, Fd)), ("wo", wo, (E, Fd, D))):
-        if t.device != xe.device or t.dtype != xe.dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"expert_mlp: {name} must be a contiguous {xe.dtype} {shape} tensor "
-                             f"on {xe.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    check_weights("expert_mlp", xe, wi, wg, wo)
     lib = library()
     fn = lib.expert_mlp_bf16 if xe.dtype == torch.bfloat16 else lib.expert_mlp_f32
     act = torch.empty((E * C, Fd), dtype=xe.dtype, device=xe.device)

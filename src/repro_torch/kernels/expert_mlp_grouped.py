@@ -16,6 +16,14 @@ The tensor-core kernel also computes kernel 3 over the capacity buffer
 (``kernels/expert_mlp_quant.py``): its plan, grid bound and run table for
 that layout are here too (``capacity_mma_plan``, ``capacity_max_runs``,
 ``capacity_run_table_plain``).
+
+Training: ``grouped_mlp`` under grad is ``GroupedMlpFn``, kernel 4 forward
+and kernel 4b (``csrc/grouped_mlp_bwd.cu``) backward, or their plain
+versions on the CPU (``grouped_mlp_backward_plain``: explicit formulas, not
+autograd).  4b and kernel 2's backward 2b share their device code and its
+launch (``launch_backward``); ``backward_variant`` picks tensor cores or
+CUDA cores from (dtype, D, F).  Kernel 5 (MoQ int8 / int4 weights) keeps
+refusing under grad: MoQ weights are post-training.
 """
 from __future__ import annotations
 
@@ -38,9 +46,11 @@ BLOCK_F = 256
 # D and F multiples of this take the tensor-core kernel (its widest blocks)
 MMA_COLS = 256
 
-launches = {"grouped_mlp": 0, "grouped_mlp_quant": 0}
+launches = {"grouped_mlp": 0, "grouped_mlp_quant": 0, "grouped_mlp_backward": 0}
 variant_launches = {"grouped_mlp_mma": 0, "grouped_mlp_fma": 0, "grouped_mlp_quant_mma": 0,
-                    "grouped_mlp_quant_fma": 0}
+                    "grouped_mlp_quant_fma": 0, "grouped_mlp_backward_mma": 0,
+                    "grouped_mlp_backward_fma": 0, "expert_mlp_backward_mma": 0,
+                    "expert_mlp_backward_fma": 0}
 
 _C_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _C_ARGS_QUANT = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -266,6 +276,156 @@ def _experts_plain(xg, te, rows_used, weights_of, scales_of=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernels 2b and 4b: the backward of the SwiGLU expert MLP
+# ---------------------------------------------------------------------------
+
+RUN_TILES = 8  # tiles a run of the backward's row passes (RUN_TILES in the source)
+MAX_BWD_EXPERTS = 1024  # experts its table kernel takes (MAX_E)
+BWD_MMA_COLS = 128  # bf16 with D and F multiples of this takes the tensor cores
+
+
+def backward_variant(dtype: torch.dtype, D: int, F: int) -> str:
+    """Which passes a backward call on the card takes (``takes_mma`` in the
+    source): ``"mma"`` (tensor cores) for bf16 with D and F multiples of
+    ``BWD_MMA_COLS``, ``"fma"`` (f32 FMAs on the CUDA cores) otherwise."""
+    if dtype == torch.bfloat16 and D % BWD_MMA_COLS == 0 and F % BWD_MMA_COLS == 0:
+        return "mma"
+    return "fma"
+
+
+def backward_max_runs(n_tiles: int, num_experts: int) -> int:
+    """The grid rows of the backward's row passes (``max_runs_of``): runs of
+    at most ``RUN_TILES`` of one expert's live tiles, at most ceil(n_tiles
+    / RUN_TILES) + E of them, and at most one a tile."""
+    return max(1, min(n_tiles, -(-n_tiles // RUN_TILES) + num_experts))
+
+
+def backward_table_size(n_tiles: int, num_experts: int) -> int:
+    """int32 values of the backward's tile tables
+    (``expert_mlp_backward_table_size``)."""
+    return 3 * n_tiles + 2 * (num_experts + 1) + 3 * backward_max_runs(n_tiles, num_experts) + 2
+
+
+def swiglu_backward_rows(x, dy, wi, wg, wo, dtype):
+    """(dx, dwi, dwg, dwo) in f64 of one expert's rows x [n, D] with output
+    gradient dy [n, D], by the kernels' formulas: u = x wi, g = x wg; a =
+    silu(g) u rounded to ``dtype`` (the forward's down-projection operand);
+    da = dy wo^T; du = da silu(g) and dg = da u s (1 + g (1 - s)), s =
+    sigmoid(g), each rounded to ``dtype`` (the operands of the next
+    products, as on the card); dx = du wi^T + dg wg^T, dwi = x^T du, dwg =
+    x^T dg, dwo = a^T dy.  Summed in f64: between those roundings it is the
+    exact gradient, which the kernels' and JAX's f32 sums are held
+    against."""
+    x, dy = x.double(), dy.double()
+    wi, wg, wo = wi.double(), wg.double(), wo.double()
+    u, g = x @ wi, x @ wg
+    s = torch.sigmoid(g)
+    silu = g * s
+    a = (silu * u).to(dtype).double()
+    da = dy @ wo.T
+    du = (da * silu).to(dtype).double()
+    dg = (da * u * s * (1 + g * (1 - s))).to(dtype).double()
+    return du @ wi.T + dg @ wg.T, x.T @ du, x.T @ dg, a.T @ dy
+
+
+def grouped_mlp_backward_plain(xg, te, wi, wg, wo, dy, rows_used=None):
+    """Kernel 4b's function in PyTorch: (dxg, dwi, dwg, dwo) of
+    ``grouped_mlp`` at output gradient ``dy`` [Ct, D], one expert at a time
+    over its live tiles (``swiglu_backward_rows``).  Tiles at or past
+    ``rows_used`` (the dispatch's trailing tiles, clamped to expert E-1)
+    are dead: dx = 0 there, and they add nothing to any weight; an expert no
+    live tile names gets zero weight gradients."""
+    Ct, D = xg.shape
+    nt = te.shape[0]
+    live = torch.ones(nt, dtype=torch.bool, device=xg.device)
+    if rows_used is not None:
+        live = torch.arange(nt, device=xg.device) * TILE < rows_used.to(xg.device)
+    row_e = torch.where(live, te.long(), -1).repeat_interleave(TILE)
+    dx = torch.zeros_like(xg)
+    grads = [torch.zeros_like(w) for w in (wi, wg, wo)]
+    for e in torch.unique(te.long()[live]).tolist():
+        rows = row_e == e
+        gx, *gw = swiglu_backward_rows(xg[rows], dy[rows], wi[e], wg[e], wo[e], xg.dtype)
+        dx[rows] = gx.to(xg.dtype)
+        for out, g in zip(grads, gw):
+            out[e] = g.to(out.dtype)
+    return (dx, *grads)
+
+
+def grouped_mlp_backward(xg, te, wi, wg, wo, dy, rows_used):
+    """(dxg, dwi, dwg, dwo) of ``grouped_mlp`` at ``dy``: kernel 4b on the
+    card (one count a call: its table kernel, row passes and weight passes),
+    the plain version on the CPU."""
+    if xg.device.type == "cpu":
+        return grouped_mlp_backward_plain(xg, te, wi, wg, wo, dy, rows_used)
+    if xg.device.type != "cuda":
+        raise ValueError(f"grouped_mlp_backward: no kernel for device {xg.device}")
+    _check(xg, te, wi, wg, wo, rows_used)
+    out = launch_backward("grouped_mlp_backward", xg, wi, wg, wo, dy, te=te, rows_used=rows_used)
+    launches["grouped_mlp_backward"] += 1
+    return out
+
+
+_bwd_bound = None  # the backward library whose signatures are bound
+
+
+def _bwd_library():
+    global _bwd_bound
+    lib = build.load_library("grouped_mlp_bwd")
+    if lib is not _bwd_bound:
+        tail = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.expert_mlp_backward.argtypes = [ctypes.c_void_p] * 12 + tail
+        lib.grouped_mlp_backward.argtypes = [ctypes.c_void_p] * 13 + tail
+        lib.expert_mlp_backward_table_size.argtypes = [ctypes.c_int] * 2
+        lib.expert_mlp_backward_takes_mma.argtypes = [ctypes.c_int] * 3
+        for fn in (lib.expert_mlp_backward, lib.grouped_mlp_backward,
+                   lib.expert_mlp_backward_table_size, lib.expert_mlp_backward_takes_mma):
+            fn.restype = ctypes.c_int
+        _bwd_bound = lib
+    return lib
+
+
+def launch_backward(name, x, wi, wg, wo, dy, *, fill=None, te=None, rows_used=None):
+    """Kernel 2b (``fill`` given: x the capacity buffer [E, C, D]) or 4b
+    (``te``, ``rows_used``: x the grouped buffer [Ct, D]) on the card, the
+    inputs checked by the caller: its outputs, tables and scratch allocated
+    here, its launches made in ``csrc/grouped_mlp_bwd.cu``.  Returns (dx,
+    dwi, dwg, dwo); counts the variant in ``variant_launches``."""
+    E, D, Fd = wi.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"{name}: dy must be a contiguous {x.dtype} tensor of x's shape")
+    if E > MAX_BWD_EXPERTS:
+        raise ValueError(f"{name}: {E} experts; the kernel takes at most {MAX_BWD_EXPERTS}")
+    rows = x.numel() // D
+    nt = rows // TILE
+    lib = _bwd_library()
+    variant = backward_variant(x.dtype, D, Fd)
+    if lib.expert_mlp_backward_table_size(nt, E) != backward_table_size(nt, E) or \
+            lib.expert_mlp_backward_takes_mma(int(x.dtype == torch.bfloat16), D, Fd) != (variant == "mma"):
+        raise RuntimeError(f"{name}: the library's table size or variant rule differs from the wrapper's")
+    tab = torch.empty(backward_table_size(nt, E), dtype=torch.int32, device=x.device)
+    scratch = torch.empty(3 * rows * Fd, dtype=x.dtype, device=x.device)  # a, du, dg
+    dx = torch.empty_like(x)
+    dwi, dwg, dwo = torch.empty_like(wi), torch.empty_like(wg), torch.empty_like(wo)
+    bf = int(x.dtype == torch.bfloat16)
+    ptrs = (wi.data_ptr(), wg.data_ptr(), wo.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dwi.data_ptr(), dwg.data_ptr(), dwo.data_ptr(), scratch.data_ptr(), tab.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if fill is not None:
+            err = lib.expert_mlp_backward(x.data_ptr(), fill.data_ptr(), *ptrs, E, x.shape[1], D,
+                                          Fd, bf, stream)
+        else:
+            err = lib.grouped_mlp_backward(x.data_ptr(), te.data_ptr(), rows_used.data_ptr(), *ptrs,
+                                           nt, E, D, Fd, bf, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    variant_launches[f"{name}_{variant}"] += 1
+    return dx, dwi, dwg, dwo
+
+
 def _expert(w: QuantizedArray, e: int) -> torch.Tensor:
     """Expert e of a quantized [E, Din, Dout] leaf, dequantized to its
     original type."""
@@ -366,12 +526,35 @@ def grouped_mlp(
     """[Ct, D] output of tile ``t``'s rows through expert ``te[t]``'s SwiGLU
     MLP.  ``rows_used`` ([1] int32 on the device, ``GroupedLayout.rows_used``):
     tiles at or past it hold no token and give zero rows without reading any
-    weight."""
+    weight.  Differentiable (``GroupedMlpFn``) when grad is enabled and xg
+    or a weight requires it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xg, wi, wg, wo)):
+        return GroupedMlpFn.apply(xg, te, wi, wg, wo, rows_used)
+    return _grouped_mlp(xg, te, wi, wg, wo, rows_used)
+
+
+class GroupedMlpFn(torch.autograd.Function):
+    """Kernel 4 forward, kernel 4b backward (plain versions on the CPU);
+    saves the inputs only: the backward recomputes u, g and a."""
+
+    @staticmethod
+    def forward(ctx, xg, te, wi, wg, wo, rows_used):
+        ctx.save_for_backward(xg, te, wi, wg, wo, rows_used)
+        return _grouped_mlp(xg, te, wi, wg, wo, rows_used)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg, te, wi, wg, wo, rows_used = ctx.saved_tensors
+        dx, dwi, dwg, dwo = grouped_mlp_backward(xg, te, wi, wg, wo, dy.contiguous(), rows_used)
+        return dx, None, dwi, dwg, dwo, None
+
+
+def _grouped_mlp(xg, te, wi, wg, wo, rows_used):
+    """Kernel 4 (its plain version on the CPU)."""
     if xg.device.type == "cpu":
         return grouped_mlp_plain(xg, te, wi, wg, wo, rows_used)
     if xg.device.type != "cuda":
         raise ValueError(f"grouped_mlp: no kernel for device {xg.device}")
-    refuse_grad("grouped_mlp", EXPERT_KERNELS, xg, wi, wg, wo)
     Ct, D = xg.shape
     Fd = wi.shape[-1]
     _check(xg, te, wi, wg, wo, rows_used)

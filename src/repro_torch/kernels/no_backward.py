@@ -1,19 +1,21 @@
 """The guard of the kernels that have no backward.
 
-Only kernels 6 and 1 (flash attention and capacity gating) have a backward
-kernel (6b, 1b).  The expert kernels 2-5 get theirs with SwiGLU-MoE
-training (ROADMAP queue 1 item 7, expert-parallel training: no SwiGLU-MoE
-config of the registry trains on one card), and the serving kernels 7-9
-have none.  A ctypes launch's output carries no gradient, so without this
-guard a forward under grad would cut the gradient of every weight behind
-it without an error.  Each of those wrappers calls ``refuse_grad`` on its
-CUDA path, before it launches.
+Kernels 6 and 1 (flash attention and capacity gating) have backward kernels
+(6b, 1b), and so do the fp SwiGLU expert kernels 2 and 4 (2b, 4b:
+``csrc/grouped_mlp_bwd.cu``, through ``ExpertMlpFn`` / ``GroupedMlpFn``).
+The quantized expert kernels 3 and 5 serve MoQ weights, which are made
+after training (``quant/ptq.py``) and which nothing trains, and the serving
+kernels 7-9 have no backward either.  A ctypes launch's output carries no
+gradient, so without this guard a forward under grad would cut the
+gradient of every weight behind it without an error.  Each of those
+wrappers calls ``refuse_grad`` on its CUDA path, before it launches.
 """
 from __future__ import annotations
 
 import torch
 
-EXPERT_KERNELS = "ROADMAP queue 1 item 7 (expert-parallel training) gives it a backward"
+EXPERT_KERNELS = ("a quantized (MoQ) expert kernel: MoQ weights are post-training and no ROADMAP "
+                  "item trains them; fp experts train through kernels 2b and 4b")
 SERVING_KERNELS = "a serving kernel: no ROADMAP item gives it a backward"
 
 

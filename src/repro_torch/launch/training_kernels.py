@@ -1,7 +1,9 @@
 """Per-row checks and CUDA-graph timings of the training kernels on the
-card: kernel 6b (flash attention backward) and kernel 1b (capacity gating
-backward), each held against its plain version on the same inputs, and
-kernel 6's forward with and without its row log-sum-exp output.
+card: kernel 6b (flash attention backward), kernel 1b (capacity gating
+backward) and kernels 2b / 4b (the SwiGLU expert MLP's backward over the
+capacity and the grouped buffer), each held against its plain version on
+the same inputs, and kernel 6's forward with and without its row
+log-sum-exp output.
 
 Kernel 6b at the training shapes of the port's configs (``FLASH_BWD_CASES``:
 nlg-350m-prmoe-32-64's 8 x 512 tokens, 16 heads over 16 at dh 64, causal;
@@ -24,10 +26,32 @@ in the same call and with the same graph timing, the floor of one launch:
 kernel 1b at T = 1 (one warp) and the smallest PyTorch kernel, a ``zero_()``
 of one f32 element (``launch_floor``), with 1b at T = 4096 over each.
 
+Kernels 2b and 4b at ``EXPERT_BWD_CASES`` (llama4-maverick's width, D 5120
+and F 8192 over 16 experts top-1 at T = 2048, the capacity buffer at C =
+160 and the grouped one; kimi-k2's, D 7168 and F 2048 over 32 experts
+top-8 at T = 1024; a capacity buffer with an expert no token reaches and
+experts past their capacity; a grouped buffer whose dead tiles hold
+garbage), in bf16 and f32: dx, dwi, dwg and dwo per row against
+``expert_mlp_backward_plain`` / ``grouped_mlp_backward_plain``
+(``grad_rows``), dead rows of dx and empty experts' gradients exactly 0,
+a second launch bit for bit against the first; timed from CUDA graphs
+beside the bound (16 live rows D F operations; the live experts' weights
+read, every gradient and dx written, x and dy of the live rows read), the
+plain version's host-clock time, each pass's device ms from
+torch.profiler (``passes_ms``) and the same gradients through eight
+``torch.bmm`` (cuBLAS) and the SwiGLU's elementwise backward over the
+buffer padded to [E, R, D]: a composite, not one call (``composite_ms``).
+
   PYTHONPATH=src python -m repro_torch.launch.training_kernels [--quick]
+      [--only flash,gating,expert] [--variants]
+
+``--variants`` also times 2b / 4b's patched builds (``EXPERT_VARIANTS``: no
+weight loads in passes A and B, no loads or no stores in pass C) in turns
+at llama4's capacity case: what bounds each pass, without a profiler's
+stall reasons.
 
 ``--quick`` runs each case at its smallest size, untimed: the first call of
-a changed kernel.  It builds only the three sources involved.  Prints one
+a changed kernel.  It builds only the sources involved.  Prints one
 line per case; exits non-zero if a case disagrees or is not deterministic.
 To hold a change against its parent on one card, unpack the parent with
 ``git archive HEAD | tar -x -C build/parent`` and run both in one call, in
@@ -39,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import torch
 
@@ -64,12 +89,25 @@ FLASH_BWD_CASES = {
     "dh256": (1, 512, 4, 1, 256, True, 0, 0.0),
     "dh32": (2, 256, 4, 2, 32, True, 0, 0.0),
     "dh112": (2, 256, 4, 4, 112, True, 0, 0.0),
+    "llama4_g5_4x512": (4, 512, 40, 8, 128, True, 0, 0.0),
 }
 # name -> (T, E, K, capacity factor, bias to expert 0: drops)
 GATING_BWD_CASES = {
     "T4096_E32_K1": (4096, 32, 1, 1.25, 0.0),
     "T4096_E64_K1": (4096, 64, 1, 1.25, 0.0),
     "T4096_E64_K2_drops": (4096, 64, 2, 0.5, 1.0),
+}
+
+# name -> (layout, E, D, F, top-k, T, capacity factor, bias: "empty" routes
+# no token to expert 1 and most to expert 0 (drops), "garbage" fills the
+# grouped buffer's dead tiles with random rows)
+EXPERT_BWD_CASES = {
+    "llama4_capacity": ("capacity", 16, 5120, 8192, 1, 2048, 1.25, None),
+    "llama4_grouped": ("grouped", 16, 5120, 8192, 1, 2048, 0.0, None),
+    "kimi_capacity": ("capacity", 32, 7168, 2048, 8, 1024, 1.25, None),
+    "kimi_grouped": ("grouped", 32, 7168, 2048, 8, 1024, 0.0, None),
+    "capacity_empty_expert": ("capacity", 16, 1024, 2048, 2, 512, 1.0, "empty"),
+    "grouped_dead_tiles": ("grouped", 16, 1024, 2048, 2, 200, 0.0, "garbage"),
 }
 
 
@@ -246,6 +284,274 @@ def launch_floor(gen, gating_ms: dict) -> dict:
     return res
 
 
+def expert_bwd_inputs(layout, E, D, F, K, T, cf, bias, dtype, gen) -> dict:
+    """A backward call's inputs as the MoE layer builds them, on the card:
+    random weights (scaled by 1 / sqrt(fan-in)), T random tokens routed by a
+    random router (``bias``: see ``EXPERT_BWD_CASES``) and dispatched into
+    the capacity buffer (fill: the gating's uncapped counts) or the grouped
+    one; dy random on every row, dead rows included (the kernel must ignore
+    them)."""
+    from repro_torch.core import dispatch, dispatch_grouped
+    from repro_torch.core.gating import expert_capacity, top_k_gating
+
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    w = {"wi": rnd(E, D, F).mul_(D ** -0.5), "wg": rnd(E, D, F).mul_(D ** -0.5),
+         "wo": rnd(E, F, D).mul_(F ** -0.5)}
+    x = rnd(T, D)
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    if bias == "empty":
+        logits[:, 1] = -1e9
+        logits[:, 0] += 2.0
+    if layout == "capacity":
+        cap = expert_capacity(T, E, K, cf)
+        g = top_k_gating(logits, K, cap)
+        counts = torch.bincount(g.expert_idx.reshape(-1).long(), minlength=E).to(torch.int32)
+        xb = dispatch.dispatch_dense(x, g, cap, E)
+        live = counts.clamp(max=cap)
+        info = {"C": cap, "kept": int(live.sum()), "dropped": T * K - int(live.sum()),
+                "fill_max": int(counts.max())}
+        key = {"fill": counts}
+    else:
+        g = top_k_gating(logits, K, T * K)
+        lay = dispatch_grouped.grouped_layout(g, E)
+        Ct = lay.tile_expert.shape[0] * 8
+        xb = torch.zeros((Ct, D), dtype=dtype, device="cuda")
+        xb[lay.dst] = x[torch.arange(T * K, device="cuda") // K]
+        used = int(lay.rows_used)
+        if bias == "garbage":
+            xb[used:] = rnd(Ct - used, D)
+        live = lay.counts
+        info = {"tiles": Ct // 8, "live_tiles": used // 8, "kept": T * K}
+        key = {"te": lay.tile_expert, "rows_used": lay.rows_used}
+    info.update(layout=layout, E=E, D=D, F=F, K=K, T=T, live_experts=int((live > 0).sum()))
+    dy = rnd(*xb.shape)
+    return {"x": xb, "dy": dy, **w, **key, "info": info, "live": live.cpu()}
+
+
+def expert_bwd_calls(inp):
+    """(kernel call, plain call) of the case's layout."""
+    from repro_torch.kernels import expert_mlp as k2
+    from repro_torch.kernels import expert_mlp_grouped as gk
+
+    a = (inp["x"], inp["wi"], inp["wg"], inp["wo"], inp["dy"])
+    if "fill" in inp:
+        return (lambda: k2.expert_mlp_backward(*a, inp["fill"]),
+                lambda: k2.expert_mlp_backward_plain(*a, inp["fill"]))
+    x, wi, wg, wo, dy = a
+    return (lambda: gk.grouped_mlp_backward(x, inp["te"], wi, wg, wo, dy, inp["rows_used"]),
+            lambda: gk.grouped_mlp_backward_plain(x, inp["te"], wi, wg, wo, dy, inp["rows_used"]))
+
+
+def dead_rows(inp) -> torch.Tensor:
+    """[rows] bool: the buffer's rows that hold no token."""
+    if "fill" in inp:
+        E, C, _ = inp["x"].shape
+        return (torch.arange(C, device="cuda")[None, :] >= inp["fill"].clamp(0, C)[:, None]).reshape(-1)
+    rows = inp["x"].shape[0]
+    return torch.arange(rows, device="cuda") >= inp["rows_used"]
+
+
+def composite_backward(inp):
+    """The same gradients through cuBLAS: the buffer's rows padded per
+    expert to [E, R, D] (the capacity buffer as it is; the grouped one
+    packed by its tile map, outside the timed call), eight ``torch.bmm``
+    and the SwiGLU's elementwise backward in f32.  Returns the timed
+    callable (a yardstick: not one call, never the port's path)."""
+    x, dy, wi, wg, wo = inp["x"], inp["dy"], inp["wi"], inp["wg"], inp["wo"]
+    E, D = wi.shape[0], wi.shape[1]
+    if x.dim() == 2:  # grouped: pack each expert's live rows
+        used = int(inp["rows_used"])
+        te = inp["te"].long().repeat_interleave(8)[:used]
+        R = max(1, int(torch.bincount(te, minlength=E).max()))
+        xs = torch.zeros((E, R, D), dtype=x.dtype, device="cuda")
+        ds = torch.zeros_like(xs)
+        for e in range(E):
+            rows = torch.nonzero(te == e).flatten()
+            xs[e, :rows.numel()] = x[rows]
+            ds[e, :rows.numel()] = dy[rows]
+        x, dy = xs, ds
+    dt = x.dtype
+
+    def run():
+        u, g = torch.bmm(x, wi).float(), torch.bmm(x, wg).float()
+        da = torch.bmm(dy, wo.transpose(1, 2)).float()
+        s = torch.sigmoid(g)
+        silu = g * s
+        a, du = (silu * u).to(dt), (da * silu).to(dt)
+        dg = (da * u * s * (1 + g * (1 - s))).to(dt)
+        dx = torch.baddbmm(torch.bmm(du, wi.transpose(1, 2)), dg, wg.transpose(1, 2))
+        xt = x.transpose(1, 2)
+        return dx, torch.bmm(xt, du), torch.bmm(xt, dg), torch.bmm(a.transpose(1, 2), dy)
+
+    return run
+
+
+EXPERT_BWD_PASSES = ("prep_kernel", "Memset", "pass_a", "pass_b", "pass_c")
+
+
+def passes_ms(fn, names=EXPERT_BWD_PASSES) -> dict:
+    """Device ms of one call of ``fn`` by pass: torch.profiler's CUDA
+    records of a call after a warm-up one, summed per name in ``names``
+    that a kernel's name contains (``pass_c`` sums its two instances);
+    empty where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in ev.key:
+                out[n] = out.get(n, 0.0) + ev.self_device_time_total / 1e3
+    return out
+
+
+def check_expert_bwd(name, layout, E, D, F, K, T, cf, bias, dtype, gen, timed=True) -> dict:
+    """Kernel 2b (capacity) or 4b (grouped) against its plain version per
+    row of each gradient (a token row of dx, a row of each weight
+    gradient), dead rows and empty experts exactly 0, bit for bit over two
+    launches; timed beside the bound, the plain version and the cuBLAS
+    composite."""
+    from repro_torch.kernels import expert_mlp_grouped as gk
+
+    inp = expert_bwd_inputs(layout, E, D, F, K, T, cf, bias, dtype, gen)
+    kernel, plain = expert_bwd_calls(inp)
+    before = dict(gk.variant_launches)
+    grads = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    took = sorted({k.rsplit("_", 1)[1] for k, v in gk.variant_launches.items() if v != before[k]})
+    t0 = time.perf_counter()
+    refs = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    res = {**inp["info"], "dtype": str(dtype).split(".")[-1], "variant": took}
+    res["deterministic"] = all(torch.equal(a, b) for a, b in zip(grads, again))
+    dead = dead_rows(inp)
+    empty = (inp["live"] == 0).nonzero().flatten().tolist()
+    res["dead_rows"], res["empty_experts"] = int(dead.sum()), empty
+    res["zeros_exact"] = bool(grads[0].reshape(-1, D)[dead].count_nonzero() == 0 and all(
+        g[e].count_nonzero() == 0 for g in grads[1:] for e in empty))
+    tol = BWD_TOL[dtype]
+    ok = res["deterministic"] and res["zeros_exact"]
+    for gname, g, r in zip(("dx", "dwi", "dwg", "dwo"), grads, refs):
+        res[gname] = grad_rows(g.reshape(-1, g.shape[-1]), r.reshape(-1, r.shape[-1]))
+        ok &= res[gname].get("finite", True) and res[gname]["max_row_rel_err"] <= tol
+    res["max_abs_err"] = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
+    res["ok"] = bool(ok)
+    del again, refs
+    if timed:
+        b = inp["x"].element_size()
+        live_e, kept = res["live_experts"], res["kept"]
+        need = (live_e * 3 * D * F * b + 3 * E * D * F * b + 2 * kept * D * b
+                + inp["x"].numel() * b)
+        res.update(bound(need, 16 * kept * D * F, dtype))
+        few = dtype == torch.float32
+        res["ms"] = graph_ms(kernel, n=2 if few else 10, reps=3 if few else 5)
+        res["passes_ms"] = passes_ms(kernel)
+        res["plain_ms"] = plain_ms
+        comp = composite_backward(inp)
+        res["composite_ms"] = graph_ms(comp, n=2 if few else 10, reps=3 if few else 5)
+        res["library_ms"] = None
+    del grads, inp
+    torch.cuda.empty_cache()
+    return res
+
+
+# Patches for --variants: (anchor, replacement) pairs applied to a copy of
+# csrc/grouped_mlp_bwd.cu; each anchor must be found.  A skipped copy
+# leaves its shared-memory tile as it was: the sums are garbage and the
+# time is what the pass costs without those bytes.
+_NO_WEIGHT_LOADS = [
+    ("""    const int k0 = kt * BK;
+    stage<ROWS, BK / 8, LDK>(s.x[buf], p.x, [&](int r) {""",
+     """    const int k0 = kt * BK;
+    const bool weights = k0 < 0;
+    stage<ROWS, BK / 8, LDK>(s.x[buf], p.x, [&](int r) {"""),
+    ("""    stage<BK, BNA / 8, BNA + 8>(s.wi[buf], p.x,""",
+     """    if (weights) stage<BK, BNA / 8, BNA + 8>(s.wi[buf], p.x,"""),
+    ("""    stage<BK, BNA / 8, BNA + 8>(s.wg[buf], p.x,""",
+     """    if (weights) stage<BK, BNA / 8, BNA + 8>(s.wg[buf], p.x,"""),
+    ("""    stage<BNA, BK / 8, LDK>(s.wo[buf], p.x,""",
+     """    if (weights) stage<BNA, BK / 8, LDK>(s.wo[buf], p.x,"""),
+    ("""    stage<BNB, BK / 8, LDK>(s.wi[buf], p.x,""",
+     """    if (k0 < 0) stage<BNB, BK / 8, LDK>(s.wi[buf], p.x,"""),
+    ("""    stage<BNB, BK / 8, LDK>(s.wg[buf], p.x,""",
+     """    if (k0 < 0) stage<BNB, BK / 8, LDK>(s.wg[buf], p.x,""")]
+_NO_C_LOADS = [("""    const int cp = pos + kt * (BK / TILE);""",
+                """    const int cp = pos + kt * (BK / TILE);
+    if (cp >= 0) return;""")]
+_NO_C_STORES = [("""      *reinterpret_cast<uint4*>(w.out[b] + ((size_t)e * w.M + m0 + r) * w.N + n0 + c) =""",
+                 """      if (reinterpret_cast<const uint4*>(&o[r][c])->x == 0x12345678u)
+      *reinterpret_cast<uint4*>(w.out[b] + ((size_t)e * w.M + m0 + r) * w.N + n0 + c) =""")]
+EXPERT_VARIANTS = {"kernel": [], "no_weight_loads": _NO_WEIGHT_LOADS,
+                   "no_c_loads": _NO_C_LOADS, "no_c_stores": _NO_C_STORES}
+
+
+def expert_variants(case="llama4_capacity", gen=None):
+    """Kernel 2b / 4b's patched builds (``EXPERT_VARIANTS``: the weight
+    tiles of passes A and B not loaded; pass C's tiles not loaded, or its
+    sums not stored) swapped in for the wrapper's library in turns (each
+    variant twice, in opposite orders) on one bf16 case: graph ms and each
+    pass's profiler ms.  Prints one line per run."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import expert_mlp_grouped as gk
+
+    root = build.BUILD_DIR / "variants_expert_bwd"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(build.CSRC, root / "csrc")
+    src = (build.CSRC / "grouped_mlp_bwd.cu").read_text()
+    procs = {}
+    for name, patches in EXPERT_VARIANTS.items():
+        text = src
+        for anchor, repl in patches:
+            if anchor not in text:
+                raise RuntimeError(f"variant {name}: anchor not found in grouped_mlp_bwd.cu")
+            text = text.replace(anchor, repl)
+        (root / "csrc" / f"grouped_mlp_bwd_{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(root / f"lib{name}.so"),
+             str(root / "csrc" / f"grouped_mlp_bwd_{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+    libs = {name: ctypes.CDLL(str(root / f"lib{name}.so")) for name in procs}
+    inp = expert_bwd_inputs(*EXPERT_BWD_CASES[case], torch.bfloat16, gen)
+    kernel, _ = expert_bwd_calls(inp)
+    loaded = build._loaded.get("grouped_mlp_bwd")
+    try:
+        for name in list(libs) + list(libs)[::-1]:
+            build._loaded["grouped_mlp_bwd"] = libs[name]
+            gk._bwd_bound = None
+            res = {"ms": graph_ms(kernel, n=10), "passes_ms": passes_ms(kernel)}
+            print(f"expert backward variant {name}: {case} bf16 {json.dumps(res)}", flush=True)
+    finally:
+        gk._bwd_bound = None
+        if loaded is None:
+            build._loaded.pop("grouped_mlp_bwd", None)
+        else:
+            build._loaded["grouped_mlp_bwd"] = loaded
+
+
+def quick_expert(case):
+    """An expert case at a small size: the same layout, top-k and bias, at
+    widths the tensor-core passes take."""
+    layout, E, D, F, K, T, cf, bias = case
+    return (layout, min(E, 8), 256, 384, min(K, 4), 64, cf, bias)
+
+
 def quick_shape(case):
     """A case at its smallest size: a few tiles, the same heads and masks."""
     B, S, H, Hkv, dh, causal, window, softcap = case
@@ -255,18 +561,29 @@ def quick_shape(case):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true", help="smallest sizes, untimed")
+    ap.add_argument("--only", default="flash,gating,expert",
+                    help="comma-separated kernels: flash (6b), gating (1b), expert (2b / 4b)")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time 2b / 4b's patched builds (EXPERT_VARIANTS) in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("training_kernels: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
 
+    only = set(args.only.split(","))
     torch.backends.cuda.matmul.allow_tf32 = False
-    print("build:", json.dumps(build.build(["flash_attention", "flash_attention_bwd", "moe_gating"])),
-          flush=True)
+    names = (["flash_attention", "flash_attention_bwd"] if "flash" in only else []) + \
+        (["moe_gating"] if only & {"flash", "gating"} else []) + \
+        (["grouped_mlp_bwd"] if "expert" in only else [])
+    print("build:", json.dumps(build.build(names)), flush=True)
+    for src in names:
+        for line in build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src}: {line.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
-    for name, case in FLASH_BWD_CASES.items():
+    for name, case in (FLASH_BWD_CASES if "flash" in only else {}).items():
         case = quick_shape(case) if args.quick else case
         for dtype in (torch.bfloat16, torch.float32):
             res = check_flash_bwd(name, *case, dtype, gen, timed=not args.quick,
@@ -274,15 +591,24 @@ def main(argv=None) -> int:
             ok &= res["ok"]
             print(f"{'ok  ' if res['ok'] else 'FAIL'} flash_attention_backward {name} "
                   f"{json.dumps(res)}", flush=True)
+    for name, case in (EXPERT_BWD_CASES if "expert" in only else {}).items():
+        case = quick_expert(case) if args.quick else case
+        for dtype in (torch.bfloat16, torch.float32):
+            res = check_expert_bwd(name, *case, dtype, gen, timed=not args.quick)
+            ok &= res["ok"]
+            kname = "expert_mlp_backward" if case[0] == "capacity" else "grouped_mlp_backward"
+            print(f"{'ok  ' if res['ok'] else 'FAIL'} {kname} {name} {json.dumps(res)}", flush=True)
+    if args.variants and "expert" in only:
+        expert_variants(gen=gen)
     gating_ms = {}
-    for name, (T, E, K, cf, bias) in GATING_BWD_CASES.items():
+    for name, (T, E, K, cf, bias) in (GATING_BWD_CASES if "gating" in only else {}).items():
         res = check_gating_bwd(name, T if not args.quick else 256, E, K, cf, bias, gen,
                                timed=not args.quick)
         ok &= res["ok"]
         gating_ms[name] = res.get("ms")
         print(f"{'ok  ' if res['ok'] else 'FAIL'} moe_gating_backward {name} {json.dumps(res)}",
               flush=True)
-    if not args.quick:
+    if not args.quick and "gating" in only:
         print(f"launch floor: {json.dumps(launch_floor(gen, gating_ms))}", flush=True)
     return 0 if ok else 1
 

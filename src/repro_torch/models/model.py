@@ -258,7 +258,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     ``memory`` the encoder output the cross attention reads, ``prefix_embeds``
     [B, P, De] patch embeddings prepended to the tokens.  Differentiable:
     under grad, with the parameters ``trainable``, the kernels take their
-    backward kernels (6b, 1b) and a kernel without one raises.  ``remat``
+    backward kernels (6b, 1b, 2b, 4b) and a kernel without one raises.  ``remat``
     recomputes each layer in the backward; ``return_routing`` appends the
     per-layer routing-stats tree (``core/gating.py::summarize_routing``)."""
     x = _with_prefix(cfg, params, embed_tokens(cfg, params, tokens), prefix_embeds)

@@ -3,8 +3,9 @@ a small driver loop, on the card unless the caller asks for the CPU.
 
 A step differentiates the port's ``forward`` with autograd: attention goes
 through kernel 6 and its backward 6b, capacity gating through kernel 1 and
-its backward 1b (``dense`` / ``einsum`` dispatch), and every other product
-through PyTorch.  Unlike JAX's functional step, the parameters and AdamW
+its backward 1b (``dense`` / ``einsum`` dispatch), SwiGLU experts through
+kernels 2 / 2b (capacity buffer) or 4 / 4b (``grouped``), and every other
+product through PyTorch.  Unlike JAX's functional step, the parameters and AdamW
 moments are updated in place; ``make_train_step``'s step returns them all
 the same, so it is called as JAX's is.
 """

@@ -170,16 +170,16 @@ def test_serving_path_builds_no_graph():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grad_guard_of_kernels_without_a_backward(dtype):
-    """``refuse_grad``, which kernels 2-5 and 7-9 call on the card before
+    """``refuse_grad``, which kernels 3, 5 and 7-9 call on the card before
     they launch: it raises under grad for an input that requires it, and
     passes under ``no_grad`` or for inputs that do not."""
     x = torch.zeros(3, dtype=dtype)
     no_backward.refuse_grad("k", no_backward.EXPERT_KERNELS, x, None)
     w = torch.zeros(3, dtype=dtype, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward.*item 7"):
-        no_backward.refuse_grad("expert_mlp", no_backward.EXPERT_KERNELS, x, w)
+    with pytest.raises(RuntimeError, match="no backward.*MoQ weights are post-training"):
+        no_backward.refuse_grad("expert_mlp_quant", no_backward.EXPERT_KERNELS, x, w)
     with torch.no_grad():
-        no_backward.refuse_grad("expert_mlp", no_backward.EXPERT_KERNELS, x, w)
+        no_backward.refuse_grad("expert_mlp_quant", no_backward.EXPERT_KERNELS, x, w)
 
 
 def pair_mask(q_pos, k_pos, causal, window):
