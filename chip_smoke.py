@@ -280,6 +280,18 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    MoE layer a step), a profile of one step each; (h) reduced f32
    llama4-maverick (``ep`` and ``grouped``) and kimi-k2 (``ep``, top-2)
    card vs CPU: first-step gradients, 3 train steps.
+18. expert-parallel serving (slice 15; ``scripts/ep_phase.py``, which also
+   runs it alone): llama4-maverick at its published widths, one (dense,
+   MoE) repeat, 32 experts, on 4 ranks (one GPU each over NCCL where 4 are
+   visible, else four processes time-sharing ``cuda:0`` over gloo, which
+   measures correctness, not EP speed): ``Engine`` under ``ep_grouped`` on
+   (4,) and ``ep_serve`` on (2, 2) (the a2a prefill over the two hops),
+   ``ContinuousEngine`` under ``ep_grouped`` on (4,); every rank's tokens
+   and launches of kernels 1, 2 and 4 (equal to the one-device run's), the
+   MoE layer's output against one device at the served inputs, each rank's
+   kernels 1, 2 and 4 against their plain versions at the EP shapes,
+   reduced f32 card vs CPU under EP, a one-rank NCCL group driving every
+   schedule on device tensors, per-rank bytes and the host-staged bytes.
 16. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
    ``flash_attention_dh256``, ``decode_attention_quant_ring``,
    ``flash_attention_noncausal``, ``flash_attention_g7`` and, from phase
@@ -4890,6 +4902,16 @@ def main() -> int:
     s14_paths, s14_summary = slice14_train(counters)
     for line in slice14_reference_checks():
         log(line)
+    # 18. slice 15: expert-parallel serving on 4 ranks (scripts/ep_phase.py)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ep: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the ranks start")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import ep_phase
+
+    ep_lines, ep_summary, ep_paths = ep_phase.ep_phase(counters)
+    for line in ep_lines:
+        log(line)
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -5202,6 +5224,17 @@ def main() -> int:
             "deterministic": all(v["deterministic"] for v in checks.values()),
             "shapes": checks,
         })
+    # slice 15: every kernel's launches per rank on the EP paths, and each
+    # rank's kernels 1, 2 and 4 at the EP shapes
+    for k in kernels:
+        if k["name"] in next(iter(ep_paths.values())):
+            k["launches_by_path"].update({p: c[k["name"]] for p, c in ep_paths.items()})
+        if k["name"] in ("moe_gating", "expert_mlp", "grouped_mlp"):
+            k["ep_shapes"] = {f"{r}/{mesh}/{case}": v for r, by_mesh in ep_summary["checks"].items()
+                              for mesh, cases in by_mesh.items() for case, v in cases.items()
+                              if case.startswith(k["name"])}
+    log("ep summary: " + json.dumps({k: v for k, v in ep_summary.items() if k != "checks"},
+                                    default=str))
     log("slice 14 training summary: " + json.dumps(s14_summary))
     log("slice 10 training summary: " + json.dumps(s10_summary))
     log("obs summary: " + json.dumps(obs_summary))

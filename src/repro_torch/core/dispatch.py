@@ -6,9 +6,11 @@ a scatter into the ``[E, C, D]`` capacity buffer and a gather back: data
 movement ``T·K·D`` instead of the einsums' ``T·E·C·D``.  A dropped
 assignment goes to a trash row ``E*C`` past the buffer, which is cut off.
 
-The JAX ``moe_dense`` refuses a multi-device mesh and pins the expert
-outputs' sharding before the combine; the port has no mesh (expert
-parallelism is ROADMAP.md, queue 1 item 7), so neither is here.
+``moe_dense`` refuses an ambient mesh of more than one rank, as the JAX
+package's does (there the SPMD partitioner mis-partitions its combine
+gather; here each rank holds its own slice of the placed expert leaves).
+Expert-parallel serving calls ``dispatch_dense`` / ``combine_dense`` in its
+own schedules (core/moe_serve.py).
 """
 from __future__ import annotations
 
@@ -52,5 +54,15 @@ def moe_dense(x: torch.Tensor, g: Gating, capacity: int, num_experts: int,
               expert_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """Dense-dispatch MoE: scatter -> ``expert_fn([E, C, D])`` -> gather and
     combine."""
+    from repro_torch.parallel.sharding import get_mesh
+
+    mesh = get_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(
+            "moe_impl='dense' is numerically unsafe under a multi-device mesh "
+            f"({mesh.size} ranks), as in the JAX package: under expert parallelism each rank "
+            "holds its own slice of the experts. Use the serving EP schedules "
+            "('ep_serve'/'ep_grouped' via cfg.ep_mesh), or 'einsum'/'grouped' for replicated "
+            "execution.")
     xe = dispatch_dense(x, g, capacity, num_experts)
     return combine_dense(expert_fn(xe), g, capacity, num_experts)

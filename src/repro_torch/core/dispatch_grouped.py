@@ -13,7 +13,7 @@ sync.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -69,6 +69,34 @@ def grouped_layout(g: Gating, num_experts: int, *, tile: int = GROUPED_TILE) -> 
     )
 
 
+def scatter_grouped(x: torch.Tensor, g: Gating, num_experts: int, *,
+                    tile: int = GROUPED_TILE) -> Tuple[GroupedLayout, torch.Tensor]:
+    """x [T, D] and dropless gating -> (layout, xg [Ct, D]): each (token, k)
+    slot's row of x at its grouped-buffer row, the other rows zero."""
+    T, D = x.shape
+    K = g.expert_idx.shape[1]
+    layout = grouped_layout(g, num_experts, tile=tile)
+    Ct = layout.tile_expert.shape[0] * tile
+    token = torch.arange(T * K, device=x.device) // K
+    xg = torch.zeros((Ct, D), dtype=x.dtype, device=x.device)
+    xg[layout.dst] = x[token]
+    return layout, xg
+
+
+def combine_grouped(yg: torch.Tensor, layout: GroupedLayout, g: Gating, dtype) -> torch.Tensor:
+    """yg [Ct, D] -> y [T, D] in ``dtype``: each token gathers its K rows and
+    sums them, weighted, in slot order in f32 — deterministic on the card,
+    where ``index_add_`` would run in atomics' order (the JAX package
+    scatter-adds in f32)."""
+    T, K = g.expert_idx.shape
+    rows = yg[layout.dst].view(T, K, yg.shape[-1]).float()
+    w = g.combine_w.float()
+    y = w[:, 0, None] * rows[:, 0]
+    for k in range(1, K):
+        y = y + w[:, k, None] * rows[:, k]
+    return y.to(dtype)
+
+
 def moe_grouped(
     x: torch.Tensor,
     g: Gating,
@@ -78,23 +106,7 @@ def moe_grouped(
     tile: int = GROUPED_TILE,
 ) -> torch.Tensor:
     """x: [T, D]; ``g`` must be dropless gating (``capacity = T*K``).
-    ``expert_fn(xg [Ct, D], tile_expert, rows_used) -> [Ct, D]``.
-
-    Combine: the JAX package scatter-adds in f32; here each token gathers its
-    K rows and sums them in slot order in f32 — deterministic on the card,
-    where ``index_add_`` would run in atomics' order.
-    """
-    T, D = x.shape
-    K = g.expert_idx.shape[1]
-    layout = grouped_layout(g, num_experts, tile=tile)
-    Ct = layout.tile_expert.shape[0] * tile
-    token = torch.arange(T * K, device=x.device) // K
-    xg = torch.zeros((Ct, D), dtype=x.dtype, device=x.device)
-    xg[layout.dst] = x[token]
+    ``expert_fn(xg [Ct, D], tile_expert, rows_used) -> [Ct, D]``."""
+    layout, xg = scatter_grouped(x, g, num_experts, tile=tile)
     yg = expert_fn(xg, layout.tile_expert, layout.rows_used)
-    rows = yg[layout.dst].view(T, K, D).float()
-    w = g.combine_w.float()
-    y = w[:, 0, None] * rows[:, 0]
-    for k in range(1, K):
-        y = y + w[:, k, None] * rows[:, k]
-    return y.to(x.dtype)
+    return combine_grouped(yg, layout, g, x.dtype)

@@ -14,11 +14,19 @@ Dispatch implementations (``cfg.moe_impl``):
                   for MoQ int8 / int4 experts) for SwiGLU experts, and for
                   GELU / ReLU experts plain batched products over each
                   tile's gathered weights (``grouped_act_ffn``);
-  * ``ep``, ``ep_serve``, ``ep_grouped`` — expert parallelism, which needs a
-                  mesh; the port has none (ROADMAP.md, queue 1 item 7), so
-                  they resolve as the JAX package resolves them without one:
-                  ``ep`` and ``ep_serve`` to ``dense``, ``ep_grouped`` to
-                  ``grouped``.
+  * ``ep_serve``, ``ep_grouped`` — expert-parallel serving
+                  (core/moe_serve.py) under an ambient mesh whose
+                  ``expert`` axes divide E: the capacity schedules (kernels
+                  1 and 2 on each rank's experts) and the grouped one
+                  (kernel 4); the serving engines rewrite every capacity
+                  impl to ``ep_serve`` and ``grouped`` to ``ep_grouped``
+                  under ``cfg.ep_mesh`` (serving/ep.py).  Without a usable
+                  mesh they resolve as the JAX package resolves them:
+                  ``ep_grouped`` to ``grouped``, ``ep_serve`` to ``dense``
+                  (to ``einsum`` under a mesh that cannot shard E);
+  * ``ep``      — expert-parallel training's all-to-all layer; without a
+                  mesh it is ``dense``, and under one it is ROADMAP.md
+                  queue 1 item 7b (not ported).
 
 Expert MLPs over the capacity buffer (``experts_ffn``): fp SwiGLU through
 kernel 2 (under grad with its backward 2b; the grouped dispatch's kernel 4
@@ -38,6 +46,7 @@ import torch
 from repro_torch.configs.base import FFNSpec, ModelConfig
 from repro_torch.core import dispatch, dispatch_einsum, dispatch_grouped
 from repro_torch.core.gating import expert_capacity, load_balance_loss, routing_stats, top_k_gating
+from repro_torch.core.moe_serve import moe_layer_ep_serve, serve_ep_axes
 from repro_torch.kernels.expert_mlp import expert_mlp
 from repro_torch.kernels.expert_mlp_grouped import (
     check_grouped_quant_compat,
@@ -52,6 +61,7 @@ from repro_torch.kernels.expert_mlp_quant import (
 )
 from repro_torch.kernels.moe_gating import gating
 from repro_torch.models.modules import act_fn, dense_init, init_mlp, mlp
+from repro_torch.parallel.sharding import get_mesh
 from repro_torch.quant.qarrays import QuantizedArray, dequantize_values, materialize
 
 # the most bytes of per-tile expert weights (gathered, and their f32 copies)
@@ -60,6 +70,7 @@ GATHER_BYTES = 1 << 30
 
 # the expert-parallel names without a mesh (``repro/core/moe.py``: "ep" and
 # "ep_serve" take the dense mapping table, "ep_grouped" the grouped kernel)
+EP_SERVE_IMPLS = ("ep_serve", "ep_grouped")
 NO_MESH_IMPL = {"ep": "dense", "ep_serve": "dense", "ep_grouped": "grouped"}
 IMPLS = ("dense", "einsum", "grouped", *NO_MESH_IMPL)
 
@@ -184,6 +195,18 @@ def moe_layer(
     impl = impl or cfg.moe_impl
     if impl not in IMPLS:
         raise ValueError(f"moe_impl={impl!r}: expected one of {IMPLS}")
+    if impl in EP_SERVE_IMPLS:
+        if serve_ep_axes(spec.num_experts) is not None:
+            return _moe_layer_ep_serve(cfg, spec, params, x, impl, with_stats)
+        # no mesh that shards E: the equivalent one-device dispatch; under a
+        # multi-rank mesh the mapping table refuses, so the capacity
+        # fallback there is the einsum dispatch, as in the JAX package
+        impl = "grouped" if impl == "ep_grouped" else (
+            "einsum" if get_mesh() is not None else "dense")
+    elif impl == "ep" and get_mesh() is not None:
+        raise NotImplementedError("moe_impl='ep' under a mesh is expert-parallel training, "
+                                  "which is not ported yet (ROADMAP.md, queue 1 item 7b); "
+                                  "serving under cfg.ep_mesh rewrites it to 'ep_serve'")
     impl = NO_MESH_IMPL.get(impl, impl)
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
@@ -211,3 +234,30 @@ def moe_layer(
     if with_stats:
         return y, aux, routing_stats(g, E)
     return y, aux
+
+
+def _moe_layer_ep_serve(cfg: ModelConfig, spec: FFNSpec, params: dict, x: torch.Tensor,
+                        impl: str, with_stats: bool) -> Tuple[torch.Tensor, ...]:
+    """The serving EP layer (core/moe_serve.py) under the ambient mesh.
+    Quantized expert leaves are dequantized here (the engines do it once at
+    load time: ``quant.ptq.prepare_params_for_serving``).  ``with_stats``
+    re-runs the router and the gating on the replicated token set: for the
+    replicated-token schedules exactly the gating the dispatch used; for the
+    a2a prefill its drop accounting is the global capacity's, not the
+    per-shard capacity's (the JAX package's caveat)."""
+    if isinstance(params.get("wi"), QuantizedArray):
+        params = {**params, **{k: materialize(params[k]) for k in ("wi", "wg", "wo") if k in params}}
+    y, aux = moe_layer_ep_serve(cfg, spec, params, x,
+                                kernel="grouped" if impl == "ep_grouped" else "dense")
+    if spec.residual:
+        y = y + mlp(params["residual"], x, spec.act)
+    if not with_stats:
+        return y, aux
+    B, S, D = x.shape
+    E, K = spec.num_experts, spec.top_k
+    logits = x.reshape(B * S, D).float() @ params["router"]
+    if impl == "ep_grouped":
+        g = top_k_gating(logits, K, B * S * K)
+    else:
+        g, _ = gating(logits, K, expert_capacity(B * S, E, K, spec.capacity_factor))
+    return y, aux, routing_stats(g, E)

@@ -1,7 +1,8 @@
 """Batches on a device (``repro/data/pipeline.py``): the synthetic stream's
 numpy (tokens, labels) as int64 tensors on an explicit device.  The JAX
-package shards them over a mesh's batch axes; the port has no mesh yet
-(ROADMAP queue 1 item 7), so a batch goes whole to one device."""
+package shards them over a mesh's batch axes; that branch belongs to
+expert-parallel training (ROADMAP queue 1 item 7b), so a batch goes whole
+to one device."""
 from __future__ import annotations
 
 from typing import Iterator, Tuple

@@ -10,7 +10,11 @@ Either engine runs under ``repro_torch.obs.Obs``: the measured run's
 metrics (reset after the warm-up) are printed from one snapshot, which
 ``--metrics-out FILE`` appends as a JSON line; ``--trace-out FILE`` writes
 the Chrome / Perfetto trace of the run and ``--obs-routing`` adds the
-per-step routing statistics (the ``routing.*`` gauges).
+per-step routing statistics (the ``routing.*`` gauges).  ``--ep-devices 4``
+or ``2x2`` serves expert-parallel (serving/ep.py): one spawned process per
+rank, each with its slice of the experts, over gloo with ``--device cpu``
+and over NCCL with one GPU per rank on the card (it refuses to start with
+fewer GPUs than ranks); rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
       --reduced                                 # on the card, the arch's own moe_impl
@@ -25,9 +29,9 @@ per-step routing statistics (the ``routing.*`` gauges).
   ... --arch recurrentgemma-2b | mamba2-370m     # window rings, RG-LRU, Mamba-2 SSD
   ... --paged --spec-draft self                  # any of them as target or drafter
   ... --trace-out trace.json --metrics-out metrics.jsonl --obs-routing
+  ... --ep-devices 2x2 --device cpu             # 4 gloo ranks, hierarchical a2a
 
-A subset of ``repro.launch.serve``'s flags; the others exit with an error
-naming the ROADMAP item that ports them.  An encoder-decoder arch
+A subset of ``repro.launch.serve``'s flags.  An encoder-decoder arch
 (seamless-m4t-medium) exits with an error: the launcher has no encoder
 input to give it (``Engine(memory=encode(...))`` serves it from Python); a
 vlm arch serves text tokens without patch embeddings, as the JAX launcher
@@ -36,10 +40,14 @@ does.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import statistics
+import sys
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.configs.registry import get_config, make_reduced
@@ -48,14 +56,12 @@ from repro_torch.obs import Obs
 from repro_torch.quant import kv_cache_bytes, quantize_params, quantized_leaf_paths, tree_bytes
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import Engine, EngineConfig, Request
-
-# flags of the JAX launcher this slice does not port -> where they are queued
-UNPORTED = {
-    "--ep-devices": "queue 1 item 7 (expert parallelism)",
-}
+from repro_torch.serving.ep import launch, mesh_size, parse_ep_mesh, placed_param_bytes
 
 
-def main(argv=None) -> None:
+def parse(argv=None):
+    """(args, cfg) from the command line, checked; ``cfg.ep_mesh`` set from
+    ``--ep-devices``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -118,12 +124,12 @@ def main(argv=None) -> None:
     ap.add_argument("--obs-routing", action="store_true",
                     help="collect per-step routing statistics (routing.* gauges: dropped "
                          "share, gate entropy, imbalance)")
-    for flag in UNPORTED:
-        ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ep-devices", default=None, metavar="N[xM]",
+                    help="expert-parallel serving mesh: '4' shards the experts flat over 4 "
+                         "ranks, '2x2' builds an (outer, inner) mesh whose MoE exchange is the "
+                         "hierarchical two-hop all-to-all (paper Fig. 8); one process per rank, "
+                         "gloo with --device cpu, NCCL with one GPU per rank on the card")
     args = ap.parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet (ROADMAP.md, {item})")
     if (args.prefill_chunk or args.slots or args.pages) and not args.paged:
         ap.error("--pages/--slots/--prefill-chunk apply to the paged engine; pass --paged")
     if args.prefix_sharing and not args.paged:
@@ -154,6 +160,9 @@ def main(argv=None) -> None:
         if args.obs_routing:
             ap.error("--obs-routing is incompatible with --spec-draft: the verify pass "
                      "returns no routing statistics")
+        if args.ep_devices:
+            ap.error("--spec-draft is not implemented over an expert-parallel serving mesh; "
+                     "drop --ep-devices")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -171,13 +180,63 @@ def main(argv=None) -> None:
                      "nlg-350m-moe128) or drop the flag")
         cfg = cfg.replace(moe_impl=args.moe_impl)
     if args.spec_draft and args.spec_draft != "self":
-        dcfg = get_config(args.spec_draft)
-        if args.reduced:
-            dcfg = make_reduced(dcfg)
+        dcfg = drafter_config(args)
         if dcfg.vocab_size != cfg.vocab_size:
             ap.error(f"--spec-draft {args.spec_draft}: drafter vocab {dcfg.vocab_size} != target "
                      f"vocab {cfg.vocab_size}; greedy verification needs a shared token space")
+    if args.ep_devices:
+        try:
+            shape = parse_ep_mesh(args.ep_devices)
+        except ValueError as e:
+            ap.error(str(e))
+        world = mesh_size(shape)
+        if args.device != "cpu" and world > torch.cuda.device_count():
+            ap.error(f"--ep-devices {args.ep_devices}: needs {world} GPUs, one per rank, "
+                     f"only {torch.cuda.device_count()} visible (--device cpu serves on gloo "
+                     "ranks)")
+        cfg = cfg.replace(ep_mesh=shape)
+    return args, cfg
 
+
+def drafter_config(args):
+    """The config of ``--spec-draft ARCH`` (``--reduced`` applies)."""
+    dcfg = get_config(args.spec_draft)
+    return make_reduced(dcfg) if args.reduced else dcfg
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, cfg = parse(argv)
+    world = mesh_size(cfg.ep_mesh)
+    if world > 1:
+        launch(serve_rank, world, backend="gloo" if args.device == "cpu" else "nccl",
+               args=(argv,), threads=max(1, torch.get_num_threads() // world))
+        return
+    serve(args, cfg)
+
+
+def serve_rank(rank: int, argv) -> None:
+    """One rank of ``--ep-devices``: the same serve as every other rank, its
+    output printed by rank 0 only."""
+    args, cfg = parse(argv)
+    if rank == 0:
+        serve(args, cfg)
+        return
+    args.trace_out = args.metrics_out = None  # rank 0 writes them
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        serve(args, cfg)
+
+
+def print_mesh(eng) -> None:
+    """The JAX launcher's line for a mesh: its axes, the EP schedule and this
+    rank's parameter bytes."""
+    if eng._mesh is not None:
+        print(f"EP serving mesh {eng._mesh.sizes()} ({eng._mesh.backend}): "
+              f"moe_impl={eng.cfg.moe_impl}, {placed_param_bytes(eng.params) / 1e6:.1f}MB "
+              "params/rank")
+
+
+def serve(args, cfg) -> None:
     params = load_params(args, cfg)
     obs = Obs(trace=bool(args.trace_out), routing=args.obs_routing)
     rng = np.random.default_rng(0)
@@ -189,6 +248,7 @@ def main(argv=None) -> None:
         if args.spec_draft == "self":
             spec_draft = (cfg, params)
         elif args.spec_draft:
+            dcfg = drafter_config(args)
             spec_draft = (dcfg, init_params(dcfg, seed=1, device=args.device))
         serve_paged(args, cfg, params, reqs, obs, spec_draft)
         return
@@ -196,6 +256,8 @@ def main(argv=None) -> None:
                       max_decode=args.new_tokens, temperature=args.temperature,
                       top_k=args.top_k, top_p=args.top_p, kv_cache_bits=args.kv_bits)
     eng = Engine(cfg, params, ec, obs=obs, device=args.device)
+    del params  # an EP rank keeps its own slice only
+    print_mesh(eng)
     if args.kv_bits:
         fp_b, q_b = (kv_cache_bytes(init_caches(cfg, args.batch, eng._capacity, kv_bits=b,
                                                 device="meta")) for b in (0, args.kv_bits))
@@ -279,6 +341,7 @@ def serve_paged(args, cfg, params, reqs, obs, spec_draft=None) -> None:
         prefill_mode=args.prefill_mode, prefix_sharing=args.prefix_sharing,
         kv_cache_bits=args.kv_bits, spec_draft=spec_draft, spec_k=args.spec_k, obs=obs,
         device=args.device)
+    print_mesh(eng)
     if spec_draft is not None:
         print(f"speculative decoding: drafter={spec_draft[0].name}"
               f"{' (self)' if args.spec_draft == 'self' else ''}, k={args.spec_k} drafted tokens "

@@ -93,14 +93,31 @@ def dequantize_params(params):
 
 def prepare_params_for_serving(cfg, params):
     """Where serving and quantization meet, as in the JAX package: the
-    identity, unless the expert-parallel shard_map path will run
-    (``moe_impl`` an EP impl under a mesh), which would materialize the
-    quantized expert leaves once.  Expert parallelism is not ported
-    (ROADMAP.md, queue 1 item 7), so that case raises."""
-    if getattr(cfg, "moe_impl", None) in ("ep", "ep_serve", "ep_grouped") and cfg.ep_mesh:
-        raise NotImplementedError(
-            "expert-parallel serving of quantized experts is not ported yet (ROADMAP.md, queue 1 item 7)")
-    return params
+    identity, unless expert-parallel serving will run (``moe_impl`` an EP
+    impl under an ambient mesh), whose schedules take plain expert weights:
+    then the quantized routed-expert leaves (directly under ``moe``; the
+    shared expert's ``moe/residual`` keeps its own) are dequantized once,
+    here, and kernels 3 and 5 do not run.  Every other quantized leaf stays
+    quantized."""
+    from repro_torch.models.model import ParamTree
+    from repro_torch.parallel.params import EXPERT_KEYS
+    from repro_torch.parallel.sharding import get_mesh
+
+    if getattr(cfg, "moe_impl", None) not in ("ep", "ep_serve", "ep_grouped") or get_mesh() is None:
+        return params
+
+    def visit(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, ParamTree):
+                out[k] = visit(v, path + [k])
+            elif isinstance(v, QuantizedArray) and path[-1:] == ["moe"] and k in EXPERT_KEYS:
+                out[k] = v.dequantize()
+            else:
+                out[k] = v
+        return ParamTree(out)
+
+    return visit(params, [])
 
 
 def _leaves(tree, path=()):

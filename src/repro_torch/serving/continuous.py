@@ -120,8 +120,12 @@ counts the model-step calls a tick makes (JAX's jitted calls, one per
 call site of its engine).  The port compiles nothing, so the watchdog
 registers no function and ``serve.retraces`` stays 0.
 
-Not ported here, raising ``NotImplementedError`` that names its ROADMAP
-item: expert-parallel meshes.
+Under ``cfg.ep_mesh`` (expert-parallel serving, serving/ep.py) the engine
+runs as one rank of an SPMD group, as ``Engine`` does: the same scheduler
+and host decisions on every rank, this rank's expert slice, the page pool
+and caches replicated (``place_caches``), the model calls of ``submit``,
+``submit_n`` and ``step`` under the mesh.  Speculative decoding over a mesh
+is refused with ``NotImplementedError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -154,14 +158,11 @@ from repro_torch.models.model import (
 from repro_torch.obs import Obs
 from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.engine import Request, Response
+from repro_torch.serving.ep import init_engine_mesh, mesh_scope, mesh_size, place_caches, place_params
 from repro_torch.serving.kv_pool import BlockTables, KVBlockPool
 from repro_torch.serving.prefix_index import PrefixIndex
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.spec import Drafter, accept_length
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"ContinuousEngine: {what} is not ported yet (ROADMAP.md, queue 1 {item})")
 
 
 @dataclass
@@ -256,15 +257,24 @@ class ContinuousEngine:
                 raise ValueError(f"drafter vocab_size {spec_draft[0].vocab_size} != target "
                                  f"vocab_size {cfg.vocab_size}: drafted token ids must be target "
                                  "token ids for verification to compare them")
-        if cfg.ep_mesh:
-            _unported("an expert-parallel mesh", "item 7")
+        if spec_draft is not None and mesh_size(cfg.ep_mesh) > 1:
+            raise NotImplementedError(
+                "speculative decoding is not implemented over an expert-parallel serving mesh: "
+                "the verify window's CoW fork plan is host-side per slot while the mesh "
+                "replicates the page pool per rank - run without cfg.ep_mesh / --ep-devices, "
+                "or drop --spec-draft")
         obs = obs if obs is not None else Obs()
         if spec_draft is not None and obs.routing:
             raise ValueError("routing collection is incompatible with speculative decoding: the "
                              "verify pass replaces the plain decode step and returns no "
                              "RoutingStats")
         self.device = resolve_device(device)
-        params = prepare_params_for_serving(cfg, params)
+        # the EP serving mesh (cfg.ep_mesh) rewrites moe_impl to its schedule
+        self._mesh, self._mesh_rules, cfg = init_engine_mesh(cfg)
+        with mesh_scope(self._mesh, self._mesh_rules):
+            params = prepare_params_for_serving(cfg, params)
+        if self._mesh is not None:
+            params = place_params(self._mesh, self._mesh_rules, params, cfg)
         leaf = params["embed"]
         if leaf.device != self.device:
             raise ValueError(f"ContinuousEngine: parameters are on {leaf.device}, the engine on {self.device}")
@@ -310,6 +320,9 @@ class ContinuousEngine:
         else:
             self.caches = init_caches(cfg, slots, capacity, kv_bits=kv_cache_bits,
                                       device=self.device)
+        if self._mesh is not None:
+            self.caches = place_caches(self._mesh, self._mesh_rules, self.caches, slots=slots,
+                                       n_pages=self.n_pages if paged else None)
         self.slots = [SlotState() for _ in range(slots)]
         self.queue: List[_Pending] = []
         self.done: Dict[int, Response] = {}
@@ -498,7 +511,8 @@ class ContinuousEngine:
         self.queue.append(_Pending(rid=rid, prompt=list(req.prompt), budget=self._clamped_budget(req),
                                    generated=[], prompt_len=len(req.prompt)))
         self._obs_submitted(rid)
-        self._admit()
+        with mesh_scope(self._mesh, self._mesh_rules):
+            self._admit()
         return rid
 
     def submit_n(self, req: Request, n: int) -> List[int]:
@@ -521,7 +535,8 @@ class ContinuousEngine:
                                        fork_of=rids[0] if j else -1))
             rids.append(rid)
             self._obs_submitted(rid)
-        self._admit()
+        with mesh_scope(self._mesh, self._mesh_rules):
+            self._admit()
         return rids
 
     # ------------------------------------------------------------------
@@ -1226,6 +1241,10 @@ class ContinuousEngine:
         (chunked; batched: one chunk per prefilling slot, one call), then one
         decode step over every active slot that is not mid-prefill.  Returns
         the number of active slots (decoding + prefilling)."""
+        with mesh_scope(self._mesh, self._mesh_rules):
+            return self._step()
+
+    def _step(self) -> int:
         t0 = time.perf_counter()
         tr = self._tr
         if tr:

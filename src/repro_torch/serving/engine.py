@@ -41,8 +41,11 @@ device-to-host copy a step, made after the next token read, when the
 device has finished the step; as in JAX, the step that takes the last
 generated token runs too, so ``last_routing`` covers it.
 
-Not ported here: meshes (expert-parallel serving), which raise if asked
-for.
+Under ``cfg.ep_mesh`` (expert-parallel serving, serving/ep.py) the engine
+runs as one rank of an SPMD group: every rank builds it from the same config
+and requests, the config's ``moe_impl`` becomes its EP schedule, the routed
+experts are cut to this rank's slice (quantized ones dequantized first) and
+the model calls run under the mesh.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from repro_torch.core.gating import routing_to_host, summarize_routing
 from repro_torch.models.model import decode_step, init_caches, prefill, resolve_device
 from repro_torch.obs import Obs
 from repro_torch.quant.ptq import prepare_params_for_serving
+from repro_torch.serving.ep import init_engine_mesh, mesh_scope, place_params
 from repro_torch.serving.sampling import sample
 
 
@@ -86,22 +90,21 @@ class Response:
     prompt_len: int
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"Engine: {what} is not ported yet (ROADMAP.md, queue 1 {item})")
-
-
 class Engine:
     """Synchronous batched engine: one prefill, then one decode step per
     token, on ``device`` (the card unless the caller passes ``"cpu"``)."""
 
     def __init__(self, cfg: ModelConfig, params, ec: EngineConfig, *, memory=None,
                  prefix_embeds=None, obs=None, device="cuda"):
-        if cfg.ep_mesh:
-            _unported("an expert-parallel mesh", "item 7")
         if ec.kv_cache_bits not in (0, 8):
             raise ValueError(f"kv_cache_bits must be 0 (fp) or 8 (int8), got {ec.kv_cache_bits}")
         self.device = resolve_device(device)
-        params = prepare_params_for_serving(cfg, params)
+        # the EP serving mesh (cfg.ep_mesh) rewrites moe_impl to its schedule
+        self._mesh, self._mesh_rules, cfg = init_engine_mesh(cfg)
+        with mesh_scope(self._mesh, self._mesh_rules):
+            params = prepare_params_for_serving(cfg, params)
+        if self._mesh is not None:
+            params = place_params(self._mesh, self._mesh_rules, params, cfg)
         leaf = params["embed"]
         if leaf.device != self.device:
             raise ValueError(f"Engine: parameters are on {leaf.device}, the engine on {self.device}")
@@ -142,8 +145,9 @@ class Engine:
     def generate(self, requests: Sequence[Request], *, seed: int = 0) -> List[Response]:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out: List[Response] = []
-        for start in range(0, len(requests), self.ec.max_batch):
-            out.extend(self._generate_batch(requests[start : start + self.ec.max_batch], gen))
+        with mesh_scope(self._mesh, self._mesh_rules):
+            for start in range(0, len(requests), self.ec.max_batch):
+                out.extend(self._generate_batch(requests[start : start + self.ec.max_batch], gen))
         return out
 
     def _routing(self, stats) -> None:

@@ -9,8 +9,8 @@ computes it outside any Pallas kernel too), in place: parameters and
 moments are updated where they lie, a leaf at a time in chunks of
 ``CHUNK`` values, so the f32 temporaries of a 1.3 G-value expert leaf stay
 a few hundred MB.  Each chunk follows JAX's expression in its order of
-roundings.  The sharded (ZeRO-1) moments of the JAX docstring need a mesh
-(ROADMAP queue 1 item 7).
+roundings.  The sharded (ZeRO-1) moments of the JAX docstring belong to
+expert-parallel training (ROADMAP queue 1 item 7b).
 
 Trees here are ``{path: tensor}`` dicts in one order
 (``models/model.py::param_leaves``); the step is a host integer.

@@ -174,16 +174,20 @@ def test_prompt_truncated_to_capacity(llama4):
     assert len(tt[0][0]) == 7
 
 
+# options the engine refuses where their requirement is missing: an
+# expert-parallel mesh needs one process per rank in a default process
+# group (serving/ep.py's launch; served in test_torch_ep_serving.py)
 UNPORTED = [
-    ("ep_mesh", dict(ep_mesh=(2,)), "item 7"),
+    ("ep_mesh", dict(ep_mesh=(2,)), RuntimeError, "process group"),
 ]
 
 
-@pytest.mark.parametrize("opt,match", [(o, m) for _, o, m in UNPORTED], ids=[n for n, _, _ in UNPORTED])
-def test_unported_options_raise(llama4, opt, match):
+@pytest.mark.parametrize("opt,exc,match", [(o, e, m) for _, o, e, m in UNPORTED],
+                         ids=[n for n, _, _, _ in UNPORTED])
+def test_unported_options_raise(llama4, opt, exc, match):
     _, tcfg, _, tparams = llama4
     opt = dict(opt)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
+    with pytest.raises(exc, match=match):
         cfg = tcfg.replace(ep_mesh=opt.pop("ep_mesh")) if "ep_mesh" in opt else tcfg
         ContinuousEngine(cfg, tparams, device="cpu", **{**PAGED, **opt})
 

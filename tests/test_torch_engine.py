@@ -112,14 +112,21 @@ def test_cli_runs_on_cpu(pair, capsys):
 
 
 def test_cli_rejects_unported_flags(capsys):
+    # --ep-devices serves (test_torch_ep_serving.py); a mesh of three axes,
+    # and speculation over a mesh, the JAX launcher refuses too
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--ep-devices", "2"])
-    assert "--ep-devices is not ported yet" in capsys.readouterr().err
+        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--ep-devices", "2x2x2"])
+    assert "bad --ep-devices '2x2x2'" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", ARCHS[0], "--reduced", "--device", "cpu", "--ep-devices", "2",
+                     "--paged", "--spec-draft", "self"])
+    assert "--spec-draft is not implemented over an expert-parallel" in capsys.readouterr().err
 
 
 def test_engine_rejects_unported_options(pair):
     _, _, tcfg, _, tparams = pair
     with pytest.raises(ValueError, match="kv_cache_bits"):  # 0 and 8 only, as in JAX
         te.Engine(tcfg, tparams, te.EngineConfig(kv_cache_bits=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh needs one process per rank in a default process group
+    with pytest.raises(RuntimeError, match="process group"):
         te.Engine(tcfg.replace(ep_mesh=(2,)), tparams, te.EngineConfig(), device="cpu")
