@@ -266,8 +266,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    MLP's backward over the capacity and the grouped buffer) against their
    plain versions per row of dx, dwi, dwg and dwo, bf16 and f32, at
    llama4-maverick's width (16 experts, top-1, T = 2048: C = 160), kimi-k2's
-   (32 experts, top-8, T = 1024), a capacity buffer with an empty expert
-   and one with trailing dead tiles holding garbage; dead rows and empty
+   (32 experts, top-8, T = 1024), a capacity buffer with an empty expert,
+   a grouped one with trailing dead tiles holding garbage and a grouped one
+   at D 384, F 640 (pass C's ragged last 256-column tile); bf16 through
+   the wgmma passes (``variant_launches``); dead rows and empty
    experts exactly 0, bit for bit over two launches, timed beside their
    bounds, the plain versions and a cuBLAS composite; and kernel 6b at
    llama4's G = 5 (40 heads over 8, dh 128, 4 x 512); (g) llama4-maverick at
@@ -292,7 +294,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    kernels 1, 2 and 4 against their plain versions at the EP shapes,
    reduced f32 card vs CPU under EP, a one-rank NCCL group driving every
    schedule on device tensors, per-rank bytes and the host-staged bytes.
-16. a ``{"kernels": [...]}`` line (with ``flash_attention_window``,
+16. the script's own time ("script time:", from ``main``'s start, the
+   build included), a ``{"kernels": [...]}`` line (with
+   ``flash_attention_window``,
    ``flash_attention_dh256``, ``decode_attention_quant_ring``,
    ``flash_attention_noncausal``, ``flash_attention_g7`` and, from phase
    17, ``flash_attention_backward``, ``moe_gating_backward``,
@@ -435,8 +439,8 @@ def graph_ms(fn, n=20, reps=5) -> float:
 
 
 # the per-variant launches of kernels 4, 5 and 3 (tensor-core "mma", CUDA-core
-# "fma") and of kernel 1 (one launch, or two) in each served run, by the
-# run's name (``read``)
+# "fma"), of the backwards 2b and 4b ("wgmma", "fma") and of kernel 1 (one
+# launch, or two) in each served run, by the run's name (``read``)
 VARIANTS_SEEN = {}
 
 
@@ -458,16 +462,17 @@ def reset(*counters):
 def read(counters, path) -> dict:
     """Every kernel's launches since the last ``reset``.  Each caller is a
     served or trained run at full width in bf16, so every call of kernels 4,
-    5 and 3 and of the backwards 2b and 4b must have taken the tensor-core
-    variant, and every call of kernel 1 its
+    5 and 3 must have taken the tensor-core variant, every call of the
+    backwards 2b and 4b the wgmma passes, and every call of kernel 1 its
     one-launch path (the served T*K are within its slot bound): their
     per-variant counts are checked against the launches and kept in
     VARIANTS_SEEN[path]."""
     got = {k: v for c in counters for k, v in c.items()}
     v = VARIANTS_SEEN[path] = {k: n for c in variant_counters() for k, n in c.items()}
-    for name in ("grouped_mlp", "grouped_mlp_quant", "expert_mlp_quant", "grouped_mlp_backward",
-                 "expert_mlp_backward"):
-        if v[f"{name}_mma"] != got[name] or v[f"{name}_fma"]:
+    for name, fast in (("grouped_mlp", "mma"), ("grouped_mlp_quant", "mma"),
+                       ("expert_mlp_quant", "mma"), ("grouped_mlp_backward", "wgmma"),
+                       ("expert_mlp_backward", "wgmma")):
+        if v[f"{name}_{fast}"] != got[name] or v[f"{name}_fma"]:
             raise AssertionError(f"{path}: {name} launched {got[name]} times, variants {v}: a "
                                  f"served bf16 call left the tensor-core kernel")
     if v["moe_gating_one_launch"] != got["moe_gating"] or v["moe_gating_two_launches"]:
@@ -4114,7 +4119,7 @@ def slice10_kernel_checks(gen) -> tuple:
             kname = "expert_mlp_backward" if case[0] == "capacity" else "grouped_mlp_backward"
             (cb if case[0] == "capacity" else ob)[key] = res
             log(f"kernel {kname} {key}: {json.dumps(res)}")
-            want = ["mma"] if dt == torch.bfloat16 else ["fma"]
+            want = ["wgmma"] if dt == torch.bfloat16 else ["fma"]  # the wgmma passes at bf16
             if not res["ok"] or res["variant"] != want:
                 raise AssertionError(f"kernel {kname} {key} disagrees with its plain version, two "
                                      f"launches differ, a dead row or empty expert is not 0, or it "
@@ -4333,6 +4338,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.base import Segment
     from repro_torch.configs.registry import get_config, make_reduced
@@ -5240,6 +5246,7 @@ def main() -> int:
     log("obs summary: " + json.dumps(obs_summary))
     log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
+    log(f"script time: {time.perf_counter() - t_main:.1f} s from main's start, the build included")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

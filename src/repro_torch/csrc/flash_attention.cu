@@ -772,28 +772,8 @@ __global__ void __launch_bounds__(WgCfg<DH, NWG>::NT, WgCfg<DH, NWG>::MIN_BLOCKS
   }
 }
 
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
-// libraries do not link libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
+using hopper::EncodeTiled;
+using hopper::encoder;
 
 // A bf16 tensor [d3, d2, d1, d0] (d0 innermost) as a 4-D map with boxes of
 // 64 columns x 1 x rows x 1 and the 128-byte swizzle; out-of-bounds reads

@@ -1,5 +1,5 @@
-// Hopper's asynchronous pieces for kernel 6's bf16 path (flash_attention.cu),
-// sm_90a:
+// Hopper's asynchronous pieces for kernel 6's bf16 path (flash_attention.cu)
+// and the expert MLP backward's (grouped_mlp_bwd.cu), sm_90a:
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count (the
 //     bytes a TMA load will deliver), and a parity wait.  The wait polls
@@ -7,20 +7,23 @@
 //     arrival is a bug, and the trap turns a hang into a launch error that
 //     the wrapper's next synchronisation reports.  mbar_wait_ptx is the same
 //     wait in one block of PTX, for waits between wgmma issues.
-//   * TMA: 1-D and 4-D tiled loads global -> shared (cp.async.bulk.tensor)
-//     whose completion counts their bytes on an mbarrier; the tensor map lives in
-//     kernel parameter space (__grid_constant__).  Boxes past the tensor's
-//     edge are zero-filled.
+//   * TMA: 1-D, 2-D and 4-D tiled loads global -> shared (cp.async.bulk.tensor)
+//     whose completion counts their bytes on an mbarrier, 2-D stores shared ->
+//     global in bulk groups (with stmatrix to stage them); the tensor map lives in
+//     kernel parameter space (__grid_constant__), encoded on the host by
+//     cuTensorMapEncodeTiled reached through the runtime (encoder).  Boxes
+//     past the tensor's edge are zero-filled.
 //   * wgmma: the shared-memory matrix descriptor for a tile stored by TMA
 //     with the 128-byte swizzle (rows of 128 bytes, 8-row groups 1024 bytes
 //     apart, tiles 1024-byte aligned), fence / commit / wait, and the
-//     m64nNk16 bf16 -> f32 products kernel 6 uses: A and B from shared memory
-//     (S = Q K^T), or A from registers and B transposed (O += P V; N = dh up
-//     to 256).  The
+//     m64nNk16 bf16 -> f32 products: A and B from shared memory (kernel 6's
+//     S = Q K^T), or A from registers and B transposed (O += P V; N = dh up
+//     to 256); A and B from shared memory with B, or both, transposed (the
+//     expert MLP backward's U = X Wi and dWi = X^T dU).  The
 //     accumulators are written asynchronously: after a wait, fence_acc ties
 //     each register to the wait so the compiler reads none earlier.
 //   * setmaxnreg: registers moved from the producer warpgroup to the
-//     consumers.
+//     consumers; a named barrier over one warpgroup.
 #pragma once
 
 #include <cuda.h>
@@ -111,6 +114,80 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A box of a 2-D tensor map at coordinates (c0 innermost, c1) into dst,
+// completing on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A box of a 2-D tensor map at (c0 innermost, c1) from src (shared memory in
+// the layout a load of the same map writes), in the thread's bulk group,
+// with an L2 evict-first hint: an output written once, and not read again,
+// should not push from L2 the inputs that are.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "{\n.reg .b64 pol;\ncreatepolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3}], [%1], pol;\n}\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of the thread's bulk groups are still reading shared
+// memory (READ) or still in flight at all.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's shared-memory writes before later async-proxy reads
+// (a TMA store of them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices to shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8, and register i the thread's pair of matrix i (row
+// lane / 4, columns 2 (lane % 4) ..: an mma accumulator fragment's layout).
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_u32(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
+// libraries do not link libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
 // 2^x (MUFU.EX2; 2^-inf = +0).
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -166,6 +243,11 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Barrier `id` (1 .. 15) over `count` threads, whole warps (one warpgroup: 128).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, f32 accumulate: A (K-major) and
@@ -278,5 +360,64 @@ __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128], const uint32_t
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// The accumulator operands d[i .. i + 7] of a wgmma asm statement.
+#define HOPPER_ACC8(i)                                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A K-major, B MN-major (transposed),
+// both from shared memory.
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A and B both MN-major
+// (transposed) from shared memory, each 64-wide box along M or N LBO
+// bytes apart and each 8-row group along K SBO bytes apart.
+__device__ __forceinline__ void wgmma_ss_n128_tt(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32),
+        HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] B[16 x 256], as wgmma_ss_n128_tt.
+__device__ __forceinline__ void wgmma_ss_n256_tt(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32),
+        HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56), HOPPER_ACC8(64), HOPPER_ACC8(72),
+        HOPPER_ACC8(80), HOPPER_ACC8(88), HOPPER_ACC8(96), HOPPER_ACC8(104), HOPPER_ACC8(112),
+        HOPPER_ACC8(120)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef HOPPER_ACC8
 
 }  // namespace hopper

@@ -21,9 +21,10 @@ Training: ``grouped_mlp`` under grad is ``GroupedMlpFn``, kernel 4 forward
 and kernel 4b (``csrc/grouped_mlp_bwd.cu``) backward, or their plain
 versions on the CPU (``grouped_mlp_backward_plain``: explicit formulas, not
 autograd).  4b and kernel 2's backward 2b share their device code and its
-launch (``launch_backward``); ``backward_variant`` picks tensor cores or
-CUDA cores from (dtype, D, F).  Kernel 5 (MoQ int8 / int4 weights) keeps
-refusing under grad: MoQ weights are post-training.
+launch (``launch_backward``); ``backward_variant`` picks tensor cores
+(``wgmma``) or CUDA cores from (dtype, D, F), and ``backward_plan_plain``
+mirrors the tables the tensor-core passes walk.  Kernel 5 (MoQ int8 / int4
+weights) keeps refusing under grad: MoQ weights are post-training.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ MMA_COLS = 256
 
 launches = {"grouped_mlp": 0, "grouped_mlp_quant": 0, "grouped_mlp_backward": 0}
 variant_launches = {"grouped_mlp_mma": 0, "grouped_mlp_fma": 0, "grouped_mlp_quant_mma": 0,
-                    "grouped_mlp_quant_fma": 0, "grouped_mlp_backward_mma": 0,
-                    "grouped_mlp_backward_fma": 0, "expert_mlp_backward_mma": 0,
+                    "grouped_mlp_quant_fma": 0, "grouped_mlp_backward_wgmma": 0,
+                    "grouped_mlp_backward_fma": 0, "expert_mlp_backward_wgmma": 0,
                     "expert_mlp_backward_fma": 0}
 
 _C_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -280,31 +281,151 @@ def _experts_plain(xg, te, rows_used, weights_of, scales_of=None):
 # Kernels 2b and 4b: the backward of the SwiGLU expert MLP
 # ---------------------------------------------------------------------------
 
-RUN_TILES = 8  # tiles a run of the backward's row passes (RUN_TILES in the source)
+RUN_TILES = 8  # tiles a run of the backward's CUDA-core row passes (RUN_TILES in the source)
+BWD_CHUNK = 64  # an expert's packed rows are a multiple of this (CHUNK in the source)
+BWD_WINDOW = 192  # packed rows a tensor-core row-pass window (WIN in the source)
 MAX_BWD_EXPERTS = 1024  # experts its table kernel takes (MAX_E)
 BWD_MMA_COLS = 128  # bf16 with D and F multiples of this takes the tensor cores
 
 
 def backward_variant(dtype: torch.dtype, D: int, F: int) -> str:
     """Which passes a backward call on the card takes (``takes_mma`` in the
-    source): ``"mma"`` (tensor cores) for bf16 with D and F multiples of
-    ``BWD_MMA_COLS``, ``"fma"`` (f32 FMAs on the CUDA cores) otherwise."""
+    source): ``"wgmma"`` (tensor cores, TMA-fed) for bf16 with D and F
+    multiples of ``BWD_MMA_COLS``, ``"fma"`` (f32 FMAs on the CUDA cores)
+    otherwise."""
     if dtype == torch.bfloat16 and D % BWD_MMA_COLS == 0 and F % BWD_MMA_COLS == 0:
-        return "mma"
+        return "wgmma"
     return "fma"
 
 
 def backward_max_runs(n_tiles: int, num_experts: int) -> int:
-    """The grid rows of the backward's row passes (``max_runs_of``): runs of
-    at most ``RUN_TILES`` of one expert's live tiles, at most ceil(n_tiles
-    / RUN_TILES) + E of them, and at most one a tile."""
+    """The grid rows of the backward's CUDA-core row passes
+    (``max_runs_of``): runs of at most ``RUN_TILES`` of one expert's live
+    tiles, at most ceil(n_tiles / RUN_TILES) + E of them, and at most one a
+    tile."""
     return max(1, min(n_tiles, -(-n_tiles // RUN_TILES) + num_experts))
+
+
+def backward_max_windows(n_tiles: int, num_experts: int) -> int:
+    """The grid rows of the tensor-core row passes (``max_wins_of``): expert
+    e's c live tiles take ceil(c / 24) windows of ``BWD_WINDOW`` rows, so at
+    most n_tiles // 24 + min(E, n_tiles) in all."""
+    return n_tiles // (BWD_WINDOW // TILE) + min(num_experts, n_tiles)
+
+
+def backward_packed_rows(n_tiles: int, num_experts: int) -> int:
+    """Rows of the packed buffers (``packed_rows_of``): each expert's 8 c
+    rows padded to a multiple of ``BWD_CHUNK``, at most 8 n_tiles + 56
+    min(E, n_tiles)."""
+    return TILE * n_tiles + (BWD_CHUNK - TILE) * min(num_experts, n_tiles)
 
 
 def backward_table_size(n_tiles: int, num_experts: int) -> int:
     """int32 values of the backward's tile tables
     (``expert_mlp_backward_table_size``)."""
-    return 3 * n_tiles + 2 * (num_experts + 1) + 3 * backward_max_runs(n_tiles, num_experts) + 2
+    return (3 * n_tiles + 3 * (num_experts + 1) + 3 * backward_max_runs(n_tiles, num_experts)
+            + 3 * backward_max_windows(n_tiles, num_experts)
+            + backward_packed_rows(n_tiles, num_experts) + 3)
+
+
+def backward_scratch_size(n_tiles: int, num_experts: int, D: int, F: int) -> int:
+    """Values of the activation type in the backward's scratch
+    (``expert_mlp_backward_scratch_size``): packed a, du, dg [P, F] and x, dy
+    [P, D], P = ``backward_packed_rows`` (the CUDA-core passes use the first
+    3 rows F)."""
+    return backward_packed_rows(n_tiles, num_experts) * (3 * F + 2 * D)
+
+
+def backward_tiles_plain(num_experts: int, *, fill=None, C: int = 0, te=None, rows_used=None):
+    """(tile_e, tile_rows) of the backward's table kernel (``prep_kernel``):
+    each tile's expert and live rows, over the capacity buffer (``fill`` [E],
+    ``C``: expert t // (C / 8), rows up to min(fill, C) live) or the grouped
+    one (``te``, ``rows_used``: tiles at or past it dead, experts clamped to
+    [0, E))."""
+    if fill is not None:
+        tpe = C // TILE
+        t = torch.arange(num_experts * tpe)
+        live = fill.cpu().long().clamp(0, C)[t // tpe]
+        return t // tpe, (live - (t % tpe) * TILE).clamp(0, TILE)
+    t = torch.arange(te.shape[0])
+    used = int(rows_used.reshape(-1)[0])
+    return te.cpu().long().clamp(0, num_experts - 1), (used - t * TILE).clamp(0, TILE)
+
+
+class BackwardPlan(NamedTuple):
+    """The tables the tensor-core backward walks (``Tab`` in the source)."""
+    order: torch.Tensor  # [live tiles] the live tiles by expert, in tile order within one
+    poff: torch.Tensor  # [E + 1] expert e's packed rows [poff[e], poff[e + 1])
+    prow: torch.Tensor  # [backward_packed_rows] each packed row's buffer row, -1 dead / padding
+    windows: list  # (first packed row, end, expert) of each row-pass block, in expert order
+
+
+def backward_plan_plain(tile_e: torch.Tensor, tile_rows: torch.Tensor, num_experts: int) -> BackwardPlan:
+    """``prep_kernel``'s tensor-core tables in PyTorch: expert e's live
+    tiles listed in tile order and laid end to end as packed rows from
+    poff[e], padded with empty rows to a multiple of ``BWD_CHUNK``; windows
+    of at most ``BWD_WINDOW`` of them.  A tile with no live row joins
+    none; an expert with none has no packed row and no window."""
+    nt = tile_e.shape[0]
+    prow = torch.full((backward_packed_rows(nt, num_experts),), -1, dtype=torch.long)
+    order, poff, windows, q = [], [0], [], 0
+    for e in range(num_experts):
+        tiles = [t for t in range(nt) if tile_rows[t] > 0 and tile_e[t] == e]
+        order += tiles
+        for i, t in enumerate(tiles):
+            for r in range(int(tile_rows[t])):
+                prow[q + TILE * i + r] = t * TILE + r
+        padded = -(-TILE * len(tiles) // BWD_CHUNK) * BWD_CHUNK
+        windows += [(w, min(w + BWD_WINDOW, q + padded), e) for w in range(q, q + padded, BWD_WINDOW)]
+        q += padded
+        poff.append(q)
+    return BackwardPlan(torch.tensor(order, dtype=torch.long), torch.tensor(poff), prow, windows)
+
+
+def backward_pass_c_tiles(num_experts: int, M: int, N: int, bn: int) -> list:
+    """Pass C's output tiles in the order its persistent blocks take them
+    (block b: tiles b, b + grid, ...): (expert, first row, first column) of
+    each 128 x ``bn`` tile of an [E, M, N] gradient, columns fastest; a
+    last tile past N (N a multiple of 128, ``bn`` 256) stores only its first
+    columns."""
+    return [(e, m, n) for e in range(num_experts) for m in range(0, M, 128) for n in range(0, N, bn)]
+
+
+def backward_by_plan(x, dy, wi, wg, wo, plan: BackwardPlan):
+    """The tensor-core backward's schedule in PyTorch (f64 sums, a, du and
+    dg rounded to x's type): x and dy packed by ``plan.prow`` (dead and
+    padding rows 0), passes A and B per window (rows past the window's end
+    not stored), pass C per 128 x 128 tile over each expert's packed rows in
+    chunks of ``BWD_CHUNK``.  Returns (dx, dwi, dwg, dwo) over the buffer
+    [rows, D]: what the kernel's plan computes, for the CPU tests."""
+    dt = x.dtype
+    P = plan.prow.shape[0]
+    live = plan.prow >= 0
+    src = plan.prow.clamp(min=0)
+    xp = torch.where(live[:, None], x.double()[src], 0.0)
+    yp = torch.where(live[:, None], dy.double()[src], 0.0)
+    E, D, Fd = wi.shape
+    act, du, dg = (torch.zeros((P, Fd), dtype=torch.float64) for _ in range(3))
+    dx = torch.zeros((x.shape[0], D), dtype=torch.float64)
+    for r0, r1, e in plan.windows:
+        rows = slice(r0, r1)
+        u, g = xp[rows] @ wi[e].double(), xp[rows] @ wg[e].double()
+        da = yp[rows] @ wo[e].double().T
+        s = torch.sigmoid(g)
+        act[rows] = (g * s * u).to(dt).double()
+        du[rows] = (da * g * s).to(dt).double()
+        dg[rows] = (da * u * s * (1 + g * (1 - s))).to(dt).double()
+        got = du[rows] @ wi[e].double().T + dg[rows] @ wg[e].double().T
+        keep = live[rows]
+        dx[plan.prow[rows][keep]] = got[keep]
+    grads = [torch.zeros_like(w, dtype=torch.float64) for w in (wi, wg, wo)]
+    for (out, a, b) in ((grads[0], xp, du), (grads[1], xp, dg), (grads[2], act, yp)):
+        M, N = out.shape[1:]
+        for e, m0, n0 in backward_pass_c_tiles(E, M, N, 128):
+            for q in range(int(plan.poff[e]), int(plan.poff[e + 1]), BWD_CHUNK):
+                k = slice(q, q + BWD_CHUNK)
+                out[e, m0:m0 + 128, n0:n0 + 128] += a[k, m0:m0 + 128].T @ b[k, n0:n0 + 128]
+    return (dx.to(dt), *(g.to(w.dtype) for g, w in zip(grads, (wi, wg, wo))))
 
 
 def swiglu_backward_rows(x, dy, wi, wg, wo, dtype):
@@ -378,10 +499,12 @@ def _bwd_library():
         lib.expert_mlp_backward.argtypes = [ctypes.c_void_p] * 12 + tail
         lib.grouped_mlp_backward.argtypes = [ctypes.c_void_p] * 13 + tail
         lib.expert_mlp_backward_table_size.argtypes = [ctypes.c_int] * 2
+        lib.expert_mlp_backward_scratch_size.argtypes = [ctypes.c_int] * 4
         lib.expert_mlp_backward_takes_mma.argtypes = [ctypes.c_int] * 3
         for fn in (lib.expert_mlp_backward, lib.grouped_mlp_backward,
                    lib.expert_mlp_backward_table_size, lib.expert_mlp_backward_takes_mma):
             fn.restype = ctypes.c_int
+        lib.expert_mlp_backward_scratch_size.restype = ctypes.c_int64
         _bwd_bound = lib
     return lib
 
@@ -403,10 +526,12 @@ def launch_backward(name, x, wi, wg, wo, dy, *, fill=None, te=None, rows_used=No
     lib = _bwd_library()
     variant = backward_variant(x.dtype, D, Fd)
     if lib.expert_mlp_backward_table_size(nt, E) != backward_table_size(nt, E) or \
-            lib.expert_mlp_backward_takes_mma(int(x.dtype == torch.bfloat16), D, Fd) != (variant == "mma"):
-        raise RuntimeError(f"{name}: the library's table size or variant rule differs from the wrapper's")
+            lib.expert_mlp_backward_scratch_size(nt, E, D, Fd) != backward_scratch_size(nt, E, D, Fd) or \
+            lib.expert_mlp_backward_takes_mma(int(x.dtype == torch.bfloat16), D, Fd) != (variant == "wgmma"):
+        raise RuntimeError(f"{name}: the library's table or scratch size or variant rule differs "
+                           f"from the wrapper's")
     tab = torch.empty(backward_table_size(nt, E), dtype=torch.int32, device=x.device)
-    scratch = torch.empty(3 * rows * Fd, dtype=x.dtype, device=x.device)  # a, du, dg
+    scratch = torch.empty(backward_scratch_size(nt, E, D, Fd), dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     dwi, dwg, dwo = torch.empty_like(wi), torch.empty_like(wg), torch.empty_like(wo)
     bf = int(x.dtype == torch.bfloat16)

@@ -31,7 +31,8 @@ and F 8192 over 16 experts top-1 at T = 2048, the capacity buffer at C =
 160 and the grouped one; kimi-k2's, D 7168 and F 2048 over 32 experts
 top-8 at T = 1024; a capacity buffer with an expert no token reaches and
 experts past their capacity; a grouped buffer whose dead tiles hold
-garbage), in bf16 and f32: dx, dwi, dwg and dwo per row against
+garbage; D and F odd multiples of 128), in bf16 (the wgmma passes,
+``variant``) and f32: dx, dwi, dwg and dwo per row against
 ``expert_mlp_backward_plain`` / ``grouped_mlp_backward_plain``
 (``grad_rows``), dead rows of dx and empty experts' gradients exactly 0,
 a second launch bit for bit against the first; timed from CUDA graphs
@@ -46,9 +47,9 @@ buffer padded to [E, R, D]: a composite, not one call (``composite_ms``).
       [--only flash,gating,expert] [--variants]
 
 ``--variants`` also times 2b / 4b's patched builds (``EXPERT_VARIANTS``: no
-weight loads in passes A and B, no loads or no stores in pass C) in turns
-at llama4's capacity case: what bounds each pass, without a profiler's
-stall reasons.
+weight tiles loaded by TMA in passes A and B, no loads or no stores in pass
+C) in turns at llama4's capacity case: what bounds each pass, without a
+profiler's stall reasons.
 
 ``--quick`` runs each case at its smallest size, untimed: the first call of
 a changed kernel.  It builds only the sources involved.  Prints one
@@ -108,6 +109,9 @@ EXPERT_BWD_CASES = {
     "kimi_grouped": ("grouped", 32, 7168, 2048, 8, 1024, 0.0, None),
     "capacity_empty_expert": ("capacity", 16, 1024, 2048, 2, 512, 1.0, "empty"),
     "grouped_dead_tiles": ("grouped", 16, 1024, 2048, 2, 200, 0.0, "garbage"),
+    # D and F odd multiples of 128: pass C's last 256-column dWo tile is cut
+    # at the edge
+    "grouped_ragged": ("grouped", 8, 384, 640, 2, 100, 0.0, "garbage"),
 }
 
 
@@ -386,7 +390,7 @@ def composite_backward(inp):
     return run
 
 
-EXPERT_BWD_PASSES = ("prep_kernel", "Memset", "pass_a", "pass_b", "pass_c")
+EXPERT_BWD_PASSES = ("prep_kernel", "Memset", "pack_kernel", "pass_a", "pass_b", "pass_c")
 
 
 def passes_ms(fn, names=EXPERT_BWD_PASSES) -> dict:
@@ -439,7 +443,7 @@ def check_expert_bwd(name, layout, E, D, F, K, T, cf, bias, dtype, gen, timed=Tr
     res["zeros_exact"] = bool(grads[0].reshape(-1, D)[dead].count_nonzero() == 0 and all(
         g[e].count_nonzero() == 0 for g in grads[1:] for e in empty))
     tol = BWD_TOL[dtype]
-    ok = res["deterministic"] and res["zeros_exact"]
+    ok = res["deterministic"] and res["zeros_exact"] and took == [gk.backward_variant(dtype, D, F)]
     for gname, g, r in zip(("dx", "dwi", "dwg", "dwo"), grads, refs):
         res[gname] = grad_rows(g.reshape(-1, g.shape[-1]), r.reshape(-1, r.shape[-1]))
         ok &= res[gname].get("finite", True) and res[gname]["max_row_rel_err"] <= tol
@@ -465,31 +469,26 @@ def check_expert_bwd(name, layout, E, D, F, K, T, cf, bias, dtype, gen, timed=Tr
 
 
 # Patches for --variants: (anchor, replacement) pairs applied to a copy of
-# csrc/grouped_mlp_bwd.cu; each anchor must be found.  A skipped copy
-# leaves its shared-memory tile as it was: the sums are garbage and the
-# time is what the pass costs without those bytes.
+# csrc/grouped_mlp_bwd.cu; each anchor must be found.  A skipped TMA load
+# leaves its shared-memory tile as it was, and its bytes leave the stage's
+# expected count: the sums are garbage and the time is what the pass costs
+# without those bytes.
 _NO_WEIGHT_LOADS = [
-    ("""    const int k0 = kt * BK;
-    stage<ROWS, BK / 8, LDK>(s.x[buf], p.x, [&](int r) {""",
-     """    const int k0 = kt * BK;
-    const bool weights = k0 < 0;
-    stage<ROWS, BK / 8, LDK>(s.x[buf], p.x, [&](int r) {"""),
-    ("""    stage<BK, BNA / 8, BNA + 8>(s.wi[buf], p.x,""",
-     """    if (weights) stage<BK, BNA / 8, BNA + 8>(s.wi[buf], p.x,"""),
-    ("""    stage<BK, BNA / 8, BNA + 8>(s.wg[buf], p.x,""",
-     """    if (weights) stage<BK, BNA / 8, BNA + 8>(s.wg[buf], p.x,"""),
-    ("""    stage<BNA, BK / 8, LDK>(s.wo[buf], p.x,""",
-     """    if (weights) stage<BNA, BK / 8, LDK>(s.wo[buf], p.x,"""),
-    ("""    stage<BNB, BK / 8, LDK>(s.wi[buf], p.x,""",
-     """    if (k0 < 0) stage<BNB, BK / 8, LDK>(s.wi[buf], p.x,"""),
-    ("""    stage<BNB, BK / 8, LDK>(s.wg[buf], p.x,""",
-     """    if (k0 < 0) stage<BNB, BK / 8, LDK>(s.wg[buf], p.x,""")]
-_NO_C_LOADS = [("""    const int cp = pos + kt * (BK / TILE);""",
-                """    const int cp = pos + kt * (BK / TILE);
-    if (cp >= 0) return;""")]
-_NO_C_STORES = [("""      *reinterpret_cast<uint4*>(w.out[b] + ((size_t)e * w.M + m0 + r) * w.N + n0 + c) =""",
-                 """      if (reinterpret_cast<const uint4*>(&o[r][c])->x == 0x12345678u)
-      *reinterpret_cast<uint4*>(w.out[b] + ((size_t)e * w.M + m0 + r) * w.N + n0 + c) =""")]
+    ("""        mbar_expect_tx(bar, 2 * busy * BOX + 3 * BK * BNA * 2);""",
+     """        mbar_expect_tx(bar, 2 * busy * BOX);"""),
+    ("""        tma_load_2d(&s.wi[r.st][0][0], &p.wi, bar, f0, e * p.D + k0);
+        tma_load_2d(&s.wg[r.st][0][0], &p.wg, bar, f0, e * p.D + k0);
+        tma_load_2d(&s.wo[r.st][0][0], &p.wo, bar, k0, e * p.F + f0);""", ""),
+    ("""        mbar_expect_tx(bar, 2 * busy * BOX + 2 * BNB * BK * 2);""",
+     """        mbar_expect_tx(bar, 2 * busy * BOX);"""),
+    ("""        tma_load_2d(&s.wi[r.st][0][0], &p.wi, bar, k0, e * p.D + d0);
+        tma_load_2d(&s.wg[r.st][0][0], &p.wg, bar, k0, e * p.D + d0);""", "")]
+_NO_C_LOADS = [("""          mbar_expect_tx(bar, (2 + NB * BN / 64) * BOX);""",
+                """          mbar_arrive(bar);
+          continue;""")]
+_NO_C_STORES = [("""            if (n0 + 64 * j < p.N)
+              tma_store_2d(""", """            if (n0 + 64 * j < 0)
+              tma_store_2d(""")]
 EXPERT_VARIANTS = {"kernel": [], "no_weight_loads": _NO_WEIGHT_LOADS,
                    "no_c_loads": _NO_C_LOADS, "no_c_stores": _NO_C_STORES}
 
@@ -547,9 +546,10 @@ def expert_variants(case="llama4_capacity", gen=None):
 
 def quick_expert(case):
     """An expert case at a small size: the same layout, top-k and bias, at
-    widths the tensor-core passes take."""
+    widths the tensor-core passes take (D an odd multiple of 128: pass C's
+    ragged last 256-column dWo tile)."""
     layout, E, D, F, K, T, cf, bias = case
-    return (layout, min(E, 8), 256, 384, min(K, 4), 64, cf, bias)
+    return (layout, min(E, 8), 384, 640, min(K, 4), 64, cf, bias)
 
 
 def quick_shape(case):

@@ -151,16 +151,21 @@ def test_dead_rows_and_empty_experts_get_exact_zeros():
 
 
 def test_backward_variant_and_tables():
-    """The tensor-core rule (bf16 with D and F multiples of 128) and the
-    table sizes, as the library computes them."""
-    assert gk.backward_variant(torch.bfloat16, 5120, 8192) == "mma"
-    assert gk.backward_variant(torch.bfloat16, 7168, 2048) == "mma"
+    """The tensor-core rule (bf16 with D and F multiples of 128: the wgmma
+    passes) and the table and scratch sizes, as the library computes
+    them."""
+    assert gk.backward_variant(torch.bfloat16, 5120, 8192) == "wgmma"
+    assert gk.backward_variant(torch.bfloat16, 7168, 2048) == "wgmma"
     assert gk.backward_variant(torch.bfloat16, 128, 96) == "fma"
     assert gk.backward_variant(torch.float32, 5120, 8192) == "fma"
     # llama4's capacity buffer at 2048 tokens over 16 experts: C = 160
     assert gk.backward_max_runs(16 * 160 // 8, 16) == 56
     assert gk.backward_max_runs(3, 16) == 3 and gk.backward_max_runs(1, 1) == 1
-    assert gk.backward_table_size(7, 4) == 3 * 7 + 2 * 5 + 3 * 5 + 2
+    assert gk.backward_max_windows(16 * 160 // 8, 16) == 29
+    assert gk.backward_max_windows(3, 16) == 3 and gk.backward_max_windows(1, 1) == 1
+    assert gk.backward_packed_rows(16 * 160 // 8, 16) == 2560 + 56 * 16
+    assert gk.backward_table_size(7, 4) == 3 * 7 + 3 * 5 + 3 * 5 + 3 * 4 + (56 + 4 * 56) + 3
+    assert gk.backward_scratch_size(7, 4, 256, 384) == (56 + 4 * 56) * (3 * 384 + 2 * 256)
 
 
 def counting(monkeypatch, module, name):
