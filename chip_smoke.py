@@ -294,6 +294,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    kernels 1, 2 and 4 against their plain versions at the EP shapes,
    reduced f32 card vs CPU under EP, a one-rank NCCL group driving every
    schedule on device tensors, per-rank bytes and the host-staged bytes.
+19. expert-parallel training (slice 16; ``scripts/ep_train_phase.py``, which
+   also runs it alone): llama4-maverick at its published widths, one (dense,
+   MoE) repeat, 8 experts, on 2 ranks over ``data``, and
+   nlg-350m-prmoe-32-64 at its published size on (2, 2) over (``data``,
+   ``model``), one GPU a rank over NCCL where enough are visible, else
+   time-sharing ``cuda:0`` over gloo (correctness, not EP speed): AdamW
+   steps with ZeRO-1 at a headroom capacity factor against a one-device run
+   of the same weights (losses, grad norms, three leaves' digests and their
+   updates; PR-MoE recomputing every layer in the backward) and at
+   the published 1.25 (the per-shard dropped share); every rank's launches
+   of 1, 1b, 2, 2b, 6 and 6b against the one-device counts; each llama4
+   rank's 1 / 1b / 2 / 2b against their plain versions at the EP shapes (2
+   / 2b at d_ff 8192 and the 4096 slice); reduced f32 card vs CPU under EP;
+   per-rank bytes, peak memory, staged bytes; the phase's wall time.
 16. the script's own time ("script time:", from ``main``'s start, the
    build included), a ``{"kernels": [...]}`` line (with
    ``flash_attention_window``,
@@ -4918,6 +4932,12 @@ def main() -> int:
     ep_lines, ep_summary, ep_paths = ep_phase.ep_phase(counters)
     for line in ep_lines:
         log(line)
+    # 19. slice 16: expert-parallel training on 2 and 4 ranks (scripts/ep_train_phase.py)
+    gc.collect()
+    torch.cuda.empty_cache()
+    import ep_train_phase
+
+    _, et_summary, et_paths = ep_train_phase.ep_train_phase(counters)  # logs as it goes
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -5241,6 +5261,21 @@ def main() -> int:
                               if case.startswith(k["name"])}
     log("ep summary: " + json.dumps({k: v for k, v in ep_summary.items() if k != "checks"},
                                     default=str))
+    # slice 16: every rank's launches of 1, 1b, 2, 2b, 6 and 6b on the EP
+    # training paths, and each llama4 rank's 1 / 1b / 2 / 2b at the EP shapes
+    et_checks = {f"{r}/{case}": v for r, cases in et_summary["llama4"]["checks"].items()
+                 for case, v in cases.items()}
+    for k in kernels:
+        if k["name"] in next(iter(et_paths.values())):
+            k["launches_by_path"].update({p: c[k["name"]] for p, c in et_paths.items()})
+        if k["name"] in ep_train_phase.KERNELS[:4]:
+            k["ep_train_shapes"] = {key: v for key, v in et_checks.items()
+                                    if key.split("/", 1)[1].startswith(k["name"] + "_")
+                                    and (k["name"].endswith("backward")
+                                         or "backward" not in key)}
+    log("ep train summary: " + json.dumps(
+        {m: {k: v for k, v in s.items() if k != "checks"} if isinstance(s, dict) else s
+         for m, s in et_summary.items()}, default=str))
     log("slice 14 training summary: " + json.dumps(s14_summary))
     log("slice 10 training summary: " + json.dumps(s10_summary))
     log("obs summary: " + json.dumps(obs_summary))

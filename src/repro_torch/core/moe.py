@@ -24,9 +24,13 @@ Dispatch implementations (``cfg.moe_impl``):
                   mesh they resolve as the JAX package resolves them:
                   ``ep_grouped`` to ``grouped``, ``ep_serve`` to ``dense``
                   (to ``einsum`` under a mesh that cannot shard E);
-  * ``ep``      — expert-parallel training's all-to-all layer; without a
-                  mesh it is ``dense``, and under one it is ROADMAP.md
-                  queue 1 item 7b (not ported).
+  * ``ep``      — expert-parallel training's layer (core/moe_parallel.py)
+                  under an ambient mesh: each rank's rows gated at the
+                  shard's capacity, exchanged over ``data`` (two hops
+                  under ``ep_pod``), its experts (d_ff sliced over
+                  ``model``), exchanged back and combined, or the
+                  all-gather schedule for few tokens; without a mesh it
+                  is ``dense``.
 
 Expert MLPs over the capacity buffer (``experts_ffn``): fp SwiGLU through
 kernel 2 (under grad with its backward 2b; the grouped dispatch's kernel 4
@@ -46,6 +50,7 @@ import torch
 from repro_torch.configs.base import FFNSpec, ModelConfig
 from repro_torch.core import dispatch, dispatch_einsum, dispatch_grouped
 from repro_torch.core.gating import expert_capacity, load_balance_loss, routing_stats, top_k_gating
+from repro_torch.core.moe_parallel import moe_layer_ep
 from repro_torch.core.moe_serve import moe_layer_ep_serve, serve_ep_axes
 from repro_torch.kernels.expert_mlp import expert_mlp
 from repro_torch.kernels.expert_mlp_grouped import (
@@ -204,9 +209,7 @@ def moe_layer(
         impl = "grouped" if impl == "ep_grouped" else (
             "einsum" if get_mesh() is not None else "dense")
     elif impl == "ep" and get_mesh() is not None:
-        raise NotImplementedError("moe_impl='ep' under a mesh is expert-parallel training, "
-                                  "which is not ported yet (ROADMAP.md, queue 1 item 7b); "
-                                  "serving under cfg.ep_mesh rewrites it to 'ep_serve'")
+        return _moe_layer_ep(cfg, spec, params, x, with_stats)
     impl = NO_MESH_IMPL.get(impl, impl)
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
@@ -260,4 +263,32 @@ def _moe_layer_ep_serve(cfg: ModelConfig, spec: FFNSpec, params: dict, x: torch.
         g = top_k_gating(logits, K, B * S * K)
     else:
         g, _ = gating(logits, K, expert_capacity(B * S, E, K, spec.capacity_factor))
+    return y, aux, routing_stats(g, E)
+
+
+def _moe_layer_ep(cfg: ModelConfig, spec: FFNSpec, params: dict, x: torch.Tensor,
+                  with_stats: bool) -> Tuple[torch.Tensor, ...]:
+    """The training EP layer (core/moe_parallel.py) on this rank's rows.
+    ``with_stats`` gates the replicated token set (the rows of every batch
+    rank, gathered without gradient) at the global capacity: the router's
+    probabilities, top-k, f and P are the sharded dispatch's, but its drop
+    accounting is the global capacity's, not each shard's (the JAX
+    package's caveat)."""
+    if isinstance(params.get("wi"), QuantizedArray):
+        params = {**params, **{k: materialize(params[k]) for k in ("wi", "wg", "wo") if k in params}}
+    y, aux = moe_layer_ep(cfg, spec, params, x)
+    if spec.residual:
+        y = y + mlp(params["residual"], x, spec.act)
+    if not with_stats:
+        return y, aux
+    from repro_torch.core.moe_parallel import _batch_axes
+    from repro_torch.parallel import collectives as col
+
+    mesh = get_mesh()
+    B, S, D = x.shape
+    E, K = spec.num_experts, spec.top_k
+    with torch.no_grad():
+        xs = col.all_gather(x.reshape(B * S, D), mesh, _batch_axes(mesh))
+        g, _ = gating(xs.float() @ params["router"], K,
+                      expert_capacity(xs.shape[0], E, K, spec.capacity_factor))
     return y, aux, routing_stats(g, E)

@@ -4,7 +4,7 @@ final norm -> logits.
 Entry points: ``init_params``, ``init_caches``, ``forward`` (teacher-forced
 logits), ``prefill`` (logits of the last position, caches filled),
 ``decode_step`` (one token, caches updated in place) and ``encode`` (the
-encoder stack of an encoder-decoder model); for contiguous
+encoder stack of an encoder-decoder model; ``encode_train`` under grad); for contiguous
 continuous batching ``prefill_into_slot`` and ``ragged_decode_step``; for
 paged serving ``init_paged_caches``, ``paged_prefill_chunk``,
 ``paged_prefill_chunk_batched``, ``paged_prefill_into_slot`` (the scatter
@@ -216,6 +216,13 @@ def encode(cfg: ModelConfig, params, source: torch.Tensor) -> torch.Tensor:
     T]; its segments in ``train`` mode (every self-attention layer through
     kernel 6, non-causal), then the encoder's final norm -> the memory [B,
     T, d_model]."""
+    return encode_train(cfg, params, source)
+
+
+def encode_train(cfg: ModelConfig, params, source: torch.Tensor) -> torch.Tensor:
+    """``encode`` under the caller's grad mode: differentiable, as the
+    training entry's loss needs it (the encoder's kernels take their
+    backward kernels, as ``forward``'s do)."""
     if cfg.frontend is not None and source.ndim == 3:
         x = source.to(DTYPES[cfg.compute_dtype]) @ materialize(params["frontend_proj"])
     else:

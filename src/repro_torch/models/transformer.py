@@ -8,7 +8,7 @@ a leading ``[repeats]`` axis; the JAX ``lax.scan`` over repeats becomes a
 Python loop over repeat ``r``'s views of both (``unbind``, ``take``).
 ``remat=True`` (training) recomputes each layer in the backward
 (``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint`` of
-the scan body), and ``collect_stats=True`` returns each MoE position's
+the scan body) under the mesh ambient at its forward, and ``collect_stats=True`` returns each MoE position's
 ``RoutingStats`` stacked over the repeats, as JAX's scan stacks them.
 """
 from __future__ import annotations
@@ -32,6 +32,7 @@ from repro_torch.core.gating import stack_stats
 from repro_torch.models.modules import grad_cast, init_mlp, init_rmsnorm, mlp, rmsnorm
 from repro_torch.models.rglru import init_lru, init_lru_cache, lru_layer
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssm_layer
+from repro_torch.parallel.sharding import get_mesh, get_rules, use_mesh
 from repro_torch.quant.kv import QuantizedKV
 from repro_torch.quant.qarrays import QuantizedArray
 
@@ -165,6 +166,21 @@ def take(tree, r: int):
     return {k: take(v, r) for k, v in tree.items()}
 
 
+def in_ambient_mesh(fn):
+    """``fn`` under the mesh and rules ambient now.  The autograd engine
+    runs a CUDA backward on a thread of its own, where the caller's mesh is
+    not ambient, and a layer ``remat`` recomputes there must see it (the
+    expert-parallel layer reads it)."""
+    mesh, rules = get_mesh(), get_rules()
+    if mesh is None:
+        return fn
+
+    def run(*args, **kw):
+        with use_mesh(mesh, rules):
+            return fn(*args, **kw)
+    return run
+
+
 def unbind(tree, n: int) -> list:
     """Every repeat's views of a ``[repeats, ...]``-stacked parameter tree at
     once (``torch.unbind``; quantized leaves through ``take``): under grad,
@@ -223,7 +239,8 @@ def apply_segment(
             kw = dict(cache=c, mode=mode, index=index, block_table=block_table, memory=memory,
                       collect_stats=collect_stats)
             if remat and caches is None:
-                out = checkpoint(apply_layer, cfg, ls, p, x, positions, use_reentrant=False, **kw)
+                out = checkpoint(in_ambient_mesh(apply_layer), cfg, ls, p, x, positions,
+                                 use_reentrant=False, **kw)
             else:
                 out = apply_layer(cfg, ls, p, x, positions, **kw)
             x, a = out[0], out[2]

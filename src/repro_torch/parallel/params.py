@@ -1,22 +1,28 @@
-"""Which parameter leaves shard under expert-parallel serving
-(``repro/parallel/params.py``, ``param_pspecs(mode="serve")``), and each
-rank's slice of them.
+"""Which parameter leaves shard under expert parallelism
+(``repro/parallel/params.py``, ``param_pspecs``), each rank's slice of them,
+and the ZeRO-1 partition of the optimizer state.
 
-Serving shards the routed experts' ``wi`` / ``wg`` / ``wo`` (the leaves
+Both modes shard the routed experts' ``wi`` / ``wg`` / ``wo`` (the leaves
 directly under ``moe``, not its ``residual`` branch) along the expert dim,
-over every mesh axis of the ``expert`` rule, and replicates every other leaf:
+over every mesh axis of the ``expert`` rule, and replicate every other leaf:
 attention, norms, embeddings, the router, the shared expert (paper §5.1,
-aggregate memory bandwidth).  A leaf under ``segments`` carries a leading
-stacked ``[repeats]`` dim, so its expert dim is 1.  The ``expert`` rule is
-all-or-nothing, as JAX's ``_pick``: every axis it names must be in the mesh,
-and their product must be above 1 and divide the expert count.
+aggregate memory bandwidth).  ``mode="train"`` also slices each expert's
+d_ff (``wi`` / ``wg`` along F, ``wo`` along its F dim) over the axis that
+``expert_mlp`` (then ``mlp``) names, where it is in the mesh, above 1 and
+divides F: the paper's expert-slicing (§5.2), JAX's ``_leaf_spec``.  A leaf
+under ``segments`` carries a leading stacked ``[repeats]`` dim, so its
+expert dim is 1.  The rules are all-or-nothing, as JAX's ``_pick``: every
+axis a rule names must be in the mesh and untaken, and their product must be
+above 1 and divide the dim.
 
-Train mode (tensor-parallel and ZeRO specs) is not here: expert-parallel
-training is ROADMAP.md, queue 1 item 7b.
+JAX's train layout also shards attention and the dense FFN over ``model``
+and every leaf over the data axes (ZeRO-3, ``_extend_for_train``); the port
+replicates those leaves (the same function, more memory; ROADMAP item 7d)
+and shards their optimizer state instead (ZeRO-1, ``zero_partition``).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch.parallel.sharding import EpMesh
 
@@ -52,6 +58,37 @@ def expert_axes(mesh: Optional[EpMesh], rules: dict, num_experts: int) -> Option
     return axes
 
 
+def expert_mlp_axis(mesh: Optional[EpMesh], rules: dict, d_ff: int,
+                    taken: Sequence[str] = ()) -> Optional[str]:
+    """The mesh axis an expert's d_ff is sliced over in training (JAX's
+    ``_pick`` over ``("expert_mlp", "mlp")`` on the F dim), or None."""
+    if mesh is None:
+        return None
+    sizes = mesh.sizes()
+    for name in ("expert_mlp", "mlp"):
+        axes = rules.get(name)
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(axes) != 1:
+            raise ValueError(f"rule {name!r} -> {axes}: expert-slicing takes one mesh axis")
+        a = axes[0]
+        if a in taken or a not in sizes or sizes[a] == 1:
+            continue
+        if d_ff % sizes[a] == 0:
+            return a
+    return None
+
+
+def batch_axes(mesh: EpMesh, rules: dict) -> Tuple[str, ...]:
+    """The mesh axes of the ``batch`` rule that are in the mesh, in its
+    order: the axes the global batch's rows shard over in training, and the
+    axes a replicated leaf's gradient sums over."""
+    axes = rules.get("batch") or ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in mesh.axis_names if a in axes)
+
+
 def ep_rank(mesh: EpMesh, axes: Sequence[str]) -> int:
     """Linear rank within the EP group over ``axes``, major-first: shard r
     owns experts ``[r * E_loc, (r + 1) * E_loc)``."""
@@ -61,21 +98,36 @@ def ep_rank(mesh: EpMesh, axes: Sequence[str]) -> int:
     return r
 
 
-def layer_experts(cfg, names: Sequence[str]) -> Optional[int]:
-    """The expert count of the MoE layer that the leaf at path ``names``
-    (``[encoder/]segments/seg{i}/pos{j}/moe/...``) belongs to, from ``cfg``."""
+def layer_ffn(cfg, names: Sequence[str]):
+    """The FFNSpec of the layer that the leaf at path ``names``
+    (``[encoder/]segments/seg{i}/pos{j}/...``) belongs to, from ``cfg``."""
     segs = cfg.encoder.segments if names[0] == "encoder" else cfg.segments
     i = names.index("segments")
     seg, pos = names[i + 1], names[i + 2]
-    return segs[int(seg[3:])].pattern[int(pos[3:])].ffn.num_experts
+    return segs[int(seg[3:])].pattern[int(pos[3:])].ffn
 
 
-def shard_params(mesh: EpMesh, rules: dict, params, cfg=None):
+def layer_experts(cfg, names: Sequence[str]) -> Optional[int]:
+    """The expert count of the MoE layer that the leaf at path ``names``
+    belongs to, from ``cfg``."""
+    return layer_ffn(cfg, names).num_experts
+
+
+def f_dim(names: Sequence[str], ndim: int) -> int:
+    """The d_ff dim of expert leaf ``names``: last of ``wi`` / ``wg``,
+    next to last of ``wo``."""
+    return ndim - 2 if names[-1] == "wo" else ndim - 1
+
+
+def shard_params(mesh: EpMesh, rules: dict, params, cfg=None, *, mode: str = "serve"):
     """A new ParamTree with each expert leaf cut to this rank's experts (a
     copy of the slice, so the full leaf can be freed) and every other leaf
-    the input's own tensor.  Given ``cfg``, a leaf that already holds this
-    rank's ``E_loc`` experts of its layer's E (a tree placed before) is
-    kept as it is."""
+    the input's own tensor; ``mode="train"`` also cuts each expert's d_ff
+    to this rank's slice over the ``expert_mlp`` axis.  Given ``cfg``, a
+    leaf that already holds this rank's ``E_loc`` experts of its layer's E
+    (a tree placed before) is kept as it is."""
+    if mode not in ("serve", "train"):
+        raise ValueError(f"shard_params: mode {mode!r}, expected 'serve' or 'train'")
     from repro_torch.models.model import ParamTree
     from repro_torch.quant.qarrays import QuantizedArray
 
@@ -107,7 +159,70 @@ def shard_params(mesh: EpMesh, rules: dict, params, cfg=None):
                 raise ValueError(f"shard_params: {'/'.join(names)} holds {v.shape[dim]} experts, "
                                  f"expected {E} or this rank's {E_loc}")
             lo = ep_rank(mesh, axes) * E_loc
-            out[k] = v.narrow(dim, lo, E_loc).clone()
+            v = v.narrow(dim, lo, E_loc)
+            tp = expert_mlp_axis(mesh, rules, v.shape[f_dim(names, v.dim())], axes) \
+                if mode == "train" else None
+            if tp is not None:
+                fd = f_dim(names, v.dim())
+                F_loc = v.shape[fd] // mesh.axis_size(tp)
+                v = v.narrow(fd, mesh.axis_index(tp) * F_loc, F_loc)
+            out[k] = v.clone()
         return ParamTree(out)
 
     return visit(params, [])
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: the optimizer state of a replicated leaf, 1/dp a data rank
+# ---------------------------------------------------------------------------
+
+
+class ZeroPart(NamedTuple):
+    """How the optimizer treats one leaf on this rank.
+
+    ``zero``: a replicated leaf, whose f32 moments this rank keeps for its
+    slice only: values ``[index * size, (index + 1) * size)`` of the
+    flattened leaf (the last slice cut at ``numel``), ``size = ceil(numel /
+    dp)``, ``index`` this rank's linear index over ``axes`` (the batch
+    axes, ``dp`` ranks).  Otherwise an expert shard with whole local
+    moments, whose gradient sums over ``axes`` (the batch axes that do not
+    shard it; usually none).  ``norm_axes``: the axes over which the ranks
+    hold distinct parts of the leaf (for the global norm: every part once,
+    never again on a rank that only replicates it)."""
+
+    zero: bool
+    axes: Tuple[str, ...]
+    norm_axes: Tuple[str, ...]
+    numel: int
+    dp: int
+    index: int
+    size: int
+
+
+def zero_partition(mesh: EpMesh, rules: dict, leaves: Dict[str, object],
+                   cfg) -> Dict[str, ZeroPart]:
+    """``{path: ZeroPart}`` for this rank's leaves (``param_leaves`` of a
+    tree placed by ``shard_params(mode="train")``: an expert leaf already
+    holds this rank's slice; ``cfg`` gives each expert layer's E and F)."""
+    baxes = batch_axes(mesh, rules)
+    out = {}
+    for path, t in leaves.items():
+        names = path.split("/")
+        numel = t.numel()
+        dim = expert_dim(names)
+        eaxes = None
+        if dim is not None:
+            eaxes = expert_axes(mesh, rules, layer_experts(cfg, names))
+        if eaxes is None:  # replicated: ZeRO-1 over the batch axes
+            dp = mesh.axes_size(baxes) if baxes else 1
+            index = ep_rank(mesh, baxes) if baxes else 0
+            out[path] = ZeroPart(True, baxes, baxes, numel, dp, index, -(-numel // dp))
+            continue
+        shard = list(eaxes)
+        tp = expert_mlp_axis(mesh, rules, layer_ffn(cfg, names).d_ff, eaxes)
+        if tp is not None:
+            shard.append(tp)
+        shard = tuple(a for a in mesh.axis_names if a in shard)
+        rest = tuple(a for a in baxes if a not in shard)
+        out[path] = ZeroPart(False, rest, shard, numel, 1, 0, numel)
+    return out

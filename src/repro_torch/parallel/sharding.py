@@ -16,8 +16,15 @@ meshes in the same order (``dist.new_group`` is collective), which the
 engines do, since every rank builds the same engines from the same config.
 
 ``use_mesh`` makes a mesh ambient for the calling thread, as in JAX;
-``get_mesh`` / ``get_rules`` read it.  Only the rules that serving reads are
-kept: ``expert`` (the mesh axes experts shard over) and ``batch``.
+``get_mesh`` / ``get_rules`` read it.  The rules kept are those the port's
+expert parallelism reads: ``batch`` (the axes the global batch's rows shard
+over), ``expert`` (the axes experts shard over), and for training
+``expert_mlp`` / ``mlp`` (the axis an expert's d_ff is sliced over: the
+paper's expert-slicing, §5.2), with JAX's ``RULESETS`` entries ``default``
+and ``ep_pod`` (experts over ``("pod", "data")``, the two-hop exchange).
+Tensor parallelism of attention and the dense FFN over ``model`` is not
+ported (ROADMAP item 7d): those leaves are replicated over it and computed
+on every ``model`` rank.
 """
 from __future__ import annotations
 
@@ -34,6 +41,14 @@ _state = threading.local()
 DEFAULT_RULES = {
     "batch": ("pod", "data"),
     "expert": "data",
+    "mlp": "model",
+    "expert_mlp": "model",  # expert-slicing (paper §5.2)
+}
+
+RULESETS = {
+    "default": DEFAULT_RULES,
+    # cross-pod expert parallelism with the hierarchical exchange (Fig. 8)
+    "ep_pod": {**DEFAULT_RULES, "expert": ("pod", "data")},
 }
 
 # every process group a mesh makes waits at most this long in a collective

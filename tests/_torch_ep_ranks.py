@@ -142,3 +142,127 @@ def sleep_forever(rank: int) -> None:
 
     time.sleep(3600)
 
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel training (test_torch_ep_train.py)
+# ---------------------------------------------------------------------------
+
+# name -> (shape, axis names, ruleset)
+TRAIN_MESHES = {"dm22": ((2, 2), ("data", "model"), "default"),
+                "pd22": ((2, 2), ("pod", "data"), "ep_pod"),
+                "d4": ((4,), ("data",), "default")}
+
+
+def train_meshes():
+    """The training meshes, built in the same order on every rank."""
+    return {k: make_ep_mesh(shape, names) for k, (shape, names, _) in TRAIN_MESHES.items()}
+
+
+def ep_layer_grads(rank: int, cases: dict, experts: dict, c_aux: float) -> dict:
+    """Each layer case of ``test_torch_ep_train.py`` on this rank: the
+    rank's rows through ``moe_layer(impl="ep", with_stats=True)`` and the
+    gradients of its share of ``sum(y * w) + c_aux * aux`` in its rows, the
+    router and its expert slices."""
+    from repro_torch.core import moe as tmoe
+    from repro_torch.core import moe_parallel as mp
+    from repro_torch.data.pipeline import local_rows
+    from repro_torch.parallel.sharding import RULESETS
+
+    ms = train_meshes()
+    out = {}
+    for name, case in cases.items():
+        mesh = ms[case["mesh"]]
+        ruleset = TRAIN_MESHES[case["mesh"]][2]
+        rules = RULESETS[ruleset]
+        spec = FFNSpec(kind="moe", d_ff=case["F"], num_experts=case["E"], top_k=case["K"],
+                       capacity_factor=case["cf"], act=case["act"])
+        rows = local_rows(mesh, rules, case["x"].shape[0])
+        full = {k: torch.from_numpy(v) for k, v in experts.items()
+                if case["act"] == "swiglu" or k != "wg"}
+        wi, wg, wo = mp.local_experts(full, spec, mesh, rules)
+        leaves = {"x": torch.from_numpy(case["x"][rows]),
+                  "router": torch.from_numpy(case["router"]),
+                  "wi": wi.clone(), "wo": wo.clone()}
+        if case["act"] == "swiglu":
+            leaves["wg"] = wg.clone()
+        for t in leaves.values():
+            t.requires_grad_(True)
+        with use_mesh(mesh, rules):
+            p = {k: v for k, v in leaves.items() if k != "x"}
+            y, aux, stats = tmoe.moe_layer(None, spec, p, leaves["x"], impl="ep", with_stats=True)
+            loss = (y * torch.from_numpy(case["w"][rows])).sum() + c_aux * aux
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        axes, _, E_loc, F_loc = mp.ep_layout(spec, mesh, rules)
+        from repro_torch.parallel.params import ep_rank
+
+        res = {"y": y.detach().numpy(), "aux": float(aux), "rows": (rows.start, rows.stop),
+               "experts": (ep_rank(mesh, axes) * E_loc, E_loc),
+               "f": ((mesh.axis_index("model") if "model" in mesh.axis_names else 0) * F_loc, F_loc),
+               "tokens_per_expert": stats.tokens_per_expert.numpy(),
+               "dropped_frac": float(stats.dropped_frac)}
+        res.update({f"d_{k}": g.numpy() for k, g in zip(leaves, grads)})
+        out[name] = res
+    return out
+
+
+def ep_train_steps(rank: int, cases: dict, steps: int, batch: int, seq: int, lr: float) -> dict:
+    """Each train-step case: ``steps`` AdamW steps of the reduced model on
+    its mesh from the given initial tree (``training/ep.py::train_rank``):
+    the global losses, this rank's leaves and moments after the last step,
+    its ZeRO-1 partition and its bytes."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_config, make_reduced, with_capacity_factor
+    from repro_torch.models.model import param_leaves
+    from repro_torch.training.ep import train_rank
+    from repro_torch.training.trainer import TrainConfig
+
+    train_meshes()
+    out = {}
+    for name, case in cases.items():
+        shape, names, ruleset = TRAIN_MESHES[case["mesh"]]
+        cfg = with_capacity_factor(make_reduced(get_config(case["arch"])), case["cf"])
+        full = convert.params_from_numpy(cfg.replace(moe_impl="ep"), case["init"], "cpu")
+        tc = TrainConfig(lr=lr, warmup_steps=1, decay_steps=10)
+        res = train_rank(rank, cfg, shape, names, tc, steps, batch, seq, ruleset=ruleset,
+                         device="cpu", params=full)
+        parts = res["params_parts"]
+        out[name] = {
+            "loss": [h["loss"] for h in res["history"]],
+            "grad_norm": [h["grad_norm"] for h in res["history"]],
+            "params": {k: v.detach().numpy() for k, v in param_leaves(res["params"]).items()},
+            "m": {k: v.numpy() for k, v in res["state"].m.items()},
+            "v": {k: v.numpy() for k, v in res["state"].v.items()},
+            "parts": {k: tuple(p) for k, p in parts.items()},
+            "param_bytes": res["param_bytes"], "moment_bytes": res["moment_bytes"]}
+    return out
+
+
+def ep_train_entry(rank: int, arch: str, cf: float, init: dict, batch: dict, steps: int) -> dict:
+    """``make_train_entry`` (two microbatches) under (2, 2) ``data`` x
+    ``model`` from a full initial tree, every rank given the global batch:
+    the losses, this rank's leaves and first moments, its partition."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_config, make_reduced, with_capacity_factor
+    from repro_torch.launch.steps import make_train_entry
+    from repro_torch.models.model import param_leaves
+    from repro_torch.parallel.params import shard_params
+    from repro_torch.parallel.sharding import RULESETS
+    from repro_torch.training.trainer import init_opt_state
+
+    train_meshes()
+    mesh, rules = train_meshes()["dm22"], RULESETS["default"]
+    cfg = with_capacity_factor(make_reduced(get_config(arch)), cf).replace(moe_impl="ep")
+    params = shard_params(mesh, rules, convert.params_from_numpy(cfg, init, "cpu"), cfg,
+                          mode="train")
+    step = make_train_entry(cfg, accum_steps=2, mesh=mesh, rules=rules)
+    state = init_opt_state(params, step.dist_ctx)
+    tb = {k: torch.from_numpy(v).long() if v.dtype.kind == "i" else torch.from_numpy(v)
+          for k, v in batch.items()}
+    losses = []
+    for _ in range(steps):
+        params, state, m = step(params, state, tb)
+        losses.append(float(m["loss"]))
+    return {"loss": losses, "params": {k: v.detach().numpy() for k, v in param_leaves(params).items()},
+            "m": {k: v.numpy() for k, v in state.m.items()},
+            "parts": {k: tuple(p) for k, p in step.dist_ctx.parts.items()}}

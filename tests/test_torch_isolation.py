@@ -42,7 +42,9 @@ BLOCKED_IMPORTS = textwrap.dedent(r"""
             "repro_torch.training.optimizer", "repro_torch.training.trainer",
             "repro_torch.training.distill", "repro_torch.data.synthetic",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
-            "repro_torch.launch.train", "repro_torch.launch.training_kernels"} <= set(names), names
+            "repro_torch.launch.train", "repro_torch.launch.training_kernels",
+            "repro_torch.core.moe_parallel", "repro_torch.launch.steps",
+            "repro_torch.training.ep", "repro_torch.parallel.collectives"} <= set(names), names
     print(len(names), "modules")
 """)
 
