@@ -302,12 +302,31 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    time-sharing ``cuda:0`` over gloo (correctness, not EP speed): AdamW
    steps with ZeRO-1 at a headroom capacity factor against a one-device run
    of the same weights (losses, grad norms, three leaves' digests and their
-   updates; PR-MoE recomputing every layer in the backward) and at
-   the published 1.25 (the per-shard dropped share); every rank's launches
+   updates; PR-MoE recomputing every layer in the backward) and at the
+   published 1.25 (the per-shard dropped share; PR-MoE one step there);
+   every rank's launches
    of 1, 1b, 2, 2b, 6 and 6b against the one-device counts; each llama4
    rank's 1 / 1b / 2 / 2b against their plain versions at the EP shapes (2
    / 2b at d_ff 8192 and the 4096 slice); reduced f32 card vs CPU under EP;
    per-rank bytes, peak memory, staged bytes; the phase's wall time.
+Slice 17 (the analysis and dry-run tooling, ``repro_torch.analysis`` and
+``launch/{op_account,roofline,dryrun}.py``) checks inside the phases that
+hold the trees, each raising on failure: phase 3 locates the host syncs of
+its 5 profiled decode steps and of one ``generate`` (``sync sites:``
+lines: every sync the profiler counts at a ``src/repro_torch`` line that is
+a lint finding), prints one decode step's ``roofline:`` (the op capture's
+kernel entries equal to the launch counters of the same step, its bound
+beside the profiled device ms and the unprofiled wall ms), audits its graph
+(no collective, no dtype drift) and holds the dry run's parameter bytes
+within 1% of what the tree took; phase 4 the same syncs and roofline for a
+tick; phase 6b the roofline of the 16384-token prefill; phase 7 the int8
+decode step's dtype drift; phase 9 the capacity prefill's padded share
+against kernel 1's keep; phase 17g a llama4 step's syncs, roofline and
+in-place audit of its parameters and moments (its reckoned peak now the
+dry run's bytes); phase 18 each rank's decode steps held to their
+schedule's collectives; and 20, the dry-run table on meta
+(``chiprun_out/dryrun.json``).
+
 16. the script's own time ("script time:", from ``main``'s start, the
    build included), a ``{"kernels": [...]}`` line (with
    ``flash_attention_window``,
@@ -1066,6 +1085,8 @@ def profile_account(run, steps, what, named_ops=(), into=None) -> list:
         return [f"{what} profile: the profiler recorded {n_kern} kernels for {n_launch} launches; "
                 "device time not measured"]
     dev = sum(d for d, _, _ in kern) / steps / 1e3
+    if into is not None:
+        into["device_ms"] = dev
     per = lambda d: f"{d / steps / 1e3:.3f} ms"
     named = []
     if named_ops:
@@ -1092,7 +1113,7 @@ QUANT_WRITE_OPS = ("aten::abs", "aten::amax", "aten::clamp_min", "aten::div", "a
                    "aten::clamp", "aten::_to_copy", "aten::copy_")
 
 
-def profile_decode(eng, cfg, params, steps=5, what="decode", named_ops=()) -> list:
+def profile_decode(eng, cfg, params, steps=5, what="decode", named_ops=(), into=None) -> list:
     """Where a static decode step's time goes, as the engine runs it (greedy
     token read back every step; the engine's encoder memory and patch
     embeddings, and its decode index)."""
@@ -1115,7 +1136,7 @@ def profile_decode(eng, cfg, params, steps=5, what="decode", named_ops=()) -> li
                 cur.cpu()
             return (time.perf_counter() - t0) / steps * 1e3
 
-    return profile_account(run, steps, what, named_ops)
+    return profile_account(run, steps, what, named_ops, into=into)
 
 
 def profile_ticks(eng, cfg, steps=5, what="tick", into=None) -> list:
@@ -2151,7 +2172,25 @@ def quant_static_serve(cfg, params, qparams, reqs, counters, fp_tokens,
     ]
     if profile:
         lines += profile_decode(eng, cfg, qparams, what="quantized decode", named_ops=QUANT_WRITE_OPS)
+        lines.append(drift_check(eng, cfg, qparams, what))
     return lines, got
+
+
+def drift_check(eng, cfg, qparams, what) -> str:
+    """Phase 7: one decode step of the int8 engine captured; no int8 / int4
+    -> float cast of 4096 elements or more outside the kernel entries."""
+    from repro_torch.analysis.graph import audit_dtype_drift, capture
+
+    fn, args = decode_capture_args(eng, cfg, qparams)
+    cap = capture(fn, *args)
+    rep = audit_dtype_drift(cap, what)
+    casts = [r for r in cap.of("aten") if r.name == "aten._to_copy.default" and r.inputs
+             and r.inputs[0].dtype == torch.int8]
+    if rep.errors:
+        raise AssertionError(f"{what}: {rep.render()}")
+    return (f"graph audit: {what} decode step: no int8 / int4 -> float cast of 4096 elements or "
+            f"more outside the kernels ({len(casts)} smaller int8 casts); kernel entries "
+            f"{cap.kernels()}")
 
 
 def quant_reference_checks(cfg) -> list:
@@ -2355,6 +2394,7 @@ def capacity_static_serve(cfg, params, reqs, counters, what="capacity serve"):
     """The 4 requests through ``Engine`` under the capacity dispatch; the
     launch counts set to 0 before and read after: kernel 1 and the expert
     kernel once per MoE call.  Returns (lines, launches, tokens, engine)."""
+    from repro_torch.analysis.graph import audit_dead_compute, capture
     from repro_torch.models.model import init_caches, prefill
     from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -2381,8 +2421,19 @@ def capacity_static_serve(cfg, params, reqs, counters, what="capacity serve"):
     # kernel 1's keep at the 256-token prefill of the same prompts
     toks = torch.tensor([r.prompt for r in reqs], device="cuda")
     with recorded_gating() as seen:
-        prefill(cfg, params, toks, init_caches(cfg, BATCH, PROMPT + NEW, device="cuda"))
+        cap = capture(prefill, cfg, params, toks, init_caches(cfg, BATCH, PROMPT + NEW,
+                                                                device="cuda"))
     dropped, total = dropped_share(seen)
+    ffn = next(ls.ffn for ls in cfg.layer_specs() if ls.ffn.kind == "moe")
+    dead = audit_dead_compute(cap, what, num_tokens=BATCH * PROMPT, num_experts=ffn.num_experts,
+                              top_k=ffn.top_k, capacity_factor=ffn.capacity_factor, impl="ep")
+    E = ffn.num_experts
+    seen_pad = 1 - sum(int(keep.sum().item()) for keep, _ in seen) / sum(E * c for _, c in seen)
+    measured = dead.metrics[f"graph.{what}.padded_fraction_measured"]
+    if dead.errors or abs(measured - seen_pad) > 1e-12:
+        raise AssertionError(f"{what}: dead compute {dead.render()}, the gating's fill "
+                             f"{seen_pad}")
+    del cap
     lines = [
         f"{what}: {cfg.name} moe_impl={cfg.moe_impl!r} (the config's own; without a mesh the "
         f"dense mapping table), {BATCH} requests x {NEW} tokens in {wall * 1e3:.3f} ms "
@@ -2391,6 +2442,10 @@ def capacity_static_serve(cfg, params, reqs, counters, what="capacity serve"):
         f"launches {got}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
         f"{what}: prefill of {BATCH * PROMPT} tokens, capacity {seen[0][1]} per expert: kernel 1 "
         f"dropped {dropped} of {total} assignments ({100 * dropped / total:.2f}%)",
+        f"graph audit: {what} prefill: {dead.metrics[f'graph.{what}.expert_dots']} expert calls "
+        f"over [E={E}, C={seen[0][1]}]; padded share {measured:.6f} measured from kernel 2's fill, "
+        f"{seen_pad:.6f} from kernel 1's keep, {dead.metrics[f'graph.{what}.padded_fraction']} "
+        f"analytic (every assignment routed)",
         f"{what}: tokens of request 0: {out[0].tokens}",
     ]
     return lines, got, [r.tokens for r in out], eng
@@ -2926,7 +2981,11 @@ def long_prefill(cfg, params, counters):
             prefill(cfg, params, toks, caches)[0].cpu()
             return (time.perf_counter() - t0) * 1e3
 
-    profile = profile_account(run, 1, "long prefill")  # which kernels set the prefill
+    p6 = {}
+    profile = profile_account(run, 1, "long prefill", into=p6)  # which kernels set the prefill
+    profile.append(roofline_line(f"long prefill ({LONG_PROMPT} tokens, grouped, bf16)",
+                                 lambda c: prefill(cfg, params, toks, c), (eng._make_caches(1),),
+                                 counters, p6)[0])
     del toks
     (args, kw), = seen
     info = flash_info(args[0], args[1], args[3], args[4], kw)
@@ -4161,9 +4220,6 @@ def slice10_kernel_checks(gen) -> tuple:
 # ---------------------------------------------------------------------------
 
 S14_BATCH, S14_SEQ, S14_STEPS, S14_EXPERTS = 4, 512, 4, 16
-# bytes a parameter the PR-MoE step of phase 17b peaked at (52.8 GB for 4.11 G on one H100):
-# bf16 weights and gradients, f32 moments, activations
-S14_BYTES_PER_PARAM = 12.85
 
 
 def slice14_config():
@@ -4201,15 +4257,23 @@ def slice14_train(counters) -> tuple:
     from repro_torch.training.optimizer import init_adamw
     from repro_torch.training.trainer import TrainConfig, make_train_step
 
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import state_bytes
+
     base = slice14_config()
     n_count = count_params(base)
-    reckon = n_count * S14_BYTES_PER_PARAM / 1e9
+    # the dry run's bytes of the trainer's state (on meta): parameters,
+    # gradients (the parameters' dtype: no accumulation), AdamW's moments
+    dry = state_bytes(base, InputShape("llama4 train", S14_SEQ, S14_BATCH, "train"),
+                      accumulate=False)
+    reckon = sum(dry.values()) / 1e9
     logits = 2 * S14_BATCH * S14_SEQ * base.vocab_size * 4 / 1e9
     total = torch.cuda.get_device_properties(0).total_memory / 1e9
     log(f"llama4 train: {base.name} cut to {base.num_layers} layers and {S14_EXPERTS} of 128 "
         f"experts, published widths; {n_count} parameters (count_params): reckoned peak "
-        f"{reckon:.1f} GB at {S14_BYTES_PER_PARAM} bytes a parameter (PR-MoE's) + {logits:.1f} GB "
-        f"of f32 logits (two copies) = {reckon + logits:.1f} GB of the card's {total:.1f} GB")
+        f"{reckon:.1f} GB from the dry run (" + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in dry.items())
+        + f" GB) + {logits:.1f} GB of f32 logits (two copies) = {reckon + logits:.1f} GB of the "
+        f"card's {total:.1f} GB")
     if reckon + logits > 0.95 * total:
         raise AssertionError("llama4 train: the reckoned peak does not fit the card")
     paths, summary = {}, {}
@@ -4260,13 +4324,52 @@ def slice14_train(counters) -> tuple:
                 torch.cuda.synchronize()
                 return (time.perf_counter() - t0) * 1e3
 
-        for line in profile_account(run_profile, 1, f"{what} step"):
+        p17 = {}
+        for line in profile_account(run_profile, 1, f"{what} step", into=p17):
             log(line)
+        log(f"{what}: peak {peak:.2f} GB measured against {reckon + logits:.2f} GB reckoned from "
+            f"the dry run's bytes and the f32 logits")
+        if impl == "ep":
+            lines, params, opt = train_analysis(step, params, opt, data, counters, what, p17)
+            for line in lines:
+                log(line)
         trainable(params, False)
         del params, opt, step, data
     gc.collect()
     torch.cuda.empty_cache()
     return paths, summary
+
+
+def train_analysis(step, params, opt, data, counters, what, prof) -> tuple:
+    """Phase 17g's checks on one llama4 step under ``ep``: its syncs
+    located, its roofline (the backward kernels' entries too), and the
+    in-place audit of the parameters and AdamW's moments across it.
+    Returns (lines, params, opt)."""
+    from repro_torch.analysis.donation import audit_inplace
+
+    toks, labels = next(data)
+    st = {"p": params, "o": opt}
+
+    def one():
+        st["p"], st["o"], _ = step(st["p"], st["o"], toks, labels)
+
+    lines = [sync_sites(f"{what} step", one, 1)[0]]
+    toks, labels = next(data)
+    held = {}
+
+    def roofline_step(p, o, t, lab):
+        line, cap, _ = roofline_line(f"{what} step", step, (p, o, t, lab), counters, prof)
+        held["line"] = line
+        return cap.output
+
+    rep, out = audit_inplace(f"{what} step", roofline_step, (st["p"], st["o"], toks, labels),
+                             (0, 1), returns={0: 0, 1: 1})
+    if rep.errors:
+        raise AssertionError(rep.render())
+    lines += [held["line"], f"in place: {what} step: parameters and moments kept their storage "
+              f"({rep.metrics[f'inplace.{what} step.kept']} leaves, "
+              f"{rep.metrics[f'inplace.{what} step.written']} written)"]
+    return lines, out[0], out[1]
 
 
 def slice14_reference_checks() -> list:
@@ -4323,6 +4426,172 @@ def slice14_reference_checks() -> list:
                      f"{lw:.3e}); params after {REF_STEPS} steps within {dp:.3e} (tolerance "
                      f"{REF_PARAM_TOL:g})")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# Slice 17: the analysis and dry-run tooling on the card (inside the phases
+# that hold the trees: 3, 4, 6b, 7, 9, 17g, 18, and the dry-run table)
+# ---------------------------------------------------------------------------
+
+LINT = []  # the lint report of src/repro_torch, made once
+
+
+def lint_report():
+    from repro_torch.analysis import lint_tree
+
+    if not LINT:
+        LINT.append(lint_tree(str(Path(__file__).resolve().parent / "src" / "repro_torch")))
+    return LINT[0]
+
+
+def sync_sites(what, run, steps) -> tuple:
+    """``run()`` (``steps`` steps) under ``analysis/syncs.py``'s locator:
+    every sync point the profiler counts located at its ``src/repro_torch``
+    line (or the caller's), each such line a lint finding (raises
+    otherwise).  Returns (the "sync sites:" line, the log)."""
+    from repro_torch.analysis.syncs import SyncLog, check_against_lint, locate_syncs
+
+    log = SyncLog()
+    with locate_syncs(log):
+        run()
+    found = check_against_lint(log, lint_report(), what)
+    line = (f"sync sites: {what}: {log.located / steps:g} host syncs a step "
+            f"({dict(log.by_event)} over {steps} steps; {log.not_syncs / steps:g} CPU scalar reads "
+            f"a step, no sync): {log.per_step(steps)}; lint: {'; '.join(found) or 'none in the package'}")
+    return line, log
+
+
+def roofline_line(what, fn, args, counters, prof, check=None) -> tuple:
+    """One step ``fn(*args)`` captured (``analysis/graph.py``), its kernel
+    entries held equal to the launch counters of the same step, and its
+    ``op_account`` bound beside the profiled device ms and the unprofiled
+    wall ms of the same step (``prof``, from ``profile_account``).  Returns
+    (the "roofline:" line, the capture, its account)."""
+    from repro_torch.analysis.graph import capture
+    from repro_torch.launch.op_account import account
+    from repro_torch.launch.roofline import analyze
+
+    torch.cuda.synchronize()
+    reset(*counters)
+    cap = capture(fn, *args)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read(counters, f"roofline {what}").items() if v}
+    if cap.kernels() != got:
+        raise AssertionError(f"roofline {what}: kernel entries {cap.kernels()}, launches {got}")
+    acct = account(cap)
+    roof = analyze(acct)
+    bound = roof.t_bound * 1e3
+    dev, wall = prof.get("device_ms"), prof["wall_ms"]
+    # a bound is the least time the card could take: above a measured time
+    # it counts bytes or operations the step does not have
+    if bound > min(t for t in (dev, wall) if t):
+        raise AssertionError(f"roofline {what}: bound {bound:.4f} ms above the measured "
+                             f"device {dev} ms / wall {wall:.4f} ms")
+    dev_s = (f"device {dev:.3f} ms (profiler; the bound {100 * bound / dev:.1f}% of it)"
+             if dev else "device ms not measured")
+    line = (f"roofline: {what}: {acct.ops:.4g} operations ({', '.join(f'{k} {v:.4g}' for k, v in acct.ops_by_dtype.items())}), "
+            f"{acct.traffic:.4g} bytes: bound {bound:.4f} ms ({roof.dominant}); {dev_s}, wall "
+            f"{wall:.3f} ms (unprofiled; the bound {100 * bound / wall:.1f}% of it); kernel entries "
+            f"{cap.kernels()} = launches; kernels' share of the bytes "
+            f"{100 * sum(acct.kernel_bytes.values()) / max(acct.traffic, 1):.1f}%")
+    return line, cap, acct
+
+
+def decode_capture_args(eng, cfg, params):
+    """(fn, args) of one static decode step at position PROMPT after a fresh
+    prefill of BATCH x PROMPT tokens, as ``profile_decode`` steps it."""
+    from repro_torch.models.model import decode_step, prefill
+
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 17))
+    caches = eng._make_caches(BATCH)
+    logits, caches = prefill(cfg, params, toks, caches, memory=eng.memory,
+                             prefix_embeds=eng.prefix_embeds)
+    cur = logits.argmax(-1)[:, None]
+    return (lambda c, t: decode_step(cfg, params, t, PROMPT + eng._offset, c, memory=eng.memory),
+            (caches, cur))
+
+
+def static_analysis(eng, cfg, params, reqs, counters, prof, drawn_bytes) -> list:
+    """Phase 3's checks: the syncs of the 5 profiled decode steps and of one
+    ``generate`` located, one decode step's roofline, its graph audit (no
+    collective, no dtype drift), and the dry run's parameter bytes against
+    the bytes the tree took when drawn (within 1%)."""
+    from repro_torch.analysis.graph import audit_graph
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.quant import tree_bytes
+    from repro_torch.models.model import decode_step, prefill
+
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda")
+    caches = eng._make_caches(BATCH)
+    logits, caches = prefill(cfg, params, toks, caches)
+    cur = [logits.argmax(-1)[:, None]]
+    cur[0].cpu()
+
+    def steps():
+        for t in range(5):
+            logits, _ = decode_step(cfg, params, cur[0], PROMPT + t, caches)
+            cur[0] = logits.argmax(-1)[:, None]
+            cur[0].cpu()
+
+    lines = [sync_sites("static decode (the profiled loop: its read-back is the caller's)",
+                        steps, 5)[0],
+             sync_sites(f"static generate ({BATCH} x {PROMPT}, {NEW} new: a prefill and "
+                        f"{NEW - 1} decode steps, per decode step)",
+                        lambda: eng.generate(reqs), NEW - 1)[0]]
+    fn, args = decode_capture_args(eng, cfg, params)
+    line, cap, _ = roofline_line("static decode step (grouped, bf16)", fn, args, counters, prof)
+    lines.append(line)
+    rep = audit_graph("static decode", None, (), captured=cap)
+    if rep.findings or rep.metrics["graph.static decode.collectives"]:
+        raise AssertionError(f"graph audit of the static decode step: {rep.render()}")
+    lines.append(f"graph audit: static decode step: no collective, no int8 -> float cast, "
+                 f"{len(cap.records)} ops and kernel entries {cap.kernels()}")
+    want = tree_bytes(abstract_params(cfg))
+    err = abs(want - drawn_bytes) / drawn_bytes
+    if err > 0.01:
+        raise AssertionError(f"dry run: abstract_params {want} bytes, the tree took {drawn_bytes}")
+    lines.append(f"dry run: abstract_params of {cfg.name} ({cfg.num_layers} layers) on meta "
+                 f"{want / 1e9:.4f} GB, memory_allocated gained while drawing it "
+                 f"{drawn_bytes / 1e9:.4f} GB ({100 * err:.3f}% apart)")
+    return lines
+
+
+def tick_analysis(eng, cfg, counters, prof) -> list:
+    """Phase 4's checks: every slot decoding (each prefill done), the syncs
+    of 5 ticks located, and one tick's roofline."""
+    from repro_torch.serving.engine import Request
+
+    rng = torch.Generator().manual_seed(SEED + 3)
+    for _ in range(eng.n_slots):
+        eng.submit(Request(torch.randint(0, cfg.vocab_size, (PROFILE_PROMPT,),
+                                         generator=rng).tolist(), 48))
+    while any(s.prefilling for s in eng.slots) or eng.queue:
+        eng.step()
+    lines = [sync_sites("continuous tick (every slot decoding)",
+                        lambda: [eng.step() for _ in range(5)], 5)[0]]
+    lines.append(roofline_line("continuous tick (8 slots decoding, paged bf16)", eng.step, (),
+                               counters, prof)[0])
+    eng.run_until_done()
+    return lines
+
+
+def dryrun_table() -> list:
+    """Every assigned arch x shape on one card and EP meshes of 4 and 8
+    ranks, on meta; the JSON beside the script in chiprun_out/dryrun.json."""
+    from repro_torch.launch.dryrun import run_all, summary
+
+    t0 = time.perf_counter()
+    res = run_all()
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "dryrun.json").write_text(json.dumps(res, indent=1))
+    if any(r["status"] == "error" for r in res):
+        raise AssertionError(f"dry run: {[r for r in res if r['status'] == 'error']}")
+    fits = sorted(f"{r['arch']} x {r['shape']} ({r['mesh']}) {r['total_bytes'] / 1e9:.1f} GB"
+                  for r in res if r["status"] == "ok" and r["fits"])
+    return [f"dry run: {summary(res)} in {time.perf_counter() - t0:.1f} s on meta "
+            f"(chiprun_out/dryrun.json); fits: {'; '.join(fits)}"]
 
 
 # ---------------------------------------------------------------------------
@@ -4394,8 +4663,10 @@ def main() -> int:
     cfg = full.replace(moe_impl="grouped", segments=(Segment(full.segments[0].pattern, 1),))
     red = make_reduced(full).replace(moe_impl="grouped")
     t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
     params = init_params(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
+    drawn = torch.cuda.memory_allocated() - mem0
     n_params = sum(b.numel() for b in params.buffers())
     log(f"init: {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} layers, "
         f"{n_params / 1e9:.2f} G parameters ({torch.cuda.memory_allocated() / 1e9:.1f} GB) "
@@ -4428,8 +4699,13 @@ def main() -> int:
         f"({BATCH / step_ms * 1e3:.1f} tok/s) over {len(tm['decode_step_s'])} steps; "
         f"launches {static_launches}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     log(f"serve: tokens of request 0: {out[0].tokens}")
-    for line in profile_decode(eng, cfg, params):
+    p3 = {}
+    for line in profile_decode(eng, cfg, params, into=p3):
         log(line)
+    t_an = time.perf_counter()
+    for line in static_analysis(eng, cfg, params, reqs, counters, p3, drawn):
+        log(line)
+    analysis_s = time.perf_counter() - t_an
     log(reference_check(red))
 
     # 4. continuous serve, same weights
@@ -4437,8 +4713,13 @@ def main() -> int:
     cont_preemptions = ceng.preemptions  # before the tick profile serves more
     for line in lines:
         log(line)
-    for line in profile_ticks(ceng, cfg):
+    p4 = {}
+    for line in profile_ticks(ceng, cfg, into=p4):
         log(line)
+    t_an = time.perf_counter()
+    for line in tick_analysis(ceng, cfg, counters, p4):
+        log(line)
+    analysis_s += time.perf_counter() - t_an
 
     # 4b. the prefix trace: prefix sharing and copy-on-write through the
     # chunked and the batched tick (bf16, and the batched tick over an int8
@@ -4938,6 +5219,9 @@ def main() -> int:
     import ep_train_phase
 
     _, et_summary, et_paths = ep_train_phase.ep_train_phase(counters)  # logs as it goes
+    # 20. slice 17: the dry-run table over every assigned arch x shape, on meta
+    for line in dryrun_table():
+        log(line)
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -5281,7 +5565,8 @@ def main() -> int:
     log("obs summary: " + json.dumps(obs_summary))
     log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
-    log(f"script time: {time.perf_counter() - t_main:.1f} s from main's start, the build included")
+    log(f"script time: {time.perf_counter() - t_main:.1f} s from main's start, the build included "
+        f"(phases 3 and 4's sync, roofline, graph and dry-run checks {analysis_s:.1f} s)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

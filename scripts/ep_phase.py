@@ -32,7 +32,9 @@ experts and the replicated rest, 7.2 GB, before the next rank draws).
   (e) a one-rank NCCL group drives ``moe_serve.ep_schedule`` (every
       schedule, on (1,) and (1, 1)) on device tensors: equal to the
       one-device layer;
-  (f) each rank's parameter bytes and the bytes staged through the host.
+  (f) each rank's parameter bytes and the bytes staged through the host;
+  (g) each run's decode step on every rank captured (``analysis/graph.py``)
+      and held to its schedule's collectives, counted per MoE layer.
 
 Prints its lines and, last, one JSON line with every number and the card's
 name and power limit.  Needs the card; imports nothing of JAX.
@@ -224,6 +226,28 @@ def kernel_checks(cfg, moe, mesh, axes, gen) -> dict:
     return out
 
 
+def decode_collectives(eng, name) -> dict:
+    """(g): one decode step of the engine on this rank (the contract's
+    decode signature on fresh caches) captured, and held to its schedule's
+    collectives, counted per MoE layer (``analysis/graph.py``)."""
+    from repro_torch.analysis.contracts import engine_contract
+    from repro_torch.analysis.graph import audit_graph, capture, schedule_collectives
+    from repro_torch.core.moe_serve import schedule_of
+    from repro_torch.serving.ep import mesh_scope
+
+    cfg = eng.cfg
+    ffn = next(ls.ffn for ls in cfg.layer_specs() if ls.ffn.kind == "moe")
+    dec = next(e for e in engine_contract(eng) if e.name == "decode")
+    T = eng.n_slots if hasattr(eng, "n_slots") else dec.sample[-1][0]
+    schedule = schedule_of("grouped" if cfg.moe_impl == "ep_grouped" else "capacity", T, ffn)
+    allowed = schedule_collectives(cfg, schedule, eng._mesh.shape)
+    with torch.no_grad(), mesh_scope(eng._mesh, eng._mesh_rules):
+        cap = capture(dec.fn, *dec.make(*dec.sample[-1]))
+    rep = audit_graph(f"{name} decode", None, (), allowed_collectives=allowed, captured=cap)
+    return {"schedule": schedule, "allowed": allowed, "seen": cap.collectives(),
+            "errors": [f.render() for f in rep.errors]}
+
+
 def rank_body(rank: int, world: int, layer_inputs: dict) -> dict:
     """One rank of (a)-(d), (f)."""
     import torch.distributed as dist
@@ -262,7 +286,8 @@ def rank_body(rank: int, world: int, layer_inputs: dict) -> dict:
         res["runs"][name] = {
             "tokens": tokens, "launches": launches, "wall_s": wall, "impl": eng.cfg.moe_impl,
             "staged_bytes": col.staged["bytes"] - staged0["bytes"],
-            "staged_calls": col.staged["calls"] - staged0["calls"]}
+            "staged_calls": col.staged["calls"] - staged0["calls"],
+            "collectives": decode_collectives(eng, name)}
         del eng
     res["peak_memory"] = torch.cuda.max_memory_allocated()
     # the MoE layer at the served inputs under each EP schedule (the
@@ -505,6 +530,13 @@ def ep_phase(counters) -> tuple:
                      f"(one device {ref[name]['wall_s']:.3f} s); staged {run['staged_bytes']} "
                      f"bytes in {run['staged_calls']} collectives")
         lines.append(f"ep {name}: tokens of request 0 {toks[0][0]}")
+        colls = [r["runs"][name]["collectives"] for r in ranks]
+        if any(c["errors"] for c in colls) or any(c["seen"] != colls[0]["seen"] for c in colls):
+            raise AssertionError(f"ep {name}: decode collectives {colls}")
+        summary["runs"][name]["decode_collectives"] = colls[0]
+        lines.append(f"graph audit: ep {name}: every rank's decode step makes {colls[0]['seen']}: "
+                     f"the {colls[0]['schedule']} schedule's collectives over "
+                     f"{RUNS[name][1]}, counted per MoE layer ({colls[0]['allowed']})")
     # the MoE layer's output: every rank's EP schedule against one device
     summary["layer"] = {}
     for key, one in one_layer.items():

@@ -25,7 +25,7 @@ AdamW (``training/optimizer.py``) on its rows of the Markov stream.
       factor 1.25 with the dropped share under per-shard capacity;
   (b) nlg-350m-prmoe-32-64 at its published size on (2, 2) over (``data``,
       ``model``), its GELU experts sliced over ``model``: 2 steps of 8 x 512
-      tokens at each layer's E / K against its one-device run, and 2 at the
+      tokens at each layer's E / K against its one-device run, and one at the
       published 1.25; every layer recomputed in the backward (``remat``), on
       one device and on the ranks alike: at E / K every layer's expert
       activations would not fit the card at once;
@@ -74,6 +74,18 @@ MODELS = {
 # run -> capacity factor (None: each layer's E / K, the headroom: a shard's
 # capacity takes every assignment, so nothing drops)
 RUNS = {"headroom": None, "published": PUBLISHED_CF}
+# PR-MoE's run at the published factor reports the dropped share under
+# per-shard capacity, peak and staged bytes, which one step measures (it
+# keeps chip_smoke.py within its time); llama4's takes its own steps
+PUBLISHED_STEPS = {"prmoe": 1}
+
+
+def run_steps(model: str, run: str) -> int:
+    if run == "published":
+        return PUBLISHED_STEPS.get(model, MODELS[model][5])
+    return MODELS[model][5]
+
+
 REDUCED = {"llama4": "llama4-maverick-400b-a17b", "prmoe": "nlg-350m-prmoe-32-64"}
 RED_BATCH, RED_SEQ = 8, 32
 KERNELS = ("moe_gating", "moe_gating_backward", "expert_mlp", "expert_mlp_backward",
@@ -323,9 +335,10 @@ def rank_body(rank: int, model: str) -> dict:
     shape, names = MODELS[model][:2]
     mesh, rules = build_train_mesh(shape, names)
     res = {"rank": rank, "device": str(torch.cuda.current_device()), "runs": {}}
-    batch, seq, steps = MODELS[model][3:6]
-    tc = train_config(model, steps)
+    batch, seq = MODELS[model][3:5]
     for run, cf in RUNS.items():
+        steps = run_steps(model, run)
+        tc = train_config(model, steps)
         cfg = model_config(model, cf)
         t0 = time.perf_counter()
         params = draw_placed(cfg, mesh, rules, cs.SEED, CARD)
@@ -511,9 +524,12 @@ def run_model(model: str, counters, lines: list) -> tuple:
         launches = [r["runs"][run]["launches"] for r in ranks]
         if any(lz != launches[0] for lz in launches):
             raise AssertionError(f"ep train {model} {run}: the ranks' launches differ: {launches}")
-        if launches[0] != ref["launches"]:
+        # the one-device run takes the headroom run's steps; launches are
+        # the same every step
+        want = {k: v * run_steps(model, run) // steps for k, v in ref["launches"].items()}
+        if launches[0] != want:
             raise AssertionError(f"ep train {model} {run}: launches {launches[0]} per rank, one "
-                                 f"device {ref['launches']}")
+                                 f"device {want}")
         by_path[f"ep_train_{model}_{run}"] = launches[0]
         drops = [r["runs"][run]["dropped_share"] for r in ranks]
         entry = {"cf": ranks[0]["runs"][run]["cf"], "tokens": ranks[0]["runs"][run]["tokens"],

@@ -152,6 +152,7 @@ def routing_to_host(stats_tree) -> dict:
     leaves = [t for s, p in keys for t in stats_tree[s][p]]
     if not leaves:
         return {}
+    # analysis: allow(host-asarray) — the routing stats' read-back, under obs.routing
     flat = torch.cat([t.detach().reshape(-1).double() for t in leaves]).cpu().numpy()
     out, o = {}, 0
     for s, p in keys:

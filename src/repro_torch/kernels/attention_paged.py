@@ -40,6 +40,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.quant.kv import QuantizedKV
 from repro_torch.kernels.no_backward import SERVING_KERNELS, refuse_grad
+from repro_torch.kernels import account
 
 NEG_INF = -1e30
 KEYS_PER_TILE = 32  # paged_attention.cuh KT: a page must fit in one f32 tile
@@ -107,6 +108,7 @@ def tile_marks(k_pos: torch.Tensor, q_lo: int, q_hi: int, *, tile: int, causal: 
     T = k_pos.shape[-1]
     n = -(-T // tile)
     kp = torch.full((n * tile,), -1, dtype=torch.int64)
+    # analysis: allow(host-asarray) — host mirror of the kernel's tile walk, not on the card path
     kp[:T] = k_pos.reshape(-1).to(torch.int64).cpu()
     kp = kp.view(n, tile)
     live = kp >= 0
@@ -288,6 +290,10 @@ def paged_decode_attention(
     TPU kernel's: the table is pre-clamped, and ``kpos`` is -1 for every
     entry not holding a valid token (trash page, fresh and recycled pages).
     With ``k_scale``/``v_scale`` the pool holds int8 values (kernel 7q)."""
+    if account.recorder is not None:
+        return account.recorder.kernel(
+            "paged_decode_attention" + ("" if k_scale is None else "_int8"),
+            paged_decode_attention, **locals())
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, kpos, table, qpos, scale=scale,
                                             causal=causal, window=window, softcap=softcap,

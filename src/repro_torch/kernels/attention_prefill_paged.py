@@ -34,6 +34,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.attention_paged import check_pool_args, kv_values, masked_softmax_pv
 from repro_torch.kernels.no_backward import SERVING_KERNELS, refuse_grad
+from repro_torch.kernels import account
 
 PREFILL_PV = "hgct,thd->chgd"
 
@@ -116,6 +117,10 @@ def paged_prefill_attention(
 ) -> torch.Tensor:
     """[C, Hkv, G, dh] attention output in q's type.  With ``k_scale`` /
     ``v_scale`` the pool holds int8 values (kernel 8q)."""
+    if account.recorder is not None:
+        return account.recorder.kernel(
+            "paged_prefill_attention" + ("" if k_scale is None else "_int8"),
+            paged_prefill_attention, **locals())
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, kpos, table, qpos, ck, cv,
                                              scale=scale, causal=causal, window=window,
@@ -202,6 +207,10 @@ def paged_prefill_attention_batched(
     """[B, C, Hkv, G, dh] attention output in q's type, every row in one
     launch.  With ``k_scale`` / ``v_scale`` the pool holds int8 values
     (kernel 8q)."""
+    if account.recorder is not None:
+        return account.recorder.kernel(
+            "paged_prefill_attention_batched" + ("" if k_scale is None else "_int8"),
+            paged_prefill_attention_batched, **locals())
     if q.device.type == "cpu":
         return paged_prefill_attention_batched_plain(
             q, k_pool, v_pool, kpos, tables, qpos, ck, cv, scale=scale, causal=causal,

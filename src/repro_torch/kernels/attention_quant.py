@@ -35,6 +35,7 @@ from repro_torch.kernels.attention_paged import (DECODE_PV, MAX_G, TILE_KEYS, _s
                                                  check_kv_args, decode_splits, kv_values,
                                                  masked_partials, masked_softmax_pv, merge_partials,
                                                  split_bounds, tile_marks)
+from repro_torch.kernels import account
 
 launches = {"decode_attention_quant": 0}
 
@@ -61,6 +62,7 @@ def live_tiles(kpos_row, qpos: int, *, causal: bool = True, window: int = 0) -> 
     hold a key valid for the query at ``qpos`` (``tile_marks``)."""
     live, _ = tile_marks(torch.as_tensor(kpos_row), qpos, qpos, tile=TILE_KEYS, causal=causal,
                          window=window)
+    # analysis: allow(host-asarray) — host mirror of the kernel's split plan, not on the card path
     return torch.nonzero(live).flatten().tolist()
 
 
@@ -132,6 +134,8 @@ def decode_attention_quant(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """[B, Hkv, G, dh] attention output in q's type."""
+    if account.recorder is not None:
+        return account.recorder.kernel("decode_attention_quant", decode_attention_quant, **locals())
     if q.device.type == "cpu":
         return decode_attention_quant_plain(q, kq, ks, vq, vs, kpos, qpos, scale=scale,
                                             causal=causal, window=window, softcap=softcap)

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.expert_mlp_grouped import TILE, VEC, launch_backward, swiglu_backward_rows
+from repro_torch.kernels import account
 
 launches = {"expert_mlp": 0, "expert_mlp_backward": 0}
 
@@ -60,6 +61,7 @@ def experts_plain(xe: torch.Tensor, fill: Optional[torch.Tensor], weights_of,
     are zero and give zero rows, so the result is the same."""
     E = xe.shape[0]
     out = torch.zeros_like(xe)
+    # analysis: allow(host-asarray) — plain version, CPU only
     live = range(E) if fill is None else torch.nonzero(fill > 0).flatten().tolist()
     for e in live:
         wi, wg, wo = weights_of(e)
@@ -165,6 +167,8 @@ def expert_mlp_backward(xe, wi, wg, wo, dy, fill=None):
     card (one count a call: its table kernel, row passes and weight passes;
     the fill cut to C, as the forward cuts it), the plain version on the
     CPU."""
+    if account.recorder is not None:
+        return account.recorder.kernel("expert_mlp_backward", expert_mlp_backward, **locals())
     if xe.device.type == "cpu":
         return expert_mlp_backward_plain(xe, wi, wg, wo, dy, fill)
     if xe.device.type != "cuda":
@@ -180,6 +184,8 @@ def expert_mlp_backward(xe, wi, wg, wo, dy, fill=None):
 
 def _expert_mlp(xe, wi, wg, wo, fill):
     """Kernel 2 (its plain version on the CPU)."""
+    if account.recorder is not None:
+        return account.recorder.kernel("expert_mlp", _expert_mlp, **locals())
     if xe.device.type == "cpu":
         return expert_mlp_plain(xe, wi, wg, wo, fill)
     if xe.device.type != "cuda":

@@ -32,6 +32,7 @@ from repro_torch.kernels.expert_mlp_grouped import (TILE, VEC, _expert, kernel_v
                                                     launch_capacity_mma)
 from repro_torch.quant.qarrays import QuantizedArray, dequantize_values
 from repro_torch.kernels.no_backward import EXPERT_KERNELS, quant_tensors, refuse_grad
+from repro_torch.kernels import account
 
 launches = {"expert_mlp_quant": 0}
 variant_launches = {"expert_mlp_quant_mma": 0, "expert_mlp_quant_fma": 0}
@@ -88,6 +89,8 @@ def expert_mlp_quant(
     ``n_assign``: the assignments the buffer can hold at most (the MoE
     layer's T*K, a static shape value), which bounds the tensor-core
     kernel's grid (``capacity_mma_plan``); None if unknown."""
+    if account.recorder is not None:
+        return account.recorder.kernel("expert_mlp_quant", expert_mlp_quant, **locals())
     if xe.device.type == "cpu":
         return expert_mlp_quant_plain(xe, wi, wg, wo, fill)
     if xe.device.type != "cuda":

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.gating import Gating, count_ids, top_k_gating
 from repro_torch.kernels import build
+from repro_torch.kernels import account
 
 MAX_EXPERTS = 512  # 16 values per lane of the token's warp
 MAX_TOP_K = 32  # gate k lives in lane k
@@ -170,6 +171,8 @@ def gating_backward(probs, expert_idx, keep, d_w, d_probs=None, *,
                     normalize: bool = True) -> torch.Tensor:
     """d logits [T, E] f32: kernel 1b on the card (one warp per token), the
     plain version on the CPU."""
+    if account.recorder is not None:
+        return account.recorder.kernel("moe_gating_backward", gating_backward, **locals())
     if probs.device.type == "cpu":
         return gating_backward_plain(probs, expert_idx, keep, d_w, d_probs, normalize=normalize)
     if probs.device.type != "cuda":
@@ -206,6 +209,8 @@ def _gating(logits: torch.Tensor, top_k: int, capacity: int, normalize: bool,
             one_launch: bool) -> Tuple[Gating, torch.Tensor]:
     """``gating`` on the path ``one_launch`` names, whatever the slot count
     (the quick loop ``launch/expert_kernels.py`` measures both paths)."""
+    if account.recorder is not None:
+        return account.recorder.kernel("moe_gating", _gating, **locals())
     if logits.device.type == "cpu":
         return gating_plain(logits, top_k, capacity, normalize=normalize)
     if logits.device.type != "cuda":

@@ -15,8 +15,19 @@ JAX's split of each microbatch over the batch axes); the gradients and
 AdamW are the trainer's expert-parallel ones (``training/trainer.py``:
 ``DistCtx``, ZeRO-1).
 
-The abstract parameter and input specs (``abstract_params``,
-``input_specs``, ``entry_for``) belong to the dry-run and are not here.
+The dry run's abstract specs live here too, on ``device="meta"`` (shapes
+and dtypes, nothing allocated): ``abstract_params`` (``init_params`` on
+meta, cut under a mesh to one rank's leaves by ``parallel/params.py``'s
+rules), ``abstract_opt_state`` (AdamW's moments in f32, as the port's
+``init_adamw`` allocates them at every size; under a mesh ZeRO-1's slice
+of each replicated leaf),
+``abstract_caches``, ``input_specs`` (the entry's arguments for an
+``InputShape``: every rank takes the global batch, as above) and
+``entry_for`` (the train, prefill or decode entry a shape's kind runs).
+JAX's abstract moments take ``opt_dtype_for``'s dtype (bf16 past
+``_BF16_OPT_THRESHOLD`` parameters) while its trainer allocates f32; the
+port sizes them as its trainer allocates them, so the dry run reports the
+bytes the trainer would hold.
 """
 from __future__ import annotations
 
@@ -26,8 +37,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, count_params
+from repro_torch.configs.shapes import InputShape
 from repro_torch.data.pipeline import local_rows
-from repro_torch.models.model import encode_train, forward, trainable
+from repro_torch.models.model import (decode_step, encode_train, forward, init_caches,
+                                      init_params, param_leaves, prefill, trainable)
+from repro_torch.parallel.params import shard_params, zero_partition
+from repro_torch.parallel.sharding import DEFAULT_RULES
 from repro_torch.parallel.sharding import EpMesh
 from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_update
 from repro_torch.training.schedule import warmup_cosine
@@ -126,3 +141,109 @@ def make_train_entry(cfg: ModelConfig, *, remat: bool = True, accum_steps: Optio
 
     train_step.dist_ctx = ctx
     return train_step
+
+
+def make_prefill_entry(cfg: ModelConfig):
+    def prefill_step(params, tokens, caches, memory=None, prefix=None):
+        return prefill(cfg, params, tokens, caches, memory=memory, prefix_embeds=prefix)
+
+    return prefill_step
+
+
+def make_decode_entry(cfg: ModelConfig):
+    def decode_one(params, token, index, caches, memory=None):
+        return decode_step(cfg, params, token, index, caches, memory=memory)
+
+    return decode_one
+
+
+def entry_for(cfg: ModelConfig, kind: str):
+    if kind == "train":
+        return make_train_entry(cfg)
+    if kind == "prefill":
+        return make_prefill_entry(cfg)
+    return make_decode_entry(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Abstract specs on the meta device (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def paper_mesh(shape, axis_names=("data",), rank: int = 0) -> EpMesh:
+    """Rank ``rank``'s view of a mesh with no process group: enough for
+    ``shard_params`` and ``zero_partition`` to cut a rank's leaves (every
+    rank's are the same size)."""
+    from repro_torch.parallel.sharding import coords_of
+
+    shape = tuple(int(n) for n in shape)
+    return EpMesh(shape, tuple(axis_names), rank, coords_of(rank, shape), None)
+
+
+def abstract_params(cfg: ModelConfig, mesh: Optional[EpMesh] = None, *, mode: str = "serve",
+                    rules: Optional[dict] = None):
+    """The parameter tree on ``device="meta"``; under ``mesh``, one rank's
+    leaves (experts sharded, the rest replicated: the port's layout)."""
+    params = init_params(cfg, device="meta")
+    if mesh is None:
+        return params
+    return shard_params(mesh, rules or DEFAULT_RULES, params, cfg, mode=mode)
+
+
+def abstract_opt_state(cfg: ModelConfig, params, mesh: Optional[EpMesh] = None,
+                       rules: Optional[dict] = None) -> AdamWState:
+    """AdamW's moments for ``params`` (a rank's, under ``mesh``) on meta, in
+    f32 as ``init_adamw`` allocates them; under a mesh a replicated leaf's
+    moments are its ZeRO-1 slice."""
+    leaves = param_leaves(params)
+    parts = zero_partition(mesh, rules or DEFAULT_RULES, leaves, cfg) if mesh is not None else None
+
+    def zeros(k, p):
+        shape = (parts[k].size,) if parts is not None and parts[k].zero else p.shape
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    return AdamWState(0, {k: zeros(k, p) for k, p in leaves.items()},
+                      {k: zeros(k, p) for k, p in leaves.items()})
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, capacity: int, mesh: Optional[EpMesh] = None,
+                    *, cross_len: int = 0) -> dict:
+    """The contiguous caches on meta (replicated under a mesh: every rank
+    holds every row, ``serving/ep.py::place_caches``)."""
+    return init_caches(cfg, batch, capacity, cross_len=cross_len, device="meta")
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.family == "vlm" and cfg.frontend is not None:
+        return max(seq_len - cfg.frontend.n_tokens, 1)
+    return seq_len
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, mesh: Optional[EpMesh] = None) -> dict:
+    """The entry's arguments for ``shape`` on meta, ``{"args": (...)}`` in
+    the order ``entry_for(cfg, shape.kind)`` takes them (the global batch on
+    every rank)."""
+    from repro_torch.models.modules import DTYPES
+
+    GB, S = shape.global_batch, shape.seq_len
+    dt = DTYPES[cfg.param_dtype]
+    meta = lambda *s, dtype=dt: torch.empty(s, dtype=dtype, device="meta")
+    tok = lambda s: meta(GB, s, dtype=torch.long)
+    fe = cfg.frontend
+    cross = fe.n_tokens if cfg.family == "encdec" else 0
+    if shape.kind == "train":
+        st = _text_len(cfg, S)
+        batch = {"tokens": tok(st), "labels": tok(st)}
+        if cfg.family == "vlm":
+            batch["prefix"] = meta(GB, fe.n_tokens, fe.embed_dim)
+        if cfg.family == "encdec":
+            batch["source"] = meta(GB, fe.n_tokens, fe.embed_dim)
+        params = abstract_params(cfg, mesh, mode="train")
+        return {"args": (params, abstract_opt_state(cfg, params, mesh), batch)}
+    params = abstract_params(cfg, mesh)
+    caches = abstract_caches(cfg, GB, S, mesh, cross_len=cross)
+    memory = meta(GB, fe.n_tokens, cfg.d_model) if cfg.family == "encdec" else None
+    if shape.kind == "prefill":
+        prefix = meta(GB, fe.n_tokens, fe.embed_dim) if cfg.family == "vlm" else None
+        return {"args": (params, tok(_text_len(cfg, S)), caches, memory, prefix)}
+    return {"args": (params, tok(1), S - 1, caches, memory)}

@@ -251,6 +251,7 @@ def _run_segments(cfg, params, x, positions, caches, mode, index=None, block_tab
                             caches=c, mode=mode, index=index, block_table=block_table,
                             memory=memory, remat=remat, collect_stats=collect_stats)
         x, a = out[0], out[2]
+        # analysis: allow(tracer-branch) — out[3] is a dict of routing stats
         if collect_stats and out[3]:
             stats[f"seg{i}"] = out[3]
         aux = aux + a

@@ -61,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.sharding import EpMesh
+from repro_torch.kernels import account
 
 Axes = Union[str, Sequence[str]]
 
@@ -125,6 +126,8 @@ def _sum(out, x, group):
 
 
 def _all_to_all(x, mesh, axes, split_axis, concat_axis):
+    if account.recorder is not None:
+        return account.recorder.collective("all_to_all", _all_to_all, **locals())
     group = group_of(mesh, axes)
     P = mesh.axes_size(axes)
     if x.shape[split_axis] % P:
@@ -137,6 +140,8 @@ def _all_to_all(x, mesh, axes, split_axis, concat_axis):
 
 
 def _all_gather(x, mesh, axes):
+    if account.recorder is not None:
+        return account.recorder.collective("all_gather", _all_gather, **locals())
     group = group_of(mesh, axes)
     P = mesh.axes_size(axes)
     x = x.contiguous()
@@ -145,6 +150,8 @@ def _all_gather(x, mesh, axes):
 
 
 def _psum(x, mesh, axes):
+    if account.recorder is not None:
+        return account.recorder.collective("psum", _psum, **locals())
     group = group_of(mesh, axes)
     x = x.contiguous()
     return _run(_sum, torch.empty_like(x), x, group)
@@ -153,6 +160,8 @@ def _psum(x, mesh, axes):
 def _psum_scatter(x, mesh, axes):
     """NCCL reduce-scatters; gloo exchanges the chunks (staged for a CUDA
     tensor) and adds them where x lies, in source-rank order."""
+    if account.recorder is not None:
+        return account.recorder.collective("psum_scatter", _psum_scatter, **locals())
     group = group_of(mesh, axes)
     P = mesh.axes_size(axes)
     if x.shape[0] % P:

@@ -575,6 +575,7 @@ class ContinuousEngine:
         self.tables.copy_row(i, b)
         self._jit_calls_tick += 1
         self.caches = paged_copy_slot_leaves(self.cfg, self.caches, b, i)
+        # analysis: allow(host-cast) — the fork's first token, for the scheduler
         first = int(self._sample(base.prefill_logits)[0])  # the fork's first token, to the host
         self.slots[i] = SlotState(
             request_id=item.rid, pos=base.pos, generated=[first], budget=item.budget, active=True,
@@ -665,6 +666,7 @@ class ContinuousEngine:
                                                         self.caches)
             self._count_prefill(len(ctx))
             self.prefill_calls_total += 1
+            # analysis: allow(host-cast) — the first token, read back for the scheduler
             first = int(self._sample(logits)[0])  # the request's first token, to the host
             self.slots[i] = SlotState(
                 request_id=item.rid, pos=len(ctx), generated=item.generated + [first],
@@ -753,6 +755,7 @@ class ContinuousEngine:
             if self.prefix is not None:
                 self._register_prefix(i, ctx, end)
             if end == len(ctx):
+                # analysis: allow(host-cast) — the first token, read back for the scheduler
                 self._finish_prefill(i, int(self._sample(logits)[0]), logits)
                 if self.queue:
                     self._admit()  # a fork blocked on this slot's prefill can share it now
@@ -822,6 +825,7 @@ class ContinuousEngine:
         self._batched_occ_tick = len(plan) / S
         finishing = [i for i, (_, end) in plan.items() if end == len(self.slots[i].prefill_ctx)]
         # one read-back serves every row that finishes its prompt this tick
+        # analysis: allow(host-asarray) — finishing rows' first tokens, for the scheduler
         firsts = self._sample(logits).cpu().numpy() if finishing else None
         for i, (start, end) in plan.items():  # admission order
             slot = self.slots[i]
@@ -1097,6 +1101,7 @@ class ContinuousEngine:
             self.cfg, self.params, buf[: S * C].view(S, C).long(), buf[S * C : o].view(S, C),
             buf[o : o + S].bool(), self.caches, buf[o + S :].view(S, self.max_pages))
         # greedy-only: the argmax on the device, [S, C] int32 to the host
+        # analysis: allow(host-asarray) — the verify argmax, for the accept decisions
         greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()  # THE read-back
         t_verify = time.perf_counter()
         if tr:
@@ -1272,6 +1277,7 @@ class ContinuousEngine:
         decoding = np.asarray([s.active and not s.prefilling for s in self.slots])
         n_active = int(sum(s.active for s in self.slots))
         if self._tick_prefill_done and self.device.type == "cuda":
+            # analysis: allow(block-sync) — deliberate: the prefill phase's device time ends
             torch.cuda.synchronize(self.device)  # the prefill phase's device time ends here
         t_mid = time.perf_counter()
         if not decoding.any():
@@ -1315,6 +1321,7 @@ class ContinuousEngine:
                                      return_routing=routing)
         logits, self.caches = out[:2]
         self.last_logits = logits
+        # analysis: allow(host-asarray) — the tick's sampled tokens, for the scheduler
         nxt = self._sample(logits).cpu().numpy()  # THE per-tick read-back
         t_tok = time.perf_counter()
         # the routing stats' one copy, while the device is idle (the step is

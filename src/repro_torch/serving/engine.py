@@ -192,6 +192,7 @@ class Engine:
         t_prev = t0
         stats = None  # the last step's routing tree, copied once that step is done
         for t in range(max_new):
+            # analysis: allow(host-asarray) — the sampled tokens, for the stop decisions
             generated[:, t] = cur.cpu().numpy()  # waits for the step in flight
             now = time.perf_counter()
             if t:

@@ -140,6 +140,7 @@ class Drafter:
                                                      pos_d[t], act_d[t], self.caches)
             cur = torch.argmax(logits, dim=-1)
             outs.append(cur)
+        # analysis: allow(host-asarray) — the proposals, for the verify pass
         outs = torch.stack(outs).to(torch.int32).cpu().numpy()  # THE read-back: [T, S]
         return {slot: [int(x) for x in outs[len(ftoks) - 1:len(ftoks) - 1 + k, slot]]
                 for slot, ftoks, k in rows}
