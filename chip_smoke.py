@@ -288,12 +288,19 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    visible, else four processes time-sharing ``cuda:0`` over gloo, which
    measures correctness, not EP speed): ``Engine`` under ``ep_grouped`` on
    (4,) and ``ep_serve`` on (2, 2) (the a2a prefill over the two hops),
-   ``ContinuousEngine`` under ``ep_grouped`` on (4,); every rank's tokens
-   and launches of kernels 1, 2 and 4 (equal to the one-device run's), the
-   MoE layer's output against one device at the served inputs, each rank's
-   kernels 1, 2 and 4 against their plain versions at the EP shapes,
-   reduced f32 card vs CPU under EP, a one-rank NCCL group driving every
-   schedule on device tensors, per-rank bytes and the host-staged bytes.
+   ``ContinuousEngine`` under ``ep_grouped`` on (4,), paged and (slice 18)
+   contiguous with int8 caches; the slots laid out as JAX's ``place_caches``
+   lays them out (each rank runs attention, the dense layers and the logits
+   on its rows and holds only their caches; the pool replicated); every
+   rank's tokens and launches of kernels 1, 2, 4, 6, 7, 8 and 9 (equal to
+   the one-device run's), the rows kernels 7 and 9 saw per launch (a
+   quarter of one device's), each rank's per-slot cache bytes (a quarter of
+   one device's) and pool bytes (all of them), the MoE layer's output
+   against one device at the served inputs, each rank's kernels 1, 2 and 4
+   against their plain versions at the EP shapes and 7 and 9 at its row
+   count, reduced f32 card vs CPU under EP, a one-rank NCCL group driving
+   every schedule on device tensors, per-rank bytes and the host-staged
+   bytes and collectives a step.
 19. expert-parallel training (slice 16; ``scripts/ep_train_phase.py``, which
    also runs it alone): llama4-maverick at its published widths, one (dense,
    MoE) repeat, 8 experts, on 2 ranks over ``data``, and
@@ -327,7 +334,8 @@ dry run's bytes); phase 18 each rank's decode steps held to their
 schedule's collectives; and 20, the dry-run table on meta
 (``chiprun_out/dryrun.json``).
 
-16. the script's own time ("script time:", from ``main``'s start, the
+16. each phase's wall time on a line of its own ("phase time:"), the
+   script's own time ("script time:", from ``main``'s start, the
    build included), a ``{"kernels": [...]}`` line (with
    ``flash_attention_window``,
    ``flash_attention_dh256``, ``decode_attention_quant_ring``,
@@ -413,6 +421,19 @@ BF16_LOGITS_TOL = 3e-2
 
 def log(*a):
     print(*a, flush=True)
+
+
+class PhaseClock:
+    """Each phase's wall time, logged on a line of its own ("phase time:")
+    when the next phase starts (``mark``) or the script ends (``mark(None)``)."""
+
+    def __init__(self, t0: float):
+        self.t, self.label = t0, "1-2 card and build"
+
+    def mark(self, label) -> None:
+        now = time.perf_counter()
+        log(f"phase time: {self.label}: {now - self.t:.1f} s")
+        self.t, self.label = now, label
 
 
 def nvidia_smi_line() -> str:
@@ -4642,6 +4663,7 @@ def main() -> int:
     from repro_torch.serving.engine import Engine, EngineConfig, Request
 
     counters = kernel_setup()
+    clock = PhaseClock(t_main)
 
     # 1. card
     smi = nvidia_smi_line()
@@ -4658,6 +4680,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
+    clock.mark("3")
     # 3. static serve at full width, depth cut to one (dense, MoE) repeat
     full = get_config(ARCH)
     cfg = full.replace(moe_impl="grouped", segments=(Segment(full.segments[0].pattern, 1),))
@@ -4708,6 +4731,7 @@ def main() -> int:
     analysis_s = time.perf_counter() - t_an
     log(reference_check(red))
 
+    clock.mark("4")
     # 4. continuous serve, same weights
     lines, cont_launches, snap, ceng = continuous_serve(cfg, params, counters)
     cont_preemptions = ceng.preemptions  # before the tick profile serves more
@@ -4721,6 +4745,7 @@ def main() -> int:
         log(line)
     analysis_s += time.perf_counter() - t_an
 
+    clock.mark("4b")
     # 4b. the prefix trace: prefix sharing and copy-on-write through the
     # chunked and the batched tick (bf16, and the batched tick over an int8
     # pool), then the same requests without sharing, whose first-token
@@ -4740,6 +4765,7 @@ def main() -> int:
     del firsts
     prefix_runs = {k: v[0] for k, v in prefix_runs.items()}
 
+    clock.mark("4c")
     # 4c. the contiguous engine on the phase-4 trace, bf16 and an int8 cache
     contig = {}
     for kv in (0, 8):
@@ -4748,6 +4774,7 @@ def main() -> int:
         for line in lines:
             log(line)
 
+    clock.mark("4d")
     # 4d. observability: the phase-4 trace under Obs off / default / full, in
     # turns, and the host syncs of a steady decode tick under each
     lines, obs_launches, obs_summary = obs_phase(cfg, params, counters, cont_launches,
@@ -4755,15 +4782,19 @@ def main() -> int:
     for line in lines:
         log(line)
 
+    clock.mark("5")
     # 5. full-width chunked prefill against the static prefill
     log(chunked_prefill_check(cfg, params))
 
+    clock.mark("6")
     # 6. reduced f32 continuous serve, card vs CPU
     log(continuous_reference_check(red))
+    clock.mark("6c")
     # 6c. the same for prefix sharing, the batched tick, the scatter oracle and
     # the contiguous engine, and the batched tick under the capacity dispatch
     for line in slice6_reference_checks(red, make_reduced(full)):
         log(line)
+    clock.mark("6d")
     # 6d. speculative decoding at full width: phase 4's weights, pool and
     # trace, the target as its own drafter, over a bf16 and an int8 pool,
     # each beside the non-speculative run; then reduced f32 card vs CPU
@@ -4778,11 +4809,13 @@ def main() -> int:
     for line in spec_reference_checks(red, make_reduced(full), make_reduced(get_config("glm4-9b"))):
         log(line)
 
+    clock.mark("6b")
     # 6b. a long static prefill at full width, while only the bf16 tree is held
     lines, long_launches, long_check, long_grouped = long_prefill(cfg, params, counters)
     for line in lines:
         log(line)
 
+    clock.mark("7")
     # 7. quantized serving: int8 experts (PTQ on the card, slice by slice) and
     # an int8 KV cache through both engines, then the reduced references
     t0 = time.perf_counter()
@@ -4803,6 +4836,7 @@ def main() -> int:
     for line in quant_reference_checks(red):
         log(line)
 
+    clock.mark("8")
     # 8. kernels against their plain versions, then timed beside their bounds
     moe = {k: v[0] for k, v in params["segments"]["seg0"]["pos1"]["moe"].items() if torch.is_tensor(v)}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -5037,6 +5071,7 @@ def main() -> int:
         "gives 0 in 7q and 9): " + json.dumps(
             {n: {s: v for s, v in d.items() if "window" in s} for n, d in qattn.items()}))
 
+    clock.mark("9")
     # 9. capacity dispatch: llama4-maverick with its own moe_impl ("ep", which
     # without a mesh is the dense mapping table), the same bf16 weights and
     # int8 experts; kernels 1, 2 and 3 in place of 4 and 5
@@ -5061,6 +5096,7 @@ def main() -> int:
     for line in capacity_reference_checks(make_reduced(full)):
         log(line)
 
+    clock.mark("10")
     # 10. kernels 1, 2 and 3 against their plain versions at the served
     # shapes, then timed beside their bounds
     E1 = moe["router"].shape[1]
@@ -5137,6 +5173,7 @@ def main() -> int:
     log(f"kernel expert_mlp_quant int8 bf16 reduced (CUDA-core kernel): {json.dumps(info)}")
     del kargs, args
 
+    clock.mark("11")
     # 11. the paper's own model at its published size, once the llama4 trees
     # are gone
     del (params, qparams, eng, ceng, out, moe, qmoe, rp, rmoe, rq, snap, qsnap, pool, tbl, qpos,
@@ -5148,6 +5185,7 @@ def main() -> int:
     lines, nlg_launches, nlg_grouped_launches, nlg_routing_launches = nlg_serve(counters)
     for line in lines:
         log(line)
+    clock.mark("11b")
     # 11b. the paper's pairing, speculative, at published sizes
     gc.collect()
     torch.cuda.empty_cache()
@@ -5156,6 +5194,7 @@ def main() -> int:
         log(line)
     spec_runs["nlg"] = (sl, bl, summary)
 
+    clock.mark("12")
     # 12. glm4-9b at its published size, once nlg's tree is gone
     gc.collect()
     torch.cuda.empty_cache()
@@ -5166,10 +5205,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(reference_check(make_reduced(get_config("glm4-9b"))))
 
+    clock.mark("13")
     # 13. kernel 6 against its plain version at the served shapes, reduced
     # f32 with every mask, and the TPU kernel's index form at S != T
     fshapes = {"long_prefill": long_check, **flash_checks(full, red, gen)}
 
+    clock.mark("14")
     # 14. slice 8: gemma3-27b, recurrentgemma-2b and mamba2-370m served at
     # their published widths, their reduced f32 references, and kernels 6
     # (windowed, and at dh 256) and 9 (over wrapped int8 rings)
@@ -5178,6 +5219,7 @@ def main() -> int:
     s8_paths, (s8_win, s8_d256, s8_ring), s9_spec = slice8_serve(counters, gen)
     spec_runs.update(s9_spec)
 
+    clock.mark("15")
     # 15. slice 9: seamless-m4t-medium (encoder, cross attention) and
     # internvl2-1b (prefix embeddings) at their published sizes, and kernel
     # 6 non-causal and at G = 7
@@ -5186,6 +5228,7 @@ def main() -> int:
     s9_paths, s9_calls = slice9_serve(counters)
     s9_nc, s9_g7 = slice9_kernel_checks(gen)
 
+    clock.mark("17")
     # 17. slice 10, once slice 9's trees are freed: kernels 6b and 1b against
     # their plain versions, the paper's PR-MoE trained at its published size,
     # the MoS student distilled from it, checkpointed and served; reduced f32
@@ -5203,6 +5246,7 @@ def main() -> int:
     s14_paths, s14_summary = slice14_train(counters)
     for line in slice14_reference_checks():
         log(line)
+    clock.mark("18")
     # 18. slice 15: expert-parallel serving on 4 ranks (scripts/ep_phase.py)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5213,15 +5257,18 @@ def main() -> int:
     ep_lines, ep_summary, ep_paths = ep_phase.ep_phase(counters)
     for line in ep_lines:
         log(line)
+    clock.mark("19")
     # 19. slice 16: expert-parallel training on 2 and 4 ranks (scripts/ep_train_phase.py)
     gc.collect()
     torch.cuda.empty_cache()
     import ep_train_phase
 
     _, et_summary, et_paths = ep_train_phase.ep_train_phase(counters)  # logs as it goes
+    clock.mark("20")
     # 20. slice 17: the dry-run table over every assigned arch x shape, on meta
     for line in dryrun_table():
         log(line)
+    clock.mark("the kernels line")
 
     dec = shapes["decode"]
     library_call = ("F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask "
@@ -5535,7 +5582,7 @@ def main() -> int:
             "shapes": checks,
         })
     # slice 15: every kernel's launches per rank on the EP paths, and each
-    # rank's kernels 1, 2 and 4 at the EP shapes
+    # rank's kernels 1, 2 and 4 at the EP shapes (slice 18: 7 and 9 at its rows)
     for k in kernels:
         if k["name"] in next(iter(ep_paths.values())):
             k["launches_by_path"].update({p: c[k["name"]] for p, c in ep_paths.items()})
@@ -5543,6 +5590,10 @@ def main() -> int:
             k["ep_shapes"] = {f"{r}/{mesh}/{case}": v for r, by_mesh in ep_summary["checks"].items()
                               for mesh, cases in by_mesh.items() for case, v in cases.items()
                               if case.startswith(k["name"])}
+        if k["name"] in ep_phase.ROW_KERNELS:
+            # kernels 7 / 9 at a rank's row count of the slot-sharded runs
+            k["ep_rows"] = {r: by_mesh["rows"][k["name"]]
+                            for r, by_mesh in ep_summary["checks"].items()}
     log("ep summary: " + json.dumps({k: v for k, v in ep_summary.items() if k != "checks"},
                                     default=str))
     # slice 16: every rank's launches of 1, 1b, 2, 2b, 6 and 6b on the EP
@@ -5565,6 +5616,7 @@ def main() -> int:
     log("obs summary: " + json.dumps(obs_summary))
     log("slice 9 kernel-6 calls by path: " + json.dumps(s9_calls))
     log("spec summary: " + json.dumps({p: s for p, (_, _, s) in spec_runs.items()}))
+    clock.mark(None)
     log(f"script time: {time.perf_counter() - t_main:.1f} s from main's start, the build included "
         f"(phases 3 and 4's sync, roofline, graph and dry-run checks {analysis_s:.1f} s)")
     log(json.dumps({"kernels": kernels}))

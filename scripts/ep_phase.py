@@ -8,6 +8,10 @@ llama4-maverick at its published widths (D 5120, 40 / 8 heads, expert d_ff
 as in phase 3, and the experts cut from 128 to 32, so that four ranks' trees
 fit one card (each rank draws the whole 13.3 GB tree in turn, keeps its 8
 experts and the replicated rest, 7.2 GB, before the next rank draws).
+Every run lays the slots out as the JAX package's ``place_caches`` and
+``batch`` hints do: each rank runs attention, the dense layers and the
+logits on its block of the batch's rows and holds only those rows' caches
+(the paged pool replicated), and gathers the sampled tokens.
 
   (a) 4 ranks: with 4 GPUs visible one each over NCCL, otherwise four
       processes time-sharing ``cuda:0`` over gloo (collectives staged through
@@ -16,31 +20,46 @@ experts and the replicated rest, 7.2 GB, before the next rank draws).
       prefill over the hierarchical two hops, decode replicated; a headroom
       capacity factor, so the a2a prefill drops nothing), 4 requests of 64
       tokens, 16 new, greedy; ``ContinuousEngine`` under ``ep_grouped`` on
-      (4,) with 8 requests.  Tokens are compared with the one-device run of
-      the same weights in this process, and the MoE layer's output at the
+      (4,) with 8 requests over 8 slots (2 a rank), and the contiguous one
+      (``paged=False``, int8 caches: kernel 9) on (4,), which runs once more
+      with every slot's caches on every rank (8 rows a launch) to tell the
+      slot layout's rounding from the rest.  Tokens must equal those of
+      the one-device run of the same weights in this process, and the MoE layer's output at the
       served prefill and decode inputs (each EP schedule against the
       one-device layer, within ``BF16_TOL`` of its largest value, bitwise
       or not reported).  The dropped share at the published factor 1.25
       under the a2a's per-shard capacity is reported beside it.
-  (b) every rank's launches of kernels 1, 2 and 4 per path;
+  (b) every rank's launches of kernels 1, 2, 4, 6, 7, 8 and 9 per path (the
+      one-device counts), and the rows kernels 7 and 9 saw per launch (the
+      rank's slots);
   (c) each rank's kernel 1 / 2 / 4 against its plain version at the EP
       shapes (the global gating and a shard's; the local experts' capacity
       buffer at decode and the a2a's received buffer; the masked grouped
-      buffer at decode and prefill);
+      buffer at decode and prefill), and kernels 7 and 9 at the rank's row
+      count (its two slots of the continuous traces, at their last lengths),
+      and on those 2 rows of the 8-slot case bit for bit against one 8-row
+      launch: equal with the 8-row split plan that a sharded step passes,
+      the differing outputs counted with the 2 rows' own plan;
   (d) reduced f32 llama4 under EP on the card and on the CPU in the same
       ranks: greedy tokens identical;
   (e) a one-rank NCCL group drives ``moe_serve.ep_schedule`` (every
       schedule, on (1,) and (1, 1)) on device tensors: equal to the
       one-device layer;
-  (f) each rank's parameter bytes and the bytes staged through the host;
+  (f) each rank's parameter bytes, its cache bytes per run (the per-slot
+      leaves, a quarter of one device's, and the pool, all of it) and the
+      bytes and collectives staged through the host, also per step;
   (g) each run's decode step on every rank captured (``analysis/graph.py``)
-      and held to its schedule's collectives, counted per MoE layer.
+      and held to its schedule's collectives, counted per MoE layer, with the
+      slot layout's gathers (the rows before a replicated-token schedule, the
+      new K/V of each paged layer before the pool write).
 
 Prints its lines and, last, one JSON line with every number and the card's
 name and power limit.  Needs the card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -63,16 +82,22 @@ HEADROOM_CF = float(EP_EXPERTS)
 PUBLISHED_CF = 1.25
 EP_CONT = dict(slots=8, capacity=1024, page_size=16, prefill_chunk=256)
 EP_CONT_PROMPTS = [300, 64, 512, 128, 450, 200, 96, 384]
+# the contiguous engine's run: int8 caches, so its decode goes through kernel 9
+EP_CONTIG = dict(slots=8, capacity=1024, kv_cache_bits=8)
 # runs of (a): name -> (engine, mesh, moe_impl, capacity factor or None)
 RUNS = {
     "static_grouped_flat4": ("static", (4,), "grouped", None),
     "static_capacity_hier22": ("static", (2, 2), "ep", HEADROOM_CF),
     "continuous_grouped_flat4": ("continuous", (4,), "grouped", None),
+    "contiguous_grouped_flat4": ("contiguous", (4,), "grouped", None),
 }
 KERNELS = ("moe_gating", "expert_mlp", "grouped_mlp", "flash_attention",
-           "paged_decode_attention", "paged_prefill_attention")
+           "paged_decode_attention", "paged_prefill_attention", "decode_attention_quant")
 SOURCES = ["moe_gating", "grouped_mlp", "grouped_mlp_mma", "flash_attention",
-           "paged_decode_attention", "paged_prefill_attention"]
+           "paged_decode_attention", "paged_prefill_attention", "decode_attention_quant"]
+# the decode kernels whose rows a rank's slots set: kernel 7 (paged) and 9
+# (contiguous int8)
+ROW_KERNELS = ("paged_decode_attention", "decode_attention_quant")
 
 
 def ep_config():
@@ -107,6 +132,30 @@ def requests(cfg, static: bool):
             for n in EP_CONT_PROMPTS]
 
 
+@contextlib.contextmanager
+def rows_seen():
+    """{kernel: Counter(rows of a launch)} of kernels 7 and 9 while open:
+    the names ``models/attention.py`` calls them by, wrapped."""
+    import repro_torch.models.attention as att
+
+    seen = {k: collections.Counter() for k in ROW_KERNELS}
+    orig = {k: getattr(att, k) for k in ROW_KERNELS}
+
+    def wrap(k):
+        def call(q, *a, **kw):
+            seen[k][int(q.shape[0])] += 1
+            return orig[k](q, *a, **kw)
+        return call
+
+    for k in ROW_KERNELS:
+        setattr(att, k, wrap(k))
+    try:
+        yield seen
+    finally:
+        for k, f in orig.items():
+            setattr(att, k, f)
+
+
 def moe_position(cfg) -> str:
     return next(f"pos{j}" for j, ls in enumerate(cfg.segments[0].pattern) if ls.ffn.kind == "moe")
 
@@ -119,9 +168,15 @@ def layer_params(params, pos: str) -> dict:
     return unstack(params["segments"]["seg0"][pos]["moe"])
 
 
-def serve(cfg, params, name, counters, device="cuda"):
-    """One run of (a) on ``device``: (tokens, launches, wall seconds)."""
+def serve(cfg, params, name, counters, device="cuda", replicate_caches=False):
+    """One run of (a) on ``device``: (tokens, launches, wall seconds, the
+    engine, {steps, cache bytes (per-slot, pool), rows of kernels 7 / 9,
+    bytes and collectives staged through the host}) of the timed run, after
+    a warm-up.  ``replicate_caches`` (the contiguous engine): every slot's
+    caches on every rank, each rank running every row."""
     import chip_smoke as cs
+    from repro_torch.models.model import SlotCaches, init_caches, slot_cache_bytes
+    from repro_torch.parallel import collectives as col
     from repro_torch.serving.continuous import ContinuousEngine
     from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -130,25 +185,44 @@ def serve(cfg, params, name, counters, device="cuda"):
     if engine == "static":
         eng = Engine(cfg, params, EngineConfig(max_batch=cs.BATCH, max_prefill=cs.PROMPT,
                                                max_decode=cs.NEW), device=device)
+        made = []
+        make = eng._make_caches
+        eng._make_caches = lambda b: made.append(make(b)) or made[-1]
         eng.generate(reqs)  # warm-up
         cs.reset(*counters)
+        staged0 = dict(col.staged)
         t0 = time.perf_counter()
-        tokens = [r.tokens for r in eng.generate(reqs)]
+        with rows_seen() as seen:
+            tokens = [r.tokens for r in eng.generate(reqs)]
+        steps, caches, paged = cs.NEW, made[-1], False
     else:
-        eng = ContinuousEngine(cfg, params, paged=True, device=device, **EP_CONT)
+        kw = dict(paged=True, **EP_CONT) if engine == "continuous" else EP_CONTIG
+        eng = ContinuousEngine(cfg, params, device=device, **kw)
+        if replicate_caches:
+            eng.caches = SlotCaches(init_caches(eng.cfg, kw["slots"], kw["capacity"],
+                                                kv_bits=kw["kv_cache_bits"], device=device), None)
         eng.submit(type(reqs[0])(reqs[0].prompt[:100], 2))  # warm-up
         eng.run_until_done()
         eng.done.clear()
+        ticks0 = len(eng.metrics_log)
         cs.reset(*counters)
+        staged0 = dict(col.staged)
         t0 = time.perf_counter()
-        ids = [eng.submit(r) for r in reqs]
-        done = eng.run_until_done()
+        with rows_seen() as seen:
+            ids = [eng.submit(r) for r in reqs]
+            done = eng.run_until_done()
         tokens = [done[i].tokens for i in ids]
+        steps, caches, paged = len(eng.metrics_log) - ticks0, eng.caches, eng.paged
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.items()}
-    return tokens, launches, wall, eng
+    per, pool = slot_cache_bytes(eng.cfg, caches, paged)
+    info = {"steps": steps, "slot_bytes": per, "pool_bytes": pool,
+            "rows": {k: dict(v) for k, v in seen.items() if v},
+            "staged_bytes": col.staged["bytes"] - staged0["bytes"],
+            "staged_calls": col.staged["calls"] - staged0["calls"]}
+    return tokens, launches, wall, eng, info
 
 
 # ---------------------------------------------------------------------------
@@ -226,26 +300,131 @@ def kernel_checks(cfg, moe, mesh, axes, gen) -> dict:
     return out
 
 
+def row_kernel_checks(cfg, rank: int, gen) -> dict:
+    """(c): kernels 7 and 9 against their plain versions at this rank's row
+    count: its 2 slots of the continuous traces at their last lengths, over
+    a random pool of the paged run's page size (kernel 7) and a random int8
+    cache of the contiguous run's capacity (kernel 9), each held per row."""
+    import chip_smoke as cs
+    from repro_torch.kernels import attention_paged as k7
+    from repro_torch.kernels import attention_quant as k9
+
+    per = EP_CONT["slots"] // 4
+    lens = [n + cs.NEW for n in EP_CONT_PROMPTS[rank * per:(rank + 1) * per]]
+    Hkv, G, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    ps, nt = EP_CONT["page_size"], EP_CONT["capacity"] // EP_CONT["page_size"]
+    pool, table, qpos = cs.synthetic_pool(lens, Hkv, dh, ps, EP_CONT["slots"] * nt + 1, nt, gen)
+    args, info = cs.decode_case(pool, table, qpos, G, torch.bfloat16, gen)
+    kw = dict(scale=dh ** -0.5, **info.pop("kw", {}))
+    out = {"paged_decode_attention": {**info, **cs.check_paged(
+        "paged_decode_attention", k7.paged_decode_attention, k7.paged_decode_attention_plain,
+        args, kw, cs.BF16_TOL)}}
+    T = EP_CONTIG["capacity"]
+    kpos = torch.full((per, T), -1, dtype=torch.int32, device="cuda")
+    for b, n in enumerate(lens):
+        kpos[b, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    qpos = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device="cuda")
+    args, info = cs.decode_quant_case(per, T, 0, Hkv, G, dh, torch.bfloat16, gen, kpos=kpos,
+                                      qpos=qpos)
+    out["decode_attention_quant"] = {**info, **cs.check_paged(
+        "decode_attention_quant", k9.decode_attention_quant, k9.decode_attention_quant_plain,
+        args, dict(scale=dh ** -0.5), cs.BF16_TOL)}
+    torch.cuda.synchronize()
+    return out
+
+
+def split_plan_checks(cfg, rank: int, gen) -> dict:
+    """(c): kernels 7 and 9 on this rank's 2 rows of an 8-row case (the
+    continuous traces' 8 slots at their last lengths), held bit for bit
+    against the same rows of one 8-row launch: with the 8-row split plan
+    (``plan_rows``, as a slot-sharded step launches them) every bit must
+    agree; with the 2 rows' own plan the differing outputs are counted."""
+    import chip_smoke as cs
+    from repro_torch.kernels import attention_paged as k7
+    from repro_torch.kernels import attention_quant as k9
+
+    n = EP_CONT["slots"]
+    per = n // 4
+    lo, hi = rank * per, (rank + 1) * per
+    lens = [m + cs.NEW for m in EP_CONT_PROMPTS]
+    Hkv, G, dh = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    n_sm = k7._sm_count(torch.cuda.current_device())
+    ps, nt = EP_CONT["page_size"], EP_CONT["capacity"] // EP_CONT["page_size"]
+    pool, table, qpos = cs.synthetic_pool(lens, Hkv, dh, ps, n * nt + 1, nt, gen)
+    args7, _ = cs.decode_case(pool, table, qpos, G, torch.bfloat16, gen)
+    T = EP_CONTIG["capacity"]
+    kpos = torch.full((n, T), -1, dtype=torch.int32, device="cuda")
+    for b, m in enumerate(lens):
+        kpos[b, :m] = torch.arange(m, dtype=torch.int32, device="cuda")
+    qpos = torch.tensor([m - 1 for m in lens], dtype=torch.int32, device="cuda")
+    args9, _ = cs.decode_quant_case(n, T, 0, Hkv, G, dh, torch.bfloat16, gen, kpos=kpos, qpos=qpos)
+    out = {}
+    for name, fn, args, rowed, splits in (
+            ("paged_decode_attention", k7.paged_decode_attention, args7, (0, 4, 5),
+             lambda b: k7.decode_splits(nt, ps, b, Hkv, n_sm)),
+            ("decode_attention_quant", k9.decode_attention_quant, args9, range(7),
+             lambda b: k7.decode_splits(T, 1, b, Hkv, n_sm, dh))):
+        whole = fn(*args, scale=dh ** -0.5)[lo:hi]
+        part = [a[lo:hi].contiguous() if i in rowed else a for i, a in enumerate(args)]
+        planned = fn(*part, scale=dh ** -0.5, plan_rows=n)
+        own = fn(*part, scale=dh ** -0.5)
+        torch.cuda.synchronize()
+        out[name] = {"rows": per, "splits_whole_plan": splits(n), "splits_own_plan": splits(per),
+                     "bitwise_with_whole_plan": bool(torch.equal(planned, whole)),
+                     "differing_with_own_plan": int((own != whole).sum().item()),
+                     "outputs": whole.numel()}
+    return out
+
+
 def decode_collectives(eng, name) -> dict:
     """(g): one decode step of the engine on this rank (the contract's
-    decode signature on fresh caches) captured, and held to its schedule's
-    collectives, counted per MoE layer (``analysis/graph.py``)."""
+    decode signature on fresh caches laid out as the engine's; the
+    contiguous engine, which declares no contract, at every slot on caches
+    it would place) captured, and held to its schedule's collectives,
+    counted per MoE layer, with the slot layout's gathers
+    (``analysis/graph.py``)."""
     from repro_torch.analysis.contracts import engine_contract
     from repro_torch.analysis.graph import audit_graph, capture, schedule_collectives
     from repro_torch.core.moe_serve import schedule_of
-    from repro_torch.serving.ep import mesh_scope
+    from repro_torch.models import model as M
+    from repro_torch.serving.ep import mesh_scope, place_caches, slot_shard
 
     cfg = eng.cfg
     ffn = next(ls.ffn for ls in cfg.layer_specs() if ls.ffn.kind == "moe")
-    dec = next(e for e in engine_contract(eng) if e.name == "decode")
-    T = eng.n_slots if hasattr(eng, "n_slots") else dec.sample[-1][0]
+    if hasattr(eng, "n_slots") and not eng.paged:
+        S = T = eng.n_slots
+        zeros = lambda dt: torch.zeros((S,), dtype=dt, device=eng.device)
+        caches = place_caches(eng._mesh, eng._mesh_rules,
+                              M.init_caches(cfg, S, eng.capacity, kv_bits=eng.kv_cache_bits,
+                                            device=eng.device), slots=S)
+        fn = lambda: M.ragged_decode_step(cfg, eng.params, zeros(torch.long)[:, None],
+                                          zeros(torch.int32), zeros(torch.bool) | True, caches)
+    else:
+        dec = next(e for e in engine_contract(eng) if e.name == "decode")
+        T = eng.n_slots if hasattr(eng, "n_slots") else dec.sample[-1][0]
+        args = dec.make(*dec.sample[-1])
+        fn = lambda: dec.fn(*args)
     schedule = schedule_of("grouped" if cfg.moe_impl == "ep_grouped" else "capacity", T, ffn)
-    allowed = schedule_collectives(cfg, schedule, eng._mesh.shape)
+    paged = getattr(eng, "paged", False)
+    rows = slot_shard(eng._mesh, eng._mesh_rules, T, eng.n_pages if paged else None)
+    allowed = schedule_collectives(cfg, schedule, eng._mesh.shape, rows.axes if rows else (),
+                                   paged=paged)
     with torch.no_grad(), mesh_scope(eng._mesh, eng._mesh_rules):
-        cap = capture(dec.fn, *dec.make(*dec.sample[-1]))
+        cap = capture(fn)
     rep = audit_graph(f"{name} decode", None, (), allowed_collectives=allowed, captured=cap)
     return {"schedule": schedule, "allowed": allowed, "seen": cap.collectives(),
+            "rows": None if rows is None else [list(rows.axes), rows.lo, rows.hi],
             "errors": [f.render() for f in rep.errors]}
+
+
+def replicated_tokens(cfg, params, counters) -> list:
+    """The contiguous run of (a) again with every slot's caches on every
+    rank, so that each launch takes the 8 rows one device's takes: the
+    tokens, which tell the slot layout's own rounding (fewer rows a launch)
+    from the rest of EP."""
+    name = "contiguous_grouped_flat4"
+    return serve(run_config(cfg, name).replace(ep_mesh=RUNS[name][1]), params, name, counters,
+                 replicate_caches=True)[0]
 
 
 def rank_body(rank: int, world: int, layer_inputs: dict) -> dict:
@@ -280,15 +459,13 @@ def rank_body(rank: int, world: int, layer_inputs: dict) -> dict:
     res["param_bytes"] = placed_param_bytes(params)
     res["memory_allocated"] = torch.cuda.memory_allocated()
     for name, (_, shape, _, _) in RUNS.items():
-        staged0 = dict(col.staged)
-        tokens, launches, wall, eng = serve(run_config(cfg, name).replace(ep_mesh=shape), params,
-                                            name, counters)
+        tokens, launches, wall, eng, info = serve(run_config(cfg, name).replace(ep_mesh=shape),
+                                                  params, name, counters)
         res["runs"][name] = {
             "tokens": tokens, "launches": launches, "wall_s": wall, "impl": eng.cfg.moe_impl,
-            "staged_bytes": col.staged["bytes"] - staged0["bytes"],
-            "staged_calls": col.staged["calls"] - staged0["calls"],
-            "collectives": decode_collectives(eng, name)}
+            **info, "collectives": decode_collectives(eng, name)}
         del eng
+    res["replicated_tokens"] = replicated_tokens(cfg, params, counters)
     res["peak_memory"] = torch.cuda.max_memory_allocated()
     # the MoE layer at the served inputs under each EP schedule (the
     # one-device outputs are the parent's)
@@ -310,6 +487,8 @@ def rank_body(rank: int, world: int, layer_inputs: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 18)
     res["checks"] = {"flat4": kernel_checks(cfg, moe, flat, flat.axis_names, gen),
                      "hier22": kernel_checks(cfg, moe, hier, hier.axis_names, gen)}
+    res["row_checks"] = row_kernel_checks(cfg, rank, gen)
+    res["split_checks"] = split_plan_checks(cfg, rank, gen)
     del params, moe
     gc.collect()
     torch.cuda.empty_cache()
@@ -335,7 +514,7 @@ def reduced_runs(rank: int, devices, counters=None) -> dict:
     out = {}
     for name, (engine, shape, _, _) in RUNS.items():
         rcfg = run_config(red, name).replace(ep_mesh=shape)
-        out[name] = {d: serve(rcfg, params[d], engine, counters, device=d)[0] for d in devices}
+        out[name] = {d: serve(rcfg, params[d], name, counters, device=d)[0] for d in devices}
     return out
 
 
@@ -366,8 +545,8 @@ def one_device(cfg, counters) -> tuple:
     tr.moe_layer = record
     try:
         for name in RUNS:
-            tokens, launches, wall, eng = serve(run_config(cfg, name), params, name, counters)
-            out[name] = {"tokens": tokens, "launches": launches, "wall_s": wall}
+            tokens, launches, wall, eng, info = serve(run_config(cfg, name), params, name, counters)
+            out[name] = {"tokens": tokens, "launches": launches, "wall_s": wall, **info}
             del eng
     finally:
         tr.moe_layer = orig
@@ -530,6 +709,32 @@ def ep_phase(counters) -> tuple:
                      f"(one device {ref[name]['wall_s']:.3f} s); staged {run['staged_bytes']} "
                      f"bytes in {run['staged_calls']} collectives")
         lines.append(f"ep {name}: tokens of request 0 {toks[0][0]}")
+        # the slot layout: per-slot cache bytes a quarter of one device's
+        # where the rows shard over the 4 ranks, the pool whole; kernels 7
+        # and 9 on the rank's rows; the host-staged traffic a step
+        cache = [(r["runs"][name]["slot_bytes"], r["runs"][name]["pool_bytes"]) for r in ranks]
+        one_c = (ref[name]["slot_bytes"], ref[name]["pool_bytes"])
+        if any(c != (one_c[0] // 4, one_c[1]) for c in cache) or one_c[0] % 4:
+            raise AssertionError(f"ep {name}: cache bytes a rank {cache}, one device {one_c}")
+        rows = [r["runs"][name]["rows"] for r in ranks]
+        want_rows = {k: {n // 4: c for n, c in v.items()} for k, v in ref[name]["rows"].items()}
+        if any(rw != want_rows for rw in rows):
+            raise AssertionError(f"ep {name}: rows of kernels 7 / 9 {rows}, one device "
+                                 f"{ref[name]['rows']}")
+        steps = run["steps"]
+        summary["runs"][name].update(
+            slot_bytes_per_rank=cache[0][0], pool_bytes_per_rank=cache[0][1],
+            one_device_slot_bytes=one_c[0], one_device_pool_bytes=one_c[1],
+            rows_per_launch=rows[0], one_device_rows_per_launch=ref[name]["rows"], steps=steps,
+            staged_bytes_per_step=run["staged_bytes"] / steps,
+            staged_calls_per_step=run["staged_calls"] / steps)
+        lines.append(f"ep cache bytes {name}: a rank per-slot {cache[0][0]} pool {cache[0][1]} "
+                     f"total {sum(cache[0])}; one device per-slot {one_c[0]} pool {one_c[1]} "
+                     f"total {sum(one_c)} (per-slot a rank = one device / 4 on every rank)")
+        lines.append(f"ep rows {name}: kernels 7 / 9 launches by rows a launch, a rank {rows[0]}, "
+                     f"one device {ref[name]['rows']}; staged {run['staged_bytes'] / steps:.0f} "
+                     f"bytes in {run['staged_calls'] / steps:.2f} collectives a step over "
+                     f"{steps} steps")
         colls = [r["runs"][name]["collectives"] for r in ranks]
         if any(c["errors"] for c in colls) or any(c["seen"] != colls[0]["seen"] for c in colls):
             raise AssertionError(f"ep {name}: decode collectives {colls}")
@@ -537,6 +742,22 @@ def ep_phase(counters) -> tuple:
         lines.append(f"graph audit: ep {name}: every rank's decode step makes {colls[0]['seen']}: "
                      f"the {colls[0]['schedule']} schedule's collectives over "
                      f"{RUNS[name][1]}, counted per MoE layer ({colls[0]['allowed']})")
+    # the contiguous run with the caches replicated (8 rows a launch)
+    name = "contiguous_grouped_flat4"
+    rep_toks = [r["replicated_tokens"] for r in ranks]
+    if any(t != rep_toks[0] for t in rep_toks):
+        raise AssertionError(f"ep {name} replicated: the ranks' tokens differ")
+    n_rep = sum(a != b for ta, tb in zip(rep_toks[0], ref[name]["tokens"]) for a, b in zip(ta, tb))
+    summary["runs"][name]["replicated_caches_tokens_differing"] = n_rep
+    lines.append(f"ep {name} with every slot's caches on every rank (8 rows a launch, as one "
+                 f"device): {n_rep} of {sum(map(len, rep_toks[0]))} tokens differ from the "
+                 f"one-device run; slot-sharded (2 rows a launch): "
+                 f"{summary['runs'][name]['tokens_differing']}")
+    bad = {name: s["tokens_differing"] for name, s in summary["runs"].items() if s["tokens_differing"]}
+    if bad:
+        for line in lines:
+            cs.log(line)
+        raise AssertionError(f"ep: tokens differ from the one-device run's in {bad}")
     # the MoE layer's output: every rank's EP schedule against one device
     summary["layer"] = {}
     for key, one in one_layer.items():
@@ -546,14 +767,9 @@ def ep_phase(counters) -> tuple:
         summary["layer"][key] = layer_agreement(outs[0], one)
     lines.append("ep layer output against one device (relative to its largest value): " +
                  json.dumps(summary["layer"]))
-    for name, s in summary["runs"].items():
-        if not s["tokens_identical_to_one_device"]:
-            bitwise = all(v["bitwise"] for k, v in summary["layer"].items()
-                          if k.startswith("grouped" if "grouped" in name else "capacity"))
-            if bitwise:
-                raise AssertionError(f"ep {name}: the layer agrees bit for bit but tokens differ")
     # (c), (d), (f)
-    summary["checks"] = {f"rank{r['rank']}": r["checks"] for r in ranks}
+    summary["checks"] = {f"rank{r['rank']}": {**r["checks"], "rows": r["row_checks"]}
+                         for r in ranks}
     for r in ranks:
         for mesh, checks in r["checks"].items():
             lines.append(f"ep kernels rank {r['rank']} {mesh}: " + json.dumps(
@@ -573,6 +789,19 @@ def ep_phase(counters) -> tuple:
     summary["reduced_card_vs_cpu"] = "identical"
     lines.append(f"ep reduced f32 llama4 card vs CPU, 4 ranks, {', '.join(RUNS)}: greedy tokens "
                  "identical")
+    for r in ranks:
+        keys = ("B", "max_abs_err", "max_row_rel_err", "pairs")
+        lines.append(f"ep kernels 7 / 9 rank {r['rank']} at its {EP_CONT['slots'] // 4} rows: " +
+                     json.dumps({k: {kk: v[kk] for kk in keys if kk in v}
+                                 for k, v in r["row_checks"].items()}))
+    summary["split_plans"] = {f"rank{r['rank']}": r["split_checks"] for r in ranks}
+    for r in ranks:
+        lines.append(f"ep kernels 7 / 9 rank {r['rank']}, its {EP_CONT['slots'] // 4} rows against "
+                     f"the same rows of an {EP_CONT['slots']}-row launch: " +
+                     json.dumps(r["split_checks"]))
+        if not all(v["bitwise_with_whole_plan"] for v in r["split_checks"].values()):
+            raise AssertionError(f"ep rank {r['rank']}: kernels 7 / 9 on its rows with the whole "
+                                 f"step's split plan differ from one launch over every row")
     for r in ranks:
         lines.append(f"ep rank {r['rank']} (device {r['device']}): {r['param_bytes'] / 1e9:.2f} GB "
                      f"of parameters, {r['peak_memory'] / 1e9:.1f} GB peak, staged "

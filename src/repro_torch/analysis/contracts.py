@@ -412,9 +412,14 @@ def engine_contract(engine) -> List[ContractEntry]:
     S, MP, C, cap = engine.n_slots, engine.max_pages, engine.prefill_chunk, engine.capacity
 
     def caches():
-        return M.init_paged_caches(cfg, S, cap, n_pages=engine.n_pages,
-                                   page_size=engine.page_size,
-                                   kv_bits=engine.kv_cache_bits, device=dev)
+        c = M.init_paged_caches(cfg, S, cap, n_pages=engine.n_pages, page_size=engine.page_size,
+                                kv_bits=engine.kv_cache_bits, device=dev)
+        if getattr(engine, "_mesh", None) is None:
+            return c
+        # the engine's layout under an EP mesh: per-slot leaves by slot
+        from repro_torch.serving.ep import place_caches
+
+        return place_caches(engine._mesh, engine._mesh_rules, c, slots=S, n_pages=engine.n_pages)
 
     table = lambda *shape: torch.full(shape, -1, dtype=torch.int32, device=dev)
     ctx_lens = range(1, cap)

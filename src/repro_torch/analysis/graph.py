@@ -192,15 +192,32 @@ def capture(fn, *args, **kwargs) -> Capture:
     return cap
 
 
-def schedule_collectives(cfg, schedule: str, mesh_shape) -> Dict[str, int]:
+def schedule_collectives(cfg, schedule: str, mesh_shape, rows_axes=(),
+                         paged: bool = False) -> Dict[str, int]:
     """The collectives a step of ``schedule`` makes over a mesh of
     ``mesh_shape``: the per-layer counts times the MoE layers (on two axes
-    the exchange takes two hops, two all-to-alls each way)."""
+    the exchange takes two hops, two all-to-alls each way).  A step whose
+    rows shard over ``rows_axes`` (slot-sharded serving) gathers them before
+    a replicated-token schedule, and before an a2a over only some of the EP
+    axes (one all-gather a MoE layer); over every axis the a2a takes them as
+    its token shard and gathers nothing, not even its output.  ``paged``
+    with sharded rows: each paged attention layer gathers its new K/V for
+    the replicated pool (one all-gather a layer)."""
+    from repro_torch.configs.base import AttnSpec
+    from repro_torch.models.attention import spec_is_paged
+
     n_moe = sum(1 for ls in cfg.layer_specs() if ls.ffn.kind == "moe")
     per = dict(SCHEDULE_COLLECTIVES[schedule])
     if len(mesh_shape) == 2 and "all_to_all" in per:
         per["all_to_all"] *= 2
-    return {k: v * n_moe for k, v in per.items()}
+    if rows_axes:
+        whole = schedule == "a2a" and len(rows_axes) == len(mesh_shape)
+        per["all_gather"] = per.get("all_gather", 0) + (-1 if whole else 1)
+    out = {k: v * n_moe for k, v in per.items()}
+    if rows_axes and paged:
+        out["all_gather"] = out.get("all_gather", 0) + sum(
+            isinstance(ls.mixer, AttnSpec) and spec_is_paged(ls.mixer) for ls in cfg.layer_specs())
+    return {k: v for k, v in out.items() if v}
 
 
 def audit_collectives(cap: Capture, name: str, report: Optional[Report] = None, *,

@@ -40,6 +40,13 @@ experts as plain products in the input type, as the JAX package computes
 them outside any Pallas kernel.  ``residual=True`` adds the Residual-MoE
 branch (a fixed dense MLP beside the routed experts; llama4's and kimi-k2's
 shared expert).
+
+In a serving step sharded by rows (``parallel/sharding.py::use_rows``) x
+holds the rank's rows and so does y: the EP serving layer gathers what its
+schedule needs (core/moe_serve.py), a one-device dispatch runs over every
+row gathered (its capacity is the whole step's, as under JAX's hints), the
+residual branch runs on the rank's rows, and routing statistics are taken
+over every row.
 """
 from __future__ import annotations
 
@@ -66,7 +73,8 @@ from repro_torch.kernels.expert_mlp_quant import (
 )
 from repro_torch.kernels.moe_gating import gating
 from repro_torch.models.modules import act_fn, dense_init, init_mlp, mlp
-from repro_torch.parallel.sharding import get_mesh
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import get_mesh, get_rows, use_rows
 from repro_torch.quant.qarrays import QuantizedArray, dequantize_values, materialize
 
 # the most bytes of per-tile expert weights (gathered, and their f32 copies)
@@ -210,6 +218,12 @@ def moe_layer(
             "einsum" if get_mesh() is not None else "dense")
     elif impl == "ep" and get_mesh() is not None:
         return _moe_layer_ep(cfg, spec, params, x, with_stats)
+    rows = get_rows()
+    if rows is not None:
+        with use_rows(None):
+            out = moe_layer(cfg, spec, params, col.all_gather(x, rows.mesh, rows.axes),
+                            impl=impl, with_stats=with_stats)
+        return (rows.take(out[0]),) + tuple(out[1:])
     impl = NO_MESH_IMPL.get(impl, impl)
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
@@ -250,12 +264,15 @@ def _moe_layer_ep_serve(cfg: ModelConfig, spec: FFNSpec, params: dict, x: torch.
     per-shard capacity's (the JAX package's caveat)."""
     if isinstance(params.get("wi"), QuantizedArray):
         params = {**params, **{k: materialize(params[k]) for k in ("wi", "wg", "wo") if k in params}}
-    y, aux = moe_layer_ep_serve(cfg, spec, params, x,
+    rows = get_rows()
+    y, aux = moe_layer_ep_serve(cfg, spec, params, x, rows=rows,
                                 kernel="grouped" if impl == "ep_grouped" else "dense")
     if spec.residual:
         y = y + mlp(params["residual"], x, spec.act)
     if not with_stats:
         return y, aux
+    if rows is not None:
+        x = col.all_gather(x, rows.mesh, rows.axes)
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
     logits = x.reshape(B * S, D).float() @ params["router"]

@@ -29,6 +29,17 @@ chooses them (``schedule_of``):
     and an all-gather of the tokens.  The aux loss is built from the
     pmean'd ``(f, P)``.  Capacity is per shard, so it equals the one-device
     layer only where nothing drops.
+
+In a serving step whose rows are sharded (``rows``, slot-sharded serving:
+``parallel/sharding.py``) ``x`` holds the rank's rows of the step.  The
+replicated-token schedules gather every row first and keep the rank's rows
+of the output (JAX's ``constrain(x, P())`` and the ``batch`` hint after the
+layer).  The a2a schedule takes the rank's rows flattened as its token
+shard, with no gather, where the rows shard over every EP axis: then the
+step's T = B S tokens divide by the EP size (no padding) and the rank's
+rows are exactly JAX's shard of them (the paper's dataflow, JAX's
+per-shard capacity).  Rows over some of the EP axes are gathered, then
+padded and split as above.
 """
 from __future__ import annotations
 
@@ -43,7 +54,7 @@ from repro_torch.core.gating import expert_capacity, load_balance_loss, load_bal
 from repro_torch.kernels.moe_gating import gating
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.params import ep_rank, expert_axes
-from repro_torch.parallel.sharding import EpMesh, get_mesh, get_rules
+from repro_torch.parallel.sharding import EpMesh, RowShard, get_mesh, get_rules
 
 SCHEDULES = ("replicated_dense", "replicated_grouped", "a2a")
 
@@ -202,14 +213,24 @@ def ep_schedule(schedule: str, spec: FFNSpec, params: dict, x: torch.Tensor, mes
 
 
 def moe_layer_ep_serve(cfg: ModelConfig, spec: FFNSpec, params: dict, x: torch.Tensor, *,
-                       kernel: str = "dense") -> Tuple[torch.Tensor, torch.Tensor]:
+                       kernel: str = "dense",
+                       rows: Optional[RowShard] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serving EP layer (``kernel`` ``"dense"``, the capacity dispatch, or
     ``"grouped"``).  The caller (``core/moe.py``) guarantees an ambient mesh
-    whose ``expert`` rule axes divide ``spec.num_experts``."""
+    whose ``expert`` rule axes divide ``spec.num_experts``.  ``rows``: x
+    holds the rank's rows of a step sharded by rows, and so does the output
+    (the module docstring)."""
     mesh = get_mesh()
     axes = serve_ep_axes(spec.num_experts)
     if mesh is None or axes is None:
         raise ValueError("moe_layer_ep_serve needs an ambient mesh that shards "
                          f"{spec.num_experts} experts")
-    B, S, _ = x.shape
-    return ep_schedule(schedule_of(kernel, B * S, spec), spec, params, x, mesh, axes)
+    B, S, D = x.shape
+    if rows is None:
+        return ep_schedule(schedule_of(kernel, B * S, spec), spec, params, x, mesh, axes)
+    schedule = schedule_of(kernel, rows.n * S, spec)
+    if schedule == "a2a" and rows.axes == tuple(axes):
+        y, aux = _a2a(spec, mesh, axes, x.reshape(B * S, D), params)
+        return y.reshape(B, S, D), aux
+    y, aux = ep_schedule(schedule, spec, params, col.all_gather(x, mesh, rows.axes), mesh, axes)
+    return rows.take(y), aux

@@ -16,34 +16,13 @@ import numpy as np
 import torch
 
 from repro_torch.data.synthetic import batches
-from repro_torch.parallel.sharding import EpMesh, get_mesh, get_rules
-
-
-def row_axes(mesh: EpMesh, rules: dict, batch: int) -> Tuple[str, ...]:
-    """The mesh axes a global batch of ``batch`` rows splits over: the
-    ``batch`` rule's axes in its order, each kept while the product still
-    divides the batch."""
-    axes = rules.get("batch") or ()
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    picked, prod = [], 1
-    for a in axes:
-        if a not in mesh.axis_names:
-            continue
-        if batch % (prod * mesh.axis_size(a)) == 0:
-            picked.append(a)
-            prod *= mesh.axis_size(a)
-    return tuple(picked)
+from repro_torch.parallel.sharding import EpMesh, batch_shard, get_mesh, get_rules
 
 
 def local_rows(mesh: EpMesh, rules: dict, batch: int) -> slice:
     """This rank's rows of a global batch of ``batch`` rows."""
-    axes = row_axes(mesh, rules, batch)
-    n, index = 1, 0
-    for a in axes:
-        n *= mesh.axis_size(a)
-        index = index * mesh.axis_size(a) + mesh.axis_index(a)
-    per = batch // n
-    return slice(index * per, (index + 1) * per)
+    shard = batch_shard(batch, mesh, rules)
+    return slice(0, batch) if shard is None else slice(shard.lo, shard.hi)
 
 
 def device_put_batch(tokens: np.ndarray, labels: np.ndarray, device,

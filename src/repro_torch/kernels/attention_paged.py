@@ -285,11 +285,15 @@ def paged_decode_attention(
     softcap: float = 0.0,
     k_scale: Optional[torch.Tensor] = None,  # [Pt, ps, Hkv, 1] f32: the pool is int8
     v_scale: Optional[torch.Tensor] = None,
+    plan_rows: int = 0,
 ) -> torch.Tensor:
     """[B, Hkv, G, dh] attention output in q's type.  Caller contract as the
     TPU kernel's: the table is pre-clamped, and ``kpos`` is -1 for every
     entry not holding a valid token (trash page, fresh and recycled pages).
-    With ``k_scale``/``v_scale`` the pool holds int8 values (kernel 7q)."""
+    With ``k_scale``/``v_scale`` the pool holds int8 values (kernel 7q).
+    ``plan_rows`` (0: B) is the row count the split plan is made for: a
+    rank's rows of a slot-sharded step take the whole step's plan, so each
+    row's split-K sums, and its output bits, are one device's."""
     if account.recorder is not None:
         return account.recorder.kernel(
             "paged_decode_attention" + ("" if k_scale is None else "_int8"),
@@ -323,7 +327,7 @@ def paged_decode_attention(
         kv = (k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(), v_scale.data_ptr())
     out = torch.empty_like(q)
     if bf16:  # split-K: f32 partials m, l, acc per (split, slot, kv-head, row)
-        splits = decode_splits(nt, ps, B, Hkv, _sm_count(q.device.index))
+        splits = decode_splits(nt, ps, plan_rows or B, Hkv, _sm_count(q.device.index))
         ws = (torch.empty(splits * B * Hkv * G * (dh + 2), dtype=torch.float32, device=q.device)
               if splits > 1 else None)  # one split writes out itself
         shapes = (out.data_ptr(), ws.data_ptr() if ws is not None else None, B, Hkv, G, dh, ps, nt,

@@ -132,8 +132,10 @@ def decode_attention_quant(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    plan_rows: int = 0,
 ) -> torch.Tensor:
-    """[B, Hkv, G, dh] attention output in q's type."""
+    """[B, Hkv, G, dh] attention output in q's type; ``plan_rows`` (0: B)
+    the row count the split plan is made for, as kernel 7's."""
     if account.recorder is not None:
         return account.recorder.kernel("decode_attention_quant", decode_attention_quant, **locals())
     if q.device.type == "cpu":
@@ -162,7 +164,7 @@ def decode_attention_quant(
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
         fn = lib.decode_attention_quant_bf16
-        splits = decode_splits(T, 1, B, Hkv, _sm_count(q.device.index), dh)
+        splits = decode_splits(T, 1, plan_rows or B, Hkv, _sm_count(q.device.index), dh)
         # f32 partials m, l, acc per (split, slot, kv-head, row); one split
         # writes out itself
         ws = (torch.empty(splits * B * Hkv * G * (dh + 2), dtype=torch.float32, device=q.device)

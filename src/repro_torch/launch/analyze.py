@@ -20,7 +20,8 @@ and, unless ``--no-ep``, the expert-parallel
 serving engines of ``nlg-350m-moe128`` over 4 gloo ranks on the CPU (a (2,
 2) mesh: the two-hop exchange), the capacity and the grouped schedules:
 each rank's decode step is held to its schedule's collectives, counted per
-MoE layer (``analysis/graph.py``'s ``SCHEDULE_COLLECTIVES``).  The ranks start through
+MoE layer (``analysis/graph.py``'s ``SCHEDULE_COLLECTIVES``), with the
+gathers of the slot layout where the decode's rows shard over the mesh.  The ranks start through
 ``serving/ep.py``'s ``launch``, under its group timeout and join deadline.
 
 Exit 0 = no unsuppressed errors (``--strict``: no warnings either).  While
@@ -173,7 +174,7 @@ def _ep_rank(rank: int, impl: str) -> list:
     location, message, suppressed) rows, and the report's metrics."""
     from repro_torch.analysis.graph import schedule_collectives
     from repro_torch.core.moe_serve import schedule_of
-    from repro_torch.serving.ep import mesh_scope
+    from repro_torch.serving.ep import mesh_scope, slot_shard
 
     torch.manual_seed(0)
     cont, stat = build_engines(EP_ARCH, moe_impl=impl, ep_mesh=EP_MESH,
@@ -187,10 +188,13 @@ def _ep_rank(rank: int, impl: str) -> list:
         args = e.make(*e.sample[-1])
         T = eng.n_slots if hasattr(eng, "n_slots") else e.sample[-1][0]
         schedule = schedule_of(kernel, T, ffn)
+        rows = slot_shard(eng._mesh, eng._mesh_rules, T,
+                          eng.n_pages if getattr(eng, "paged", False) else None)
+        allowed = schedule_collectives(cfg, schedule, EP_MESH, rows.axes if rows else (),
+                                       paged=getattr(eng, "paged", False))
         with torch.no_grad(), mesh_scope(eng._mesh, eng._mesh_rules):
             audit_graph(f"{EP_ARCH}+ep-{impl}.{tag}.decode[{schedule}]", e.fn, args,
-                        allowed_collectives=schedule_collectives(cfg, schedule, EP_MESH),
-                        report=report)
+                        allowed_collectives=allowed, report=report)
     return ([(f.severity, f.rule, f"rank{rank}:{f.location}", f.message, f.suppressed)
              for f in report.findings],
             {k: v for k, v in report.metrics.items() if k.endswith((".collectives", ".kernels"))})

@@ -6,7 +6,8 @@ port builds the same trees on ``device="meta"``, so nothing is allocated).
 Per rank it reports the bytes of the parameters, the gradients (train: the
 accumulator of the train entry, ``opt_dtype_for``'s dtype), AdamW's moments
 (f32, as the trainer allocates them; ZeRO-1's slices under a mesh), the caches (prefill / decode: the
-contiguous caches of the global batch at the shape's length) and the
+contiguous caches of the global batch at the shape's length, a rank's
+slots of them under a mesh) and the
 inputs; whether their sum fits the card's 80 GB (80e9 bytes; activations
 are not counted: a lower bound); and the roofline terms on the H100
 (``launch/roofline.py``): compute from ``model_flops``, memory from the
@@ -17,8 +18,10 @@ rows of d_model twice forward, and twice more backward in training, (P -
 
 Under a mesh this is the port's own layout: experts sharded over the
 mesh's ``data`` axis, every other leaf replicated, ZeRO-1 moments
-(tensor parallelism and ZeRO-3, ROADMAP item 7d, are not ported); the
-output says so.
+(tensor parallelism and ZeRO-3, ROADMAP item 7d, are not ported), and the
+caches of a rank's slots only where the global batch divides over the ranks
+(JAX's serving layout, ``serving/ep.py::place_caches``); the output says
+so.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama4-maverick-400b-a17b \
       --shape decode_32k
@@ -46,7 +49,8 @@ from repro_torch.quant import kv_cache_bytes, tree_bytes
 CARD_BYTES = 80e9
 MESHES = (1, 4, 8)
 LAYOUT = ("experts sharded over the mesh's data axis, every other leaf replicated, ZeRO-1 "
-          "moments; tensor parallelism and ZeRO-3 (ROADMAP 7d) not ported")
+          "moments, the caches of the rank's slots where the batch divides; tensor "
+          "parallelism and ZeRO-3 (ROADMAP 7d) not ported")
 
 
 def _moe_layers(cfg):

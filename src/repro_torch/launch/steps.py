@@ -42,7 +42,7 @@ from repro_torch.data.pipeline import local_rows
 from repro_torch.models.model import (decode_step, encode_train, forward, init_caches,
                                       init_params, param_leaves, prefill, trainable)
 from repro_torch.parallel.params import shard_params, zero_partition
-from repro_torch.parallel.sharding import DEFAULT_RULES
+from repro_torch.parallel.sharding import DEFAULT_RULES, batch_shard
 from repro_torch.parallel.sharding import EpMesh
 from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_update
 from repro_torch.training.schedule import warmup_cosine
@@ -208,9 +208,12 @@ def abstract_opt_state(cfg: ModelConfig, params, mesh: Optional[EpMesh] = None,
 
 def abstract_caches(cfg: ModelConfig, batch: int, capacity: int, mesh: Optional[EpMesh] = None,
                     *, cross_len: int = 0) -> dict:
-    """The contiguous caches on meta (replicated under a mesh: every rank
-    holds every row, ``serving/ep.py::place_caches``)."""
-    return init_caches(cfg, batch, capacity, cross_len=cross_len, device="meta")
+    """The contiguous caches on meta; under a mesh one rank's rows of them
+    where the batch divides over the ``batch`` axes (``serving/ep.py::
+    place_caches``), every row otherwise."""
+    rows = batch_shard(batch, mesh, DEFAULT_RULES) if mesh is not None else None
+    return init_caches(cfg, batch if rows is None else rows.rows, capacity, cross_len=cross_len,
+                       device="meta")
 
 
 def _text_len(cfg: ModelConfig, seq_len: int) -> int:

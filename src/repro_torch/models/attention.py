@@ -43,6 +43,12 @@ projects K/V from the memory, attends through kernel 6 (query positions 0,
 key positions the memory's) and writes its per-row cross cache, full
 precision whatever the self caches are; a decode step reads that cache
 through ``_sdpa``.
+In a step whose rows are sharded over an expert-parallel mesh
+(``parallel/sharding.py::use_rows``) every rank attends and writes its
+per-slot leaves on its own rows; the page pool is replicated, so before a
+paged write the ranks gather every row's new K/V (one all-gather a layer)
+with their positions and block tables, and each writes them all: every
+rank's pool stays the same bytes, as XLA keeps a replicated scatter operand.
 """
 from __future__ import annotations
 
@@ -60,6 +66,8 @@ from repro_torch.kernels.attention_prefill_paged import (
 from repro_torch.kernels.attention_quant import decode_attention_quant
 from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.models.modules import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import get_rows
 from repro_torch.quant.kv import QuantizedKV, kv_quantize_values, materialize_kv
 from repro_torch.quant.qarrays import materialize
 
@@ -324,6 +332,24 @@ def _paged_cache_write_chunk_batched(cache: dict, k_new, v_new, positions, table
     return cache
 
 
+def _all_rows(*parts):
+    """``parts`` (the new K/V, their positions and block table, each with a
+    leading row dim) for every row of the ambient sharded step: the rank's
+    rows' bytes gathered in one all-gather; as given outside such a step."""
+    rows = get_rows()
+    if rows is None:
+        return parts
+    b = parts[0].shape[0]
+    flat = [t.contiguous().view(b, -1).view(torch.uint8) for t in parts]
+    got = col.all_gather(torch.cat(flat, dim=1), rows.mesh, rows.axes)
+    out, at = [], 0
+    for t, f in zip(parts, flat):
+        out.append(got[:, at:at + f.shape[1]].contiguous().view(t.dtype)
+                   .view(rows.n, *t.shape[1:]))
+        at += f.shape[1]
+    return tuple(out)
+
+
 def _kv_args(cache: dict) -> tuple:
     """(k, v, scales) of a cache for the paged kernels: the int8 tensors and
     ``dict(k_scale=, v_scale=)`` of a ``QuantizedKV`` pool, else the fp
@@ -334,6 +360,13 @@ def _kv_args(cache: dict) -> tuple:
     return k, v, {}
 
 
+def _plan_rows(B: int) -> int:
+    """The row count kernels 7 and 9 plan their splits for: the whole step's
+    in a sharded step (each row's sums as on one device), else B."""
+    rows = get_rows()
+    return rows.n if rows is not None and rows.rows == B else B
+
+
 def _decode_attend_quant(q, cache: dict, row_pos, spec: AttnSpec, scale: float):
     """One-token decode over a contiguous int8 cache, through kernel 9.
     q: [B, 1, H, dh]; row_pos [B] int32."""
@@ -342,7 +375,8 @@ def _decode_attend_quant(q, cache: dict, row_pos, spec: AttnSpec, scale: float):
     qg = q[:, 0].reshape(B, Hkv, H // Hkv, dh).contiguous()
     y = decode_attention_quant(
         qg, cache["k"].q, cache["k"].scale, cache["v"].q, cache["v"].scale, cache["pos"], row_pos,
-        scale=scale, causal=spec.causal, window=_window(spec), softcap=spec.logit_softcap)
+        scale=scale, causal=spec.causal, window=_window(spec), softcap=spec.logit_softcap,
+        plan_rows=_plan_rows(B))
     return y.reshape(B, 1, H, dh)
 
 
@@ -357,7 +391,7 @@ def _paged_decode_attend(q, cache: dict, row_pos, table, spec: AttnSpec, scale: 
     y = paged_decode_attention(
         qg, k, v, cache["pos"], table, row_pos,
         scale=scale, causal=spec.causal, window=_window(spec),
-        softcap=spec.logit_softcap, **scales)
+        softcap=spec.logit_softcap, plan_rows=_plan_rows(B), **scales)
     return y.reshape(B, 1, H, dh)
 
 
@@ -588,10 +622,10 @@ def attention(
     elif mode == "prefill_chunk_batched":
         pos2d = positions.expand(B, S).contiguous()
         y = _paged_prefill_chunk_attend_batched(q, k, v, cache, pos2d, block_table, spec, scale)
-        cache = _paged_cache_write_chunk_batched(cache, k, v, pos2d, block_table)
+        cache = _paged_cache_write_chunk_batched(cache, *_all_rows(k, v, pos2d, block_table))
     elif mode == "decode_paged" and paged:
         row_pos = positions.reshape(B)
-        cache = _paged_cache_write_decode(cache, k, v, row_pos, block_table)
+        cache = _paged_cache_write_decode(cache, *_all_rows(k, v, row_pos, block_table))
         y = _paged_decode_attend(q, cache, row_pos, block_table, spec, scale)
     elif mode in ("decode", "decode_ragged", "decode_paged"):
         assert cache is not None and S == 1

@@ -26,6 +26,21 @@ embeddings (vlm: ``prefix_embeds``).
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose nesting and
 leaf names are the JAX package's parameter tree, so a JAX tree converts leaf
 for leaf (``repro_torch.convert``).
+Under an expert-parallel serving mesh the caches may be placed by slot
+(``SlotCaches``, ``serving/ep.py::place_caches``): each rank holds its block
+of the per-slot leaves' rows, and the entry points that run every slot
+(``prefill``, ``decode_step``, ``ragged_decode_step``,
+``paged_ragged_decode_step``, ``paged_prefill_chunk_batched``) run the
+embedding, attention, norms, dense FFNs and logits on the rank's rows only
+(JAX's ``shard_hint(x, "batch", ...)``): their inputs are the whole batch's,
+replicated, and their logits the rank's rows.  The MoE layers see the token
+set JAX's layer sees (``core/moe.py``), and the writes into a replicated
+page pool take every row's K/V, so every rank's pool stays the same bytes.
+The one-slot entries (``prefill_into_slot``, ``paged_prefill_chunk``,
+``paged_prefill_into_slot``) run replicated, as JAX's ``B = 1`` hints do:
+the rank that holds the slot sends its per-slot row to the others before
+the step and alone keeps the row the step wrote; ``paged_copy_slot_leaves``
+sends a row from its owner to the destination's.
 Training: ``forward`` is differentiable (every other entry point runs under
 ``torch.no_grad``), with ``remat`` and ``return_routing`` as in JAX;
 ``param_leaves`` lists the tree's tensors in the JAX tree's order and
@@ -33,6 +48,7 @@ Training: ``forward`` is differentiable (every other entry point runs under
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -43,6 +59,8 @@ from repro_torch.configs.base import AttnSpec, ModelConfig
 from repro_torch.models.attention import _paged_clamp_table, spec_is_paged
 from repro_torch.models.modules import DTYPES, dense_init, embed_init, init_rmsnorm, rmsnorm
 from repro_torch.models.transformer import apply_segment, init_segment, init_segment_cache
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import RowShard, shard_hint, use_rows
 from repro_torch.quant.kv import QuantizedKV
 from repro_torch.quant.qarrays import materialize
 
@@ -176,6 +194,32 @@ def init_paged_caches(cfg: ModelConfig, slots: int, capacity: int, *, n_pages: i
             for i, seg in enumerate(cfg.segments)}
 
 
+class SlotCaches(dict):
+    """A cache tree placed by slot under an expert-parallel serving mesh:
+    its per-slot leaves hold rows ``[rows.lo, rows.hi)`` of ``rows.n``
+    slots (``rows`` a ``RowShard``; None: every slot's row), its pools every
+    page.  Reads as the dict it was built from."""
+
+    def __init__(self, tree: dict, rows: Optional[RowShard]):
+        super().__init__(tree)
+        self.rows = rows
+
+
+def slot_rows(caches) -> Optional[RowShard]:
+    """The ``RowShard`` of a cache tree placed by slot, None where every
+    rank holds every slot's row."""
+    return getattr(caches, "rows", None)
+
+
+def _step_rows(caches, n: int) -> Optional[RowShard]:
+    """The rows this rank runs of a step over every one of the ``n`` slots
+    of ``caches``; None: every row."""
+    rows = slot_rows(caches)
+    if rows is not None and rows.n != n:
+        raise ValueError(f"a step over {n} rows of caches placed for {rows.n} slots")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
@@ -284,11 +328,15 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, caches: dict, *,
             prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """Returns (logits for the last position [B, V], caches filled in place);
     ``memory`` and ``prefix_embeds`` as in ``forward`` (the cross caches are
-    written from the memory)."""
-    x = _with_prefix(cfg, params, embed_tokens(cfg, params, tokens), prefix_embeds)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
-    x, caches, _ = _run_segments(cfg, params, x, positions, caches, "prefill", memory=memory)
-    return logits_out(cfg, params, x[:, -1:])[:, 0], caches
+    written from the memory).  Over caches placed by slot: the rank's rows
+    of the logits."""
+    with use_rows(_step_rows(caches, tokens.shape[0])):
+        tokens, memory, prefix_embeds = (shard_hint(t, "batch") for t in (tokens, memory,
+                                                                          prefix_embeds))
+        x = _with_prefix(cfg, params, embed_tokens(cfg, params, tokens), prefix_embeds)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+        x, caches, _ = _run_segments(cfg, params, x, positions, caches, "prefill", memory=memory)
+        return logits_out(cfg, params, x[:, -1:])[:, 0], caches
 
 
 @torch.no_grad()
@@ -299,12 +347,14 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, index: int,
     batch): returns (logits [B, V], caches updated in place).  The cross
     attention reads its cache; ``memory`` keeps JAX's signature.
     ``return_routing=True`` appends the routing-stats tree (on the device,
-    ``core/gating.py::routing_to_host`` copies it)."""
-    x = embed_tokens(cfg, params, token)
-    positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
-    out = _run_segments(cfg, params, x, positions, caches, "decode", index=index,
-                        memory=memory, collect_stats=return_routing)
-    return (logits_out(cfg, params, out[0])[:, 0], out[1]) + out[3:]
+    ``core/gating.py::routing_to_host`` copies it).  Over caches placed by
+    slot: the rank's rows of the logits."""
+    with use_rows(_step_rows(caches, token.shape[0])):
+        x = embed_tokens(cfg, params, shard_hint(token, "batch"))
+        positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+        out = _run_segments(cfg, params, x, positions, caches, "decode", index=index,
+                            memory=shard_hint(memory, "batch"), collect_stats=return_routing)
+        return (logits_out(cfg, params, out[0])[:, 0], out[1]) + out[3:]
 
 
 def _tensors(tree):
@@ -404,14 +454,17 @@ def ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, positions:
     (``_RowMerge``: one entry per attention cache, the whole recurrent
     states), which is JAX's masked merge of the whole cache restricted to
     what the step touched: inactive rows stay bit-identical, and no step
-    copies a KV cache."""
-    x = embed_tokens(cfg, params, token)
-    pos = positions.to(torch.int32)
-    merge = _RowMerge(cfg, caches, False, pos)
-    out = _run_segments(cfg, params, x, pos[:, None], caches, "decode_ragged",
-                        collect_stats=return_routing)
-    merge.restore(active)
-    return (logits_out(cfg, params, out[0])[:, 0], caches) + out[3:]
+    copies a KV cache.  Over caches placed by slot: the rank's rows, of the
+    logits too."""
+    with use_rows(_step_rows(caches, token.shape[0])):
+        token, pos, active = (shard_hint(t, "batch") for t in (token, positions.to(torch.int32),
+                                                                active))
+        x = embed_tokens(cfg, params, token)
+        merge = _RowMerge(cfg, caches, False, pos)
+        out = _run_segments(cfg, params, x, pos[:, None], caches, "decode_ragged",
+                            collect_stats=return_routing)
+        merge.restore(active)
+        return (logits_out(cfg, params, out[0])[:, 0], caches) + out[3:]
 
 
 @torch.no_grad()
@@ -423,10 +476,9 @@ def prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor, positions:
     single-row cache over it, and the prefill writes its first S entries (a
     ring its last ones; kernel 6 attends).  Returns (logits of the last
     position [1, V], caches)."""
-    _reset_rows(cfg, caches, slot, False)
-    row = _map_tensors(caches, lambda t: t[:, slot : slot + 1])
-    x = embed_tokens(cfg, params, tokens)
-    x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), row, "prefill")
+    with _one_slot(cfg, caches, slot, True, False) as row:
+        x = embed_tokens(cfg, params, tokens)
+        x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), row, "prefill")
     return logits_out(cfg, params, x[:, -1:])[:, 0], caches
 
 
@@ -463,22 +515,80 @@ def _clamped(cfg: ModelConfig, caches: dict, table: torch.Tensor) -> torch.Tenso
     return table.to(torch.int32) if pool is None else _paged_clamp_table(table, pool["pos"].shape[-2])
 
 
-def _slot_row(cfg: ModelConfig, caches: dict, slot: Optional[int], reset: bool) -> dict:
-    """The cache tree of one chunk of slot ``slot``: the pools as they are,
-    the per-slot leaves as views of the slot's row (fresh first if
-    ``reset``)."""
-    if arch_fully_paged(cfg):
-        return caches
-    if slot is None:
-        raise ValueError(f"{cfg.name} keeps per-slot state: pass the chunk's slot")
-    if reset:
-        _reset_rows(cfg, caches, int(slot), True)
+def _row_tree(cfg: ModelConfig, caches: dict, paged: bool, fn) -> dict:
+    """The caches' tree with every per-slot leaf's tensors ``t`` replaced by
+    ``fn(ls, t)`` (``ls`` the leaf's LayerSpec) and the pools (``paged``) as
+    they are."""
     out = {}
-    for sk, pk, _, paged in _layer_entries(cfg):
+    for sk, pk, ls, pooled in _layer_entries(cfg):
         out.setdefault(sk, {})[pk] = {
-            key: leaf if (key == "self" and paged) else _map_tensors(leaf, lambda t: t[:, slot : slot + 1])
+            key: leaf if (paged and key == "self" and pooled)
+            else _map_tensors(leaf, lambda t, ls=ls: fn(ls, t))
             for key, leaf in caches[sk][pk].items()}
     return out
+
+
+def _row_tensors(cfg: ModelConfig, tree: dict, paged: bool) -> list:
+    """The per-slot tensors of a cache tree, in a fixed order."""
+    return [t for _, leaf in _slot_leaves(cfg, tree, paged) for t in _tensors(leaf)]
+
+
+def slot_cache_bytes(cfg: ModelConfig, caches: dict, paged: bool) -> Tuple[int, int]:
+    """(bytes of the per-slot leaves, bytes of the rest: the pools) of a
+    cache tree as held (a placed tree: this rank's rows)."""
+    from repro_torch.quant.kv import kv_cache_bytes
+
+    per = sum(t.numel() * t.element_size() for t in _row_tensors(cfg, caches, paged))
+    return per, kv_cache_bytes(dict(caches)) - per
+
+
+def _broadcast_row(rows: RowShard, tensors: list, row: int) -> None:
+    """Fill ``tensors`` (contiguous) on every rank with the values they hold
+    on the ranks that hold global row ``row``: one broadcast of their bytes
+    over ``rows``' axes."""
+    if not tensors:
+        return
+    flat = [t.view(-1).view(torch.uint8) for t in tensors]
+    buf = col.broadcast(torch.cat(flat), rows.mesh, rows.axes, rows.block(row))
+    o = 0
+    for f in flat:
+        f.copy_(buf[o : o + f.numel()])
+        o += f.numel()
+
+
+@contextlib.contextmanager
+def _one_slot(cfg: ModelConfig, caches: dict, slot: Optional[int], reset: bool, paged: bool):
+    """The cache tree of a one-row step of slot ``slot``: the pools as they
+    are, the per-slot leaves as the slot's row (fresh first if ``reset``).
+    Over caches placed by slot every rank runs the step: each gets a
+    contiguous copy of the row (the holder's values, broadcast, unless
+    ``reset``), and on exit the ranks that hold the slot copy it back."""
+    if paged and arch_fully_paged(cfg):
+        yield caches
+        return
+    if slot is None:
+        raise ValueError(f"{cfg.name} keeps per-slot state: pass the chunk's slot")
+    slot = int(slot)
+    rows = slot_rows(caches)
+    if rows is None:
+        if reset:
+            _reset_rows(cfg, caches, slot, paged)
+        yield _row_tree(cfg, caches, paged, lambda ls, t: t[:, slot : slot + 1])
+        return
+    mine = rows.holds(slot)
+    r = slot - rows.lo
+    if mine and not reset:
+        one = _row_tree(cfg, caches, paged, lambda ls, t: t[:, r : r + 1].clone(
+            memory_format=torch.contiguous_format))
+    else:
+        one = _row_tree(cfg, caches, paged, lambda ls, t: torch.full_like(
+            t[:, :1], _fresh(ls, t), memory_format=torch.contiguous_format))
+    if not reset:
+        _broadcast_row(rows, _row_tensors(cfg, one, paged), slot)
+    yield one
+    if mine:
+        for dst, src in zip(_row_tensors(cfg, caches, paged), _row_tensors(cfg, one, paged)):
+            dst[:, r] = src[:, 0]
 
 
 @torch.no_grad()
@@ -497,17 +607,21 @@ def paged_ragged_decode_step(cfg: ModelConfig, params, token: torch.Tensor, posi
     attention sees no valid key (its logits are discarded).  The per-slot
     leaves (window rings, SSM / LRU states) of the rows outside ``active``
     [B] bool are put back after the step (``_RowMerge``), JAX's masked
-    merge; ``active`` None: every row decodes."""
-    x = embed_tokens(cfg, params, token)
-    pos2d = positions.to(torch.int32)[:, None]
-    merge = (_RowMerge(cfg, caches, True, pos2d[:, 0])
-             if active is not None and not arch_fully_paged(cfg) else None)
-    out = _run_segments(cfg, params, x, pos2d, caches, "decode_paged",
-                        block_table=_clamped(cfg, caches, block_table),
-                        collect_stats=return_routing)
-    if merge is not None:
-        merge.restore(active)
-    return (logits_out(cfg, params, out[0])[:, 0], caches) + out[3:]
+    merge; ``active`` None: every row decodes.  Over caches placed by slot
+    the rank runs its rows (logits too), and every row's K/V goes into the
+    replicated pool."""
+    pos = positions.to(torch.int32)
+    table = _clamped(cfg, caches, block_table)
+    with use_rows(_step_rows(caches, token.shape[0])):
+        token, pos, table, active = (shard_hint(t, "batch") for t in (token, pos, table, active))
+        x = embed_tokens(cfg, params, token)
+        merge = (_RowMerge(cfg, caches, True, pos)
+                 if active is not None and not arch_fully_paged(cfg) else None)
+        out = _run_segments(cfg, params, x, pos[:, None], caches, "decode_paged",
+                            block_table=table, collect_stats=return_routing)
+        if merge is not None:
+            merge.restore(active)
+        return (logits_out(cfg, params, out[0])[:, 0], caches) + out[3:]
 
 
 @torch.no_grad()
@@ -542,9 +656,9 @@ def paged_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, position
     cache's values instead: the row still holds its previous occupant's
     state."""
     x = embed_tokens(cfg, params, tokens)
-    one = _slot_row(cfg, caches, slot, reset)
-    x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), one,
-                            "prefill_chunk", block_table=_clamped(cfg, caches, table_row[None]))
+    with _one_slot(cfg, caches, slot, reset, True) as one:
+        x, _, _ = _run_segments(cfg, params, x, positions.to(torch.int32), one, "prefill_chunk",
+                                block_table=_clamped(cfg, caches, table_row[None]))
     return logits_out(cfg, params, x[:, -1:])[:, 0], caches
 
 
@@ -567,23 +681,29 @@ def paged_prefill_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
     chunk (padding is inert: ring writes keep a row's last valid tokens, an
     SSD step with dt = 0 and an LRU step with a = 1, b = 0 are the
     identity), and the rows outside ``active`` [S] are put back as they
-    came in, JAX's masked merge."""
+    came in, JAX's masked merge.  Over caches placed by slot the rank runs
+    its rows (logits too), and every row's chunk goes into the replicated
+    pool."""
     S = tokens.shape[0]
     if reset.shape != (S,) or active.shape != (S,) or last_idx.shape != (S,):
         raise ValueError(f"paged_prefill_chunk_batched: reset {tuple(reset.shape)}, active "
                          f"{tuple(active.shape)}, last_idx {tuple(last_idx.shape)} for {S} rows")
-    x = embed_tokens(cfg, params, tokens)
-    merge = None
-    if not arch_fully_paged(cfg):
-        merge = _RowMerge(cfg, caches, True)
-        _reset_rows(cfg, caches, reset, True)
-    x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
-                                 "prefill_chunk_batched",
-                                 block_table=_clamped(cfg, caches, block_tables))
-    if merge is not None:
-        merge.restore(active)
-    xe = x[torch.arange(S, device=x.device), last_idx.long()]  # [S, D]
-    return logits_out(cfg, params, xe[:, None])[:, 0], caches
+    pos = positions.to(torch.int32)
+    table = _clamped(cfg, caches, block_tables)
+    with use_rows(_step_rows(caches, S)):
+        tokens, pos, table, reset, active, last_idx = (
+            shard_hint(t, "batch") for t in (tokens, pos, table, reset, active, last_idx))
+        x = embed_tokens(cfg, params, tokens)
+        merge = None
+        if not arch_fully_paged(cfg):
+            merge = _RowMerge(cfg, caches, True)
+            _reset_rows(cfg, caches, reset, True)
+        x, caches, _ = _run_segments(cfg, params, x, pos, caches, "prefill_chunk_batched",
+                                     block_table=table)
+        if merge is not None:
+            merge.restore(active)
+        xe = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]  # [S, D]
+        return logits_out(cfg, params, xe[:, None])[:, 0], caches
 
 
 @torch.no_grad()
@@ -607,6 +727,9 @@ def paged_verify_chunk_batched(cfg: ModelConfig, params, tokens: torch.Tensor,
     S = tokens.shape[0]
     if active.shape != (S,):
         raise ValueError(f"paged_verify_chunk_batched: active {tuple(active.shape)} for {S} rows")
+    if slot_rows(caches) is not None:
+        raise NotImplementedError("paged_verify_chunk_batched over caches placed by slot: "
+                                  "speculative decoding does not run over an expert-parallel mesh")
     x = embed_tokens(cfg, params, tokens)
     merge = _RowMerge(cfg, caches, True) if not arch_fully_paged(cfg) else None
     x, caches, _ = _run_segments(cfg, params, x, positions.to(torch.int32), caches,
@@ -666,10 +789,26 @@ def paged_copy_slot_leaves(cfg: ModelConfig, caches: dict, src: int, dst: int) -
     page pool (window rings, SSM/LRU states, cross caches: ``[repeats,
     slots, ...]``), in place.  A parallel-sample fork shares its base's
     pages through its table and takes the rest this way (the shared pools:
-    the table carries the fork)."""
-    for _, leaf in _slot_leaves(cfg, caches, True):
-        for t in _tensors(leaf):
+    the table carries the fork).  Over caches placed by slot, rows held by
+    other ranks go by one broadcast from the source's holders."""
+    rows = slot_rows(caches)
+    if rows is None:
+        for t in _row_tensors(cfg, caches, True):
             t[:, dst] = t[:, src]
+        return caches
+    local = _row_tensors(cfg, caches, True)
+    if rows.block(src) == rows.block(dst):
+        if rows.holds(src):
+            for t in local:
+                t[:, dst - rows.lo] = t[:, src - rows.lo]
+        return caches
+    # the row goes from the ranks that hold ``src`` to those that hold ``dst``
+    sent = [(t[:, src - rows.lo : src - rows.lo + 1] if rows.holds(src) else t[:, :1])
+            .clone(memory_format=torch.contiguous_format) for t in local]
+    _broadcast_row(rows, sent, src)
+    if rows.holds(dst):
+        for t, row in zip(local, sent):
+            t[:, dst - rows.lo] = row[:, 0]
     return caches
 
 
@@ -694,13 +833,13 @@ def paged_prefill_into_slot(cfg: ModelConfig, params, tokens: torch.Tensor,
     kv_bits = 8 if any(isinstance(leaf.get("k"), QuantizedKV)
                        for _, leaf in _slot_leaves(cfg, caches, False)) else 0
     tmp = init_caches(cfg, 1, S, kv_bits=kv_bits, device=tokens.device)
-    row = _slot_row(cfg, caches, slot, True)
-    for sk, pk, _, paged in _layer_entries(cfg):
-        if not paged:
-            tmp[sk][pk] = row[sk][pk]  # the slot's own leaves, prefilled in place
     x = embed_tokens(cfg, params, tokens)
     pos = positions.to(torch.int32)
-    x, tmp, _ = _run_segments(cfg, params, x, pos, tmp, "prefill")
+    with _one_slot(cfg, caches, slot, True, True) as row:
+        for sk, pk, _, paged in _layer_entries(cfg):
+            if not paged:
+                tmp[sk][pk] = row[sk][pk]  # the slot's own leaves, prefilled in place
+        x, tmp, _ = _run_segments(cfg, params, x, pos, tmp, "prefill")
     logits = logits_out(cfg, params, x[:, -1:])[:, 0]
     pos_vec = pos[0]
     for sk, pk, _, paged in _layer_entries(cfg):

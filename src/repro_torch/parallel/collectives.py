@@ -10,7 +10,8 @@ buffer (E = total experts, C = per-source capacity):
     O(Go + Gi) serialized hops instead of O(Go * Gi).
 
 plus ``all_gather``, ``psum_scatter`` (a reduce-scatter), ``psum``,
-``pmean`` and ``pvary``.
+``pmean``, ``pvary`` and ``broadcast`` (slot-sharded serving: one rank's
+cache row to the ranks of its group; no gradient).
 
 JAX's ``all_to_all(x, axes, split_axis, concat_axis, tiled=True)`` becomes
 ``all_to_all``: ``split_axis`` is cut into P chunks moved to the front (chunk
@@ -60,7 +61,7 @@ from typing import Sequence, Union
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import EpMesh
+from repro_torch.parallel.sharding import EpMesh, rank_of
 from repro_torch.kernels import account
 
 Axes = Union[str, Sequence[str]]
@@ -118,6 +119,13 @@ def _sum(out, x, group):
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
 
 
+def _bcast(src):
+    def op(out, x, group):
+        out.copy_(x)
+        dist.broadcast(out, src=src, group=group)
+    return op
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +181,21 @@ def _psum_scatter(x, mesh, axes):
         return out
     recv = _run(_a2a, torch.empty_like(x), x, group)
     return recv.view(P, x.shape[0] // P, *x.shape[1:]).sum(0)
+
+
+def _broadcast(x, mesh, axes, src):
+    if account.recorder is not None:
+        return account.recorder.collective("broadcast", _broadcast, **locals())
+    axes = _axes(axes)
+    group = group_of(mesh, axes)
+    # the global rank of the group's member at index ``src`` over ``axes``
+    coords = list(mesh.coords)
+    for a in reversed(axes):
+        i = mesh.axis_names.index(a)
+        coords[i] = src % mesh.shape[i]
+        src //= mesh.shape[i]
+    x = x.contiguous()
+    return _run(_bcast(rank_of(tuple(coords), mesh.shape)), torch.empty_like(x), x, group)
 
 
 def _hierarchical(x, mesh, inner_axis, outer_axis):
@@ -329,6 +352,13 @@ def pvary(x: torch.Tensor, mesh: EpMesh, axes: Axes) -> torch.Tensor:
     if _grad(x):
         return _Pvary.apply(x, mesh, axes)
     return x
+
+
+def broadcast(x: torch.Tensor, mesh: EpMesh, axes: Axes, src: int) -> torch.Tensor:
+    """The group member's ``x`` at linear index ``src`` over ``axes``
+    (outer-major), on every rank of the group (a new tensor; the other
+    ranks' ``x`` gives only the shape and dtype).  No gradient."""
+    return _broadcast(x, mesh, axes, src)
 
 
 def flat_all_to_all(x: torch.Tensor, mesh: EpMesh, axes: Axes) -> torch.Tensor:

@@ -19,12 +19,22 @@ JAX's train layout also shards attention and the dense FFN over ``model``
 and every leaf over the data axes (ZeRO-3, ``_extend_for_train``); the port
 replicates those leaves (the same function, more memory; ROADMAP item 7d)
 and shards their optimizer state instead (ZeRO-1, ``zero_partition``).
+
+Caches (``cache_pspecs``, JAX's function of the same name, its serving
+branch): a cache leaf ``[repeats, batch, ...]`` whose slot dim holds the
+batch shards that dim over the ``batch`` rule's axes where they divide it
+(``sharding.batch_shard``); every other leaf (the paged pools ``[repeats,
+n_pages + 1, ...]``) is replicated.  JAX shards the slot dim only over the
+whole of ``("pod", "data")``; the port takes the axes as its activations
+take them (JAX's ``_filter_axes``), so a rank's cache rows are always the
+rows it computes.  A serving mesh has no ``model`` axis, so JAX's kv-head
+and sequence rules for the caches are not ported (training's layout, 7d).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
-from repro_torch.parallel.sharding import EpMesh
+from repro_torch.parallel.sharding import EpMesh, batch_shard
 
 EXPERT_KEYS = ("wi", "wg", "wo")
 
@@ -170,6 +180,26 @@ def shard_params(mesh: EpMesh, rules: dict, params, cfg=None, *, mode: str = "se
         return ParamTree(out)
 
     return visit(params, [])
+
+
+def cache_pspecs(mesh: EpMesh, rules: dict, caches, batch: int):
+    """The caches' tree with each tensor replaced by the ``RowShard`` of its
+    slot dim (dim 1, after the stacked ``[repeats]``), or None for a leaf
+    that replicates: JAX's shape test, a leaf whose dim 1 is ``batch`` holds
+    a slot per row (``batch = -1``: none does).  An int8 ``QuantizedKV``
+    leaf maps its ``q`` and ``scale`` alike."""
+    from repro_torch.quant.kv import QuantizedKV
+
+    shard = batch_shard(batch, mesh, rules) if batch > 0 else None
+
+    def visit(node):
+        if isinstance(node, QuantizedKV):
+            return QuantizedKV(visit(node.q), visit(node.scale), node.orig_dtype)
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        return shard if node.dim() > 1 and node.shape[1] == batch else None
+
+    return visit(caches)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,19 @@ meshes in the same order (``dist.new_group`` is collective), which the
 engines do, since every rank builds the same engines from the same config.
 
 ``use_mesh`` makes a mesh ambient for the calling thread, as in JAX;
-``get_mesh`` / ``get_rules`` read it.  The rules kept are those the port's
+``get_mesh`` / ``get_rules`` read it.
+
+Rows of a batch (JAX's ``spec("batch", ...)`` with a shape):
+``row_axes`` are the ``batch`` rule's axes that shard a dim of n rows, kept
+greedily, outer first, while their product divides n (``_filter_axes``);
+``batch_shard`` is this rank's block of them, a ``RowShard`` (rows ``[lo,
+hi)``, contiguous, in mesh order: JAX's shard of that dim on the device at
+this rank's coordinates; ranks that differ only along the other axes hold
+the same rows).  A serving step that runs data-parallel over its slots
+makes its ``RowShard`` ambient (``use_rows``): ``shard_hint(x, "batch")``
+cuts a replicated tensor to the rank's rows, the MoE layer gathers rows
+before its replicated-token schedules, and the writes into a replicated
+page pool take every row (``models/attention.py``).  The rules kept are those the port's
 expert parallelism reads: ``batch`` (the axes the global batch's rows shard
 over), ``expert`` (the axes experts shard over), and for training
 ``expert_mlp`` / ``mlp`` (the axis an expert's d_ff is sliced over: the
@@ -200,3 +212,103 @@ def get_mesh() -> Optional[EpMesh]:
 
 def get_rules() -> dict:
     return getattr(_state, "rules", None) or DEFAULT_RULES
+
+
+# ---------------------------------------------------------------------------
+# Rows of a batch over the ``batch`` rule's axes
+# ---------------------------------------------------------------------------
+
+
+def row_axes(mesh: EpMesh, rules: dict, n: int) -> Tuple[str, ...]:
+    """The mesh axes a dim of ``n`` rows shards over (JAX's ``_filter_axes``
+    of the ``batch`` rule): the rule's axes in its order, each kept while the
+    product of the kept ones still divides n; () where none does."""
+    axes = rules.get("batch") or ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    picked, prod = [], 1
+    for a in axes:
+        if a not in mesh.axis_names:
+            continue
+        if n % (prod * mesh.axis_size(a)) == 0:
+            picked.append(a)
+            prod *= mesh.axis_size(a)
+    return tuple(picked)
+
+
+@dataclass(frozen=True, eq=False)
+class RowShard:
+    """This rank's rows ``[lo, hi)`` of a batch of ``n`` rows sharded over
+    ``axes`` of ``mesh`` (outer first; the block index is the rank's linear
+    index over them)."""
+
+    mesh: EpMesh
+    axes: Tuple[str, ...]
+    n: int
+    lo: int
+    hi: int
+
+    @property
+    def rows(self) -> int:
+        return self.hi - self.lo
+
+    def take(self, x, dim: int = 0):
+        """x's rows of this rank along ``dim`` (a view)."""
+        return x.narrow(dim, self.lo, self.rows)
+
+    def block(self, row: int) -> int:
+        """The block index (over ``axes``) of the ranks holding global row
+        ``row``."""
+        return int(row) // self.rows
+
+    def holds(self, row: int) -> bool:
+        return self.lo <= int(row) < self.hi
+
+
+def batch_shard(n: int, mesh: Optional[EpMesh] = None,
+                rules: Optional[dict] = None) -> Optional[RowShard]:
+    """This rank's ``RowShard`` of a batch of ``n`` rows under ``mesh`` (the
+    ambient one by default), or None where no axis shards it (no mesh, or
+    rows that no axis of the rule divides)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if mesh is None:
+        return None
+    axes = row_axes(mesh, rules if rules is not None else get_rules(), n)
+    if not axes:
+        return None
+    parts, index = 1, 0
+    for a in axes:
+        parts *= mesh.axis_size(a)
+        index = index * mesh.axis_size(a) + mesh.axis_index(a)
+    per = n // parts
+    return RowShard(mesh, axes, n, index * per, (index + 1) * per)
+
+
+@contextlib.contextmanager
+def use_rows(rows: Optional[RowShard]):
+    """Make ``rows`` the ambient step's rows in this thread (None: every row
+    on every rank)."""
+    prev = getattr(_state, "rows", None)
+    _state.rows = rows
+    try:
+        yield rows
+    finally:
+        _state.rows = prev
+
+
+def get_rows() -> Optional[RowShard]:
+    """The ambient step's ``RowShard``, None outside a step sharded by rows."""
+    return getattr(_state, "rows", None)
+
+
+def shard_hint(x, *logical_axes):
+    """``x`` with each dim named ``"batch"`` cut to the ambient step's rows
+    (a view), where that dim holds the step's whole batch; the identity
+    outside such a step.  The port's counterpart of JAX's hint for the
+    ``batch`` axis of a serving step (every other name is replicated)."""
+    rows = get_rows()
+    if rows is None or x is None:
+        return x
+    for d, name in enumerate(logical_axes):
+        if name == "batch" and x.shape[d] == rows.n:
+            x = rows.take(x, d)
+    return x

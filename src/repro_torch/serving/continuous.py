@@ -123,9 +123,17 @@ registers no function and ``serve.retraces`` stays 0.
 Under ``cfg.ep_mesh`` (expert-parallel serving, serving/ep.py) the engine
 runs as one rank of an SPMD group, as ``Engine`` does: the same scheduler
 and host decisions on every rank, this rank's expert slice, the page pool
-and caches replicated (``place_caches``), the model calls of ``submit``,
-``submit_n`` and ``step`` under the mesh.  Speculative decoding over a mesh
-is refused with ``NotImplementedError``, as in the JAX package.
+replicated and the per-slot caches (the contiguous engine's rows, every
+engine's rings and SSM / LRU states) cut to this rank's block of slots
+where the slots divide over the ``batch`` axes (``place_caches``), the
+model calls of ``submit``, ``submit_n`` and ``step`` under the mesh.  The
+decode tick and the batched prefill tick run the non-expert layers on the
+rank's slots (the tick's upload is the whole buffer, every rank's host
+state being the same) and gather the sampled tokens; one-slot admissions
+and chunks run on every rank, the slot's per-slot row sent by its holder;
+a fork's per-slot row goes from its base's holder to its own.  Speculative
+decoding over a mesh is refused with ``NotImplementedError``, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -158,7 +166,15 @@ from repro_torch.models.model import (
 from repro_torch.obs import Obs
 from repro_torch.quant.ptq import prepare_params_for_serving
 from repro_torch.serving.engine import Request, Response
-from repro_torch.serving.ep import init_engine_mesh, mesh_scope, mesh_size, place_caches, place_params
+from repro_torch.serving.ep import (
+    gather_rows,
+    gather_sampled,
+    init_engine_mesh,
+    mesh_scope,
+    mesh_size,
+    place_caches,
+    place_params,
+)
 from repro_torch.serving.kv_pool import BlockTables, KVBlockPool
 from repro_torch.serving.prefix_index import PrefixIndex
 from repro_torch.serving.sampling import sample
@@ -336,7 +352,8 @@ class ContinuousEngine:
         self.prefill_tokens_skipped = 0
         self.prefill_calls_total = 0  # model prefill calls: chunks, batched calls, admissions
         self.metrics_log: List[dict] = []  # one entry per tick, the last 65536
-        self.last_logits: Optional[torch.Tensor] = None  # the last decode tick's [slots, V]
+        # the last decode tick's [slots, V] (this rank's slots under a mesh)
+        self.last_logits: Optional[torch.Tensor] = None
         # the current tick's shared prefill budget (None outside step()):
         # admissions cascaded from completions mid-tick draw from it too
         self._tick_budget: Optional[int] = None
@@ -499,6 +516,11 @@ class ContinuousEngine:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample(logits, self._gen, temperature=self.temperature, top_k=self.top_k,
                       top_p=self.top_p)
+
+    def _sample_all(self, logits: torch.Tensor, n: int) -> torch.Tensor:
+        """Every row's token of a step over ``n`` rows, on every rank (this
+        rank's rows of the logits under a mesh, gathered)."""
+        return gather_sampled(logits, n, self._sample, self.temperature <= 0.0)
 
     def _clamped_budget(self, req: Request) -> int:
         # the response plus at least one context token must fit the
@@ -824,9 +846,13 @@ class ContinuousEngine:
         self._tick_prefill_calls += 1
         self._batched_occ_tick = len(plan) / S
         finishing = [i for i, (_, end) in plan.items() if end == len(self.slots[i].prefill_ctx)]
-        # one read-back serves every row that finishes its prompt this tick
-        # analysis: allow(host-asarray) — finishing rows' first tokens, for the scheduler
-        firsts = self._sample(logits).cpu().numpy() if finishing else None
+        firsts = None
+        if finishing:
+            if self.prefix is not None:
+                logits = gather_rows(logits, S)  # a fork draws from its base's row
+            # one read-back serves every row that finishes its prompt this tick
+            # analysis: allow(host-asarray) — finishing rows' first tokens, for the scheduler
+            firsts = self._sample_all(logits, S).cpu().numpy()
         for i, (start, end) in plan.items():  # admission order
             slot = self.slots[i]
             n = end - start
@@ -838,7 +864,8 @@ class ContinuousEngine:
             if self.prefix is not None:
                 self._register_prefix(i, ctx, end)
             if end == len(ctx):
-                self._finish_prefill(i, int(firsts[i]), logits[i : i + 1])
+                self._finish_prefill(i, int(firsts[i]),
+                                     logits[i : i + 1] if self.prefix is not None else None)
         if self.queue:
             self._admit()  # a fork blocked on a base that just finished can share it now
 
@@ -1322,7 +1349,7 @@ class ContinuousEngine:
         logits, self.caches = out[:2]
         self.last_logits = logits
         # analysis: allow(host-asarray) — the tick's sampled tokens, for the scheduler
-        nxt = self._sample(logits).cpu().numpy()  # THE per-tick read-back
+        nxt = self._sample_all(logits, S).cpu().numpy()  # THE per-tick read-back
         t_tok = time.perf_counter()
         # the routing stats' one copy, while the device is idle (the step is
         # done), before the completions below queue more work

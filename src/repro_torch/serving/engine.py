@@ -45,7 +45,12 @@ Under ``cfg.ep_mesh`` (expert-parallel serving, serving/ep.py) the engine
 runs as one rank of an SPMD group: every rank builds it from the same config
 and requests, the config's ``moe_impl`` becomes its EP schedule, the routed
 experts are cut to this rank's slice (quantized ones dequantized first) and
-the model calls run under the mesh.
+the model calls run under the mesh.  A batch whose rows divide over the
+``batch`` axes is served data-parallel over them: the rank allocates the
+caches of its rows only, runs the non-expert layers on them, and gathers
+every row's sampled token after each step (``serving/ep.py``); a batch that
+does not divide (a short last one) runs every row on every rank.  The
+timings and ``last_routing`` are this rank's.
 """
 from __future__ import annotations
 
@@ -58,10 +63,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gating import routing_to_host, summarize_routing
-from repro_torch.models.model import decode_step, init_caches, prefill, resolve_device
+from repro_torch.models.model import SlotCaches, decode_step, init_caches, prefill, resolve_device
 from repro_torch.obs import Obs
 from repro_torch.quant.ptq import prepare_params_for_serving
-from repro_torch.serving.ep import init_engine_mesh, mesh_scope, place_params
+from repro_torch.serving.ep import (
+    gather_sampled,
+    init_engine_mesh,
+    mesh_scope,
+    place_params,
+    slot_shard,
+)
 from repro_torch.serving.sampling import sample
 
 
@@ -139,8 +150,13 @@ class Engine:
         self.last_routing = None
 
     def _make_caches(self, batch: int) -> dict:
-        return init_caches(self.cfg, batch, self._capacity, cross_len=self._cross_len,
-                           kv_bits=self.ec.kv_cache_bits, device=self.device)
+        """The caches of a batch of ``batch`` rows; under the mesh only this
+        rank's rows where they divide (``SlotCaches``)."""
+        rows = slot_shard(self._mesh, self._mesh_rules, batch)
+        caches = init_caches(self.cfg, batch if rows is None else rows.rows, self._capacity,
+                             cross_len=self._cross_len, kv_bits=self.ec.kv_cache_bits,
+                             device=self.device)
+        return caches if self._mesh is None else SlotCaches(caches, rows)
 
     def generate(self, requests: Sequence[Request], *, seed: int = 0) -> List[Response]:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -159,9 +175,12 @@ class Engine:
             self._g_r_ent.set(self.last_routing["entropy"])
             self._g_r_imb.set(self.last_routing["imbalance"])
 
-    def _sample(self, logits, gen):
+    def _sample(self, logits, gen, n: int):
+        """Every row's token of a step over ``n`` rows, on every rank."""
         ec = self.ec
-        return sample(logits, gen, temperature=ec.temperature, top_k=ec.top_k, top_p=ec.top_p)
+        return gather_sampled(logits, n, lambda x: sample(x, gen, temperature=ec.temperature,
+                                                          top_k=ec.top_k, top_p=ec.top_p),
+                              ec.temperature <= 0.0)
 
     @torch.no_grad()
     def _generate_batch(self, reqs: Sequence[Request], gen) -> List[Response]:
@@ -182,7 +201,7 @@ class Engine:
             tr.begin(("engine", 0), "prefill", ts=t0, args={"batch": B, "prompt_len": S})
         logits, caches = prefill(cfg, self.params, torch.from_numpy(toks).to(self.device), caches,
                                  memory=self.memory, prefix_embeds=self.prefix_embeds)
-        cur = self._sample(logits, gen)
+        cur = self._sample(logits, gen, B)
 
         max_new = min(max(r.max_new_tokens for r in reqs), ec.max_decode)
         generated = np.zeros((B, max_new), np.int64)
@@ -224,7 +243,7 @@ class Engine:
                 self._routing(out[2])
                 break
             stats = out[2] if routing else None
-            cur = self._sample(logits, gen)
+            cur = self._sample(logits, gen, B)
         if tr:
             tr.end(("engine", 0))
         self._c_completed.inc(B)

@@ -3,9 +3,13 @@ on ``torch.distributed``, one process per rank.
 
 Every rank builds the same engine from the same config and requests and
 makes the same host decisions; each holds its own slice of the routed
-experts and replicated copies of everything else (attention, norms,
-embeddings, the router, the shared expert, the page pool and the KV
-caches).  Rank 0 returns or prints the results.
+experts, replicated copies of the other parameters (attention, norms,
+embeddings, the router, the shared expert) and of the page pool, and its
+block of the slots' caches.  A step runs the embedding, attention, norms,
+dense FFNs and logits data-parallel over the slots (each rank on its rows,
+where the slots divide over the ``batch`` axes) and the experts
+expert-parallel (paper §5.1-5.2; JAX's ``batch`` hints and
+``place_caches``).  Rank 0 returns or prints the results.
 
   * ``build_serving_mesh``: the mesh and sharding rules of ``cfg.ep_mesh``
     over the default process group: ``(n,)`` flat EP over one axis,
@@ -17,9 +21,10 @@ caches).  Rank 0 returns or prints the results.
     ``ep_grouped``, every capacity impl -> ``ep_serve``.
   * ``place_params``: this rank's expert slice kept, the rest of each expert
     leaf freed, every other leaf as it is (parallel/params.py);
-    ``place_caches``: the caches replicated on every rank (the JAX package's
-    branch for ``slots % ep != 0``; slot-sharded caches are ROADMAP.md queue
-    1 item 7c); ``placed_param_bytes``: this rank's parameter bytes.
+    ``place_caches``: each per-slot cache leaf cut to this rank's rows, the
+    pools replicated (``SlotCaches``); ``slot_shard``: the rows a batch of
+    slots shards into; ``gather_rows`` / ``gather_sampled``: every slot's
+    rows or sampled tokens on every rank; ``placed_param_bytes``: this rank's parameter bytes.
   * ``launch``: runs a function on every rank in spawned processes with a
     default process group, a timeout on every group and a deadline on the
     whole run; the CLI and the tests share it.
@@ -43,8 +48,17 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.params import shard_params
-from repro_torch.parallel.sharding import DEFAULT_RULES, EpMesh, GROUP_TIMEOUT, make_ep_mesh, use_mesh
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.params import cache_pspecs, shard_params
+from repro_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    GROUP_TIMEOUT,
+    EpMesh,
+    RowShard,
+    batch_shard,
+    make_ep_mesh,
+    use_mesh,
+)
 
 # where ``launch`` makes its rendezvous files unless told otherwise: beside
 # the kernels' build directory, inside the checkout
@@ -126,12 +140,58 @@ def place_params(mesh: EpMesh, rules: dict, params, cfg=None):
     return shard_params(mesh, rules, params, cfg)
 
 
+def slot_shard(mesh: Optional[EpMesh], rules: Optional[dict], slots: int,
+               n_pages: Optional[int] = None) -> Optional[RowShard]:
+    """This rank's rows of ``slots`` cache rows, or None where every rank
+    holds every row: no mesh, slots that no ``batch`` axis divides, or JAX's
+    degenerate case ``n_pages + 1 == slots`` (its shape test cannot tell a
+    pool from a per-slot leaf there, so it replicates everything)."""
+    if mesh is None or (n_pages is not None and n_pages + 1 == slots):
+        return None
+    return batch_shard(slots, mesh, rules)
+
+
 def place_caches(mesh: EpMesh, rules: dict, caches, *, slots: int, n_pages: Optional[int] = None):
-    """The caches, replicated: every rank holds every slot's cache and the
-    whole page pool, as the JAX package's ``place_caches`` does when ``slots
-    % ep != 0``.  Sharding the slot dim (attention data-parallel over slots)
-    is ROADMAP.md queue 1 item 7c."""
-    return caches
+    """This rank's caches (``SlotCaches``): each per-slot leaf ``[repeats,
+    slots, ...]`` cut to the rank's rows (copies, so the full leaves are
+    freed with the caller's tree), the paged pools replicated (each rank
+    reads only its slots' pages, and every rank writes every row's K/V into
+    its copy).  Where ``slot_shard`` gives None every leaf stays whole and
+    every rank runs every slot."""
+    from repro_torch.models.model import SlotCaches, _map_tensors
+    from repro_torch.quant.kv import QuantizedKV
+
+    rows = slot_shard(mesh, rules, slots, n_pages)
+    if rows is None:
+        return SlotCaches(caches, None)
+    specs = cache_pspecs(mesh, rules, caches, slots)
+
+    def place(node, spec):
+        if isinstance(node, dict):
+            return {k: place(v, spec[k]) for k, v in node.items()}
+        if (spec.q if isinstance(spec, QuantizedKV) else spec) is None:
+            return node
+        return _map_tensors(node, lambda t: rows.take(t, 1).clone())
+
+    return SlotCaches(place(caches, specs), rows)
+
+
+def gather_rows(x, n: int):
+    """Every row of a step over ``n`` rows on every rank, from this rank's
+    rows ``x`` (the ambient mesh's ``batch_shard(n)``); ``x`` itself where
+    it holds all n."""
+    rows = batch_shard(n) if x.shape[0] != n else None
+    return x if rows is None else col.all_gather(x, rows.mesh, rows.axes)
+
+
+def gather_sampled(logits, n: int, sample_fn, greedy: bool):
+    """Every row's sampled token ([n] int32) on every rank from this rank's
+    rows of a step's logits: greedy tokens are sampled on the rows and
+    gathered; otherwise the logits are gathered and sampled whole, so each
+    rank's generator draws what one device's draws."""
+    if greedy:
+        return gather_rows(sample_fn(logits), n)
+    return sample_fn(gather_rows(logits, n))
 
 
 def placed_param_bytes(params) -> int:

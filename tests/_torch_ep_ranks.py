@@ -266,3 +266,65 @@ def ep_train_entry(rank: int, arch: str, cf: float, init: dict, batch: dict, ste
     return {"loss": losses, "params": {k: v.detach().numpy() for k, v in param_leaves(params).items()},
             "m": {k: v.numpy() for k, v in state.m.items()},
             "parts": {k: tuple(p) for k, p in step.dist_ctx.parts.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Slot-sharded serving (test_torch_ep_slots.py)
+# ---------------------------------------------------------------------------
+
+
+def cache_arrays(cfg, caches, paged: bool) -> tuple:
+    """(per-slot tensors, pool tensors) of a cache tree as numpy, in the
+    port's fixed leaf order."""
+    from repro_torch.models.model import _layer_entries, _row_tensors, _tensors
+
+    per = [t.numpy().copy() for t in _row_tensors(cfg, caches, paged)]
+    pool = []
+    if paged:
+        for sk, pk, _, pooled in _layer_entries(cfg):
+            if pooled:
+                pool += [t.numpy().copy() for t in _tensors(caches[sk][pk]["self"])]
+    return per, pool
+
+
+def slot_case(case: dict, shape=None) -> dict:
+    """One case of ``test_torch_ep_slots.py`` through its engine, on the mesh
+    ``shape`` (None: one device): greedy tokens, the caches' per-slot and
+    pool tensors after the trace (the static engine's last batch), the
+    rank's rows of the slots and the prefix hits (forks included)."""
+    from repro_torch import convert
+    from repro_torch.models.model import slot_rows
+    from repro_torch.serving.continuous import ContinuousEngine
+    from repro_torch.serving.engine import Engine, EngineConfig, Request
+
+    cfg = case["cfg"] if shape is None else case["cfg"].replace(ep_mesh=shape)
+    params = convert.params_from_numpy(case["cfg"], case["params"], "cpu")
+    reqs = [Request(p, case["new"]) for p in case["prompts"]]
+    if case["engine"] == "static":
+        eng = Engine(cfg, params, EngineConfig(**case["kw"]), device="cpu")
+        made = []
+        make = eng._make_caches
+        eng._make_caches = lambda b: made.append(make(b)) or made[-1]
+        tokens = [r.tokens for r in eng.generate(reqs)]
+        caches, paged = made[-1], False
+    else:
+        eng = ContinuousEngine(cfg, params, device="cpu", **case["kw"])
+        if case.get("fork"):
+            ids = eng.submit_n(reqs[0], case["fork"]) + [eng.submit(r) for r in reqs[1:]]
+        else:
+            ids = [eng.submit(r) for r in reqs]
+        done = eng.run_until_done()
+        tokens = [done[i].tokens for i in ids]
+        caches, paged = eng.caches, eng.paged
+    rows = slot_rows(caches)
+    per, pool = cache_arrays(eng.cfg, caches, paged)
+    return dict(tokens=tokens, per=per, pool=pool, hits=getattr(eng, "prefix_hits", 0),
+                rows=None if rows is None else (rows.axes, rows.lo, rows.hi))
+
+
+def slot_engines(rank: int, cases: dict) -> dict:
+    """Every case of ``test_torch_ep_slots.py`` on both meshes, on this
+    rank."""
+    torch.manual_seed(0)
+    return {f"{key}/{name}": slot_case(case, shape)
+            for key, (shape, _) in MESHES.items() for name, case in cases.items()}

@@ -117,6 +117,29 @@ def test_dryrun_reckons_the_train_state():
     assert b["inputs"] == 2 * 4 * 64 * 8
 
 
+@pytest.mark.parametrize("arch,shape,ranks,parts", [
+    ("llama4-maverick-400b-a17b", "decode_32k", 4, 4),
+    ("llama4-maverick-400b-a17b", "decode_32k", 8, 8),
+    ("kimi-k2-1t-a32b", "prefill_32k", 8, 8),
+    ("recurrentgemma-2b", "long_500k", 4, 1)])  # a batch of 1 does not divide
+def test_dryrun_counts_a_ranks_slots_of_the_caches(arch, shape, ranks, parts):
+    """Under a mesh a rank's caches are its slots' rows (the global batch
+    over the ranks, ``place_caches``' layout) where the batch divides, and
+    every row where it does not; the caches are the meta tree of exactly
+    those rows."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.dryrun import state_bytes
+    from repro_torch.models.model import init_caches
+    from repro_torch.quant import kv_cache_bytes
+
+    cfg, s = get_config(arch), SHAPES[shape]
+    one, rank = state_bytes(cfg, s, 1)["caches"], state_bytes(cfg, s, ranks)["caches"]
+    assert rank * parts == one > 0
+    cross = cfg.frontend.n_tokens if cfg.family == "encdec" else 0
+    assert rank == kv_cache_bytes(init_caches(cfg, s.global_batch // parts, s.seq_len,
+                                              cross_len=cross, device="meta"))
+
+
 def test_dryrun_and_report_cli(tmp_path, capsys):
     from repro_torch.launch import dryrun, report
 
@@ -130,6 +153,7 @@ def test_dryrun_and_report_cli(tmp_path, capsys):
     assert single["bytes"]["params"] > 6 * ep8["bytes"]["params"]  # experts dominate
     assert ep8["collective_bytes"] > 0 == single["collective_bytes"]
     assert "ZeRO-1" in ep8["layout"] and single["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert "slots" in ep8["layout"] and single["bytes"]["caches"] == 8 * ep8["bytes"]["caches"]
     assert report.main([str(out)]) == 0
     text = capsys.readouterr().out
     assert "| llama4-maverick-400b-a17b | decode_32k |" in text and "EP over 8 ranks" in text
